@@ -9,25 +9,39 @@ Run from the repository root on a machine with one NVIDIA H100. It
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and times the build;
 3. holds each kernel against its plain PyTorch version on the card at the
-   slice's shapes — the ragged grouped FFN for a 512-token prefill plan and
-   an 8-lane decode plan (Zipf-skewed routing, some experts empty), the
-   router at T=4096 and at the main path's T=512 and T=8 (E=40, K=8) — and
-   times kernel, plain version and bound;
-4. runs one full-width granite MoE layer through the ragged dispatch with
-   the kernel and with the plain version;
+   paths' shapes — the ragged grouped FFN for a 512-token prefill plan and
+   an 8-lane decode plan (Zipf-skewed routing, some experts empty); the
+   capacity FFN for the 512-token prefill buckets (40, 128, 1536), the
+   8-lane decode buckets (40, 4, 1536) and an off-grid shape, empty bucket
+   rows exactly zero; the router at T=4096 and at the paths' T=512 and T=8
+   (E=40, K=8) — and times kernel, plain version and bound;
+4. runs one full-width granite MoE layer through the ragged dispatch and
+   through the capacity bodies, each with the kernel and with the plain
+   version, and the capacity layer at capacity factor 8 against the
+   ragged layer;
 5. serves 8 sharegpt requests with the published ``granite-moe-3b-a800m``
    config (32 layers, full widths, seeded random weights) through the
-   port's serve construction under ``vibe``, and checks that every request
-   finishes, the logits are finite, and both kernels launched exactly
-   32 times per model call;
+   port's serve construction under ``vibe`` (the ragged path), checks that
+   every request finishes, the logits are finite, and the ragged FFN and
+   the router launched exactly 32 times per model call;
 6. admits a second batch into the same engine and traces 16 decode steps
    with ``torch.profiler``: the device's busy and idle share of a step and
-   its largest kernels.
+   its largest kernels;
+7. path (A): serves the same 8 requests with ``moe_impl="capacity"``
+   (capacity buckets on a one-rank expert-parallel group), the capacity
+   FFN and the router launched 32 times per model call, the ragged FFN
+   never; prints the drops;
+8. path (B): serves 4 requests (outputs capped at 64 tokens) with chunked
+   prefill in 128-token chunks on the ragged path, the ragged FFN and the
+   router launched 32 times per chunk and decode call, the capacity FFN
+   never; prints the largest |logit difference| between a chunked and a
+   whole prefill of one 512-token prompt.
 
-Every check raises, so any failure exits non-zero. The last three lines of
-standard output are the kernels' JSON record, the ``nvidia-smi`` name and
-power-limit line, and ``{"ok": true, "device": {...}}``. Without a CUDA
-device it exits 2 and prints no result.
+Each path's counts are set to 0 just before it is served and read just
+after. Every check raises, so any failure exits non-zero. The last three
+lines of standard output are the kernels' JSON record, the ``nvidia-smi``
+name and power-limit line, and ``{"ok": true, "device": {...}}``. Without a
+CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -133,6 +147,42 @@ def ragged_case(name, tokens, cfg, gen, cgen, dev):
             "bound_ms": bound_ms, "bound_by": by}
 
 
+def capacity_case(name, E, C, D, F, cgen, dev, empty_rows):
+    """Capacity buckets (E, C, D), the last ``empty_rows`` rows of each
+    bucket zero as the dispatch leaves them → kernel vs plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    toks = torch.randn((E, C, D), generator=cgen, device=dev)
+    toks[:, C - empty_rows:] = 0.0
+    toks = toks.to(torch.bfloat16)
+    w = [(torch.randn(s, generator=cgen, device=dev) / math.sqrt(s[1])).to(
+        torch.bfloat16) for s in ((E, D, F), (E, D, F), (E, F, D))]
+    y = ops.fused_moe_ffn(w[0], w[1], w[2], toks)
+    y_ref = ref.moe_ffn_ref(w[0], w[1], w[2], toks)
+    torch.cuda.synchronize()
+    err = (y.float() - y_ref.float()).abs().max().item()
+    check(tuple(y.shape) == (E, C, D) and bool(torch.isfinite(y).all()),
+          f"{name}: output shape or finiteness")
+    check(err <= BF16_TOL, f"{name}: max |kernel - plain| {err} > {BF16_TOL}")
+    check(bool((y[:, C - empty_rows:] == 0).all()),
+          f"{name}: empty bucket rows not exactly zero")
+    ms = median_ms(lambda: ops.fused_moe_ffn(w[0], w[1], w[2], toks),
+                   reps=25)
+    plain_ms = median_ms(lambda: ref.moe_ffn_ref(w[0], w[1], w[2], toks),
+                         reps=5)
+    # every bucket is computed, occupied or not: all E experts' weights,
+    # the buckets in and out
+    n_bytes = E * 3 * D * F * 2 + 2 * E * C * D * 2
+    bound_ms, by = bound(n_bytes, 2 * 3 * E * C * D * F, BF16_FLOPS)
+    print(f"[kernel] fused_moe_ffn {name}: (E, C, D, F)=({E}, {C}, {D}, {F})"
+          f", {empty_rows} empty rows a bucket: max_abs_err={err:.3e} (tol "
+          f"{BF16_TOL}), empty rows exactly 0, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
+          f"{n_bytes / 1e6:.1f} MB)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
 def router_case(cgen, dev, T, E=40, K=8):
     import torch
     from repro_torch.kernels import ops, ref
@@ -189,23 +239,94 @@ def layer_case(cfg, cgen, dev, tokens=512):
           f"ffn=plain: tallies equal, max_abs_err={err:.3e} (tol {BF16_TOL})")
 
 
-def serve_slice(cfg, dev):
-    """The main path: the published config through the port's engine."""
+def capacity_layer_case(cfg, cgen, dev, tokens=512, lanes=8):
+    """One full-width MoE layer through the capacity bodies on a one-rank
+    group, ffn=kernel vs ffn=plain: the a2a body at a ``tokens`` prompt,
+    the replicated body at ``lanes`` decode rows; then the layer at
+    capacity factor 8, where nothing drops, against the ragged layer."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.sharding import ShardingRules
+    E, K = cfg.n_experts, cfg.top_k
+    p = tmoe.moe_init(cgen, d=cfg.d_model, f=cfg.moe_d_ff, n_experts=E,
+                      n_slots=E, device=dev)
+    tables = (torch.arange(E, dtype=torch.int32, device=dev)[:, None],
+              torch.ones(E, dtype=torch.int32, device=dev),
+              torch.ones((E, 1), device=dev))
+    seed = torch.tensor(7, dtype=torch.int32, device=dev)
+    cf = ShardingRules().capacity_factor
+    for body, t, cap in (
+            ("a2a", tokens, tmoe._round_up(
+                max(math.ceil(tokens * K / E * cf), 1), 4)),
+            ("replicated", lanes, tmoe._round_up(
+                max(math.ceil(lanes * K / E * max(cf, 2.0)), 4), 4))):
+        x = torch.randn((1, t, cfg.d_model), generator=cgen,
+                        device=dev).to(torch.bfloat16)
+        args = (x, p["router"], p["w1"], p["w3"], p["w2"], *tables, seed)
+        out = {}
+        for name, ffn in (("kernel", ops.fused_moe_ffn),
+                          ("plain", ref.moe_ffn_ref)):
+            if body == "a2a":
+                out[name] = tmoe._a2a_body(*args, top_k=K, n_experts=E,
+                                           n_slots=E, capacity=cap, ep=1,
+                                           ffn=ffn)
+            else:
+                out[name] = tmoe._replicated_body(*args, top_k=K,
+                                                  n_experts=E, capacity=cap,
+                                                  ffn=ffn)
+        torch.cuda.synchronize()
+        (y_k, t_k, _), (y_p, t_p, _) = out["kernel"], out["plain"]
+        check(bool(torch.equal(t_k, t_p)),
+              f"capacity {body}: tallies (drop column included) differ")
+        check(float(t_k[:E].sum()) == t * K, f"capacity {body}: tally total")
+        err = (y_k.float() - y_p.float()).abs().max().item()
+        check(bool(torch.isfinite(y_k).all()) and err <= BF16_TOL,
+              f"capacity {body}: max |kernel - plain| {err} > {BF16_TOL}")
+        print(f"[layer] granite MoE layer, capacity {body} body, {t} tokens,"
+              f" capacity {cap}: ffn=kernel vs ffn=plain tallies equal, "
+              f"dropped {float(t_k[E]):.0f} of {t * K}, max_abs_err="
+              f"{err:.3e} (tol {BF16_TOL})")
+    x = torch.randn((1, tokens, cfg.d_model), generator=cgen,
+                    device=dev).to(torch.bfloat16)
+    kw = dict(top_k=K, n_experts=E, route_seed=7, phase="prefill")
+    y_c, t_c, _ = tmoe.moe_layer(
+        p, x, rules=ShardingRules(moe_impl="capacity", ep_ranks=1,
+                                  capacity_factor=8.0), **kw)
+    y_r, t_r, _ = tmoe.moe_layer(p, x, rules=ShardingRules(), **kw)
+    torch.cuda.synchronize()
+    err = (y_c.float() - y_r.float()).abs().max().item()
+    check(bool(torch.equal(t_c, t_r)) and float(t_c[E]) == 0,
+          "capacity (factor 8) vs ragged layer: tallies differ or drops")
+    check(err <= BF16_TOL, f"capacity (factor 8) vs ragged layer: max "
+          f"|difference| {err} > {BF16_TOL}")
+    print(f"[layer] granite MoE layer, {tokens} tokens, capacity factor 8 "
+          f"vs ragged: tallies equal, 0 dropped, max_abs_err={err:.3e} "
+          f"(tol {BF16_TOL})")
+
+
+def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
+               **build_kw):
+    """Serve the published config through the port's engine on one path.
+    The launch counts are set to 0 just before the requests are served and
+    read just after. Returns (engine, counts, stats of the run)."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine, make_requests
     from repro_torch.serving import summarize
     max_seq = 1024
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = build_engine(cfg, policy="vibe", regime="mi325x", max_batch=8,
-                          max_seq=max_seq, seed=0, device=dev)
+                          max_seq=max_seq, seed=0, device=dev, **build_kw)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(engine.params))
-    print(f"[slice] {cfg.name}: {cfg.n_layers} layers, d_model "
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, "
-          f"{n_params / 1e9:.3f} B params in bf16, built in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{n_params / 1e9:.3f} B params in bf16, {build_kw or 'ragged'}, "
+          f"built in {time.perf_counter() - t0:.1f} s")
     finite = []
 
     def watch(fn):
@@ -217,46 +338,87 @@ def serve_slice(cfg, dev):
 
     engine._prefill = watch(engine._prefill)
     engine._decode = watch(engine._decode)
-    engine.submit(make_requests("sharegpt", 8, qps=50.0, max_seq=max_seq,
-                                seed=0))
+    if engine._prefill_chunk is not None:
+        engine._prefill_chunk = watch(engine._prefill_chunk)
+    reqs = make_requests("sharegpt", n_requests, qps=50.0, max_seq=max_seq,
+                         seed=0)
+    if output_cap is not None:
+        reqs = [dataclasses.replace(r, output_len=min(r.output_len,
+                                                      output_cap))
+                for r in reqs]
+    engine.submit(reqs)
     st = engine.stats
     t_prefill, t_decode = [], []
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     while True:
-        p0 = st.prefill_steps
+        d0 = st.decode_steps
         ts = time.perf_counter()
         if not engine.step():
             break
         torch.cuda.synchronize()
-        (t_prefill if st.prefill_steps > p0 else t_decode).append(
+        (t_decode if st.decode_steps > d0 else t_prefill).append(
             time.perf_counter() - ts)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     records = list(engine.records.values())
-    calls = st.prefill_steps + st.decode_steps
+    calls = (st.chunk_steps or st.prefill_steps) + st.decode_steps
     check(all(np.isfinite(r.finished_at) for r in records) and
-          len(records) == 8, "not every request finished")
+          len(records) == n_requests, f"{label}: not every request finished")
     check(all(bool(f) for f in finite) and len(finite) == calls,
-          "non-finite logits")
+          f"{label}: non-finite logits")
+    ffn = ("fused_moe_ffn" if build_kw.get("moe_impl") == "capacity"
+           else "ragged_moe_ffn")
     for name, n in counts.items():
-        check(n == cfg.n_layers * calls,
-              f"{name} launched {n} times, expected {cfg.n_layers} x "
-              f"{calls} model calls")
+        want = cfg.n_layers * calls if name in (ffn, "router_topk") else 0
+        check(n == want, f"{label}: {name} launched {n} times, expected "
+              f"{want} ({cfg.n_layers} x {calls} model calls)")
     s = summarize(records)
-    print(f"[slice] {st.steps} steps ({st.prefill_steps} prefill / "
-          f"{st.decode_steps} decode), {st.prefill_tokens} prefill + "
-          f"{st.decode_tokens} decode tokens, wall {wall:.2f} s, median "
-          f"prefill step {statistics.median(t_prefill) * 1e3:.2f} ms, median "
-          f"decode step {statistics.median(t_decode) * 1e3:.2f} ms")
-    print(f"[slice] virtual clock: TTFT p50/p90 = {s['ttft_p50']:.4f}/"
+    kind = (f"{st.chunk_steps} chunk" if st.chunk_steps
+            else f"{st.prefill_steps} prefill")
+    print(f"[{label}] {st.steps} steps ({kind} / {st.decode_steps} decode), "
+          f"{st.prefill_tokens} prefill + {st.decode_tokens} decode tokens, "
+          f"wall {wall:.2f} s, median prefill step "
+          f"{statistics.median(t_prefill) * 1e3:.2f} ms, median decode step "
+          f"{statistics.median(t_decode) * 1e3:.2f} ms, dropped assignments "
+          f"{st.dropped_assignments:.0f}")
+    print(f"[{label}] virtual clock: TTFT p50/p90 = {s['ttft_p50']:.4f}/"
           f"{s['ttft_p90']:.4f} s, TPOT p50 = {s['tpot_p50']:.5f} s; "
           f"recalibrations {st.migrations} (migrated slots "
           f"{st.migrated_slots})")
-    print(f"[slice] launches: {json.dumps(counts)} = {cfg.n_layers} x "
-          f"{calls} model calls; max_memory_allocated "
+    print(f"[{label}] launches: {json.dumps(counts)}, {ffn} and router = "
+          f"{cfg.n_layers} x {calls} model calls; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return engine, counts
+
+
+def chunk_vs_whole(engine, prompt_len=512):
+    """Largest |logit difference| between a chunked and a whole prefill of
+    one seeded prompt on the served engine's weights and tables."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_cache, prefill_fn
+    C = engine._chunk
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, engine.cfg.vocab, size=(1, prompt_len)), dtype=torch.int32,
+        device=engine.device)
+    lg_w, _, _ = prefill_fn(engine.cfg, engine.rules)(
+        engine.params, {"tokens": prompt}, engine.moe_tables)
+    cache = init_cache(engine.cfg, 1, prompt_len,
+                       dtype=engine.params["embed"].dtype,
+                       device=engine.device)
+    for off in range(0, prompt_len, C):
+        lg_c, cache, _ = engine._prefill_chunk(
+            engine.params, prompt[:, off:off + C], cache, 0, off, C,
+            engine.moe_tables)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lg_c).all()), "chunked prefill: logits")
+    diff = (lg_c - lg_w).abs().max().item()
+    same = bool(torch.equal(lg_c.argmax(-1), lg_w.argmax(-1)))
+    print(f"[chunk] {prompt_len}-token prompt in {C}-token chunks vs whole: "
+          f"max |logit difference| {diff:.4e} (logits span "
+          f"{(lg_w.max() - lg_w.min()).item():.3f}), greedy token "
+          f"{'equal' if same else 'differs'}")
 
 
 def trace_decode(engine, n_steps: int = 16) -> None:
@@ -351,16 +513,31 @@ def main() -> int:
     cgen.manual_seed(0)
     prefill = ragged_case("prefill-512", 512, cfg, gen, cgen, dev)
     ragged_case("decode-8", 8, cfg, gen, cgen, dev)
+    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    cap_prefill = capacity_case("prefill-512", E, 128, D, F, cgen, dev,
+                                empty_rows=16)
+    capacity_case("decode-8", E, 4, D, F, cgen, dev, empty_rows=1)
+    capacity_case("off-grid", 3, 5, 200, 136, cgen, dev, empty_rows=2)
     t0 = time.perf_counter()
     router_case(cgen, dev, T=4096)
     print(f"[build] router (Triton) compiled and checked in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # the main path's shapes: one 512-token prompt, an 8-lane decode batch
+    # the paths' shapes: one 512-token prompt, an 8-lane decode batch
     router = router_case(cgen, dev, T=512)
     router_case(cgen, dev, T=8)
     layer_case(cfg, cgen, dev)
-    engine, counts = serve_slice(cfg, dev)
+    capacity_layer_case(cfg, cgen, dev)
+    engine, counts = serve_path(cfg, dev, "slice")
     trace_decode(engine)
+    del engine
+    torch.cuda.empty_cache()
+    engine, counts_a = serve_path(cfg, dev, "path A", moe_impl="capacity")
+    del engine
+    torch.cuda.empty_cache()
+    engine, _ = serve_path(cfg, dev, "path B", n_requests=4, output_cap=64,
+                           prefill_chunk=128)
+    chunk_vs_whole(engine)
+    del engine
 
     kernels = [
         {"name": "ragged_moe_ffn", "route": "cuda",
@@ -372,6 +549,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/router.py",
          "replaces": "src/repro/kernels/router.py:46",
          "launches": counts["router_topk"], **router, "library_ms": None},
+        {"name": "fused_moe_ffn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+         "replaces": "src/repro/kernels/moe_ffn.py:57",
+         "launches": counts_a["fused_moe_ffn"], **cap_prefill,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,82 @@
+"""Capacity-bucket grouped MoE expert FFN on Hopper.
+
+Replaces the TPU kernel ``repro.kernels.moe_ffn.fused_moe_ffn_pallas``
+(``src/repro/kernels/moe_ffn.py:57``) with the hand-written CUDA C++ kernels
+in ``csrc/moe_ffn.cu``. The contract is the same: ``toks (E, C, D)`` holds
+``C`` bucket rows per expert, unused rows zero, and each expert's rows go
+through its own SwiGLU FFN. The kernel masks the ragged edges of C, D and F
+itself, so nothing is padded per call (the reference wrapper pads C and F).
+
+On a CUDA tensor :func:`fused_moe_ffn` launches the kernel or raises; the
+CPU path lives in :mod:`.ops`, which sends CPU tensors to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+__all__ = ["fused_moe_ffn"]
+
+
+def _lib():
+    lib = build.load("moe_ffn")
+    fn = lib.moe_ffn_bf16
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_moe_ffn(w1, w3, w2, toks):
+    """Launch the CUDA capacity-bucket SwiGLU FFN. toks (E, C, D) bf16,
+    w1/w3 (E, D, F), w2 (E, F, D) bf16 → (E, C, D) bf16.
+
+    Two launches on the current stream: gate/up into a bf16 scratch
+    ``h (E, C, F)``, then the down projection. Checks device, dtype, shape
+    and contiguity and raises on what the kernel does not take; raises if
+    the launch is refused. Adds one to ``fused_moe_ffn.launches``.
+    """
+    tensors = {"w1": w1, "w3": w3, "w2": w2, "toks": toks}
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"fused_moe_ffn: {name} is not on a CUDA device")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"fused_moe_ffn: {name} is {t.dtype}; the CUDA "
+                            "kernel takes bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_moe_ffn: {name} is not contiguous")
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1:
+        raise ValueError(f"fused_moe_ffn: tensors on several devices {devs}")
+    if toks.dim() != 3 or w1.dim() != 3:
+        raise ValueError(f"fused_moe_ffn: toks {tuple(toks.shape)} and w1 "
+                         f"{tuple(w1.shape)} must be 3-d")
+    E, C, D = toks.shape
+    F = w1.shape[-1]
+    if w1.shape != (E, D, F) or w3.shape != (E, D, F) \
+            or w2.shape != (E, F, D):
+        raise ValueError(f"fused_moe_ffn: weight shapes {tuple(w1.shape)}, "
+                         f"{tuple(w3.shape)}, {tuple(w2.shape)} do not fit "
+                         f"toks {tuple(toks.shape)}")
+    if min(E, C, D, F) <= 0 or E > 65535:
+        raise ValueError(f"fused_moe_ffn: sizes E={E}, C={C}, D={D}, F={F} "
+                         "must be positive, E at most 65535 (grid z)")
+    out = torch.empty_like(toks)
+    h = torch.empty((E, C, F), dtype=toks.dtype, device=toks.device)
+    stream = torch.cuda.current_stream(toks.device).cuda_stream
+    err = _lib().moe_ffn_bf16(
+        toks.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        h.data_ptr(), out.data_ptr(), E, C, D, F, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_moe_ffn: CUDA launch failed with "
+                           f"cudaError {err}")
+    fused_moe_ffn.launches += 1
+    return out
+
+
+fused_moe_ffn.launches = 0

@@ -9,8 +9,10 @@ unless ``--device cpu`` asks for the host.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --requests 8 --policy vibe
 
-The elasticity and chaos drills (``--fail-rank``, ``--chaos``) are not
-ported yet. :func:`build_engine` builds controller, cluster and engine for
+``--moe-impl capacity`` dispatches capacity buckets through the capacity
+FFN kernel on a one-rank expert-parallel group; ``--prefill-chunk N`` runs
+chunked prefill on the ragged path. The elasticity and chaos drills
+(``--fail-rank``, ``--chaos``) are not ported yet. :func:`build_engine` builds controller, cluster and engine for
 any :class:`ArchConfig`, so a caller can serve a published config (not
 only the smoke one) through the same code.
 """
@@ -32,26 +34,43 @@ from repro_torch.core import (DriftConfig, PerfDriftConfig, SCENARIOS,
                               make_cluster, make_scenario, parse_topology,
                               registered_policies)
 from repro_torch.device import resolve_device
-from repro_torch.models import moe_perm_shape
+from repro_torch.models import ShardingRules, moe_perm_shape
 from repro_torch.serving import (Engine, EngineConfig, KVCacheConfig,
                                  SchedulerConfig, TRACES, WORKLOADS,
                                  registered_schedulers, sample_requests,
                                  sample_trace, summarize)
 
 __all__ = ["serve", "build_engine", "make_requests", "derive_slot_budget",
-           "main"]
+           "slots_that_fit", "main"]
+
+
+def slots_that_fit(free_bytes: int, n_ranks: int, n_experts: int,
+                   n_moe_layers: int, expert_bytes: int) -> int:
+    """Per-rank slot budget that fits 80% of one emulated rank's share of
+    ``free_bytes``, clamped to [policy default, E). A slot holds its expert
+    in every MoE layer, so it costs ``n_moe_layers * expert_bytes``."""
+    base = default_slots_per_rank(n_experts, n_ranks)
+    fit = int(0.8 * free_bytes / n_ranks
+              / max(n_moe_layers * expert_bytes, 1))
+    return int(np.clip(fit, base, max(n_experts - 1, base)))
 
 
 def derive_slot_budget(n_ranks: int, n_experts: int, expert_bytes: int,
-                       spec: Union[str, int, None] = "auto", device=None):
+                       spec: Union[str, int, None] = "auto", device=None, *,
+                       n_moe_layers: int):
     """Per-rank physical slot budget from device memory telemetry.
 
     ``"auto"`` reads the card's free memory (``torch.cuda.mem_get_info``),
     emulates ``n_ranks`` devices sharing it, and sizes each rank's replica
-    budget by how many expert tensors fit in 80% of its share, clamped to
-    [policy default, E) — the reference's formula. On the CPU it returns
-    the policy-default budget, deterministically. ``"default"``/None →
-    None (the policy chooses); an integer → that uniform budget.
+    budget by how many slots fit in 80% of its share
+    (:func:`slots_that_fit`). This departs from the reference's formula
+    (``src/repro/launch/serve.py:81``), which divides by one layer's
+    ``expert_bytes`` although a slot holds its expert in every MoE layer:
+    on an 80 GB card both clamp granite to E - 1 = 39 slots a rank, but
+    only this one keeps the budget inside the free memory when it is
+    smaller. On the CPU it returns the policy-default budget,
+    deterministically. ``"default"``/None → None (the policy chooses); an
+    integer → that uniform budget.
     """
     if spec in (None, "default", ""):
         return None
@@ -67,8 +86,8 @@ def derive_slot_budget(n_ranks: int, n_experts: int, expert_bytes: int,
     free = int(torch.cuda.mem_get_info(dev)[0])
     if free <= 0:
         return np.full(n_ranks, base, dtype=np.int64)
-    fit = int(0.8 * free / n_ranks / max(expert_bytes, 1))
-    per_rank = int(np.clip(fit, base, max(n_experts - 1, base)))
+    per_rank = slots_that_fit(free, n_ranks, n_experts, n_moe_layers,
+                              expert_bytes)
     return np.full(n_ranks, per_rank, dtype=np.int64)
 
 
@@ -76,8 +95,8 @@ def build_engine(cfg: ArchConfig, *, policy: str = "vibe",
                  regime: str = "mi325x", max_batch: int = 4,
                  max_seq: int = 96, adaptive: bool = True,
                  weighted_routing: bool = True, moe_impl: str = "ragged",
-                 scheduler: str = "fcfs", kv_blocks: Optional[int] = None,
-                 block_size: int = 16,
+                 scheduler: str = "fcfs", prefill_chunk: int = 0,
+                 kv_blocks: Optional[int] = None, block_size: int = 16,
                  slots_per_rank: Union[str, int, None] = "auto",
                  variability_scenario: str = "none",
                  scenario_start: float = 0.0, scenario_duration: float = 2.0,
@@ -86,7 +105,15 @@ def build_engine(cfg: ArchConfig, *, policy: str = "vibe",
                  shed_watermark: float = 0.0, preempt: bool = False,
                  seed: int = 0, device=None) -> Engine:
     """Ground-truth cluster, fitted per-rank models, ViBE controller and
-    engine for ``cfg`` — the construction ``serve`` runs, for any config."""
+    engine for ``cfg`` — the construction ``serve`` runs, for any config.
+
+    ``moe_impl="capacity"`` gives the engine
+    ``ShardingRules(moe_impl="capacity", ep_ranks=1)``: capacity buckets
+    through the capacity FFN kernel, as the reference's engine dispatches
+    under a one-device mesh. ``prefill_chunk > 0`` runs chunked prefill,
+    which the reference runs without a mesh: on the ragged path, while
+    the capacity rules' one-rank group refuses it.
+    """
     if not cfg.is_moe:
         raise SystemExit(f"{cfg.name} has no MoE layers — ViBE serving n/a")
     dev = resolve_device(device)
@@ -111,7 +138,8 @@ def build_engine(cfg: ArchConfig, *, policy: str = "vibe",
     budget = None
     if get_policy(policy).capabilities.accepts_slot_budget:
         budget = derive_slot_budget(ranks, cfg.n_experts, expert_bytes,
-                                    slots_per_rank, device=dev)
+                                    slots_per_rank, device=dev,
+                                    n_moe_layers=n_moe)
     controller = ViBEController(
         n_moe, n_slots, ranks, perf,
         ViBEConfig(policy=policy, adaptive=adaptive,
@@ -129,13 +157,18 @@ def build_engine(cfg: ArchConfig, *, policy: str = "vibe",
         max_batch=max_batch, max_seq=max_seq, moe_impl=moe_impl, seed=seed,
         weighted_routing=weighted_routing,
         scheduler=SchedulerConfig(name=scheduler,
+                                  prefill_chunk=prefill_chunk,
                                   shed_watermark=shed_watermark,
                                   preempt_decodes=preempt),
         kv=(KVCacheConfig(block_size=block_size, n_blocks=kv_blocks)
             if kv_blocks else None),
         topology=topo)
-    return Engine(cfg, econfig, controller=controller, cluster=cluster,
-                  device=dev)
+    rules = None
+    if moe_impl == "capacity":
+        rules = ShardingRules(moe_impl="capacity", ep_ranks=1,
+                              capacity_factor=econfig.capacity_factor)
+    return Engine(cfg, econfig, rules=rules, controller=controller,
+                  cluster=cluster, device=dev)
 
 
 def make_requests(workload: str, n_requests: int, *, qps: float,
@@ -174,15 +207,12 @@ def serve(arch: str, *, policy: str = "vibe", n_requests: int = 12,
         raise NotImplementedError(
             "--chaos / --fail-rank are not yet ported: they need the "
             "elastic and fault-injection serving modules (a later slice)")
-    if prefill_chunk > 0:
-        raise NotImplementedError(
-            "--prefill-chunk is not yet ported (chunked prefill is a later "
-            "slice)")
     engine = build_engine(
         get_smoke(arch), policy=policy, regime=regime, max_batch=max_batch,
         max_seq=max_seq, adaptive=adaptive,
         weighted_routing=weighted_routing, moe_impl=moe_impl,
-        scheduler=scheduler, kv_blocks=kv_blocks, block_size=block_size,
+        scheduler=scheduler, prefill_chunk=prefill_chunk,
+        kv_blocks=kv_blocks, block_size=block_size,
         slots_per_rank=slots_per_rank,
         variability_scenario=variability_scenario,
         scenario_start=scenario_start, scenario_duration=scenario_duration,
@@ -249,7 +279,8 @@ def main() -> int:
     ap.add_argument("--scheduler", default="fcfs",
                     choices=list(registered_schedulers()))
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill (not yet ported: must be 0)")
+                    help="tokens per prefill chunk (0 = whole prompt); runs "
+                         "on the ragged path")
     ap.add_argument("--kv-blocks", type=int, default=0)
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--slots-per-rank", default="auto")
@@ -260,8 +291,9 @@ def main() -> int:
                     action="store_false")
     ap.add_argument("--moe-impl", choices=("ragged", "capacity"),
                     default="ragged",
-                    help="grouped-FFN implementation the virtual clock "
-                         "prices (the dispatch itself is ragged)")
+                    help="grouped-FFN implementation: the dispatch and the "
+                         "virtual clock's pricing (capacity: buckets on a "
+                         "one-rank expert-parallel group)")
     ap.add_argument("--variability-scenario", default="none",
                     choices=("none",) + tuple(sorted(SCENARIOS)))
     ap.add_argument("--scenario-start", type=float, default=0.0)
@@ -301,7 +333,8 @@ def main() -> int:
                               arch=args.arch,
                               weighted_routing=args.weighted_routing,
                               moe_impl=args.moe_impl,
-                              scheduler=args.scheduler):
+                              scheduler=args.scheduler,
+                              prefill_chunk=args.prefill_chunk):
         print(line)
     if args.steal:
         rs = engine.controller.rescheduler

@@ -1,4 +1,5 @@
-"""Model assembly for attention-only archs: prefill and decode entry points.
+"""Model assembly for attention-only archs: prefill, chunked-prefill and
+decode entry points.
 
 The counterpart of ``repro.models.model``. Params carry the reference's
 keys and leading ``n_blocks`` axis (a super-block is the smallest repeating
@@ -10,8 +11,11 @@ MoE placement enters as the ``moe_tables`` input (slot lookup tensors), so a
 recalibration swaps tables and migrates weights without touching the step
 functions.
 
-Decode updates the KV cache in place (one new row per sequence) and returns
-the same cache object; prefill returns a new per-request cache.
+Decode and chunked prefill update the KV cache in place (one new row per
+sequence, or one chunk's rows in one lane) and return the same cache
+object; prefill returns a new per-request cache. ``phase`` ("prefill",
+"chunk", "decode") reaches the MoE layer, which picks its dispatch body by
+it, as in the reference.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from .sharding import ShardingRules, build_copy_cdf, build_slots_of
 
 __all__ = [
     "LayerSpec", "block_layout", "init_params", "make_moe_tables",
-    "refresh_moe_share_tables", "prefill_fn", "decode_fn", "init_cache",
-    "moe_perm_shape",
+    "refresh_moe_share_tables", "prefill_fn", "prefill_chunk_fn",
+    "decode_fn", "init_cache", "moe_perm_shape",
 ]
 
 
@@ -85,8 +89,12 @@ def _windows(cfg: ArchConfig) -> Optional[np.ndarray]:
     return win.reshape(nb, len(specs))
 
 
-def moe_perm_shape(cfg: ArchConfig) -> Tuple[int, int]:
-    """(n_moe_layers, n_slots): one device holds one slot per expert."""
+def moe_perm_shape(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
+                   phase: str = "train") -> Tuple[int, int]:
+    """(n_moe_layers, n_slots) for building placement permutations. Without
+    a group and on a one-rank group alike (the only groups the port runs),
+    one device holds one slot per expert in every phase: the reference's
+    padding to a multiple of the group and its decode fleet both give E."""
     nb, specs = block_layout(cfg)
     return nb * sum(1 for s in specs if s.ffn == "moe"), cfg.n_experts
 
@@ -158,20 +166,23 @@ def _mlp_init(generator, d, f, gated, dtype, device, lead):
     return p
 
 
-def make_moe_tables(cfg: ArchConfig, perm: Optional[np.ndarray] = None,
+def make_moe_tables(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
+                    perm: Optional[np.ndarray] = None, phase: str = "train",
                     n_slots: Optional[int] = None,
                     share: Optional[np.ndarray] = None,
                     r_max: Optional[int] = None, device=None):
     """The (slots_of, n_copies, copy_cdf) tensors of a placement, shaped
     (n_blocks, moe_per_block, E, r) / (…, E) / (…, E, r), on ``device``;
     None for non-MoE archs. ``perm`` (n_moe, n_slots) — logical expert per
-    physical slot, None = contiguous; ``share`` — per-slot traffic
-    fractions, None = uniform over copies; ``r_max`` pins the copy axis."""
+    physical slot, None = contiguous (on a one-rank group the reference's
+    a2a and replicated defaults are both the identity); ``share`` —
+    per-slot traffic fractions, None = uniform over copies; ``r_max`` pins
+    the copy axis."""
     if not cfg.is_moe:
         return None
     nb, specs = block_layout(cfg)
     m = sum(1 for s in specs if s.ffn == "moe")
-    n_moe, default_slots = moe_perm_shape(cfg)
+    n_moe, default_slots = moe_perm_shape(cfg, rules, phase)
     n_slots = default_slots if n_slots is None else int(n_slots)
     if perm is None:
         perm = np.tile(np.arange(n_slots, dtype=np.int32), (n_moe, 1))
@@ -209,38 +220,74 @@ def refresh_moe_share_tables(cfg: ArchConfig, moe_tables,
 # block body
 # ---------------------------------------------------------------------------
 
+def _qkv(p, x, cfg, rope_pos):
+    """Projections with RoPE at ``rope_pos`` (broadcast against (B, S)):
+    q (B, S, KV, G, hd), k and v (B, S, KV, hd)."""
+    B, S, D = x.shape
+    hd, KV = cfg.hd, cfg.n_kv_heads
+    G = cfg.n_heads // KV
+    cos, sin = rope_tables(rope_pos, hd, cfg.rope_theta)
+    q = apply_rope((x @ p["wq"]).reshape(B, S, KV * G, hd), cos, sin)
+    k = apply_rope((x @ p["wk"]).reshape(B, S, KV, hd), cos, sin)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    return q.reshape(B, S, KV, G, hd), k, v
+
+
 def _run_attention(p, x, cfg, window, positions, cache=None, pos=None):
     """Prefill: returns (out, (k, v)); decode: writes the new row into the
     cache in place and returns (out, cache)."""
     B, S, D = x.shape
-    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    G = H // KV
-    q = (x @ p["wq"]).reshape(B, S, KV, G, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    HD = cfg.n_heads * cfg.hd
     if cache is None:
-        cos, sin = rope_tables(positions[None, :], hd, cfg.rope_theta)
-        q = apply_rope(q.reshape(B, S, KV * G, hd), cos, sin) \
-            .reshape(B, S, KV, G, hd)
-        k = apply_rope(k, cos, sin)
+        q, k, v = _qkv(p, x, cfg, positions[None, :])
         out = flash_attention(q, k, v, causal=cfg.causal, window=window,
                               q_positions=positions, kv_positions=positions)
-        return out.reshape(B, S, H * hd) @ p["wo"], (k, v)
+        return out.reshape(B, S, HD) @ p["wo"], (k, v)
     k_cache, v_cache = cache
-    cos, sin = rope_tables(pos[:, None], hd, cfg.rope_theta)   # (B, 1, hd/2)
-    q = apply_rope(q.reshape(B, S, KV * G, hd), cos, sin).reshape(B, KV, G, hd)
-    k = apply_rope(k, cos, sin)
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
     lanes = torch.arange(B, device=x.device)
     rows = pos.long()
     k_cache[lanes, rows] = k[:, 0].to(k_cache.dtype)
     v_cache[lanes, rows] = v[:, 0].to(v_cache.dtype)
-    out = flash_decode(q, k_cache, v_cache, pos, window=window)
-    return out.reshape(B, 1, H * hd) @ p["wo"], cache
+    out = flash_decode(q[:, 0], k_cache, v_cache, pos, window=window)
+    return out.reshape(B, 1, HD) @ p["wo"], cache
+
+
+def _run_attention_chunk(p, x, cfg, window, cache, positions, lane, offset,
+                         n_valid, row_valid):
+    """Chunked-prefill attention: one prompt chunk of one sequence against
+    its lane of the full (batch, S_max) cache, written in place.
+
+    ``row_valid`` masks the tail chunk's padding: padded rows never reach
+    the cache (masked write) and unwritten cache rows never reach the
+    scores (``kv_valid``), so a chunked prefill accumulates exactly the
+    rows a whole-prompt prefill would. The caller keeps
+    ``offset + C <= S_max``.
+    """
+    B, C, D = x.shape                    # B == 1: one sequence's chunk
+    k_cache, v_cache = cache
+    S_max = k_cache.shape[1]
+    q, k, v = _qkv(p, x, cfg, positions[None, :])
+    rows = slice(offset, offset + C)
+    keep_new = row_valid[:, None, None]
+    for cbuf, new in ((k_cache, k), (v_cache, v)):
+        cbuf[lane, rows] = torch.where(keep_new, new[0].to(cbuf.dtype),
+                                       cbuf[lane, rows])
+    kv_pos = torch.arange(S_max, device=x.device)
+    out = flash_attention(q, k_cache[lane:lane + 1], v_cache[lane:lane + 1],
+                          causal=cfg.causal, window=window,
+                          q_positions=positions, kv_positions=kv_pos,
+                          kv_valid=kv_pos < offset + n_valid)
+    return out.reshape(B, C, cfg.n_heads * cfg.hd) @ p["wo"], cache
 
 
 def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
-                positions, cache_blk=None, pos=None):
-    """One super-block forward. Returns (x, tallies (m, E+1), new caches)."""
+                positions, phase, cache_blk=None, pos=None, chunk_ctx=None):
+    """One super-block forward. Returns (x, tallies (m, E+1), new caches).
+
+    ``chunk_ctx`` — (lane, offset, n_valid, row_valid) of the chunked-
+    prefill phase: attention goes through :func:`_run_attention_chunk`
+    and the MoE layers get the padding mask."""
     tallies, new_cache = [], []
     moe_i = 0
     for i, spec in enumerate(specs):
@@ -248,8 +295,14 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
         h = rms_norm(x, sub["ln1"], cfg.norm_eps)
         window = None if windows_blk is None else int(windows_blk[i])
         cache = None if cache_blk is None else cache_blk[i]
-        h, st = _run_attention(sub["mixer"], h, cfg, window, positions,
-                               cache=cache, pos=pos)
+        if phase == "chunk":
+            lane, offset, n_valid, row_valid = chunk_ctx
+            h, st = _run_attention_chunk(sub["mixer"], h, cfg, window, cache,
+                                         positions, lane, offset, n_valid,
+                                         row_valid)
+        else:
+            h, st = _run_attention(sub["mixer"], h, cfg, window, positions,
+                                   cache=cache, pos=pos)
         new_cache.append(st)
         x = x + h
         if spec.ffn == "none":
@@ -264,10 +317,13 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
             # position-derived salt: decode positions advance every step,
             # so tiny batches re-draw their replica-selection uniforms
             seed = positions.sum().to(torch.int32)
+            rv = None
+            if chunk_ctx is not None:
+                rv = chunk_ctx[3][None, :].expand(h2.shape[:2]).reshape(-1)
             y, tally, _ = moe_layer(
                 sub["ffn"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
                 rules=rules, slots_of=so, n_copies=nc, copy_cdf=cdf,
-                route_seed=seed)
+                route_seed=seed, phase=phase, row_valid=rv)
             if cfg.n_shared_experts:
                 y = y + mlp(sub["shared"], h2, cfg.mlp_gated)
             tallies.append(tally)
@@ -285,8 +341,8 @@ def _unembed_w(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _run_blocks(cfg, rules, params, x, *, moe_tables, positions,
-                cache=None, pos=None):
+def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
+                cache=None, pos=None, chunk_ctx=None):
     """Loop over the ``n_blocks`` super-blocks (``lax.scan`` in the
     reference). Returns (x, tallies (n_moe, E+1), per-position caches)."""
     nb, specs = block_layout(cfg)
@@ -301,7 +357,8 @@ def _run_blocks(cfg, rules, params, x, *, moe_tables, positions,
         x, tall, nc = _block_body(
             cfg, rules, specs, bp, x,
             windows_blk=None if win is None else win[b], moe_tables_blk=mt,
-            positions=positions, cache_blk=cb, pos=pos)
+            positions=positions, phase=phase, cache_blk=cb, pos=pos,
+            chunk_ctx=chunk_ctx)
         tallies.extend(tall)
         block_caches.append(nc)
     if cache is not None:
@@ -339,9 +396,48 @@ def prefill_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
         x = _embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)
         x, tallies, cache = _run_blocks(cfg, rules, params, x,
+                                        phase="prefill",
                                         moe_tables=moe_tables,
                                         positions=positions)
         return _logits(cfg, params, x), cache, tallies
+
+    return fn
+
+
+def prefill_chunk_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
+    """Chunked prefill: one fixed-width prompt chunk into one cache lane.
+
+    ``(params, tokens (1, C), cache, lane, offset, n_valid, moe_tables)`` →
+    ``(logits (1, V) at the chunk's last valid row, cache, tallies)``; the
+    cache is updated in place. ``lane``/``offset``/``n_valid`` are ints;
+    the caller keeps ``offset + C <= max_seq``. Padded tail rows are
+    masked out of the cache write, the attention scores and the MoE
+    tallies, so the final chunk's logits and cache match a whole-prompt
+    prefill. Logits are meaningful only on the chunk that completes the
+    prompt. Runs without an expert-parallel group, as the reference runs
+    it without a mesh.
+    """
+    _attention_only(cfg)
+    if rules is not None and rules.ep_ranks:
+        raise NotImplementedError(
+            "chunked prefill runs without an expert-parallel group (the "
+            "reference's single-device configuration); ep_ranks="
+            f"{rules.ep_ranks} is not supported")
+
+    def fn(params, tokens, cache, lane: int, offset: int, n_valid: int,
+           moe_tables=None):
+        x = _embed(params, tokens)
+        C = x.shape[1]
+        rows = torch.arange(C, device=x.device)
+        positions = offset + rows
+        x, tallies, cache = _run_blocks(
+            cfg, rules, params, x, phase="chunk", moe_tables=moe_tables,
+            positions=positions, cache=cache,
+            chunk_ctx=(lane, offset, n_valid, rows < n_valid))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        last = x[0, max(n_valid - 1, 0)]
+        logits = last.float() @ _unembed_w(cfg, params).float()
+        return logits[None], cache, tallies
 
     return fn
 
@@ -356,6 +452,7 @@ def decode_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
         pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
                                  (token.shape[0],))
         x, tallies, cache = _run_blocks(cfg, rules, params, x,
+                                        phase="decode",
                                         moe_tables=moe_tables,
                                         positions=pos, cache=cache, pos=pos)
         return _logits(cfg, params, x), cache, tallies

@@ -1,13 +1,23 @@
-"""Mixture-of-Experts layer: the single-device ragged (dropless) path.
+"""Mixture-of-Experts layer: the ragged (dropless) and capacity paths.
 
 The counterpart of ``repro.models.moe`` for one device. Routing is softmax
 → top-k → renormalise (the router kernel on the card); each assignment
 picks a physical slot among its expert's replicas by inverse CDF over a
-deterministic per-assignment uniform (``_select_slots``); assignments are
-stable-sorted by slot into a flat buffer whose per-slot segments are
-padded to the row tile (``_ragged_plan``); the grouped SwiGLU FFN kernel
-runs the occupied tiles only; and a gather combines each token's ``top_k``
-results in f32.
+deterministic per-assignment uniform (``_select_slots``).
+
+* **ragged** (``moe_impl="ragged"``): assignments are stable-sorted by slot
+  into a flat buffer whose per-slot segments are padded to the row tile
+  (``_ragged_plan``); the grouped SwiGLU FFN kernel runs the occupied tiles
+  only; a gather combines each token's ``top_k`` results in f32.
+* **capacity** (``moe_impl="capacity"``) on a one-rank expert-parallel
+  group (``ShardingRules.ep_ranks=1``, the reference's one-device mesh):
+  the reference's ``_a2a_body`` (prefill) and ``_replicated_body``
+  (decode) with ``ep = 1``, where ``all_to_all`` and ``psum`` are the
+  identity. Each slot gets a bucket of ``capacity`` rows in arrival order
+  (``_bucket_positions``); overflowing assignments are dropped and counted
+  in ``tally[E]``; the capacity FFN kernel runs every bucket.
+* **dense oracle** (capacity without a group, the reference's
+  ``rules=None``): every expert on every token with the plain FFN.
 
 Placement is positional, as in the reference: the stacked expert weights
 live in physical slot order, ``slots_of``/``n_copies``/``copy_cdf`` map
@@ -15,17 +25,19 @@ logical experts to slots at run time, and :func:`apply_placement` migrates
 the weights when the placement changes.
 
 Nothing on the per-layer path synchronises the host: every shape is a
-static worst-case bound (``n_tiles = A // bm + n_slots``), and the
-data-dependent parts are tensor values. The capacity path
-(``moe_impl="capacity"``) and the multi-rank dispatches are later slices.
+static bound (``n_tiles = A // bm + n_slots``, ``capacity`` from the token
+count), and the data-dependent parts are tensor values. Multi-rank
+dispatch is a later slice (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ragged_moe_ffn import (ragged_n_tiles,
@@ -33,8 +45,8 @@ from repro_torch.kernels.ragged_moe_ffn import (ragged_n_tiles,
 from .common import dense_init
 from .sharding import ShardingRules
 
-__all__ = ["moe_init", "moe_layer", "route", "apply_placement",
-           "placement_gather_indices"]
+__all__ = ["moe_init", "moe_layer", "route", "expert_ffn_ref",
+           "apply_placement", "placement_gather_indices"]
 
 
 def moe_init(generator: torch.Generator, *, d: int, f: int, n_experts: int,
@@ -69,6 +81,14 @@ def route(router_w: torch.Tensor, xf: torch.Tensor, top_k: int):
     weights, idx = ops.router_topk(logits, top_k)
     mean_prob = torch.softmax(logits, dim=-1).mean(dim=0)
     return weights, idx, mean_prob
+
+
+def expert_ffn_ref(w1, w3, w2, toks):
+    """Grouped SwiGLU FFN: toks (E_loc, C, D) → (E_loc, C, D), plain
+    products in the input dtype (the reference's jnp oracle FFN)."""
+    h = torch.bmm(toks, w1)
+    h = F.silu(h) * torch.bmm(toks, w3)
+    return torch.bmm(h, w2)
 
 
 _U32 = 0xFFFFFFFF
@@ -146,6 +166,32 @@ def _sort_by_slot(slot_flat: torch.Tensor, n_slots: int,
     return order, sorted_key, starts, pos_sorted
 
 
+def _bucket_positions(slot_flat: torch.Tensor, n_slots: int,
+                      active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Arrival position (int32) of each assignment within its slot's
+    bucket; the stable sort keeps arrival order, which decides the drops.
+    Positions of inactive assignments are meaningless (callers mask
+    them)."""
+    order, _, _, pos_sorted = _sort_by_slot(slot_flat, n_slots, active)
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    return pos
+
+
+def _combine(y_rows: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
+             t: int, K: int) -> torch.Tensor:
+    """``out[t] = Σ_k w[t, k]·y_rows[rows[t, k]]`` in f32, summed in k
+    order: a gather, not the reference's scatter-add, so it is the same on
+    every run (a CUDA ``index_add_`` is not). ``rows``/``w`` are (t·K,)
+    or (t, K), assignment ``a`` belonging to token ``a // K``."""
+    contrib = (y_rows[rows.reshape(t, K)].float()
+               * w.reshape(t, K).float()[:, :, None])
+    out = contrib[:, 0]
+    for k in range(1, K):
+        out = out + contrib[:, k]
+    return out
+
+
 def _ragged_plan(slot_flat: torch.Tensor, n_slots: int, bm: int,
                  active: Optional[torch.Tensor] = None):
     """Sort-based dropless dispatch plan. Returns ``(order, rows,
@@ -173,10 +219,8 @@ def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
     ``weights``/``slots`` are (t, K): assignment ``a`` belongs to token
     ``a // K``. Rows are scattered into an ``n_rows + 1`` buffer whose spare
     last row takes the inactive assignments and is cut off (the
-    reference's ``mode="drop"``). The combine is a gather, not a
-    scatter-add: the inverse of ``order`` gives each (t, k) its buffer row,
-    and ``out[t] = Σ_k w[t, k]·y[row[t, k]]`` is summed in k order in f32,
-    the same on every run (a CUDA ``index_add_`` is not).
+    reference's ``mode="drop"``). The inverse of ``order`` gives each
+    (t, k) its buffer row for the gather combine (:func:`_combine`).
     """
     t, D = xf.shape
     K = slots.shape[1]
@@ -192,11 +236,7 @@ def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
     w = weights.float()
     if active is not None:
         w = w * active.to(w.dtype)
-    contrib = y_buf[row_of.reshape(t, K)].float() * w[:, :, None]
-    out = contrib[:, 0]
-    for k in range(1, K):
-        out = out + contrib[:, k]
-    return out
+    return _combine(y_buf, row_of, w, t, K)
 
 
 def _masked_tally(idx, n_experts, row_valid=None):
@@ -231,26 +271,161 @@ def _dense_dispatch_ragged(p, xf, route_seed, *, top_k, n_experts, slots_of,
     return out.to(xf.dtype), tally, aux
 
 
+# ---------------------------------------------------------------------------
+# dense oracle (capacity without an expert-parallel group)
+# ---------------------------------------------------------------------------
+
+def _dense_dispatch(p, xf, route_seed, *, top_k, n_experts, slots_of,
+                    n_copies, copy_cdf, row_valid=None):
+    """Every slot's FFN on every token (plain products), combined by a
+    (t, n_slots) gate matrix; nothing can drop. Same return contract as
+    :func:`_dense_dispatch_ragged`."""
+    weights, idx, mean_prob = route(p["router"], xf, top_k)
+    if row_valid is not None:
+        weights = weights * row_valid[:, None].to(weights.dtype)
+    slots = _select_slots(idx, slots_of, n_copies, copy_cdf, route_seed)
+    n_slots = p["w1"].shape[0]
+    # a token's K experts are distinct, so are their slots: no index of a
+    # row repeats and the scatter-add is exact
+    comb = torch.zeros((xf.shape[0], n_slots), dtype=torch.float32,
+                       device=xf.device).scatter_add_(1, slots.long(),
+                                                      weights)
+    y = expert_ffn_ref(p["w1"], p["w3"], p["w2"],
+                       xf.expand((n_slots,) + tuple(xf.shape)))
+    out = torch.einsum("te,etd->td", comb, y.float())
+    tally = _masked_tally(idx, n_experts, row_valid)
+    aux = _aux_loss(tally, mean_prob, n_experts)
+    tally = torch.cat([tally, tally.new_zeros((1,))])
+    return out.to(xf.dtype), tally, aux
+
+
+# ---------------------------------------------------------------------------
+# capacity buckets on a one-rank expert-parallel group
+# ---------------------------------------------------------------------------
+
+def _fill_buckets(rows_x: torch.Tensor, dest: torch.Tensor,
+                  keep: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """(n_rows, D) buckets holding each kept assignment's token row at
+    ``dest``, zeros elsewhere. Kept destinations are unique, so this is an
+    index assignment where the reference scatter-adds (``.at[dest].add``;
+    a CUDA ``index_add_`` is not deterministic); a spare last row takes
+    the dropped assignments and is cut off."""
+    buf = rows_x.new_zeros((n_rows + 1, rows_x.shape[1]))
+    buf[torch.where(keep, dest, torch.full_like(dest, n_rows))] = rows_x
+    return buf[:n_rows]
+
+
+def _capacity_route(router_w, xf, slots_of, n_copies, copy_cdf, route_seed,
+                    top_k):
+    weights, idx, mean_prob = route(router_w, xf, top_k)
+    slots = _select_slots(idx, slots_of, n_copies, copy_cdf, route_seed)
+    return weights.reshape(-1), idx, slots.reshape(-1), mean_prob
+
+
+def _a2a_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
+              route_seed, *, top_k, n_experts, n_slots, capacity, ep,
+              ffn: Callable):
+    """One rank's block of the a2a capacity dispatch (train / prefill).
+
+    The reference's ``_a2a_body`` with its ``(ep, e_loc, C, D)`` layout,
+    at ``ep = 1`` (``ShardingRules`` refuses larger groups): the two
+    ``all_to_all`` exchanges and the ``psum`` of the tally are the
+    identity. ``tally[E]`` counts the assignments past their slot's
+    bucket, ``sum(1 - keep)``.
+    """
+    Bl, Sl, D = xb.shape
+    e_loc = n_slots // ep
+    xf = xb.reshape(Bl * Sl, D)
+    t = xf.shape[0]
+    wgt_flat, idx, slot_flat, mean_prob = _capacity_route(
+        router_w, xf, slots_of, n_copies, copy_cdf, route_seed, top_k)
+    pos = _bucket_positions(slot_flat, n_slots)
+    keep = pos < capacity
+    dest = (slot_flat.long() * capacity
+            + torch.where(keep, pos, torch.zeros_like(pos)).long())
+    send = _fill_buckets(xf.repeat_interleave(top_k, dim=0), dest, keep,
+                         n_slots * capacity)
+    # dispatch (ep, E_loc, C, D): chunk i goes to rank i (all_to_all over
+    # one rank: the identity); recv[j] = tokens from rank j for my experts
+    recv = send.reshape(ep, e_loc, capacity, D)
+    toks = recv.movedim(0, 1).reshape(e_loc, ep * capacity, D).contiguous()
+    y = ffn(w1, w3, w2, toks)                       # (E_loc, ep·C, D)
+    back = y.reshape(e_loc, ep, capacity, D).movedim(1, 0)
+    back = back.reshape(n_slots * capacity, D)      # my sends, processed
+    out = _combine(back, dest, wgt_flat * keep, t, top_k)
+    tally = _masked_tally(idx, n_experts)
+    dropped = (1.0 - keep.float()).sum()[None]
+    tally = torch.cat([tally, dropped])
+    aux = _aux_loss(tally[:n_experts], mean_prob, n_experts)
+    return out.to(xb.dtype).reshape(Bl, Sl, D), tally, aux
+
+
+def _replicated_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
+                     route_seed, *, top_k, n_experts, capacity,
+                     ffn: Callable):
+    """One rank's block of the replicated capacity dispatch (decode).
+
+    The reference's ``_replicated_body`` on a one-rank fleet: every slot
+    is local (``my_rank = 0``, ``e_loc = n_slots``) and the ``psum``
+    combine is the identity. ``tally[E]`` counts ``mine & pos >= C``.
+    """
+    B, S, D = xb.shape
+    e_loc = w1.shape[0]
+    my_rank = 0
+    xf = xb.reshape(B * S, D)
+    t = xf.shape[0]
+    wgt_flat, idx, slot_flat, mean_prob = _capacity_route(
+        router_w, xf, slots_of, n_copies, copy_cdf, route_seed, top_k)
+    mine = torch.div(slot_flat, e_loc, rounding_mode="floor") == my_rank
+    loc = slot_flat % e_loc
+    pos = _bucket_positions(loc, e_loc, active=mine)
+    keep = mine & (pos >= 0) & (pos < capacity)
+    dest = (loc.long() * capacity
+            + torch.where(keep, pos, torch.zeros_like(pos)).long())
+    buckets = _fill_buckets(xf.repeat_interleave(top_k, dim=0), dest, keep,
+                            e_loc * capacity)
+    y = ffn(w1, w3, w2, buckets.reshape(e_loc, capacity, D))
+    out = _combine(y.reshape(e_loc * capacity, D), dest, wgt_flat * keep, t,
+                   top_k)
+    tally = _masked_tally(idx, n_experts)
+    aux = _aux_loss(tally, mean_prob, n_experts)
+    dropped = (mine & (pos >= capacity)).float().sum()[None]
+    tally = torch.cat([tally, dropped])
+    return out.to(xb.dtype).reshape(B, S, D), tally, aux
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
               rules: Optional[ShardingRules] = None,
               slots_of: Optional[torch.Tensor] = None,
               n_copies: Optional[torch.Tensor] = None,
               copy_cdf: Optional[torch.Tensor] = None,
-              route_seed=None,
+              route_seed=None, phase: str = "train",
               row_valid: Optional[torch.Tensor] = None):
     """Returns (y (B, S, D), tally (E+1,), aux_loss).
 
-    ``rules=None`` means the single-device ``ShardingRules()``: the ragged
-    path (the reference's ``rules=None`` is its dense oracle). ``tally[:E]``
-    counts logical-expert assignments; ``tally[E]``, the capacity drops,
-    is structurally 0 on this dropless path. One device runs one dispatch
-    for every phase, so the reference's ``phase`` argument is not taken.
+    ``rules=None`` means ``ShardingRules()``: the single-device ragged path
+    (the reference's ``rules=None`` is its dense oracle). The dispatch is
+    chosen as the reference chooses it (``moe.py:676-700``), with
+    ``rules.ep_ranks`` in place of its mesh:
+
+    * no group (``ep_ranks=0``): ragged → the single-device ragged
+      dispatch; capacity → the dense oracle;
+    * a one-rank group: capacity → the a2a body (prefill, train, chunk) or
+      the replicated body (decode), as ``rules.moe_dispatch`` selects;
+      ragged → the single-device ragged dispatch, which computes what the
+      reference's one-rank ragged bodies compute (summed in another
+      order).
+
+    ``tally[:E]`` counts logical-expert assignments (pre-capacity);
+    ``tally[E]`` the capacity drops (0 on the ragged and dense paths).
+    ``row_valid`` (B·S,) masks padded chunk rows out of the output and the
+    tally; with a group it raises, as in the reference.
     """
     rules = ShardingRules() if rules is None else rules
-    if rules.moe_impl != "ragged":
-        raise NotImplementedError(
-            f"moe_impl={rules.moe_impl!r}: only the ragged path is ported; "
-            "the capacity path is the next slice")
     B, S, D = x.shape
     dev = x.device
     if slots_of is None:
@@ -267,12 +442,50 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     if route_seed is None:
         route_seed = 0
     route_seed = torch.as_tensor(route_seed, device=dev).to(torch.int32)
-    out, tally, aux = _dense_dispatch_ragged(
-        p, x.reshape(B * S, D), route_seed, top_k=top_k,
-        n_experts=n_experts, slots_of=slots_of, n_copies=n_copies,
-        copy_cdf=copy_cdf, bm=rules.moe_block_m, ffn=ops.ragged_moe_ffn,
-        row_valid=row_valid)
-    return out.reshape(B, S, D), tally, aux
+    tables = dict(slots_of=slots_of, n_copies=n_copies, copy_cdf=copy_cdf)
+
+    mode = "dense"
+    if rules.ep_ranks:
+        if rules.moe_dispatch != "auto":
+            mode = rules.moe_dispatch
+        elif phase == "decode":
+            mode = "replicated"
+        else:
+            mode = "a2a"
+        if mode != "dense" and row_valid is not None:
+            raise NotImplementedError(
+                "row_valid (chunked-prefill padding mask) is only supported "
+                "without an expert-parallel group")
+
+    xf = x.reshape(B * S, D)
+    if rules.moe_impl == "ragged":
+        out, tally, aux = _dense_dispatch_ragged(
+            p, xf, route_seed, top_k=top_k, n_experts=n_experts,
+            bm=rules.moe_block_m, ffn=ops.ragged_moe_ffn,
+            row_valid=row_valid, **tables)
+        return out.reshape(B, S, D), tally, aux
+    if mode == "dense":
+        out, tally, aux = _dense_dispatch(
+            p, xf, route_seed, top_k=top_k, n_experts=n_experts,
+            row_valid=row_valid, **tables)
+        return out.reshape(B, S, D), tally, aux
+
+    n_slots = p["w1"].shape[0]
+    cf = rules.capacity_factor
+    args = (x, p["router"], p["w1"], p["w3"], p["w2"], slots_of, n_copies,
+            copy_cdf, route_seed)
+    if mode == "a2a":
+        t_loc = B * S                                 # one rank holds all
+        capacity = _round_up(max(math.ceil(t_loc * top_k / n_slots * cf), 1),
+                             4)
+        return _a2a_body(*args, top_k=top_k, n_experts=n_experts,
+                         n_slots=n_slots, capacity=capacity,
+                         ep=rules.ep_ranks, ffn=ops.fused_moe_ffn)
+    t = B * S
+    capacity = _round_up(
+        max(math.ceil(t * top_k / n_slots * max(cf, 2.0)), 4), 4)
+    return _replicated_body(*args, top_k=top_k, n_experts=n_experts,
+                            capacity=capacity, ffn=ops.fused_moe_ffn)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
-"""Single-device sharding rules and the placement lookup tables.
+"""Sharding rules of one device and the placement lookup tables.
 
-The port's :class:`ShardingRules` holds only what the single-device path
-reads: the MoE implementation, the ragged row tile and the capacity factor
-(the virtual clock's capacity pricing). The mesh fields of the reference's
-rules wait for the multi-rank slice.
+The port's :class:`ShardingRules` holds what the MoE dispatch choice reads:
+the implementation, the dispatch body, the size of the expert-parallel
+group, the ragged row tile and the capacity factor. The mesh axes of the
+reference's rules wait for the multi-rank slice (ROADMAP Queue 1 item 8).
 
 ``build_slots_of`` and ``build_copy_cdf`` are the reference's numpy table
 builders (``repro.models.sharding``), copied.
@@ -21,19 +21,58 @@ from repro_torch.core.placement import copy_share_cdf
 __all__ = ["ShardingRules", "build_slots_of", "build_copy_cdf"]
 
 
+_IMPLS = ("ragged", "capacity")
+_DISPATCHES = ("auto", "a2a", "replicated", "dense")
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
     """How the model maps onto one device.
 
     ``moe_impl`` — ``"ragged"``: sort-based dropless dispatch, the grouped
-    FFN over occupied tiles only (the one implementation this slice
-    ports). ``moe_block_m`` — the ragged row tile: a multiple of the CUDA
-    kernel's 64-row block on the card, any size on the CPU.
+    FFN over occupied tiles only; ``"capacity"``: fixed per-slot buckets
+    of ``capacity`` rows, overflowing assignments dropped and counted in
+    the tally's last column, the capacity FFN over every bucket.
+
+    ``ep_ranks`` — the expert-parallel group, in the reference's terms:
+
+    * ``0`` — no group: the reference's ``mesh=None``. Ragged runs the
+      single-device ragged dispatch; capacity runs the dense oracle
+      (every expert on every token, nothing dropped).
+    * ``1`` — a one-rank group: the reference's one-device mesh
+      (``ep=ep_all=("model",)``, ``dp=()``, ``fsdp=None``). Capacity runs
+      the a2a body at prefill and the replicated body at decode, as
+      ``moe_dispatch`` selects, with ``all_to_all`` and ``psum`` the
+      identity; ragged computes what the reference's one-rank ragged
+      bodies compute.
+    * ``> 1`` — not ported (ROADMAP Queue 1 item 8): raises.
+
+    ``moe_dispatch`` — ``"auto"`` (decode → replicated, else a2a),
+    ``"a2a"``, ``"replicated"`` or ``"dense"``; read only with a group.
+    ``moe_block_m`` — the ragged row tile: a multiple of the CUDA kernel's
+    64-row block on the card, any size on the CPU.
     """
 
     moe_impl: str = "ragged"
+    moe_dispatch: str = "auto"
+    ep_ranks: int = 0
     moe_block_m: int = 128
     capacity_factor: float = 1.25
+
+    def __post_init__(self):
+        if self.moe_impl not in _IMPLS:
+            raise ValueError(f"moe_impl must be one of {_IMPLS}, "
+                             f"got {self.moe_impl!r}")
+        if self.moe_dispatch not in _DISPATCHES:
+            raise ValueError(f"moe_dispatch must be one of {_DISPATCHES}, "
+                             f"got {self.moe_dispatch!r}")
+        if self.ep_ranks > 1:
+            raise NotImplementedError(
+                f"ep_ranks={self.ep_ranks}: expert-parallel groups of more "
+                "than one rank are not ported yet (ROADMAP Queue 1 item 8, "
+                "multi-rank dispatch)")
+        if self.ep_ranks < 0:
+            raise ValueError(f"ep_ranks must be >= 0, got {self.ep_ranks}")
 
 
 def build_slots_of(perm: np.ndarray, n_experts: int, n_slots: int,

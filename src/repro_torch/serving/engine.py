@@ -13,6 +13,12 @@ Differences from the reference:
 * ``rules=None`` means the port's single-device ``ShardingRules()``: the
   ragged dispatch through the grouped-FFN kernel. The reference's
   ``rules=None`` runs its dense oracle (every expert on every token).
+* ``ShardingRules(moe_impl="capacity", ep_ranks=1)`` dispatches capacity
+  buckets through the capacity FFN kernel, drops what overflows and
+  counts it in ``stats.dropped_assignments``: what the reference's engine
+  does under a one-device mesh. The reference's serve driver prices
+  capacity on the virtual clock but passes no rules, so its model runs the
+  dense oracle; the port's ``build_engine`` passes these rules.
 * ``device=None`` is ``cuda`` and raises without a card; pass
   ``device="cpu"`` to run the plain versions on the host.
 * Steps are eager calls, not ``jax.jit`` functions.
@@ -20,7 +26,7 @@ Differences from the reference:
   (zeroing the rest of the lane, as the reference's padded copy does), and
   decode writes each new KV row in place.
 * Routing tallies come to the host once per step.
-* Chunked prefill (``prefill_chunk > 0``) is not ported yet.
+* Chunked prefill writes each chunk into its cache lane in place.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from repro_torch.core import (ClusterVariability, ReplicatedPlacement,
 from repro_torch.device import resolve_device
 from repro_torch.models import (ShardingRules, decode_fn, init_cache,
                                 init_params, make_moe_tables, moe_perm_shape,
-                                prefill_fn, refresh_moe_share_tables)
+                                prefill_chunk_fn, prefill_fn,
+                                refresh_moe_share_tables)
 from repro_torch.models.model import block_layout
 from repro_torch.models.moe import apply_placement
 from .config import EngineConfig
@@ -107,10 +114,6 @@ class Engine:
             raise TypeError("config must be an EngineConfig, "
                             f"got {type(config).__name__}")
         self.config = config = config.resolve()
-        if config.scheduler.prefill_chunk > 0:
-            raise NotImplementedError(
-                "chunked prefill (prefill_chunk > 0) is not ported yet: it "
-                "is the next slice after the capacity path")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.rules = ShardingRules() if rules is None else rules
@@ -134,7 +137,7 @@ class Engine:
             gen.manual_seed(config.seed)
             params = init_params(cfg, gen, self.device)
         self.params = params
-        self.n_moe, self.n_slots = (moe_perm_shape(cfg)
+        self.n_moe, self.n_slots = (moe_perm_shape(cfg, self.rules, "train")
                                     if cfg.is_moe else (0, 0))
         self._perm = (np.tile(np.arange(self.n_slots, dtype=np.int32),
                               (self.n_moe, 1)) if cfg.is_moe else None)
@@ -165,13 +168,15 @@ class Engine:
             self._apply_perm(self._controller_perm(), charge=False)
         else:
             self.moe_tables = make_moe_tables(
-                cfg, perm=self._perm, n_slots=self.n_slots,
+                cfg, self.rules, perm=self._perm, n_slots=self.n_slots,
                 device=self.device) if cfg.is_moe else None
         self._prefill = prefill_fn(cfg, self.rules)
         self._decode = decode_fn(cfg, self.rules)
         self.scheduler = get_scheduler(config.scheduler.name)
         self._sched_cfg = config.scheduler
         self._chunk = config.scheduler.prefill_chunk
+        self._prefill_chunk = (prefill_chunk_fn(cfg, self.rules)
+                               if self._chunk > 0 else None)
         self.kv = PagedKVCache(config.kv)
         self._prefill_streak = 0
         dtype = self.params["embed"].dtype
@@ -248,7 +253,8 @@ class Engine:
             moved_total += moved
         self._perm = new_perm.copy()
         self._share = None if share is None else np.array(share)
-        self.moe_tables = make_moe_tables(self.cfg, perm=self._perm,
+        self.moe_tables = make_moe_tables(self.cfg, self.rules,
+                                          perm=self._perm,
                                           n_slots=self.n_slots,
                                           share=self._share,
                                           r_max=self._r_max,
@@ -505,8 +511,8 @@ class Engine:
         self.waiting.append(r)
 
     def step(self) -> bool:
-        """One engine step, as the scheduler directs: one whole-prompt
-        prefill or one batched decode. Returns False when idle."""
+        """One engine step, as the scheduler directs: one prefill chunk (or
+        whole prompt) or one batched decode. Returns False when idle."""
         self._shed_overload()
         self._maybe_preempt()
         action = self.scheduler.schedule(self._build_context())
@@ -537,7 +543,10 @@ class Engine:
                 0, self.cfg.vocab, size=(1, r.prompt_len))
             st = _Prefilling(r, lane, prompt)
             self._prefilling[req_id] = st
-        self._prefill_whole(st)
+        if self._chunk > 0:
+            self._prefill_one_chunk(st)
+        else:
+            self._prefill_whole(st)
 
     def _prefill_whole(self, st: _Prefilling) -> None:
         r = st.req
@@ -557,6 +566,36 @@ class Engine:
         self.observe_step(tall, float(r.prompt_len))
         self._finish_prefill(st)
         self.stats.prefill_steps += 1
+
+    def _prefill_one_chunk(self, st: _Prefilling) -> None:
+        """One fixed-width chunk of ``st``'s prompt into its lane."""
+        r = st.req
+        C = self._chunk
+        off = st.prefilled
+        n_valid = min(C, r.prompt_len - off)
+        buf = np.zeros((1, C), np.int64)
+        buf[0, :n_valid] = st.prompt[0, off:off + n_valid]
+        tokens = torch.as_tensor(buf, dtype=torch.int32, device=self.device)
+        logits, self.cache, tallies = self._prefill_chunk(
+            self.params, tokens, self.cache, st.lane, off, n_valid,
+            self.moe_tables)
+        st.prefilled += n_valid
+        self.kv.advance(r.req_id, n_valid)
+        self.stats.prefill_tokens += n_valid
+        # interleaved decode steps write a garbage row at pos[lane] for
+        # reserved lanes; parking pos at the next chunk offset makes the
+        # next chunk's first (always valid) row overwrite it
+        self.pos[st.lane] = st.prefilled
+        tall = tallies.cpu().numpy()                  # one host copy a step
+        if self.cfg.is_moe and tall.size:
+            self.stats.dropped_assignments += float(tall[:, -1].sum())
+        self.observe_step(tall, float(n_valid))
+        self.stats.chunk_steps += 1
+        if st.prefilled >= r.prompt_len:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            self.tokens[st.lane, 0] = nxt[0]
+            self._finish_prefill(st)
+            self.stats.prefill_steps += 1
 
     def _finish_prefill(self, st: _Prefilling) -> None:
         r = st.req

@@ -16,9 +16,13 @@ decodes another sequence: the comparison would measure rounding order.
 
 Held: identical step, token and KV counts; per-step routing tallies that
 differ in at most 1% of assignments; TTFT and TPOT per request within 1%
-relative.
+relative. Three dispatch configurations: the ragged path; the capacity
+path, which the JAX engine runs through its ``shard_map`` bodies on a
+one-device mesh with the capacity Pallas kernel (its drops must show on
+both sides, within the same 1%); and chunked prefill on the ragged path.
 """
 
+import contextlib
 import dataclasses
 import functools
 import sys
@@ -29,6 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro import compat  # noqa: E402
 from repro import core as jcore  # noqa: E402
 from repro.configs import get_smoke  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
@@ -38,6 +43,7 @@ from repro.models import init_cache as j_init_cache  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import engine as j_engine_mod  # noqa: E402
 from repro.serving import EngineConfig as JEngineConfig  # noqa: E402
+from repro.serving import SchedulerConfig as JSchedulerConfig  # noqa: E402
 from repro.serving import WORKLOADS, sample_requests  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
@@ -46,6 +52,7 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.sharding import ShardingRules  # noqa: E402
 from repro_torch.serving import Engine as TEngine  # noqa: E402
 from repro_torch.serving import EngineConfig as TEngineConfig  # noqa: E402
+from repro_torch.serving import SchedulerConfig as TSchedulerConfig  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -95,8 +102,11 @@ def _ttft_tpot(rec):
     return ttft, tpot
 
 
-@pytest.mark.parametrize("policy", ["vibe", "vibe_r"])
-def test_engine_matches_jax_engine_on_ragged_kernel(policy, monkeypatch):
+def _run_both(policy, monkeypatch, *, j_rules, t_rules, prefill_chunk=0,
+              mesh=None):
+    """Serve the same requests on both engines; returns (j_eng, t_eng,
+    j_log, t_log, j_rec, t_rec). The JAX engine is built and run inside
+    ``compat.use_mesh(mesh)`` when a mesh is given."""
     f32 = jax.numpy.float32
     monkeypatch.setattr(j_engine_mod, "init_params",
                         functools.partial(j_init_params, dtype=f32))
@@ -105,46 +115,93 @@ def test_engine_matches_jax_engine_on_ragged_kernel(policy, monkeypatch):
     cfg = get_smoke(ARCH)
     j_ctl, j_cluster = _controller(jcore, cfg, policy)
     t_ctl, t_cluster = _controller(tcore, t_get_smoke(ARCH), policy)
-    j_eng = JEngine(cfg, JEngineConfig(max_batch=MAX_BATCH, max_seq=MAX_SEQ,
-                                       seed=0),
-                    rules=JRules(mesh=None, moe_impl="ragged", moe_block_m=8,
-                                 use_kernel=True),
-                    controller=j_ctl, cluster=j_cluster)
+    j_sched = JSchedulerConfig(prefill_chunk=prefill_chunk)
+    t_sched = TSchedulerConfig(prefill_chunk=prefill_chunk)
+    with (compat.use_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        j_eng = JEngine(cfg, JEngineConfig(max_batch=MAX_BATCH,
+                                           max_seq=MAX_SEQ, seed=0,
+                                           scheduler=j_sched),
+                        rules=j_rules, controller=j_ctl, cluster=j_cluster)
+        j_log = _record_tallies(j_eng)
+        j_eng.submit(_requests())
+        j_rec = {r.req_id: r for r in j_eng.run()}
     params = params_from_numpy(jax.tree.map(
         np.asarray, j_init_params(cfg, jax.random.PRNGKey(0), dtype=f32)))
     assert j_eng.params["embed"].dtype == f32
     t_eng = TEngine(t_get_smoke(ARCH),
                     TEngineConfig(max_batch=MAX_BATCH, max_seq=MAX_SEQ,
-                                  seed=0),
-                    rules=ShardingRules(moe_block_m=8), controller=t_ctl,
-                    cluster=t_cluster, device="cpu", params=params)
+                                  seed=0, scheduler=t_sched),
+                    rules=t_rules, controller=t_ctl, cluster=t_cluster,
+                    device="cpu", params=params)
     if policy == "vibe_r":       # replica slots exist on both sides
         assert t_eng.n_slots == j_eng.n_slots > cfg.n_experts
         assert t_eng.moe_tables[0].shape[-1] > 1
-    j_log, t_log = _record_tallies(j_eng), _record_tallies(t_eng)
-    j_eng.submit(_requests())
+    t_log = _record_tallies(t_eng)
     t_eng.submit(_requests())
-    j_rec = {r.req_id: r for r in j_eng.run()}
     t_rec = {r.req_id: r for r in t_eng.run()}
+    return j_eng, t_eng, j_log, t_log, j_rec, t_rec
 
+
+def _hold_engines(policy, j_eng, t_eng, j_log, t_log, j_rec, t_rec):
     js, ts = j_eng.stats, t_eng.stats
-    for f in ("steps", "prefill_steps", "decode_steps", "prefill_tokens",
-              "decode_tokens"):
+    for f in ("steps", "prefill_steps", "chunk_steps", "decode_steps",
+              "prefill_tokens", "decode_tokens"):
         assert getattr(ts, f) == getattr(js, f), f
     assert t_eng.kv.peak_blocks == j_eng.kv.peak_blocks
     assert len(t_log) == len(j_log)
-    E = cfg.n_experts
+    E = get_smoke(ARCH).n_experts
     moved = sum(np.abs(a[:, :E] - b[:, :E]).sum() / 2
                 for a, b in zip(t_log, j_log))
     total = sum(b[:, :E].sum() for b in j_log)
     print(f"{policy}: {moved:.0f} of {total:.0f} routed assignments differ")
     assert moved <= 0.01 * total, \
         f"{moved:.0f} of {total:.0f} assignments differ (limit 1%)"
+    drops_t, drops_j = ts.dropped_assignments, js.dropped_assignments
+    assert abs(drops_t - drops_j) <= 0.01 * total, (drops_t, drops_j)
     assert set(t_rec) == set(j_rec)
     for rid, jr in j_rec.items():
         assert np.isfinite(t_rec[rid].finished_at)
         for a, b in zip(_ttft_tpot(t_rec[rid]), _ttft_tpot(jr)):
             np.testing.assert_allclose(a, b, rtol=0.01)   # within 1%
+    return ts
+
+
+@pytest.mark.parametrize("policy", ["vibe", "vibe_r"])
+def test_engine_matches_jax_engine_on_ragged_kernel(policy, monkeypatch):
+    run = _run_both(policy, monkeypatch,
+                    j_rules=JRules(mesh=None, moe_impl="ragged",
+                                   moe_block_m=8, use_kernel=True),
+                    t_rules=ShardingRules(moe_block_m=8))
+    ts = _hold_engines(policy, *run)
+    assert ts.dropped_assignments == 0
+
+
+@pytest.mark.parametrize("policy", ["vibe", "vibe_r"])
+def test_engine_capacity_matches_jax_engine_on_one_device_mesh(policy,
+                                                             monkeypatch):
+    """The capacity path: the JAX engine on a one-device mesh with the
+    capacity Pallas kernel, the port on a one-rank group."""
+    mesh = compat.make_mesh((1,), ("model",))
+    j_rules = JRules(mesh=mesh, dp=(), ep=("model",), ep_all=("model",),
+                     fsdp=None, moe_impl="capacity", use_kernel=True)
+    run = _run_both(policy, monkeypatch, j_rules=j_rules,
+                    t_rules=ShardingRules(moe_impl="capacity", ep_ranks=1),
+                    mesh=mesh)
+    j_eng, t_eng = run[0], run[1]
+    assert t_eng.moe_impl == j_eng.moe_impl == "capacity"
+    ts = _hold_engines(policy, *run)
+    assert ts.dropped_assignments > 0 and j_eng.stats.dropped_assignments > 0
+
+
+def test_engine_chunked_prefill_matches_jax_engine(monkeypatch):
+    """Chunked prefill (16-token chunks) on the ragged path."""
+    run = _run_both("vibe", monkeypatch,
+                    j_rules=JRules(mesh=None, moe_impl="ragged",
+                                   moe_block_m=8, use_kernel=True),
+                    t_rules=ShardingRules(moe_block_m=8), prefill_chunk=16)
+    ts = _hold_engines("vibe", *run)
+    assert ts.chunk_steps > ts.prefill_steps > 0
 
 
 def test_serve_driver_runs_on_cpu_and_prints_summary(monkeypatch, capsys):
@@ -156,6 +213,45 @@ def test_serve_driver_runs_on_cpu_and_prints_summary(monkeypatch, capsys):
              if ln.startswith("[serve]")]
     assert len(lines) >= 3
     assert "steps" in lines[0] and "TTFT" in lines[1] and "KV pool" in lines[2]
+
+
+@pytest.mark.parametrize("extra,expect", [
+    (["--moe-impl", "capacity"], "capacity FFN"),
+    (["--prefill-chunk", "16"], "chunk=16"),
+])
+def test_serve_driver_capacity_and_chunked_prefill_on_cpu(monkeypatch,
+                                                          capsys, extra,
+                                                          expect):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", ARCH, "--requests", "3", "--device", "cpu",
+        *extra])
+    assert tserve.main() == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[serve]")]
+    assert len(lines) >= 4 and expect in lines[0]
+    assert "dropped assignments" in lines[3]
+
+
+def test_slots_that_fit_counts_every_moe_layer():
+    """A slot holds its expert in every MoE layer: granite (32 MoE layers,
+    3 x 1536 x 512 bf16 = 4.72 MB an expert) on 8 emulated ranks."""
+    expert = 3 * 1536 * 512 * 2
+    fit = tserve.slots_that_fit
+    # 16 GB free: 0.8 * 2 GB a rank / (32 * 4.72 MB) = 10 slots, where one
+    # layer's bytes would allow 339 and clamp to E - 1 = 39
+    assert fit(16 * 10**9, 8, 40, 32, expert) == 10
+    assert fit(16 * 10**9, 8, 40, 1, expert) == 39
+    # 80 GB free: 52 fit, clamped to E - 1 = 39 (47.1 GB of experts in all)
+    assert fit(80 * 10**9, 8, 40, 32, expert) == 39
+    # too little memory: the policy default (ceil(E / ranks) = 5, plus one
+    # spare slot since 8 ranks divide 40 experts evenly)
+    assert fit(10**9, 8, 40, 32, expert) == 6
+    # the budget the card gets stays inside 80% of the free memory
+    free = 40 * 10**9
+    per_rank = fit(free, 8, 40, 32, expert)
+    assert 8 * per_rank * 32 * expert <= 0.8 * free
+    assert tserve.derive_slot_budget(8, 40, expert, "auto", device="cpu",
+                                     n_moe_layers=32).tolist() == [6] * 8
 
 
 def test_serve_refuses_unported_drills():

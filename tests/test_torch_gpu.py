@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_moe_ffn as t_ragged  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.sharding import ShardingRules  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -77,6 +78,64 @@ def test_ragged_moe_ffn_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.ragged_moe_ffn(w1.transpose(1, 2).contiguous().transpose(1, 2),
                            w3, w2, toks, tg)
+
+
+def _capacity_inputs(dev, E, C, D, F, empty_rows, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randn((E, C, D), generator=g)
+    toks[:, C - empty_rows:] = 0.0
+    w = [torch.randn(s, generator=g) / math.sqrt(s[1])
+         for s in ((E, D, F), (E, D, F), (E, F, D))]
+    return [t.to(dev, torch.bfloat16) for t in (*w, toks)]
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (40, 4, 1536, 512),     # granite's 8-lane decode buckets
+    (6, 130, 256, 192),     # C past two row blocks
+    (3, 5, 200, 136),       # C, D and F all off the tile grid
+    (2, 9, 100, 70),        # D, F not multiples of 8: scalar loads
+])
+def test_capacity_moe_ffn_kernel_matches_plain(cuda, E, C, D, F):
+    w1, w3, w2, toks = _capacity_inputs(cuda, E, C, D, F, empty_rows=2)
+    ops.reset_launch_counts()
+    y = ops.fused_moe_ffn(w1, w3, w2, toks)
+    y_ref = ref.moe_ffn_ref(w1, w3, w2, toks)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_moe_ffn"] == 1
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    assert bool((y[:, C - 2:] == 0).all())           # empty rows: exact 0
+
+
+def test_capacity_moe_ffn_kernel_refuses_what_it_does_not_take(cuda):
+    w1, w3, w2, toks = _capacity_inputs(cuda, 2, 4, 64, 64, empty_rows=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.fused_moe_ffn(w1, w3, w2, toks.float())
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.fused_moe_ffn(w1, w3, w2[:, :32].contiguous(), toks)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_moe_ffn(w1, w3, w2, toks.transpose(1, 2).contiguous()
+                          .transpose(1, 2))
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_capacity_moe_layer_on_card_matches_cpu(cuda, phase):
+    """The capacity bodies on a one-rank group — buckets, kernel, gather
+    combine — on the card against the same layer on the CPU; tallies and
+    the drop column exactly equal."""
+    g = torch.Generator().manual_seed(4)
+    E, D, F, K = 8, 256, 192, 2
+    p = tmoe.moe_init(g, d=D, f=F, n_experts=E, n_slots=E)
+    x = torch.randn((3, 50, D), generator=g).to(torch.bfloat16)
+    rules = ShardingRules(moe_impl="capacity", ep_ranks=1,
+                          capacity_factor=0.5)
+    kw = dict(top_k=K, n_experts=E, rules=rules, route_seed=5, phase=phase)
+    y_c, t_c, _ = tmoe.moe_layer(p, x, **kw)
+    y_g, t_g, _ = tmoe.moe_layer({k: v.to(cuda) for k, v in p.items()},
+                                 x.to(cuda), **kw)
+    torch.testing.assert_close(t_g.cpu(), t_c, rtol=0, atol=0)
+    torch.testing.assert_close(y_g.float().cpu(), y_c.float(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
 
 
 @pytest.mark.parametrize("T,E,K,ties", [(4096, 40, 8, False),

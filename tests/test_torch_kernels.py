@@ -15,11 +15,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.moe_ffn import fused_moe_ffn_pallas  # noqa: E402
 from repro.kernels.ragged_moe_ffn import (  # noqa: E402
     ragged_moe_ffn_pallas, ragged_tile_metadata as j_tile_metadata)
 from repro.kernels.router import router_topk_pallas  # noqa: E402
 from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels import moe_ffn as t_capacity  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_moe_ffn as t_ragged  # noqa: E402
 from repro_torch.kernels import router as t_router  # noqa: E402
@@ -141,6 +143,40 @@ def test_moe_ffn_ref_matches_jax_f32():
                                atol=F32_TOL)
 
 
+def _capacity_inputs(seed, E, C, D, F, dtype, empty_rows=0):
+    """Buckets (E, C, D) whose last ``empty_rows`` rows are zero, as the
+    dispatch leaves unused capacity rows, and the experts' weights."""
+    rng = np.random.default_rng(seed)
+    toks = rng.standard_normal((E, C, D))
+    toks[:, C - empty_rows:] = 0.0
+    arrs = [rng.standard_normal(s) / np.sqrt(s[1])
+            for s in ((E, D, F), (E, D, F), (E, F, D))] + [toks]
+    jx = [jnp.asarray(a.astype(np.float32), dtype) for a in arrs]
+    tx = [tensor_from_numpy(np.asarray(a)) for a in jx]
+    return jx, tx
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("E,C,D,F,bm,bf", [
+    (3, 13, 64, 160, 8, 128),    # C off the row block, F off the 128 block
+    (4, 20, 32, 136, 16, 128),   # both padded by the reference wrapper
+    (2, 8, 48, 256, 8, 128),     # aligned
+])
+def test_moe_ffn_ref_matches_capacity_pallas(dtype, E, C, D, F, bm, bf):
+    """``ref.moe_ffn_ref`` — the capacity kernel's plain version — against
+    ``fused_moe_ffn_pallas`` in interpret mode; unused (zero) bucket rows
+    come out exactly zero."""
+    (w1, w3, w2, toks), tx = _capacity_inputs(C + F, E, C, D, F, dtype,
+                                              empty_rows=3)
+    y_p = np.asarray(fused_moe_ffn_pallas(w1, w3, w2, toks, bm=bm, bf=bf,
+                                          interpret=True), np.float32)
+    y_t = ref.moe_ffn_ref(*tx)
+    assert y_t.dtype == tx[3].dtype and y_t.shape == tx[3].shape
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    np.testing.assert_allclose(_np(y_t), y_p, rtol=tol, atol=tol)
+    assert (_np(y_t)[:, -3:] == 0.0).all()
+
+
 # ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain versions, and only kernels count
 # ---------------------------------------------------------------------------
@@ -158,7 +194,11 @@ def test_ops_on_cpu_use_plain_versions_and_count_nothing():
     w, i = ops.router_topk(logits, 2)
     w_r, i_r = ref.router_topk_ref(logits, 2)
     assert torch.equal(i, i_r) and torch.equal(w, w_r)
-    assert ops.launch_counts() == {"ragged_moe_ffn": 0, "router_topk": 0}
+    _, cx = _capacity_inputs(5, 3, 5, 32, 40, jnp.bfloat16)
+    torch.testing.assert_close(ops.fused_moe_ffn(*cx), ref.moe_ffn_ref(*cx),
+                               rtol=0, atol=0)
+    assert ops.launch_counts() == {"fused_moe_ffn": 0, "ragged_moe_ffn": 0,
+                                   "router_topk": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -168,7 +208,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_ragged.ragged_moe_ffn(*tx, torch.from_numpy(tg))
     with pytest.raises(ValueError, match="CUDA"):
         t_router.router_topk(torch.zeros((4, 8)), 2)
-    assert ops.launch_counts() == {"ragged_moe_ffn": 0, "router_topk": 0}
+    _, cx = _capacity_inputs(6, 2, 4, 32, 64, jnp.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_capacity.fused_moe_ffn(*cx)
+    assert ops.launch_counts() == {"fused_moe_ffn": 0, "ragged_moe_ffn": 0,
+                                   "router_topk": 0}
 
 
 def test_ffn_tiles_fit_hopper_static_shared_memory():

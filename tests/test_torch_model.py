@@ -9,7 +9,9 @@ three layers of bf16 rounding the reference does not agree with itself
 elementwise to 5e-2 (its ragged Pallas kernel and its jnp ragged path
 differ by up to 0.12 on granite smoke's logits), so an elementwise bound
 would test rounding order, not the port. The JAX side runs its ragged
-dispatch with the Pallas kernel in interpret mode.
+dispatch with the Pallas kernel in interpret mode, and its capacity
+dispatch through the real ``shard_map`` bodies on a one-device mesh with
+the capacity Pallas kernel (inside ``compat.use_mesh``).
 """
 
 import jax
@@ -20,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro import compat  # noqa: E402
 from repro.configs import get_smoke  # noqa: E402
 from repro.models import flash as jflash  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
@@ -114,6 +117,89 @@ def test_prefill_then_decode_match_jax(arch, dtype):
         pos = pos + 1
     # at most one near-tie flip, of one assignment, in the four bf16 calls
     assert sum(moved) <= 1, f"assignments moved per call: {moved}"
+
+
+MESH = compat.make_mesh((1,), ("model",))
+J_CAP_RULES = JRules(mesh=MESH, dp=(), ep=("model",), ep_all=("model",),
+                     fsdp=None, moe_impl="capacity", use_kernel=True)
+T_CAP_RULES = ShardingRules(moe_impl="capacity", ep_ranks=1)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_capacity_prefill_then_decode_match_jax_one_device_mesh(dtype):
+    """Capacity rules on a one-rank group against the reference's
+    ``prefill_fn``/``decode_fn`` on a one-device mesh: the a2a body at
+    prefill, the replicated body at decode, drop column included."""
+    arch = "granite-moe-3b-a800m"
+    cfg, tcfg, jp, tp, _, _ = _setup(arch, dtype)
+    jt = jmodel.make_moe_tables(cfg, J_CAP_RULES)
+    tt = tmodel.make_moe_tables(tcfg, T_CAP_RULES)
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, cfg.vocab, size=(1, 23)).astype(np.int32)
+    B, S_max = 3, 40
+    pos = np.array([23, 5, 17], np.int32)
+    with compat.use_mesh(MESH):
+        lg_j, c_j, tal_j = jax.jit(jmodel.prefill_fn(cfg, J_CAP_RULES))(
+            jp, {"tokens": jnp.asarray(prompt)}, jt)
+        jc = jmodel.init_cache(cfg, B, S_max, J_CAP_RULES, dtype=dtype)
+        dec_j = jax.jit(jmodel.decode_fn(cfg, J_CAP_RULES))
+        steps_j = []
+        p_ = pos
+        for _ in range(3):
+            tok = rng.integers(0, cfg.vocab, size=(B, 1)).astype(np.int32)
+            out = dec_j(jp, jnp.asarray(tok), jc, jnp.asarray(p_), jt)
+            jc = out[1]
+            steps_j.append((tok, p_, out))
+            p_ = p_ + 1
+    lg_t, c_t, tal_t = tmodel.prefill_fn(tcfg, T_CAP_RULES)(
+        tp, {"tokens": torch.from_numpy(prompt)}, tt)
+    assert float(np.asarray(tal_j)[:, -1].sum()) > 0     # prefill drops
+    moved = [_check_step(dtype, lg_t, lg_j, c_t, c_j, tal_t, tal_j)]
+    tc = tmodel.init_cache(tcfg, B, S_max, dtype=tp["embed"].dtype)
+    dec_t = tmodel.decode_fn(tcfg, T_CAP_RULES)
+    for tok, p_, (lg_j, jc, tal_j) in steps_j:
+        lg_t, tc, tal_t = dec_t(tp, torch.from_numpy(tok), tc,
+                                torch.from_numpy(p_), tt)
+        moved.append(_check_step(dtype, lg_t, lg_j, tc, jc, tal_t, tal_j))
+    assert sum(moved) <= 1, f"assignments moved per call: {moved}"
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "smollm-360m"])
+def test_prefill_chunk_matches_jax_and_whole_prefill_f32(arch):
+    """Chunked prefill of a 21-token prompt in 8-token chunks into lane 1
+    of a shared cache: every chunk's cache and tallies against the
+    reference's ``prefill_chunk_fn``, the last chunk's logits against the
+    reference's and against the port's own whole-prompt prefill."""
+    dtype = jnp.float32
+    cfg, tcfg, jp, tp, jt, tt = _setup(arch, dtype)
+    prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(1, 21)).astype(np.int32)
+    B, S_max, C, lane = 3, 32, 8, 1
+    jc = jmodel.init_cache(cfg, B, S_max, dtype=dtype)
+    tc = tmodel.init_cache(tcfg, B, S_max, dtype=tp["embed"].dtype)
+    chunk_j = jax.jit(jmodel.prefill_chunk_fn(cfg, J_RULES))
+    chunk_t = tmodel.prefill_chunk_fn(tcfg, T_RULES)
+    for off in range(0, prompt.shape[1], C):
+        n_valid = min(C, prompt.shape[1] - off)
+        buf = np.zeros((1, C), np.int32)
+        buf[0, :n_valid] = prompt[0, off:off + n_valid]
+        lg_j, jc, tal_j = chunk_j(jp, jnp.asarray(buf), jc, lane, off,
+                                  n_valid, jt)
+        lg_t, tc, tal_t = chunk_t(tp, torch.from_numpy(buf), tc, lane, off,
+                                  n_valid, tt)
+        assert _check_step(dtype, lg_t, lg_j, tc, jc, tal_t, tal_j) == 0
+    lg_w, c_w, _ = tmodel.prefill_fn(tcfg, T_RULES)(
+        tp, {"tokens": torch.from_numpy(prompt)}, tt)
+    _close(lg_t, _np(lg_w), TOL[dtype])
+    for (kt, vt), (kw, vw) in zip(tc, c_w):
+        _close(kt[:, lane, :21], _np(kw[:, 0]), TOL[dtype])
+        _close(vt[:, lane, :21], _np(vw[:, 0]), TOL[dtype])
+
+
+def test_prefill_chunk_refuses_an_expert_parallel_group():
+    with pytest.raises(NotImplementedError, match="expert-parallel group"):
+        tmodel.prefill_chunk_fn(t_get_smoke("granite-moe-3b-a800m"),
+                                T_CAP_RULES)
 
 
 def _qkv(seed, B, Sq, Skv, KV, G, hd):

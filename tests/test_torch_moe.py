@@ -1,13 +1,17 @@
 """The port's MoE layer against the JAX package on identical inputs.
 
-Routing, replica choice, the sort-based plan and the tallies must be bit
-for bit the reference's (they decide placements); outputs are held to the
-tolerances of tests/test_kernels.py: 1e-4 in f32, 5e-2 in bf16. The JAX
-side runs the ragged Pallas kernel in interpret mode through
+Routing, replica choice, the sort-based plan, the bucket positions and the
+tallies (the drop column included) must be bit for bit the reference's
+(they decide placements and drops); outputs are held to the tolerances of
+tests/test_kernels.py: 1e-4 in f32, 5e-2 in bf16. The JAX side runs its
+Pallas kernels in interpret mode: the ragged one through
 ``ShardingRules(mesh=None, moe_impl="ragged", moe_block_m=8,
-use_kernel=True)``.
+use_kernel=True)``, the capacity one through the real ``shard_map`` bodies
+on a one-device mesh (``use_kernel=True``, inside ``compat.use_mesh``),
+as tests/test_capacity_overflow.py runs them.
 """
 
+import jax
 import numpy as np
 import pytest
 
@@ -15,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro import compat  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.sharding import ShardingRules as JRules  # noqa: E402
 from repro.models.sharding import build_copy_cdf, build_slots_of  # noqa: E402
@@ -149,11 +154,162 @@ def test_moe_layer_matches_jax_ragged_kernel(dtype, replicated):
     np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=F32_TOL)
 
 
-def test_moe_layer_capacity_is_not_ported():
+@pytest.mark.parametrize("with_active", [False, True])
+@pytest.mark.parametrize("n_slots", [5, 12])
+def test_bucket_positions_bit_exact(with_active, n_slots):
+    rng = np.random.default_rng(n_slots)
+    slot_flat = rng.integers(0, n_slots, size=83).astype(np.int32)
+    slot_flat[slot_flat == 3] = 0                  # one hot, one empty slot
+    active = rng.random(83) < 0.6 if with_active else None
+    p_j = np.asarray(jmoe._bucket_positions(
+        jnp.asarray(slot_flat), n_slots,
+        None if active is None else jnp.asarray(active)))
+    p_t = _np(tmoe._bucket_positions(
+        torch.from_numpy(slot_flat), n_slots,
+        None if active is None else torch.from_numpy(active)))
+    assert p_t.dtype == np.int32
+    np.testing.assert_array_equal(p_t, p_j)                    # exact
+
+
+MESH = compat.make_mesh((1,), ("model",))
+
+
+def _j_mesh_rules(impl, cf=1.25, dispatch="auto"):
+    """The reference's one-device mesh, as its EP tests build it."""
+    return JRules(mesh=MESH, dp=(), ep=("model",), ep_all=("model",),
+                  fsdp=None, moe_dispatch=dispatch, moe_impl=impl,
+                  capacity_factor=cf, moe_block_m=8, use_kernel=True)
+
+
+def _layer_inputs(dtype, replicated, skewed, E=6, d=32, f=48):
+    """Params, tokens and (optional) replica tables on both sides. A
+    skewed router sends almost every token to expert 0, so buckets
+    overflow at decode too (where the capacity factor is raised to 2)."""
+    n_slots = 10 if replicated else E
+    jp, tp = _moe_params(1, d, f, E, n_slots, dtype)
+    x = np.random.default_rng(2).standard_normal((2, 9, d)).astype(np.float32)
+    if skewed:
+        x = x + 1.0
+        router = np.asarray(jp["router"]).copy()
+        router[:, 0] += 2.0
+        jp["router"] = jnp.asarray(router)
+        tp["router"] = torch.from_numpy(router)
+    jx = jnp.asarray(x, dtype)
+    tx = tensor_from_numpy(np.asarray(jx))
+    tables_j, tables_t = {}, {}
+    if replicated:
+        _, so, nc, cdf = _replicated_tables(5, E=E, n_slots=n_slots)
+        for k, v in (("slots_of", so), ("n_copies", nc), ("copy_cdf", cdf)):
+            tables_j[k] = jnp.asarray(v)
+            tables_t[k] = torch.from_numpy(v)
+    return jp, tp, jx, tx, tables_j, tables_t
+
+
+def _j_mesh_layer(jp, jx, rules, phase, tables, K=2, E=6):
+    with compat.use_mesh(MESH):
+        return jax.jit(lambda p, x, t: jmoe.moe_layer(
+            p, x, top_k=K, n_experts=E, rules=rules, phase=phase,
+            route_seed=jnp.int32(7), **t))(jp, jx, tables)
+
+
+def _hold(y_t, tal_t, aux_t, y_j, tal_j, aux_j, dtype):
+    np.testing.assert_array_equal(_np(tal_t), np.asarray(tal_j))   # exact
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    np.testing.assert_allclose(_np(y_t), np.asarray(y_j, np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("replicated", [False, True])
+@pytest.mark.parametrize("starved", [False, True])
+def test_capacity_bodies_match_jax_one_device_mesh(dtype, phase, replicated,
+                                                   starved):
+    """The a2a (prefill) and replicated (decode) capacity bodies at one
+    rank against the reference's shard_map bodies on a one-device mesh
+    with the capacity Pallas kernel: drop column and tallies exact."""
+    cf = 0.25 if starved else 1.25
+    jp, tp, jx, tx, tj, tt = _layer_inputs(dtype, replicated, starved)
+    y_j, tal_j, aux_j = _j_mesh_layer(jp, jx, _j_mesh_rules("capacity", cf),
+                                      phase, tj)
+    rules = ShardingRules(moe_impl="capacity", ep_ranks=1,
+                          capacity_factor=cf)
+    y_t, tal_t, aux_t = tmoe.moe_layer(tp, tx, top_k=2, n_experts=6,
+                                       rules=rules, route_seed=7,
+                                       phase=phase, **tt)
+    _hold(y_t, tal_t, aux_t, y_j, tal_j, aux_j, dtype)
+    if starved:
+        assert float(tal_t[-1]) > 0               # the buckets overflow
+    assert float(tal_t[:-1].sum()) == 2 * 9 * 2   # pre-capacity counts
+
+
+@pytest.mark.parametrize("dispatch,phase", [
+    ("replicated", "prefill"), ("a2a", "decode"), ("dense", "prefill")])
+def test_capacity_dispatch_override_matches_jax(dispatch, phase):
+    """``moe_dispatch`` overrides the phase's body as the reference's does
+    (``"dense"`` on a group: the oracle)."""
+    dtype = jnp.float32
+    jp, tp, jx, tx, tj, tt = _layer_inputs(dtype, True, True)
+    y_j, tal_j, aux_j = _j_mesh_layer(
+        jp, jx, _j_mesh_rules("capacity", dispatch=dispatch), phase, tj)
+    rules = ShardingRules(moe_impl="capacity", ep_ranks=1,
+                          moe_dispatch=dispatch)
+    y_t, tal_t, aux_t = tmoe.moe_layer(tp, tx, top_k=2, n_experts=6,
+                                       rules=rules, route_seed=7,
+                                       phase=phase, **tt)
+    _hold(y_t, tal_t, aux_t, y_j, tal_j, aux_j, dtype)
+    assert (float(tal_t[-1]) > 0) == (dispatch != "dense")
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("replicated", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_dense_oracle_matches_jax_rules_none(dtype, replicated, masked):
+    """Capacity without a group is the dense oracle: the reference's
+    ``rules=None``, padding mask included."""
+    jp, tp, jx, tx, tj, tt = _layer_inputs(dtype, replicated, False)
+    rv = np.arange(18) % 7 != 3 if masked else None
+    y_j, tal_j, aux_j = jmoe.moe_layer(
+        jp, jx, top_k=2, n_experts=6, rules=None, route_seed=jnp.int32(7),
+        row_valid=None if rv is None else jnp.asarray(rv), **tj)
+    y_t, tal_t, aux_t = tmoe.moe_layer(
+        tp, tx, top_k=2, n_experts=6,
+        rules=ShardingRules(moe_impl="capacity"), route_seed=7,
+        row_valid=None if rv is None else torch.from_numpy(rv), **tt)
+    _hold(y_t, tal_t, aux_t, y_j, tal_j, aux_j, dtype)
+    assert float(tal_t[-1]) == 0.0
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("replicated", [False, True])
+def test_one_rank_ragged_matches_jax_ragged_bodies(phase, replicated):
+    """Ragged on a one-rank group: the reference's ragged a2a (prefill)
+    and replicated (decode) bodies on a one-device mesh compute what the
+    port's single-device ragged dispatch does."""
+    dtype = jnp.float32
+    jp, tp, jx, tx, tj, tt = _layer_inputs(dtype, replicated, True)
+    y_j, tal_j, aux_j = _j_mesh_layer(jp, jx, _j_mesh_rules("ragged"), phase,
+                                      tj)
+    rules = ShardingRules(moe_block_m=8, ep_ranks=1)
+    y_t, tal_t, aux_t = tmoe.moe_layer(tp, tx, top_k=2, n_experts=6,
+                                       rules=rules, route_seed=7,
+                                       phase=phase, **tt)
+    _hold(y_t, tal_t, aux_t, y_j, tal_j, aux_j, dtype)
+    assert float(tal_t[-1]) == 0.0
+
+
+def test_group_refuses_row_valid_and_more_than_one_rank():
     _, tp = _moe_params(0, 16, 16, 4, 4, jnp.float32)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tmoe.moe_layer(tp, torch.zeros((1, 3, 16)), top_k=2, n_experts=4,
-                       rules=ShardingRules(moe_impl="capacity"))
+    x = torch.zeros((1, 3, 16))
+    rules = ShardingRules(moe_impl="capacity", ep_ranks=1)
+    with pytest.raises(NotImplementedError, match="row_valid"):
+        tmoe.moe_layer(tp, x, top_k=2, n_experts=4, rules=rules,
+                       phase="prefill", row_valid=torch.ones(3, dtype=bool))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        ShardingRules(moe_impl="capacity", ep_ranks=2)
+    with pytest.raises(ValueError, match="moe_dispatch"):
+        ShardingRules(moe_dispatch="ring")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
