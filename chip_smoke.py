@@ -10,11 +10,19 @@ Run from the repository root on a machine with one NVIDIA H100. It
    ``nvcc`` per source, started together) and times the build;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes — the ragged grouped FFN for a 512-token prefill plan and
-   an 8-lane decode plan (Zipf-skewed routing, some experts empty); the
-   capacity FFN for the 512-token prefill buckets (40, 128, 1536), the
-   8-lane decode buckets (40, 4, 1536) and an off-grid shape, empty bucket
-   rows exactly zero; the router at T=4096 and at the paths' T=512 and T=8
-   (E=40, K=8) — and times kernel, plain version and bound;
+   an 8-lane decode plan (Zipf-skewed routing, some experts empty), with
+   the plan's row offsets and sizes (each tile's real rows) and row hint
+   as the path passes them,
+   padding and sentinel rows exactly zero; the capacity FFN for the
+   512-token prefill buckets (40, 128, 1536), the 8-lane decode buckets
+   (40, 4, 1536), an off-grid shape and a shape only the general (WMMA)
+   route takes, empty bucket rows exactly zero; the router at T=4096 and
+   at the paths' T=512 and T=8 (E=40, K=8) — and times each: the kernel's
+   call (single-call CUDA events, ``ms``), the same with the card held so
+   that the host issues ahead of it (``device_ms``), the host's time to
+   issue one call (``host_us``), the FFNs' general (WMMA) route on the
+   same inputs, the plain version and the bound, printing each FFN
+   kernel's route and share of its bound;
 4. runs one full-width granite MoE layer through the ragged dispatch and
    through the capacity bodies, each with the kernel and with the plain
    version, and the capacity layer at capacity factor 8 against the
@@ -23,19 +31,20 @@ Run from the repository root on a machine with one NVIDIA H100. It
    config (32 layers, full widths, seeded random weights) through the
    port's serve construction under ``vibe`` (the ragged path), checks that
    every request finishes, the logits are finite, and the ragged FFN and
-   the router launched exactly 32 times per model call;
+   the router launched exactly 32 times per model call, every FFN launch
+   on the TMA route (the per-route counter equal to the total);
 6. admits a second batch into the same engine and traces 16 decode steps
-   with ``torch.profiler``: the device's busy and idle share of a step and
-   its largest kernels;
+   with ``torch.profiler``: the device's busy and idle share of a step,
+   its largest kernels and the FFN kernels' device time a launch;
 7. path (A): serves the same 8 requests with ``moe_impl="capacity"``
    (capacity buckets on a one-rank expert-parallel group), the capacity
-   FFN and the router launched 32 times per model call, the ragged FFN
-   never; prints the drops;
+   FFN (all on the TMA route) and the router launched 32 times per model
+   call, the ragged FFN never; prints the drops;
 8. path (B): serves 4 requests (outputs capped at 64 tokens) with chunked
-   prefill in 128-token chunks on the ragged path, the ragged FFN and the
-   router launched 32 times per chunk and decode call, the capacity FFN
-   never; prints the largest |logit difference| between a chunked and a
-   whole prefill of one 512-token prompt.
+   prefill in 128-token chunks on the ragged path, the ragged FFN (all on
+   the TMA route) and the router launched 32 times per chunk and decode
+   call, the capacity FFN never; prints the largest |logit difference|
+   between a chunked and a whole prefill of one 512-token prompt.
 
 Each path's counts are set to 0 just before it is served and read just
 after. Every check raises, so any failure exits non-zero. The last three
@@ -89,6 +98,56 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in evs)
 
 
+def held_times(fn, reps: int, warmup: int = 2):
+    """``(device_ms, host_us)`` of ``fn``: the median of ``reps``
+    single-call CUDA-event times taken while a ~50 ms spin kernel holds the
+    card, so that each event pair spans the card's work only, not the
+    host's time to issue the call (which ``median_ms`` includes whenever
+    the host is the slower of the two); and the host's time to issue one
+    call (wrapper and launches), measured on the host clock over ``reps``
+    calls issued while the card is held. Fails if the host had not issued
+    every call before the spin ended."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for timed in (True, False):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(100_000_000)
+        b.record()
+        evs = []
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if timed:
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn()
+                e.record()
+                evs.append((s, e))
+            else:
+                fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        check(issue_ms < a.elapsed_time(b), "held timing: the host took "
+              f"{issue_ms:.2f} ms to issue {reps} calls, longer than the "
+              f"card was held ({a.elapsed_time(b):.2f} ms)")
+        out.append(statistics.median(s.elapsed_time(e) for s, e in evs)
+                   if timed else issue_ms * 1e3 / reps)
+    return out[0], out[1]
+
+
+def timings(fn, reps: int = 25) -> dict:
+    """``ms`` (:func:`median_ms`), ``device_ms`` and ``host_us``
+    (:func:`held_times`) of ``fn``."""
+    device_ms, host_us = held_times(fn, reps)
+    return {"ms": median_ms(fn, reps), "device_ms": device_ms,
+            "host_us": host_us}
+
+
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
     t_b, t_o = n_bytes / HBM_BPS * 1e3, n_ops / peak_ops * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -103,16 +162,21 @@ def zipf_slots(gen, n: int, n_slots: int, empty):
 
 
 def ragged_case(name, tokens, cfg, gen, cgen, dev):
-    """A dispatch plan at the slice's shapes → kernel vs plain version."""
+    """A dispatch plan at the slice's shapes → kernel vs plain version,
+    with the plan's row offsets and sizes (each tile's real rows) and its
+    row hint, as the path passes them."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ragged_moe_ffn as t_ragged
     from repro_torch.models.moe import _ragged_plan
     from repro_torch.models.sharding import ShardingRules
     E, D, F, K = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
     bm = ShardingRules().moe_block_m
     A = tokens * K
     slot_flat = zipf_slots(gen, A, E, empty=(5, 17, 33)).to(dev)
-    order, rows, tile_group, n_rows = _ragged_plan(slot_flat, E, bm)
+    order, rows, tile_group, n_rows, row_off, sizes = _ragged_plan(
+        slot_flat, E, bm)
+    tile_rows = t_ragged.ragged_tile_rows(row_off, sizes, tile_group, bm)
     x = torch.randn((tokens, D), generator=cgen,
                     device=dev).to(torch.bfloat16)
     buf = x.new_zeros((n_rows + 1, D))
@@ -120,16 +184,27 @@ def ragged_case(name, tokens, cfg, gen, cgen, dev):
     buf = buf[:n_rows]
     w = [(torch.randn(s, generator=cgen, device=dev) / math.sqrt(s[1])).to(
         torch.bfloat16) for s in ((E, D, F), (E, D, F), (E, F, D))]
-    y = ops.ragged_moe_ffn(w[0], w[1], w[2], buf, tile_group)
+
+    def kernel(route=None):
+        return t_ragged.ragged_moe_ffn(w[0], w[1], w[2], buf, tile_group,
+                                       row_offsets=row_off, sizes=sizes,
+                                       max_rows=tokens, route=route)
+
+    y = ops.ragged_moe_ffn(w[0], w[1], w[2], buf, tile_group,
+                           row_offsets=row_off, sizes=sizes, max_rows=tokens)
     y_ref = ref.ragged_moe_ffn_ref(w[0], w[1], w[2], buf, tile_group)
     torch.cuda.synchronize()
+    route = t_ragged.ragged_moe_ffn.last_route
+    check(route.startswith("tma"), f"{name}: took the {route} route")
     err = (y.float() - y_ref.float()).abs().max().item()
-    sentinel = (tile_group >= E).repeat_interleave(bm)
+    real = (torch.arange(n_rows, device=dev) % bm
+            < tile_rows.repeat_interleave(bm))
     check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
     check(err <= BF16_TOL, f"{name}: max |kernel - plain| {err} > {BF16_TOL}")
-    check(bool((y[sentinel] == 0).all()), f"{name}: sentinel rows not zero")
-    ms = median_ms(lambda: ops.ragged_moe_ffn(w[0], w[1], w[2], buf,
-                                              tile_group), reps=25)
+    check(bool((y[~real] == 0).all()),
+          f"{name}: padding or sentinel rows not zero")
+    res = timings(kernel)
+    general = timings(lambda: kernel("general"))
     plain_ms = median_ms(lambda: ref.ragged_moe_ffn_ref(w[0], w[1], w[2], buf,
                                                         tile_group), reps=5)
     occupied = tile_group < E
@@ -140,17 +215,35 @@ def ragged_case(name, tokens, cfg, gen, cgen, dev):
     bound_ms, by = bound(n_bytes, 2 * 3 * D * F * A, BF16_FLOPS)
     print(f"[kernel] ragged_moe_ffn {name}: tokens={tokens} A={A} "
           f"T={n_rows} tiles={tile_group.numel()} occupied={int(occupied.sum())}"
-          f" experts={n_exp}: max_abs_err={err:.3e} (tol {BF16_TOL}), "
-          f"sentinel rows exactly 0, kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+          f" experts={n_exp} largest real rows a tile="
+          f"{int(tile_rows.max())}: route {route}, max_abs_err={err:.3e} "
+          f"(tol {BF16_TOL}), padding and sentinel rows exactly 0; "
+          f"{ffn_times(res, general, plain_ms, bound_ms, by, n_bytes)}",
+          flush=True)
+    return {"max_abs_err": err, **res, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "route": route,
+            "general_ms": general["ms"],
+            "general_device_ms": general["device_ms"]}
 
 
-def capacity_case(name, E, C, D, F, cgen, dev, empty_rows):
+def ffn_times(res, general, plain_ms, bound_ms, by, n_bytes) -> str:
+    """One FFN case's times, each with its share of the bound."""
+    return (f"kernel {res['ms']:.4f} ms ({100 * bound_ms / res['ms']:.1f}% "
+            f"of bound), {res['device_ms']:.4f} ms with the host ahead "
+            f"({100 * bound_ms / res['device_ms']:.1f}%), host "
+            f"{res['host_us']:.1f} us a call; general route "
+            f"{general['ms']:.4f} ms ({general['device_ms']:.4f} with the "
+            f"host ahead, host {general['host_us']:.1f} us a call); plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({by}, "
+            f"{n_bytes / 1e6:.1f} MB)")
+
+
+def capacity_case(name, E, C, D, F, cgen, dev, empty_rows, want="tma"):
     """Capacity buckets (E, C, D), the last ``empty_rows`` rows of each
-    bucket zero as the dispatch leaves them → kernel vs plain version."""
+    bucket zero as the dispatch leaves them → kernel vs plain version, on
+    the route ``want``."""
     import torch
+    from repro_torch.kernels import moe_ffn as t_capacity
     from repro_torch.kernels import ops, ref
     toks = torch.randn((E, C, D), generator=cgen, device=dev)
     toks[:, C - empty_rows:] = 0.0
@@ -160,14 +253,17 @@ def capacity_case(name, E, C, D, F, cgen, dev, empty_rows):
     y = ops.fused_moe_ffn(w[0], w[1], w[2], toks)
     y_ref = ref.moe_ffn_ref(w[0], w[1], w[2], toks)
     torch.cuda.synchronize()
+    route = t_capacity.fused_moe_ffn.last_route
+    check(route.startswith(want), f"{name}: took the {route} route")
     err = (y.float() - y_ref.float()).abs().max().item()
     check(tuple(y.shape) == (E, C, D) and bool(torch.isfinite(y).all()),
           f"{name}: output shape or finiteness")
     check(err <= BF16_TOL, f"{name}: max |kernel - plain| {err} > {BF16_TOL}")
     check(bool((y[:, C - empty_rows:] == 0).all()),
           f"{name}: empty bucket rows not exactly zero")
-    ms = median_ms(lambda: ops.fused_moe_ffn(w[0], w[1], w[2], toks),
-                   reps=25)
+    res = timings(lambda: t_capacity.fused_moe_ffn(w[0], w[1], w[2], toks))
+    general = timings(lambda: t_capacity.fused_moe_ffn(w[0], w[1], w[2], toks,
+                                                       route="general"))
     plain_ms = median_ms(lambda: ref.moe_ffn_ref(w[0], w[1], w[2], toks),
                          reps=5)
     # every bucket is computed, occupied or not: all E experts' weights,
@@ -175,12 +271,14 @@ def capacity_case(name, E, C, D, F, cgen, dev, empty_rows):
     n_bytes = E * 3 * D * F * 2 + 2 * E * C * D * 2
     bound_ms, by = bound(n_bytes, 2 * 3 * E * C * D * F, BF16_FLOPS)
     print(f"[kernel] fused_moe_ffn {name}: (E, C, D, F)=({E}, {C}, {D}, {F})"
-          f", {empty_rows} empty rows a bucket: max_abs_err={err:.3e} (tol "
-          f"{BF16_TOL}), empty rows exactly 0, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
-          f"{n_bytes / 1e6:.1f} MB)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+          f", {empty_rows} empty rows a bucket: route {route}, max_abs_err="
+          f"{err:.3e} (tol {BF16_TOL}), empty rows exactly 0; "
+          f"{ffn_times(res, general, plain_ms, bound_ms, by, n_bytes)}",
+          flush=True)
+    return {"max_abs_err": err, **res, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "route": route,
+            "general_ms": general["ms"],
+            "general_device_ms": general["device_ms"]}
 
 
 def router_case(cgen, dev, T, E=40, K=8):
@@ -193,16 +291,17 @@ def router_case(cgen, dev, T, E=40, K=8):
     check(bool(torch.equal(idx, idx_ref)), "router: indices differ")
     err = (w - w_ref).abs().max().item()
     check(err <= ROUTER_W_TOL, f"router: weights differ by {err}")
-    ms = median_ms(lambda: ops.router_topk(logits, K), reps=50)
+    res = timings(lambda: ops.router_topk(logits, K), reps=50)
     plain_ms = median_ms(lambda: ref.router_topk_ref(logits, K), reps=10)
     n_bytes = T * E * 4 + T * K * 8
     # softmax ~5 ops/element, each of the K sweeps ~6 ops/element
     bound_ms, by = bound(n_bytes, T * E * (5 + 6 * K), F32_FLOPS)
     print(f"[kernel] router_topk T={T} E={E} K={K}: indices exactly equal, "
           f"max_abs_err(weights)={err:.3e} (tol {ROUTER_W_TOL}), kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+          f"{res['ms']:.4f} ms ({res['device_ms']:.4f} ms with the host "
+          f"ahead, host {res['host_us']:.1f} us a call), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+    return {"max_abs_err": err, **res, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by}
 
 
@@ -369,8 +468,10 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
           f"{label}: non-finite logits")
     ffn = ("fused_moe_ffn" if build_kw.get("moe_impl") == "capacity"
            else "ragged_moe_ffn")
+    # every FFN launch of the path on the TMA route: <ffn>.tma == <ffn>
     for name, n in counts.items():
-        want = cfg.n_layers * calls if name in (ffn, "router_topk") else 0
+        want = (cfg.n_layers * calls
+                if name in (ffn, f"{ffn}.tma", "router_topk") else 0)
         check(n == want, f"{label}: {name} launched {n} times, expected "
               f"{want} ({cfg.n_layers} x {calls} model calls)")
     s = summarize(records)
@@ -386,8 +487,9 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
           f"{s['ttft_p90']:.4f} s, TPOT p50 = {s['tpot_p50']:.5f} s; "
           f"recalibrations {st.migrations} (migrated slots "
           f"{st.migrated_slots})")
-    print(f"[{label}] launches: {json.dumps(counts)}, {ffn} and router = "
-          f"{cfg.n_layers} x {calls} model calls; max_memory_allocated "
+    print(f"[{label}] launches: {json.dumps(counts)}, {ffn} (all on the "
+          f"TMA route) and router = {cfg.n_layers} x {calls} model calls; "
+          f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return engine, counts
 
@@ -466,11 +568,23 @@ def trace_decode(engine, n_steps: int = 16) -> None:
           f"{launches / n_steps:.0f} device kernels and copies per step")
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     # the port's own kernels, wherever they rank
-    top += [e for e in dev_events if e not in top and any(
-        k in e.key for k in ("gate_up_kernel", "down_kernel", "router_topk"))]
+    ours = ("ffn_tma_kernel", "gate_up_kernel", "down_kernel", "router_topk")
+    top += [e for e in dev_events
+            if e not in top and any(k in e.key for k in ours)]
     for e in top:
         print(f"[trace]   {e.self_device_time_total / 1e3 / n_steps:8.3f} "
               f"ms/step  {e.count / n_steps:6.1f} x/step  {e.key[:90]}")
+    # the FFN kernels: device time a launch, by name (ffn_tma_kernel<op,
+    # rows, swap, capacity>: op 0 is gate/up, 1 is down)
+    ffn_ms = 0.0
+    for e in dev_events:
+        if any(k in e.key for k in ours[:3]):
+            ffn_ms += e.self_device_time_total / 1e3
+            print(f"[trace]   FFN {e.key[:70]}: "
+                  f"{e.self_device_time_total / e.count:.1f} us a launch, "
+                  f"{e.count / n_steps:.1f} launches a step")
+    print(f"[trace]   FFN kernels: {ffn_ms / n_steps:.3f} ms/step of "
+          f"{busy_ms / n_steps:.2f} ms/step device busy")
 
 
 def _leaves(tree):
@@ -512,12 +626,16 @@ def main() -> int:
     cgen = torch.Generator(device=dev)                 # tensors on the card
     cgen.manual_seed(0)
     prefill = ragged_case("prefill-512", 512, cfg, gen, cgen, dev)
-    ragged_case("decode-8", 8, cfg, gen, cgen, dev)
+    decode = ragged_case("decode-8", 8, cfg, gen, cgen, dev)
     D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     cap_prefill = capacity_case("prefill-512", E, 128, D, F, cgen, dev,
                                 empty_rows=16)
-    capacity_case("decode-8", E, 4, D, F, cgen, dev, empty_rows=1)
+    cap_decode = capacity_case("decode-8", E, 4, D, F, cgen, dev,
+                               empty_rows=1)
     capacity_case("off-grid", 3, 5, 200, 136, cgen, dev, empty_rows=2)
+    # D, F not multiples of 8: no TMA descriptor, the general route
+    capacity_case("general", 2, 9, 100, 70, cgen, dev, empty_rows=2,
+                  want="general")
     t0 = time.perf_counter()
     router_case(cgen, dev, T=4096)
     print(f"[build] router (Triton) compiled and checked in "
@@ -539,11 +657,24 @@ def main() -> int:
     chunk_vs_whole(engine)
     del engine
 
+    def ffn_entry(prefill_res, decode_res):
+        """The prefill shape's numbers under the contract's keys, the
+        decode shape's beside them, each with its share of its bound by
+        ``ms`` and by ``device_ms``."""
+        def shares(r):
+            return {k: v for k, v in r.items() if k != "route"} | {
+                "bound_share": r["bound_ms"] / r["ms"],
+                "device_bound_share": r["bound_ms"] / r["device_ms"]}
+        return shares(prefill_res) | {
+            "decode": shares(decode_res),
+            "kernel_route": {"prefill": prefill_res["route"],
+                             "decode": decode_res["route"]}}
+
     kernels = [
         {"name": "ragged_moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:101",
-         "launches": counts["ragged_moe_ffn"], **prefill,
+         "launches": counts["ragged_moe_ffn"], **ffn_entry(prefill, decode),
          "library_ms": None},
         {"name": "router_topk", "route": "triton",
          "source": "src/repro_torch/kernels/router.py",
@@ -552,8 +683,8 @@ def main() -> int:
         {"name": "fused_moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
          "replaces": "src/repro/kernels/moe_ffn.py:57",
-         "launches": counts_a["fused_moe_ffn"], **cap_prefill,
-         "library_ms": None},
+         "launches": counts_a["fused_moe_ffn"],
+         **ffn_entry(cap_prefill, cap_decode), "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,8 @@
-// Block-level pieces of the grouped SwiGLU expert FFN kernels for Hopper
-// (sm_90a), shared by ragged_moe_ffn.cu and moe_ffn.cu. bf16 in and out,
+// Block-level pieces of the general route of the grouped SwiGLU expert FFN
+// kernels (sm_90a), shared by ragged_moe_ffn.cu and moe_ffn.cu: the route
+// for shapes a TMA descriptor cannot describe (D or F not a multiple of 8,
+// an operand not 16-byte aligned); moe_ffn_hopper.cuh holds the TMA route
+// that every other shape takes. bf16 in and out,
 // f32 accumulation, h rounded to bf16 before the down projection, as the
 // Pallas kernels do.
 //

@@ -17,22 +17,25 @@
 // (about 20 us at 989 TFLOP/s), so it too sits below the memory bound; a
 // decode step reads the weights of up to 40 experts for a few rows each.
 //
-// Design (a first, simple kernel; wgmma, TMA and a persistent schedule are
-// later work). The block bodies live in moe_ffn_blocks.cuh, shared with the
-// capacity kernel (moe_ffn.cu):
-//   kernel A (gate/up): grid (T / RB, ceil(F / BN)). A block reads its own
-//     tile_group entry and returns at once on a sentinel. Otherwise it
-//     computes an RB x BN block of h = silu(x W1[g]) * (x W3[g]) into the
-//     scratch buffer h (T, F) the wrapper allocates.
-//   kernel B (down): grid (T / RB, ceil(D / BN)). y = h W2[g] the same way;
-//     sentinel blocks write zeros.
-// Each block of RB rows lies inside one bm tile (the wrapper checks
-// bm % RB == 0), so it reads one expert's weights, and every one of its
-// rows is a buffer row (padding rows are zero, and SwiGLU(0) = 0).
+// Two routes, both two launches (gate/up into a bf16 scratch h (T, F), then
+// down), chosen by the wrapper from shapes and pointers:
+//   ragged_moe_ffn_tma_bf16 (moe_ffn_hopper.cuh): a TMA ring and wgmma, for
+//     D and F multiples of 8 and 16-byte aligned pointers. It also takes
+//     the plan's row_offsets and sizes (null: every tile full), from which
+//     each CTA works out its tile's real rows, and computes only those
+//     rows, rounded up to its row block: rows = 8 or 16
+//     (few rows, A and B swapped, one CTA per tile and 64 columns) or 64 or
+//     128 (one CTA per row block of a tile). The down launch writes the
+//     uncomputed rows of a tile, and whole sentinel tiles, as exact zeros
+//     with 16-byte stores, so the combine's clamp of inactive assignments to
+//     the buffer's last row still reads a zero.
+//   ragged_moe_ffn_bf16 (moe_ffn_blocks.cuh): the general route, WMMA over
+//     64-row blocks with masked edges, for every other shape.
 // Launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError().
 
 #include "moe_ffn_blocks.cuh"
+#include "moe_ffn_hopper.cuh"
 
 using namespace moe_ffn_blocks;
 
@@ -116,6 +119,90 @@ int ragged_moe_ffn_bf16(const void* toks, const void* tile_group,
       static_cast<const __nv_bfloat16*>(w2),
       static_cast<__nv_bfloat16*>(out), D, F, E, bm, vec_ok);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+namespace {
+
+namespace H = moe_ffn_hopper;
+
+template <int ROWS, bool SWAP>
+cudaError_t ragged_tma(const void* toks, const int* tile_group,
+                       const int* row_off, const int* sizes, const void* w1,
+                       const void* w3, const void* w2, __nv_bfloat16* h,
+                       __nv_bfloat16* out,
+                       int T, int D, int F, int E, int bm, cudaStream_t s) {
+  CUtensorMap xm, hm, w1m, w3m, w2m;
+  const uint64_t xd[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(T)};
+  const uint64_t hd[2] = {static_cast<uint64_t>(F), static_cast<uint64_t>(T)};
+  if (!H::encode_map(&xm, toks, 2, xd, ROWS) ||
+      !H::encode_map(&hm, h, 2, hd, ROWS) ||
+      !H::weight_map(&w1m, w1, E, D, F) || !H::weight_map(&w3m, w3, E, D, F) ||
+      !H::weight_map(&w2m, w2, E, F, D)) {
+    return cudaErrorInvalidValue;
+  }
+  const int row_blocks = SWAP ? T / bm : T / ROWS;
+  const H::Args a{tile_group, row_off, sizes, h, F, D, E, bm, 0};
+  cudaError_t err = H::launch<H::GATE_UP, ROWS, SWAP, false>(
+      dim3((F + H::BN - 1) / H::BN, row_blocks), xm, w1m, w3m, a, s);
+  if (err != cudaSuccess) return err;
+  const H::Args b{tile_group, row_off, sizes, out, D, F, E, bm, 0};
+  return H::launch<H::DOWN, ROWS, SWAP, false>(
+      dim3((D + H::BN - 1) / H::BN, row_blocks), hm, w2m, w2m, b, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The TMA route. As ragged_moe_ffn_bf16, plus row_offsets (E + 1) and
+// sizes (E) int32, where each expert's segment starts in toks and how many
+// of its rows are real (both null: every tile full), and the row block
+// `rows`: 8 or 16 (few rows: at most that many real rows a tile is the
+// common case, more are computed in further chunks) or 64 or 128 (bm a
+// multiple of it). D and F must be multiples of 8 and every pointer 16-byte
+// aligned.
+int ragged_moe_ffn_tma_bf16(const void* toks, const void* tile_group,
+                            const void* row_offsets, const void* sizes,
+                            const void* w1, const void* w3, const void* w2,
+                            void* h, void* out, int T, int D, int F, int E,
+                            int bm, int rows, void* stream) {
+  if (T <= 0 || D <= 0 || F <= 0 || E <= 0 || bm <= 0 || bm % 64 != 0 ||
+      T % bm != 0 || D % 8 != 0 || F % 8 != 0 || !aligned16(toks) ||
+      !aligned16(w1) || !aligned16(w3) || !aligned16(w2) || !aligned16(h) ||
+      !aligned16(out) || (rows == 128 && bm % 128 != 0) ||
+      (row_offsets == nullptr) != (sizes == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int* tg = static_cast<const int*>(tile_group);
+  const int* ro = static_cast<const int*>(row_offsets);
+  const int* sz = static_cast<const int*>(sizes);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (rows) {
+    case 8:
+      err = ragged_tma<8, true>(toks, tg, ro, sz, w1, w3, w2, hb, ob, T, D, F,
+                                E, bm, s);
+      break;
+    case 16:
+      err = ragged_tma<16, true>(toks, tg, ro, sz, w1, w3, w2, hb, ob, T, D,
+                                 F, E, bm, s);
+      break;
+    case 64:
+      err = ragged_tma<64, false>(toks, tg, ro, sz, w1, w3, w2, hb, ob, T, D,
+                                  F, E, bm, s);
+      break;
+    case 128:
+      err = ragged_tma<128, false>(toks, tg, ro, sz, w1, w3, w2, hb, ob, T,
+                                   D, F, E, bm, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -6,9 +6,12 @@ raises. Nothing here catches a kernel failure to fall back to the plain
 version. Each kernel wrapper keeps a plain integer launch count
 (``launch_counts``), which only a kernel launch raises.
 
-``FFN_TILES`` states the CUDA FFN kernels' tiles, chosen for Hopper
-shared memory in place of the v5e VMEM budget the TPU wrapper sized for
-(``pick_blocks`` in ``src/repro/kernels/ops.py:24-41``).
+``FFN_TILES`` states the tiles of the CUDA FFN kernels' general route,
+chosen for Hopper shared memory in place of the v5e VMEM budget the TPU
+wrapper sized for (``pick_blocks`` in ``src/repro/kernels/ops.py:24-41``).
+The TMA route's tiles and shared-memory plan live in
+``csrc/moe_ffn_hopper.cuh`` alone (``Cfg``), which asserts at compile time
+that each variant fits a block and two fit an SM.
 """
 
 from __future__ import annotations
@@ -23,15 +26,12 @@ from . import router as _router
 __all__ = ["fused_moe_ffn", "ragged_moe_ffn", "router_topk", "FFN_TILES",
            "launch_counts", "reset_launch_counts"]
 
-#: Tiles of both FFN kernels, ``csrc/moe_ffn_blocks.cuh`` (RB, BN, BK): RB
-#: rows x BN columns per block, BK-deep reduction steps, the same for every
-#: (C, D, F) since the kernels mask their edges (the capacity kernel's grid
-#: is (ceil(C / RB), ceil(F / BN), E), then (ceil(C / RB), ceil(D / BN), E)). Shared memory per block: the x tile
+#: (RB, BN, BK) of both FFN kernels' general route
+#: (``csrc/moe_ffn_blocks.cuh``, WMMA): RB rows x BN columns per block,
+#: BK-deep reduction steps. Static shared memory per block: the x tile
 #: RB x (BK + 8) bf16, two weight tiles BK x (BN + 8) bf16 and the f32
 #: epilogue tile RB x (BN + 4): 31.7 KB, inside the 48 KB a block may take
-#: statically, so several blocks share one SM's 227 KB and the 132 SMs stay
-#: busy at decode's few occupied tiles. 8 warps each own a 16 x 32 output
-#: slice (two 16x16x16 bf16 WMMA accumulators per product).
+#: statically.
 FFN_TILES = (_ragged.ROW_BLOCK, 64, 32)
 
 
@@ -45,14 +45,22 @@ def fused_moe_ffn(w1, w3, w2, toks):
     raise ValueError(f"fused_moe_ffn: no kernel for device {toks.device}")
 
 
-def ragged_moe_ffn(w1, w3, w2, toks, tile_group):
+def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
+                   sizes=None, max_rows=None):
     """Ragged grouped SwiGLU FFN over a flat group-sorted (T, D) buffer
-    and per-tile expert ids; the row tile is ``T // len(tile_group)``."""
+    and per-tile expert ids; the row tile is ``T // len(tile_group)``.
+    ``row_offsets`` and ``sizes`` (the layout's segment starts and the
+    plan's real rows per expert) let the kernel skip padding rows;
+    ``max_rows`` (the most a tile is expected to hold) picks its row block
+    and is never trusted. The plain version needs none of them: padding
+    rows are zero."""
     kind = toks.device.type
     if kind == "cpu":
         return ref.ragged_moe_ffn_ref(w1, w3, w2, toks, tile_group)
     if kind == "cuda":
-        return _ragged.ragged_moe_ffn(w1, w3, w2, toks, tile_group)
+        return _ragged.ragged_moe_ffn(w1, w3, w2, toks, tile_group,
+                                      row_offsets=row_offsets, sizes=sizes,
+                                      max_rows=max_rows)
     raise ValueError(f"ragged_moe_ffn: no kernel for device {toks.device}")
 
 
@@ -67,13 +75,17 @@ def router_topk(logits, top_k: int):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last reset, by kernel name."""
+    """Kernel launches since the last reset, by kernel name; ``<name>.tma``
+    counts those of an FFN kernel's launches that took the TMA route."""
     return {"fused_moe_ffn": _capacity.fused_moe_ffn.launches,
+            "fused_moe_ffn.tma": _capacity.fused_moe_ffn.tma_launches,
             "ragged_moe_ffn": _ragged.ragged_moe_ffn.launches,
+            "ragged_moe_ffn.tma": _ragged.ragged_moe_ffn.tma_launches,
             "router_topk": _router.router_topk.launches}
 
 
 def reset_launch_counts() -> None:
-    _capacity.fused_moe_ffn.launches = 0
-    _ragged.ragged_moe_ffn.launches = 0
+    for fn in (_capacity.fused_moe_ffn, _ragged.ragged_moe_ffn):
+        fn.launches = 0
+        fn.tma_launches = 0
     _router.router_topk.launches = 0

@@ -15,8 +15,17 @@ with tensor ops only (cumsum + searchsorted, int32 throughout), so the plan
 never synchronises the host: sizes are data-dependent *values* inside
 static worst-case shapes.
 
+The kernel also takes the layout's ``row_offsets`` and the plan's
+``sizes``, from which each CTA works out the real rows of its tile
+(:func:`ragged_tile_rows` is the plain version of that rule), so it computes
+only those rows; the plan needs no extra tensor op for it.
+
 On a CUDA tensor :func:`ragged_moe_ffn` launches the kernel or raises; the
 CPU path lives in :mod:`.ops`, which sends CPU tensors to the plain version.
+Two routes, picked from shapes and pointers, never by catching a failure:
+the TMA route (a TMA ring and ``wgmma``, ``csrc/moe_ffn_hopper.cuh``) for D
+and F multiples of 8 and 16-byte aligned operands, the general route (WMMA,
+``csrc/moe_ffn_blocks.cuh``) for every other shape.
 """
 
 from __future__ import annotations
@@ -27,12 +36,13 @@ import torch
 
 from . import build
 
-__all__ = ["ragged_tile_metadata", "ragged_n_tiles", "ragged_moe_ffn",
+__all__ = ["ragged_tile_metadata", "ragged_tile_rows", "ragged_n_tiles",
+           "ragged_moe_ffn", "tma_rows", "tma_ok", "check_operands",
            "ROW_BLOCK"]
 
-#: Rows per thread block of the CUDA kernels (``RB`` in the source). The
-#: plan's row tile ``bm`` must be a multiple of it, so that every block
-#: belongs to exactly one expert.
+#: Rows per thread block of the general route (``RB`` in
+#: ``moe_ffn_blocks.cuh``). The plan's row tile ``bm`` must be a multiple of
+#: it, so that every block belongs to exactly one expert.
 ROW_BLOCK = 64
 
 
@@ -64,45 +74,122 @@ def ragged_tile_metadata(sizes: torch.Tensor, bm: int, n_tiles: int):
     return row_offsets, tile_group.to(torch.int32)
 
 
+def ragged_tile_rows(row_offsets: torch.Tensor, sizes: torch.Tensor,
+                     tile_group: torch.Tensor, bm: int) -> torch.Tensor:
+    """Real rows of each tile (n_tiles,) int32, 0 on sentinels: tile ``i``
+    of group ``g`` holds buffer rows ``[i bm, (i + 1) bm)``, of which those
+    below ``row_offsets[g] + sizes[g]`` are real. The TMA route's CTAs
+    compute the same from the two tensors; this plain version is for
+    checks, not for the path."""
+    G = sizes.shape[0]
+    ends = torch.cat([row_offsets[:-1] + sizes.to(torch.int32),
+                      row_offsets.new_zeros((1,))])
+    starts = torch.arange(tile_group.shape[0], dtype=torch.int32,
+                          device=tile_group.device) * bm
+    return torch.clamp(ends[tile_group.clamp(max=G).long()] - starts, 0,
+                       bm).to(torch.int32)
+
+
+def tma_rows(max_rows, bm: int) -> int:
+    """Row block of the TMA route: 8 or 16 where at most that many rows a
+    tile are expected (A and B swapped, one CTA per tile), else one CTA
+    per 128 (or, for a bm not a multiple of 128, 64) rows. ``max_rows`` is
+    a hint only: a tile with more real rows is still computed whole."""
+    if max_rows is not None and max_rows <= 8:
+        return 8
+    if max_rows is not None and max_rows <= 16:
+        return 16
+    return 128 if bm % 128 == 0 else 64
+
+
+def tma_ok(*tensors) -> bool:
+    """Whether a TMA descriptor describes every operand: the rows of each
+    (its last dimension) a multiple of 16 bytes and its base 16-byte
+    aligned."""
+    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+def check_operands(kernel: str, tensors: dict) -> None:
+    """Raise unless every tensor of ``tensors`` (name → tensor) is a
+    contiguous bfloat16 tensor, all on one CUDA device."""
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{kernel}: {name} is not on a CUDA device")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}; the CUDA "
+                            "kernel takes bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+    devs = {t.get_device() for t in tensors.values()}
+    if len(devs) != 1:
+        raise ValueError(f"{kernel}: tensors on several devices {devs}")
+
+
+def pick_route(kernel: str, route, tensors) -> bool:
+    """Whether to take the TMA route: ``route`` None picks it when
+    :func:`tma_ok`; "general" forces the general route, to time the two
+    routes on the same inputs."""
+    if route is None:
+        return tma_ok(*tensors)
+    if route == "general":
+        return False
+    raise ValueError(f"{kernel}: route {route!r} is neither None nor "
+                     "'general'")
+
+
 def _lib():
     lib = build.load("ragged_moe_ffn")
-    fn = lib.ragged_moe_ffn_bf16
-    if fn.argtypes is None:
+    if lib.ragged_moe_ffn_bf16.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
+        lib.ragged_moe_ffn_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                            i, p]
+        lib.ragged_moe_ffn_tma_bf16.argtypes = [p, p, p, p, p, p, p, p, p,
+                                                i, i, i, i, i, i, p]
+        lib.ragged_moe_ffn_bf16.restype = ctypes.c_int
+        lib.ragged_moe_ffn_tma_bf16.restype = ctypes.c_int
     return lib
 
 
-def ragged_moe_ffn(w1, w3, w2, toks, tile_group):
+def _check_index(name, t, n, dev):
+    if t.dtype != torch.int32 or not t.is_cuda or not t.is_contiguous() \
+            or t.shape != (n,) or t.device != dev:
+        raise TypeError(f"ragged_moe_ffn: {name} must be a contiguous "
+                        f"({n},) int32 tensor on {dev}")
+
+
+def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
+                   sizes=None, max_rows=None, route=None):
     """Launch the CUDA grouped SwiGLU FFN. toks (T, D) bf16 group-sorted,
     tile_group (T // bm,) int32, w1/w3 (E, D, F), w2 (E, F, D) bf16 →
     (T, D) bf16.
 
+    ``row_offsets`` (E + 1,) and ``sizes`` (E,) int32, the layout's and
+    the plan's, give each tile's real rows (:func:`ragged_tile_rows`); the
+    TMA route computes only those (None: every tile full). ``max_rows`` is
+    the most real rows a tile is expected to hold, a hint that picks the
+    TMA route's row block (:func:`tma_rows`) and is never trusted.
+    ``route="general"`` (:func:`pick_route`) forces the general route, to
+    time the routes apart; the path leaves it None.
+
     Two launches on the current stream: gate/up into a bf16 scratch
     ``h (T, F)``, then the down projection. Checks device, dtype, shape
     and contiguity and raises on what the kernel does not take; raises if
-    the launch is refused. Adds one to ``ragged_moe_ffn.launches``.
+    the launch is refused. Adds one to ``ragged_moe_ffn.launches`` and, on
+    the TMA route, to ``ragged_moe_ffn.tma_launches``.
     """
-    tensors = {"w1": w1, "w3": w3, "w2": w2, "toks": toks}
-    for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"ragged_moe_ffn: {name} is not on a CUDA device")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"ragged_moe_ffn: {name} is {t.dtype}; the CUDA "
-                            "kernel takes bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"ragged_moe_ffn: {name} is not contiguous")
-    if tile_group.dtype != torch.int32 or not tile_group.is_cuda \
-            or not tile_group.is_contiguous():
-        raise TypeError("ragged_moe_ffn: tile_group must be a contiguous "
-                        "int32 CUDA tensor")
-    devs = {t.device for t in tensors.values()} | {tile_group.device}
-    if len(devs) != 1:
-        raise ValueError(f"ragged_moe_ffn: tensors on several devices {devs}")
+    check_operands("ragged_moe_ffn",
+                   {"w1": w1, "w3": w3, "w2": w2, "toks": toks})
     T, D = toks.shape
     E, D1, F = w1.shape
     n_tiles = tile_group.shape[0]
+    _check_index("tile_group", tile_group, n_tiles, toks.device)
+    if (row_offsets is None) != (sizes is None):
+        raise ValueError("ragged_moe_ffn: give row_offsets and sizes "
+                         "together")
+    if sizes is not None:
+        _check_index("row_offsets", row_offsets, E + 1, toks.device)
+        _check_index("sizes", sizes, E, toks.device)
     if w3.shape != (E, D, F) or w2.shape != (E, F, D) or D1 != D:
         raise ValueError(f"ragged_moe_ffn: weight shapes {tuple(w1.shape)}, "
                          f"{tuple(w3.shape)}, {tuple(w2.shape)} do not fit "
@@ -114,18 +201,33 @@ def ragged_moe_ffn(w1, w3, w2, toks, tile_group):
     if bm % ROW_BLOCK:
         raise ValueError(f"ragged_moe_ffn: row tile bm={bm} must be a "
                          f"multiple of {ROW_BLOCK} on CUDA")
+    tma = pick_route("ragged_moe_ffn", route, (w1, w3, w2, toks))
     out = torch.empty_like(toks)
     h = torch.empty((T, F), dtype=toks.dtype, device=toks.device)
     stream = torch.cuda.current_stream(toks.device).cuda_stream
-    err = _lib().ragged_moe_ffn_bf16(
-        toks.data_ptr(), tile_group.data_ptr(), w1.data_ptr(),
-        w3.data_ptr(), w2.data_ptr(), h.data_ptr(), out.data_ptr(),
-        T, D, F, E, bm, stream)
+    lib = _lib()
+    if tma:
+        rows = tma_rows(max_rows, bm)
+        err = lib.ragged_moe_ffn_tma_bf16(
+            toks.data_ptr(), tile_group.data_ptr(),
+            None if sizes is None else row_offsets.data_ptr(),
+            None if sizes is None else sizes.data_ptr(),
+            w1.data_ptr(), w3.data_ptr(), w2.data_ptr(), h.data_ptr(),
+            out.data_ptr(), T, D, F, E, bm, rows, stream)
+    else:
+        err = lib.ragged_moe_ffn_bf16(
+            toks.data_ptr(), tile_group.data_ptr(), w1.data_ptr(),
+            w3.data_ptr(), w2.data_ptr(), h.data_ptr(), out.data_ptr(),
+            T, D, F, E, bm, stream)
     if err != 0:
         raise RuntimeError(f"ragged_moe_ffn: CUDA launch failed with "
                            f"cudaError {err}")
     ragged_moe_ffn.launches += 1
+    ragged_moe_ffn.tma_launches += tma
+    ragged_moe_ffn.last_route = f"tma rows={rows}" if tma else "general"
     return out
 
 
 ragged_moe_ffn.launches = 0
+ragged_moe_ffn.tma_launches = 0
+ragged_moe_ffn.last_route = None

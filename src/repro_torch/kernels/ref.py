@@ -32,13 +32,16 @@ def moe_ffn_ref(w1, w3, w2, toks):
     return _swiglu_ffn(toks, w1, w3, w2).to(toks.dtype)
 
 
-def ragged_moe_ffn_ref(w1, w3, w2, toks, tile_group):
+def ragged_moe_ffn_ref(w1, w3, w2, toks, tile_group, row_offsets=None,
+                       sizes=None, max_rows=None):
     """Ragged grouped SwiGLU FFN. toks (T, D) → (T, D).
 
     ``toks`` is the group-sorted flat buffer (each expert's segment padded
     to a multiple of the row tile ``bm = T // len(tile_group)``);
     ``tile_group`` holds the owning expert per (bm, D) tile, sentinel ``E``
     for unoccupied tiles, whose rows come out exactly zero.
+    ``row_offsets``, ``sizes`` and ``max_rows`` are the kernel's hints and
+    are ignored: padding rows are zero, and SwiGLU(0) = 0.
     """
     T, D = toks.shape
     n_tiles = tile_group.shape[0]

@@ -195,9 +195,11 @@ def _combine(y_rows: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
 def _ragged_plan(slot_flat: torch.Tensor, n_slots: int, bm: int,
                  active: Optional[torch.Tensor] = None):
     """Sort-based dropless dispatch plan. Returns ``(order, rows,
-    tile_group, n_rows)``: assignment index in slot-sorted order, buffer
-    row per sorted assignment (``n_rows`` for inactive ones), owning slot
-    per tile (sentinel ``n_slots``), and the static buffer row count."""
+    tile_group, n_rows, row_off, sizes)``: assignment index in slot-sorted
+    order, buffer row per sorted assignment (``n_rows`` for inactive ones),
+    owning slot per tile (sentinel ``n_slots``), the static buffer row
+    count, and where each slot's segment starts and how many of its rows
+    are real (from which the kernel works out each tile's real rows)."""
     A = slot_flat.shape[0]
     order, sorted_key, starts, pos_sorted = _sort_by_slot(
         slot_flat, n_slots, active)
@@ -209,7 +211,7 @@ def _ragged_plan(slot_flat: torch.Tensor, n_slots: int, bm: int,
         sorted_key < n_slots,
         row_off[torch.clamp(sorted_key, max=n_slots - 1).long()] + pos_sorted,
         torch.full_like(sorted_key, n_rows))
-    return order, rows, tile_group, n_rows
+    return order, rows, tile_group, n_rows, row_off, sizes
 
 
 def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
@@ -224,13 +226,15 @@ def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
     """
     t, D = xf.shape
     K = slots.shape[1]
-    order, rows, tile_group, n_rows = _ragged_plan(
+    order, rows, tile_group, n_rows, row_off, sizes = _ragged_plan(
         slots.reshape(-1), n_groups, bm,
         None if active is None else active.reshape(-1))
     rows = rows.long()
     buf = xf.new_zeros((n_rows + 1, D))
     buf[rows] = xf[torch.div(order, K, rounding_mode="floor")]
-    y_buf = ffn(w1, w3, w2, buf[:n_rows], tile_group)
+    # a token's K slots are distinct, so no tile holds more than t rows
+    y_buf = ffn(w1, w3, w2, buf[:n_rows], tile_group, row_offsets=row_off,
+                sizes=sizes, max_rows=t)
     row_of = torch.empty_like(rows)
     row_of[order] = torch.clamp(rows, max=n_rows - 1)
     w = weights.float()

@@ -7,6 +7,10 @@ nor the reference package, so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
+The FFN kernels have two routes: the TMA route (TMA ring and wgmma) for D
+and F multiples of 8, the general route (WMMA) otherwise; the cases below
+name the route they take and check it on the per-route counters.
+
 Tolerances: bf16 outputs within 5e-2 (tests/test_kernels.py's bf16
 tolerance; kernel and plain version round the f32 accumulators at the same
 points but sum in another order), router indices exactly equal and weights
@@ -19,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import moe_ffn as t_capacity  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_moe_ffn as t_ragged  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
@@ -36,7 +41,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ragged_inputs(dev, sizes, D, F, bm, seed=0):
+def _ragged_inputs(dev, sizes, D, F, bm, seed=0, with_rows=False):
     g = torch.Generator().manual_seed(seed)
     E = len(sizes)
     sizes_t = torch.tensor(sizes, dtype=torch.int32)
@@ -48,13 +53,31 @@ def _ragged_inputs(dev, sizes, D, F, bm, seed=0):
     w = [torch.randn(s, generator=g) / math.sqrt(s[1])
          for s in ((E, D, F), (E, D, F), (E, F, D))]
     bf = [t.to(dev, torch.bfloat16) for t in (*w, toks)]
+    if with_rows:
+        # the layout's row offsets, the sizes, and each tile's real rows
+        tr = t_ragged.ragged_tile_rows(ro, sizes_t, tg, bm)
+        return bf, tg.to(dev), (ro.to(dev), sizes_t.to(dev), tr.to(dev))
     return bf, tg.to(dev)
 
 
+def _routed_sizes(tokens, E, K, seed):
+    """Per-expert row counts of ``tokens`` tokens, each routed to K
+    distinct experts drawn Zipf-skewed, as the router does."""
+    g = torch.Generator().manual_seed(seed)
+    p = 1.0 / torch.arange(1, E + 1, dtype=torch.float64) ** 1.2
+    picks = torch.stack([torch.multinomial(p, K, generator=g)
+                         for _ in range(tokens)])
+    return torch.bincount(picks.reshape(-1), minlength=E).tolist()
+
+
+def _tma_expected(D, F):
+    return D % 8 == 0 and F % 8 == 0
+
+
 @pytest.mark.parametrize("sizes,D,F,bm", [
-    ([70, 0, 130, 3], 128, 192, 64),      # aligned, one empty expert
-    ([5, 300, 0, 0, 9], 160, 130, 128),   # F edge inside a column block
-    ([33, 1, 64], 200, 100, 64),          # D, F not multiples of 8: scalar
+    ([70, 0, 130, 3], 128, 192, 64),      # aligned, one empty expert: TMA
+    ([5, 300, 0, 0, 9], 160, 130, 128),   # F not a multiple of 8: general
+    ([33, 1, 64], 200, 100, 64),          # D, F not multiples of 8: general
 ])
 def test_ragged_moe_ffn_kernel_matches_plain(cuda, sizes, D, F, bm):
     (w1, w3, w2, toks), tg = _ragged_inputs(cuda, sizes, D, F, bm)
@@ -63,10 +86,81 @@ def test_ragged_moe_ffn_kernel_matches_plain(cuda, sizes, D, F, bm):
     y_ref = ref.ragged_moe_ffn_ref(w1, w3, w2, toks, tg)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ragged_moe_ffn"] == 1
+    assert ops.launch_counts()["ragged_moe_ffn.tma"] == int(
+        _tma_expected(D, F))
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=BF16_TOL,
                                atol=BF16_TOL)
     sentinel = (tg >= len(sizes)).repeat_interleave(bm)
     assert sentinel.any() and bool((y[sentinel] == 0).all())
+
+
+@pytest.mark.parametrize("case,tokens,max_rows,bm,give_rows,rows", [
+    ("decode-8", 8, 8, 128, True, 8),        # granite's 8-lane decode
+    ("decode-16", 16, 16, 128, True, 16),
+    ("prefill-512", 512, 512, 128, True, 128),
+    ("hint-exceeded", 64, 8, 128, True, 8),  # tiles hold up to 64 rows
+    ("no-tile-rows", 8, 8, 128, False, 8),   # every tile taken as full
+    ("bm-64", 200, None, 64, True, 64),
+    ("off-grid-decode", 8, 8, 128, True, 8),       # D=160, F=136
+    ("off-grid-prefill", 300, None, 128, True, 128),
+])
+def test_ragged_moe_ffn_tma_route(cuda, case, tokens, max_rows, bm,
+                                  give_rows, rows):
+    """The TMA route at granite's widths (E 40, K 8, D 1536, F 512; the
+    off-grid cases D 160 and F 136, whose last column block is partial)
+    against the plain version: padding and sentinel rows exactly zero,
+    two calls bitwise equal, the hint ``max_rows`` never trusted."""
+    E, K = 40, 8
+    D, F = (160, 136) if case.startswith("off-grid") else (1536, 512)
+    sizes = _routed_sizes(tokens, E, K, seed=tokens)
+    if case == "hint-exceeded":
+        assert max(sizes) > max_rows
+    (w1, w3, w2, toks), tg, (ro, sz, tr) = _ragged_inputs(
+        cuda, sizes, D, F, bm, with_rows=True)
+    kw = dict(row_offsets=ro if give_rows else None,
+              sizes=sz if give_rows else None, max_rows=max_rows)
+    ops.reset_launch_counts()
+    y = ops.ragged_moe_ffn(w1, w3, w2, toks, tg, **kw)
+    y2 = ops.ragged_moe_ffn(w1, w3, w2, toks, tg, **kw)
+    y_ref = ref.ragged_moe_ffn_ref(w1, w3, w2, toks, tg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ragged_moe_ffn"] == counts["ragged_moe_ffn.tma"] == 2
+    assert t_ragged.ragged_moe_ffn.last_route == f"tma rows={rows}"
+    assert torch.equal(y, y2)                                 # bit-stable
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    # every row that is no real row (padding and sentinel tiles): exact 0
+    pos = torch.arange(toks.shape[0], device=cuda) % bm
+    real = pos < tr.repeat_interleave(bm)
+    assert (~real).any() and bool((y[~real] == 0).all())
+
+
+@pytest.mark.parametrize("kind", ["ragged", "capacity"])
+def test_ffn_routes_agree_on_the_same_inputs(cuda, kind):
+    """``route="general"`` forces the general route: on granite's decode
+    shapes it and the TMA route the wrapper picks agree within the bf16
+    tolerance, each counted on its own."""
+    E, D, F = 40, 1536, 512
+    if kind == "ragged":
+        (w1, w3, w2, toks), tg = _ragged_inputs(
+            cuda, _routed_sizes(8, E, 8, seed=8), D, F, 128)
+        fn = t_ragged.ragged_moe_ffn
+        args = (w1, w3, w2, toks, tg)
+    else:
+        fn = t_capacity.fused_moe_ffn
+        args = tuple(_capacity_inputs(cuda, E, 4, D, F, empty_rows=1))
+    ops.reset_launch_counts()
+    y_tma = fn(*args)
+    assert fn.last_route.startswith("tma")
+    y_gen = fn(*args, route="general")
+    torch.cuda.synchronize()
+    assert fn.last_route == "general"
+    assert fn.launches == 2 and fn.tma_launches == 1
+    torch.testing.assert_close(y_tma.float(), y_gen.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    with pytest.raises(ValueError, match="route"):
+        fn(*args, route="tma")
 
 
 def test_ragged_moe_ffn_kernel_refuses_what_it_does_not_take(cuda):
@@ -90,10 +184,10 @@ def _capacity_inputs(dev, E, C, D, F, empty_rows, seed=0):
 
 
 @pytest.mark.parametrize("E,C,D,F", [
-    (40, 4, 1536, 512),     # granite's 8-lane decode buckets
-    (6, 130, 256, 192),     # C past two row blocks
-    (3, 5, 200, 136),       # C, D and F all off the tile grid
-    (2, 9, 100, 70),        # D, F not multiples of 8: scalar loads
+    (40, 4, 1536, 512),     # granite's 8-lane decode buckets: TMA, 8 rows
+    (6, 130, 256, 192),     # C past one 128-row block: TMA
+    (3, 5, 200, 136),       # C, D and F all off the tile grid: TMA
+    (2, 9, 100, 70),        # D, F not multiples of 8: general
 ])
 def test_capacity_moe_ffn_kernel_matches_plain(cuda, E, C, D, F):
     w1, w3, w2, toks = _capacity_inputs(cuda, E, C, D, F, empty_rows=2)
@@ -102,9 +196,36 @@ def test_capacity_moe_ffn_kernel_matches_plain(cuda, E, C, D, F):
     y_ref = ref.moe_ffn_ref(w1, w3, w2, toks)
     torch.cuda.synchronize()
     assert ops.launch_counts()["fused_moe_ffn"] == 1
+    assert ops.launch_counts()["fused_moe_ffn.tma"] == int(
+        _tma_expected(D, F))
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=BF16_TOL,
                                atol=BF16_TOL)
     assert bool((y[:, C - 2:] == 0).all())           # empty rows: exact 0
+
+
+@pytest.mark.parametrize("E,C,D,F,empty,rows", [
+    (40, 4, 1536, 512, 1, 8),       # granite's 8-lane decode buckets
+    (40, 13, 1536, 512, 3, 16),
+    (40, 128, 1536, 512, 16, 128),  # granite's 512-token prefill buckets
+    (5, 40, 256, 192, 7, 64),
+    (4, 300, 256, 264, 5, 128),     # three row blocks, F off the 64 grid
+])
+def test_capacity_moe_ffn_tma_route(cuda, E, C, D, F, empty, rows):
+    """The TMA route against the plain version: empty bucket rows exactly
+    zero, nothing written past C, two calls bitwise equal."""
+    w1, w3, w2, toks = _capacity_inputs(cuda, E, C, D, F, empty_rows=empty)
+    ops.reset_launch_counts()
+    y = ops.fused_moe_ffn(w1, w3, w2, toks)
+    y2 = ops.fused_moe_ffn(w1, w3, w2, toks)
+    y_ref = ref.moe_ffn_ref(w1, w3, w2, toks)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["fused_moe_ffn"] == counts["fused_moe_ffn.tma"] == 2
+    assert t_capacity.fused_moe_ffn.last_route == f"tma rows={rows}"
+    assert torch.equal(y, y2)
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    assert bool((y[:, C - empty:] == 0).all())
 
 
 def test_capacity_moe_ffn_kernel_refuses_what_it_does_not_take(cuda):

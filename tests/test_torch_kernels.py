@@ -70,23 +70,42 @@ def test_router_topk_ref_matches_pallas_and_lax(T, E, K, ties):
 # ragged layout
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("part", ["layout", "tile_rows"])
 @pytest.mark.parametrize("sizes,bm", [
     ([0, 5, 0, 17, 3], 4),          # empty groups in the middle
     ([0, 0, 0], 8),                 # nothing routed: all sentinel
     ([8, 8, 16, 1], 8),             # exact multiples and a remainder
     ([33, 0, 2, 0, 0, 7, 1], 16),   # skewed, empty tail groups
 ])
-def test_ragged_tile_metadata_matches_jax(sizes, bm):
+def test_ragged_tile_metadata_matches_jax(sizes, bm, part):
     sizes = np.asarray(sizes, np.int32)
-    n_tiles = t_ragged.ragged_n_tiles(int(sizes.sum()), len(sizes), bm) + 2
-    ro_j, tg_j = j_tile_metadata(jnp.asarray(sizes), bm, n_tiles)
+    G = len(sizes)
+    n_tiles = t_ragged.ragged_n_tiles(int(sizes.sum()), G, bm) + 2
+    ro_j, tg_j = map(np.asarray, j_tile_metadata(jnp.asarray(sizes), bm,
+                                                 n_tiles))
     ro_t, tg_t = t_ragged.ragged_tile_metadata(torch.from_numpy(sizes), bm,
                                                n_tiles)
-    assert ro_t.dtype == torch.int32 and tg_t.dtype == torch.int32
-    # exactly equal, sentinel tiles (id G) included
-    np.testing.assert_array_equal(_np(ro_t), np.asarray(ro_j))
-    np.testing.assert_array_equal(_np(tg_t), np.asarray(tg_j))
-    assert (_np(tg_t)[-2:] == len(sizes)).all()
+    assert ro_t.dtype == tg_t.dtype == torch.int32
+    if part == "layout":
+        # exactly equal, sentinel tiles (id G) included
+        np.testing.assert_array_equal(_np(ro_t), ro_j)
+        np.testing.assert_array_equal(_np(tg_t), tg_j)
+        assert (_np(tg_t)[-2:] == G).all()
+    else:
+        # the real rows of each tile, as the TMA route's CTAs work them out
+        # from row_offsets and sizes, against those worked out from the JAX
+        # layout: tile i of group g holds rows [i bm, (i + 1) bm) of the
+        # buffer, of which those below the end of g's sizes[g] rows are real
+        tr_t = t_ragged.ragged_tile_rows(ro_t, torch.from_numpy(sizes), tg_t,
+                                         bm)
+        assert tr_t.dtype == torch.int32
+        want = np.zeros(n_tiles, np.int32)
+        for i, g in enumerate(tg_j):
+            if g < G:
+                end = ro_j[g] + sizes[g]
+                want[i] = np.clip(end - i * bm, 0, bm)
+        np.testing.assert_array_equal(_np(tr_t), want)
+        assert want.sum() == sizes.sum()
 
 
 def _ragged_inputs(seed, sizes, D, F, bm, dtype):
@@ -197,8 +216,30 @@ def test_ops_on_cpu_use_plain_versions_and_count_nothing():
     _, cx = _capacity_inputs(5, 3, 5, 32, 40, jnp.bfloat16)
     torch.testing.assert_close(ops.fused_moe_ffn(*cx), ref.moe_ffn_ref(*cx),
                                rtol=0, atol=0)
-    assert ops.launch_counts() == {"fused_moe_ffn": 0, "ragged_moe_ffn": 0,
-                                   "router_topk": 0}
+    assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
+
+
+_COUNTERS = ("fused_moe_ffn", "fused_moe_ffn.tma", "ragged_moe_ffn",
+             "ragged_moe_ffn.tma", "router_topk")
+
+
+@pytest.mark.parametrize("max_rows", [None, 1, 8, 16, 500])
+def test_ops_ragged_hints_do_not_change_the_cpu_result(max_rows):
+    """``row_offsets``/``sizes`` (each tile's real rows) and ``max_rows``
+    are hints for the kernel; the result is the same with and without
+    them, whatever the hint says (1 is below the real rows of every
+    occupied tile here)."""
+    ops.reset_launch_counts()
+    sizes = torch.tensor([4, 0, 9, 13], dtype=torch.int32)
+    (_, _, _, _), tx, tg = _ragged_inputs(7, sizes.tolist(), 32, 64, 8,
+                                          jnp.bfloat16)
+    ro_t, tg_t = t_ragged.ragged_tile_metadata(sizes, 8, tg.shape[0])
+    assert np.array_equal(_np(tg_t), tg)
+    y = ops.ragged_moe_ffn(*tx, tg_t)
+    y_h = ops.ragged_moe_ffn(*tx, tg_t, row_offsets=ro_t, sizes=sizes,
+                             max_rows=max_rows)
+    torch.testing.assert_close(y_h, y, rtol=0, atol=0)
+    assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -211,15 +252,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     _, cx = _capacity_inputs(6, 2, 4, 32, 64, jnp.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         t_capacity.fused_moe_ffn(*cx)
-    assert ops.launch_counts() == {"fused_moe_ffn": 0, "ragged_moe_ffn": 0,
-                                   "router_topk": 0}
+    assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
 
 
 def test_ffn_tiles_fit_hopper_static_shared_memory():
+    """The general route's static tiles fit the 48 KB a block may take
+    statically; the TMA route's row blocks are those the wrappers pick.
+    (The TMA route's dynamic shared memory is planned in
+    ``csrc/moe_ffn_hopper.cuh`` alone, which asserts at compile time that
+    each variant fits a block's 232,448 B and two fit an SM.)"""
     rb, bn, bk = ops.FFN_TILES
     smem = rb * (bk + 8) * 2 + 2 * bk * (bn + 8) * 2 + rb * (bn + 4) * 4
     assert smem <= 48 * 1024
     assert rb == t_ragged.ROW_BLOCK and rb % 16 == 0 and bn % 16 == 0
+    assert [t_ragged.tma_rows(m, 128) for m in (None, 1, 8, 9, 16, 17)] == \
+        [128, 8, 8, 16, 16, 128]
+    assert t_ragged.tma_rows(None, 64) == 64
+    assert [t_capacity.tma_rows(c) for c in (4, 8, 9, 16, 40, 64, 128)] == \
+        [8, 8, 16, 16, 64, 64, 128]
 
 
 def test_resolve_device_defaults_to_cuda_and_never_falls_back():

@@ -24,6 +24,7 @@ from repro.models import moe as jmoe  # noqa: E402
 from repro.models.sharding import ShardingRules as JRules  # noqa: E402
 from repro.models.sharding import build_copy_cdf, build_slots_of  # noqa: E402
 from repro_torch.bridge import tensor_from_numpy  # noqa: E402
+from repro_torch.kernels import ragged_moe_ffn as t_ragged  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.sharding import ShardingRules  # noqa: E402
 
@@ -112,6 +113,14 @@ def test_sort_and_ragged_plan_bit_exact(with_active, n_slots, bm):
     for a, b in zip(pt[:3], pj[:3]):
         np.testing.assert_array_equal(_np(a), np.asarray(b))   # exact
     assert pt[3] == pj[3]
+    # the real rows of each tile, as the kernel works them out from the
+    # plan's row offsets and sizes: the active assignments the JAX plan
+    # puts into that tile's rows
+    rows_j = np.asarray(pj[1])
+    want = np.bincount(rows_j[rows_j < pj[3]] // bm,
+                       minlength=pt[2].shape[0])
+    tile_rows = t_ragged.ragged_tile_rows(pt[4], pt[5], pt[2], bm)
+    np.testing.assert_array_equal(_np(tile_rows), want)
 
 
 def _moe_params(seed, d, f, E, n_slots, dtype):
