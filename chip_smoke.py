@@ -16,13 +16,20 @@ Run from the repository root on a machine with one NVIDIA H100. It
    padding and sentinel rows exactly zero; the capacity FFN for the
    512-token prefill buckets (40, 128, 1536), the 8-lane decode buckets
    (40, 4, 1536), an off-grid shape and a shape only the general (WMMA)
-   route takes, empty bucket rows exactly zero; the router at T=4096 and
-   at the paths' T=512 and T=8 (E=40, K=8) — and times each: the kernel's
-   call (single-call CUDA events, ``ms``), the same with the card held so
-   that the host issues ahead of it (``device_ms``), the host's time to
-   issue one call (``host_us``), the FFNs' general (WMMA) route on the
-   same inputs, the plain version and the bound, printing each FFN
-   kernel's route and share of its bound;
+   route takes, empty bucket rows exactly zero; the fused routing stage
+   (router product, softmax, top-k, replica choice, tally, mean
+   probabilities, aux loss in one launch) at the paths' T=8, 128 (a chunk,
+   rows masked) and 512 and at T=4096, with the served tables (one slot an
+   expert) and with three-copy replica tables, indices, slots and tally
+   exactly equal outside near-tie rows (counted), two calls bit-identical;
+   the logits-in router (the TPU kernel's function) at T=8, 512 and 4096
+   (E=40, K=8) — and times each: the kernel's call (single-call CUDA
+   events, ``ms``), the same with the card held so that the host issues
+   ahead of it (``device_ms``), the host's time to issue one call
+   (``host_us``), the FFNs' general (WMMA) route on the same inputs, the
+   unfused routing stage (f32 product, Triton router, eager ops)
+   and the Triton router on the same inputs, the plain version and the
+   bound, printing each FFN kernel's route and share of its bound;
 4. runs one full-width granite MoE layer through the ragged dispatch and
    through the capacity bodies, each with the kernel and with the plain
    version, and the capacity layer at capacity factor 8 against the
@@ -31,19 +38,21 @@ Run from the repository root on a machine with one NVIDIA H100. It
    config (32 layers, full widths, seeded random weights) through the
    port's serve construction under ``vibe`` (the ragged path), checks that
    every request finishes, the logits are finite, and the ragged FFN and
-   the router launched exactly 32 times per model call, every FFN launch
-   on the TMA route (the per-route counter equal to the total);
+   the fused routing stage launched exactly 32 times per model call (the
+   logits-in router never), every FFN launch on the TMA route (the
+   per-route counter equal to the total);
 6. admits a second batch into the same engine and traces 16 decode steps
    with ``torch.profiler``: the device's busy and idle share of a step,
-   its largest kernels and the FFN kernels' device time a launch;
+   its device operations, its largest kernels with the operation that
+   launched each, and the FFN and routing kernels' device time a launch;
 7. path (A): serves the same 8 requests with ``moe_impl="capacity"``
    (capacity buckets on a one-rank expert-parallel group), the capacity
-   FFN (all on the TMA route) and the router launched 32 times per model
-   call, the ragged FFN never; prints the drops;
+   FFN (all on the TMA route) and the routing stage launched 32 times per
+   model call, the ragged FFN never; prints the drops;
 8. path (B): serves 4 requests (outputs capped at 64 tokens) with chunked
    prefill in 128-token chunks on the ragged path, the ragged FFN (all on
-   the TMA route) and the router launched 32 times per chunk and decode
-   call, the capacity FFN never; prints the largest |logit difference|
+   the TMA route) and the routing stage launched 32 times per chunk and
+   decode call, the capacity FFN never; prints the largest |logit difference|
    between a chunked and a whole prefill of one 512-token prompt.
 
 Each path's counts are set to 0 just before it is served and read just
@@ -55,6 +64,7 @@ CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import pathlib
@@ -73,6 +83,7 @@ F32_FLOPS = 67e12
 
 BF16_TOL = 5e-2       # the repo's bf16 tolerance (tests/test_kernels.py)
 ROUTER_W_TOL = 1e-5   # f32 weights; indices must be exactly equal
+NEAR_TIE = 1e-5       # adjacent top-(K+1) probabilities closer than this
 
 
 def check(ok, what: str) -> None:
@@ -100,23 +111,31 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def held_times(fn, reps: int, warmup: int = 2):
     """``(device_ms, host_us)`` of ``fn``: the median of ``reps``
-    single-call CUDA-event times taken while a ~50 ms spin kernel holds the
+    single-call CUDA-event times taken while a spin kernel holds the
     card, so that each event pair spans the card's work only, not the
     host's time to issue the call (which ``median_ms`` includes whenever
     the host is the slower of the two); and the host's time to issue one
     call (wrapper and launches), measured on the host clock over ``reps``
-    calls issued while the card is held. Fails if the host had not issued
-    every call before the spin ended."""
+    calls issued while the card is held. The spin lasts ~50 ms or, for a
+    call slow to issue, three times the host's time for ``reps`` warm
+    calls. Fails if the host had not issued every call before the spin
+    ended."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    per_call_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # the spin counts cycles: ~2e9 a second at the H100's boost clock
+    cycles = int(max(1e8, 3 * reps * per_call_s * 2e9))
     out = []
     for timed in (True, False):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        torch.cuda._sleep(100_000_000)
+        torch.cuda._sleep(cycles)
         b.record()
         evs = []
         t0 = time.perf_counter()
@@ -282,27 +301,167 @@ def capacity_case(name, E, C, D, F, cgen, dev, empty_rows, want="tma"):
 
 
 def router_case(cgen, dev, T, E=40, K=8):
+    """The logits-in router (the TPU kernel's function) against its plain
+    version, timed beside the earlier Triton kernel on the same logits."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import route_select as t_route
+    from repro_torch.kernels import router as t_router
     logits = torch.randn((T, E), generator=cgen, device=dev)
     w, idx = ops.router_topk(logits, K)
     w_ref, idx_ref = ref.router_topk_ref(logits, K)
+    w_tr, idx_tr = t_router.router_topk(logits, K)
     torch.cuda.synchronize()
     check(bool(torch.equal(idx, idx_ref)), "router: indices differ")
+    check(bool(torch.equal(idx_tr, idx_ref)), "Triton router: indices differ")
     err = (w - w_ref).abs().max().item()
     check(err <= ROUTER_W_TOL, f"router: weights differ by {err}")
-    res = timings(lambda: ops.router_topk(logits, K), reps=50)
+    res = timings(lambda: t_route.router_topk(logits, K), reps=50)
+    triton = timings(lambda: t_router.router_topk(logits, K), reps=50)
     plain_ms = median_ms(lambda: ref.router_topk_ref(logits, K), reps=10)
     n_bytes = T * E * 4 + T * K * 8
     # softmax ~5 ops/element, each of the K sweeps ~6 ops/element
     bound_ms, by = bound(n_bytes, T * E * (5 + 6 * K), F32_FLOPS)
-    print(f"[kernel] router_topk T={T} E={E} K={K}: indices exactly equal, "
-          f"max_abs_err(weights)={err:.3e} (tol {ROUTER_W_TOL}), kernel "
-          f"{res['ms']:.4f} ms ({res['device_ms']:.4f} ms with the host "
-          f"ahead, host {res['host_us']:.1f} us a call), plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+    print(f"[kernel] router_topk T={T} E={E} K={K}: indices exactly equal "
+          f"(the Triton kernel's too), max_abs_err(weights)={err:.3e} (tol "
+          f"{ROUTER_W_TOL}), kernel {res['ms']:.4f} ms ({res['device_ms']:.4f}"
+          f" ms with the host ahead, host {res['host_us']:.1f} us a call), "
+          f"Triton {triton['ms']:.4f} ms ({triton['device_ms']:.4f}, host "
+          f"{triton['host_us']:.1f} us), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({by})", flush=True)
     return {"max_abs_err": err, **res, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+            "bound_ms": bound_ms, "bound_by": by,
+            "triton_ms": triton["ms"], "triton_device_ms": triton["device_ms"],
+            "triton_host_us": triton["host_us"]}
+
+
+def route_tables(E, R, gen, dev):
+    """The served tables (R = 1: one slot an expert, the identity), or
+    replica tables with R copy columns: each expert 1..R copies on distinct
+    slots, a non-uniform cumulative share, padding entries at 1.0."""
+    import torch
+    if R == 1:
+        return (torch.arange(E, dtype=torch.int32, device=dev)[:, None],
+                torch.ones(E, dtype=torch.int32, device=dev),
+                torch.ones((E, 1), device=dev))
+    so = torch.randperm(E * R, generator=gen).reshape(E, R)
+    nc = torch.randint(1, R + 1, (E,), generator=gen)
+    nc[0] = R
+    used = torch.arange(R)[None, :] < nc[:, None]
+    share = (torch.rand((E, R), generator=gen) + 0.1) * used
+    cdf = torch.where(used, torch.cumsum(share / share.sum(-1, keepdim=True),
+                                         -1), 1.0)
+    return (so.to(dev, torch.int32), nc.to(dev, torch.int32),
+            cdf.to(dev, torch.float32))
+
+
+def unfused_route(x, w, tables, seed, K, row_valid=None):
+    """The unfused routing stage the fused kernel replaces: the f32
+    product, the Triton router, a second softmax for the mean
+    probabilities, then the eager replica choice, tally, aux loss and the
+    tally's zero drop column."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import router as t_router
+    E = w.shape[1]
+    logits = x.float() @ w
+    weights, idx = t_router.router_topk(logits, K)
+    mean_prob = torch.softmax(logits, dim=-1).mean(dim=0)
+    if row_valid is not None:
+        weights = weights * row_valid[:, None].to(weights.dtype)
+    slots = ref.select_slots(idx, *tables, seed)
+    tally = ref.masked_tally(idx, E, row_valid)
+    aux = ref.aux_loss(tally, mean_prob, E)
+    return (weights, idx, slots, torch.cat([tally, tally.new_zeros((1,))]),
+            mean_prob, aux)
+
+
+def route_case(cfg, gen, cgen, dev, T, R, masked=False):
+    """The fused routing stage at granite's widths against its plain
+    version: indices, slots and tally exactly equal outside near-tie rows
+    (rows whose adjacent top-(K+1) probabilities are closer than
+    ``NEAR_TIE``, where another summation order may pick another column;
+    counted, and their counts taken out of both tallies), weights, mean
+    probabilities and aux within ``ROUTER_W_TOL``, two calls bit-identical;
+    timed beside the unfused sequence and the Triton router on the same
+    inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import route_select as t_route
+    from repro_torch.kernels import router as t_router
+    D, E, K = cfg.d_model, cfg.n_experts, cfg.top_k
+    x = torch.randn((T, D), generator=cgen, device=dev).to(torch.bfloat16)
+    w = torch.randn((D, E), generator=cgen, device=dev) / math.sqrt(D)
+    tables = route_tables(E, R, gen, dev)
+    seed = torch.tensor(T * 31 + R, dtype=torch.int32, device=dev)
+    rv = (torch.rand(T, generator=cgen, device=dev) < 0.75) if masked \
+        else None
+    args = (x, w, *tables, seed, K, rv)
+    got = ops.route_select(*args)
+    again = ops.route_select(*args)
+    want = ref.route_select_ref(*args)
+    old = unfused_route(x, w, tables, seed, K, rv)
+    torch.cuda.synchronize()
+    name = f"T={T} R={R}{' masked' if masked else ''}"
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+          f"route_select {name}: two calls differ")
+    check(bool(torch.equal(old[1], want[1])),
+          f"route_select {name}: the unfused sequence's indices differ")
+    w_k, i_k, s_k, t_k, mp_k, aux_k = [t.clone() for t in got]
+    w_r, i_r, s_r, t_r, mp_r, aux_r = want
+    p = torch.softmax(x.float() @ w, dim=-1)
+    top = torch.topk(p, K + 1, dim=-1).values
+    near = ((top[:, :-1] - top[:, 1:]) < NEAR_TIE).any(-1)
+    ok = ~near
+    differ = int(((i_k != i_r).any(-1) | (s_k != s_r).any(-1)).sum())
+    check(bool(torch.equal(i_k[ok], i_r[ok])) and
+          bool(torch.equal(s_k[ok], s_r[ok])),
+          f"route_select {name}: indices or slots differ outside near ties")
+    counted = near if rv is None else near & rv
+    for t, i in ((t_k, i_k), (t_r, i_r)):
+        t[:E] -= torch.bincount(i[counted].reshape(-1).long(),
+                                minlength=E).float()
+    check(bool(torch.equal(t_k, t_r)),
+          f"route_select {name}: tallies differ outside near ties")
+    err = max((w_k[ok] - w_r[ok]).abs().max().item(),
+              (mp_k - mp_r).abs().max().item(),
+              abs(aux_k.item() - aux_r.item()) / max(abs(aux_r.item()), 1.0))
+    check(err <= ROUTER_W_TOL, f"route_select {name}: weights, mean "
+          f"probabilities or aux differ by {err}")
+    if rv is not None:
+        check(bool((w_k[~rv] == 0).all()), f"route_select {name}: masked "
+              "rows have gate weight")
+    res = timings(lambda: t_route.route_select(*args), reps=50)
+    # 10 calls of 22-45 launches stay inside the card's launch queue while
+    # it is held (a full queue blocks the host)
+    unfused = timings(lambda: unfused_route(x, w, tables, seed, K, rv),
+                      reps=10)
+    logits = x.float() @ w
+    triton = timings(lambda: t_router.router_topk(logits, K), reps=50)
+    plain_ms = median_ms(lambda: ref.route_select_ref(*args), reps=10)
+    n_bytes = (T * D * 2 + D * E * 4 + E * R * 8 + E * 4 + 4
+               + (T if masked else 0) + T * K * 12 + (2 * E + 2) * 4)
+    # the f32 product, then softmax ~5 ops/element and K sweeps ~6 each
+    bound_ms, by = bound(n_bytes, 2 * T * D * E + T * E * (5 + 6 * K),
+                         F32_FLOPS)
+    print(f"[kernel] route_select {name} (D={D} E={E} K={K}): near-tie rows "
+          f"{int(near.sum())}, rows that differ {differ} (all near ties); "
+          f"indices, slots, tally exact elsewhere, max_abs_err={err:.3e} "
+          f"(tol {ROUTER_W_TOL}), two calls bit-identical; kernel "
+          f"{res['ms']:.4f} ms ({res['device_ms']:.4f} ms with the host "
+          f"ahead, host {res['host_us']:.1f} us a call); unfused sequence "
+          f"{unfused['ms']:.4f} ms ({unfused['device_ms']:.4f}, host "
+          f"{unfused['host_us']:.1f} us); Triton router alone "
+          f"{triton['ms']:.4f} ms ({triton['device_ms']:.4f}); plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({by}, "
+          f"{n_bytes / 1e3:.1f} KB)", flush=True)
+    return {"max_abs_err": err, **res, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "unfused_ms": unfused["ms"],
+            "unfused_device_ms": unfused["device_ms"],
+            "unfused_host_us": unfused["host_us"],
+            "triton_ms": triton["ms"], "triton_device_ms": triton["device_ms"],
+            "near_tie_rows": int(near.sum()), "rows_that_differ": differ}
 
 
 def layer_case(cfg, cgen, dev, tokens=512):
@@ -471,7 +630,7 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
     # every FFN launch of the path on the TMA route: <ffn>.tma == <ffn>
     for name, n in counts.items():
         want = (cfg.n_layers * calls
-                if name in (ffn, f"{ffn}.tma", "router_topk") else 0)
+                if name in (ffn, f"{ffn}.tma", "route_select") else 0)
         check(n == want, f"{label}: {name} launched {n} times, expected "
               f"{want} ({cfg.n_layers} x {calls} model calls)")
     s = summarize(records)
@@ -488,7 +647,8 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
           f"recalibrations {st.migrations} (migrated slots "
           f"{st.migrated_slots})")
     print(f"[{label}] launches: {json.dumps(counts)}, {ffn} (all on the "
-          f"TMA route) and router = {cfg.n_layers} x {calls} model calls; "
+          f"TMA route) and route_select = {cfg.n_layers} x {calls} model "
+          f"calls, router_topk 0; "
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return engine, counts
@@ -542,8 +702,8 @@ def trace_decode(engine, n_steps: int = 16) -> None:
     lanes = sum(r is not None for r in engine.slot_req)
     torch.cuda.synchronize()
     d0 = engine.stats.decode_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             engine.step()
@@ -568,12 +728,21 @@ def trace_decode(engine, n_steps: int = 16) -> None:
           f"{launches / n_steps:.0f} device kernels and copies per step")
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     # the port's own kernels, wherever they rank
-    ours = ("ffn_tma_kernel", "gate_up_kernel", "down_kernel", "router_topk")
+    ours = ("ffn_tma_kernel", "gate_up_kernel", "down_kernel",
+            "route_select_kernel", "router_topk")
     top += [e for e in dev_events
             if e not in top and any(k in e.key for k in ours)]
+    launched_by = _launchers(prof)
     for e in top:
+        by = launched_by.get(e.key)
+        if by:
+            (first, t), = by.most_common(1)
+            share = 100 * t / sum(by.values())
+            who = f" <- {first} ({share:.0f}% of its time)"
+        else:
+            who = " <- a kernel of this repo (no PyTorch operation)"
         print(f"[trace]   {e.self_device_time_total / 1e3 / n_steps:8.3f} "
-              f"ms/step  {e.count / n_steps:6.1f} x/step  {e.key[:90]}")
+              f"ms/step  {e.count / n_steps:6.1f} x/step  {e.key[:90]}{who}")
     # the FFN kernels: device time a launch, by name (ffn_tma_kernel<op,
     # rows, swap, capacity>: op 0 is gate/up, 1 is down)
     ffn_ms = 0.0
@@ -585,6 +754,33 @@ def trace_decode(engine, n_steps: int = 16) -> None:
                   f"{e.count / n_steps:.1f} launches a step")
     print(f"[trace]   FFN kernels: {ffn_ms / n_steps:.3f} ms/step of "
           f"{busy_ms / n_steps:.2f} ms/step device busy")
+    for e in dev_events:
+        if "route_select_kernel" in e.key:
+            print(f"[trace]   routing {e.key[:60]}: "
+                  f"{e.self_device_time_total / e.count:.1f} us a launch, "
+                  f"{e.count / n_steps:.1f} launches a step, "
+                  f"{e.self_device_time_total / 1e3 / n_steps:.3f} ms/step")
+
+
+def _launchers(prof):
+    """Device kernel name -> device time (us) by what launched it: the
+    outermost PyTorch operation with its input shapes, then the operation
+    that issued the launch (the trace records shapes)."""
+    from torch.autograd import DeviceType
+    out = collections.defaultdict(collections.Counter)
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        outer = ev
+        while (outer.cpu_parent is not None
+               and outer.cpu_parent.name.startswith("aten::")):
+            outer = outer.cpu_parent
+        who = f"{outer.name}{list(outer.input_shapes)}"
+        if outer is not ev:
+            who += f" via {ev.name}"
+        for k in ev.kernels:
+            out[k.name][who[:160]] += k.duration
+    return out
 
 
 def _leaves(tree):
@@ -637,12 +833,20 @@ def main() -> int:
     capacity_case("general", 2, 9, 100, 70, cgen, dev, empty_rows=2,
                   want="general")
     t0 = time.perf_counter()
-    router_case(cgen, dev, T=4096)
+    router_big = router_case(cgen, dev, T=4096)
     print(f"[build] router (Triton) compiled and checked in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # the paths' shapes: one 512-token prompt, an 8-lane decode batch
     router = router_case(cgen, dev, T=512)
-    router_case(cgen, dev, T=8)
+    router_dec = router_case(cgen, dev, T=8)
+    # the fused routing stage: the served tables (R = 1) and replica
+    # tables (R = 3) at the paths' T (a 128-token chunk with its padding
+    # rows masked) and at 4096
+    route = {}
+    for T, R, masked in ((8, 1, False), (8, 3, False), (128, 1, True),
+                         (512, 1, False), (512, 3, False), (4096, 1, False),
+                         (4096, 3, False)):
+        route[(T, R)] = route_case(cfg, gen, cgen, dev, T, R, masked)
     layer_case(cfg, cgen, dev)
     capacity_layer_case(cfg, cgen, dev)
     engine, counts = serve_path(cfg, dev, "slice")
@@ -673,16 +877,26 @@ def main() -> int:
     kernels = [
         {"name": "ragged_moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn.cu",
-         "replaces": "src/repro/kernels/ragged_moe_ffn.py:101",
+         "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
          "launches": counts["ragged_moe_ffn"], **ffn_entry(prefill, decode),
          "library_ms": None},
-        {"name": "router_topk", "route": "triton",
-         "source": "src/repro_torch/kernels/router.py",
-         "replaces": "src/repro/kernels/router.py:46",
-         "launches": counts["router_topk"], **router, "library_ms": None},
+        {"name": "route_select", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/route_select.cu",
+         "replaces": "src/repro/kernels/router.py:47",
+         "launches": counts["route_select"], **route[(512, 1)],
+         "by_shape": {f"T={T} R={R}": r for (T, R), r in route.items()},
+         "library_ms": None},
+        {"name": "router_topk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/route_select.cu",
+         "replaces": "src/repro/kernels/router.py:47",
+         "launches": counts["router_topk"], **router,
+         "by_shape": {"T=8": router_dec, "T=4096": router_big},
+         "earlier_design": {"route": "triton",
+                            "source": "src/repro_torch/kernels/router.py"},
+         "library_ms": None},
         {"name": "fused_moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
-         "replaces": "src/repro/kernels/moe_ffn.py:57",
+         "replaces": "src/repro/kernels/moe_ffn.py:58",
          "launches": counts_a["fused_moe_ffn"],
          **ffn_entry(cap_prefill, cap_decode), "library_ms": None},
     ]

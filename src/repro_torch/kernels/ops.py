@@ -21,10 +21,10 @@ from typing import Dict
 from . import moe_ffn as _capacity
 from . import ragged_moe_ffn as _ragged
 from . import ref
-from . import router as _router
+from . import route_select as _route
 
-__all__ = ["fused_moe_ffn", "ragged_moe_ffn", "router_topk", "FFN_TILES",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["fused_moe_ffn", "ragged_moe_ffn", "router_topk", "route_select",
+           "FFN_TILES", "launch_counts", "reset_launch_counts"]
 
 #: (RB, BN, BK) of both FFN kernels' general route
 #: (``csrc/moe_ffn_blocks.cuh``, WMMA): RB rows x BN columns per block,
@@ -65,13 +65,30 @@ def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
 
 
 def router_topk(logits, top_k: int):
-    """Softmax → top-k → renormalize: (T, E) → ((T, K) f32, (T, K) i32)."""
+    """Softmax → top-k → renormalize: (T, E) → ((T, K) f32, (T, K) i32).
+    On the card the logits-in entry of ``csrc/route_select.cu``."""
     kind = logits.device.type
     if kind == "cpu":
         return ref.router_topk_ref(logits, top_k)
     if kind == "cuda":
-        return _router.router_topk(logits, top_k)
+        return _route.router_topk(logits, top_k)
     raise ValueError(f"router_topk: no kernel for device {logits.device}")
+
+
+def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
+                 top_k: int, row_valid=None):
+    """A layer's routing stage — f32 router product, softmax, top-k,
+    replica selection, masked tally, mean probabilities, aux loss — in one
+    launch: → ``(weights, idx, slots, tally (E + 1,), mean_prob, aux)``
+    (:func:`~.ref.route_select_ref`)."""
+    kind = x.device.type
+    if kind == "cpu":
+        return ref.route_select_ref(x, router_w, slots_of, n_copies,
+                                    copy_cdf, route_seed, top_k, row_valid)
+    if kind == "cuda":
+        return _route.route_select(x, router_w, slots_of, n_copies,
+                                   copy_cdf, route_seed, top_k, row_valid)
+    raise ValueError(f"route_select: no kernel for device {x.device}")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -81,11 +98,13 @@ def launch_counts() -> Dict[str, int]:
             "fused_moe_ffn.tma": _capacity.fused_moe_ffn.tma_launches,
             "ragged_moe_ffn": _ragged.ragged_moe_ffn.launches,
             "ragged_moe_ffn.tma": _ragged.ragged_moe_ffn.tma_launches,
-            "router_topk": _router.router_topk.launches}
+            "router_topk": _route.router_topk.launches,
+            "route_select": _route.route_select.launches}
 
 
 def reset_launch_counts() -> None:
     for fn in (_capacity.fused_moe_ffn, _ragged.ragged_moe_ffn):
         fn.launches = 0
         fn.tma_launches = 0
-    _router.router_topk.launches = 0
+    _route.router_topk.launches = 0
+    _route.route_select.launches = 0

@@ -1,5 +1,11 @@
 """Fused softmax + top-k router gating, a Triton kernel for Hopper.
 
+The earlier design, on no path now: the model routes through the
+fused CUDA routing stage (``route_select.py``) and ``ops.router_topk``
+through that source's logits-in entry. ``chip_smoke.py`` times this kernel
+beside them; its launches are counted on ``router_topk.launches`` here,
+not in ``ops.launch_counts``.
+
 Replaces the TPU kernel ``repro.kernels.router.router_topk_pallas``
 (``src/repro/kernels/router.py:46``): f32 softmax over the E logits of a
 row, then K max / first-argmax / mask sweeps, then the selected weights

@@ -282,12 +282,15 @@ def _run_attention_chunk(p, x, cfg, window, cache, positions, lane, offset,
 
 
 def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
-                positions, phase, cache_blk=None, pos=None, chunk_ctx=None):
+                positions, phase, cache_blk=None, pos=None, chunk_ctx=None,
+                route_seed=None, moe_row_valid=None):
     """One super-block forward. Returns (x, tallies (m, E+1), new caches).
 
     ``chunk_ctx`` — (lane, offset, n_valid, row_valid) of the chunked-
-    prefill phase: attention goes through :func:`_run_attention_chunk`
-    and the MoE layers get the padding mask."""
+    prefill phase: attention goes through :func:`_run_attention_chunk`.
+    ``route_seed`` and ``moe_row_valid`` (the padding mask, flat over the
+    block's rows) go to every MoE layer; the caller computes them once a
+    model call."""
     tallies, new_cache = [], []
     moe_i = 0
     for i, spec in enumerate(specs):
@@ -314,16 +317,10 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
             so = nc = cdf = None
             if moe_tables_blk is not None:
                 so, nc, cdf = (t[moe_i] for t in moe_tables_blk)
-            # position-derived salt: decode positions advance every step,
-            # so tiny batches re-draw their replica-selection uniforms
-            seed = positions.sum().to(torch.int32)
-            rv = None
-            if chunk_ctx is not None:
-                rv = chunk_ctx[3][None, :].expand(h2.shape[:2]).reshape(-1)
             y, tally, _ = moe_layer(
                 sub["ffn"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
                 rules=rules, slots_of=so, n_copies=nc, copy_cdf=cdf,
-                route_seed=seed, phase=phase, row_valid=rv)
+                route_seed=route_seed, phase=phase, row_valid=moe_row_valid)
             if cfg.n_shared_experts:
                 y = y + mlp(sub["shared"], h2, cfg.mlp_gated)
             tallies.append(tally)
@@ -349,6 +346,14 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
     win = _windows(cfg)
     tallies = []
     block_caches = []
+    seed = rv = None
+    if cfg.is_moe:
+        # position-derived salt, the same in every layer: decode positions
+        # advance every step, so tiny batches re-draw their replica-
+        # selection uniforms
+        seed = positions.sum().to(torch.int32)
+        if chunk_ctx is not None:
+            rv = chunk_ctx[3][None, :].expand(x.shape[:2]).reshape(-1)
     for b in range(nb):
         bp = [{k: _index_tree(v, b) for k, v in sub.items()}
               for sub in params["blocks"]]
@@ -358,7 +363,7 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
             cfg, rules, specs, bp, x,
             windows_blk=None if win is None else win[b], moe_tables_blk=mt,
             positions=positions, phase=phase, cache_blk=cb, pos=pos,
-            chunk_ctx=chunk_ctx)
+            chunk_ctx=chunk_ctx, route_seed=seed, moe_row_valid=rv)
         tallies.extend(tall)
         block_caches.append(nc)
     if cache is not None:

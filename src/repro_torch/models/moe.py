@@ -1,9 +1,12 @@
 """Mixture-of-Experts layer: the ragged (dropless) and capacity paths.
 
 The counterpart of ``repro.models.moe`` for one device. Routing is softmax
-→ top-k → renormalise (the router kernel on the card); each assignment
-picks a physical slot among its expert's replicas by inverse CDF over a
-deterministic per-assignment uniform (``_select_slots``).
+→ top-k → renormalise; each assignment picks a physical slot among its
+expert's replicas by inverse CDF over a deterministic per-assignment
+uniform (``_select_slots``). On the path the whole routing stage — router
+product, top-k, replica choice, tally, mean probabilities, aux loss — is
+one call, :func:`repro_torch.kernels.ops.route_select` (one kernel launch
+a layer on the card, its plain version on the CPU).
 
 * **ragged** (``moe_impl="ragged"``): assignments are stable-sorted by slot
   into a flat buffer whose per-slot segments are padded to the row tile
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ragged_moe_ffn import (ragged_n_tiles,
                                                 ragged_tile_metadata)
 from .common import dense_init
@@ -69,13 +72,13 @@ def moe_init(generator: torch.Generator, *, d: int, f: int, n_experts: int,
 # ---------------------------------------------------------------------------
 
 def route(router_w: torch.Tensor, xf: torch.Tensor, top_k: int):
-    """Softmax-then-top-k routing.
+    """Softmax-then-top-k routing, the plain mirror of the reference's
+    ``route`` (the model path routes through ``ops.route_select``).
 
     Returns gate weights (t, K) f32 renormalised over the selected experts,
     indices (t, K) int32 (logical), and mean full-softmax probs (E,) f32
     for the load-balance aux loss. The f32 router product is a plain
-    matmul; softmax, top-k and renormalisation are the router kernel on
-    the card (its plain version on the CPU).
+    matmul; softmax, top-k and renormalisation are ``ops.router_topk``.
     """
     logits = xf.float() @ router_w
     weights, idx = ops.router_topk(logits, top_k)
@@ -91,57 +94,10 @@ def expert_ffn_ref(w1, w3, w2, toks):
     return torch.bmm(h, w2)
 
 
-_U32 = 0xFFFFFFFF
-#: Knuth multiplicative-hash constant (the reference's ``_HASH_MULT``).
-_HASH_MULT = 2654435761
-#: odd stride of the per-step salt (the reference's ``_SEED_MULT``).
-_SEED_MULT = 2246822519
-
-
-def _mul_u32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """``(a * c) mod 2^32`` for int64 ``a`` in [0, 2^32): the product is
-    split at 16 bits so no partial product leaves int64's range."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _U32
-
-
-def _assignment_uniforms(t: int, K: int, seed=None,
-                         device=None) -> torch.Tensor:
-    """Deterministic per-assignment uniforms u ∈ [0, 1) → (t, K) f32.
-
-    The reference's uint32 wrap-around hash, bit for bit, computed in int64
-    masked to 32 bits: top 24 bits of ``(i + seed·SEED_MULT)·HASH_MULT``.
-    """
-    i = torch.arange(t * K, dtype=torch.int64, device=device)
-    if seed is not None:
-        s = torch.as_tensor(seed, device=device).to(torch.int64) & _U32
-        i = (i + _mul_u32(s, _SEED_MULT)) & _U32
-    h = _mul_u32(i, _HASH_MULT)
-    u = (h >> 8).to(torch.float32) * (2.0 ** -24)
-    return u.reshape(t, K)
-
-
-def _select_slots(idx: torch.Tensor, slots_of: torch.Tensor,
-                  n_copies: torch.Tensor,
-                  copy_cdf: Optional[torch.Tensor] = None,
-                  route_seed=None) -> torch.Tensor:
-    """Map logical ids (t, K) to physical slots across replicas: by inverse
-    CDF over ``copy_cdf`` (E, r_max), or the uniform ``% n_copies`` hash
-    without it (see the reference's ``_select_slots``)."""
-    t, K = idx.shape
-    r_max = slots_of.shape[-1]
-    ii = idx.long()
-    if r_max == 1:
-        return slots_of[:, 0][ii]
-    if copy_cdf is None:
-        copy = (torch.arange(t * K, dtype=torch.int64, device=idx.device)
-                .reshape(t, K)) % n_copies[ii]
-    else:
-        u = _assignment_uniforms(t, K, route_seed, device=idx.device)
-        # smallest r with u < cdf[r]; the min() guards f32 round-up
-        copy = (u[:, :, None] >= copy_cdf[ii]).sum(dim=-1)
-        copy = torch.minimum(copy, (n_copies[ii] - 1).long())
-    return slots_of[ii, copy.long()]
+#: the plain replica choice, shared with the fused routing stage's plain
+#: version (``kernels/ref.py``)
+_assignment_uniforms = ref.assignment_uniforms
+_select_slots = ref.select_slots
 
 
 # ---------------------------------------------------------------------------
@@ -243,19 +199,6 @@ def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
     return _combine(y_buf, row_of, w, t, K)
 
 
-def _masked_tally(idx, n_experts, row_valid=None):
-    oh = (idx[..., None] == torch.arange(n_experts, device=idx.device)
-          ).to(torch.float32)
-    if row_valid is not None:
-        oh = oh * row_valid[:, None, None].to(torch.float32)
-    return oh.sum(dim=(0, 1))
-
-
-def _aux_loss(tally, mean_prob, n_experts):
-    frac = tally / torch.clamp(tally.sum(), min=1.0)
-    return n_experts * torch.dot(frac, mean_prob)
-
-
 def _dense_dispatch_ragged(p, xf, route_seed, *, top_k, n_experts, slots_of,
                            n_copies, copy_cdf, bm, ffn: Callable,
                            row_valid=None):
@@ -263,15 +206,11 @@ def _dense_dispatch_ragged(p, xf, route_seed, *, top_k, n_experts, slots_of,
     (A = t·top_k rows). ``ffn`` is the grouped FFN — ``ops.ragged_moe_ffn``
     on the model path; a caller may pass the plain version to compare.
     Returns (y (t, D), tally (E+1,), aux)."""
-    weights, idx, mean_prob = route(p["router"], xf, top_k)
-    if row_valid is not None:
-        weights = weights * row_valid[:, None].to(weights.dtype)
-    slots = _select_slots(idx, slots_of, n_copies, copy_cdf, route_seed)
+    weights, _, slots, tally, _, aux = ops.route_select(
+        xf, p["router"], slots_of, n_copies, copy_cdf, route_seed, top_k,
+        row_valid)
     out = _ragged_local_ffn(xf, weights, slots, None, p["w1"].shape[0], bm,
                             ffn, p["w1"], p["w3"], p["w2"])
-    tally = _masked_tally(idx, n_experts, row_valid)
-    aux = _aux_loss(tally, mean_prob, n_experts)
-    tally = torch.cat([tally, tally.new_zeros((1,))])
     return out.to(xf.dtype), tally, aux
 
 
@@ -284,10 +223,9 @@ def _dense_dispatch(p, xf, route_seed, *, top_k, n_experts, slots_of,
     """Every slot's FFN on every token (plain products), combined by a
     (t, n_slots) gate matrix; nothing can drop. Same return contract as
     :func:`_dense_dispatch_ragged`."""
-    weights, idx, mean_prob = route(p["router"], xf, top_k)
-    if row_valid is not None:
-        weights = weights * row_valid[:, None].to(weights.dtype)
-    slots = _select_slots(idx, slots_of, n_copies, copy_cdf, route_seed)
+    weights, _, slots, tally, _, aux = ops.route_select(
+        xf, p["router"], slots_of, n_copies, copy_cdf, route_seed, top_k,
+        row_valid)
     n_slots = p["w1"].shape[0]
     # a token's K experts are distinct, so are their slots: no index of a
     # row repeats and the scatter-add is exact
@@ -297,9 +235,6 @@ def _dense_dispatch(p, xf, route_seed, *, top_k, n_experts, slots_of,
     y = expert_ffn_ref(p["w1"], p["w3"], p["w2"],
                        xf.expand((n_slots,) + tuple(xf.shape)))
     out = torch.einsum("te,etd->td", comb, y.float())
-    tally = _masked_tally(idx, n_experts, row_valid)
-    aux = _aux_loss(tally, mean_prob, n_experts)
-    tally = torch.cat([tally, tally.new_zeros((1,))])
     return out.to(xf.dtype), tally, aux
 
 
@@ -321,9 +256,12 @@ def _fill_buckets(rows_x: torch.Tensor, dest: torch.Tensor,
 
 def _capacity_route(router_w, xf, slots_of, n_copies, copy_cdf, route_seed,
                     top_k):
-    weights, idx, mean_prob = route(router_w, xf, top_k)
-    slots = _select_slots(idx, slots_of, n_copies, copy_cdf, route_seed)
-    return weights.reshape(-1), idx, slots.reshape(-1), mean_prob
+    """The routing stage of a capacity body: flat gate weights and slots
+    (t·K,), the tally (E+1,) whose last entry the body fills with its
+    drops, and the aux loss."""
+    weights, _, slots, tally, _, aux = ops.route_select(
+        xf, router_w, slots_of, n_copies, copy_cdf, route_seed, top_k)
+    return weights.reshape(-1), slots.reshape(-1), tally, aux
 
 
 def _a2a_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
@@ -341,7 +279,7 @@ def _a2a_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
     e_loc = n_slots // ep
     xf = xb.reshape(Bl * Sl, D)
     t = xf.shape[0]
-    wgt_flat, idx, slot_flat, mean_prob = _capacity_route(
+    wgt_flat, slot_flat, tally, aux = _capacity_route(
         router_w, xf, slots_of, n_copies, copy_cdf, route_seed, top_k)
     pos = _bucket_positions(slot_flat, n_slots)
     keep = pos < capacity
@@ -357,10 +295,7 @@ def _a2a_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
     back = y.reshape(e_loc, ep, capacity, D).movedim(1, 0)
     back = back.reshape(n_slots * capacity, D)      # my sends, processed
     out = _combine(back, dest, wgt_flat * keep, t, top_k)
-    tally = _masked_tally(idx, n_experts)
-    dropped = (1.0 - keep.float()).sum()[None]
-    tally = torch.cat([tally, dropped])
-    aux = _aux_loss(tally[:n_experts], mean_prob, n_experts)
+    tally[n_experts] = (1.0 - keep.float()).sum()
     return out.to(xb.dtype).reshape(Bl, Sl, D), tally, aux
 
 
@@ -378,7 +313,7 @@ def _replicated_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
     my_rank = 0
     xf = xb.reshape(B * S, D)
     t = xf.shape[0]
-    wgt_flat, idx, slot_flat, mean_prob = _capacity_route(
+    wgt_flat, slot_flat, tally, aux = _capacity_route(
         router_w, xf, slots_of, n_copies, copy_cdf, route_seed, top_k)
     mine = torch.div(slot_flat, e_loc, rounding_mode="floor") == my_rank
     loc = slot_flat % e_loc
@@ -391,10 +326,7 @@ def _replicated_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
     y = ffn(w1, w3, w2, buckets.reshape(e_loc, capacity, D))
     out = _combine(y.reshape(e_loc * capacity, D), dest, wgt_flat * keep, t,
                    top_k)
-    tally = _masked_tally(idx, n_experts)
-    aux = _aux_loss(tally, mean_prob, n_experts)
-    dropped = (mine & (pos >= capacity)).float().sum()[None]
-    tally = torch.cat([tally, dropped])
+    tally[n_experts] = (mine & (pos >= capacity)).float().sum()
     return out.to(xb.dtype).reshape(B, S, D), tally, aux
 
 

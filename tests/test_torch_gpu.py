@@ -261,14 +261,21 @@ def test_capacity_moe_layer_on_card_matches_cpu(cuda, phase):
 
 @pytest.mark.parametrize("T,E,K,ties", [(4096, 40, 8, False),
                                         (513, 128, 8, False),
-                                        (7, 4, 1, False), (300, 40, 8, True)])
+                                        (7, 4, 1, False), (300, 40, 8, True),
+                                        (300, 256, 8, False),
+                                        (33, 1000, 5, False),
+                                        (8, 8, 8, False)])
 def test_router_kernel_matches_plain(cuda, T, E, K, ties):
+    """The logits-in entry of the routing source (the TPU kernel's
+    function), one launch a call, at 2 to 32 columns a lane."""
     g = torch.Generator().manual_seed(T)
     logits = (torch.randint(0, 3, (T, E), generator=g).float() if ties
               else torch.randn((T, E), generator=g)).to(cuda)
+    ops.reset_launch_counts()
     w, i = ops.router_topk(logits, K)
     w_ref, i_ref = ref.router_topk_ref(logits, K)
     torch.cuda.synchronize()
+    assert ops.launch_counts()["router_topk"] == 1
     assert torch.equal(i, i_ref)                                 # exact
     torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
 
@@ -287,3 +294,159 @@ def test_moe_layer_on_card_matches_cpu(cuda):
     torch.testing.assert_close(t_g.cpu(), t_c, rtol=0, atol=0)
     torch.testing.assert_close(y_g.float().cpu(), y_c.float(),
                                rtol=BF16_TOL, atol=BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the fused routing stage (csrc/route_select.cu)
+# ---------------------------------------------------------------------------
+
+ROUTE_TOL = 1e-5      # f32 weights and mean probabilities; aux relative
+NEAR_TIE = 1e-5       # adjacent top-(K+1) probabilities closer than this
+
+
+def _route_inputs(dev, T, D, E, R, masked, seed, dup=()):
+    """Seeded activations (bf16), router (f32, N(0, 1/D) as the model's),
+    replica tables with R copy columns and a non-uniform cumulative share,
+    the seed tensor and an optional row mask, all on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((T, D), generator=g).to(torch.bfloat16)
+    w = torch.randn((D, E), generator=g) / math.sqrt(D)
+    for a, b in dup:
+        w[:, b] = w[:, a]
+    n_slots = E * R
+    so = torch.randperm(n_slots, generator=g)[:E * R].reshape(E, R)
+    nc = torch.randint(1, R + 1, (E,), generator=g)
+    share = torch.rand((E, R), generator=g) + 0.1
+    share = share * (torch.arange(R)[None, :] < nc[:, None])
+    cdf = torch.cumsum(share / share.sum(-1, keepdim=True), -1)
+    cdf = torch.where(torch.arange(R)[None, :] < nc[:, None], cdf, 1.0)
+    rv = (torch.rand(T, generator=g) < 0.6) if masked else None
+    seed_t = torch.tensor(seed * 7919 - 3, dtype=torch.int32)
+    args = (x, w, so.to(torch.int32), nc.to(torch.int32),
+            cdf.to(torch.float32), seed_t)
+    return ([a.to(dev) for a in args],
+            None if rv is None else rv.to(dev))
+
+
+def _near_tie_rows(x, w, K):
+    """Rows whose top-(K+1) probabilities have an adjacent gap below
+    ``NEAR_TIE``: there the kernel's summation order may pick another
+    column than the plain version's, and both are right."""
+    p = torch.softmax(x.float() @ w, dim=-1)
+    top = torch.topk(p, min(K + 1, p.shape[1]), dim=-1).values
+    return ((top[:, :-1] - top[:, 1:]) < NEAR_TIE).any(-1)
+
+
+def _check_route(got, want, x, w, K, rv):
+    """Exact indices, slots and tally on rows that are not near ties (the
+    tally with those rows' counts taken out of both sides), weights, mean
+    probabilities and aux within ``ROUTE_TOL``. Returns the near-tie
+    rows' count."""
+    w_k, i_k, s_k, t_k, mp_k, aux_k = got
+    w_r, i_r, s_r, t_r, mp_r, aux_r = want
+    E = w.shape[1]
+    near = _near_tie_rows(x, w, K)
+    ok = ~near
+    assert torch.equal(i_k[ok], i_r[ok])
+    assert torch.equal(s_k[ok], s_r[ok].to(torch.int32))
+    torch.testing.assert_close(w_k[ok], w_r[ok], rtol=ROUTE_TOL,
+                               atol=ROUTE_TOL)
+    valid = near if rv is None else near & rv
+    for t, i in ((t_k, i_k), (t_r, i_r)):
+        t[:E] -= torch.bincount(i[valid].reshape(-1).long(),
+                                minlength=E).float()
+    assert torch.equal(t_k, t_r) and float(t_k[E]) == 0.0
+    torch.testing.assert_close(mp_k, mp_r, rtol=ROUTE_TOL, atol=ROUTE_TOL)
+    torch.testing.assert_close(aux_k, aux_r, rtol=ROUTE_TOL, atol=ROUTE_TOL)
+    if rv is not None:
+        assert bool((w_k[~rv] == 0).all())
+    return int(near.sum())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("T", [1, 8, 513, 4096])
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("E", [8, 40, 64, 128])
+def test_route_select_kernel_matches_plain(cuda, E, K, T, R, masked):
+    """The fused kernel at granite's D (1536) against its plain version on
+    the same inputs; two calls bit-identical; one launch a call."""
+    (x, w, so, nc, cdf, seed), rv = _route_inputs(
+        cuda, T, 1536, E, R, masked, seed=E + K + T + R)
+    ops.reset_launch_counts()
+    got = ops.route_select(x, w, so, nc, cdf, seed, K, rv)
+    again = ops.route_select(x, w, so, nc, cdf, seed, K, rv)
+    want = ref.route_select_ref(x, w, so, nc, cdf, seed, K, rv)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["route_select"] == 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)                              # bit-stable
+    assert [tuple(t.shape) for t in got] == [
+        (T, K), (T, K), (T, K), (E + 1,), (E,), ()]
+    _check_route(list(got), list(want), x, w, K, rv)
+
+
+@pytest.mark.parametrize("T,D,E,K,R", [
+    (100, 1536, 256, 8, 2),    # 8 columns a lane
+    (37, 100, 1000, 4, 3),     # 32 columns a lane; D not a multiple of 8
+    (50, 200, 38, 6, 3),       # E not a multiple of 4: element loads
+    (3000, 7168, 256, 8, 1),   # deepseek-v3's router widths
+    (9000, 1536, 40, 8, 3),    # 282 row blocks: no split of D (S = 1)
+    (64, 24, 40, 8, 3),        # one chunk of D: no split (S = 1)
+])
+def test_route_select_kernel_off_grid_and_wide(cuda, T, D, E, K, R):
+    (x, w, so, nc, cdf, seed), rv = _route_inputs(cuda, T, D, E, R, True,
+                                                  seed=T)
+    got = ops.route_select(x, w, so, nc, cdf, seed, K, rv)
+    want = ref.route_select_ref(x, w, so, nc, cdf, seed, K, rv)
+    torch.cuda.synchronize()
+    _check_route(list(got), list(want), x, w, K, rv)
+
+
+def test_route_select_duplicated_columns_go_to_the_smaller(cuda):
+    """Equal router columns give bitwise-equal logits in the kernel (every
+    column is summed in the same order), so the smaller column always wins
+    first, as ``lax.top_k``'s rule."""
+    pairs = ((1, 4), (2, 9), (0, 31), (5, 6))
+    (x, w, so, nc, cdf, seed), _ = _route_inputs(cuda, 513, 1536, 40, 1,
+                                                 False, seed=11, dup=pairs)
+    _, idx, _, _, _, _ = ops.route_select(x, w, so, nc, cdf, seed, 8)
+    idx = idx.cpu()
+    hits = 0
+    for a, b in pairs:
+        has_b = (idx == b).any(-1)
+        assert bool((idx[has_b] == a).any(-1).all())
+        ka = (idx == a).int().argmax(-1)
+        kb = (idx == b).int().argmax(-1)
+        assert bool((ka[has_b] < kb[has_b]).all())
+        hits += int(has_b.sum())
+    assert hits > 0
+
+
+def test_route_select_tickets_reset_between_shapes(cuda):
+    """Calls at other row counts and splits right after one another each
+    find their tickets reset: correct results, no hang."""
+    for T in (4096, 8, 513, 1, 4096, 130):
+        (x, w, so, nc, cdf, seed), rv = _route_inputs(cuda, T, 1536, 40, 3,
+                                                      T % 2 == 0, seed=T)
+        got = ops.route_select(x, w, so, nc, cdf, seed, 8, rv)
+        want = ref.route_select_ref(x, w, so, nc, cdf, seed, 8, rv)
+        torch.cuda.synchronize()
+        _check_route(list(got), list(want), x, w, 8, rv)
+
+
+def test_route_select_refuses_what_it_does_not_take(cuda):
+    (x, w, so, nc, cdf, seed), rv = _route_inputs(cuda, 16, 64, 8, 2, True,
+                                                  seed=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.route_select(x.float(), w, so, nc, cdf, seed, 2, rv)
+    with pytest.raises(TypeError, match="float32"):
+        ops.route_select(x, w.double(), so, nc, cdf, seed, 2, rv)
+    with pytest.raises(TypeError, match="contiguous"):
+        ops.route_select(x, w.t().contiguous().t(), so, nc, cdf, seed, 2, rv)
+    with pytest.raises(TypeError, match="bool"):
+        ops.route_select(x, w, so, nc, cdf, seed, 2, rv.float())
+    with pytest.raises(ValueError, match="top_k"):
+        ops.route_select(x, w, so, nc, cdf, seed, 9, rv)
+    with pytest.raises(ValueError, match="route_seed"):
+        ops.route_select(x, w, so, nc, cdf, 5, 2, rv)

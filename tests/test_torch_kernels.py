@@ -220,7 +220,7 @@ def test_ops_on_cpu_use_plain_versions_and_count_nothing():
 
 
 _COUNTERS = ("fused_moe_ffn", "fused_moe_ffn.tma", "ragged_moe_ffn",
-             "ragged_moe_ffn.tma", "router_topk")
+             "ragged_moe_ffn.tma", "router_topk", "route_select")
 
 
 @pytest.mark.parametrize("max_rows", [None, 1, 8, 16, 500])
