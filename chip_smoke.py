@@ -53,10 +53,29 @@ Run from the repository root on a machine with one NVIDIA H100. It
    prefill in 128-token chunks on the ragged path, the ragged FFN (all on
    the TMA route) and the routing stage launched 32 times per chunk and
    decode call, the capacity FFN never; prints the largest |logit difference|
-   between a chunked and a whole prefill of one 512-token prompt.
+   between a chunked and a whole prefill of one 512-token prompt;
+9. training (after the serving engines are freed): the backward kernels
+   against their plain versions at the training shape (1024 tokens x top-8
+   = 8192 assignments, Zipf-skewed, some experts empty, row block 128) —
+   the ragged FFN's dgrad (K1) and wgrad (K2) against
+   ``ragged_moe_ffn_bwd_ref`` (padding rows and empty experts exactly zero,
+   two calls bit-identical), the routing backward (K3) against
+   ``route_select_dlogits_ref`` — each timed as the forward kernels are;
+   then ``repro_torch.launch.train.train`` on the published config at full
+   width, 4 steps of batch 4 x 256 tokens on the card: finite losses (the
+   first near ln 49155), per step 32 launches of the routing stage, the
+   ragged FFN (TMA route) and each backward kernel and none of the
+   capacity FFN, the median step time, tokens/s and peak memory; two
+   2-step runs from seed 0 with bit-identical losses and parameters; one
+   step of a 2-layer full-width model through the kernels against one
+   through the plain versions (autograd of the plain forward), the loss
+   and every gradient within a relative L2 bound; and a checkpoint restart
+   at smoke size (2 steps, restore, 2 steps) equal to 4 straight steps,
+   bit for bit; and where a full-width step's time goes (forward, backward
+   and AdamW on the host clock, one step traced with ``torch.profiler``).
 
-Each path's counts are set to 0 just before it is served and read just
-after. Every check raises, so any failure exits non-zero. The last three
+Each path's counts are set to 0 just before it is served (or trained) and
+read just after. Every check raises, so any failure exits non-zero. The last three
 lines of standard output are the kernels' JSON record, the ``nvidia-smi``
 name and power-limit line, and ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits 2 and prints no result.
@@ -82,6 +101,19 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 BF16_TOL = 5e-2       # the repo's bf16 tolerance (tests/test_kernels.py)
+# K1 and K2 against the plain backward, relative L2 of each output: both
+# round da, db and the outputs to bf16 at the same points, so only f32
+# sums in another order differ (3.3e-4 to 4.3e-4 read on an H100). A
+# backward that rounds its f32 sums to bf16 every 16 terms, or that skips
+# one row an expert, reads several times more (checked in the run)
+BWD_TOL = 1e-3
+# kernel step vs plain step, relative L2 of every gradient leaf and
+# relative error of the loss: the kernels round da and db to bf16 where
+# autograd of the plain forward keeps them in f32 (1.16e-2 read on an
+# H100 for the largest leaf; the plain backward against autograd of the
+# plain forward reads 8.6e-3 on the CPU at smoke size)
+STEP_TOL = 2e-2
+STEP_LOSS_TOL = 1e-3
 ROUTER_W_TOL = 1e-5   # f32 weights; indices must be exactly equal
 NEAR_TIE = 1e-5       # adjacent top-(K+1) probabilities closer than this
 
@@ -783,6 +815,496 @@ def _launchers(prof):
     return out
 
 
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def backward_ffn_case(cfg, gen, cgen, dev, tokens=1024):
+    """The ragged FFN's backward kernels K1 (dgrad) and K2 (wgrad) at the
+    training shape against ``ragged_moe_ffn_bwd_ref``, on the forward
+    kernel's plan and saved ``h``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ragged_moe_ffn as t_ragged
+    from repro_torch.models.moe import _ragged_plan
+    from repro_torch.models.sharding import ShardingRules
+    E, D, F, K = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    bm = ShardingRules().moe_block_m
+    A = tokens * K
+    empty = (5, 17, 33)
+    slot_flat = zipf_slots(gen, A, E, empty=empty).to(dev)
+    order, rows, tg, n_rows, ro, sz = _ragged_plan(slot_flat, E, bm)
+    x = torch.randn((tokens, D), generator=cgen,
+                    device=dev).to(torch.bfloat16)
+    buf = x.new_zeros((n_rows + 1, D))
+    buf[rows.long()] = x[torch.div(order, K, rounding_mode="floor")]
+    buf = buf[:n_rows]
+    w = [(torch.randn(s, generator=cgen, device=dev) / math.sqrt(s[1])).to(
+        torch.bfloat16) for s in ((E, D, F), (E, D, F), (E, F, D))]
+    real = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    real[rows[rows < n_rows].long()] = True
+    dy = (torch.randn((n_rows, D), generator=cgen, device=dev)
+          * real[:, None]).to(torch.bfloat16)
+    _, h = t_ragged.ragged_moe_ffn(w[0], w[1], w[2], buf, tg, row_offsets=ro,
+                                   sizes=sz, max_rows=tokens, keep_h=True)
+
+    def k1():
+        return t_ragged.ragged_moe_ffn_dgrad(w[0], w[1], w[2], buf, tg, ro, sz,
+                                             dy)
+
+    dx, da, db = k1()
+
+    def k2():
+        return t_ragged.ragged_moe_ffn_wgrad(buf, h, da, db, dy, ro, sz)
+
+    dws = k2()
+    dx2, da2, db2 = k1()
+    again = (dx2, da2[real], db2[real], *k2())
+    want = ref.ragged_moe_ffn_bwd_ref(w[0], w[1], w[2], buf, tg, dy)
+    torch.cuda.synchronize()
+    # da and db are written on the real rows only (all K2 reads)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(
+        (dx, da[real], db[real], *dws), again)),
+          "ragged FFN backward: two calls differ")
+    got = (dx, *dws)
+    errs = {n: _rel_l2(g, r) for n, g, r in zip(("dx", "dw1", "dw3", "dw2"),
+                                                 got, want)}
+    abs_err = {n: (g.float() - r.float()).abs().max().item()
+               for n, g, r in zip(("dx", "dw1", "dw3", "dw2"), got, want)}
+    check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+          "ragged FFN backward: non-finite gradients")
+    check(max(errs.values()) <= BWD_TOL, f"ragged FFN backward: relative "
+          f"L2 errors {errs} > {BWD_TOL}")
+    controls = backward_controls(w, buf, tg, dy, h, da, db, ro, sz, real,
+                                 want)
+    for name, ctl in controls.items():
+        check(max(ctl.values()) > BWD_TOL, f"ragged FFN backward: the "
+              f"control '{name}' reads {ctl}, within the bound {BWD_TOL}")
+    check(not bool(dx[~real].any()), "ragged FFN backward: padding or "
+          "sentinel rows of dx not zero")
+    check(all(not bool(g[e].any()) for g in dws for e in empty),
+          "ragged FFN backward: an empty expert's dW not zero")
+    k1_t = timings(k1)
+    k2_t = timings(k2)
+    plain_ms = median_ms(lambda: ref.ragged_moe_ffn_bwd_ref(
+        w[0], w[1], w[2], buf, tg, dy), reps=3)
+    n_exp = E - len(empty)
+    # K1: x and dy on the real rows, the occupied experts' three weights,
+    # da and db on the real rows, dx on every row; five products
+    k1_bytes = A * D * 2 * 2 + n_exp * 3 * D * F * 2 + A * F * 2 * 2 \
+        + n_rows * D * 2
+    k1_bound, k1_by = bound(k1_bytes, 5 * 2 * A * D * F, BF16_FLOPS)
+    # K2: x, dy, h, da, db on the real rows, every expert's three dW;
+    # three products
+    k2_bytes = A * (2 * D + 3 * F) * 2 + E * 3 * D * F * 2
+    k2_bound, k2_by = bound(k2_bytes, 3 * 2 * A * D * F, BF16_FLOPS)
+    print(f"[kernel] ragged_moe_ffn backward, {tokens} tokens x top-{K} = "
+          f"{A} assignments, T={n_rows}, row block {bm}, experts {empty} "
+          f"empty: relative L2 {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}"
+          f" (tol {BWD_TOL}); max |kernel - plain| "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in abs_err.items())}; "
+          f"padding rows and empty experts exactly 0, two calls "
+          f"bit-identical", flush=True)
+    for name, ctl in controls.items():
+        print(f"[kernel]   control, {name}: relative L2 "
+              f"{', '.join(f'{k} {v:.2e}' for k, v in ctl.items())} "
+              f"(above the bound {BWD_TOL}, as it must be)", flush=True)
+    for name, t, b, by, nb in (("dgrad (K1)", k1_t, k1_bound, k1_by,
+                                k1_bytes),
+                               ("wgrad (K2)", k2_t, k2_bound, k2_by,
+                                k2_bytes)):
+        print(f"[kernel]   {name}: {t['ms']:.4f} ms ({100 * b / t['ms']:.1f}%"
+              f" of bound), {t['device_ms']:.4f} ms with the host ahead, host "
+              f"{t['host_us']:.1f} us a call; bound {b:.4f} ms ({by}, "
+              f"{nb / 1e6:.1f} MB)", flush=True)
+    print(f"[kernel]   plain backward {plain_ms:.4f} ms (K1 and K2 together)",
+          flush=True)
+    common = {"plain_ms": plain_ms, "relative_l2": errs,
+              "controls": controls}
+    return ({"max_abs_err": abs_err["dx"], **k1_t, "bound_ms": k1_bound,
+             "bound_by": k1_by, **common},
+            {"max_abs_err": max(abs_err[k] for k in ("dw1", "dw3", "dw2")),
+             **k2_t, "bound_ms": k2_bound, "bound_by": k2_by, **common})
+
+
+def backward_controls(w, buf, tg, dy, h, da, db, ro, sz, real, want,
+                      chunk=16):
+    """Two faulty backwards the bound must catch, read against the plain
+    backward ``want`` as K1 and K2 are: "bf16 sums" rounds K1's sum over F
+    and K2's sums over each expert's rows to bf16 every ``chunk`` terms
+    (from the kernels' own da, db and h); "a row skipped" leaves out the
+    last real row of every occupied expert."""
+    import torch
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    E, D, F = w[0].shape
+    n_rows = buf.shape[0]
+    bm = n_rows // tg.shape[0]
+    g = torch.clamp(tg.long(), max=E - 1)
+    occ = (tg < E)[:, None, None]
+    # K1 writes da and db on the real rows only: the rest is not zero
+    da_r = torch.where(real[:, None], da, 0).reshape(-1, bm, F)
+    db_r = torch.where(real[:, None], db, 0).reshape(-1, bm, F)
+    W1, W3 = w[0][g], w[1][g]
+    dx = torch.zeros((tg.shape[0], bm, D), dtype=bf, device=buf.device)
+    for c in range(0, F, chunk):
+        part = torch.bmm(da_r[..., c:c + chunk].float(),
+                         W1[..., c:c + chunk].float().transpose(1, 2)) \
+            + torch.bmm(db_r[..., c:c + chunk].float(),
+                        W3[..., c:c + chunk].float().transpose(1, 2))
+        dx = ((dx.float() + part) * occ).to(bf)
+    dws = [torch.zeros_like(t) for t in w]
+    for e, (r0, n) in enumerate(zip(ro.tolist(), sz.tolist())):
+        for r in range(r0, r0 + n, chunk):
+            q = slice(r, min(r + chunk, r0 + n))
+            x = buf[q].float().t()
+            for dw, (left, right) in zip(dws, ((x, da[q]), (x, db[q]),
+                                               (h[q].float().t(), dy[q]))):
+                dw[e] = (dw[e].float() + left @ right.float()).to(bf)
+    names = ("dx", "dw1", "dw3", "dw2")
+    acc = dict(zip(names, (_rel_l2(t, r) for t, r in zip(
+        (dx.reshape(n_rows, D), *dws), want))))
+    last = (ro[:-1] + sz - 1)[sz > 0].long()
+    dy_skip = dy.clone()
+    dy_skip[last] = 0
+    skip = ref.ragged_moe_ffn_bwd_ref(w[0], w[1], w[2], buf, tg, dy_skip)
+    return {"bf16 sums": acc,
+            "a row skipped": {n: _rel_l2(t, r)
+                              for n, t, r in zip(names, skip, want)}}
+
+
+def backward_route_case(cfg, cgen, dev, T=1024):
+    """The routing backward K3 at the training shape against
+    ``route_select_dlogits_ref`` on the forward kernel's outputs."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import route_select as t_route
+    D, E, K = cfg.d_model, cfg.n_experts, cfg.top_k
+    x = torch.randn((T, D), generator=cgen, device=dev).to(torch.bfloat16)
+    w = torch.randn((D, E), generator=cgen, device=dev) / math.sqrt(D)
+    tables = (torch.arange(E, dtype=torch.int32, device=dev)[:, None],
+              torch.ones(E, dtype=torch.int32, device=dev),
+              torch.ones((E, 1), device=dev))
+    seed = torch.tensor(11, dtype=torch.int32, device=dev)
+    wts, idx, _, tally, _, _, probs = t_route.route_select(
+        x, w, *tables, seed, K, with_probs=True)
+    counts = tally[:E].contiguous()
+    dw = torch.randn((T, K), generator=cgen, device=dev)
+    dm = torch.randn((E,), generator=cgen, device=dev)
+    daux = torch.randn((), generator=cgen, device=dev)
+    args = (probs, idx, wts, counts, dw, dm, daux)
+    got = t_route.route_select_bwd(*args)
+    again = t_route.route_select_bwd(*args)
+    want = ref.route_select_dlogits_ref(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, again)), "route_select_bwd: two calls differ")
+    # the backward takes idx as an input, so a near tie changes nothing it
+    # computes: every row is held; near-tie rows are only counted
+    top = torch.topk(probs, K + 1, dim=-1).values
+    near = ((top[:, :-1] - top[:, 1:]) < NEAR_TIE).any(-1)
+    err = (got - want).abs().max().item()
+    check(err <= ROUTER_W_TOL, f"route_select_bwd: max |kernel - plain| "
+          f"{err} > {ROUTER_W_TOL}")
+    res = timings(lambda: t_route.route_select_bwd(*args), reps=50)
+    plain_ms = median_ms(lambda: ref.route_select_dlogits_ref(*args), reps=10)
+    n_bytes = T * E * 4 * 2 + T * K * 12 + E * 8 + 4
+    # per element: dmean, the mask, dp, two products and a sum, ~8 ops
+    bound_ms, by = bound(n_bytes, 8 * T * E, F32_FLOPS)
+    print(f"[kernel] route_select_bwd T={T} E={E} K={K}: max_abs_err="
+          f"{err:.3e} over all rows (tol {ROUTER_W_TOL}; near-tie rows "
+          f"{int(near.sum())}), two calls "
+          f"bit-identical; kernel {res['ms']:.4f} ms ({res['device_ms']:.4f} "
+          f"ms with the host ahead, host {res['host_us']:.1f} us a call), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}, "
+          f"{n_bytes / 1e3:.1f} KB)", flush=True)
+    return {"max_abs_err": err, **res, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "near_tie_rows": int(near.sum())}
+
+
+def param_digest(params):
+    """Per leaf, an exact integer digest of its bits on the card: the
+    16-bit words times fixed odd weights, summed in int64 (exact in any
+    order), slice by slice."""
+    import torch
+    from repro_torch.tree import leaves
+    out = []
+    for leaf in leaves(params):
+        words = leaf.detach().contiguous().view(-1).view(torch.int16)
+        total = torch.zeros((), dtype=torch.int64, device=leaf.device)
+        for i in range(0, words.numel(), 1 << 25):
+            part = words[i:i + (1 << 25)].to(torch.int64)
+            wts = (torch.arange(i, i + part.numel(), device=leaf.device)
+                   * 2654435761 % 2147483647) | 1
+            total += (part * wts).sum()
+        out.append(int(total))
+    return out
+
+
+def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
+    """Phase 9: the training path at full width on the card."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    ops.reset_launch_counts()
+    params, opt, losses, tallies = train(
+        cfg.name, smoke=False, steps=steps, seq_len=seq_len, batch=batch,
+        device=dev, step_times=times, log_every=1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(all(math.isfinite(v) for v in losses) and len(losses) == steps,
+          f"training: losses {losses}")
+    per_step = {"route_select": cfg.n_layers, "ragged_moe_ffn": cfg.n_layers,
+                "ragged_moe_ffn.tma": cfg.n_layers,
+                "ragged_moe_ffn_dgrad": cfg.n_layers,
+                "ragged_moe_ffn_wgrad": cfg.n_layers,
+                "route_select_bwd": cfg.n_layers}
+    for name, n in counts.items():
+        want = per_step.get(name, 0) * steps
+        check(n == want, f"training: {name} launched {n} times, expected "
+              f"{want} ({per_step.get(name, 0)} a step x {steps})")
+    med = statistics.median(times)
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+          f"params (bf16, f32 master and moments), {steps} steps of "
+          f"{batch} x {seq_len} tokens: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)} (ln {cfg.vocab} = "
+          f"{math.log(cfg.vocab):.4f}); step wall times "
+          f"{', '.join(f'{t:.3f}' for t in times)} s, median {med:.3f} s, "
+          f"{batch * seq_len / med:.0f} tokens/s; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; tally spread max/min "
+          f"{tallies.sum(0).max() / max(tallies.sum(0).min(), 1):.2f}",
+          flush=True)
+    print(f"[train] launches in {steps} steps: {json.dumps(counts)}: "
+          f"route_select, ragged_moe_ffn (TMA route), ragged_moe_ffn_dgrad, "
+          f"ragged_moe_ffn_wgrad and route_select_bwd {cfg.n_layers} a step, "
+          f"fused_moe_ffn and router_topk 0", flush=True)
+    del params, opt
+    torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2):
+        p, o, l2, _ = train(cfg.name, smoke=False, steps=2, seq_len=seq_len,
+                            batch=batch, device=dev, log_every=100)
+        runs.append((l2, param_digest(p)))
+        del p, o
+        torch.cuda.empty_cache()
+    check(runs[0] == runs[1], "training: two seeded 2-step runs differ "
+          f"(losses {runs[0][0]} vs {runs[1][0]})")
+    check(runs[0][0] == losses[:2], "training: the 2-step runs' losses "
+          f"{runs[0][0]} differ from the 4-step run's {losses[:2]}")
+    print(f"[train] two 2-step runs from seed 0: losses {runs[0][0]} in both "
+          f"(and in the 4-step run), parameter digests equal, bit for bit",
+          flush=True)
+    return {"losses": losses, "step_s": times, "median_step_s": med,
+            "tokens_per_s": batch * seq_len / med, "peak_bytes": peak,
+            "launches": counts}
+
+
+def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
+    """Where a full-width training step's time goes: ``steps`` steps after
+    one warm step, each split on the host clock (synchronised) into the
+    forward, the backward and AdamW; then one more step traced with
+    ``torch.profiler``: the device's busy share and its largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import init_params, loss_fn, make_moe_tables
+    from repro_torch.training import (AdamWConfig, DataConfig, adamw_init,
+                                      adamw_update, cosine_lr,
+                                      synthetic_batch)
+    from repro_torch.tree import leaves, tree_map
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    ocfg = AdamWConfig()
+    opt = adamw_init(params, ocfg)
+    mt = make_moe_tables(cfg, device=dev)
+    lossf = loss_fn(cfg)
+    data = DataConfig(seq_len=seq_len, global_batch=batch)
+
+    def step(s):
+        """The driver's step (``launch/train.py``), with phase times."""
+        nonlocal params, opt
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_batch(cfg, data, s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = lossf(params, b, mt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads = tree_map(lambda p: p.grad, params)
+        params, opt = adamw_update(grads, opt, params, ocfg,
+                                   cosine_lr(ocfg, opt.step))
+        for p in leaves(params):
+            p.grad = None
+        del grads
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return t1 - t0, t2 - t1, t3 - t2
+
+    step(0)
+    phases = [step(s) for s in range(1, 1 + steps)]
+    fwd, bwd, adam = (statistics.median(p[i] for p in phases)
+                      for i in range(3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(steps + 1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    total = fwd + bwd + adam
+    peak = torch.cuda.max_memory_allocated()
+    shape = f"{batch} x {seq_len}"
+    print(f"[train] a full-width step of {shape} = {batch * seq_len} tokens "
+          f"on the host clock (median of {steps}): forward {fwd * 1e3:.1f} "
+          f"ms, backward {bwd * 1e3:.1f} ms, AdamW {adam * 1e3:.1f} ms, "
+          f"{total * 1e3:.1f} ms in all, {batch * seq_len / total:.0f} "
+          f"tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB",
+          flush=True)
+    res = {"tokens": batch * seq_len, "forward_s": fwd, "backward_s": bwd,
+           "adamw_s": adam, "peak_bytes": peak}
+    if not dev_events or busy_ms <= 0:
+        print("[train] traced step: device busy time not measured (the "
+              "profiler saw no device events)", flush=True)
+        return res
+    n_ops = sum(e.count for e in dev_events)
+    print(f"[train] traced {shape} step under the profiler: wall "
+          f"{wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, "
+          f"idle {100 - 100 * busy_ms / wall_ms:.1f}%), {n_ops} device "
+          f"kernels and copies", flush=True)
+    ours = ("ffn_tma_kernel", "dgrad_gate_kernel", "dgrad_x_kernel",
+            "wgrad_kernel", "route_select_kernel", "route_select_bwd_kernel")
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
+    top += [e for e in dev_events
+            if e not in top and any(k in e.key for k in ours)]
+    for e in top:
+        print(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:6d} x  {e.key[:100]}", flush=True)
+    mine = {k: sum(e.self_device_time_total for e in dev_events
+                   if k in e.key) / 1e3 for k in ours}
+    print(f"[train]   the port's kernels: {sum(mine.values()):.1f} ms of "
+          f"{busy_ms:.1f} ms device busy: "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in mine.items())}",
+          flush=True)
+    del params, opt
+    torch.cuda.empty_cache()
+    return res | {"traced_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                  "device_ops": n_ops,
+                  "port_kernels_ms": sum(mine.values()),
+                  "port_kernels_by_name_ms": mine}
+
+
+class plain_kernels:
+    """Within the block the MoE layer calls the kernels' plain versions
+    (autograd of the plain forward on the card), not the kernels."""
+
+    def __enter__(self):
+        import types
+        from repro_torch.kernels import ref
+        from repro_torch.models import moe as tmoe
+        self.saved = tmoe.ops
+        tmoe.ops = types.SimpleNamespace(
+            ragged_moe_ffn=ref.ragged_moe_ffn_ref,
+            route_select=ref.route_select_ref,
+            fused_moe_ffn=ref.moe_ffn_ref)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as tmoe
+        tmoe.ops = self.saved
+
+
+def kernel_vs_plain_step(cfg, dev, n_layers=2, seq_len=256, batch=4):
+    """One loss and backward of a full-width ``n_layers``-layer model
+    through the kernels against the same through the plain versions."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, loss_fn, make_moe_tables
+    from repro_torch.training import DataConfig, synthetic_batch
+    from repro_torch.tree import leaves
+    small = dataclasses.replace(cfg, n_layers=n_layers)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
+        small, DataConfig(seq_len=seq_len, global_batch=batch), 0).items()}
+    mt = make_moe_tables(small, device=dev)
+    out = {}
+    for name in ("kernel", "plain"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = init_params(small, gen, device=dev)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        ops.reset_launch_counts()
+        if name == "plain":
+            with plain_kernels():
+                loss, _ = loss_fn(small)(params, b, mt)
+                loss.backward()
+        else:
+            loss, _ = loss_fn(small)(params, b, mt)
+            loss.backward()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        launched = sum(v for k, v in counts.items() if "." not in k)
+        check(launched == (5 * n_layers if name == "kernel" else 0),
+              f"{name} step: kernel launches {counts}")
+        out[name] = (loss.detach(), [p.grad for p in leaves(params)])
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    loss_err = abs(lk.item() - lp.item()) / abs(lp.item())
+    errs = [_rel_l2(a, b) for a, b in zip(gk, gp)]
+    check(loss_err <= STEP_LOSS_TOL and max(errs) <= STEP_TOL,
+          f"kernel vs plain step: loss {loss_err:.3e} (bound "
+          f"{STEP_LOSS_TOL}), gradient leaves {['%.3e' % e for e in errs]} "
+          f"(bound {STEP_TOL})")
+    print(f"[train] {n_layers}-layer full-width step, kernels vs plain "
+          f"versions: loss {lk.item():.5f} vs {lp.item():.5f} (relative "
+          f"{loss_err:.2e}, bound {STEP_LOSS_TOL}); gradient leaves' "
+          f"relative L2 max "
+          f"{max(errs):.3e}, median {statistics.median(errs):.3e} over "
+          f"{len(errs)} leaves (bound {STEP_TOL})", flush=True)
+    return {"loss_rel_err": loss_err, "grad_rel_l2_max": max(errs),
+            "grad_rel_l2": errs}
+
+
+def checkpoint_restart(dev):
+    """Smoke size on the card: 2 steps, a checkpoint, a restore and 2 more
+    steps equal 4 straight steps, bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.launch.train import train
+    from repro_torch.tree import leaves
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(seq_len=64, batch=4, device=dev, log_every=100)
+    arch = "granite-moe-3b-a800m"
+    p4, o4, l4, _ = train(arch, steps=4, **kw)
+    _, _, l_a, _ = train(arch, steps=2, ckpt_dir=str(d), **kw)
+    p_r, o_r, l_b, _ = train(arch, steps=4, ckpt_dir=str(d), **kw)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b))
+               for a, b in zip(leaves((p_r, o_r)), leaves((p4, o4))))
+    shutil.rmtree(d, ignore_errors=True)
+    check(l_a + l_b == l4 and same, f"checkpoint restart: losses {l_a} + "
+          f"{l_b} vs {l4}, params and state equal: {same}")
+    print(f"[train] smoke-size checkpoint restart on the card: 2 steps, "
+          f"restore, 2 steps = 4 straight steps bit for bit (losses {l4})",
+          flush=True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -860,6 +1382,19 @@ def main() -> int:
                            prefill_chunk=128)
     chunk_vs_whole(engine)
     del engine
+    # phase 9: training
+    k1, k2 = backward_ffn_case(cfg, gen, cgen, dev)
+    k3 = backward_route_case(cfg, cgen, dev)
+    trained = train_phase(cfg, dev)
+    trained["profile"] = train_step_profile(cfg, dev)
+    # a micro-batch of 4096 tokens beside 50 GiB of weights and state: the
+    # port's attention keeps its scores in f32 for the backward, so 8 x 512
+    # peaks at 77 GiB (scripts/train_phase.py) and 16 x 256 leaves room
+    trained["profile_4096"] = train_step_profile(cfg, dev, seq_len=256,
+                                                 batch=16)
+    step_cmp = kernel_vs_plain_step(cfg, dev)
+    checkpoint_restart(dev)
+    tl = trained["launches"]
 
     def ffn_entry(prefill_res, decode_res):
         """The prefill shape's numbers under the contract's keys, the
@@ -899,7 +1434,20 @@ def main() -> int:
          "replaces": "src/repro/kernels/moe_ffn.py:58",
          "launches": counts_a["fused_moe_ffn"],
          **ffn_entry(cap_prefill, cap_decode), "library_ms": None},
+        {"name": "ragged_moe_ffn_dgrad", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
+         "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
+         "launches": tl["ragged_moe_ffn_dgrad"], **k1, "library_ms": None},
+        {"name": "ragged_moe_ffn_wgrad", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
+         "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
+         "launches": tl["ragged_moe_ffn_wgrad"], **k2, "library_ms": None},
+        {"name": "route_select_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/route_select.cu",
+         "replaces": "src/repro/kernels/router.py:47",
+         "launches": tl["route_select_bwd"], **k3, "library_ms": None},
     ]
+    print(f"[train] summary: {json.dumps({k: v for k, v in trained.items() if k != 'launches'} | {'kernel_vs_plain': step_cmp})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,12 @@ policies, schedulers — are the port's own objects, separate from the
 reference's: registering a plugin in one does not reach the other.
 
 Entry points run on the card unless the caller asks for the CPU
-(:func:`repro_torch.device.resolve_device`). On a CUDA tensor the MoE layer
-runs two hand-written Hopper kernels, the ragged grouped FFN (CUDA C++)
-and the router (Triton); on a CPU tensor it runs their plain versions.
+(:func:`repro_torch.device.resolve_device`): the serve driver
+(``launch.serve``) and the train driver (``launch.train``). On a CUDA
+tensor the MoE layer runs the port's hand-written Hopper kernels (CUDA
+C++: the routing stage and the grouped FFNs, and in training their
+backward kernels); on a CPU tensor it runs their plain versions.
 """
 
 __all__ = ["bridge", "configs", "core", "device", "kernels", "launch",
-           "models", "serving"]
+           "models", "serving", "training", "tree"]

@@ -15,6 +15,8 @@
 //         tally, 1), mean_prob)
 // and, as a second entry (router_topk_f32), the TPU kernel's own function:
 // logits (T, E) f32 -> top-K weights and indices, through the same epilogue.
+// For training the forward also writes p (T, E) f32, and a third entry
+// (route_select_bwd_f32, below) is the stage's backward to its logits.
 //
 // What bounds it on an H100. Bytes: x and w (decode, T = 8, D = 1536,
 // E = 40: 24.6 KB + 245.8 KB, 0.08 us at 3.35 TB/s). Operations: the f32
@@ -106,6 +108,7 @@ struct Params {
   const int* seed;          // ()
   const bool* row_valid;    // (T,) or null
   float* weights;           // (T, K)
+  float* probs;             // (T, E) softmax, for the backward; or null
   int* idx;                 // (T, K)
   int* slots;               // (T, K)
   float* tally;             // (E + 1,)
@@ -481,6 +484,14 @@ route_select_kernel(const Params p) {
       const int c = lane + 32 * j;
       if (c < p.E) lrow[c] = v[j];
     }
+    if (p.probs != nullptr) {
+      float* prow = p.probs + static_cast<int64_t>(row) * p.E;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = lane + 32 * j;
+        if (c < p.E) prow[c] = v[j];
+      }
+    }
     float my_w, total;
     int my_i;
     top_k<J>(v, p.K, lane, my_w, my_i, total);
@@ -582,6 +593,84 @@ router_topk_kernel(const float* __restrict__ logits, float* __restrict__ w,
   }
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The routing stage's backward to its logits, one warp a row (J columns a
+// lane, as in the forward's epilogue). With frac = tally / max(sum tally, 1)
+// held constant (counts have no gradient):
+//   dmean = E frac daux + dmean_prob
+//   on a valid row, s = sum_k p[idx_k] and
+//     dp[idx_k] = (dw_k - sum_j dw_j w_j) / s   (the renormalisation)
+//   dp += dmean / T on every row (the mean runs over all T rows)
+//   dlogits = p (dp - sum p dp)
+// Lane k < K holds assignment k; every sum is a fixed shuffle tree, so
+// reruns are bit-identical. No atomics: each row is one warp's alone.
+template <int J>
+__global__ void __launch_bounds__(THREADS)
+route_select_bwd_kernel(const float* __restrict__ probs,
+                        const int* __restrict__ idx,
+                        const float* __restrict__ weights,
+                        const float* __restrict__ dweights,
+                        const float* __restrict__ tally,
+                        const float* __restrict__ dmean_prob,
+                        const float* __restrict__ daux,
+                        const bool* __restrict__ row_valid,
+                        float* __restrict__ dlogits, int T, int E, int K) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= T) return;
+  float n = 0.0f;
+  for (int e = lane; e < E; e += 32) n += tally[e];
+  const float den = fmaxf(warp_sum(n), 1.0f);
+  const float da = *daux;
+  const float* prow = probs + static_cast<int64_t>(row) * E;
+  float pv[J], dp[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = lane + 32 * j;
+    pv[j] = c < E ? prow[c] : 0.0f;
+    dp[j] = c < E ? (static_cast<float>(E) * (tally[c] / den) * da +
+                     dmean_prob[c]) / static_cast<float>(T)
+                  : 0.0f;
+  }
+  if (row_valid == nullptr || row_valid[row]) {
+    float pk = 0.0f, wk = 0.0f, dwk = 0.0f;
+    int ik = 0;
+    if (lane < K) {
+      const int64_t o = static_cast<int64_t>(row) * K + lane;
+      ik = idx[o];
+      wk = weights[o];
+      dwk = dweights[o];
+      pk = prow[ik];
+    }
+    const float s = warp_sum(pk);
+    const float inner = warp_sum(dwk * wk);
+    const float gk = lane < K ? (dwk - inner) / s : 0.0f;
+    for (int k = 0; k < K; ++k) {
+      const int ek = __shfl_sync(0xffffffffu, ik, k);
+      const float g = __shfl_sync(0xffffffffu, gk, k);
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (lane + 32 * j == ek) dp[j] += g;
+    }
+  }
+  float dot = 0.0f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) dot += pv[j] * dp[j];
+  dot = warp_sum(dot);
+  float* drow = dlogits + static_cast<int64_t>(row) * E;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = lane + 32 * j;
+    if (c < E) drow[c] = pv[j] * (dp[j] - dot);
+  }
+}
+
 template <int J>
 cudaError_t launch_route(const Params& p, int S, int n_rb, size_t smem,
                          cudaStream_t stream) {
@@ -612,7 +701,7 @@ bool aligned16(const void* ptr) {
 
 extern "C" {
 
-// One launch, its arguments packed in a host array of 21 int64 (read
+// One launch, its arguments packed in a host array of 23 int64 (read
 // before this returns, so the caller may reuse it at once), in order:
 //   x (T, D) bf16, w (D, E) f32, slots_of (E, R) int32, n_copies (E,) int32,
 //   copy_cdf (E, R) f32, seed () int32, row_valid (T,) bool or 0,
@@ -624,7 +713,9 @@ extern "C" {
 //   the stream, T, D, E, K, R,
 //   TR rows a block (a multiple of 4, TR / 4 * ceil(E / 4) <= 256),
 //   DC-deep chunks (a multiple of 8), cps chunks a split, S splits
-//   (S cps DC >= D).
+//   (S cps DC >= D),
+//   probs (T, E) f32 or 0 (written for the backward when given),
+//   weights (T, K) f32 or 0 (0: the first plane of packed).
 // All tensors contiguous, on the current device.
 int route_select_bf16(const int64_t* args) {
   const auto ptr = [&](int i) { return reinterpret_cast<void*>(args[i]); };
@@ -651,7 +742,9 @@ int route_select_bf16(const int64_t* args) {
   p.seed = static_cast<const int*>(ptr(5));
   p.row_valid = static_cast<const bool*>(ptr(6));
   int* packed = static_cast<int*>(ptr(7));
-  p.weights = reinterpret_cast<float*>(packed);
+  p.weights = args[22] != 0 ? static_cast<float*>(ptr(22))
+                            : reinterpret_cast<float*>(packed);
+  p.probs = static_cast<float*>(ptr(21));
   p.idx = packed + static_cast<int64_t>(T) * K;
   p.slots = packed + 2 * static_cast<int64_t>(T) * K;
   p.tally = static_cast<float*>(ptr(8));
@@ -721,6 +814,48 @@ int router_topk_f32(const void* logits, void* weights, void* idx, int T,
       break;
     default:
       router_topk_kernel<32><<<grid, THREADS, 0, s>>>(l, w, i, T, E, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The routing stage's backward to its logits (route_select_bwd_kernel):
+// probs (T, E), weights and dweights (T, K) f32, idx (T, K) int32, tally
+// (E,) f32 counts, dmean_prob (E,) f32, daux () f32, row_valid (T,) bool or null
+// -> dlogits (T, E) f32. One warp a row, 8 rows a block.
+int route_select_bwd_f32(const void* probs, const void* idx,
+                         const void* weights, const void* dweights,
+                         const void* tally, const void* dmean_prob,
+                         const void* daux, const void* row_valid,
+                         void* dlogits, int T, int E, int K, void* stream) {
+  if (T <= 0 || E <= 0 || E > 1024 || K <= 0 || K > E || K > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* pr = static_cast<const float*>(probs);
+  const auto* ix = static_cast<const int*>(idx);
+  const auto* w = static_cast<const float*>(weights);
+  const auto* dw = static_cast<const float*>(dweights);
+  const auto* tl = static_cast<const float*>(tally);
+  const auto* dm = static_cast<const float*>(dmean_prob);
+  const auto* dx = static_cast<const float*>(daux);
+  const auto* rv = static_cast<const bool*>(row_valid);
+  auto* dl = static_cast<float*>(dlogits);
+  const dim3 grid((T + WARPS - 1) / WARPS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cols_per_lane(E)) {
+    case 2:
+      route_select_bwd_kernel<2><<<grid, THREADS, 0, s>>>(
+          pr, ix, w, dw, tl, dm, dx, rv, dl, T, E, K);
+      break;
+    case 4:
+      route_select_bwd_kernel<4><<<grid, THREADS, 0, s>>>(
+          pr, ix, w, dw, tl, dm, dx, rv, dl, T, E, K);
+      break;
+    case 8:
+      route_select_bwd_kernel<8><<<grid, THREADS, 0, s>>>(
+          pr, ix, w, dw, tl, dm, dx, rv, dl, T, E, K);
+      break;
+    default:
+      route_select_bwd_kernel<32><<<grid, THREADS, 0, s>>>(
+          pr, ix, w, dw, tl, dm, dx, rv, dl, T, E, K);
   }
   return static_cast<int>(cudaGetLastError());
 }

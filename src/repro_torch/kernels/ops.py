@@ -6,6 +6,15 @@ raises. Nothing here catches a kernel failure to fall back to the plain
 version. Each kernel wrapper keeps a plain integer launch count
 (``launch_counts``), which only a kernel launch raises.
 
+``ragged_moe_ffn`` and ``route_select`` are differentiable on both
+devices: when an input requires a gradient they go through an
+``autograd.Function`` (:class:`RaggedMoeFFN`, :class:`RouteSelect`) whose
+forward is the kernel and whose backward is a kernel too on the card
+(``ragged_moe_ffn_dgrad``, ``ragged_moe_ffn_wgrad``, ``route_select_bwd``)
+and the plain backward on the CPU. When nothing requires a gradient they
+call the wrapper directly: the decode step is host-bound, and serving pays
+no autograd bookkeeping.
+
 ``FFN_TILES`` states the tiles of the CUDA FFN kernels' general route,
 chosen for Hopper shared memory in place of the v5e VMEM budget the TPU
 wrapper sized for (``pick_blocks`` in ``src/repro/kernels/ops.py:24-41``).
@@ -18,13 +27,16 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from . import moe_ffn as _capacity
 from . import ragged_moe_ffn as _ragged
 from . import ref
 from . import route_select as _route
 
 __all__ = ["fused_moe_ffn", "ragged_moe_ffn", "router_topk", "route_select",
-           "FFN_TILES", "launch_counts", "reset_launch_counts"]
+           "RaggedMoeFFN", "RouteSelect", "FFN_TILES", "launch_counts",
+           "reset_launch_counts"]
 
 #: (RB, BN, BK) of both FFN kernels' general route
 #: (``csrc/moe_ffn_blocks.cuh``, WMMA): RB rows x BN columns per block,
@@ -45,6 +57,14 @@ def fused_moe_ffn(w1, w3, w2, toks):
     raise ValueError(f"fused_moe_ffn: no kernel for device {toks.device}")
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_kernel(name, dev):
+    return ValueError(f"{name}: no kernel for device {dev}")
+
+
 def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
                    sizes=None, max_rows=None):
     """Ragged grouped SwiGLU FFN over a flat group-sorted (T, D) buffer
@@ -53,7 +73,11 @@ def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
     plan's real rows per expert) let the kernel skip padding rows;
     ``max_rows`` (the most a tile is expected to hold) picks its row block
     and is never trusted. The plain version needs none of them: padding
-    rows are zero."""
+    rows are zero. Differentiable in the weights and ``toks``; a gradient
+    on the card needs ``row_offsets`` and ``sizes``."""
+    if _wants_grad(w1, w3, w2, toks):
+        return RaggedMoeFFN.apply(w1, w3, w2, toks, tile_group, row_offsets,
+                                  sizes, max_rows)
     kind = toks.device.type
     if kind == "cpu":
         return ref.ragged_moe_ffn_ref(w1, w3, w2, toks, tile_group)
@@ -61,7 +85,50 @@ def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
         return _ragged.ragged_moe_ffn(w1, w3, w2, toks, tile_group,
                                       row_offsets=row_offsets, sizes=sizes,
                                       max_rows=max_rows)
-    raise ValueError(f"ragged_moe_ffn: no kernel for device {toks.device}")
+    raise _no_kernel("ragged_moe_ffn", toks.device)
+
+
+class RaggedMoeFFN(torch.autograd.Function):
+    """The ragged FFN for autograd. On the card the forward is the kernel,
+    keeping its bf16 scratch ``h`` as the saved activation, and the
+    backward is K1 (``dx``, ``da``, ``db``) then K2 (the weights'
+    gradients), over the plan's real rows; on the CPU both are the plain
+    versions (:func:`~.ref.ragged_moe_ffn_bwd_ref`)."""
+
+    @staticmethod
+    def forward(ctx, w1, w3, w2, toks, tile_group, row_offsets, sizes,
+                max_rows):
+        kind = toks.device.type
+        h = None
+        if kind == "cpu":
+            y = ref.ragged_moe_ffn_ref(w1, w3, w2, toks, tile_group)
+        elif kind == "cuda":
+            if row_offsets is None or sizes is None:
+                raise ValueError("ragged_moe_ffn: a gradient on the card "
+                                 "needs the plan's row_offsets and sizes")
+            y, h = _ragged.ragged_moe_ffn(
+                w1, w3, w2, toks, tile_group, row_offsets=row_offsets,
+                sizes=sizes, max_rows=max_rows, keep_h=True)
+        else:
+            raise _no_kernel("ragged_moe_ffn", toks.device)
+        ctx.save_for_backward(w1, w3, w2, toks, tile_group, row_offsets,
+                              sizes, h)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        w1, w3, w2, toks, tile_group, row_offsets, sizes, h = \
+            ctx.saved_tensors
+        dy = dy.contiguous()
+        if toks.device.type == "cpu":
+            dx, dw1, dw3, dw2 = ref.ragged_moe_ffn_bwd_ref(
+                w1, w3, w2, toks, tile_group, dy)
+        else:
+            dx, da, db = _ragged.ragged_moe_ffn_dgrad(
+                w1, w3, w2, toks, tile_group, row_offsets, sizes, dy)
+            dw1, dw3, dw2 = _ragged.ragged_moe_ffn_wgrad(
+                toks, h, da, db, dy, row_offsets, sizes)
+        return dw1, dw3, dw2, dx, None, None, None, None
 
 
 def router_topk(logits, top_k: int):
@@ -80,15 +147,63 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
     """A layer's routing stage — f32 router product, softmax, top-k,
     replica selection, masked tally, mean probabilities, aux loss — in one
     launch: → ``(weights, idx, slots, tally (E + 1,), mean_prob, aux)``
-    (:func:`~.ref.route_select_ref`)."""
+    (:func:`~.ref.route_select_ref`). Differentiable in ``x`` and
+    ``router_w`` through the weights, the mean probabilities and aux."""
+    args = (x, router_w, slots_of, n_copies, copy_cdf, route_seed, top_k,
+            row_valid)
+    if _wants_grad(x, router_w):
+        return RouteSelect.apply(*args)
     kind = x.device.type
     if kind == "cpu":
-        return ref.route_select_ref(x, router_w, slots_of, n_copies,
-                                    copy_cdf, route_seed, top_k, row_valid)
+        return ref.route_select_ref(*args)
     if kind == "cuda":
-        return _route.route_select(x, router_w, slots_of, n_copies,
-                                   copy_cdf, route_seed, top_k, row_valid)
-    raise ValueError(f"route_select: no kernel for device {x.device}")
+        return _route.route_select(*args)
+    raise _no_kernel("route_select", x.device)
+
+
+class RouteSelect(torch.autograd.Function):
+    """The routing stage for autograd. The forward also keeps the softmax
+    ``p`` (the kernel writes it beside its outputs on the card); the
+    backward to the logits is ``route_select_bwd`` on the card and
+    :func:`~.ref.route_select_dlogits_ref` on the CPU, then the router
+    product's two matrix products (:func:`~.ref.router_product_bwd`).
+    ``idx``, ``slots`` and ``tally`` are integer-valued and take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, router_w, slots_of, n_copies, copy_cdf, route_seed,
+                top_k, row_valid):
+        args = (x, router_w, slots_of, n_copies, copy_cdf, route_seed,
+                top_k, row_valid)
+        kind = x.device.type
+        if kind == "cpu":
+            out = ref.route_select_ref(*args, with_probs=True)
+        elif kind == "cuda":
+            out = _route.route_select(*args, with_probs=True)
+        else:
+            raise _no_kernel("route_select", x.device)
+        weights, idx, slots, tally, mean_prob, aux, probs = out
+        ctx.mark_non_differentiable(idx, slots, tally)
+        ctx.save_for_backward(x, router_w, probs, idx, weights, row_valid)
+        # the counts, kept apart from save_for_backward: the capacity
+        # bodies write the drop column tally[E] after the forward, which
+        # the backward does not read
+        ctx.counts = tally[:router_w.shape[1]].detach()
+        return weights, idx, slots, tally, mean_prob, aux
+
+    @staticmethod
+    def backward(ctx, dweights, _didx, _dslots, _dtally, dmean_prob, daux):
+        x, router_w, probs, idx, weights, row_valid = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dl = ref.route_select_dlogits_ref(
+                probs, idx, weights, ctx.counts, dweights, dmean_prob, daux,
+                row_valid)
+        else:
+            dl = _route.route_select_bwd(
+                probs, idx, weights, ctx.counts, dweights.contiguous(),
+                dmean_prob.contiguous(), daux.contiguous(), row_valid)
+        dx, drouter = ref.router_product_bwd(x, router_w, dl)
+        return dx, drouter, None, None, None, None, None, None
 
 
 def launch_counts() -> Dict[str, int]:
@@ -99,12 +214,17 @@ def launch_counts() -> Dict[str, int]:
             "ragged_moe_ffn": _ragged.ragged_moe_ffn.launches,
             "ragged_moe_ffn.tma": _ragged.ragged_moe_ffn.tma_launches,
             "router_topk": _route.router_topk.launches,
-            "route_select": _route.route_select.launches}
+            "route_select": _route.route_select.launches,
+            "ragged_moe_ffn_dgrad": _ragged.ragged_moe_ffn_dgrad.launches,
+            "ragged_moe_ffn_wgrad": _ragged.ragged_moe_ffn_wgrad.launches,
+            "route_select_bwd": _route.route_select_bwd.launches}
 
 
 def reset_launch_counts() -> None:
     for fn in (_capacity.fused_moe_ffn, _ragged.ragged_moe_ffn):
         fn.launches = 0
         fn.tma_launches = 0
-    _route.router_topk.launches = 0
-    _route.route_select.launches = 0
+    for fn in (_route.router_topk, _route.route_select,
+               _route.route_select_bwd, _ragged.ragged_moe_ffn_dgrad,
+               _ragged.ragged_moe_ffn_wgrad):
+        fn.launches = 0

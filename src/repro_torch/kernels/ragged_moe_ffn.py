@@ -20,8 +20,16 @@ The kernel also takes the layout's ``row_offsets`` and the plan's
 (:func:`ragged_tile_rows` is the plain version of that rule), so it computes
 only those rows; the plan needs no extra tensor op for it.
 
-On a CUDA tensor :func:`ragged_moe_ffn` launches the kernel or raises; the
-CPU path lives in :mod:`.ops`, which sends CPU tensors to the plain version.
+The backward is two kernels of ``csrc/ragged_moe_ffn_bwd.cu`` over the
+same layout and real rows: :func:`ragged_moe_ffn_dgrad` (K1: ``dx`` and the
+bf16 ``da``, ``db``) and :func:`ragged_moe_ffn_wgrad` (K2: the three weight
+gradients, each expert's rows summed in a fixed order). The forward's bf16
+scratch ``h (T, F)`` is the saved activation (``keep_h=True``).
+:class:`repro_torch.kernels.ops.RaggedMoeFFN` ties them together for
+autograd.
+
+On a CUDA tensor each wrapper launches its kernel or raises; the CPU path
+lives in :mod:`.ops`, which sends CPU tensors to the plain versions.
 Two routes, picked from shapes and pointers, never by catching a failure:
 the TMA route (a TMA ring and ``wgmma``, ``csrc/moe_ffn_hopper.cuh``) for D
 and F multiples of 8 and 16-byte aligned operands, the general route (WMMA,
@@ -37,8 +45,8 @@ import torch
 from . import build
 
 __all__ = ["ragged_tile_metadata", "ragged_tile_rows", "ragged_n_tiles",
-           "ragged_moe_ffn", "tma_rows", "tma_ok", "check_operands",
-           "ROW_BLOCK"]
+           "ragged_moe_ffn", "ragged_moe_ffn_dgrad", "ragged_moe_ffn_wgrad",
+           "tma_rows", "tma_ok", "check_operands", "ROW_BLOCK"]
 
 #: Rows per thread block of the general route (``RB`` in
 #: ``moe_ffn_blocks.cuh``). The plan's row tile ``bm`` must be a multiple of
@@ -159,7 +167,7 @@ def _check_index(name, t, n, dev):
 
 
 def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
-                   sizes=None, max_rows=None, route=None):
+                   sizes=None, max_rows=None, route=None, keep_h=False):
     """Launch the CUDA grouped SwiGLU FFN. toks (T, D) bf16 group-sorted,
     tile_group (T // bm,) int32, w1/w3 (E, D, F), w2 (E, F, D) bf16 →
     (T, D) bf16.
@@ -176,7 +184,9 @@ def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
     ``h (T, F)``, then the down projection. Checks device, dtype, shape
     and contiguity and raises on what the kernel does not take; raises if
     the launch is refused. Adds one to ``ragged_moe_ffn.launches`` and, on
-    the TMA route, to ``ragged_moe_ffn.tma_launches``.
+    the TMA route, to ``ragged_moe_ffn.tma_launches``. ``keep_h`` returns
+    ``(out, h)``: the scratch, written on every real row, is the backward's
+    saved activation.
     """
     check_operands("ragged_moe_ffn",
                    {"w1": w1, "w3": w3, "w2": w2, "toks": toks})
@@ -225,9 +235,106 @@ def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
     ragged_moe_ffn.launches += 1
     ragged_moe_ffn.tma_launches += tma
     ragged_moe_ffn.last_route = f"tma rows={rows}" if tma else "general"
-    return out
+    return (out, h) if keep_h else out
 
 
 ragged_moe_ffn.launches = 0
 ragged_moe_ffn.tma_launches = 0
 ragged_moe_ffn.last_route = None
+
+
+def _bwd_lib():
+    lib = build.load("ragged_moe_ffn_bwd")
+    if lib.ragged_moe_ffn_dgrad_bf16.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ragged_moe_ffn_dgrad_bf16.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.ragged_moe_ffn_wgrad_bf16.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.ragged_moe_ffn_dgrad_bf16.restype = ctypes.c_int
+        lib.ragged_moe_ffn_wgrad_bf16.restype = ctypes.c_int
+    return lib
+
+
+def _check_plan(kernel, toks, n_tiles, E, tile_group, row_offsets, sizes):
+    dev = toks.device
+    _check_index("tile_group", tile_group, n_tiles, dev)
+    _check_index("row_offsets", row_offsets, E + 1, dev)
+    _check_index("sizes", sizes, E, dev)
+    T = toks.shape[0]
+    if n_tiles == 0 or T % n_tiles or (T // n_tiles) % ROW_BLOCK:
+        raise ValueError(f"{kernel}: T={T} over {n_tiles} tiles is not a "
+                         f"row tile that is a multiple of {ROW_BLOCK}")
+
+
+def ragged_moe_ffn_dgrad(w1, w3, w2, toks, tile_group, row_offsets, sizes,
+                         dy):
+    """Launch K1: ``dy (T, D)`` → ``(dx (T, D), da (T, F), db (T, F))``
+    bf16, as :func:`~.ref.ragged_moe_ffn_bwd_ref` computes ``dx`` and its
+    rounded ``da``, ``db``. Only the plan's real rows are computed; every
+    other row of ``dx`` is exactly zero, and ``da``, ``db`` are written on
+    real rows only (the rows :func:`ragged_moe_ffn_wgrad` reads). Raises on
+    what the kernel does not take and if the launch is refused. Adds one
+    to ``ragged_moe_ffn_dgrad.launches``."""
+    check_operands("ragged_moe_ffn_dgrad", {"w1": w1, "w3": w3, "w2": w2,
+                                            "toks": toks, "dy": dy})
+    T, D = toks.shape
+    E, _, F = w1.shape
+    if w3.shape != (E, D, F) or w2.shape != (E, F, D) or w1.shape[1] != D \
+            or dy.shape != (T, D):
+        raise ValueError(f"ragged_moe_ffn_dgrad: shapes w1 {tuple(w1.shape)}"
+                         f", w3 {tuple(w3.shape)}, w2 {tuple(w2.shape)}, "
+                         f"toks {tuple(toks.shape)}, dy {tuple(dy.shape)}")
+    n_tiles = tile_group.shape[0]
+    _check_plan("ragged_moe_ffn_dgrad", toks, n_tiles, E, tile_group,
+                row_offsets, sizes)
+    dx = torch.empty_like(toks)
+    da = torch.empty((T, F), dtype=toks.dtype, device=toks.device)
+    db = torch.empty_like(da)
+    err = _bwd_lib().ragged_moe_ffn_dgrad_bf16(
+        toks.data_ptr(), dy.data_ptr(), tile_group.data_ptr(),
+        row_offsets.data_ptr(), sizes.data_ptr(), w1.data_ptr(),
+        w3.data_ptr(), w2.data_ptr(), da.data_ptr(), db.data_ptr(),
+        dx.data_ptr(), T, D, F, E, T // n_tiles,
+        torch._C._cuda_getCurrentRawStream(toks.get_device()))
+    if err != 0:
+        raise RuntimeError(f"ragged_moe_ffn_dgrad: CUDA launch failed with "
+                           f"cudaError {err}")
+    ragged_moe_ffn_dgrad.launches += 1
+    return dx, da, db
+
+
+ragged_moe_ffn_dgrad.launches = 0
+
+
+def ragged_moe_ffn_wgrad(toks, h, da, db, dy, row_offsets, sizes):
+    """Launch K2: ``(dw1 (E, D, F), dw3 (E, D, F), dw2 (E, F, D))`` bf16 =
+    ``xᵀ da``, ``xᵀ db``, ``hᵀ dy`` over each expert's real rows, summed
+    in f32 in a fixed order; an expert with no rows gets zeros. Raises on
+    what the kernel does not take and if the launch is refused. Adds one
+    to ``ragged_moe_ffn_wgrad.launches``."""
+    check_operands("ragged_moe_ffn_wgrad", {"toks": toks, "h": h, "da": da,
+                                            "db": db, "dy": dy})
+    T, D = toks.shape
+    F = h.shape[1]
+    E = sizes.shape[0]
+    if h.shape != (T, F) or da.shape != (T, F) or db.shape != (T, F) \
+            or dy.shape != (T, D):
+        raise ValueError("ragged_moe_ffn_wgrad: h, da, db must be (T, F) "
+                         "and dy (T, D) beside toks (T, D)")
+    _check_index("row_offsets", row_offsets, E + 1, toks.device)
+    _check_index("sizes", sizes, E, toks.device)
+    dw1 = torch.empty((E, D, F), dtype=toks.dtype, device=toks.device)
+    dw3 = torch.empty_like(dw1)
+    dw2 = torch.empty((E, F, D), dtype=toks.dtype, device=toks.device)
+    err = _bwd_lib().ragged_moe_ffn_wgrad_bf16(
+        toks.data_ptr(), h.data_ptr(), da.data_ptr(), db.data_ptr(),
+        dy.data_ptr(), row_offsets.data_ptr(), sizes.data_ptr(),
+        dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), T, D, F, E,
+        torch._C._cuda_getCurrentRawStream(toks.get_device()))
+    if err != 0:
+        raise RuntimeError(f"ragged_moe_ffn_wgrad: CUDA launch failed with "
+                           f"cudaError {err}")
+    ragged_moe_ffn_wgrad.launches += 1
+    return dw1, dw3, dw2
+
+
+ragged_moe_ffn_wgrad.launches = 0

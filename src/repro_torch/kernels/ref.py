@@ -13,8 +13,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["moe_ffn_ref", "ragged_moe_ffn_ref", "router_topk_ref",
-           "route_select_ref", "assignment_uniforms", "select_slots",
+__all__ = ["moe_ffn_ref", "ragged_moe_ffn_ref", "ragged_moe_ffn_bwd_ref",
+           "router_topk_ref", "route_select_ref", "route_select_dlogits_ref",
+           "route_select_bwd_ref", "router_product_bwd",
+           "assignment_uniforms", "select_slots",
            "masked_tally", "aux_loss"]
 
 
@@ -55,6 +57,50 @@ def ragged_moe_ffn_ref(w1, w3, w2, toks, tile_group, row_offsets=None,
     y = _swiglu_ffn(x, w1[g], w3[g], w2[g])
     y = y * (tile_group < E).to(y.dtype)[:, None, None]
     return y.reshape(T, D).to(toks.dtype)
+
+
+def ragged_moe_ffn_bwd_ref(w1, w3, w2, toks, tile_group, dy):
+    """Backward of :func:`ragged_moe_ffn_ref`: ``dy (T, D)`` →
+    ``(dtoks (T, D), dw1, dw3 (E, D, F), dw2 (E, F, D))``, each in its
+    input's dtype.
+
+    The forward's rounding points: f32 products, ``a = x W1`` and
+    ``b = x W3`` recomputed in f32, ``h = silu(a) b`` rounded to the input
+    dtype for ``dw2 = hᵀ dy``. ``dh = dy W2ᵀ`` in f32, then
+    ``da = dh b σ(a)(1 + a(1 − σ(a)))`` and ``db = dh silu(a)`` rounded to
+    the input dtype (the CUDA kernels pass them on in bf16), from which
+    ``dx = da W1ᵀ + db W3ᵀ``, ``dw1 = xᵀ da`` and ``dw3 = xᵀ db`` sum in
+    f32. Sentinel tiles get no gradient; an expert with no tile gets zero.
+    """
+    T, D = toks.shape
+    n_tiles = tile_group.shape[0]
+    E = w1.shape[0]
+    dt = toks.dtype
+    g = torch.clamp(tile_group.long(), max=E - 1)
+    occ = (tile_group < E).to(torch.float32)[:, None, None]
+    x = toks.reshape(n_tiles, T // n_tiles, D).float()
+    dyv = dy.reshape(n_tiles, T // n_tiles, D).float() * occ
+    W1, W3, W2 = w1[g].float(), w3[g].float(), w2[g].float()
+    a = torch.bmm(x, W1)
+    b = torch.bmm(x, W3)
+    s = torch.sigmoid(a)
+    silu = a * s
+    h = (silu * b).to(dt).float()
+    dh = torch.bmm(dyv, W2.transpose(1, 2))
+    da = (dh * b * s * (1.0 + a * (1.0 - s))).to(dt).float()
+    db = (dh * silu).to(dt).float()
+    dx = torch.bmm(da, W1.transpose(1, 2)) + torch.bmm(db, W3.transpose(1, 2))
+    xt = x.transpose(1, 2)
+
+    def per_expert(tiles):
+        out = tiles.new_zeros((E,) + tuple(tiles.shape[1:]))
+        return out.index_add_(0, g, tiles * occ)
+
+    dw1 = per_expert(torch.bmm(xt, da))
+    dw3 = per_expert(torch.bmm(xt, db))
+    dw2 = per_expert(torch.bmm(h.transpose(1, 2), dyv))
+    return (dx.reshape(T, D).to(dt), dw1.to(w1.dtype), dw3.to(w3.dtype),
+            dw2.to(w2.dtype))
 
 
 def _top_k_sweeps(p, top_k: int):
@@ -151,7 +197,7 @@ def aux_loss(tally, mean_prob, n_experts):
 
 
 def route_select_ref(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
-                     top_k: int, row_valid=None):
+                     top_k: int, row_valid=None, with_probs: bool = False):
     """A layer's routing stage, the reference's ``route`` →
     ``_select_slots`` → ``_masked_tally`` → ``_aux_loss``: x (T, D) and the
     f32 router (D, E) → ``(weights (T, K) f32, idx (T, K) int32, slots
@@ -160,7 +206,8 @@ def route_select_ref(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
     The product is taken in f32; weights are zero on rows ``row_valid``
     masks, which the tally does not count, while ``mean_prob`` averages all
     T rows, as the reference's. ``tally[E]`` is 0 (the capacity paths write
-    their drops there).
+    their drops there). ``with_probs`` also returns the softmax ``p``
+    (T, E), seventh, as the training forward keeps it.
     """
     E = router_w.shape[1]
     p = torch.softmax(x.float() @ router_w, dim=-1)
@@ -172,4 +219,51 @@ def route_select_ref(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
     tally = masked_tally(idx, E, row_valid)
     aux = aux_loss(tally, mean_prob, E)
     tally = torch.cat([tally, tally.new_zeros((1,))])
-    return weights, idx, slots.to(torch.int32), tally, mean_prob, aux
+    out = (weights, idx, slots.to(torch.int32), tally, mean_prob, aux)
+    return out + (p,) if with_probs else out
+
+
+def route_select_dlogits_ref(probs, idx, weights, tally, dweights,
+                             dmean_prob, daux, row_valid=None):
+    """Backward of the routing stage to its logits: ``(T, E)`` f32.
+
+    ``probs`` (T, E) the softmax, ``idx``/``weights`` (T, K) the forward's
+    top-k and gate weights (zero on rows ``row_valid`` masks), ``tally``
+    (≥ E,) its counts, and the gradients of the weights (T, K), of
+    ``mean_prob`` (E,) and of ``aux`` (). The tally is held constant
+    (integer counts have no gradient), so with ``frac = tally /
+    max(Σ tally, 1)``: ``dmean = E frac daux + dmean_prob``; on a valid
+    row ``dp[idx_k] = (dw_k − Σ_j dw_j w_j) / Σ_j p[idx_j]`` (the
+    renormalisation's gradient); every row adds ``dmean / T`` (the mean
+    runs over all T rows); and ``dlogits = p ⊙ (dp − Σ p dp)``.
+    """
+    T, E = probs.shape
+    cnt = tally[:E]
+    frac = cnt / torch.clamp(cnt.sum(), min=1.0)
+    dmean = E * frac * daux + dmean_prob
+    ii = idx.long()
+    s = torch.gather(probs, 1, ii).sum(-1, keepdim=True)
+    inner = (dweights * weights).sum(-1, keepdim=True)
+    dpk = (dweights - inner) / s
+    if row_valid is not None:
+        dpk = dpk * row_valid[:, None].to(dpk.dtype)
+    dp = torch.zeros_like(probs).scatter(1, ii, dpk) + dmean / T
+    return probs * (dp - (probs * dp).sum(-1, keepdim=True))
+
+
+def route_select_bwd_ref(x, router_w, probs, idx, weights, tally, dweights,
+                         dmean_prob, daux, row_valid=None):
+    """Backward of :func:`route_select_ref` to its differentiable inputs:
+    ``(dx (T, D) in x's dtype, drouter (D, E) f32)``, through
+    :func:`route_select_dlogits_ref` and the f32 router product."""
+    dl = route_select_dlogits_ref(probs, idx, weights, tally, dweights,
+                                  dmean_prob, daux, row_valid)
+    return router_product_bwd(x, router_w, dl)
+
+
+def router_product_bwd(x, router_w, dlogits):
+    """The f32 router product's backward: ``dx = dlogits Wᵀ`` in x's
+    dtype and ``dW = f32(x)ᵀ dlogits``. Plain matrix products on both
+    devices, as the reference leaves its router product to XLA."""
+    return ((dlogits @ router_w.T).to(x.dtype),
+            x.float().T @ dlogits)

@@ -17,6 +17,12 @@ block sums in a fixed order. The tickets that find that block, and the
 scratch of partial sums, live in per-device buffers kept here; the kernel
 resets each ticket after it is consumed.
 
+For training, ``route_select(..., with_probs=True)`` also returns the
+softmax ``p (T, E)`` that the kernel writes beside its outputs, with the
+gate weights in an f32 allocation of their own, and
+:func:`route_select_bwd` launches the stage's backward to its logits (a
+third entry of the same source).
+
 On a CUDA tensor each wrapper launches or raises; the CPU path lives in
 :mod:`.ops`, which sends CPU tensors to the plain versions (:mod:`.ref`).
 """
@@ -31,7 +37,7 @@ import torch
 
 from . import build
 
-__all__ = ["route_select", "router_topk", "plan"]
+__all__ = ["route_select", "route_select_bwd", "router_topk", "plan"]
 
 #: threads a block (``THREADS`` in ``csrc/route_select.cu``)
 THREADS = 256
@@ -47,9 +53,9 @@ _TICKETS: Dict[int, torch.Tensor] = {}
 _SCRATCH: Dict[int, torch.Tensor] = {}
 
 
-#: the fused launch's 21 arguments, packed for one ctypes call with one
+#: the fused launch's 23 arguments, packed for one ctypes call with one
 #: pointer (the C entry reads them before it returns)
-_ARGS = (ctypes.c_int64 * 21)()
+_ARGS = (ctypes.c_int64 * 23)()
 _ARGS_PTR = ctypes.addressof(_ARGS)
 
 
@@ -61,6 +67,8 @@ def _lib():
         lib.route_select_bf16.restype = ctypes.c_int
         lib.router_topk_f32.argtypes = [p, p, p, i, i, i, p]
         lib.router_topk_f32.restype = ctypes.c_int
+        lib.route_select_bwd_f32.argtypes = [p] * 9 + [i, i, i, p]
+        lib.route_select_bwd_f32.restype = ctypes.c_int
     return lib
 
 
@@ -118,7 +126,7 @@ def _refuse(specs, index):
 
 
 def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
-                 top_k: int, row_valid=None):
+                 top_k: int, row_valid=None, with_probs: bool = False):
     """Launch the fused routing kernel.
 
     ``x (T, D)`` bf16, ``router_w (D, E)`` f32, ``slots_of (E, R)`` int32,
@@ -129,7 +137,10 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
     mean_prob (E,) f32, aux () f32)``, as
     :func:`~.ref.route_select_ref`. Raises on what the kernel does not
     take and if the launch is refused. Adds one to
-    ``route_select.launches``.
+    ``route_select.launches``. ``with_probs`` (training): the kernel also
+    writes the softmax ``p (T, E)`` f32, returned seventh, and the weights
+    get an f32 allocation of their own rather than a view of the int32
+    pack.
 
     The host's part is kept small, since the decode step is host-bound:
     the checks read tensor attributes only, the outputs are views of two
@@ -169,13 +180,21 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
     packed = torch.empty((3, T, top_k), dtype=torch.int32, device=dev)
     stats = torch.empty((2 * E + 2,), dtype=torch.float32, device=dev)
     w, idx, slots = packed.unbind(0)
-    w = w.view(torch.float32)
+    probs = None
+    if with_probs:
+        w = torch.empty((T, top_k), dtype=torch.float32, device=dev)
+        probs = torch.empty((T, E), dtype=torch.float32, device=dev)
+    else:
+        w = w.view(torch.float32)
     tally, mean_prob, aux = stats.split_with_sizes((E + 1, E, 1))
     aux = aux.view(())
+    out = (w, idx, slots, tally, mean_prob, aux)
+    if with_probs:
+        out = out + (probs,)
     if T == 0:   # what the plain version gives: no rows, mean of nothing
         stats.fill_(float("nan"))
         tally.zero_()
-        return w, idx, slots, tally, mean_prob, aux
+        return out
     tr, dc, split, cps, n_rb = plan(T, D, E)
     # scratch words, as the C entry lays them out: partial logits (S > 1),
     # then the row blocks' sums of p and counts (n_rb > 1)
@@ -189,16 +208,68 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
         _zeros_at_least(_SCRATCH, index, n_words, dev).data_ptr(),
         _zeros_at_least(_TICKETS, index, n_rb + 1, dev).data_ptr(),
         torch._C._cuda_getCurrentRawStream(index),
-        T, D, E, top_k, R, tr, dc, cps, split)
+        T, D, E, top_k, R, tr, dc, cps, split,
+        0 if probs is None else probs.data_ptr(),
+        w.data_ptr() if with_probs else 0)
     err = _lib().route_select_bf16(_ARGS_PTR)
     if err != 0:
         raise RuntimeError(f"route_select: CUDA launch failed with "
                            f"cudaError {err}")
     route_select.launches += 1
-    return w, idx, slots, tally, mean_prob, aux
+    return out
 
 
 route_select.launches = 0
+
+
+def route_select_bwd(probs, idx, weights, tally, dweights, dmean_prob, daux,
+                     row_valid=None):
+    """Launch the routing stage's backward to its logits
+    (``route_select_bwd_kernel``): ``probs (T, E)``, ``weights`` and
+    ``dweights (T, K)``, the counts ``tally (E,)``, ``dmean_prob (E,)``,
+    ``daux
+    ()`` f32, ``idx (T, K)`` int32, ``row_valid (T,)`` bool or None, all
+    contiguous on one CUDA device → ``dlogits (T, E)`` f32, as
+    :func:`~.ref.route_select_dlogits_ref`. Raises on what the kernel
+    does not take and if the launch is refused. Adds one to
+    ``route_select_bwd.launches``."""
+    if not isinstance(probs, torch.Tensor) or not probs.is_cuda \
+            or probs.dim() != 2:
+        raise ValueError("route_select_bwd: probs is not a (T, E) tensor on "
+                         "a CUDA device")
+    T, E = probs.shape
+    K = idx.shape[-1]
+    index = probs.get_device()
+    specs = (("probs", probs, torch.float32, (T, E)),
+             ("idx", idx, torch.int32, (T, K)),
+             ("weights", weights, torch.float32, (T, K)),
+             ("dweights", dweights, torch.float32, (T, K)),
+             ("tally", tally, torch.float32, (E,)),
+             ("dmean_prob", dmean_prob, torch.float32, (E,)),
+             ("daux", daux, torch.float32, ()))
+    if row_valid is not None:
+        specs += (("row_valid", row_valid, torch.bool, (T,)),)
+    if any(_bad(t, dtype, shape, index) for _, t, dtype, shape in specs):
+        _refuse(specs, index)
+    if not 1 <= K <= min(E, 32) or E > 1024:
+        raise ValueError(f"route_select_bwd: top_k={K} with E={E} (K <= 32, "
+                         "E <= 1024)")
+    dlogits = torch.empty((T, E), dtype=torch.float32, device=probs.device)
+    if T == 0:
+        return dlogits
+    err = _lib().route_select_bwd_f32(
+        probs.data_ptr(), idx.data_ptr(), weights.data_ptr(),
+        dweights.data_ptr(), tally.data_ptr(), dmean_prob.data_ptr(),
+        daux.data_ptr(), None if row_valid is None else row_valid.data_ptr(),
+        dlogits.data_ptr(), T, E, K, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"route_select_bwd: CUDA launch failed with "
+                           f"cudaError {err}")
+    route_select_bwd.launches += 1
+    return dlogits
+
+
+route_select_bwd.launches = 0
 
 
 def router_topk(logits, top_k: int):

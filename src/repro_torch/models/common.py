@@ -12,7 +12,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope_tables", "apply_rope", "dense_init", "mlp"]
+__all__ = ["rms_norm", "rope_tables", "apply_rope", "dense_init", "mlp",
+           "softmax_xent_chunked"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -64,3 +65,30 @@ def mlp(p, x: torch.Tensor, gated: bool) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu default
     return h @ p["w2"]
+
+
+def softmax_xent_chunked(hidden: torch.Tensor, w_unemb: torch.Tensor,
+                         labels: torch.Tensor,
+                         n_chunks: int = 8) -> torch.Tensor:
+    """Mean token cross-entropy without the whole (B, S, V) logits at once.
+
+    The sequence axis is taken in ``n_chunks`` pieces (one if it does not
+    divide S), so the logits live as (B, S / n_chunks, V) f32 a piece, as
+    the reference's scan does. The unembedding product runs in the
+    params' dtype and its result is cast to f32, the reference's rounding
+    point.
+    """
+    B, S, D = hidden.shape
+    if S % n_chunks != 0:
+        n_chunks = 1
+    C = S // n_chunks
+    total = None
+    for i in range(n_chunks):
+        hc = hidden[:, i * C:(i + 1) * C]
+        yc = labels[:, i * C:(i + 1) * C].long()
+        logits = (hc @ w_unemb).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        part = torch.sum(logz - gold)
+        total = part if total is None else total + part
+    return total / (B * S)

@@ -1,5 +1,5 @@
-"""Model assembly for attention-only archs: prefill, chunked-prefill and
-decode entry points.
+"""Model assembly for attention-only archs: the training loss, and the
+prefill, chunked-prefill and decode entry points.
 
 The counterpart of ``repro.models.model``. Params carry the reference's
 keys and leading ``n_blocks`` axis (a super-block is the smallest repeating
@@ -13,9 +13,15 @@ functions.
 
 Decode and chunked prefill update the KV cache in place (one new row per
 sequence, or one chunk's rows in one lane) and return the same cache
-object; prefill returns a new per-request cache. ``phase`` ("prefill",
-"chunk", "decode") reaches the MoE layer, which picks its dispatch body by
-it, as in the reference.
+object; prefill returns a new per-request cache. ``phase`` ("train",
+"prefill", "chunk", "decode") reaches the MoE layer, which picks its
+dispatch body by it, as in the reference.
+
+:func:`loss_fn` is the reference's training loss. Its ``phase="train"``
+pass keeps no per-layer k/v stack (the reference's ``nc = []``) and hands
+each block its parameters through ``torch.unbind`` of the stacked leaves,
+so the backward writes each stacked gradient once instead of adding a
+full-size zero-padded slice per block.
 """
 
 from __future__ import annotations
@@ -29,14 +35,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from .attention import attn_init
-from .common import apply_rope, dense_init, mlp, rms_norm, rope_tables
+from .common import (apply_rope, dense_init, mlp, rms_norm, rope_tables,
+                     softmax_xent_chunked)
 from .flash import flash_attention, flash_decode
 from .moe import moe_init, moe_layer
 from .sharding import ShardingRules, build_copy_cdf, build_slots_of
 
 __all__ = [
     "LayerSpec", "block_layout", "init_params", "make_moe_tables",
-    "refresh_moe_share_tables", "prefill_fn", "prefill_chunk_fn",
+    "refresh_moe_share_tables", "loss_fn", "prefill_fn", "prefill_chunk_fn",
     "decode_fn", "init_cache", "moe_perm_shape",
 ]
 
@@ -284,14 +291,15 @@ def _run_attention_chunk(p, x, cfg, window, cache, positions, lane, offset,
 def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
                 positions, phase, cache_blk=None, pos=None, chunk_ctx=None,
                 route_seed=None, moe_row_valid=None):
-    """One super-block forward. Returns (x, tallies (m, E+1), new caches).
+    """One super-block forward. Returns (x, tallies (m, E+1), aux losses
+    (a list, one a MoE layer), new caches).
 
     ``chunk_ctx`` — (lane, offset, n_valid, row_valid) of the chunked-
     prefill phase: attention goes through :func:`_run_attention_chunk`.
     ``route_seed`` and ``moe_row_valid`` (the padding mask, flat over the
     block's rows) go to every MoE layer; the caller computes them once a
     model call."""
-    tallies, new_cache = [], []
+    tallies, auxes, new_cache = [], [], []
     moe_i = 0
     for i, spec in enumerate(specs):
         sub = bp[i]
@@ -317,17 +325,18 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
             so = nc = cdf = None
             if moe_tables_blk is not None:
                 so, nc, cdf = (t[moe_i] for t in moe_tables_blk)
-            y, tally, _ = moe_layer(
+            y, tally, aux = moe_layer(
                 sub["ffn"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
                 rules=rules, slots_of=so, n_copies=nc, copy_cdf=cdf,
                 route_seed=route_seed, phase=phase, row_valid=moe_row_valid)
             if cfg.n_shared_experts:
                 y = y + mlp(sub["shared"], h2, cfg.mlp_gated)
             tallies.append(tally)
+            auxes.append(aux)
             moe_i += 1
             h2 = y
         x = x + h2
-    return x, tallies, new_cache
+    return x, tallies, auxes, new_cache
 
 
 def _embed(params, tokens):
@@ -341,11 +350,15 @@ def _unembed_w(cfg, params):
 def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
                 cache=None, pos=None, chunk_ctx=None):
     """Loop over the ``n_blocks`` super-blocks (``lax.scan`` in the
-    reference). Returns (x, tallies (n_moe, E+1), per-position caches)."""
+    reference). Returns (x, tallies (n_moe, E+1), the MoE layers' aux
+    losses (a list), per-position caches; none when ``phase="train"``)."""
     nb, specs = block_layout(cfg)
     win = _windows(cfg)
-    tallies = []
+    tallies, auxes = [], []
     block_caches = []
+    train = phase == "train"
+    if train:
+        per_block = _unbind_tree(params["blocks"], nb)
     seed = rv = None
     if cfg.is_moe:
         # position-derived salt, the same in every layer: decode positions
@@ -355,18 +368,22 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
         if chunk_ctx is not None:
             rv = chunk_ctx[3][None, :].expand(x.shape[:2]).reshape(-1)
     for b in range(nb):
-        bp = [{k: _index_tree(v, b) for k, v in sub.items()}
-              for sub in params["blocks"]]
+        bp = per_block[b] if train else [
+            {k: _index_tree(v, b) for k, v in sub.items()}
+            for sub in params["blocks"]]
         mt = None if moe_tables is None else tuple(t[b] for t in moe_tables)
         cb = None if cache is None else [(kc[b], vc[b]) for kc, vc in cache]
-        x, tall, nc = _block_body(
+        x, tall, aux, nc = _block_body(
             cfg, rules, specs, bp, x,
             windows_blk=None if win is None else win[b], moe_tables_blk=mt,
             positions=positions, phase=phase, cache_blk=cb, pos=pos,
             chunk_ctx=chunk_ctx, route_seed=seed, moe_row_valid=rv)
         tallies.extend(tall)
+        auxes.extend(aux)
         block_caches.append(nc)
-    if cache is not None:
+    if train:
+        new_cache = []                        # no k/v stack in training
+    elif cache is not None:
         new_cache = cache                     # updated in place
     else:
         new_cache = [(torch.stack([bc[i][0] for bc in block_caches]),
@@ -377,7 +394,7 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
     else:
         width = cfg.n_experts + 1 if cfg.is_moe else 1
         tall = torch.zeros((0, width), dtype=torch.float32, device=x.device)
-    return x, tall, new_cache
+    return x, tall, auxes, new_cache
 
 
 def _index_tree(v, b):
@@ -386,9 +403,56 @@ def _index_tree(v, b):
     return v[b]
 
 
+def _split_blocks(v, nb: int):
+    """``[block]`` trees of a stacked tree, one ``torch.unbind`` a leaf
+    (module-level recursion: a nested self-calling closure would keep the
+    views, and so the parameters, alive until the garbage collector
+    runs)."""
+    if isinstance(v, dict):
+        parts = {k: _split_blocks(x, nb) for k, x in v.items()}
+        return [{k: p[b] for k, p in parts.items()} for b in range(nb)]
+    return torch.unbind(v, 0)
+
+
+def _unbind_tree(blocks, nb: int):
+    """Per-block parameter trees, ``[block][position]``, from the stacked
+    leaves by one ``torch.unbind`` each: its backward stacks the blocks'
+    gradients once."""
+    per_pos = [_split_blocks(sub, nb) for sub in blocks]
+    return [[pos[b] for pos in per_pos] for b in range(nb)]
+
+
 def _logits(cfg, params, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, -1].float() @ _unembed_w(cfg, params).float()
+
+
+def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
+            aux_weight: float = 0.01):
+    """Training loss, the reference's: ``(params, batch, moe_tables) →
+    (mean token xent + aux_weight · aux, (tallies (n_moe, E+1), aux))``,
+    ``aux`` the MoE layers' load-balance losses summed (0 without
+    experts). ``rules=None`` is the single-device ragged path (the
+    reference's ``rules=None`` is its dense oracle). Differentiable:
+    call ``backward()`` on the loss."""
+    _attention_only(cfg)
+
+    def fn(params, batch, moe_tables=None):
+        tokens = batch["tokens"]
+        x = _embed(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, tallies, auxes, _ = _run_blocks(cfg, rules, params, x,
+                                           phase="train",
+                                           moe_tables=moe_tables,
+                                           positions=positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        loss = softmax_xent_chunked(x, _unembed_w(cfg, params),
+                                    batch["labels"])
+        aux = (torch.stack(auxes).sum() if auxes else
+               torch.zeros((), dtype=torch.float32, device=x.device))
+        return loss + aux_weight * aux, (tallies, aux)
+
+    return fn
 
 
 def prefill_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
@@ -400,10 +464,10 @@ def prefill_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
         tokens = batch["tokens"]
         x = _embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, tallies, cache = _run_blocks(cfg, rules, params, x,
-                                        phase="prefill",
-                                        moe_tables=moe_tables,
-                                        positions=positions)
+        x, tallies, _, cache = _run_blocks(cfg, rules, params, x,
+                                           phase="prefill",
+                                           moe_tables=moe_tables,
+                                           positions=positions)
         return _logits(cfg, params, x), cache, tallies
 
     return fn
@@ -435,7 +499,7 @@ def prefill_chunk_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
         C = x.shape[1]
         rows = torch.arange(C, device=x.device)
         positions = offset + rows
-        x, tallies, cache = _run_blocks(
+        x, tallies, _, cache = _run_blocks(
             cfg, rules, params, x, phase="chunk", moe_tables=moe_tables,
             positions=positions, cache=cache,
             chunk_ctx=(lane, offset, n_valid, rows < n_valid))
@@ -456,10 +520,11 @@ def decode_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
         x = _embed(params, token)
         pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
                                  (token.shape[0],))
-        x, tallies, cache = _run_blocks(cfg, rules, params, x,
-                                        phase="decode",
-                                        moe_tables=moe_tables,
-                                        positions=pos, cache=cache, pos=pos)
+        x, tallies, _, cache = _run_blocks(cfg, rules, params, x,
+                                           phase="decode",
+                                           moe_tables=moe_tables,
+                                           positions=pos, cache=cache,
+                                           pos=pos)
         return _logits(cfg, params, x), cache, tallies
 
     return fn

@@ -31,6 +31,13 @@ Nothing on the per-layer path synchronises the host: every shape is a
 static bound (``n_tiles = A // bm + n_slots``, ``capacity`` from the token
 count), and the data-dependent parts are tensor values. Multi-rank
 dispatch is a later slice (ROADMAP Queue 1 item 8).
+
+Training runs the ragged path: the routing stage and the FFN are
+differentiable through their kernels (``ops``), the buffer fill through
+:class:`_FillBuffer`, whose backward is a gather, and the combine through
+autograd (a gather whose backward scatters to distinct rows). The capacity
+FFN has no backward kernel yet, so gradients through ``moe_impl=
+"capacity"`` on the card raise.
 """
 
 from __future__ import annotations
@@ -139,7 +146,13 @@ def _combine(y_rows: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
     """``out[t] = Σ_k w[t, k]·y_rows[rows[t, k]]`` in f32, summed in k
     order: a gather, not the reference's scatter-add, so it is the same on
     every run (a CUDA ``index_add_`` is not). ``rows``/``w`` are (t·K,)
-    or (t, K), assignment ``a`` belonging to token ``a // K``."""
+    or (t, K), assignment ``a`` belonging to token ``a // K``.
+
+    Its backward (autograd's) scatters ``dy_rows`` to the rows it read. On
+    the ragged path they are distinct (each assignment owns its buffer
+    row); on the capacity paths a dropped assignment shares a row, but
+    with weight 0 it adds an exact 0. So the scatter sums nothing in an
+    order that could change between runs."""
     contrib = (y_rows[rows.reshape(t, K)].float()
                * w.reshape(t, K).float()[:, :, None])
     out = contrib[:, 0]
@@ -170,6 +183,35 @@ def _ragged_plan(slot_flat: torch.Tensor, n_slots: int, bm: int,
     return order, rows, tile_group, n_rows, row_off, sizes
 
 
+class _FillBuffer(torch.autograd.Function):
+    """The ragged buffer fill ``buf[rows] = xf[order // K]`` with a
+    backward that is a gather: ``dxf[t] = Σ_k dbuf[row_of[t, k]]``, summed
+    in k order in f32, where ``row_of`` (t, K) is each assignment's buffer
+    row (``n_rows``, the cut spare row, for an inactive one). Autograd's
+    own backward of the fill would scatter-add each token's K rows, which
+    on the card sums in an order that varies between runs."""
+
+    @staticmethod
+    def forward(ctx, xf, rows, src, row_of, n_rows):
+        buf = xf.new_zeros((n_rows + 1, xf.shape[1]))
+        buf[rows] = xf[src]
+        ctx.save_for_backward(row_of)
+        ctx.n_rows = n_rows
+        return buf[:n_rows]
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        (row_of,) = ctx.saved_tensors
+        n_rows = ctx.n_rows
+        live = row_of < n_rows
+        rows = torch.clamp(row_of, max=n_rows - 1)
+        dx = None
+        for k in range(rows.shape[1]):
+            g = dbuf[rows[:, k]].float() * live[:, k, None]
+            dx = g if dx is None else dx + g
+        return dx.to(dbuf.dtype), None, None, None, None
+
+
 def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
                       w1, w3, w2):
     """Sorted-buffer grouped FFN + weighted combine; (t, D) f32 out.
@@ -186,10 +228,18 @@ def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
         slots.reshape(-1), n_groups, bm,
         None if active is None else active.reshape(-1))
     rows = rows.long()
-    buf = xf.new_zeros((n_rows + 1, D))
-    buf[rows] = xf[torch.div(order, K, rounding_mode="floor")]
+    src = torch.div(order, K, rounding_mode="floor")
+    if torch.is_grad_enabled() and xf.requires_grad:
+        row_full = torch.empty_like(rows)
+        row_full[order] = rows
+        buf = _FillBuffer.apply(xf, rows, src, row_full.reshape(t, K),
+                                n_rows)
+    else:
+        buf = xf.new_zeros((n_rows + 1, D))
+        buf[rows] = xf[src]
+        buf = buf[:n_rows]
     # a token's K slots are distinct, so no tile holds more than t rows
-    y_buf = ffn(w1, w3, w2, buf[:n_rows], tile_group, row_offsets=row_off,
+    y_buf = ffn(w1, w3, w2, buf, tile_group, row_offsets=row_off,
                 sizes=sizes, max_rows=t)
     row_of = torch.empty_like(rows)
     row_of[order] = torch.clamp(rows, max=n_rows - 1)
@@ -394,6 +444,13 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
                 "without an expert-parallel group")
 
     xf = x.reshape(B * S, D)
+    if rules.moe_impl == "capacity" and x.is_cuda and torch.is_grad_enabled() \
+            and (x.requires_grad or any(t.requires_grad for t in p.values())):
+        raise NotImplementedError(
+            "gradients through moe_impl='capacity' on the card: the capacity "
+            "FFN kernel (csrc/moe_ffn.cu) has no backward kernel yet "
+            "(ROADMAP Queue 1, the capacity FFN's backward); train with "
+            "moe_impl='ragged'")
     if rules.moe_impl == "ragged":
         out, tally, aux = _dense_dispatch_ragged(
             p, xf, route_seed, top_k=top_k, n_experts=n_experts,

@@ -17,17 +17,22 @@ points but sum in another order), router indices exactly equal and weights
 within 1e-5.
 """
 
+import dataclasses
 import math
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_smoke as t_get_smoke  # noqa: E402
 from repro_torch.kernels import moe_ffn as t_capacity  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_moe_ffn as t_ragged  # noqa: E402
+from repro_torch.kernels import route_select as t_route  # noqa: E402
+from repro_torch.models import model as t_model  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.sharding import ShardingRules  # noqa: E402
+from repro_torch.tree import leaves as t_leaves  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -450,3 +455,121 @@ def test_route_select_refuses_what_it_does_not_take(cuda):
         ops.route_select(x, w, so, nc, cdf, seed, 9, rv)
     with pytest.raises(ValueError, match="route_seed"):
         ops.route_select(x, w, so, nc, cdf, 5, 2, rv)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels (training)
+# ---------------------------------------------------------------------------
+
+# K1 and K2 against the plain backward: both round da, db and the outputs
+# to bf16 at the same points, so only f32 sums in another order differ;
+# f32 sums rounded to bf16 every 16 terms read 3e-3 to 1e-2
+BWD_TOL = 1e-3
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("sizes,D,F,bm", [
+    ([70, 0, 130, 3], 128, 192, 64),      # an empty expert, ragged tails
+    ([5, 300, 0, 0, 9], 160, 136, 128),   # two empty experts, bm 128
+    ([33, 1, 64], 200, 100, 64),          # D, F not multiples of 8
+    ([1000, 200, 0, 40], 1536, 512, 128),  # granite's widths
+])
+def test_ragged_ffn_backward_kernels_match_plain(cuda, sizes, D, F, bm):
+    """K1 (dx, da, db) and K2 (dW1, dW3, dW2) against the plain backward,
+    relative L2 within ``BWD_TOL``; padding and sentinel rows of dx
+    and empty experts' dW exactly zero; two calls bit-identical."""
+    (w1, w3, w2, toks), tg, (ro, sz, _) = _ragged_inputs(
+        cuda, sizes, D, F, bm, with_rows=True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(toks.shape, generator=g, device=cuda).to(torch.bfloat16)
+    _, h = t_ragged.ragged_moe_ffn(w1, w3, w2, toks, tg, row_offsets=ro,
+                                   sizes=sz, keep_h=True)
+    runs = []
+    for _ in range(2):
+        dx, da, db = t_ragged.ragged_moe_ffn_dgrad(w1, w3, w2, toks, tg, ro,
+                                                   sz, dy)
+        runs.append((dx, *t_ragged.ragged_moe_ffn_wgrad(toks, h, da, db, dy,
+                                                        ro, sz)))
+    want = ref.ragged_moe_ffn_bwd_ref(w1, w3, w2, toks, tg, dy)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    dx, dw1, dw3, dw2 = runs[0]
+    for name, got, exp in zip(("dx", "dw1", "dw3", "dw2"),
+                              (dx, dw1, dw3, dw2), want):
+        assert got.dtype == torch.bfloat16 and got.shape == exp.shape
+        err = _rel_l2(got, exp)
+        assert err <= BWD_TOL, (name, err)
+    real = torch.zeros(toks.shape[0], dtype=torch.bool, device=cuda)
+    for e, n in enumerate(sizes):
+        real[ro[e]:ro[e] + n] = True
+        if n == 0:
+            assert not dw1[e].any() and not dw3[e].any() and not dw2[e].any()
+    assert not dx[~real].any()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,E,K", [(1024, 40, 8), (33, 8, 2), (64, 128, 4),
+                                   (16, 600, 32)])
+def test_route_select_backward_kernel_matches_plain(cuda, T, E, K, masked):
+    """K3 against the plain backward to the logits on the same forward
+    outputs, within 1e-5; two calls bit-identical."""
+    (x, w, so, nc, cdf, seed), rv = _route_inputs(cuda, T, 256, E, 1, masked,
+                                                  seed=T + E)
+    wts, idx, _, tally, _, _, probs = t_route.route_select(
+        x, w, so, nc, cdf, seed, K, rv, with_probs=True)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    dw = torch.randn((T, K), generator=g, device=cuda)
+    dm = torch.randn((E,), generator=g, device=cuda)
+    daux = torch.randn((), generator=g, device=cuda)
+    counts = tally[:E].contiguous()
+    got = t_route.route_select_bwd(probs, idx, wts, counts, dw, dm, daux, rv)
+    again = t_route.route_select_bwd(probs, idx, wts, counts, dw, dm, daux,
+                                     rv)
+    want = ref.route_select_dlogits_ref(probs, idx, wts, counts, dw, dm, daux,
+                                        rv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-5
+    # the forward's probabilities are the plain version's softmax
+    p_ref = torch.softmax(x.float() @ w, dim=-1)
+    assert (probs - p_ref).abs().max().item() <= 1e-5
+
+
+def test_ops_backward_launches_the_kernels(cuda):
+    """Through autograd on the card: the forward kernels once, each
+    backward kernel once, no plain version."""
+    (w1, w3, w2, toks), tg, (ro, sz, _) = _ragged_inputs(
+        cuda, [40, 0, 9], 64, 64, 64, with_rows=True)
+    (x, w, so, nc, cdf, seed), _ = _route_inputs(cuda, 32, 64, 8, 1, False,
+                                                 seed=5)
+    ins = [t.clone().requires_grad_(True) for t in (w1, w3, w2, toks, x, w)]
+    ops.reset_launch_counts()
+    y = ops.ragged_moe_ffn(*ins[:4], tg, row_offsets=ro, sizes=sz)
+    wts, _, _, _, _, aux = ops.route_select(ins[4], ins[5], so, nc, cdf, seed,
+                                            2)
+    (y.float().sum() + wts.sum() + aux).backward()
+    torch.cuda.synchronize()
+    c = ops.launch_counts()
+    assert c["ragged_moe_ffn"] == c["ragged_moe_ffn_dgrad"] == \
+        c["ragged_moe_ffn_wgrad"] == c["route_select"] == \
+        c["route_select_bwd"] == 1
+    assert all(torch.isfinite(t.grad.float()).all() for t in ins)
+
+
+def test_capacity_gradients_on_the_card_raise(cuda):
+    cfg = dataclasses.replace(t_get_smoke("granite-moe-3b-a800m"), n_layers=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = t_model.init_params(cfg, gen, device=cuda)
+    for p in t_leaves(params):
+        p.requires_grad_(True)
+    tok = torch.zeros((1, 8), dtype=torch.long, device=cuda)
+    rules = ShardingRules(moe_impl="capacity", ep_ranks=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_model.loss_fn(cfg, rules)(params, {"tokens": tok, "labels": tok},
+                                    t_model.make_moe_tables(cfg, rules,
+                                                            device=cuda))

@@ -24,6 +24,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import moe_ffn as t_capacity  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_moe_ffn as t_ragged  # noqa: E402
+from repro_torch.kernels import route_select as t_route  # noqa: E402
 from repro_torch.kernels import router as t_router  # noqa: E402
 
 torch.set_num_threads(1)
@@ -220,7 +221,9 @@ def test_ops_on_cpu_use_plain_versions_and_count_nothing():
 
 
 _COUNTERS = ("fused_moe_ffn", "fused_moe_ffn.tma", "ragged_moe_ffn",
-             "ragged_moe_ffn.tma", "router_topk", "route_select")
+             "ragged_moe_ffn.tma", "router_topk", "route_select",
+             "ragged_moe_ffn_dgrad", "ragged_moe_ffn_wgrad",
+             "route_select_bwd")
 
 
 @pytest.mark.parametrize("max_rows", [None, 1, 8, 16, 500])
@@ -252,6 +255,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     _, cx = _capacity_inputs(6, 2, 4, 32, 64, jnp.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         t_capacity.fused_moe_ffn(*cx)
+    # the backward kernels' wrappers too
+    w1, w3, w2, toks = tx
+    tg_t = torch.from_numpy(tg)
+    sz = (torch.bincount(tg_t.long(), minlength=w1.shape[0] + 1)
+          [:w1.shape[0]] * (toks.shape[0] // tg_t.shape[0])).to(torch.int32)
+    ro = torch.cat([sz.new_zeros((1,)), torch.cumsum(sz, 0,
+                                                     dtype=torch.int32)])
+    with pytest.raises(ValueError, match="CUDA"):
+        t_ragged.ragged_moe_ffn_dgrad(w1, w3, w2, toks, tg_t, ro, sz, toks)
+    h = torch.zeros((toks.shape[0], w1.shape[2]), dtype=toks.dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_ragged.ragged_moe_ffn_wgrad(toks, h, h, h, toks, ro, sz)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_route.route_select_bwd(torch.zeros((4, 8)), None, None, None, None,
+                                 None, None)
     assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
 
 
