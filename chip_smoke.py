@@ -48,7 +48,10 @@ Run from the repository root on a machine with one NVIDIA H100. It
 7. path (A): serves the same 8 requests with ``moe_impl="capacity"``
    (capacity buckets on a one-rank expert-parallel group), the capacity
    FFN (all on the TMA route) and the routing stage launched 32 times per
-   model call, the ragged FFN never; prints the drops;
+   model call, the ragged FFN never; prints the drops; then runs the
+   inputs of every routing call of the run, captured, through the fused
+   kernel and the unfused sequence it replaced and checks that every
+   assignment on which they differ lies on a near-tie row;
 8. path (B): serves 4 requests (outputs capped at 64 tokens) with chunked
    prefill in 128-token chunks on the ragged path, the ragged FFN (all on
    the TMA route) and the routing stage launched 32 times per chunk and
@@ -57,15 +60,17 @@ Run from the repository root on a machine with one NVIDIA H100. It
 9. training (after the serving engines are freed): the backward kernels
    against their plain versions at the training shape (1024 tokens x top-8
    = 8192 assignments, Zipf-skewed, some experts empty, row block 128) —
-   the ragged FFN's dgrad (K1) and wgrad (K2) against
+   the ragged FFN's dgrad (K1) and wgrad (K2), on the TMA route, against
    ``ragged_moe_ffn_bwd_ref`` (padding rows and empty experts exactly zero,
-   two calls bit-identical), the routing backward (K3) against
-   ``route_select_dlogits_ref`` — each timed as the forward kernels are;
+   two calls bit-identical, two faulty controls above the bound), the
+   routing backward (K3) against ``route_select_dlogits_ref`` — each timed
+   as the forward kernels are, K1 and K2 on both routes (and the TMA
+   route's row blocks and output tiles) at 1024 and at 4096 tokens;
    then ``repro_torch.launch.train.train`` on the published config at full
    width, 4 steps of batch 4 x 256 tokens on the card: finite losses (the
    first near ln 49155), per step 32 launches of the routing stage, the
-   ragged FFN (TMA route) and each backward kernel and none of the
-   capacity FFN, the median step time, tokens/s and peak memory; two
+   ragged FFN and each backward kernel (the FFN's forward and backward on
+   the TMA route) and none of the capacity FFN, the median step time, tokens/s and peak memory; two
    2-step runs from seed 0 with bit-identical losses and parameters; one
    step of a 2-layer full-width model through the kernels against one
    through the plain versions (autograd of the plain forward), the loss
@@ -820,10 +825,13 @@ def _rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
-def backward_ffn_case(cfg, gen, cgen, dev, tokens=1024):
-    """The ragged FFN's backward kernels K1 (dgrad) and K2 (wgrad) at the
-    training shape against ``ragged_moe_ffn_bwd_ref``, on the forward
-    kernel's plan and saved ``h``."""
+def backward_ffn_case(cfg, gen, cgen, dev, tokens=1024, controls=True):
+    """The ragged FFN's backward kernels K1 (dgrad) and K2 (wgrad) at a
+    training shape (``tokens`` x top-8) against ``ragged_moe_ffn_bwd_ref``,
+    on the forward kernel's plan and saved ``h``: the TMA route checked
+    (and, with ``controls``, two faulty backwards read against the same
+    bound), then both routes timed on the same inputs, and the TMA route's
+    other row block (K1) and output tiles (K2) by ``device_ms``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import ragged_moe_ffn as t_ragged
@@ -849,16 +857,21 @@ def backward_ffn_case(cfg, gen, cgen, dev, tokens=1024):
     _, h = t_ragged.ragged_moe_ffn(w[0], w[1], w[2], buf, tg, row_offsets=ro,
                                    sizes=sz, max_rows=tokens, keep_h=True)
 
-    def k1():
-        return t_ragged.ragged_moe_ffn_dgrad(w[0], w[1], w[2], buf, tg, ro, sz,
-                                             dy)
+    def k1(route=None):
+        return t_ragged.ragged_moe_ffn_dgrad(w[0], w[1], w[2], buf, tg, ro,
+                                             sz, dy, route=route)
 
     dx, da, db = k1()
+    k1_route = t_ragged.ragged_moe_ffn_dgrad.last_route
 
-    def k2():
-        return t_ragged.ragged_moe_ffn_wgrad(buf, h, da, db, dy, ro, sz)
+    def k2(route=None):
+        return t_ragged.ragged_moe_ffn_wgrad(buf, h, da, db, dy, ro, sz,
+                                             route=route)
 
     dws = k2()
+    k2_route = t_ragged.ragged_moe_ffn_wgrad.last_route
+    check(k1_route.startswith("tma") and k2_route.startswith("tma"),
+          f"ragged FFN backward: took the routes {k1_route}, {k2_route}")
     dx2, da2, db2 = k1()
     again = (dx2, da2[real], db2[real], *k2())
     want = ref.ragged_moe_ffn_bwd_ref(w[0], w[1], w[2], buf, tg, dy)
@@ -868,25 +881,33 @@ def backward_ffn_case(cfg, gen, cgen, dev, tokens=1024):
         (dx, da[real], db[real], *dws), again)),
           "ragged FFN backward: two calls differ")
     got = (dx, *dws)
-    errs = {n: _rel_l2(g, r) for n, g, r in zip(("dx", "dw1", "dw3", "dw2"),
-                                                 got, want)}
+    names = ("dx", "dw1", "dw3", "dw2")
+    errs = {n: _rel_l2(g, r) for n, g, r in zip(names, got, want)}
     abs_err = {n: (g.float() - r.float()).abs().max().item()
-               for n, g, r in zip(("dx", "dw1", "dw3", "dw2"), got, want)}
+               for n, g, r in zip(names, got, want)}
     check(all(bool(torch.isfinite(g.float()).all()) for g in got),
           "ragged FFN backward: non-finite gradients")
     check(max(errs.values()) <= BWD_TOL, f"ragged FFN backward: relative "
           f"L2 errors {errs} > {BWD_TOL}")
-    controls = backward_controls(w, buf, tg, dy, h, da, db, ro, sz, real,
-                                 want)
-    for name, ctl in controls.items():
-        check(max(ctl.values()) > BWD_TOL, f"ragged FFN backward: the "
-              f"control '{name}' reads {ctl}, within the bound {BWD_TOL}")
+    ctl = backward_controls(w, buf, tg, dy, h, da, db, ro, sz, real,
+                            want) if controls else {}
+    for name, c in ctl.items():
+        check(max(c.values()) > BWD_TOL, f"ragged FFN backward: the "
+              f"control '{name}' reads {c}, within the bound {BWD_TOL}")
     check(not bool(dx[~real].any()), "ragged FFN backward: padding or "
           "sentinel rows of dx not zero")
     check(all(not bool(g[e].any()) for g in dws for e in empty),
           "ragged FFN backward: an empty expert's dW not zero")
-    k1_t = timings(k1)
-    k2_t = timings(k2)
+    # the general route on the same inputs (K2 on the TMA route's da, db,
+    # as K2's timing below): held to the same bound
+    gen_errs = {n: _rel_l2(g, r) for n, g, r in zip(
+        names, (k1("general")[0], *k2("general")), want)}
+    check(max(gen_errs.values()) <= BWD_TOL, f"ragged FFN backward, "
+          f"general route: relative L2 errors {gen_errs} > {BWD_TOL}")
+    times = {"K1": {"tma": timings(k1), "general": timings(
+        lambda: k1("general"))},
+             "K2": {"tma": timings(k2), "general": timings(
+                 lambda: k2("general"))}}
     plain_ms = median_ms(lambda: ref.ragged_moe_ffn_bwd_ref(
         w[0], w[1], w[2], buf, tg, dy), reps=3)
     n_exp = E - len(empty)
@@ -901,31 +922,44 @@ def backward_ffn_case(cfg, gen, cgen, dev, tokens=1024):
     k2_bound, k2_by = bound(k2_bytes, 3 * 2 * A * D * F, BF16_FLOPS)
     print(f"[kernel] ragged_moe_ffn backward, {tokens} tokens x top-{K} = "
           f"{A} assignments, T={n_rows}, row block {bm}, experts {empty} "
-          f"empty: relative L2 {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}"
-          f" (tol {BWD_TOL}); max |kernel - plain| "
+          f"empty, routes {k1_route} / {k2_route}: relative L2 "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())}"
+          f" (tol {BWD_TOL}; general route "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in gen_errs.items())}); "
+          f"max |kernel - plain| "
           f"{', '.join(f'{k} {v:.3e}' for k, v in abs_err.items())}; "
           f"padding rows and empty experts exactly 0, two calls "
           f"bit-identical", flush=True)
-    for name, ctl in controls.items():
+    for name, c in ctl.items():
         print(f"[kernel]   control, {name}: relative L2 "
-              f"{', '.join(f'{k} {v:.2e}' for k, v in ctl.items())} "
+              f"{', '.join(f'{k} {v:.2e}' for k, v in c.items())} "
               f"(above the bound {BWD_TOL}, as it must be)", flush=True)
-    for name, t, b, by, nb in (("dgrad (K1)", k1_t, k1_bound, k1_by,
-                                k1_bytes),
-                               ("wgrad (K2)", k2_t, k2_bound, k2_by,
-                                k2_bytes)):
-        print(f"[kernel]   {name}: {t['ms']:.4f} ms ({100 * b / t['ms']:.1f}%"
-              f" of bound), {t['device_ms']:.4f} ms with the host ahead, host "
-              f"{t['host_us']:.1f} us a call; bound {b:.4f} ms ({by}, "
-              f"{nb / 1e6:.1f} MB)", flush=True)
+    out = []
+    for kname, label, b, by, nb, route in (
+            ("K1", "dgrad", k1_bound, k1_by, k1_bytes, k1_route),
+            ("K2", "wgrad", k2_bound, k2_by, k2_bytes, k2_route)):
+        t, g = times[kname]["tma"], times[kname]["general"]
+        print(f"[kernel]   {label} ({kname}), {route}: {t['ms']:.4f} ms "
+              f"({100 * b / t['ms']:.1f}% of bound), {t['device_ms']:.4f} ms"
+              f" with the host ahead ({100 * b / t['device_ms']:.1f}%), host "
+              f"{t['host_us']:.1f} us a call; general route {g['ms']:.4f} "
+              f"ms ({100 * b / g['ms']:.1f}%), {g['device_ms']:.4f} with the "
+              f"host ahead, host {g['host_us']:.1f} us; bound {b:.4f} ms "
+              f"({by}, {nb / 1e6:.1f} MB, "
+              f"{(5 if kname == 'K1' else 3) * 2 * A * D * F / 1e9:.1f} "
+              f"GFLOP)", flush=True)
+        out.append({"max_abs_err": max(abs_err[n] for n in (
+                        ("dx",) if kname == "K1" else ("dw1", "dw3", "dw2"))),
+                    **t, "bound_ms": b, "bound_by": by,
+                    "bound_share": b / t["ms"],
+                    "device_bound_share": b / t["device_ms"],
+                    "kernel_route": route, "general": g})
     print(f"[kernel]   plain backward {plain_ms:.4f} ms (K1 and K2 together)",
           flush=True)
     common = {"plain_ms": plain_ms, "relative_l2": errs,
-              "controls": controls}
-    return ({"max_abs_err": abs_err["dx"], **k1_t, "bound_ms": k1_bound,
-             "bound_by": k1_by, **common},
-            {"max_abs_err": max(abs_err[k] for k in ("dw1", "dw3", "dw2")),
-             **k2_t, "bound_ms": k2_bound, "bound_by": k2_by, **common})
+              "general_relative_l2": gen_errs, "controls": ctl,
+              "tokens": tokens}
+    return out[0] | common, out[1] | common
 
 
 def backward_controls(w, buf, tg, dy, h, da, db, ro, sz, real, want,
@@ -1063,7 +1097,9 @@ def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
     per_step = {"route_select": cfg.n_layers, "ragged_moe_ffn": cfg.n_layers,
                 "ragged_moe_ffn.tma": cfg.n_layers,
                 "ragged_moe_ffn_dgrad": cfg.n_layers,
+                "ragged_moe_ffn_dgrad.tma": cfg.n_layers,
                 "ragged_moe_ffn_wgrad": cfg.n_layers,
+                "ragged_moe_ffn_wgrad.tma": cfg.n_layers,
                 "route_select_bwd": cfg.n_layers}
     for name, n in counts.items():
         want = per_step.get(name, 0) * steps
@@ -1081,8 +1117,9 @@ def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
           f"{tallies.sum(0).max() / max(tallies.sum(0).min(), 1):.2f}",
           flush=True)
     print(f"[train] launches in {steps} steps: {json.dumps(counts)}: "
-          f"route_select, ragged_moe_ffn (TMA route), ragged_moe_ffn_dgrad, "
-          f"ragged_moe_ffn_wgrad and route_select_bwd {cfg.n_layers} a step, "
+          f"route_select, ragged_moe_ffn, ragged_moe_ffn_dgrad and "
+          f"ragged_moe_ffn_wgrad (all three on the TMA route) and "
+          f"route_select_bwd {cfg.n_layers} a step, "
           f"fused_moe_ffn and router_topk 0", flush=True)
     del params, opt
     torch.cuda.empty_cache()
@@ -1187,7 +1224,10 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, "
           f"idle {100 - 100 * busy_ms / wall_ms:.1f}%), {n_ops} device "
           f"kernels and copies", flush=True)
-    ours = ("ffn_tma_kernel", "dgrad_gate_kernel", "dgrad_x_kernel",
+    # names no other of them contains: the backward's TMA route, then its
+    # general route (none of which should run), then the rest
+    ours = ("ffn_tma_kernel", "dgrad_gate_tma_kernel", "dgrad_x_tma_kernel",
+            "wgrad_tma_kernel", "dgrad_gate_kernel", "dgrad_x_kernel",
             "wgrad_kernel", "route_select_kernel", "route_select_bwd_kernel")
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
     top += [e for e in dev_events
@@ -1207,6 +1247,104 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
                   "device_ops": n_ops,
                   "port_kernels_ms": sum(mine.values()),
                   "port_kernels_by_name_ms": mine}
+
+
+class capture_routes:
+    """Within the block, the MoE layer's routing calls go to the kernel as
+    before, and the inputs of the first ``limit`` are kept in ``calls``,
+    cloned. The
+    router weights and placement tables (arguments 1-4), which change only
+    at a recalibration, are cloned once per distinct tensor and version;
+    the originals are held too, so that no later tensor can take their
+    address while the capture lives."""
+
+    def __init__(self, limit):
+        self.limit = limit
+        self.calls = []
+        self._held = {}
+
+    def _keep(self, i, a):
+        import torch
+        if not torch.is_tensor(a):
+            return a
+        if not 1 <= i <= 4:
+            return a.clone()
+        key = (a.data_ptr(), a._version, tuple(a.shape), a.dtype)
+        if key not in self._held:
+            self._held[key] = (a, a.clone())
+        return self._held[key][1]
+
+    def __enter__(self):
+        from repro_torch.models import moe as tmoe
+        self.saved = real = tmoe.ops
+        outer = self
+
+        class Ops:
+            def __getattr__(self, name):
+                return getattr(real, name)
+
+            @staticmethod
+            def route_select(*args, **kw):
+                if len(outer.calls) < outer.limit:
+                    outer.calls.append(
+                        ([outer._keep(i, a) for i, a in enumerate(args)],
+                         {k: outer._keep(-1, v) for k, v in kw.items()}))
+                return real.route_select(*args, **kw)
+
+        tmoe.ops = Ops()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as tmoe
+        tmoe.ops = self.saved
+        self._held = {}
+
+
+def route_near_ties(calls, label):
+    """Routing calls captured on a served path, through the fused kernel
+    and through the unfused sequence (:func:`unfused_route`) on the
+    same inputs: every assignment on which the two differ must lie on a
+    near-tie row (adjacent top-(K+1) probabilities closer than
+    ``NEAR_TIE``), as :func:`route_case` holds single calls."""
+    import torch
+    from repro_torch.kernels import route_select as t_route
+    n = {"calls": len(calls), "rows": 0, "near_tie_rows": 0,
+         "rows_that_differ": 0, "assignments_that_differ": 0,
+         "calls_with_other_weights": 0, "weights_max_abs_diff": 0.0}
+    for args, kw in calls:
+        x, w, so, nc, cdf, seed, k = args[:7]
+        rv = args[7] if len(args) > 7 else kw.get("row_valid")
+        fused = t_route.route_select(x, w, so, nc, cdf, seed, k, rv)
+        old = unfused_route(x, w, (so, nc, cdf), seed, k, rv)
+        top = torch.topk(torch.softmax(x.float() @ w, dim=-1), k + 1,
+                         dim=-1).values
+        near = ((top[:, :-1] - top[:, 1:]) < NEAR_TIE).any(-1)
+        diff = (fused[1] != old[1]) | (fused[2] != old[2])
+        rows = diff.any(-1)
+        check(not bool((rows & ~near).any()), f"{label}: the fused routing "
+              f"stage and the unfused sequence differ on "
+              f"{int((rows & ~near).sum())} rows that are not near ties")
+        n["rows"] += x.shape[0]
+        n["near_tie_rows"] += int(near.sum())
+        n["rows_that_differ"] += int(rows.sum())
+        n["assignments_that_differ"] += int(diff.sum())
+        # the gate weights of the assignments both pick: f32 sums in
+        # another order, the one way two runs can drift on equal picks
+        same = ~rows
+        dw = (fused[0][same] - old[0][same]).abs()
+        n["calls_with_other_weights"] += int(bool((dw > 0).any()))
+        n["weights_max_abs_diff"] = max(n["weights_max_abs_diff"],
+                                        dw.max().item() if dw.numel()
+                                        else 0.0)
+    print(f"[{label}] near-tie check on {n['calls']} captured routing calls "
+          f"({n['rows']} rows): fused kernel vs the unfused sequence differ "
+          f"on {n['assignments_that_differ']} assignments in "
+          f"{n['rows_that_differ']} rows, all of them near-tie rows "
+          f"({n['near_tie_rows']} near-tie rows in all); on the rows that "
+          f"agree, the gate weights differ in "
+          f"{n['calls_with_other_weights']} calls, by at most "
+          f"{n['weights_max_abs_diff']:.3e}", flush=True)
+    return n
 
 
 class plain_kernels:
@@ -1375,15 +1513,23 @@ def main() -> int:
     trace_decode(engine)
     del engine
     torch.cuda.empty_cache()
-    engine, counts_a = serve_path(cfg, dev, "path A", moe_impl="capacity")
+    # the first routing calls' inputs on path A, for the near-tie check
+    with capture_routes(64) as cap:
+        engine, counts_a = serve_path(cfg, dev, "path A",
+                                      moe_impl="capacity")
     del engine
     torch.cuda.empty_cache()
+    route_near_ties(cap.calls, "path A")
+    del cap
     engine, _ = serve_path(cfg, dev, "path B", n_requests=4, output_cap=64,
                            prefill_chunk=128)
     chunk_vs_whole(engine)
     del engine
     # phase 9: training
     k1, k2 = backward_ffn_case(cfg, gen, cgen, dev)
+    # the 4096-token training shape, where the bound is the tensor cores
+    k1_big, k2_big = backward_ffn_case(cfg, gen, cgen, dev, tokens=4096,
+                                       controls=False)
     k3 = backward_route_case(cfg, cgen, dev)
     trained = train_phase(cfg, dev)
     trained["profile"] = train_step_profile(cfg, dev)
@@ -1437,11 +1583,15 @@ def main() -> int:
         {"name": "ragged_moe_ffn_dgrad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
-         "launches": tl["ragged_moe_ffn_dgrad"], **k1, "library_ms": None},
+         "launches": tl["ragged_moe_ffn_dgrad"],
+         "tma_launches": tl["ragged_moe_ffn_dgrad.tma"], **k1,
+         "tokens_4096": k1_big, "library_ms": None},
         {"name": "ragged_moe_ffn_wgrad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
-         "launches": tl["ragged_moe_ffn_wgrad"], **k2, "library_ms": None},
+         "launches": tl["ragged_moe_ffn_wgrad"],
+         "tma_launches": tl["ragged_moe_ffn_wgrad.tma"], **k2,
+         "tokens_4096": k2_big, "library_ms": None},
         {"name": "route_select_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",

@@ -5,8 +5,9 @@
 
 Builds the kernels, then runs ``chip_smoke.py``'s training checks in its
 order: the backward kernels against their plain versions at the training
-shape, 4 full-width steps of granite-moe-3b-a800m with two seeded 2-step
-reruns, the step profile at batch x sequence 4 x 256, 16 x 256 and
+shapes (1024 and 4096 tokens, K1 and K2 on both routes), 4 full-width
+steps of granite-moe-3b-a800m with two seeded 2-step reruns, the step
+profile at batch x sequence 4 x 256, 16 x 256 and
 8 x 512 (the last is not in ``chip_smoke.py``: it peaks at 77 GiB), a
 2-layer step through the kernels against one through the plain versions,
 and the smoke-size checkpoint restart. Every check raises, as in
@@ -40,6 +41,7 @@ def main() -> int:
     cgen.manual_seed(0)
     t0 = time.perf_counter()
     cs.backward_ffn_case(cfg, gen, cgen, dev)
+    cs.backward_ffn_case(cfg, gen, cgen, dev, tokens=4096, controls=False)
     cs.backward_route_case(cfg, cgen, dev)
     cs.train_phase(cfg, dev)
     cs.train_step_profile(cfg, dev)

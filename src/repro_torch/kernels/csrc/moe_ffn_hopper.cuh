@@ -1,5 +1,7 @@
 // The TMA route of the grouped SwiGLU expert FFN kernels for Hopper
-// (sm_90a), shared by ragged_moe_ffn.cu and moe_ffn.cu. bf16 in and out,
+// (sm_90a), shared by ragged_moe_ffn.cu and moe_ffn.cu; its PTX wrappers,
+// descriptors and tensor maps also serve the backward's TMA route
+// (moe_ffn_hopper_bwd.cuh). bf16 in and out,
 // f32 accumulation, h rounded to bf16 before the down projection, as the
 // Pallas kernels do.
 //
@@ -35,7 +37,8 @@
 //
 // Operand layouts: the weights (E, K, N) are N-contiguous, so a weight tile
 // is always the MN-major operand (transpose flag 1); the activations (rows,
-// K) are K-contiguous, the K-major operand (flag 0).
+// K) are K-contiguous, the K-major operand (flag 0). (Not so in the
+// backward, whose products read both transposed: moe_ffn_hopper_bwd.cuh.)
 
 #pragma once
 
@@ -211,6 +214,12 @@ struct Wgmma<64, TA, TB> {
         : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   }
 };
+
+// Order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 
 __device__ __forceinline__ float silu(float v) {
   return v / (1.0f + expf(-v));
@@ -515,23 +524,33 @@ inline bool weight_map(CUtensorMap* out, const void* ptr, int E, int R,
   return true;
 }
 
-// Launch one variant, raising its shared-memory limit before the first
-// launch (above 48 KB a launch is refused otherwise).
+// Launch `kernel` with `smem` bytes of dynamic shared memory, raising its
+// limit before its first launch (`ready`, a flag of the caller's: above
+// 48 KB a launch is refused otherwise). Returns cudaGetLastError().
+template <typename Kernel, typename... Params>
+cudaError_t launch_smem(Kernel kernel, bool& ready, dim3 grid, int threads,
+                        int smem, cudaStream_t stream,
+                        const Params&... params) {
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  kernel<<<grid, threads, smem, stream>>>(params...);
+  return cudaGetLastError();
+}
+
+// Launch one variant.
 template <int OP, int ROWS, bool SWAP, bool CAP>
 cudaError_t launch(dim3 grid, const CUtensorMap& act, const CUtensorMap& wa,
                    const CUtensorMap& wb, const Args& args,
                    cudaStream_t stream) {
   using Config = Cfg<OP, ROWS, SWAP>;
-  auto kernel = ffn_tma_kernel<OP, ROWS, SWAP, CAP>;
   static bool ready = false;
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Config::SMEM);
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
-  kernel<<<grid, Config::THREADS, Config::SMEM, stream>>>(act, wa, wb, args);
-  return cudaGetLastError();
+  return launch_smem(ffn_tma_kernel<OP, ROWS, SWAP, CAP>, ready, grid,
+                     Config::THREADS, Config::SMEM, stream, act, wa, wb,
+                     args);
 }
 
 }  // namespace moe_ffn_hopper

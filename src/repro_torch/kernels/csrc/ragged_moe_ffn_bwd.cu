@@ -8,40 +8,42 @@
 // tile_group naming each tile's expert or the sentinel E) and only the
 // real rows the plan names (row_offsets, sizes):
 //
-//   K1, dgrad (ragged_moe_ffn_dgrad_bf16), two launches over 64-row blocks:
+//   K1, dgrad (ragged_moe_ffn_dgrad_*), two launches over row blocks:
 //     A: a = x W1[g], b = x W3[g] recomputed in f32, dh = dy W2[g]^T, then
 //        da = dh b s(a)(1 + a(1 - s(a))), db = dh silu(a), stored in bf16;
 //     B: dx = da W1[g]^T + db W3[g]^T in bf16; padding rows and sentinel
 //        tiles come out exact zeros.
-//   K2, wgrad (ragged_moe_ffn_wgrad_bf16), two launches over (column block,
+//   K2, wgrad (ragged_moe_ffn_wgrad_*), two launches over (column block,
 //     row block, expert): dW1[g] = x^T da and dW3[g] = x^T db, then
 //     dW2[g] = h^T dy, each summed in f32 over the expert's real rows
 //     [row_off[g], row_off[g] + sizes[g]) in a fixed order and written in
 //     bf16; an expert with no rows gets exact zeros.
 // h is the forward's bf16 scratch, kept as the saved activation.
 //
-// The weights are read transposed against the forward's layout: W2[g] is
-// (F, D) row-major, so W2^T is (D, F) column-major, and a tile of W2's rows
-// [n0, n0 + 64) and columns [k0, k0 + 32) in shared memory is W2^T's
-// (32 x 64) tile in column-major order, which a WMMA col_major B fragment
-// reads as it stands; likewise W1^T, W3^T for dx and x^T, h^T (the A
-// operands of K2) as col_major A fragments. No operand is transposed in
-// memory.
-//
-// What bounds it on an H100: bytes, narrowly. At the training shape (1024
-// tokens, K = 8, E = 40, D = 1536, F = 512) K1 moves ~283 MB (the occupied
-// experts' weights, x, dy, da, db, dx: 84 us at 3.35 TB/s) for 5 products
-// of 2 A D F (64.4 GFLOP, 65 us at 989 TFLOP/s), K2 ~264 MB (79 us; every
-// expert's dW) for three (38.7 GFLOP, 39 us). This first version is simple
-// WMMA (bf16 16x16x16, f32 accumulate) over synchronous 16-byte loads, the
-// general route's blocks (moe_ffn_blocks.cuh), no TMA and no wgmma: right
-// first; the fast design is later work. No atomics: every output element is one block's
-// alone, so two runs are bit-identical.
+// Two routes, chosen by the wrapper from shapes and pointers:
+//   ragged_moe_ffn_{dgrad,wgrad}_tma_bf16 (moe_ffn_hopper_bwd.cuh): the
+//     forward's TMA ring and wgmma, for D and F multiples of 8 and 16-byte
+//     aligned operands; what bounds each kernel on an H100 and how the
+//     design meets it is noted there.
+//   ragged_moe_ffn_{dgrad,wgrad}_bf16 (below): the general route, simple
+//     WMMA (bf16 16x16x16, f32 accumulate) over synchronous 16-byte loads
+//     with masked edges (moe_ffn_blocks.cuh), for every other shape. The
+//     weights are read transposed against the forward's layout: W2[g] is
+//     (F, D) row-major, so W2^T is (D, F) column-major, and a tile of W2's
+//     rows [n0, n0 + 64) and columns [k0, k0 + 32) in shared memory is
+//     W2^T's (32 x 64) tile in column-major order, which a WMMA col_major B
+//     fragment reads as it stands; likewise W1^T, W3^T for dx and x^T, h^T
+//     (the A operands of K2) as col_major A fragments.
+// No operand is transposed in memory, and no route uses atomics: every
+// output element is one block's alone, so two runs are bit-identical.
 //
 // Launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError().
 
+#include <initializer_list>
+
 #include "moe_ffn_blocks.cuh"
+#include "moe_ffn_hopper_bwd.cuh"
 
 using namespace moe_ffn_blocks;
 
@@ -417,6 +419,152 @@ int ragged_moe_ffn_wgrad_bf16(const void* toks, const void* h, const void* da,
       static_cast<const __nv_bfloat16*>(dy), nullptr, ro, sz,
       static_cast<__nv_bfloat16*>(dw2), nullptr, F, D, vec_ok);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The TMA route (moe_ffn_hopper_bwd.cuh)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+namespace H = moe_ffn_hopper;
+namespace B = moe_ffn_hopper_bwd;
+
+template <int ROWS>
+cudaError_t dgrad_tma(const void* toks, const void* dy, const B::DgradArgs& a,
+                      const void* w1, const void* w3, const void* w2, int T,
+                      cudaStream_t s) {
+  using Config = B::DgradCfg<ROWS>;
+  const uint64_t xd[2] = {static_cast<uint64_t>(a.D),
+                          static_cast<uint64_t>(T)};
+  const uint64_t fd[2] = {static_cast<uint64_t>(a.F),
+                          static_cast<uint64_t>(T)};
+  CUtensorMap xm, dym, dam, dbm, w1m, w3m, w2m;
+  if (!H::encode_map(&xm, toks, 2, xd, ROWS) ||
+      !H::encode_map(&dym, dy, 2, xd, ROWS) ||
+      !H::encode_map(&dam, a.da, 2, fd, ROWS) ||
+      !H::encode_map(&dbm, a.db, 2, fd, ROWS) ||
+      !H::weight_map(&w1m, w1, a.E, a.D, a.F) ||
+      !H::weight_map(&w3m, w3, a.E, a.D, a.F) ||
+      !H::weight_map(&w2m, w2, a.E, a.F, a.D)) {
+    return cudaErrorInvalidValue;
+  }
+  static bool gate_ready = false, x_ready = false;
+  const cudaError_t err = B::launch_smem(
+      B::dgrad_gate_tma_kernel<ROWS>, gate_ready,
+      dim3((a.F + H::BN - 1) / H::BN, T / ROWS), Config::THREADS,
+      Config::GATE_SMEM, s, xm, dym, w1m, w3m, w2m, a);
+  if (err != cudaSuccess) return err;
+  return B::launch_smem(B::dgrad_x_tma_kernel<ROWS>, x_ready,
+                        dim3((a.D + H::BN - 1) / H::BN, T / ROWS),
+                        Config::THREADS, Config::X_SMEM, s, dam, dbm, w1m,
+                        w3m, a);
+}
+
+// One wgrad launch: out (E, M, N) = A^T B over each expert's real rows,
+// A (T, M) and B (T, N) (and out3 = A^T B3 if b3).
+template <bool TWO>
+cudaError_t wgrad_launch(const CUtensorMap& am, const CUtensorMap& b1m,
+                         const CUtensorMap& b3m, const B::WgradArgs& a,
+                         int E, cudaStream_t s) {
+  using Config = B::WgradCfg<TWO>;
+  constexpr int TM = 64 * Config::NWG;
+  static bool ready = false;
+  return B::launch_smem(B::wgrad_tma_kernel<TWO>, ready,
+                        dim3((a.N + H::BN - 1) / H::BN, (a.M + TM - 1) / TM,
+                             E),
+                        Config::THREADS, Config::SMEM, s, am, b1m, b3m, a);
+}
+
+cudaError_t wgrad_tma(const void* toks, const void* h, const void* da,
+                      const void* db, const void* dy, const int* ro,
+                      const int* sz, void* dw1, void* dw3, void* dw2, int T,
+                      int D, int F, int E, cudaStream_t s) {
+  const uint64_t xd[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(T)};
+  const uint64_t fd[2] = {static_cast<uint64_t>(F), static_cast<uint64_t>(T)};
+  CUtensorMap xm, hm, dam, dbm, dym;
+  if (!H::encode_map(&xm, toks, 2, xd, 64) ||
+      !H::encode_map(&hm, h, 2, fd, 64) ||
+      !H::encode_map(&dam, da, 2, fd, 64) ||
+      !H::encode_map(&dbm, db, 2, fd, 64) ||
+      !H::encode_map(&dym, dy, 2, xd, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  // dW1, dW3 (D, F) = x^T da, x^T db: M = D, N = F
+  const B::WgradArgs a13{ro, sz, static_cast<__nv_bfloat16*>(dw1),
+                         static_cast<__nv_bfloat16*>(dw3), D, F};
+  const cudaError_t err = wgrad_launch<true>(xm, dam, dbm, a13, E, s);
+  if (err != cudaSuccess) return err;
+  // dW2 (F, D) = h^T dy: M = F, N = D
+  const B::WgradArgs a2{ro, sz, static_cast<__nv_bfloat16*>(dw2), nullptr, F,
+                        D};
+  return wgrad_launch<false>(hm, dym, dym, a2, E, s);
+}
+
+bool aligned(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs) {
+    if (!aligned16(p)) return false;
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1 on the TMA route. As ragged_moe_ffn_dgrad_bf16, plus the row block
+// `rows`: 128 (bm a multiple of 128; two consumer warpgroups, one CTA an
+// SM) or 64 (one warpgroup, two CTAs an SM). D and F multiples of 8, every
+// pointer 16-byte aligned. Returns cudaGetLastError() after the two
+// launches.
+int ragged_moe_ffn_dgrad_tma_bf16(const void* toks, const void* dy,
+                                  const void* tile_group,
+                                  const void* row_offsets, const void* sizes,
+                                  const void* w1, const void* w3,
+                                  const void* w2, void* da, void* db,
+                                  void* dx, int T, int D, int F, int E,
+                                  int bm, int rows, void* stream) {
+  if (T <= 0 || D <= 0 || F <= 0 || E <= 0 || bm <= 0 || bm % 64 != 0 ||
+      T % bm != 0 || D % 8 != 0 || F % 8 != 0 || T / 64 > 65535 ||
+      tile_group == nullptr || row_offsets == nullptr || sizes == nullptr ||
+      !aligned({toks, dy, w1, w3, w2, da, db, dx}) ||
+      !(rows == 64 || (rows == 128 && bm % 128 == 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const B::DgradArgs a{static_cast<const int*>(tile_group),
+                       static_cast<const int*>(row_offsets),
+                       static_cast<const int*>(sizes),
+                       static_cast<__nv_bfloat16*>(da),
+                       static_cast<__nv_bfloat16*>(db),
+                       static_cast<__nv_bfloat16*>(dx), D, F, E, bm};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      rows == 128 ? dgrad_tma<128>(toks, dy, a, w1, w3, w2, T, s)
+                  : dgrad_tma<64>(toks, dy, a, w1, w3, w2, T, s);
+  return static_cast<int>(err);
+}
+
+// K2 on the TMA route. As ragged_moe_ffn_wgrad_bf16, with D and F
+// multiples of 8 and every pointer 16-byte aligned. Returns
+// cudaGetLastError() after the two launches.
+int ragged_moe_ffn_wgrad_tma_bf16(const void* toks, const void* h,
+                                  const void* da, const void* db,
+                                  const void* dy, const void* row_offsets,
+                                  const void* sizes, void* dw1, void* dw3,
+                                  void* dw2, int T, int D, int F, int E,
+                                  void* stream) {
+  if (T <= 0 || D <= 0 || F <= 0 || E <= 0 || E > 65535 || D % 8 != 0 ||
+      F % 8 != 0 || row_offsets == nullptr || sizes == nullptr ||
+      !aligned({toks, h, da, db, dy, dw1, dw3, dw2})) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* ro = static_cast<const int*>(row_offsets);
+  const auto* sz = static_cast<const int*>(sizes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(wgrad_tma(toks, h, da, db, dy, ro, sz, dw1, dw3,
+                                    dw2, T, D, F, E, s));
 }
 
 }  // extern "C"

@@ -18,9 +18,10 @@ no autograd bookkeeping.
 ``FFN_TILES`` states the tiles of the CUDA FFN kernels' general route,
 chosen for Hopper shared memory in place of the v5e VMEM budget the TPU
 wrapper sized for (``pick_blocks`` in ``src/repro/kernels/ops.py:24-41``).
-The TMA route's tiles and shared-memory plan live in
-``csrc/moe_ffn_hopper.cuh`` alone (``Cfg``), which asserts at compile time
-that each variant fits a block and two fit an SM.
+The TMA route's tiles and shared-memory plans live in
+``csrc/moe_ffn_hopper.cuh`` (``Cfg``) and ``csrc/moe_ffn_hopper_bwd.cuh``
+(``DgradCfg``, ``WgradCfg``) alone, which assert at compile time that each
+variant fits a block.
 """
 
 from __future__ import annotations
@@ -92,8 +93,9 @@ class RaggedMoeFFN(torch.autograd.Function):
     """The ragged FFN for autograd. On the card the forward is the kernel,
     keeping its bf16 scratch ``h`` as the saved activation, and the
     backward is K1 (``dx``, ``da``, ``db``) then K2 (the weights'
-    gradients), over the plan's real rows; on the CPU both are the plain
-    versions (:func:`~.ref.ragged_moe_ffn_bwd_ref`)."""
+    gradients), over the plan's real rows, each on the TMA route wherever
+    its operands allow (at the published widths they do); on the CPU both
+    are the plain versions (:func:`~.ref.ragged_moe_ffn_bwd_ref`)."""
 
     @staticmethod
     def forward(ctx, w1, w3, w2, toks, tile_group, row_offsets, sizes,
@@ -208,7 +210,8 @@ class RouteSelect(torch.autograd.Function):
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel name; ``<name>.tma``
-    counts those of an FFN kernel's launches that took the TMA route."""
+    counts those of an FFN kernel's launches (forward or backward) that
+    took the TMA route."""
     return {"fused_moe_ffn": _capacity.fused_moe_ffn.launches,
             "fused_moe_ffn.tma": _capacity.fused_moe_ffn.tma_launches,
             "ragged_moe_ffn": _ragged.ragged_moe_ffn.launches,
@@ -216,15 +219,19 @@ def launch_counts() -> Dict[str, int]:
             "router_topk": _route.router_topk.launches,
             "route_select": _route.route_select.launches,
             "ragged_moe_ffn_dgrad": _ragged.ragged_moe_ffn_dgrad.launches,
+            "ragged_moe_ffn_dgrad.tma":
+                _ragged.ragged_moe_ffn_dgrad.tma_launches,
             "ragged_moe_ffn_wgrad": _ragged.ragged_moe_ffn_wgrad.launches,
+            "ragged_moe_ffn_wgrad.tma":
+                _ragged.ragged_moe_ffn_wgrad.tma_launches,
             "route_select_bwd": _route.route_select_bwd.launches}
 
 
 def reset_launch_counts() -> None:
-    for fn in (_capacity.fused_moe_ffn, _ragged.ragged_moe_ffn):
+    for fn in (_capacity.fused_moe_ffn, _ragged.ragged_moe_ffn,
+               _ragged.ragged_moe_ffn_dgrad, _ragged.ragged_moe_ffn_wgrad):
         fn.launches = 0
         fn.tma_launches = 0
     for fn in (_route.router_topk, _route.route_select,
-               _route.route_select_bwd, _ragged.ragged_moe_ffn_dgrad,
-               _ragged.ragged_moe_ffn_wgrad):
+               _route.route_select_bwd):
         fn.launches = 0

@@ -23,17 +23,20 @@ only those rows; the plan needs no extra tensor op for it.
 The backward is two kernels of ``csrc/ragged_moe_ffn_bwd.cu`` over the
 same layout and real rows: :func:`ragged_moe_ffn_dgrad` (K1: ``dx`` and the
 bf16 ``da``, ``db``) and :func:`ragged_moe_ffn_wgrad` (K2: the three weight
-gradients, each expert's rows summed in a fixed order). The forward's bf16
+gradients, each expert's rows summed in a fixed order), each with the same
+two routes as the forward (the TMA route in
+``csrc/moe_ffn_hopper_bwd.cuh``). The forward's bf16
 scratch ``h (T, F)`` is the saved activation (``keep_h=True``).
 :class:`repro_torch.kernels.ops.RaggedMoeFFN` ties them together for
 autograd.
 
 On a CUDA tensor each wrapper launches its kernel or raises; the CPU path
 lives in :mod:`.ops`, which sends CPU tensors to the plain versions.
-Two routes, picked from shapes and pointers, never by catching a failure:
-the TMA route (a TMA ring and ``wgmma``, ``csrc/moe_ffn_hopper.cuh``) for D
-and F multiples of 8 and 16-byte aligned operands, the general route (WMMA,
-``csrc/moe_ffn_blocks.cuh``) for every other shape.
+Two routes, picked from shapes and pointers (:func:`pick_route`), never by
+catching a failure: the TMA route (a TMA ring and ``wgmma``,
+``csrc/moe_ffn_hopper.cuh``) for D and F multiples of 8 and 16-byte aligned
+operands, the general route (WMMA, ``csrc/moe_ffn_blocks.cuh``) for every
+other shape.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ from . import build
 
 __all__ = ["ragged_tile_metadata", "ragged_tile_rows", "ragged_n_tiles",
            "ragged_moe_ffn", "ragged_moe_ffn_dgrad", "ragged_moe_ffn_wgrad",
-           "tma_rows", "tma_ok", "check_operands", "ROW_BLOCK"]
+           "tma_rows", "tma_ok", "check_operands", "pick_route", "bwd_rows",
+           "dgrad_plan", "wgrad_plan", "ROW_BLOCK"]
 
 #: Rows per thread block of the general route (``RB`` in
 #: ``moe_ffn_blocks.cuh``). The plan's row tile ``bm`` must be a multiple of
@@ -243,39 +247,19 @@ ragged_moe_ffn.tma_launches = 0
 ragged_moe_ffn.last_route = None
 
 
-def _bwd_lib():
-    lib = build.load("ragged_moe_ffn_bwd")
-    if lib.ragged_moe_ffn_dgrad_bf16.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ragged_moe_ffn_dgrad_bf16.argtypes = [p] * 11 + [i] * 5 + [p]
-        lib.ragged_moe_ffn_wgrad_bf16.argtypes = [p] * 10 + [i] * 4 + [p]
-        lib.ragged_moe_ffn_dgrad_bf16.restype = ctypes.c_int
-        lib.ragged_moe_ffn_wgrad_bf16.restype = ctypes.c_int
-    return lib
+def bwd_rows(bm: int) -> int:
+    """Row block of K1's TMA route: 128 (two consumer warpgroups, one CTA
+    an SM) where the row tile ``bm`` is a multiple of 128, else 64 (one
+    warpgroup, two CTAs an SM)."""
+    return 128 if bm % 128 == 0 else 64
 
 
-def _check_plan(kernel, toks, n_tiles, E, tile_group, row_offsets, sizes):
-    dev = toks.device
-    _check_index("tile_group", tile_group, n_tiles, dev)
-    _check_index("row_offsets", row_offsets, E + 1, dev)
-    _check_index("sizes", sizes, E, dev)
-    T = toks.shape[0]
-    if n_tiles == 0 or T % n_tiles or (T // n_tiles) % ROW_BLOCK:
-        raise ValueError(f"{kernel}: T={T} over {n_tiles} tiles is not a "
-                         f"row tile that is a multiple of {ROW_BLOCK}")
-
-
-def ragged_moe_ffn_dgrad(w1, w3, w2, toks, tile_group, row_offsets, sizes,
-                         dy):
-    """Launch K1: ``dy (T, D)`` → ``(dx (T, D), da (T, F), db (T, F))``
-    bf16, as :func:`~.ref.ragged_moe_ffn_bwd_ref` computes ``dx`` and its
-    rounded ``da``, ``db``. Only the plan's real rows are computed; every
-    other row of ``dx`` is exactly zero, and ``da``, ``db`` are written on
-    real rows only (the rows :func:`ragged_moe_ffn_wgrad` reads). Raises on
-    what the kernel does not take and if the launch is refused. Adds one
-    to ``ragged_moe_ffn_dgrad.launches``."""
-    check_operands("ragged_moe_ffn_dgrad", {"w1": w1, "w3": w3, "w2": w2,
-                                            "toks": toks, "dy": dy})
+def dgrad_plan(w1, w3, w2, toks, dy, n_tiles: int, route=None):
+    """``(T, D, F, E, bm, tma, rows)`` of a K1 call, from shapes and
+    pointers alone (no launch, no card): ``tma`` from :func:`pick_route`
+    over the operands, ``rows`` the TMA route's row block
+    (:func:`bwd_rows`; 64, the general route's, otherwise). Raises
+    ValueError on shapes the kernels do not take."""
     T, D = toks.shape
     E, _, F = w1.shape
     if w3.shape != (E, D, F) or w2.shape != (E, F, D) or w1.shape[1] != D \
@@ -283,58 +267,137 @@ def ragged_moe_ffn_dgrad(w1, w3, w2, toks, tile_group, row_offsets, sizes,
         raise ValueError(f"ragged_moe_ffn_dgrad: shapes w1 {tuple(w1.shape)}"
                          f", w3 {tuple(w3.shape)}, w2 {tuple(w2.shape)}, "
                          f"toks {tuple(toks.shape)}, dy {tuple(dy.shape)}")
-    n_tiles = tile_group.shape[0]
-    _check_plan("ragged_moe_ffn_dgrad", toks, n_tiles, E, tile_group,
-                row_offsets, sizes)
-    dx = torch.empty_like(toks)
-    da = torch.empty((T, F), dtype=toks.dtype, device=toks.device)
-    db = torch.empty_like(da)
-    err = _bwd_lib().ragged_moe_ffn_dgrad_bf16(
-        toks.data_ptr(), dy.data_ptr(), tile_group.data_ptr(),
-        row_offsets.data_ptr(), sizes.data_ptr(), w1.data_ptr(),
-        w3.data_ptr(), w2.data_ptr(), da.data_ptr(), db.data_ptr(),
-        dx.data_ptr(), T, D, F, E, T // n_tiles,
-        torch._C._cuda_getCurrentRawStream(toks.get_device()))
-    if err != 0:
-        raise RuntimeError(f"ragged_moe_ffn_dgrad: CUDA launch failed with "
-                           f"cudaError {err}")
-    ragged_moe_ffn_dgrad.launches += 1
-    return dx, da, db
+    if n_tiles == 0 or T % n_tiles or (T // n_tiles) % ROW_BLOCK:
+        raise ValueError(f"ragged_moe_ffn_dgrad: T={T} over {n_tiles} tiles "
+                         f"is not a row tile that is a multiple of "
+                         f"{ROW_BLOCK}")
+    bm = T // n_tiles
+    tma = pick_route("ragged_moe_ffn_dgrad", route, (w1, w3, w2, toks, dy))
+    rows = bwd_rows(bm) if tma else ROW_BLOCK
+    return T, D, F, E, bm, tma, rows
 
 
-ragged_moe_ffn_dgrad.launches = 0
-
-
-def ragged_moe_ffn_wgrad(toks, h, da, db, dy, row_offsets, sizes):
-    """Launch K2: ``(dw1 (E, D, F), dw3 (E, D, F), dw2 (E, F, D))`` bf16 =
-    ``xᵀ da``, ``xᵀ db``, ``hᵀ dy`` over each expert's real rows, summed
-    in f32 in a fixed order; an expert with no rows gets zeros. Raises on
-    what the kernel does not take and if the launch is refused. Adds one
-    to ``ragged_moe_ffn_wgrad.launches``."""
-    check_operands("ragged_moe_ffn_wgrad", {"toks": toks, "h": h, "da": da,
-                                            "db": db, "dy": dy})
+def wgrad_plan(toks, h, da, db, dy, route=None):
+    """``(T, D, F, tma)`` of a K2 call, from shapes and pointers alone:
+    ``tma`` from :func:`pick_route` over the operands. Raises ValueError on
+    shapes the kernels do not take."""
     T, D = toks.shape
     F = h.shape[1]
-    E = sizes.shape[0]
     if h.shape != (T, F) or da.shape != (T, F) or db.shape != (T, F) \
             or dy.shape != (T, D):
         raise ValueError("ragged_moe_ffn_wgrad: h, da, db must be (T, F) "
                          "and dy (T, D) beside toks (T, D)")
+    tma = pick_route("ragged_moe_ffn_wgrad", route, (toks, h, da, db, dy))
+    return T, D, F, tma
+
+
+def _bwd_lib():
+    lib = build.load("ragged_moe_ffn_bwd")
+    if lib.ragged_moe_ffn_dgrad_bf16.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ragged_moe_ffn_dgrad_bf16.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.ragged_moe_ffn_wgrad_bf16.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.ragged_moe_ffn_dgrad_tma_bf16.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.ragged_moe_ffn_wgrad_tma_bf16.argtypes = [p] * 10 + [i] * 4 + [p]
+        for fn in (lib.ragged_moe_ffn_dgrad_bf16,
+                   lib.ragged_moe_ffn_wgrad_bf16,
+                   lib.ragged_moe_ffn_dgrad_tma_bf16,
+                   lib.ragged_moe_ffn_wgrad_tma_bf16):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def ragged_moe_ffn_dgrad(w1, w3, w2, toks, tile_group, row_offsets, sizes,
+                         dy, route=None):
+    """Launch K1: ``dy (T, D)`` → ``(dx (T, D), da (T, F), db (T, F))``
+    bf16, as :func:`~.ref.ragged_moe_ffn_bwd_ref` computes ``dx`` and its
+    rounded ``da``, ``db``. Only the plan's real rows are computed; every
+    other row of ``dx`` is exactly zero, and ``da``, ``db`` are written on
+    real rows only (the rows :func:`ragged_moe_ffn_wgrad` reads).
+
+    Two routes (:func:`pick_route`): the TMA route
+    (``csrc/moe_ffn_hopper_bwd.cuh``; row block :func:`bwd_rows`) where :func:`tma_ok` holds for every operand,
+    the general route (WMMA) otherwise or with ``route="general"``
+    (:func:`dgrad_plan` makes the choice without a card). Raises
+    on what the kernel does not take and if the launch is refused. Adds
+    one to ``ragged_moe_ffn_dgrad.launches`` and, on the TMA route, to
+    ``ragged_moe_ffn_dgrad.tma_launches``."""
+    check_operands("ragged_moe_ffn_dgrad", {"w1": w1, "w3": w3, "w2": w2,
+                                            "toks": toks, "dy": dy})
+    n_tiles = tile_group.shape[0]
+    T, D, F, E, bm, tma, rows = dgrad_plan(w1, w3, w2, toks, dy, n_tiles,
+                                           route)
+    dev = toks.device
+    _check_index("tile_group", tile_group, n_tiles, dev)
+    _check_index("row_offsets", row_offsets, E + 1, dev)
+    _check_index("sizes", sizes, E, dev)
+    dx = torch.empty_like(toks)
+    da = torch.empty((T, F), dtype=toks.dtype, device=dev)
+    db = torch.empty_like(da)
+    lib = _bwd_lib()
+    args = [toks.data_ptr(), dy.data_ptr(), tile_group.data_ptr(),
+            row_offsets.data_ptr(), sizes.data_ptr(), w1.data_ptr(),
+            w3.data_ptr(), w2.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dx.data_ptr(), T, D, F, E, bm]
+    stream = torch._C._cuda_getCurrentRawStream(toks.get_device())
+    if tma:
+        err = lib.ragged_moe_ffn_dgrad_tma_bf16(*args, rows, stream)
+    else:
+        err = lib.ragged_moe_ffn_dgrad_bf16(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"ragged_moe_ffn_dgrad: CUDA launch failed with "
+                           f"cudaError {err}")
+    ragged_moe_ffn_dgrad.launches += 1
+    ragged_moe_ffn_dgrad.tma_launches += tma
+    ragged_moe_ffn_dgrad.last_route = f"tma rows={rows}" if tma \
+        else "general"
+    return dx, da, db
+
+
+ragged_moe_ffn_dgrad.launches = 0
+ragged_moe_ffn_dgrad.tma_launches = 0
+ragged_moe_ffn_dgrad.last_route = None
+
+
+def ragged_moe_ffn_wgrad(toks, h, da, db, dy, row_offsets, sizes,
+                         route=None):
+    """Launch K2: ``(dw1 (E, D, F), dw3 (E, D, F), dw2 (E, F, D))`` bf16 =
+    ``xᵀ da``, ``xᵀ db``, ``hᵀ dy`` over each expert's real rows, summed
+    in f32 in a fixed order; an expert with no rows gets zeros. Rows past
+    an expert's real ones are never read into a sum, whatever they hold.
+
+    Two routes, as :func:`ragged_moe_ffn_dgrad`'s (the TMA route's CTA
+    computes a 128 x 64 tile of dW). Raises on what
+    the kernel does not take and if the launch is refused. Adds one to
+    ``ragged_moe_ffn_wgrad.launches`` and, on the TMA route, to
+    ``ragged_moe_ffn_wgrad.tma_launches``."""
+    check_operands("ragged_moe_ffn_wgrad", {"toks": toks, "h": h, "da": da,
+                                            "db": db, "dy": dy})
+    T, D, F, tma = wgrad_plan(toks, h, da, db, dy, route)
+    E = sizes.shape[0]
     _check_index("row_offsets", row_offsets, E + 1, toks.device)
     _check_index("sizes", sizes, E, toks.device)
     dw1 = torch.empty((E, D, F), dtype=toks.dtype, device=toks.device)
     dw3 = torch.empty_like(dw1)
     dw2 = torch.empty((E, F, D), dtype=toks.dtype, device=toks.device)
-    err = _bwd_lib().ragged_moe_ffn_wgrad_bf16(
-        toks.data_ptr(), h.data_ptr(), da.data_ptr(), db.data_ptr(),
-        dy.data_ptr(), row_offsets.data_ptr(), sizes.data_ptr(),
-        dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), T, D, F, E,
-        torch._C._cuda_getCurrentRawStream(toks.get_device()))
+    lib = _bwd_lib()
+    args = [toks.data_ptr(), h.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dy.data_ptr(), row_offsets.data_ptr(), sizes.data_ptr(),
+            dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), T, D, F, E]
+    stream = torch._C._cuda_getCurrentRawStream(toks.get_device())
+    if tma:
+        err = lib.ragged_moe_ffn_wgrad_tma_bf16(*args, stream)
+    else:
+        err = lib.ragged_moe_ffn_wgrad_bf16(*args, stream)
     if err != 0:
         raise RuntimeError(f"ragged_moe_ffn_wgrad: CUDA launch failed with "
                            f"cudaError {err}")
     ragged_moe_ffn_wgrad.launches += 1
+    ragged_moe_ffn_wgrad.tma_launches += tma
+    ragged_moe_ffn_wgrad.last_route = "tma" if tma else "general"
     return dw1, dw3, dw2
 
 
 ragged_moe_ffn_wgrad.launches = 0
+ragged_moe_ffn_wgrad.tma_launches = 0
+ragged_moe_ffn_wgrad.last_route = None

@@ -472,16 +472,36 @@ def _rel_l2(a, b):
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
+def _real_rows(n_rows, ro, sizes, dev):
+    real = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    for e, n in enumerate(sizes):
+        real[ro[e]:ro[e] + n] = True
+    return real
+
+
+# the training shape: ~220 rows an expert (1024 tokens x top-8 over 40
+# experts), bm 128, at granite's widths
+_TRAIN_SIZES = [220, 231, 0, 198, 245, 210, 17, 230]
+
+
+@pytest.mark.parametrize("route", [None, "general"])
 @pytest.mark.parametrize("sizes,D,F,bm", [
     ([70, 0, 130, 3], 128, 192, 64),      # an empty expert, ragged tails
     ([5, 300, 0, 0, 9], 160, 136, 128),   # two empty experts, bm 128
-    ([33, 1, 64], 200, 100, 64),          # D, F not multiples of 8
+    ([33, 1, 64], 200, 100, 64),          # F not a multiple of 8
+    # K1's 64-row block with D, F not multiples of 64 (a block partly and
+    # K2's second 64-row half wholly past the edge)
+    ([70, 0, 130, 3, 64], 200, 136, 64),
     ([1000, 200, 0, 40], 1536, 512, 128),  # granite's widths
+    (_TRAIN_SIZES, 1536, 512, 128),        # the training shape
 ])
-def test_ragged_ffn_backward_kernels_match_plain(cuda, sizes, D, F, bm):
+def test_ragged_ffn_backward_kernels_match_plain(cuda, sizes, D, F, bm,
+                                                 route):
     """K1 (dx, da, db) and K2 (dW1, dW3, dW2) against the plain backward,
     relative L2 within ``BWD_TOL``; padding and sentinel rows of dx
-    and empty experts' dW exactly zero; two calls bit-identical."""
+    and empty experts' dW exactly zero; two calls bit-identical. Route
+    None takes the TMA route wherever D and F are multiples of 8 (checked
+    on the route each call took), "general" the WMMA route."""
     (w1, w3, w2, toks), tg, (ro, sz, _) = _ragged_inputs(
         cuda, sizes, D, F, bm, with_rows=True)
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -491,11 +511,16 @@ def test_ragged_ffn_backward_kernels_match_plain(cuda, sizes, D, F, bm):
     runs = []
     for _ in range(2):
         dx, da, db = t_ragged.ragged_moe_ffn_dgrad(w1, w3, w2, toks, tg, ro,
-                                                   sz, dy)
-        runs.append((dx, *t_ragged.ragged_moe_ffn_wgrad(toks, h, da, db, dy,
-                                                        ro, sz)))
+                                                   sz, dy, route=route)
+        runs.append((dx, *t_ragged.ragged_moe_ffn_wgrad(
+            toks, h, da, db, dy, ro, sz, route=route)))
     want = ref.ragged_moe_ffn_bwd_ref(w1, w3, w2, toks, tg, dy)
     torch.cuda.synchronize()
+    tma = route is None and _tma_expected(D, F)
+    assert t_ragged.ragged_moe_ffn_dgrad.last_route == \
+        (f"tma rows={t_ragged.bwd_rows(bm)}" if tma else "general")
+    assert t_ragged.ragged_moe_ffn_wgrad.last_route == \
+        ("tma" if tma else "general")
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     dx, dw1, dw3, dw2 = runs[0]
@@ -504,12 +529,68 @@ def test_ragged_ffn_backward_kernels_match_plain(cuda, sizes, D, F, bm):
         assert got.dtype == torch.bfloat16 and got.shape == exp.shape
         err = _rel_l2(got, exp)
         assert err <= BWD_TOL, (name, err)
-    real = torch.zeros(toks.shape[0], dtype=torch.bool, device=cuda)
     for e, n in enumerate(sizes):
-        real[ro[e]:ro[e] + n] = True
         if n == 0:
             assert not dw1[e].any() and not dw3[e].any() and not dw2[e].any()
-    assert not dx[~real].any()
+    assert not dx[~_real_rows(toks.shape[0], ro, sizes, cuda)].any()
+
+
+@pytest.mark.parametrize("route", [None, "general"])
+@pytest.mark.parametrize("sizes,D,F,bm", [
+    ([70, 0, 130, 3], 128, 192, 64),
+    ([5, 300, 0, 0, 9], 160, 136, 128),
+    (_TRAIN_SIZES, 1536, 512, 128),
+])
+def test_ragged_ffn_backward_ignores_what_padding_rows_hold(cuda, sizes, D,
+                                                            F, bm, route):
+    """NaN in the padding rows of dy (before K1) and of h, da, db and dy
+    (before K2) changes nothing: every gradient is finite and bit-equal to
+    the run on zero padding (0 * NaN would be NaN, so a row past an
+    expert's real ones must never enter a sum)."""
+    (w1, w3, w2, toks), tg, (ro, sz, _) = _ragged_inputs(
+        cuda, sizes, D, F, bm, with_rows=True)
+    real = _real_rows(toks.shape[0], ro, sizes, cuda)[:, None]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dy = (torch.randn(toks.shape, generator=g, device=cuda)
+          * real).to(torch.bfloat16)
+    _, h = t_ragged.ragged_moe_ffn(w1, w3, w2, toks, tg, row_offsets=ro,
+                                   sizes=sz, keep_h=True)
+    out = {}
+    for pad in (0.0, float("nan")):
+        dy_p = torch.where(real, dy, pad)
+        dx, da, db = t_ragged.ragged_moe_ffn_dgrad(w1, w3, w2, toks, tg, ro,
+                                                   sz, dy_p, route=route)
+        h_p, da_p, db_p = (torch.where(real, t, pad) for t in (h, da, db))
+        out[pad == 0.0] = (dx, da[real[:, 0]], db[real[:, 0]],
+                           *t_ragged.ragged_moe_ffn_wgrad(
+                               toks, h_p, da_p, db_p, dy_p, ro, sz,
+                               route=route))
+    torch.cuda.synchronize()
+    for clean, poisoned in zip(out[True], out[False]):
+        assert bool(torch.isfinite(poisoned.float()).all())
+        assert torch.equal(clean, poisoned)
+
+
+def test_ragged_ffn_backward_routes_agree_on_the_same_inputs(cuda):
+    """The TMA route and the general route on the same inputs at the
+    training shape: every output within ``BWD_TOL`` of the other."""
+    (w1, w3, w2, toks), tg, (ro, sz, _) = _ragged_inputs(
+        cuda, _TRAIN_SIZES, 1536, 512, 128, with_rows=True)
+    real = _real_rows(toks.shape[0], ro, _TRAIN_SIZES, cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dy = torch.randn(toks.shape, generator=g, device=cuda).to(torch.bfloat16)
+    _, h = t_ragged.ragged_moe_ffn(w1, w3, w2, toks, tg, row_offsets=ro,
+                                   sizes=sz, keep_h=True)
+    got = {}
+    for route in (None, "general"):
+        dx, da, db = t_ragged.ragged_moe_ffn_dgrad(w1, w3, w2, toks, tg, ro,
+                                                   sz, dy, route=route)
+        got[route] = (dx, da[real], db[real], *t_ragged.ragged_moe_ffn_wgrad(
+            toks, h, da, db, dy, ro, sz, route=route))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "da", "db", "dw1", "dw3", "dw2"),
+                          got[None], got["general"]):
+        assert _rel_l2(a, b) <= BWD_TOL, name
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -542,7 +623,8 @@ def test_route_select_backward_kernel_matches_plain(cuda, T, E, K, masked):
 
 def test_ops_backward_launches_the_kernels(cuda):
     """Through autograd on the card: the forward kernels once, each
-    backward kernel once, no plain version."""
+    backward kernel once (the FFN's on the TMA route), no plain
+    version."""
     (w1, w3, w2, toks), tg, (ro, sz, _) = _ragged_inputs(
         cuda, [40, 0, 9], 64, 64, 64, with_rows=True)
     (x, w, so, nc, cdf, seed), _ = _route_inputs(cuda, 32, 64, 8, 1, False,
@@ -558,6 +640,9 @@ def test_ops_backward_launches_the_kernels(cuda):
     assert c["ragged_moe_ffn"] == c["ragged_moe_ffn_dgrad"] == \
         c["ragged_moe_ffn_wgrad"] == c["route_select"] == \
         c["route_select_bwd"] == 1
+    # D and F multiples of 8: both backward kernels on the TMA route
+    assert c["ragged_moe_ffn.tma"] == c["ragged_moe_ffn_dgrad.tma"] == \
+        c["ragged_moe_ffn_wgrad.tma"] == 1
     assert all(torch.isfinite(t.grad.float()).all() for t in ins)
 
 

@@ -222,7 +222,8 @@ def test_ops_on_cpu_use_plain_versions_and_count_nothing():
 
 _COUNTERS = ("fused_moe_ffn", "fused_moe_ffn.tma", "ragged_moe_ffn",
              "ragged_moe_ffn.tma", "router_topk", "route_select",
-             "ragged_moe_ffn_dgrad", "ragged_moe_ffn_wgrad",
+             "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
+             "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
              "route_select_bwd")
 
 
@@ -288,6 +289,97 @@ def test_ffn_tiles_fit_hopper_static_shared_memory():
     assert t_ragged.tma_rows(None, 64) == 64
     assert [t_capacity.tma_rows(c) for c in (4, 8, 9, 16, 40, 64, 128)] == \
         [8, 8, 16, 16, 64, 64, 128]
+
+
+def _bwd_operands(E=3, D=64, F=64, T=256):
+    bf = torch.bfloat16
+    w1, w3 = torch.zeros((E, D, F), dtype=bf), torch.zeros((E, D, F), dtype=bf)
+    w2 = torch.zeros((E, F, D), dtype=bf)
+    toks, dy = torch.zeros((T, D), dtype=bf), torch.zeros((T, D), dtype=bf)
+    h = torch.zeros((T, F), dtype=bf)
+    return w1, w3, w2, toks, dy, h
+
+
+@pytest.mark.parametrize("D,F,route,want", [
+    (64, 64, None, True), (1536, 512, None, True), (200, 136, None, True),
+    (200, 100, None, False), (100, 64, None, False),
+    (1536, 512, "general", False)])
+def test_backward_route_choice_without_a_card(D, F, route, want):
+    """K1 and K2 take the TMA route exactly where every operand's rows are
+    a multiple of 16 bytes (D and F multiples of 8) and nothing forces the
+    general route; the choice needs shapes and pointers only."""
+    w1, w3, w2, toks, dy, h = _bwd_operands(D=D, F=F)
+    T, D1, F1, E, bm, tma, rows = t_ragged.dgrad_plan(w1, w3, w2, toks, dy,
+                                                      2, route)
+    assert (T, D1, F1, E, bm, tma) == (256, D, F, 3, 128, want)
+    assert rows == (128 if want else t_ragged.ROW_BLOCK)
+    assert t_ragged.wgrad_plan(toks, h, h, h, dy, route) == \
+        (256, D, F, want)
+
+
+def test_backward_route_needs_aligned_operands():
+    """An operand whose base is not 16-byte aligned (contiguous, 8 bytes
+    into its storage) has no TMA descriptor: the general route."""
+    w1, w3, w2, toks, dy, h = _bwd_operands()
+
+    def shifted(t):
+        flat = torch.zeros(t.numel() + 4, dtype=t.dtype)
+        return flat[4:].view(t.shape)
+
+    assert t_ragged.dgrad_plan(w1, w3, w2, toks, dy, 2)[5]
+    assert not t_ragged.dgrad_plan(w1, w3, w2, toks, shifted(dy), 2)[5]
+    assert not t_ragged.dgrad_plan(shifted(w1), w3, w2, toks, dy, 2)[5]
+    assert t_ragged.wgrad_plan(toks, h, h, h, dy)[3]
+    assert not t_ragged.wgrad_plan(toks, h, shifted(h), h, dy)[3]
+
+
+def test_backward_row_block_and_tile_choices():
+    """K1's TMA row block follows the row tile bm (128 where it divides
+    bm, else 64); K2's tile is fixed, so its plan names none; an unknown
+    route is refused."""
+    assert [t_ragged.bwd_rows(bm) for bm in (64, 128, 192, 256)] == \
+        [64, 128, 64, 128]
+    w1, w3, w2, toks, dy, h = _bwd_operands()
+    assert [t_ragged.dgrad_plan(w1, w3, w2, toks, dy, n)[4:]
+            for n in (1, 2, 4)] == [(256, True, 128), (128, True, 128),
+                                    (64, True, 64)]
+    assert t_ragged.dgrad_plan(w1, w3, w2, toks, dy, 4, "general")[4:] == \
+        (64, False, t_ragged.ROW_BLOCK)
+    with pytest.raises(ValueError, match="route"):
+        t_ragged.dgrad_plan(w1, w3, w2, toks, dy, 2, route="fast")
+    with pytest.raises(ValueError, match="route"):
+        t_ragged.wgrad_plan(toks, h, h, h, dy, route="fast")
+
+
+def test_backward_shape_checks_without_a_card():
+    """What K1 and K2 refuse, checked before any launch."""
+    w1, w3, w2, toks, dy, h = _bwd_operands()
+    with pytest.raises(ValueError, match="shapes"):
+        t_ragged.dgrad_plan(w1, w3, w2.transpose(1, 2)[:, :32], toks, dy, 2)
+    with pytest.raises(ValueError, match="shapes"):
+        t_ragged.dgrad_plan(w1, w3, w2, toks, dy[:128], 2)
+    with pytest.raises(ValueError, match="row tile"):
+        t_ragged.dgrad_plan(w1, w3, w2, toks, dy, 8)   # bm 32
+    with pytest.raises(ValueError, match="row tile"):
+        t_ragged.dgrad_plan(w1, w3, w2, toks, dy, 3)
+    with pytest.raises(ValueError, match=r"\(T, F\)"):
+        t_ragged.wgrad_plan(toks, h[:128], h, h, dy)
+    with pytest.raises(ValueError, match=r"\(T, F\)"):
+        t_ragged.wgrad_plan(toks, h, h, h, dy[:, :32])
+
+
+def test_launch_counts_report_and_reset_the_backward_tma_counters():
+    ops.reset_launch_counts()
+    t_ragged.ragged_moe_ffn_dgrad.launches = 3
+    t_ragged.ragged_moe_ffn_dgrad.tma_launches = 2
+    t_ragged.ragged_moe_ffn_wgrad.launches = 5
+    t_ragged.ragged_moe_ffn_wgrad.tma_launches = 4
+    c = ops.launch_counts()
+    assert (c["ragged_moe_ffn_dgrad"], c["ragged_moe_ffn_dgrad.tma"],
+            c["ragged_moe_ffn_wgrad"], c["ragged_moe_ffn_wgrad.tma"]) == \
+        (3, 2, 5, 4)
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
 
 
 def test_resolve_device_defaults_to_cuda_and_never_falls_back():
