@@ -57,14 +57,37 @@ Run from the repository root on a machine with one NVIDIA H100. It
    the TMA route) and the routing stage launched 32 times per chunk and
    decode call, the capacity FFN never; prints the largest |logit difference|
    between a chunked and a whole prefill of one 512-token prompt;
-9. training (after the serving engines are freed): the backward kernels
+9. the serve driver's drills on the same config at full width (8 sharegpt
+   requests, outputs capped at 64 tokens, ``vibe_h`` on a 2 x 4 topology,
+   an engine each): a healthy run; the elasticity drill (rank 3 dies after
+   5 steps), every request finished, no KV block held, the
+   ``FailureReport``, the wall time and peak memory of ``fail_rank`` (the
+   expert migration on the card), TTFT against the healthy run's; the
+   chaos drill under ``FaultSchedule.default(8, seed=0)``, no invariant
+   violated; each run launching the ragged FFN and the routing stage 32
+   times a model call;
+10. xlstm-350m at full width (24 layers: 21 mLSTM, 3 sLSTM; no kernel of
+   the port on its path): 4 training steps of 4 x 256 tokens through
+   ``launch/train.py`` (finite losses, two seeded 2-step runs bit for
+   bit), a step's profile with each mixer's forward and backward timed,
+   8 prompts of 256 tokens prefilled and 64 greedy decode steps of the 8
+   lanes, and a 64-token prompt's chunkwise prefill against the same
+   prompt stepped token by token (logits and every state leaf);
+11. jamba-1.5-large at its smoke size through the serve driver (one
+   attention and seven Mamba layers, four MoE layers at E 4, K 2, D 128,
+   F 256): every request finished, finite logits, the routing stage and
+   the ragged FFN launched once a MoE layer and model call on the TMA
+   route, the first prefill's logits against the same call through the
+   kernels' plain versions;
+12. training (after the serving engines are freed): the backward kernels
    against their plain versions at the training shape (1024 tokens x top-8
    = 8192 assignments, Zipf-skewed, some experts empty, row block 128) —
    the ragged FFN's dgrad (K1) and wgrad (K2), on the TMA route, against
    ``ragged_moe_ffn_bwd_ref`` (padding rows and empty experts exactly zero,
    two calls bit-identical, two faulty controls above the bound), the
-   routing backward (K3) against ``route_select_dlogits_ref`` — each timed
-   as the forward kernels are, K1 and K2 on both routes (and the TMA
+   routing backward (K3) against ``route_select_dlogits_ref`` (and an empty
+   launch timed beside it: K3's floor) — each timed as the forward kernels
+   are, K1 and K2 on both routes (and the TMA
    route's row blocks and output tiles) at 1024 and at 4096 tokens;
    then ``repro_torch.launch.train.train`` on the published config at full
    width, 4 steps of batch 4 x 256 tokens on the card: finite losses (the
@@ -120,6 +143,10 @@ BWD_TOL = 1e-3
 STEP_TOL = 2e-2
 STEP_LOSS_TOL = 1e-3
 ROUTER_W_TOL = 1e-5   # f32 weights; indices must be exactly equal
+# a recurrent model's chunkwise prefill against stepping it token by token,
+# relative L2 of the logits and of each state leaf: the reference's own
+# bf16 bound for the same property (tests/test_models.py)
+STATE_TOL = 2e-2
 NEAR_TIE = 1e-5       # adjacent top-(K+1) probabilities closer than this
 
 
@@ -601,10 +628,12 @@ def capacity_layer_case(cfg, cgen, dev, tokens=512, lanes=8):
 
 
 def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
-               **build_kw):
+               policy="vibe", drill=None, **build_kw):
     """Serve the published config through the port's engine on one path.
     The launch counts are set to 0 just before the requests are served and
-    read just after. Returns (engine, counts, stats of the run)."""
+    read just after. ``drill(engine, requests)``, when given, serves them
+    (a drill of ``repro_torch.serving``) in place of the engine's step
+    loop and returns its report. Returns (engine, counts, report)."""
     import dataclasses
     import numpy as np
     import torch
@@ -614,14 +643,15 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
     max_seq = 1024
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = build_engine(cfg, policy="vibe", regime="mi325x", max_batch=8,
+    engine = build_engine(cfg, policy=policy, regime="mi325x", max_batch=8,
                           max_seq=max_seq, seed=0, device=dev, **build_kw)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(engine.params))
     print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, "
-          f"{n_params / 1e9:.3f} B params in bf16, {build_kw or 'ragged'}, "
-          f"built in {time.perf_counter() - t0:.1f} s")
+          f"{engine.n_slots} slots, {n_params / 1e9:.3f} B params in bf16, "
+          f"{policy}, {build_kw or 'ragged'}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
     finite = []
 
     def watch(fn):
@@ -641,19 +671,24 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
         reqs = [dataclasses.replace(r, output_len=min(r.output_len,
                                                       output_cap))
                 for r in reqs]
-    engine.submit(reqs)
     st = engine.stats
     t_prefill, t_decode = [], []
+    report = None
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    while True:
-        d0 = st.decode_steps
-        ts = time.perf_counter()
-        if not engine.step():
-            break
+    if drill is not None:
+        report = drill(engine, reqs)
         torch.cuda.synchronize()
-        (t_decode if st.decode_steps > d0 else t_prefill).append(
-            time.perf_counter() - ts)
+    else:
+        engine.submit(reqs)
+        while True:
+            d0 = st.decode_steps
+            ts = time.perf_counter()
+            if not engine.step():
+                break
+            torch.cuda.synchronize()
+            (t_decode if st.decode_steps > d0 else t_prefill).append(
+                time.perf_counter() - ts)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     records = list(engine.records.values())
@@ -673,11 +708,13 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
     s = summarize(records)
     kind = (f"{st.chunk_steps} chunk" if st.chunk_steps
             else f"{st.prefill_steps} prefill")
+    medians = ("" if drill is not None else
+               f", median prefill step "
+               f"{statistics.median(t_prefill) * 1e3:.2f} ms, median decode "
+               f"step {statistics.median(t_decode) * 1e3:.2f} ms")
     print(f"[{label}] {st.steps} steps ({kind} / {st.decode_steps} decode), "
           f"{st.prefill_tokens} prefill + {st.decode_tokens} decode tokens, "
-          f"wall {wall:.2f} s, median prefill step "
-          f"{statistics.median(t_prefill) * 1e3:.2f} ms, median decode step "
-          f"{statistics.median(t_decode) * 1e3:.2f} ms, dropped assignments "
+          f"wall {wall:.2f} s{medians}, dropped assignments "
           f"{st.dropped_assignments:.0f}")
     print(f"[{label}] virtual clock: TTFT p50/p90 = {s['ttft_p50']:.4f}/"
           f"{s['ttft_p90']:.4f} s, TPOT p50 = {s['tpot_p50']:.5f} s; "
@@ -688,7 +725,7 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
           f"calls, router_topk 0; "
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return engine, counts
+    return engine, counts, report
 
 
 def chunk_vs_whole(engine, prompt_len=512):
@@ -718,6 +755,304 @@ def chunk_vs_whole(engine, prompt_len=512):
           f"max |logit difference| {diff:.4e} (logits span "
           f"{(lg_w.max() - lg_w.min()).item():.3f}), greedy token "
           f"{'equal' if same else 'differs'}")
+
+
+class timed_faults:
+    """Within the block, each ``fail_rank`` and ``recover_rank`` of the
+    drills runs with the card synchronised before and after: ``calls``
+    holds (name, rank, wall s, bytes allocated before, peak bytes during).
+    The peak counter is reset at each call, so a later read of
+    ``max_memory_allocated`` covers the time since the last fault."""
+
+    def __enter__(self):
+        from repro_torch.serving import elastic
+        self.saved = (elastic.fail_rank, elastic.recover_rank)
+        self.calls = []
+        elastic.fail_rank, elastic.recover_rank = (
+            self._timed(fn) for fn in self.saved)
+        return self
+
+    def _timed(self, fn):
+        import torch
+
+        def call(engine, rank):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            report = fn(engine, rank)
+            torch.cuda.synchronize()
+            self.calls.append((fn.__name__, rank, time.perf_counter() - t0,
+                               before, torch.cuda.max_memory_allocated()))
+            return report
+        return call
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import elastic
+        elastic.fail_rank, elastic.recover_rank = self.saved
+
+
+def _fault_lines(calls):
+    return "; ".join(f"{name}({rank}) {secs * 1e3:.1f} ms, memory "
+                     f"{before / 2**30:.2f} GiB before, peak "
+                     f"{peak / 2**30:.2f} GiB" for name, rank, secs, before,
+                     peak in calls)
+
+
+def drill_phase(cfg, dev):
+    """The serve driver's drills at full width on the card: a healthy run,
+    the elasticity drill (rank 3 dies after 5 steps) and the chaos drill
+    (the default schedule, seed 0) on the same 8 requests, outputs capped
+    at 64 tokens, each on an engine of its own, under ``vibe_h`` on a 2 x
+    4 topology at the policy's default slot budget (``vibe`` places one
+    expert a slot and cannot spread 40 experts over 7 survivors)."""
+    import dataclasses
+    import torch
+    from repro_torch.serving import (FaultSchedule, run_chaos,
+                                     run_with_failure, summarize)
+    kw = dict(n_requests=8, output_cap=64, policy="vibe_h", topology="2x4",
+              slots_per_rank="default")
+    t0 = time.perf_counter()
+    engine, _, _ = serve_path(cfg, dev, "drill healthy", **kw)
+    healthy = summarize(list(engine.records.values()))
+    del engine
+    torch.cuda.empty_cache()
+    with timed_faults() as faults:
+        engine, _, (records, rep) = serve_path(
+            cfg, dev, "drill fail", **kw,
+            drill=lambda e, r: run_with_failure(e, r, rank=3, at_step=5))
+    check(rep is not None and rep.rank == 3 and len(faults.calls) == 1,
+          f"failure drill: report {rep}, faults {faults.calls}")
+    fail_call = faults.calls[0]
+    check(engine.kv.used_blocks == 0 and engine.kv.n_seqs == 0,
+          f"failure drill: {engine.kv.used_blocks} KV blocks leaked")
+    s = summarize(records)
+    expert_bytes = (engine.n_slots * engine.n_moe * 3 * cfg.d_model
+                    * cfg.moe_d_ff * 2)
+    print(f"[drill] FailureReport {json.dumps(dataclasses.asdict(rep))}; "
+          f"requeues {sum(r.requeues for r in records)}; "
+          f"{_fault_lines(faults.calls)} ({engine.n_slots} slots x "
+          f"{engine.n_moe} layers = {expert_bytes / 1e9:.2f} GB of expert "
+          f"weights on the card); virtual clock TTFT p50/p90 "
+          f"{s['ttft_p50']:.4f}/{s['ttft_p90']:.4f} s against "
+          f"{healthy['ttft_p50']:.4f}/{healthy['ttft_p90']:.4f} s healthy",
+          flush=True)
+    del engine, records
+    torch.cuda.empty_cache()
+    schedule = FaultSchedule.default(8, seed=0)
+    with timed_faults() as faults:
+        engine, _, chaos = serve_path(
+            cfg, dev, "drill chaos", **kw,
+            drill=lambda e, r: run_chaos(e, r, schedule))
+    check(chaos.ok and chaos.violations == [],
+          f"chaos drill: violations {chaos.violations}")
+    print(f"[drill] {chaos.summary()}: applied "
+          f"{[f'{sp.kind}@{sp.at_step}' for sp, _ in chaos.applied]}, "
+          f"skipped {[(f'{sp.kind}@{sp.at_step}', why) for sp, why in chaos.skipped]}"
+          f", {chaos.steps} steps; {_fault_lines(faults.calls)}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    print(f"[drill] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"failure": dataclasses.asdict(rep), "fail_rank": fail_call,
+            "chaos_faults": faults.calls, "chaos_steps": chaos.steps}
+
+
+def xlstm_serve(cfg, dev, prompt_len=256, lanes=8, steps=64):
+    """xlstm-350m through the model functions on the card: one prefill of
+    ``lanes`` prompts of ``prompt_len`` tokens, then ``steps`` greedy
+    decode steps of all lanes; then the recurrence on one 64-token prompt,
+    its chunkwise prefill against the same prompt stepped token by token
+    (the first token prefilled, so both start from the empty state),
+    logits and every state leaf: held within ``STATE_TOL`` with the
+    weights in f32, and read, not held, in bf16, where the two forms'
+    rounding drifts apart with depth (the reference's forms alike)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_fn, init_params, prefill_fn
+    from repro_torch.tree import leaves
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(lanes, prompt_len)), dtype=torch.int32,
+        device=dev)
+    prefill, decode = prefill_fn(cfg), decode_fn(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache, _ = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    finite = [torch.isfinite(logits).all()]
+    times = []
+    for i in range(steps):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((lanes,), prompt_len + i, dtype=torch.int32,
+                         device=dev)
+        t0 = time.perf_counter()
+        logits, cache, _ = decode(params, tok, cache, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        finite.append(torch.isfinite(logits).all())
+    check(all(bool(f) for f in finite), "xlstm serving: non-finite logits")
+    state_mb = sum(t.numel() * t.element_size() for t in leaves(cache)) / 1e6
+    print(f"[xlstm] {lanes} prompts of {prompt_len} tokens through "
+          f"prefill_fn: {t_prefill * 1e3:.1f} ms; {steps} greedy decode "
+          f"steps of {lanes} lanes: median {statistics.median(times) * 1e3:.2f}"
+          f" ms a step, {lanes / statistics.median(times):.0f} tokens/s; "
+          f"recurrent state {state_mb:.1f} MB; logits finite; "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    p64 = prompts[:1, :64]
+
+    def recurrence(params):
+        lg_c, c_c, _ = prefill(params, {"tokens": p64})
+        lg_s, c_s, _ = prefill(params, {"tokens": p64[:, :1]})
+        for t in range(1, 64):
+            lg_s, c_s, _ = decode(params, p64[:, t:t + 1], c_s,
+                                  torch.tensor([t], device=dev))
+        torch.cuda.synchronize()
+        return [_rel_l2(lg_s, lg_c)] + [_rel_l2(a, b) for a, b in
+                                        zip(leaves(c_s), leaves(c_c))]
+
+    bf16 = recurrence(params)
+    del params, cache
+    gen.manual_seed(0)
+    f32 = recurrence(init_params(cfg, gen, device=dev, dtype=torch.float32))
+    check(max(f32) <= STATE_TOL, f"xlstm recurrence (f32): chunkwise "
+          f"prefill vs token by token, relative L2 "
+          f"{['%.2e' % e for e in f32]} > {STATE_TOL}")
+    print(f"[xlstm] a 64-token prompt, chunkwise prefill vs token by token, "
+          f"relative L2: f32 weights logits {f32[0]:.3e}, state leaves max "
+          f"{max(f32[1:]):.3e} (tol {STATE_TOL}); bf16 weights logits "
+          f"{bf16[0]:.3e}, state leaves max {max(bf16[1:]):.3e} (read, not "
+          f"held)", flush=True)
+    return {"prefill_ms": t_prefill * 1e3,
+            "decode_ms": statistics.median(times) * 1e3,
+            "recurrence_rel_l2_f32": max(f32),
+            "recurrence_rel_l2_bf16": max(bf16)}
+
+
+def xlstm_phase(dev):
+    """xlstm-350m at full width (24 layers: 21 mLSTM, 3 sLSTM): the
+    training driver, a step's profile with the mixers timed, and serving
+    through the model functions."""
+    import torch
+    from repro_torch.configs import get as get_config
+    cfg = get_config("xlstm-350m")
+    t0 = time.perf_counter()
+    res = train_phase(cfg, dev)
+    check(not any(res["launches"].values()),
+          f"xlstm: kernels launched {res['launches']}")
+    walls = [time.perf_counter() - t0]
+    res["profile"] = train_step_profile(cfg, dev)
+    walls.append(time.perf_counter() - t0 - sum(walls))
+    res["serve"] = xlstm_serve(cfg, dev)
+    walls.append(time.perf_counter() - t0 - sum(walls))
+    torch.cuda.empty_cache()
+    print(f"[xlstm] phase wall {sum(walls):.1f} s (training "
+          f"{walls[0]:.1f}, profile {walls[1]:.1f}, serving {walls[2]:.1f})",
+          flush=True)
+    return res
+
+
+class watch_model_calls:
+    """Within the block, the serving engine's prefill and decode functions
+    (the names ``repro_torch.serving.engine`` binds) note whether each
+    call's logits are finite, and keep the first prefill's inputs (the
+    containers of the params tree copied, so that a later migration does
+    not change them) and logits."""
+
+    def __enter__(self):
+        from repro_torch.serving import engine as engine_mod
+        self.saved = (engine_mod.prefill_fn, engine_mod.decode_fn)
+        self.finite = []
+        self.first = None
+        engine_mod.prefill_fn = self._wrap(self.saved[0], keep=True)
+        engine_mod.decode_fn = self._wrap(self.saved[1], keep=False)
+        return self
+
+    def _wrap(self, make, keep):
+        import torch
+        from repro_torch.tree import tree_map
+
+        def factory(cfg, rules=None):
+            fn = make(cfg, rules)
+
+            def call(params, *args):
+                out = fn(params, *args)
+                self.finite.append(bool(torch.isfinite(out[0]).all()))
+                if keep and self.first is None:
+                    self.first = (cfg, rules, tree_map(lambda t: t, params),
+                                  args, out[0].clone())
+                return out
+            return call
+        return factory
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine as engine_mod
+        engine_mod.prefill_fn, engine_mod.decode_fn = self.saved
+
+
+def jamba_phase(dev):
+    """jamba-1.5-large at its smoke size through the serve driver on the
+    card (the full config's smallest legal depth, one 8-layer block, holds
+    77.3 GB of experts): Mamba beside the hand-written MoE kernels at E 4,
+    K 2, D 128, F 256. Every request finishes, every logit is finite, the
+    routing stage and the ragged FFN launch once a MoE layer and model
+    call, and the first prefill's logits match the same call through the
+    kernels' plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ragged_moe_ffn as t_ragged
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import block_layout
+    from repro_torch.serving import summarize
+    arch = "jamba-1.5-large-398b"
+    t0 = time.perf_counter()
+    with watch_model_calls() as watch:
+        ops.reset_launch_counts()
+        engine, records, _ = serve(arch, n_requests=8, device=dev)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    cfg, st = engine.cfg, engine.stats
+    nb, specs = block_layout(cfg)
+    n_moe = nb * sum(s.ffn == "moe" for s in specs)
+    calls = st.prefill_steps + st.decode_steps
+    check(len(records) == 8 and all(np.isfinite(r.finished_at)
+                                    for r in records),
+          "jamba: not every request finished")
+    check(all(watch.finite) and len(watch.finite) == calls,
+          "jamba: non-finite logits")
+    for name, n in counts.items():
+        want = (n_moe * calls if name in ("route_select", "ragged_moe_ffn",
+                                          "ragged_moe_ffn.tma") else 0)
+        check(n == want, f"jamba: {name} launched {n} times, expected "
+              f"{want} ({n_moe} MoE layers x {calls} model calls)")
+    s = summarize(records)
+    print(f"[jamba] {cfg.name}: {cfg.n_layers} layers ("
+          f"{''.join(sp.mixer[0] for sp in specs)}), d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, moe_d_ff "
+          f"{cfg.moe_d_ff}; {st.steps} steps ({st.prefill_steps} prefill / "
+          f"{st.decode_steps} decode), wall {wall:.2f} s; virtual clock TTFT "
+          f"p50/p90 {s['ttft_p50']:.4f}/{s['ttft_p90']:.4f} s; launches "
+          f"{json.dumps(counts)}: route_select and ragged_moe_ffn "
+          f"{n_moe} x {calls} model calls, all on the TMA route (last "
+          f"{t_ragged.ragged_moe_ffn.last_route})", flush=True)
+    cfg0, rules0, params0, args0, logits_k = watch.first
+    with plain_kernels():
+        logits_p = watch.saved[0](cfg0, rules0)(params0, *args0)[0]
+    torch.cuda.synchronize()
+    err = (logits_k - logits_p).abs().max().item()
+    check(err <= BF16_TOL, f"jamba: first prefill, kernels vs plain "
+          f"versions, max |logit difference| {err} > {BF16_TOL}")
+    print(f"[jamba] first prefill ({args0[0]['tokens'].shape[1]} tokens), "
+          f"kernels vs plain versions: max |logit difference| {err:.3e} "
+          f"(tol {BF16_TOL}); phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"launches": counts, "first_prefill_max_abs_err": err}
 
 
 def trace_decode(engine, n_steps: int = 16) -> None:
@@ -1041,6 +1376,9 @@ def backward_route_case(cfg, cgen, dev, T=1024):
     check(err <= ROUTER_W_TOL, f"route_select_bwd: max |kernel - plain| "
           f"{err} > {ROUTER_W_TOL}")
     res = timings(lambda: t_route.route_select_bwd(*args), reps=50)
+    # the launch floor beside it: a spin kernel of one cycle, the nearest
+    # to an empty launch, timed by the same harness on the same card
+    floor_ms, floor_us = held_times(lambda: torch.cuda._sleep(1), reps=50)
     plain_ms = median_ms(lambda: ref.route_select_dlogits_ref(*args), reps=10)
     n_bytes = T * E * 4 * 2 + T * K * 12 + E * 8 + 4
     # per element: dmean, the mask, dp, two products and a sum, ~8 ops
@@ -1051,9 +1389,12 @@ def backward_route_case(cfg, cgen, dev, T=1024):
           f"bit-identical; kernel {res['ms']:.4f} ms ({res['device_ms']:.4f} "
           f"ms with the host ahead, host {res['host_us']:.1f} us a call), "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}, "
-          f"{n_bytes / 1e3:.1f} KB)", flush=True)
+          f"{n_bytes / 1e3:.1f} KB); an empty launch (one-cycle spin) "
+          f"{floor_ms:.4f} ms with the host ahead, host {floor_us:.1f} us",
+          flush=True)
     return {"max_abs_err": err, **res, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by,
+            "launch_floor_ms": floor_ms,
             "near_tie_rows": int(near.sum())}
 
 
@@ -1077,7 +1418,8 @@ def param_digest(params):
 
 
 def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
-    """Phase 9: the training path at full width on the card."""
+    """The training path at full width on the card (phase 12; phase 10's
+    xlstm, whose model has no MoE layer and so launches no kernel)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
@@ -1094,33 +1436,37 @@ def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
     n_params = sum(t.numel() for t in _leaves(params))
     check(all(math.isfinite(v) for v in losses) and len(losses) == steps,
           f"training: losses {losses}")
-    per_step = {"route_select": cfg.n_layers, "ragged_moe_ffn": cfg.n_layers,
-                "ragged_moe_ffn.tma": cfg.n_layers,
-                "ragged_moe_ffn_dgrad": cfg.n_layers,
-                "ragged_moe_ffn_dgrad.tma": cfg.n_layers,
-                "ragged_moe_ffn_wgrad": cfg.n_layers,
-                "ragged_moe_ffn_wgrad.tma": cfg.n_layers,
-                "route_select_bwd": cfg.n_layers}
+    per_step = {} if not cfg.is_moe else {
+        "route_select": cfg.n_layers, "ragged_moe_ffn": cfg.n_layers,
+        "ragged_moe_ffn.tma": cfg.n_layers,
+        "ragged_moe_ffn_dgrad": cfg.n_layers,
+        "ragged_moe_ffn_dgrad.tma": cfg.n_layers,
+        "ragged_moe_ffn_wgrad": cfg.n_layers,
+        "ragged_moe_ffn_wgrad.tma": cfg.n_layers,
+        "route_select_bwd": cfg.n_layers}
     for name, n in counts.items():
         want = per_step.get(name, 0) * steps
         check(n == want, f"training: {name} launched {n} times, expected "
               f"{want} ({per_step.get(name, 0)} a step x {steps})")
     med = statistics.median(times)
-    print(f"[train] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+    label = "train" if cfg.is_moe else "xlstm"
+    spread = ("" if tallies is None else "; tally spread max/min "
+              f"{tallies.sum(0).max() / max(tallies.sum(0).min(), 1):.2f}")
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B "
           f"params (bf16, f32 master and moments), {steps} steps of "
           f"{batch} x {seq_len} tokens: losses "
           f"{', '.join(f'{v:.4f}' for v in losses)} (ln {cfg.vocab} = "
           f"{math.log(cfg.vocab):.4f}); step wall times "
           f"{', '.join(f'{t:.3f}' for t in times)} s, median {med:.3f} s, "
           f"{batch * seq_len / med:.0f} tokens/s; max_memory_allocated "
-          f"{peak / 2**30:.2f} GiB; tally spread max/min "
-          f"{tallies.sum(0).max() / max(tallies.sum(0).min(), 1):.2f}",
-          flush=True)
-    print(f"[train] launches in {steps} steps: {json.dumps(counts)}: "
-          f"route_select, ragged_moe_ffn, ragged_moe_ffn_dgrad and "
-          f"ragged_moe_ffn_wgrad (all three on the TMA route) and "
-          f"route_select_bwd {cfg.n_layers} a step, "
-          f"fused_moe_ffn and router_topk 0", flush=True)
+          f"{peak / 2**30:.2f} GiB{spread}", flush=True)
+    print(f"[{label}] launches in {steps} steps: {json.dumps(counts)}: "
+          + (f"route_select, ragged_moe_ffn, ragged_moe_ffn_dgrad and "
+             f"ragged_moe_ffn_wgrad (all three on the TMA route) and "
+             f"route_select_bwd {cfg.n_layers} a step, "
+             f"fused_moe_ffn and router_topk 0" if cfg.is_moe else
+             "none (no MoE layer)"), flush=True)
     del params, opt
     torch.cuda.empty_cache()
     runs = []
@@ -1134,9 +1480,9 @@ def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
           f"(losses {runs[0][0]} vs {runs[1][0]})")
     check(runs[0][0] == losses[:2], "training: the 2-step runs' losses "
           f"{runs[0][0]} differ from the 4-step run's {losses[:2]}")
-    print(f"[train] two 2-step runs from seed 0: losses {runs[0][0]} in both "
-          f"(and in the 4-step run), parameter digests equal, bit for bit",
-          flush=True)
+    print(f"[{label}] two 2-step runs from seed 0: losses {runs[0][0]} in "
+          f"both (and in the 4-step run), parameter digests equal, bit for "
+          f"bit", flush=True)
     return {"losses": losses, "step_s": times, "median_step_s": med,
             "tokens_per_s": batch * seq_len / med, "peak_bytes": peak,
             "launches": counts}
@@ -1146,7 +1492,9 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
     """Where a full-width training step's time goes: ``steps`` steps after
     one warm step, each split on the host clock (synchronised) into the
     forward, the backward and AdamW; then one more step traced with
-    ``torch.profiler``: the device's busy share and its largest kernels."""
+    ``torch.profiler``: the device's busy share and its largest kernels;
+    and, for a model with recurrent mixers, one more step with each
+    mixer's forward and backward timed (:class:`timed_mixers`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1155,6 +1503,7 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
                                       adamw_update, cosine_lr,
                                       synthetic_batch)
     from repro_torch.tree import leaves, tree_map
+    label = "train" if cfg.is_moe else "xlstm"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev)
@@ -1206,7 +1555,7 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
     total = fwd + bwd + adam
     peak = torch.cuda.max_memory_allocated()
     shape = f"{batch} x {seq_len}"
-    print(f"[train] a full-width step of {shape} = {batch * seq_len} tokens "
+    print(f"[{label}] a full-width step of {shape} = {batch * seq_len} tokens "
           f"on the host clock (median of {steps}): forward {fwd * 1e3:.1f} "
           f"ms, backward {bwd * 1e3:.1f} ms, AdamW {adam * 1e3:.1f} ms, "
           f"{total * 1e3:.1f} ms in all, {batch * seq_len / total:.0f} "
@@ -1214,12 +1563,25 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
           flush=True)
     res = {"tokens": batch * seq_len, "forward_s": fwd, "backward_s": bwd,
            "adamw_s": adam, "peak_bytes": peak}
+    if not cfg.is_moe:
+        with timed_mixers() as tm:
+            parts = step(steps + 2)
+        res["mixer_split_ms"] = split = {
+            f"{tm.layers[k]} {k}": v * 1e3 for k, v in tm.seconds.items()}
+        split["adamw"] = parts[2] * 1e3
+        split["step"] = sum(parts) * 1e3
+        split["rest"] = split["step"] - sum(v for k, v in split.items()
+                                            if k != "step")
+        print(f"[{label}] a step with each mixer's forward and backward "
+              f"timed (host clock, synchronised), ms: "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in split.items())}",
+              flush=True)
     if not dev_events or busy_ms <= 0:
-        print("[train] traced step: device busy time not measured (the "
+        print(f"[{label}] traced step: device busy time not measured (the "
               "profiler saw no device events)", flush=True)
         return res
     n_ops = sum(e.count for e in dev_events)
-    print(f"[train] traced {shape} step under the profiler: wall "
+    print(f"[{label}] traced {shape} step under the profiler: wall "
           f"{wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, "
           f"idle {100 - 100 * busy_ms / wall_ms:.1f}%), {n_ops} device "
@@ -1233,11 +1595,11 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
     top += [e for e in dev_events
             if e not in top and any(k in e.key for k in ours)]
     for e in top:
-        print(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"[{label}]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:6d} x  {e.key[:100]}", flush=True)
     mine = {k: sum(e.self_device_time_total for e in dev_events
                    if k in e.key) / 1e3 for k in ours}
-    print(f"[train]   the port's kernels: {sum(mine.values()):.1f} ms of "
+    print(f"[{label}]   the port's kernels: {sum(mine.values()):.1f} ms of "
           f"{busy_ms:.1f} ms device busy: "
           f"{', '.join(f'{k} {v:.1f}' for k, v in mine.items())}",
           flush=True)
@@ -1247,6 +1609,50 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
                   "device_ops": n_ops,
                   "port_kernels_ms": sum(mine.values()),
                   "port_kernels_by_name_ms": mine}
+
+
+class timed_mixers:
+    """Within the block, each recurrent mixer of the model runs on the host
+    clock with the card synchronised before and after its forward, and
+    again around its backward (a hook on its output's gradient starts the
+    clock, one on its input's gradient stops it): ``seconds`` by mixer
+    kind, ``layers`` the count of its calls."""
+
+    def __enter__(self):
+        from repro_torch.models import model as tmodel
+        self.saved = dict(tmodel._SEQ)
+        self.seconds = collections.Counter()
+        self.layers = collections.Counter()
+        for kind, fn in self.saved.items():
+            tmodel._SEQ[kind] = self._timed(kind, fn)
+        return self
+
+    def _timed(self, kind, fn):
+        import torch
+
+        def clock():
+            torch.cuda.synchronize()
+            return time.perf_counter()
+
+        def call(p, h, state):
+            t0 = clock()
+            out, st = fn(p, h, state)
+            self.seconds[kind] += clock() - t0
+            self.layers[kind] += 1
+            if out.requires_grad and h.requires_grad:
+                started = []
+
+                def stop(grad):
+                    self.seconds[kind] += clock() - started[0]
+
+                out.register_hook(lambda grad: started.append(clock()))
+                h.register_hook(stop)
+            return out, st
+        return call
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as tmodel
+        tmodel._SEQ.update(self.saved)
 
 
 class capture_routes:
@@ -1509,23 +1915,27 @@ def main() -> int:
         route[(T, R)] = route_case(cfg, gen, cgen, dev, T, R, masked)
     layer_case(cfg, cgen, dev)
     capacity_layer_case(cfg, cgen, dev)
-    engine, counts = serve_path(cfg, dev, "slice")
+    engine, counts, _ = serve_path(cfg, dev, "slice")
     trace_decode(engine)
     del engine
     torch.cuda.empty_cache()
     # the first routing calls' inputs on path A, for the near-tie check
     with capture_routes(64) as cap:
-        engine, counts_a = serve_path(cfg, dev, "path A",
-                                      moe_impl="capacity")
+        engine, counts_a, _ = serve_path(cfg, dev, "path A",
+                                         moe_impl="capacity")
     del engine
     torch.cuda.empty_cache()
     route_near_ties(cap.calls, "path A")
     del cap
-    engine, _ = serve_path(cfg, dev, "path B", n_requests=4, output_cap=64,
-                           prefill_chunk=128)
+    engine, _, _ = serve_path(cfg, dev, "path B", n_requests=4,
+                              output_cap=64, prefill_chunk=128)
     chunk_vs_whole(engine)
     del engine
-    # phase 9: training
+    torch.cuda.empty_cache()
+    drills = drill_phase(cfg, dev)
+    xlstm = xlstm_phase(dev)
+    jamba = jamba_phase(dev)
+    # phase 12: training
     k1, k2 = backward_ffn_case(cfg, gen, cgen, dev)
     # the 4096-token training shape, where the bound is the tensor cores
     k1_big, k2_big = backward_ffn_case(cfg, gen, cgen, dev, tokens=4096,
@@ -1598,6 +2008,7 @@ def main() -> int:
          "launches": tl["route_select_bwd"], **k3, "library_ms": None},
     ]
     print(f"[train] summary: {json.dumps({k: v for k, v in trained.items() if k != 'launches'} | {'kernel_vs_plain': step_cmp})}")
+    print(f"[slices] summary: {json.dumps({'drills': drills, 'xlstm': xlstm, 'jamba': jamba})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

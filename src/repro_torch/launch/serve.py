@@ -11,10 +11,13 @@ unless ``--device cpu`` asks for the host.
 
 ``--moe-impl capacity`` dispatches capacity buckets through the capacity
 FFN kernel on a one-rank expert-parallel group; ``--prefill-chunk N`` runs
-chunked prefill on the ragged path. The elasticity and chaos drills
-(``--fail-rank``, ``--chaos``) are not ported yet. :func:`build_engine` builds controller, cluster and engine for
-any :class:`ArchConfig`, so a caller can serve a published config (not
-only the smoke one) through the same code.
+chunked prefill on the ragged path. ``--fail-rank R`` runs the elasticity
+drill (rank R dies after ``fail_at_step`` engine steps: drain, masked
+re-solve, expert migration, re-admission) and ``--chaos SPEC`` the chaos
+drill (a fault schedule, then the invariants), as the reference's driver
+does. :func:`build_engine` builds controller, cluster and engine for any
+:class:`ArchConfig`, so a caller can serve a published config (not only
+the smoke one) through the same code.
 """
 
 from __future__ import annotations
@@ -35,13 +38,15 @@ from repro_torch.core import (DriftConfig, PerfDriftConfig, SCENARIOS,
                               registered_policies)
 from repro_torch.device import resolve_device
 from repro_torch.models import ShardingRules, moe_perm_shape
-from repro_torch.serving import (Engine, EngineConfig, KVCacheConfig,
+from repro_torch.serving import (ChaosReport, Engine, EngineConfig,
+                                 FaultSchedule, KVCacheConfig,
                                  SchedulerConfig, TRACES, WORKLOADS,
-                                 registered_schedulers, sample_requests,
+                                 registered_schedulers, run_chaos,
+                                 run_with_failure, sample_requests,
                                  sample_trace, summarize)
 
 __all__ = ["serve", "build_engine", "make_requests", "derive_slot_budget",
-           "slots_that_fit", "main"]
+           "slots_that_fit", "drill_lines", "main"]
 
 
 def slots_that_fit(free_bytes: int, n_ranks: int, n_experts: int,
@@ -197,16 +202,16 @@ def serve(arch: str, *, policy: str = "vibe", n_requests: int = 12,
           scenario_start: float = 0.0, scenario_duration: float = 2.0,
           perf_drift_delta: float = 0.0, steal: bool = False,
           steal_headroom: float = 0.1, topology: Optional[str] = None,
-          fail_rank: int = -1,
+          fail_rank: int = -1, fail_at_step: int = 5,
           chaos: Optional[str] = None, shed_watermark: float = 0.0,
           preempt: bool = False, seed: int = 0, device=None):
     """Serve ``n_requests`` on the smoke config of ``arch``. Returns
-    ``(engine, records, None)``, the reference's shape (its third item is
-    a drill report, and the drills are not ported yet)."""
-    if chaos or fail_rank >= 0:
-        raise NotImplementedError(
-            "--chaos / --fail-rank are not yet ported: they need the "
-            "elastic and fault-injection serving modules (a later slice)")
+    ``(engine, records, report)``; ``report`` is None unless
+    ``fail_rank >= 0`` ran the elasticity drill (:class:`FailureReport`)
+    or ``chaos`` ran the chaos drill (:class:`ChaosReport`)."""
+    if chaos and fail_rank >= 0:
+        raise SystemExit("--chaos and --fail-rank are mutually exclusive "
+                         "(a chaos schedule already includes rank faults)")
     engine = build_engine(
         get_smoke(arch), policy=policy, regime=regime, max_batch=max_batch,
         max_seq=max_seq, adaptive=adaptive,
@@ -220,8 +225,17 @@ def serve(arch: str, *, policy: str = "vibe", n_requests: int = 12,
         steal_headroom=steal_headroom, topology=topology,
         shed_watermark=shed_watermark, preempt=preempt, seed=seed,
         device=device)
-    engine.submit(make_requests(workload, n_requests, qps=qps,
-                                max_seq=max_seq, seed=seed))
+    reqs = make_requests(workload, n_requests, qps=qps, max_seq=max_seq,
+                         seed=seed)
+    if chaos:
+        schedule = FaultSchedule.parse(chaos, engine.controller.G)
+        report = run_chaos(engine, reqs, schedule)
+        return engine, report.records, report
+    if fail_rank >= 0:
+        records, report = run_with_failure(engine, reqs, fail_rank,
+                                           at_step=fail_at_step)
+        return engine, records, report
+    engine.submit(reqs)
     records = engine.run()
     return engine, records, None
 
@@ -266,6 +280,37 @@ def summary_lines(engine: Engine, records, *, policy: str, arch: str,
     return lines
 
 
+def drill_lines(engine: Engine, records, report):
+    """The reference driver's lines for a drill report, and whether the
+    drill held (no chaos-invariant violation; every request finished and
+    no KV block leaked after a rank failure)."""
+    finished = sum(1 for r in records if np.isfinite(r.finished_at))
+    st = engine.stats
+    if isinstance(report, ChaosReport):
+        lines = [f"[serve] {report.summary()}"]
+        lines += [f"[serve]   skipped {spec.kind}@{spec.at_step}: {why}"
+                  for spec, why in report.skipped]
+        lines.append(f"[serve] chaos drill: {finished}/{len(records)} "
+                     "finished, token ledger prefill+decode="
+                     f"{st.prefill_tokens + st.decode_tokens} vs useful+"
+                     f"lost={st.useful_tokens + st.lost_tokens}")
+        lines += [f"[serve] CHAOS VIOLATION: {v}" for v in report.violations]
+        return lines, report.ok
+    lines = [f"[serve] failure drill: rank {report.rank} died at "
+             f"t={report.at_time:.3f}s — drained "
+             f"{report.drained_prefills} prefills / "
+             f"{report.drained_decodes} decodes, "
+             f"{report.redone_tokens} tokens redone, "
+             f"{report.moved_experts} expert slots remapped; "
+             f"{finished}/{len(records)} requests completed, "
+             f"KV blocks in use after drain: {engine.kv.used_blocks}"]
+    ok = finished == len(records) and engine.kv.used_blocks == 0
+    if not ok:
+        lines.append("[serve] FAILURE DRILL FAILED: incomplete requests or "
+                     "leaked KV blocks")
+    return lines, ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-moe-235b-a22b")
@@ -302,9 +347,15 @@ def main() -> int:
     ap.add_argument("--steal-headroom", type=float, default=0.1)
     ap.add_argument("--topology", default=None)
     ap.add_argument("--fail-rank", type=int, default=-1,
-                    help="elasticity drill (not yet ported)")
+                    help="elasticity drill: kill this EP rank after a few "
+                         "engine steps — drain its lanes, mask it out of "
+                         "the solve, remap onto the survivors, re-admit "
+                         "(-1 = no failure)")
     ap.add_argument("--chaos", default=None,
-                    help="chaos drill (not yet ported)")
+                    help="chaos drill: serve under a fault schedule and "
+                         "audit the invariants; 'default' / 'default:SEED' "
+                         "or a comma list like "
+                         "'fail@4:1,stall@6:2x0.4+0.5,recover@9:1'")
     ap.add_argument("--shed-watermark", type=float, default=0.0)
     ap.add_argument("--preempt", action="store_true")
     ap.add_argument("--perf-drift-delta", type=float, default=0.0)
@@ -313,7 +364,7 @@ def main() -> int:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels on the host)")
     args = ap.parse_args()
-    engine, records, _ = serve(
+    engine, records, report = serve(
         args.arch, policy=args.policy, n_requests=args.requests,
         qps=args.qps, workload=args.workload, regime=args.regime,
         max_batch=args.max_batch, max_seq=args.max_seq,
@@ -336,6 +387,12 @@ def main() -> int:
                               scheduler=args.scheduler,
                               prefill_chunk=args.prefill_chunk):
         print(line)
+    if report is not None:
+        lines, ok = drill_lines(engine, records, report)
+        for line in lines:
+            print(line)
+        if not ok:
+            return 1
     if args.steal:
         rs = engine.controller.rescheduler
         print(f"[serve] stealing: {engine.stats.steal_updates} share updates "

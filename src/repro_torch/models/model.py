@@ -1,5 +1,5 @@
-"""Model assembly for attention-only archs: the training loss, and the
-prefill, chunked-prefill and decode entry points.
+"""Model assembly: the training loss, and the prefill, chunked-prefill and
+decode entry points, for attention, Mamba, mLSTM and sLSTM mixers.
 
 The counterpart of ``repro.models.model``. Params carry the reference's
 keys and leading ``n_blocks`` axis (a super-block is the smallest repeating
@@ -11,11 +11,14 @@ MoE placement enters as the ``moe_tables`` input (slot lookup tensors), so a
 recalibration swaps tables and migrates weights without touching the step
 functions.
 
-Decode and chunked prefill update the KV cache in place (one new row per
-sequence, or one chunk's rows in one lane) and return the same cache
-object; prefill returns a new per-request cache. ``phase`` ("train",
-"prefill", "chunk", "decode") reaches the MoE layer, which picks its
-dispatch body by it, as in the reference.
+Decode and chunked prefill update the cache in place (one new KV row per
+sequence, or one chunk's rows in one lane; a recurrent mixer's whole
+state, copied over the old one) and return the same cache object; prefill
+returns a new per-request cache. A cache is a list, one entry a layer
+position: a ``(k, v)`` pair for attention, the mixer's state dict for a
+recurrent one, every leaf with the leading ``n_blocks`` axis. ``phase``
+("train", "prefill", "chunk", "decode") reaches the MoE layer, which picks
+its dispatch body by it, as in the reference.
 
 :func:`loss_fn` is the reference's training loss. Its ``phase="train"``
 pass keeps no per-layer k/v stack (the reference's ``nc = []``) and hands
@@ -40,6 +43,7 @@ from .common import (apply_rope, dense_init, mlp, rms_norm, rope_tables,
 from .flash import flash_attention, flash_decode
 from .moe import moe_init, moe_layer
 from .sharding import ShardingRules, build_copy_cdf, build_slots_of
+from . import ssm
 
 __all__ = [
     "LayerSpec", "block_layout", "init_params", "make_moe_tables",
@@ -106,14 +110,6 @@ def moe_perm_shape(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
     return nb * sum(1 for s in specs if s.ffn == "moe"), cfg.n_experts
 
 
-def _attention_only(cfg: ArchConfig) -> List[LayerSpec]:
-    nb, specs = block_layout(cfg)
-    if any(s.mixer != "attn" for s in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM mixers (mamba/mLSTM/sLSTM) are not ported yet")
-    return specs
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -124,10 +120,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
     the reference's distributions and dtypes — N(0, 1/d_in) weights in
     ``dtype``, the router in f32, norms as f32 zeros — with the reference's
     keys and a leading ``n_blocks`` axis on every block leaf."""
-    specs = _attention_only(cfg)
-    nb, _ = block_layout(cfg)
+    nb, specs = block_layout(cfg)
     _, n_slots = moe_perm_shape(cfg) if cfg.is_moe else (0, 0)
-    d, hd = cfg.d_model, cfg.hd
+    d = cfg.d_model
     lead = (nb,)
 
     def zeros():
@@ -136,8 +131,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
     layers = []
     for spec in specs:
         sub = {"ln1": zeros(),
-               "mixer": attn_init(generator, d, cfg.n_heads, cfg.n_kv_heads,
-                                  hd, dtype, device, lead)}
+               "mixer": _mixer_init(cfg, spec.mixer, generator, dtype,
+                                    device, lead)}
         if spec.ffn != "none":
             sub["ln2"] = zeros()
         if spec.ffn == "dense":
@@ -163,6 +158,20 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
         params["frontend"] = dense_init(generator, cfg.frontend_dim, d,
                                         dtype, device)
     return params
+
+
+def _mixer_init(cfg, mixer, generator, dtype, device, lead):
+    d = cfg.d_model
+    if mixer == "attn":
+        return attn_init(generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         dtype, device, lead)
+    if mixer == "mamba":
+        return ssm.mamba_init(generator, d, expand=cfg.ssm_expand,
+                              d_state=cfg.ssm_d_state, d_conv=cfg.ssm_conv,
+                              dtype=dtype, device=device, lead=lead)
+    init = ssm.mlstm_init if mixer == "mlstm" else ssm.slstm_init
+    return init(generator, d, n_heads=cfg.n_heads, expand=cfg.ssm_expand,
+                dtype=dtype, device=device, lead=lead)
 
 
 def _mlp_init(generator, d, f, gated, dtype, device, lead):
@@ -288,11 +297,18 @@ def _run_attention_chunk(p, x, cfg, window, cache, positions, lane, offset,
     return out.reshape(B, C, cfg.n_heads * cfg.hd) @ p["wo"], cache
 
 
+_SEQ = {"mamba": ssm.mamba_seq, "mlstm": ssm.mlstm_seq,
+        "slstm": ssm.slstm_seq}
+_STEP = {"mamba": ssm.mamba_step, "mlstm": ssm.mlstm_step,
+         "slstm": ssm.slstm_step}
+
+
 def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
                 positions, phase, cache_blk=None, pos=None, chunk_ctx=None,
                 route_seed=None, moe_row_valid=None):
     """One super-block forward. Returns (x, tallies (m, E+1), aux losses
-    (a list, one a MoE layer), new caches).
+    (a list, one a MoE layer), new caches: an attention position's (k, v),
+    a recurrent mixer's new state, whole).
 
     ``chunk_ctx`` — (lane, offset, n_valid, row_valid) of the chunked-
     prefill phase: attention goes through :func:`_run_attention_chunk`.
@@ -306,7 +322,10 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
         h = rms_norm(x, sub["ln1"], cfg.norm_eps)
         window = None if windows_blk is None else int(windows_blk[i])
         cache = None if cache_blk is None else cache_blk[i]
-        if phase == "chunk":
+        if spec.mixer != "attn":
+            fn = (_STEP if phase == "decode" else _SEQ)[spec.mixer]
+            h, st = fn(sub["mixer"], h, cache)
+        elif phase == "chunk":
             lane, offset, n_valid, row_valid = chunk_ctx
             h, st = _run_attention_chunk(sub["mixer"], h, cfg, window, cache,
                                          positions, lane, offset, n_valid,
@@ -372,7 +391,7 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
             {k: _index_tree(v, b) for k, v in sub.items()}
             for sub in params["blocks"]]
         mt = None if moe_tables is None else tuple(t[b] for t in moe_tables)
-        cb = None if cache is None else [(kc[b], vc[b]) for kc, vc in cache]
+        cb = None if cache is None else [_index_tree(c, b) for c in cache]
         x, tall, aux, nc = _block_body(
             cfg, rules, specs, bp, x,
             windows_blk=None if win is None else win[b], moe_tables_blk=mt,
@@ -380,14 +399,20 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
             chunk_ctx=chunk_ctx, route_seed=seed, moe_row_valid=rv)
         tallies.extend(tall)
         auxes.extend(aux)
+        if cache is not None:
+            # a recurrent state comes back whole: copy it over the old one
+            # (attention wrote its rows in place already)
+            for i, spec in enumerate(specs):
+                if spec.mixer != "attn":
+                    for k, leaf in cb[i].items():
+                        leaf.copy_(nc[i][k])
         block_caches.append(nc)
     if train:
-        new_cache = []                        # no k/v stack in training
+        new_cache = []                        # no state stack in training
     elif cache is not None:
         new_cache = cache                     # updated in place
     else:
-        new_cache = [(torch.stack([bc[i][0] for bc in block_caches]),
-                      torch.stack([bc[i][1] for bc in block_caches]))
+        new_cache = [_stack_tree([bc[i] for bc in block_caches])
                      for i in range(len(specs))]
     if tallies:
         tall = torch.stack(tallies)
@@ -400,7 +425,21 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
 def _index_tree(v, b):
     if isinstance(v, dict):
         return {k: _index_tree(x, b) for k, x in v.items()}
+    if isinstance(v, tuple):
+        return tuple(_index_tree(x, b) for x in v)
     return v[b]
+
+
+def _stack_tree(trees):
+    """Per-block trees (a (k, v) pair or a state dict) → one tree whose
+    leaves carry the leading ``n_blocks`` axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_tree([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stack_tree([t[i] for t in trees])
+                     for i in range(len(first)))
+    return torch.stack(trees)
 
 
 def _split_blocks(v, nb: int):
@@ -435,7 +474,6 @@ def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
     experts). ``rules=None`` is the single-device ragged path (the
     reference's ``rules=None`` is its dense oracle). Differentiable:
     call ``backward()`` on the loss."""
-    _attention_only(cfg)
 
     def fn(params, batch, moe_tables=None):
         tokens = batch["tokens"]
@@ -458,7 +496,6 @@ def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
 def prefill_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
     """(params, batch, moe_tables) → (last-position logits (B, V) f32,
     cache, tallies (n_moe, E+1))."""
-    _attention_only(cfg)
 
     def fn(params, batch, moe_tables=None):
         tokens = batch["tokens"]
@@ -484,9 +521,14 @@ def prefill_chunk_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
     tallies, so the final chunk's logits and cache match a whole-prompt
     prefill. Logits are meaningful only on the chunk that completes the
     prompt. Runs without an expert-parallel group, as the reference runs
-    it without a mesh.
+    it without a mesh, and for attention mixers only, as the reference.
     """
-    _attention_only(cfg)
+    _, specs = block_layout(cfg)
+    if any(s.mixer != "attn" for s in specs):
+        raise NotImplementedError(
+            f"{cfg.name}: chunked prefill needs a resumable per-position "
+            "cache; SSM/hybrid mixers carry recurrent state and are not "
+            "supported")
     if rules is not None and rules.ep_ranks:
         raise NotImplementedError(
             "chunked prefill runs without an expert-parallel group (the "
@@ -513,8 +555,8 @@ def prefill_chunk_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
 
 def decode_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
     """(params, token (B, 1), cache, pos (B,), moe_tables) → (logits,
-    cache, tallies). The cache is updated in place and returned."""
-    _attention_only(cfg)
+    cache, tallies). The cache is updated in place and returned; every
+    lane steps, busy or idle, as in the reference."""
 
     def fn(params, token, cache, pos, moe_tables=None):
         x = _embed(params, token)
@@ -532,11 +574,28 @@ def decode_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None):
-    """Per-position ``(k, v)`` caches, each (n_blocks, batch, max_seq, KV,
-    hd), matching the block loop's layout."""
-    specs = _attention_only(cfg)
-    nb, _ = block_layout(cfg)
-    shape = (nb, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
-            for _ in specs]
+    """Per-position caches matching the block loop's layout: ``(k, v)``,
+    each (n_blocks, batch, max_seq, KV, hd), for attention; the mixer's
+    state tree for a recurrent position, every leaf zeros (the mLSTM and
+    sLSTM stabiliser ``m`` too, as the reference's cache) with the leading
+    ``n_blocks`` axis."""
+    nb, specs = block_layout(cfg)
+    d = cfg.d_model
+    out = []
+    for spec in specs:
+        if spec.mixer == "attn":
+            shape = (nb, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+            out.append((torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device)))
+            continue
+        if spec.mixer == "mamba":
+            st = ssm.mamba_state_init(batch, d, expand=cfg.ssm_expand,
+                                      d_state=cfg.ssm_d_state,
+                                      d_conv=cfg.ssm_conv, dtype=dtype)
+        else:
+            init = (ssm.mlstm_state_init if spec.mixer == "mlstm"
+                    else ssm.slstm_state_init)
+            st = init(batch, d, n_heads=cfg.n_heads, expand=cfg.ssm_expand)
+        out.append({k: torch.zeros((nb,) + a.shape, dtype=a.dtype,
+                                   device=device) for k, a in st.items()})
+    return out

@@ -30,7 +30,7 @@ the weights when the placement changes.
 Nothing on the per-layer path synchronises the host: every shape is a
 static bound (``n_tiles = A // bm + n_slots``, ``capacity`` from the token
 count), and the data-dependent parts are tensor values. Multi-rank
-dispatch is a later slice (ROADMAP Queue 1 item 8).
+dispatch is a later slice (ROADMAP Queue 1, "Multi-rank dispatch").
 
 Training runs the ragged path: the routing stage and the FFN are
 differentiable through their kernels (``ops``), the buffer fill through
@@ -449,8 +449,8 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
         raise NotImplementedError(
             "gradients through moe_impl='capacity' on the card: the capacity "
             "FFN kernel (csrc/moe_ffn.cu) has no backward kernel yet "
-            "(ROADMAP Queue 1, the capacity FFN's backward); train with "
-            "moe_impl='ragged'")
+            "(ROADMAP Queue 2, \"A backward for the capacity FFN\"); train "
+            "with moe_impl='ragged'")
     if rules.moe_impl == "ragged":
         out, tally, aux = _dense_dispatch_ragged(
             p, xf, route_seed, top_k=top_k, n_experts=n_experts,

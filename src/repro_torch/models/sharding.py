@@ -3,7 +3,8 @@
 The port's :class:`ShardingRules` holds what the MoE dispatch choice reads:
 the implementation, the dispatch body, the size of the expert-parallel
 group, the ragged row tile and the capacity factor. The mesh axes of the
-reference's rules wait for the multi-rank slice (ROADMAP Queue 1 item 8).
+reference's rules wait for the multi-rank slice (ROADMAP Queue 1,
+"Multi-rank dispatch").
 
 ``build_slots_of`` and ``build_copy_cdf`` are the reference's numpy table
 builders (``repro.models.sharding``), copied.
@@ -45,7 +46,8 @@ class ShardingRules:
       ``moe_dispatch`` selects, with ``all_to_all`` and ``psum`` the
       identity; ragged computes what the reference's one-rank ragged
       bodies compute.
-    * ``> 1`` — not ported (ROADMAP Queue 1 item 8): raises.
+    * ``> 1`` — not ported (ROADMAP Queue 1, "Multi-rank dispatch"):
+      raises.
 
     ``moe_dispatch`` — ``"auto"`` (decode → replicated, else a2a),
     ``"a2a"``, ``"replicated"`` or ``"dense"``; read only with a group.
@@ -69,8 +71,8 @@ class ShardingRules:
         if self.ep_ranks > 1:
             raise NotImplementedError(
                 f"ep_ranks={self.ep_ranks}: expert-parallel groups of more "
-                "than one rank are not ported yet (ROADMAP Queue 1 item 8, "
-                "multi-rank dispatch)")
+                "than one rank are not ported yet (ROADMAP Queue 1, "
+                "\"Multi-rank dispatch\")")
         if self.ep_ranks < 0:
             raise ValueError(f"ep_ranks must be >= 0, got {self.ep_ranks}")
 

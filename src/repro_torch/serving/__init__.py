@@ -1,10 +1,14 @@
 # Serving substrate of the port: the copied numpy modules (config, kvcache,
-# metrics, scheduler, workload, simulator) and the PyTorch engine. The
-# elastic and fault-injection drills are a later slice. The scheduler
-# registry here is the port's own object, separate from the reference's.
+# metrics, scheduler, workload, simulator, and the drills: faults, elastic)
+# and the PyTorch engine. The scheduler registry here is the port's own
+# object, separate from the reference's.
 from .config import (EngineConfig, KVCacheConfig, SchedulerConfig,
                      ServingConfig, SimConfig)
+from .elastic import (FailureReport, RecoveryReport, fail_rank,
+                      recover_rank, run_with_failure)
 from .engine import Engine, EngineStats
+from .faults import (FAULT_KINDS, ChaosReport, FaultInjector, FaultSchedule,
+                     FaultSpec, chaos_invariants, run_chaos)
 from .kvcache import BlockAllocator, PagedKVCache
 from .metrics import PAPER_SLOS, SLO, RejectReason, RequestRecord, goodput, \
     per_tenant_ttft, slo_frontier, summarize
@@ -23,6 +27,10 @@ __all__ = [
     "EngineConfig", "KVCacheConfig", "SchedulerConfig", "ServingConfig",
     "SimConfig",
     "Engine", "EngineStats",
+    "FailureReport", "RecoveryReport", "fail_rank", "recover_rank",
+    "run_with_failure",
+    "FAULT_KINDS", "ChaosReport", "FaultInjector", "FaultSchedule",
+    "FaultSpec", "chaos_invariants", "run_chaos",
     "BlockAllocator", "PagedKVCache",
     "PAPER_SLOS", "SLO", "RejectReason", "RequestRecord", "goodput",
     "per_tenant_ttft", "slo_frontier", "summarize",

@@ -23,8 +23,9 @@ Differences from the reference:
   ``device="cpu"`` to run the plain versions on the host.
 * Steps are eager calls, not ``jax.jit`` functions.
 * ``_insert_cache`` copies a prefilled cache into its lane in place
-  (zeroing the rest of the lane, as the reference's padded copy does), and
-  decode writes each new KV row in place.
+  (zeroing the rest of a KV lane, as the reference's padded copy does),
+  and decode writes each new KV row, and each recurrent mixer's new state
+  whole, into the cache in place.
 * Routing tallies come to the host once per step.
 * Chunked prefill writes each chunk into its cache lane in place.
 """
@@ -48,6 +49,7 @@ from repro_torch.models import (ShardingRules, decode_fn, init_cache,
                                 refresh_moe_share_tables)
 from repro_torch.models.model import block_layout
 from repro_torch.models.moe import apply_placement
+from repro_torch.tree import leaves
 from .config import EngineConfig
 from .kvcache import PagedKVCache
 from .metrics import RejectReason, RequestRecord
@@ -423,14 +425,17 @@ class Engine:
         return None
 
     def _insert_cache(self, slot: int, pre_cache) -> None:
-        """Copy a prefilled (batch-1) cache into lane ``slot`` in place:
-        the prompt rows, then zeros to ``max_seq`` (the reference pads the
-        prefill cache and sets the whole lane)."""
-        for (ek, ev), (pk, pv) in zip(self.cache, pre_cache):
-            for ec, pc in ((ek, pk), (ev, pv)):
-                S = pc.shape[2]
+        """Copy a prefilled (batch-1) cache into lane ``slot`` in place,
+        leaf by leaf: a KV leaf gets the prompt rows, then zeros to
+        ``max_seq`` (the reference pads axis 2 where the lengths differ and
+        sets the whole lane); a recurrent state leaf is set whole."""
+        for ec, pc in zip(leaves(self.cache), leaves(pre_cache)):
+            S = pc.shape[2] if pc.ndim >= 3 else None
+            if S is not None and S != ec.shape[2]:
                 ec[:, slot, :S].copy_(pc[:, 0])
                 ec[:, slot, S:].zero_()
+            else:
+                ec[:, slot].copy_(pc[:, 0])
 
     def _release(self, lane: int) -> None:
         r = self.slot_req[lane]

@@ -14,12 +14,14 @@ the two frameworks round at other points, a near-tie in a random model's
 greedy argmax flips a token within a few steps, and from then on that lane
 decodes another sequence: the comparison would measure rounding order.
 
-Held: identical step, token and KV counts; per-step routing tallies that
-differ in at most 1% of assignments; TTFT and TPOT per request within 1%
+Held: identical step, token and KV counts, and the same generated tokens
+after every step; per-step routing tallies that differ in at most 1% of
+assignments; TTFT and TPOT per request within 1%
 relative. Three dispatch configurations: the ragged path; the capacity
 path, which the JAX engine runs through its ``shard_map`` bodies on a
 one-device mesh with the capacity Pallas kernel (its drops must show on
 both sides, within the same 1%); and chunked prefill on the ragged path.
+jamba smoke runs the ragged path with its Mamba states in the cache.
 """
 
 import contextlib
@@ -77,11 +79,15 @@ def _controller(core, cfg, policy):
 
 
 def _record_tallies(engine):
+    """Log each step's tallies, and the lanes' next tokens, as the step
+    reports them to the controller."""
     log = []
     observe = engine.observe_step
 
     def recording(tallies, tokens, latencies=None):
-        log.append(np.asarray(tallies, np.float64).copy())
+        nxt = engine.tokens
+        nxt = nxt.numpy() if hasattr(nxt, "numpy") else np.asarray(nxt)
+        log.append((np.asarray(tallies, np.float64).copy(), nxt.copy()))
         return observe(tallies, tokens, latencies)
 
     engine.observe_step = recording
@@ -103,7 +109,7 @@ def _ttft_tpot(rec):
 
 
 def _run_both(policy, monkeypatch, *, j_rules, t_rules, prefill_chunk=0,
-              mesh=None):
+              mesh=None, arch=ARCH):
     """Serve the same requests on both engines; returns (j_eng, t_eng,
     j_log, t_log, j_rec, t_rec). The JAX engine is built and run inside
     ``compat.use_mesh(mesh)`` when a mesh is given."""
@@ -112,9 +118,9 @@ def _run_both(policy, monkeypatch, *, j_rules, t_rules, prefill_chunk=0,
                         functools.partial(j_init_params, dtype=f32))
     monkeypatch.setattr(j_engine_mod, "init_cache",
                         functools.partial(j_init_cache, dtype=f32))
-    cfg = get_smoke(ARCH)
+    cfg = get_smoke(arch)
     j_ctl, j_cluster = _controller(jcore, cfg, policy)
-    t_ctl, t_cluster = _controller(tcore, t_get_smoke(ARCH), policy)
+    t_ctl, t_cluster = _controller(tcore, t_get_smoke(arch), policy)
     j_sched = JSchedulerConfig(prefill_chunk=prefill_chunk)
     t_sched = TSchedulerConfig(prefill_chunk=prefill_chunk)
     with (compat.use_mesh(mesh) if mesh is not None
@@ -129,7 +135,7 @@ def _run_both(policy, monkeypatch, *, j_rules, t_rules, prefill_chunk=0,
     params = params_from_numpy(jax.tree.map(
         np.asarray, j_init_params(cfg, jax.random.PRNGKey(0), dtype=f32)))
     assert j_eng.params["embed"].dtype == f32
-    t_eng = TEngine(t_get_smoke(ARCH),
+    t_eng = TEngine(t_get_smoke(arch),
                     TEngineConfig(max_batch=MAX_BATCH, max_seq=MAX_SEQ,
                                   seed=0, scheduler=t_sched),
                     rules=t_rules, controller=t_ctl, cluster=t_cluster,
@@ -143,22 +149,25 @@ def _run_both(policy, monkeypatch, *, j_rules, t_rules, prefill_chunk=0,
     return j_eng, t_eng, j_log, t_log, j_rec, t_rec
 
 
-def _hold_engines(policy, j_eng, t_eng, j_log, t_log, j_rec, t_rec):
+def _hold_engines(policy, j_eng, t_eng, j_log, t_log, j_rec, t_rec,
+                  arch=ARCH):
     js, ts = j_eng.stats, t_eng.stats
     for f in ("steps", "prefill_steps", "chunk_steps", "decode_steps",
               "prefill_tokens", "decode_tokens"):
         assert getattr(ts, f) == getattr(js, f), f
     assert t_eng.kv.peak_blocks == j_eng.kv.peak_blocks
     assert len(t_log) == len(j_log)
-    E = get_smoke(ARCH).n_experts
+    E = get_smoke(arch).n_experts
     moved = sum(np.abs(a[:, :E] - b[:, :E]).sum() / 2
-                for a, b in zip(t_log, j_log))
-    total = sum(b[:, :E].sum() for b in j_log)
+                for (a, _), (b, _) in zip(t_log, j_log))
+    total = sum(b[:, :E].sum() for b, _ in j_log)
     print(f"{policy}: {moved:.0f} of {total:.0f} routed assignments differ")
     assert moved <= 0.01 * total, \
         f"{moved:.0f} of {total:.0f} assignments differ (limit 1%)"
     drops_t, drops_j = ts.dropped_assignments, js.dropped_assignments
     assert abs(drops_t - drops_j) <= 0.01 * total, (drops_t, drops_j)
+    for (_, a), (_, b) in zip(t_log, j_log):         # the same tokens
+        np.testing.assert_array_equal(a, b)
     assert set(t_rec) == set(j_rec)
     for rid, jr in j_rec.items():
         assert np.isfinite(t_rec[rid].finished_at)
@@ -192,6 +201,22 @@ def test_engine_capacity_matches_jax_engine_on_one_device_mesh(policy,
     assert t_eng.moe_impl == j_eng.moe_impl == "capacity"
     ts = _hold_engines(policy, *run)
     assert ts.dropped_assignments > 0 and j_eng.stats.dropped_assignments > 0
+
+
+def test_engine_jamba_matches_jax_engine(monkeypatch):
+    """jamba smoke (one attention and seven Mamba layers, four of them with
+    a MoE FFN): the engine carries the recurrent states from prefill into
+    the decode lanes, and every lane steps its state each decode step,
+    as the reference's does."""
+    arch = "jamba-1.5-large-398b"
+    run = _run_both("vibe", monkeypatch,
+                    j_rules=JRules(mesh=None, moe_impl="ragged",
+                                   moe_block_m=8, use_kernel=True),
+                    t_rules=ShardingRules(moe_block_m=8), arch=arch)
+    _hold_engines("vibe", *run, arch=arch)
+    t_eng = run[1]
+    assert isinstance(t_eng.cache[1], dict)        # a Mamba position's state
+    assert t_eng.stats.migrations > 0
 
 
 def test_engine_chunked_prefill_matches_jax_engine(monkeypatch):
@@ -253,9 +278,3 @@ def test_slots_that_fit_counts_every_moe_layer():
     assert tserve.derive_slot_budget(8, 40, expert, "auto", device="cpu",
                                      n_moe_layers=32).tolist() == [6] * 8
 
-
-def test_serve_refuses_unported_drills():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.serve(ARCH, n_requests=1, chaos="default", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.serve(ARCH, n_requests=1, fail_rank=1, device="cpu")

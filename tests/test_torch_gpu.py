@@ -14,7 +14,9 @@ name the route they take and check it on the per-route counters.
 Tolerances: bf16 outputs within 5e-2 (tests/test_kernels.py's bf16
 tolerance; kernel and plain version round the f32 accumulators at the same
 points but sum in another order), router indices exactly equal and weights
-within 1e-5.
+within 1e-5. The recurrent mixers (torch ops, no kernel of their own) on
+CUDA tensors against the same functions on CPU tensors in f32: each output
+and state leaf within 1e-5 relative L2.
 """
 
 import dataclasses
@@ -31,6 +33,7 @@ from repro_torch.kernels import ragged_moe_ffn as t_ragged  # noqa: E402
 from repro_torch.kernels import route_select as t_route  # noqa: E402
 from repro_torch.models import model as t_model  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import ssm as t_ssm  # noqa: E402
 from repro_torch.models.sharding import ShardingRules  # noqa: E402
 from repro_torch.tree import leaves as t_leaves  # noqa: E402
 
@@ -658,3 +661,63 @@ def test_capacity_gradients_on_the_card_raise(cuda):
         t_model.loss_fn(cfg, rules)(params, {"tokens": tok, "labels": tok},
                                     t_model.make_moe_tables(cfg, rules,
                                                             device=cuda))
+
+
+@pytest.mark.parametrize("T", [1, 8, 48, 512])
+def test_kernels_at_jamba_smoke_shapes_match_plain(cuda, T):
+    """jamba smoke's MoE layer (E 4, K 2, D 128, F 256), which the serve
+    driver runs on the card: the routing stage (served and replica tables)
+    and the ragged FFN on the TMA route against their plain versions."""
+    E, K, D, F, bm = 4, 2, 128, 256, 128
+    for R in (1, 3):
+        (x, w, so, nc, cdf, seed), rv = _route_inputs(cuda, T, D, E, R,
+                                                      False, seed=T + R)
+        got = ops.route_select(x, w, so, nc, cdf, seed, K, rv)
+        want = ref.route_select_ref(x, w, so, nc, cdf, seed, K, rv)
+        torch.cuda.synchronize()
+        _check_route(list(got), list(want), x, w, K, rv)
+    sizes = _routed_sizes(T, E, K, seed=T)
+    (w1, w3, w2, toks), tg, (ro, sz, tr) = _ragged_inputs(
+        cuda, sizes, D, F, bm, with_rows=True)
+    ops.reset_launch_counts()
+    y = ops.ragged_moe_ffn(w1, w3, w2, toks, tg, row_offsets=ro, sizes=sz,
+                           max_rows=T)
+    y_ref = ref.ragged_moe_ffn_ref(w1, w3, w2, toks, tg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ragged_moe_ffn"] == counts["ragged_moe_ffn.tma"] == 1
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    pos = torch.arange(toks.shape[0], device=cuda) % bm
+    real = pos < tr.repeat_interleave(bm)
+    assert bool((y[~real] == 0).all())
+
+
+def _rel_l2_leaves(got, want):
+    return max(_rel_l2(got[k].cpu(), want[k]) for k in want)
+
+
+@pytest.mark.parametrize("S,chunk", [(24, 8), (13, 8), (1, 1)])
+@pytest.mark.parametrize("mixer", ["mamba", "mlstm", "slstm"])
+def test_recurrent_mixers_on_card_match_cpu(cuda, mixer, S, chunk):
+    """Each mixer's sequence form (S 1 is the decode step) from a fresh
+    state and from the state it left, f32, card against host."""
+    gen = torch.Generator().manual_seed(0)
+    d, heads = 64, 2
+    if mixer == "mamba":
+        p = t_ssm.mamba_init(gen, d, d_state=8, dtype=torch.float32)
+    else:
+        init = t_ssm.mlstm_init if mixer == "mlstm" else t_ssm.slstm_init
+        p = init(gen, d, n_heads=heads, dtype=torch.float32)
+    fn = getattr(t_ssm, f"{mixer}_seq")
+    kw = {} if mixer == "slstm" else {"chunk": chunk}
+    x = torch.randn((2, S, d), generator=gen)
+    p_c = {k: v.to(cuda) for k, v in p.items()}
+    y, st = fn(p, x, None, **kw)
+    y_c, st_c = fn(p_c, x.to(cuda), None, **kw)
+    assert _rel_l2(y_c.cpu(), y) <= 1e-5
+    assert _rel_l2_leaves(st_c, st) <= 1e-5
+    y, st = fn(p, x, st, **kw)
+    y_c, st_c = fn(p_c, x.to(cuda), st_c, **kw)
+    assert _rel_l2(y_c.cpu(), y) <= 1e-5
+    assert _rel_l2_leaves(st_c, st) <= 1e-5

@@ -3,9 +3,9 @@
 * No file under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (the name exactly; ``repro_torch`` is the port).
 * Each module copied from the reference (configs, core, the numpy serving
-  modules, ``training/data.py`` and ``training/elastic.py``) equals its
-  original once ``repro.`` reads ``repro_torch.``, so a copy cannot drift
-  silently.
+  modules and the drills, ``training/data.py`` and ``training/elastic.py``)
+  equals its original once ``repro.`` reads ``repro_torch.``, so a copy
+  cannot drift silently.
 * The port's controller (its copy of ``repro.core``) reaches the same
   placement as the reference's after the same tallies.
 """
@@ -28,7 +28,7 @@ COPIED = sorted(
     + [p.relative_to(PORT) for p in (PORT / "core").glob("*.py")]
     + [pathlib.Path("serving") / f"{m}.py" for m in
        ("config", "kvcache", "metrics", "scheduler", "workload",
-        "simulator")]
+        "simulator", "elastic", "faults")]
     + [pathlib.Path("training") / f"{m}.py" for m in ("data", "elastic")])
 
 
@@ -56,7 +56,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
 
 
 def test_copied_modules_equal_their_originals():
-    assert len(COPIED) == 13 + 11 + 6 + 2
+    assert len(COPIED) == 13 + 11 + 8 + 2
     for rel in COPIED:
         original = (REF / rel).read_text().replace("repro.", "repro_torch.")
         assert (PORT / rel).read_text() == original, f"{rel} drifted"
