@@ -100,7 +100,28 @@ Run from the repository root on a machine with one NVIDIA H100. It
    and every gradient within a relative L2 bound; and a checkpoint restart
    at smoke size (2 steps, restore, 2 steps) equal to 4 straight steps,
    bit for bit; and where a full-width step's time goes (forward, backward
-   and AdamW on the host clock, one step traced with ``torch.profiler``).
+   and AdamW on the host clock, one step traced with ``torch.profiler``);
+13. expert-parallel dispatch (``ep_phase``): the same config at full
+   width on 4 ranks sharing the card, joined by gloo on CUDA tensors
+   (``launch.mesh.run_ranks``; the parent builds the kernels first and
+   hands the ranks its seed-0 weights and results through CUDA IPC), each
+   rank on its slice of the experts: at ep 4 a prefill of 2 x 256 tokens
+   through the ragged a2a body and through the capacity a2a body (factor
+   8, dropless), 16 decode steps of 8 lanes through the replicated ragged
+   body on ``expand_experts``' weights, one loss and backward at 2 x 256
+   through the ragged a2a body, and a prefill of 4 x 256 (timed; only its
+   layer 0 is held, see ``ep_phase``); at dp 2 x ep 2 with FSDP of the
+   expert weights, a 2-layer prefill. Each is held against the single-rank
+   port on the same weights in the same run (max |logit difference|
+   within 5e-2; tallies equal, where a first differing layer must hold as
+   many near-tie rows; the loss within 1e-3 and every gradient leaf,
+   sliced to the rank, within 2e-2 relative L2); each rank's launches are exact
+   against the layer count; each path's host wall time, the exchanges'
+   share of a second run with each collective timed, and each rank's
+   peak memory;
+14. remat (``remat_phase``): one loss and backward at 8 x 512 with and
+   without ``ShardingRules(remat=True)``, loss and gradients bit for bit
+   equal; the step profile with remat at 8 x 512 and at 4 x 1024.
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -1488,13 +1509,14 @@ def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
             "launches": counts}
 
 
-def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
+def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3, rules=None):
     """Where a full-width training step's time goes: ``steps`` steps after
     one warm step, each split on the host clock (synchronised) into the
     forward, the backward and AdamW; then one more step traced with
     ``torch.profiler``: the device's busy share and its largest kernels;
     and, for a model with recurrent mixers, one more step with each
-    mixer's forward and backward timed (:class:`timed_mixers`)."""
+    mixer's forward and backward timed (:class:`timed_mixers`). ``rules``
+    go to the loss (``ShardingRules(remat=True)``: per-block remat)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1504,6 +1526,8 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
                                       synthetic_batch)
     from repro_torch.tree import leaves, tree_map
     label = "train" if cfg.is_moe else "xlstm"
+    if rules is not None and rules.remat:
+        label += ", remat"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev)
@@ -1514,7 +1538,7 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3):
     ocfg = AdamWConfig()
     opt = adamw_init(params, ocfg)
     mt = make_moe_tables(cfg, device=dev)
-    lossf = loss_fn(cfg)
+    lossf = loss_fn(cfg, rules)
     data = DataConfig(seq_len=seq_len, global_batch=batch)
 
     def step(s):
@@ -1849,6 +1873,505 @@ def checkpoint_restart(dev):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: expert-parallel dispatch over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+EP_AXES = ("data", "model")
+EP_DECODE_STEPS = 16
+
+
+def _near_tie_rows(calls):
+    """Per captured routing call (one a MoE layer), the rows whose
+    adjacent top-(K+1) probabilities lie closer than ``NEAR_TIE``."""
+    import torch
+    out = []
+    for args, _ in calls:
+        x, w, k = args[0], args[1], args[6]
+        top = torch.topk(torch.softmax(x.float() @ w, dim=-1), k + 1,
+                         dim=-1).values
+        out.append(int(((top[:, :-1] - top[:, 1:]) < NEAR_TIE).any(-1).sum()))
+    return out
+
+
+def ep_reference(cfg, dev, inputs, decode=True, backward=True,
+                 dtype=None):
+    """The single-rank port on the card (``rules=None``) on seed 0's
+    weights: prefill logits and tallies (with each layer's near-tie rows),
+    decode logits and tallies, the loss and its gradients. Returns the
+    whole params and the results, to be handed to the ranks."""
+    import torch
+    from repro_torch.models import (decode_fn, init_cache, init_params,
+                                    loss_fn, make_moe_tables, prefill_fn)
+    from repro_torch.tree import leaves, tree_map
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev,
+                         dtype=dtype or torch.bfloat16)
+    tables = make_moe_tables(cfg, device=dev)
+    ref = {}
+    with torch.no_grad():
+        for key in ("tokens", "tokens_wide"):
+            if key not in inputs:
+                continue
+            with capture_routes(cfg.n_layers) as cap:
+                lg, _, tal = prefill_fn(cfg)(params, {"tokens": inputs[key]},
+                                             tables)
+            ref[f"prefill/{key}"] = (lg, tal)
+            ref[f"near_ties/{key}"] = _near_tie_rows(cap.calls)
+            del cap
+        if decode:
+            cache = init_cache(cfg, inputs["dec_tokens"].shape[1],
+                               EP_DECODE_STEPS, dtype=params["embed"].dtype,
+                               device=dev)
+            ref["decode"], ref["decode_near_ties"] = [], []
+            ref["decode_caches"] = []
+            for i, tok in enumerate(inputs["dec_tokens"]):
+                pos = torch.full((tok.shape[0],), i, dtype=torch.int32,
+                                 device=dev)
+                ref["decode_caches"].append(tree_map(torch.clone, cache))
+                with capture_routes(cfg.n_layers) as cap:
+                    lg, cache, tal = decode_fn(cfg)(params, tok, cache, pos,
+                                                    tables)
+                ref["decode"].append((lg, tal))
+                ref["decode_near_ties"].append(_near_tie_rows(cap.calls))
+                del cap
+            del cache
+    if backward:
+        for p in leaves(params):
+            p.requires_grad_(True)
+        loss, _ = loss_fn(cfg)(params, {"tokens": inputs["tokens"],
+                                        "labels": inputs["labels"]}, tables)
+        loss.backward()
+        ref["loss"] = loss.detach()
+        ref["grads"] = tree_map(lambda p: p.grad, params)
+        params = tree_map(lambda p: p.detach(), params)
+    return params, ref
+
+
+def _moved(tal, ref_tal):
+    """Assignments routed to another expert, per layer."""
+    import torch
+    return [int(v) // 2 for v in
+            (tal[:, :-1] - ref_tal[:, :-1]).abs().sum(-1).tolist()]
+
+
+def ep_rank(rank, plan, params, ref, inputs):
+    """One rank of ``plan["grid"]`` on the card: the expert-parallel paths
+    of ``plan["paths"]`` through the port's entry points, on the rank's
+    slice of ``params`` (shared with the parent, read only), each timed on
+    the host clock, its launches counted, and held against the parent's
+    single-rank results ``ref``. Returns the numbers; the parent checks
+    them."""
+    import dataclasses
+    import statistics as st
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import decode_params, shard_params
+    from repro_torch.models import (decode_fn, loss_fn, make_moe_tables,
+                                    prefill_fn)
+    from repro_torch.models import collectives
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.tree import leaves, tree_map
+    dev = inputs["tokens"].device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = plan["cfg"]
+    grid = make_mesh(plan["grid"], EP_AXES)
+    rules = ShardingRules(grid=grid, dp=("data",), ep=("model",),
+                          ep_all=EP_AXES, fsdp=plan["fsdp"])
+    out = {"rank": rank, "seconds": {}, "launches": {}, "err": {},
+           "rel": {}, "moved": {}, "exchange": {}}
+
+    def run(name, fn, clocked=False):
+        dist.barrier()
+        sync()
+        ops.reset_launch_counts()
+        collectives.clock.reset()
+        collectives.clock.enabled = clocked
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        collectives.clock.enabled = False
+        if clocked:
+            out["exchange"][name] = {
+                "wall_s": wall, "exchange_s": collectives.clock.seconds,
+                "calls": collectives.clock.calls,
+                "bytes": collectives.clock.bytes}
+        else:
+            out["seconds"][name] = wall
+            out["launches"][name] = ops.launch_counts()
+        return res
+
+    tokens = inputs["tokens"]
+    local = shard_params(params, rules, "prefill")
+    tables = make_moe_tables(cfg, rules, phase="prefill", device=dev)
+    with torch.no_grad():               # loads the kernels, warms the group
+        run("warm-up", lambda: prefill_fn(cfg, rules)(
+            local, {"tokens": tokens}, tables))
+    for path in plan["paths"]:
+        if path in ("prefill", "capacity", "prefill_wide"):
+            r = rules if path != "capacity" else dataclasses.replace(
+                rules, moe_impl="capacity", capacity_factor=8.0)
+            key = "tokens_wide" if path == "prefill_wide" else "tokens"
+            want_lg, want_tal = ref[f"prefill/{key}"]
+            fn = prefill_fn(cfg, r)
+            with torch.no_grad():
+                lg, _, tal = run(path, lambda: fn(
+                    local, {"tokens": inputs[key]}, tables))
+                out["err"][path] = (lg.float() - want_lg.float()
+                                    ).abs().max().item()
+                out["rel"][path] = _rel_l2(lg, want_lg)
+                out["moved"][path] = _moved(tal, want_tal)
+                out[f"{path}_drops"] = float(tal[:, -1].sum())
+                out[f"{path}_digest"] = lg.double().sum().item()
+                if path != "capacity":
+                    run(path, lambda: fn(local, {"tokens": inputs[key]},
+                                         tables), clocked=True)
+        elif path == "decode":
+            dparams = shard_params(decode_params(cfg, params, rules), rules,
+                                   "decode")
+            dtables = make_moe_tables(cfg, rules, phase="decode", device=dev)
+            fn = decode_fn(cfg, rules)
+            steps = inputs["dec_tokens"]
+            errs, rels, moved, times = [], [], [], []
+            with torch.no_grad():
+                ops.reset_launch_counts()
+                for i, tok in enumerate(steps):
+                    # each step from the single rank's cache before it: a
+                    # near tie that flips in one step stays in that step
+                    cache = tree_map(torch.clone, ref["decode_caches"][i])
+                    pos = torch.full((tok.shape[0],), i, dtype=torch.int32,
+                                     device=dev)
+                    dist.barrier()
+                    sync()
+                    t0 = time.perf_counter()
+                    lg, cache, tal = fn(dparams, tok, cache, pos, dtables)
+                    sync()
+                    times.append(time.perf_counter() - t0)
+                    moved.append(_moved(tal, ref["decode"][i][1]))
+                    if not any(moved[-1]):
+                        errs.append((lg - ref["decode"][i][0]).abs().max()
+                                    .item())
+                        rels.append(_rel_l2(lg, ref["decode"][i][0]))
+                out["launches"]["decode"] = ops.launch_counts()
+                out["seconds"]["decode"] = st.median(times)
+                out["seconds"]["decode_all"] = sum(times)
+                run("decode", lambda: fn(dparams, steps[-1], cache, pos,
+                                         dtables), clocked=True)
+            out["err"]["decode"] = max(errs, default=float("nan"))
+            out["rel"]["decode"] = max(rels, default=float("nan"))
+            out["decode_steps_compared"] = len(errs)
+            out["moved"]["decode"] = moved
+            del dparams, cache
+        elif path == "backward":
+            tparams = shard_params(params, rules, "train")
+            for p in leaves(tparams):
+                p.requires_grad_(True)
+            fn = loss_fn(cfg, rules)
+            batch = {"tokens": tokens, "labels": inputs["labels"]}
+
+            def step():
+                loss, (tal, _) = fn(tparams, batch, tables)
+                loss.backward()
+                return loss.detach(), tal
+
+            loss, tal = run("backward", step)
+            out["loss"] = loss.item()
+            out["moved"]["backward"] = _moved(tal, ref["prefill/tokens"][1])
+            want = leaves(shard_params(ref["grads"], rules, "train"))
+            errs = [_rel_l2(p.grad, w) for p, w in zip(leaves(tparams),
+                                                       want)]
+            out["grad_rel_l2_max"] = max(errs)
+            out["grad_leaves"] = len(errs)
+            for p in leaves(tparams):
+                p.grad = None
+            run("backward", step, clocked=True)
+            del tparams
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+    return out
+
+
+def _free_shared():
+    """Return what the ranks held through CUDA IPC to the card."""
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+
+
+def ep_phase(cfg, dev):
+    """Phase 13: granite at full width on 4 ranks sharing the card (gloo on
+    CUDA tensors), ep 4: prefill through the ragged a2a body and the
+    capacity a2a body (factor 8: dropless), 16 decode steps of 8 lanes
+    through the replicated ragged body on ``expand_experts``' weights, one
+    loss and backward through the ragged a2a body; then dp 2 x ep 2 with
+    FSDP of the expert weights at 2 layers: one prefill. Each is held
+    against the single-rank port on the same weights in this run.
+
+    The held prefills and the backward take 2 x 256 tokens: a rank then
+    routes 128 rows, for which the routing kernel splits D into the same
+    16 ranges as for one device's 512 rows (``route_select.plan``), so
+    every logit sums in the same order and the routing is the single
+    rank's. At 4 x 256 a rank's 256 rows take 16 ranges where one
+    device's 1024 take 8: the gate weights differ in their last bits, a
+    layer's output then rounds otherwise here and there, and near ties in
+    the next layer flip, more with depth. That prefill
+    (``prefill_wide``) is run and timed, its layer 0 (the one whose
+    inputs are the single rank's) held by the near-tie rule; the moved
+    assignments of every layer and the logits' difference are printed."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_ranks
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        build.build_all()             # built once, before any rank loads
+    g = torch.Generator().manual_seed(13)
+    L, V = cfg.n_layers, cfg.vocab
+    inputs = {
+        "tokens": torch.randint(0, V, (2, 256), generator=g).to(dev),
+        "labels": torch.randint(0, V, (2, 256), generator=g).to(dev),
+        "tokens_wide": torch.randint(0, V, (4, 256), generator=g).to(dev),
+        "dec_tokens": torch.randint(0, V, (EP_DECODE_STEPS, 8, 1),
+                                    generator=g).to(dev)}
+    params, ref = ep_reference(cfg, dev, inputs)
+    t_ref = time.perf_counter() - t_start
+    plan = {"cfg": cfg, "grid": (1, 4), "fsdp": None,
+            "paths": ["prefill", "capacity", "prefill_wide", "decode",
+                      "backward"]}
+    t0 = time.perf_counter()
+    ranks = run_ranks(ep_rank, 4, args=(plan, params, ref, inputs),
+                      timeout_s=400)
+    t_ranks = time.perf_counter() - t0
+    print("[ep] ep 4, each rank against the single rank: " + json.dumps(
+        [{k: r[k] for k in ("err", "rel", "decode_steps_compared")}
+         for r in ranks]), flush=True)
+    near, dec_near = ref["near_ties/tokens"], ref["decode_near_ties"]
+    near_wide = ref["near_ties/tokens_wide"]
+    loss_ref = ref["loss"].item()
+    del params, ref
+    _free_shared()
+    per = {"route_select": L, "ragged_moe_ffn": L, "ragged_moe_ffn.tma": L}
+    want = {
+        "warm-up": per, "prefill": per, "prefill_wide": per,
+        "capacity": {"route_select": L, "fused_moe_ffn": L,
+                     "fused_moe_ffn.tma": L},
+        "decode": {k: v * EP_DECODE_STEPS for k, v in per.items()},
+        "backward": per | {k: L for k in (
+            "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
+            "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
+            "route_select_bwd")}}
+    on_card = dev.type == "cuda"      # a CPU rehearsal launches nothing
+
+    def hold_ties(label, moved, near):
+        """A rank's tallies against the single rank's, per layer: equal,
+        or the first layer that differs holds at least as many near-tie
+        rows (adjacent top-(K+1) probabilities closer than ``NEAR_TIE``
+        in the single rank's routing there) as assignments that moved;
+        after it the layers' inputs differ and may route otherwise."""
+        first = next((i for i, m in enumerate(moved) if m), None)
+        if first is not None:
+            check(moved[first] <= near[first],
+                  f"{label}: tallies differ from the single rank first at "
+                  f"layer {first} by {moved[first]} assignments, with "
+                  f"{near[first]} near-tie rows there")
+        return first
+
+    for r in ranks:
+        label = f"ep 4 rank {r['rank']}"
+        for path, counts in r["launches"].items():
+            for k, n in counts.items():
+                check(n == want[path].get(k, 0) or not on_card,
+                      f"{label} {path}: {k} launched {n} times, expected "
+                      f"{want[path].get(k, 0)}")
+        for path in ("prefill", "capacity", "backward"):
+            hold_ties(f"{label} {path}", r["moved"][path], near)
+        # at 4 x 256 only layer 0 sees the single rank's inputs; deeper
+        # layers inherit last-bit differences (see the docstring)
+        hold_ties(f"{label} prefill_wide", r["moved"]["prefill_wide"][:1],
+                  near_wide[:1])
+        for i, moved in enumerate(r["moved"]["decode"]):
+            hold_ties(f"{label} decode step {i}", moved, dec_near[i])
+        # logits where the routing is the single rank's: a flipped near
+        # tie sends a token to another expert, by design
+        for path in ("prefill", "capacity"):
+            check(any(r["moved"][path]) or r["err"][path] <= BF16_TOL,
+                  f"{label} {path}: max |logit - single rank| "
+                  f"{r['err'][path]} > {BF16_TOL}")
+        check(math.isfinite(r["rel"]["prefill_wide"]),
+              f"{label} prefill_wide: non-finite logits")
+        check(r["decode_steps_compared"] >= EP_DECODE_STEPS // 2
+              and r["err"]["decode"] <= BF16_TOL,
+              f"{label} decode: max |logit - single rank| "
+              f"{r['err']['decode']} over {r['decode_steps_compared']} "
+              f"steps with the single rank's routing (bound {BF16_TOL})")
+        check(r["capacity_drops"] == 0, "ep 4 capacity at factor 8 dropped "
+              f"{r['capacity_drops']} assignments")
+        loss_err = abs(r["loss"] - loss_ref) / abs(loss_ref)
+        check(loss_err <= STEP_LOSS_TOL and r["grad_rel_l2_max"] <= STEP_TOL,
+              f"{label} backward: loss {loss_err:.3e} (bound "
+              f"{STEP_LOSS_TOL}), gradient leaves max "
+              f"{r['grad_rel_l2_max']:.3e} (bound {STEP_TOL})")
+    for path in ("prefill", "capacity"):
+        check(len({r[f"{path}_digest"] for r in ranks}) == 1,
+              f"ep 4 {path}: the ranks' logits differ")
+    # dp 2 x ep 2 with FSDP of the expert weights, 2 layers
+    small = dataclasses.replace(cfg, n_layers=2)
+    held = {k: v for k, v in inputs.items() if k != "tokens_wide"}
+    params2, ref2 = ep_reference(small, dev, held, decode=False,
+                                 backward=False)
+    plan2 = {"cfg": small, "grid": (2, 2), "fsdp": "data",
+             "paths": ["prefill"]}
+    t0 = time.perf_counter()
+    fsdp = run_ranks(ep_rank, 4, args=(plan2, params2, ref2, held),
+                     timeout_s=300)
+    t_fsdp = time.perf_counter() - t0
+    near2 = ref2["near_ties/tokens"]
+    del params2, ref2, held, inputs
+    _free_shared()
+    for r in fsdp:
+        for k, n in r["launches"]["prefill"].items():
+            w = {"route_select": 2, "ragged_moe_ffn": 2,
+                 "ragged_moe_ffn.tma": 2}.get(k, 0)
+            check(n == w or not on_card, f"dp 2 x ep 2 rank {r['rank']}: "
+                  f"{k} launched {n} "
+                  f"times, expected {w}")
+        check(any(r["moved"]["prefill"]) or r["err"]["prefill"] <= BF16_TOL,
+              f"dp 2 x ep 2 rank {r['rank']}: max |logit - single rank| "
+              f"{r['err']['prefill']}")
+        hold_ties(f"dp 2 x ep 2 rank {r['rank']}", r["moved"]["prefill"],
+                  near2)
+    gib = 2 ** 30
+    summary = {
+        "ep4": {
+            "wall_s": {p: [r["seconds"][p] for r in ranks]
+                       for p in ranks[0]["seconds"]},
+            "exchange": {p: [r["exchange"][p] for r in ranks]
+                         for p in ranks[0]["exchange"]},
+            "peak_gib": [r["peak_bytes"] / gib for r in ranks],
+            "max_abs_logit_err": {p: max(r["err"][p] for r in ranks)
+                                  for p in ranks[0]["err"]},
+            "logit_rel_l2": {p: max(r["rel"][p] for r in ranks)
+                             for p in ranks[0]["rel"]},
+            "near_tie_rows_wide": sum(near_wide),
+            "moved": {p: max(sum(r["moved"][p]) for r in ranks)
+                      for p in ("prefill", "capacity", "prefill_wide",
+                                "backward")}
+            | {"decode": max(sum(map(sum, r["moved"]["decode"]))
+                             for r in ranks)},
+            "decode_near_tie_rows": sum(map(sum, dec_near)),
+            "near_tie_rows": sum(near),
+            "loss": ranks[0]["loss"], "loss_single_rank": loss_ref,
+            "grad_rel_l2_max": max(r["grad_rel_l2_max"] for r in ranks),
+            "grad_leaves": ranks[0]["grad_leaves"],
+            "launches_rank0": ranks[0]["launches"]},
+        "dp2_ep2_fsdp": {
+            "wall_s": [r["seconds"]["prefill"] for r in fsdp],
+            "exchange": [r["exchange"]["prefill"] for r in fsdp],
+            "peak_gib": [r["peak_bytes"] / gib for r in fsdp],
+            "max_abs_logit_err": max(r["err"]["prefill"] for r in fsdp),
+            "launches_rank0": fsdp[0]["launches"]["prefill"]},
+        "phase_s": {"single_rank_reference": t_ref, "ep4_ranks": t_ranks,
+                    "fsdp_ranks": t_fsdp,
+                    "all": time.perf_counter() - t_start}}
+    e4 = summary["ep4"]
+    for p, walls in e4["wall_s"].items():
+        print(f"[ep] ep 4, {p}: host wall per rank "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms", flush=True)
+    for p, ex in e4["exchange"].items():
+        print(f"[ep] ep 4, {p} with the exchanges timed (each synchronised):"
+              f" " + "; ".join(
+                  f"rank {i} {x['exchange_s'] * 1e3:.1f} of "
+                  f"{x['wall_s'] * 1e3:.1f} ms ({100 * x['exchange_s'] / x['wall_s']:.1f}%), "
+                  f"{x['calls']} calls, {x['bytes'] / 2**20:.1f} MiB"
+                  for i, x in enumerate(ex)), flush=True)
+    print(f"[ep] ep 4 against the single rank: max |logit difference| "
+          f"{json.dumps(e4['max_abs_logit_err'])} (bound {BF16_TOL}); "
+          f"assignments moved {json.dumps(e4['moved'])} ({sum(near)} "
+          f"near-tie rows in the single rank's prefill, "
+          f"{e4['decode_near_tie_rows']} in its 16 decode steps); loss "
+          f"{e4['loss']:.6f} vs {loss_ref:.6f}; gradient leaves' relative L2"
+          f" max {e4['grad_rel_l2_max']:.3e} over {e4['grad_leaves']} leaves "
+          f"(bound {STEP_TOL}); peak memory per rank "
+          f"{', '.join(f'{v:.2f}' for v in e4['peak_gib'])} GiB", flush=True)
+    print(f"[ep] ep 4 launches per rank (rank 0; every rank the same): "
+          f"{json.dumps(e4['launches_rank0'])}", flush=True)
+    d = summary["dp2_ep2_fsdp"]
+    print(f"[ep] dp 2 x ep 2, FSDP of the experts, 2 layers: prefill wall "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in d['wall_s'])} ms, max "
+          f"|logit difference| {d['max_abs_logit_err']}, peak "
+          f"{', '.join(f'{v:.2f}' for v in d['peak_gib'])} GiB; launches "
+          f"{json.dumps(d['launches_rank0'])}", flush=True)
+    print(f"[ep] phase wall {summary['phase_s']['all']:.1f} s (single-rank "
+          f"reference {t_ref:.1f}, ep 4 ranks {t_ranks:.1f}, dp 2 x ep 2 "
+          f"{t_fsdp:.1f})", flush=True)
+    return summary
+
+
+def remat_phase(cfg, dev):
+    """Phase 14: per-block remat (``ShardingRules(remat=True)``) on the
+    full-width training step: the loss and every gradient equal to those
+    without remat (one loss and backward each, same weights and batch),
+    then the step profile at 8 x 512 (which peaks at 77.06 GiB without
+    remat on an H100 80GB HBM3) and at 4 x 1024."""
+    import torch
+    from repro_torch.models import (init_params, loss_fn, make_moe_tables,
+                                    ShardingRules)
+    from repro_torch.training import DataConfig, synthetic_batch
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    rules = ShardingRules(remat=True)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
+        cfg, DataConfig(seq_len=512, global_batch=8), 0).items()}
+    mt = make_moe_tables(cfg, device=dev)
+    out = {}
+    for name, r in (("remat", rules), ("plain", None)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, device=dev)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        loss, _ = loss_fn(cfg, r)(params, b, mt)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = (loss.detach(), [p.grad for p in leaves(params)],
+                     torch.cuda.max_memory_allocated())
+        del params, loss
+    (l1, g1, pk1), (l0, g0, pk0) = out["remat"], out["plain"]
+    same = bool(torch.equal(l1, l0)) and all(
+        bool(torch.equal(a, c)) for a, c in zip(g1, g0))
+    worst = max(_rel_l2(a, c) for a, c in zip(g1, g0))
+    check(same, f"remat: loss {l1.item()} vs {l0.item()}, gradients differ "
+          f"(largest relative L2 {worst:.3e})")
+    del out, g1, g0
+    print(f"[remat] 8 x 512, one loss and backward (no optimizer state): "
+          f"loss {l1.item():.6f} and all gradient leaves bit for bit equal "
+          f"with and without remat; peak {pk1 / 2**30:.2f} GiB with, "
+          f"{pk0 / 2**30:.2f} GiB without", flush=True)
+    res = {"bit_equal": same, "grad_peak_gib": {"remat": pk1 / 2**30,
+                                                "plain": pk0 / 2**30}}
+    res["step_8x512"] = train_step_profile(cfg, dev, seq_len=512, batch=8,
+                                           steps=2, rules=rules)
+    res["step_4x1024"] = train_step_profile(cfg, dev, seq_len=1024, batch=4,
+                                            steps=2, rules=rules)
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"[remat] phase wall {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1951,6 +2474,17 @@ def main() -> int:
     step_cmp = kernel_vs_plain_step(cfg, dev)
     checkpoint_restart(dev)
     tl = trained["launches"]
+    # phase 13: expert-parallel dispatch on 4 ranks; phase 14: remat
+    ep = ep_phase(cfg, dev)
+    remat = remat_phase(cfg, dev)
+
+    def ep_launches(name):
+        """This kernel's launches on the expert-parallel paths, per rank
+        (every rank launched the same; the phase checks each)."""
+        return {"ep4": {p: c.get(name, 0) for p, c in
+                        ep["ep4"]["launches_rank0"].items()},
+                "dp2_ep2_fsdp_prefill":
+                    ep["dp2_ep2_fsdp"]["launches_rank0"].get(name, 0)}
 
     def ffn_entry(prefill_res, decode_res):
         """The prefill shape's numbers under the contract's keys, the
@@ -1970,13 +2504,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
          "launches": counts["ragged_moe_ffn"], **ffn_entry(prefill, decode),
-         "library_ms": None},
+         "ep_launches": ep_launches("ragged_moe_ffn"), "library_ms": None},
         {"name": "route_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
          "launches": counts["route_select"], **route[(512, 1)],
          "by_shape": {f"T={T} R={R}": r for (T, R), r in route.items()},
-         "library_ms": None},
+         "ep_launches": ep_launches("route_select"), "library_ms": None},
         {"name": "router_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
@@ -1984,31 +2518,39 @@ def main() -> int:
          "by_shape": {"T=8": router_dec, "T=4096": router_big},
          "earlier_design": {"route": "triton",
                             "source": "src/repro_torch/kernels/router.py"},
-         "library_ms": None},
+         "ep_launches": ep_launches("router_topk"), "library_ms": None},
         {"name": "fused_moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
          "replaces": "src/repro/kernels/moe_ffn.py:58",
          "launches": counts_a["fused_moe_ffn"],
-         **ffn_entry(cap_prefill, cap_decode), "library_ms": None},
+         **ffn_entry(cap_prefill, cap_decode),
+         "ep_launches": ep_launches("fused_moe_ffn"), "library_ms": None},
         {"name": "ragged_moe_ffn_dgrad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
          "launches": tl["ragged_moe_ffn_dgrad"],
          "tma_launches": tl["ragged_moe_ffn_dgrad.tma"], **k1,
-         "tokens_4096": k1_big, "library_ms": None},
+         "tokens_4096": k1_big,
+         "ep_launches": ep_launches("ragged_moe_ffn_dgrad"),
+         "library_ms": None},
         {"name": "ragged_moe_ffn_wgrad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
          "launches": tl["ragged_moe_ffn_wgrad"],
          "tma_launches": tl["ragged_moe_ffn_wgrad.tma"], **k2,
-         "tokens_4096": k2_big, "library_ms": None},
+         "tokens_4096": k2_big,
+         "ep_launches": ep_launches("ragged_moe_ffn_wgrad"),
+         "library_ms": None},
         {"name": "route_select_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
-         "launches": tl["route_select_bwd"], **k3, "library_ms": None},
+         "launches": tl["route_select_bwd"], **k3,
+         "ep_launches": ep_launches("route_select_bwd"), "library_ms": None},
     ]
     print(f"[train] summary: {json.dumps({k: v for k, v in trained.items() if k != 'launches'} | {'kernel_vs_plain': step_cmp})}")
     print(f"[slices] summary: {json.dumps({'drills': drills, 'xlstm': xlstm, 'jamba': jamba})}")
+    print(f"[ep] summary: {json.dumps(ep)}")
+    print(f"[remat] summary: {json.dumps(remat)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

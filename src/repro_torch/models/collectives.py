@@ -1,0 +1,259 @@
+"""The collectives of the expert-parallel MoE bodies, for autograd.
+
+Each rank of a group runs the same program on its own share of the work
+and computes the same loss from the same replicated output. So the
+backward of each collective is chosen for that convention: the gradient
+a rank holds of a *replicated* tensor is the whole gradient, and of a
+*sharded* tensor the rank's slice of it. That is what ``jax.grad`` of the
+reference's ``shard_map`` bodies gives, and a collective whose backward
+is another all-reduce (as in ``torch.distributed.nn``) would give
+``world`` times that.
+
+* :func:`all_to_all` — equal splits on dim 0; its backward is the mirror
+  exchange.
+* :func:`sum_partials` — the ``psum`` of rank partials into a replicated
+  output; its backward passes the (replicated) gradient to each partial.
+* :func:`mean_over` — the ``pmean`` of ``mean_prob``; backward ``g / n``.
+* :func:`gather_shards` — the FSDP ``all_gather`` of expert weights along
+  a dim; backward the reduce-scatter of the gathered weight's gradient.
+* :func:`replicate` — a replicated tensor read by work that each rank does
+  on its own share: identity forward, the ranks' gradient contributions
+  summed backward (the transpose of the reference's implicit broadcast
+  of a replicated ``shard_map`` input).
+* :func:`take_block` / :func:`gather_blocks` — a rank's ``(B/dp, S/ep)``
+  block of a replicated ``(B, S, D)`` activation and back: the port keeps
+  its dense layers replicated, and the a2a bodies work on blocks.
+
+A ``group`` of ``None`` is a one-rank group: every function is then the
+identity (no call is made). :data:`clock` times the exchanges on the host
+when it is switched on (each timed call synchronises the card first and
+after); it is off unless a caller sets ``clock.enabled``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Sequence
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_to_all", "sum_partials", "mean_over", "gather_shards",
+           "replicate", "take_block", "gather_blocks", "all_reduce_",
+           "clock", "ExchangeClock"]
+
+
+class ExchangeClock:
+    """Host seconds, calls and bytes of the collectives while ``enabled``."""
+
+    def __init__(self):
+        self.enabled = False
+        self.reset()
+
+    def reset(self) -> None:
+        self.seconds = 0.0
+        self.calls = 0
+        self.bytes = 0
+
+    def run(self, fn, t: torch.Tensor):
+        if not self.enabled:
+            return fn()
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = fn()
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
+        return out
+
+
+clock = ExchangeClock()
+
+
+def _n(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """In-place sum over ``group`` of a tensor outside autograd (tallies)."""
+    if group is not None:
+        clock.run(lambda: dist.all_reduce(t, group=group), t)
+    return t
+
+
+def _a2a(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    clock.run(lambda: dist.all_to_all_single(out, x, group=group), x)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _a2a(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Rows ``[r n/w, (r + 1) n/w)`` of ``x`` go to rank ``r`` of the
+    group; the result holds rank ``j``'s rows for this rank at block
+    ``j`` (``lax.all_to_all(split_axis=0, concat_axis=0)``)."""
+    if group is None:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _AllToAll.apply(x, group)
+    return _a2a(x, group)
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x
+    return _SumPartials.apply(x, group)
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = _n(group)
+        return all_reduce_(x.clone(), group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x
+    return _MeanOver.apply(x, group)
+
+
+def _gather(x: torch.Tensor, group) -> List[torch.Tensor]:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(_n(group))]
+    clock.run(lambda: dist.all_gather(parts, x, group=group), x)
+    return parts
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, summed):
+        ctx.group, ctx.dim, ctx.summed = group, dim, summed
+        return torch.cat(_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        chunks = [c.contiguous() for c in g.chunk(_n(ctx.group), ctx.dim)]
+        if not ctx.summed:
+            return chunks[dist.get_rank(ctx.group)], None, None, None
+        out = torch.empty_like(chunks[0])
+        clock.run(lambda: dist.reduce_scatter(out, chunks, group=ctx.group),
+                  g)
+        return out, None, None, None
+
+
+def gather_shards(x: torch.Tensor, group, dim: int,
+                  summed: bool = True) -> torch.Tensor:
+    """The group's shards of ``x`` concatenated along ``dim`` in group
+    order (``lax.all_gather(..., axis=dim, tiled=True)``). ``summed``: the
+    ranks use the whole tensor on different work (the a2a bodies' tokens),
+    so its gradient is the reduce-scatter of theirs; ``False`` where they
+    all do the same work, and each keeps its own slice."""
+    if group is None:
+        return x
+    return _GatherShards.apply(x, group, dim, summed)
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
+def replicate(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x
+    return _Replicate.apply(x, group)
+
+
+def _block_slices(x_shape, coords: Sequence[tuple], i: int):
+    B, S = x_shape[:2]
+    nb = max(c[0] for c in coords) + 1
+    ns = max(c[1] for c in coords) + 1
+    b, s = coords[i]
+    return (slice(b * (B // nb), (b + 1) * (B // nb)),
+            slice(s * (S // ns), (s + 1) * (S // ns)))
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, coords, me):
+        ctx.group, ctx.coords, ctx.shape = group, coords, x.shape
+        rb, rs = _block_slices(x.shape, coords, me)
+        return x[rb, rs].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_assemble(_gather(g, ctx.group), ctx.shape, ctx.coords),
+                None, None, None)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xb, group, coords, me, shape):
+        ctx.coords, ctx.me, ctx.shape = coords, me, shape
+        return _assemble(_gather(xb, group), shape, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        rb, rs = _block_slices(ctx.shape, ctx.coords, ctx.me)
+        return g[rb, rs].contiguous(), None, None, None, None
+
+
+def _assemble(parts, shape, coords) -> torch.Tensor:
+    out = parts[0].new_empty(shape)
+    for i, part in enumerate(parts):
+        rb, rs = _block_slices(shape, coords, i)
+        out[rb, rs] = part
+    return out
+
+
+def take_block(x: torch.Tensor, group, coords: Sequence[tuple], me: int
+               ) -> torch.Tensor:
+    """Member ``me``'s block of a replicated ``x (B, S, ...)``, where
+    ``coords[i] = (b, s)`` places group member ``i``'s block on a grid of
+    ``B`` and ``S`` blocks (every member one)."""
+    if group is None:
+        return x
+    return _TakeBlock.apply(x, group, tuple(coords), me)
+
+
+def gather_blocks(xb: torch.Tensor, group, coords: Sequence[tuple], me: int,
+                  shape) -> torch.Tensor:
+    """The inverse of :func:`take_block`: every member's block, placed."""
+    if group is None:
+        return xb
+    return _GatherBlocks.apply(xb, group, tuple(coords), me, tuple(shape))

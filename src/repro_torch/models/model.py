@@ -30,25 +30,28 @@ full-size zero-padded slice per block.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from .attention import attn_init
 from .common import (apply_rope, dense_init, mlp, rms_norm, rope_tables,
                      softmax_xent_chunked)
 from .flash import flash_attention, flash_decode
-from .moe import moe_init, moe_layer
+from .moe import (default_perm_a2a, default_perm_replicated, moe_init,
+                  moe_layer, n_slots_a2a)
 from .sharding import ShardingRules, build_copy_cdf, build_slots_of
 from . import ssm
 
 __all__ = [
     "LayerSpec", "block_layout", "init_params", "make_moe_tables",
     "refresh_moe_share_tables", "loss_fn", "prefill_fn", "prefill_chunk_fn",
-    "decode_fn", "init_cache", "moe_perm_shape",
+    "decode_fn", "init_cache", "moe_perm_shape", "default_moe_perm",
 ]
 
 
@@ -102,12 +105,31 @@ def _windows(cfg: ArchConfig) -> Optional[np.ndarray]:
 
 def moe_perm_shape(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
                    phase: str = "train") -> Tuple[int, int]:
-    """(n_moe_layers, n_slots) for building placement permutations. Without
-    a group and on a one-rank group alike (the only groups the port runs),
-    one device holds one slot per expert in every phase: the reference's
-    padding to a multiple of the group and its decode fleet both give E."""
+    """(n_moe_layers, n_slots) for building placement permutations: E
+    without a group, E padded to a multiple of the group for train and
+    prefill (``n_slots_a2a``), ``e_loc`` times the decode fleet for
+    decode (the reference's group branches; a one-rank group gives E)."""
     nb, specs = block_layout(cfg)
-    return nb * sum(1 for s in specs if s.ffn == "moe"), cfg.n_experts
+    n_moe = nb * sum(1 for s in specs if s.ffn == "moe")
+    if rules is None or not rules.ep_ranks:
+        return n_moe, cfg.n_experts
+    if phase == "decode":
+        return n_moe, default_perm_replicated(1, cfg.n_experts,
+                                              rules.decode_fleet).shape[1]
+    return n_moe, n_slots_a2a(cfg.n_experts, rules.ep_size)
+
+
+def default_moe_perm(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
+                     phase: str = "train") -> np.ndarray:
+    """The reference's default placement (n_moe, n_slots): round-robin
+    replication over the decode fleet at decode with a group, else
+    contiguous with phantoms at the tail."""
+    n_moe, _ = moe_perm_shape(cfg, rules, phase)
+    if rules is not None and rules.ep_ranks and phase == "decode":
+        return default_perm_replicated(n_moe, cfg.n_experts,
+                                       rules.decode_fleet)
+    return default_perm_a2a(n_moe, cfg.n_experts,
+                            rules.ep_size if rules is not None else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -115,13 +137,16 @@ def moe_perm_shape(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
-                dtype=torch.bfloat16) -> Dict[str, Any]:
+                dtype=torch.bfloat16, *, rules: Optional[ShardingRules] = None,
+                phase: str = "train") -> Dict[str, Any]:
     """Random params drawn with ``generator`` (which lives on ``device``):
     the reference's distributions and dtypes — N(0, 1/d_in) weights in
     ``dtype``, the router in f32, norms as f32 zeros — with the reference's
-    keys and a leading ``n_blocks`` axis on every block leaf."""
+    keys and a leading ``n_blocks`` axis on every block leaf. ``rules``
+    and ``phase`` set the slot count (:func:`moe_perm_shape`); the tree is
+    whole, and ``launch.sharding.shard_params`` takes a rank's slice."""
     nb, specs = block_layout(cfg)
-    _, n_slots = moe_perm_shape(cfg) if cfg.is_moe else (0, 0)
+    _, n_slots = moe_perm_shape(cfg, rules, phase) if cfg.is_moe else (0, 0)
     d = cfg.d_model
     lead = (nb,)
 
@@ -190,10 +215,10 @@ def make_moe_tables(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
     """The (slots_of, n_copies, copy_cdf) tensors of a placement, shaped
     (n_blocks, moe_per_block, E, r) / (…, E) / (…, E, r), on ``device``;
     None for non-MoE archs. ``perm`` (n_moe, n_slots) — logical expert per
-    physical slot, None = contiguous (on a one-rank group the reference's
-    a2a and replicated defaults are both the identity); ``share`` —
-    per-slot traffic fractions, None = uniform over copies; ``r_max`` pins
-    the copy axis."""
+    physical slot, None = the reference's default: round-robin
+    replication over the decode fleet at decode, else contiguous with
+    phantoms at the tail; ``share`` — per-slot traffic fractions, None =
+    uniform over copies; ``r_max`` pins the copy axis."""
     if not cfg.is_moe:
         return None
     nb, specs = block_layout(cfg)
@@ -201,7 +226,7 @@ def make_moe_tables(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
     n_moe, default_slots = moe_perm_shape(cfg, rules, phase)
     n_slots = default_slots if n_slots is None else int(n_slots)
     if perm is None:
-        perm = np.tile(np.arange(n_slots, dtype=np.int32), (n_moe, 1))
+        perm = default_moe_perm(cfg, rules, phase)
     perm = np.atleast_2d(perm)
     if perm.shape != (n_moe, n_slots):
         raise ValueError(f"perm shape {perm.shape} != {(n_moe, n_slots)}")
@@ -370,12 +395,18 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
                 cache=None, pos=None, chunk_ctx=None):
     """Loop over the ``n_blocks`` super-blocks (``lax.scan`` in the
     reference). Returns (x, tallies (n_moe, E+1), the MoE layers' aux
-    losses (a list), per-position caches; none when ``phase="train"``)."""
+    losses (a list), per-position caches; none when ``phase="train"``).
+    With ``rules.remat`` the train phase checkpoints each block
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes a
+    block's forward from its input instead of keeping its activations, as
+    the reference's ``jax.checkpoint`` of the scan body
+    (``src/repro/models/model.py:573``)."""
     nb, specs = block_layout(cfg)
     win = _windows(cfg)
     tallies, auxes = [], []
     block_caches = []
     train = phase == "train"
+    remat = train and rules is not None and rules.remat
     if train:
         per_block = _unbind_tree(params["blocks"], nb)
     seed = rv = None
@@ -392,11 +423,16 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
             for sub in params["blocks"]]
         mt = None if moe_tables is None else tuple(t[b] for t in moe_tables)
         cb = None if cache is None else [_index_tree(c, b) for c in cache]
-        x, tall, aux, nc = _block_body(
-            cfg, rules, specs, bp, x,
+        body = functools.partial(
+            _block_body, cfg, rules, specs, bp,
             windows_blk=None if win is None else win[b], moe_tables_blk=mt,
             positions=positions, phase=phase, cache_blk=cb, pos=pos,
             chunk_ctx=chunk_ctx, route_seed=seed, moe_row_valid=rv)
+        if remat:
+            x, tall, aux, nc = torch.utils.checkpoint.checkpoint(
+                body, x, use_reentrant=False)
+        else:
+            x, tall, aux, nc = body(x)
         tallies.extend(tall)
         auxes.extend(aux)
         if cache is not None:

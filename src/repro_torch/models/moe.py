@@ -1,9 +1,10 @@
-"""Mixture-of-Experts layer: the ragged (dropless) and capacity paths.
+"""Mixture-of-Experts layer: the ragged (dropless) and capacity paths, on
+one device or over an expert-parallel group of ranks.
 
-The counterpart of ``repro.models.moe`` for one device. Routing is softmax
-→ top-k → renormalise; each assignment picks a physical slot among its
-expert's replicas by inverse CDF over a deterministic per-assignment
-uniform (``_select_slots``). On the path the whole routing stage — router
+The counterpart of ``repro.models.moe``. Routing is softmax → top-k →
+renormalise; each assignment picks a physical slot among its expert's
+replicas by inverse CDF over a deterministic per-assignment uniform
+(``_select_slots``). On the path the whole routing stage — router
 product, top-k, replica choice, tally, mean probabilities, aux loss — is
 one call, :func:`repro_torch.kernels.ops.route_select` (one kernel launch
 a layer on the card, its plain version on the CPU).
@@ -12,32 +13,50 @@ a layer on the card, its plain version on the CPU).
   into a flat buffer whose per-slot segments are padded to the row tile
   (``_ragged_plan``); the grouped SwiGLU FFN kernel runs the occupied tiles
   only; a gather combines each token's ``top_k`` results in f32.
-* **capacity** (``moe_impl="capacity"``) on a one-rank expert-parallel
-  group (``ShardingRules.ep_ranks=1``, the reference's one-device mesh):
-  the reference's ``_a2a_body`` (prefill) and ``_replicated_body``
-  (decode) with ``ep = 1``, where ``all_to_all`` and ``psum`` are the
-  identity. Each slot gets a bucket of ``capacity`` rows in arrival order
-  (``_bucket_positions``); overflowing assignments are dropped and counted
-  in ``tally[E]``; the capacity FFN kernel runs every bucket.
+* **capacity** (``moe_impl="capacity"``): each slot gets a bucket of
+  ``capacity`` rows in arrival order (``_bucket_positions``); overflowing
+  assignments are dropped and counted in ``tally[E]``; the capacity FFN
+  kernel runs every bucket.
 * **dense oracle** (capacity without a group, the reference's
   ``rules=None``): every expert on every token with the plain FFN.
 
+With a group (``ShardingRules.ep_ranks``) the reference's four bodies run
+as it chooses them (``moe_layer``): ``_a2a_body_ragged`` and ``_a2a_body``
+(train, prefill: each rank routes its ``(B/dp, S/ep)`` block, the rows go
+to the rank that holds their slot through ``all_to_all`` and come back
+through the mirror exchange), ``_replicated_body_ragged`` and
+``_replicated_body`` (decode: every rank routes every token, computes its
+own slots and a ``psum`` combines), the tallies summed and ``mean_prob``
+averaged over the group for a global aux loss. On a rank grid the
+collectives are :mod:`.collectives` over ``torch.distributed``; on a
+one-rank group (no grid) they are the identity, and the ragged bodies
+reduce to the single-device ragged dispatch, which runs in their place.
+The expert weights a rank holds are its slice
+(:func:`repro_torch.launch.sharding.shard_params`): its slots, over
+``fsdp`` a slice of their axis 1, under expert-TP a slice of F. The dense
+layers around the MoE layer stay replicated, so the a2a bodies take the
+rank's block of the replicated input and gather the output back.
+
 Placement is positional, as in the reference: the stacked expert weights
 live in physical slot order, ``slots_of``/``n_copies``/``copy_cdf`` map
-logical experts to slots at run time, and :func:`apply_placement` migrates
-the weights when the placement changes.
+logical experts to slots at run time, :func:`apply_placement` migrates
+the weights when the placement changes, and :func:`expand_experts` builds
+the decode fleet's replicated slots from the a2a layout. Phantom padding
+(``n_slots_a2a``): E padded to a multiple of the group; phantom slots get
+no tokens.
 
 Nothing on the per-layer path synchronises the host: every shape is a
 static bound (``n_tiles = A // bm + n_slots``, ``capacity`` from the token
-count), and the data-dependent parts are tensor values. Multi-rank
-dispatch is a later slice (ROADMAP Queue 1, "Multi-rank dispatch").
+count, the a2a frames of ``t_loc·top_k`` rows a destination), and the
+data-dependent parts are tensor values.
 
 Training runs the ragged path: the routing stage and the FFN are
 differentiable through their kernels (``ops``), the buffer fill through
-:class:`_FillBuffer`, whose backward is a gather, and the combine through
-autograd (a gather whose backward scatters to distinct rows). The capacity
-FFN has no backward kernel yet, so gradients through ``moe_impl=
-"capacity"`` on the card raise.
+:class:`_FillBuffer`, whose backward is a gather, the combine through
+autograd (a gather whose backward scatters to distinct rows), and the
+exchanges through :mod:`.collectives`. The capacity FFN has no backward
+kernel yet, so gradients through ``moe_impl="capacity"`` on the card
+raise.
 """
 
 from __future__ import annotations
@@ -52,11 +71,37 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ragged_moe_ffn import (ragged_n_tiles,
                                                 ragged_tile_metadata)
+from . import collectives as C
 from .common import dense_init
 from .sharding import ShardingRules
 
 __all__ = ["moe_init", "moe_layer", "route", "expert_ffn_ref",
-           "apply_placement", "placement_gather_indices"]
+           "default_perm_a2a", "default_perm_replicated", "n_slots_a2a",
+           "apply_placement", "placement_gather_indices", "expand_experts"]
+
+
+# ---------------------------------------------------------------------------
+# slot layout helpers (the reference's, copied)
+# ---------------------------------------------------------------------------
+
+def n_slots_a2a(n_experts: int, ep_size: int) -> int:
+    """Physical slot count for a2a dispatch: E padded to a multiple of EP."""
+    return ((n_experts + ep_size - 1) // ep_size) * ep_size
+
+
+def default_perm_a2a(n_layers: int, n_experts: int,
+                     ep_size: int) -> np.ndarray:
+    """Identity (contiguous) slot permutation; phantoms at the tail."""
+    ns = n_slots_a2a(n_experts, ep_size)
+    return np.tile(np.arange(ns, dtype=np.int32), (n_layers, 1))
+
+
+def default_perm_replicated(n_layers: int, n_experts: int,
+                            fleet: int) -> np.ndarray:
+    """Round-robin replication: slot p holds logical expert p % E."""
+    e_loc = max(1, -(-n_experts // max(fleet, 1)))
+    ns = e_loc * max(fleet, 1)
+    return np.tile(np.arange(ns, dtype=np.int32) % n_experts, (n_layers, 1))
 
 
 def moe_init(generator: torch.Generator, *, d: int, f: int, n_experts: int,
@@ -153,12 +198,32 @@ def _combine(y_rows: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
     row); on the capacity paths a dropped assignment shares a row, but
     with weight 0 it adds an exact 0. So the scatter sums nothing in an
     order that could change between runs."""
-    contrib = (y_rows[rows.reshape(t, K)].float()
-               * w.reshape(t, K).float()[:, :, None])
+    return _ksum(_contrib(y_rows, rows, w, t, K))
+
+
+def _contrib(y_rows, rows, w, t: int, K: int) -> torch.Tensor:
+    """Each assignment's weighted row ``w[t, k]·y_rows[rows[t, k]]``,
+    (t, K, D) f32."""
+    return (y_rows[rows.reshape(t, K)].float()
+            * w.reshape(t, K).float()[:, :, None])
+
+
+def _ksum(contrib: torch.Tensor) -> torch.Tensor:
+    """(t, K, D) → (t, D), summed in k order."""
     out = contrib[:, 0]
-    for k in range(1, K):
+    for k in range(1, contrib.shape[1]):
         out = out + contrib[:, k]
     return out
+
+
+def _sum_contrib(contrib: torch.Tensor, group) -> torch.Tensor:
+    """The replicated bodies' ``psum``, exact: each assignment's weighted
+    row is nonzero on the one rank that holds its slot, so summing the
+    (t, K, D) rows over the group adds zeros only, in any order; the k
+    sum after it is the single rank's. (The reference sums the ranks'
+    (t, D) partials, whose f32 order the group would set.) Under
+    expert-TP each row is itself a partial sum over F, and adds as such."""
+    return _ksum(C.sum_partials(contrib, group))
 
 
 def _ragged_plan(slot_flat: torch.Tensor, n_slots: int, bm: int,
@@ -212,9 +277,21 @@ class _FillBuffer(torch.autograd.Function):
         return dx.to(dbuf.dtype), None, None, None, None
 
 
+def _fill(xf, rows, src, row_of, n_rows):
+    """``buf[rows] = xf[src]`` into ``n_rows`` zero rows (a row index of
+    ``n_rows`` lands in a spare row that is cut off), through
+    :class:`_FillBuffer` when ``xf`` takes a gradient."""
+    if torch.is_grad_enabled() and xf.requires_grad:
+        return _FillBuffer.apply(xf, rows, src, row_of, n_rows)
+    buf = xf.new_zeros((n_rows + 1, xf.shape[1]))
+    buf[rows] = xf[src]
+    return buf[:n_rows]
+
+
 def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
                       w1, w3, w2):
-    """Sorted-buffer grouped FFN + weighted combine; (t, D) f32 out.
+    """Sorted-buffer grouped FFN; each assignment's weighted row (t, K, D)
+    f32 out, for :func:`_ksum` (or the replicated bodies' exact psum).
 
     ``weights``/``slots`` are (t, K): assignment ``a`` belongs to token
     ``a // K``. Rows are scattered into an ``n_rows + 1`` buffer whose spare
@@ -228,25 +305,17 @@ def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
         slots.reshape(-1), n_groups, bm,
         None if active is None else active.reshape(-1))
     rows = rows.long()
-    src = torch.div(order, K, rounding_mode="floor")
-    if torch.is_grad_enabled() and xf.requires_grad:
-        row_full = torch.empty_like(rows)
-        row_full[order] = rows
-        buf = _FillBuffer.apply(xf, rows, src, row_full.reshape(t, K),
-                                n_rows)
-    else:
-        buf = xf.new_zeros((n_rows + 1, D))
-        buf[rows] = xf[src]
-        buf = buf[:n_rows]
+    row_full = torch.empty_like(rows)
+    row_full[order] = rows
+    buf = _fill(xf, rows, torch.div(order, K, rounding_mode="floor"),
+                row_full.reshape(t, K), n_rows)
     # a token's K slots are distinct, so no tile holds more than t rows
     y_buf = ffn(w1, w3, w2, buf, tile_group, row_offsets=row_off,
                 sizes=sizes, max_rows=t)
-    row_of = torch.empty_like(rows)
-    row_of[order] = torch.clamp(rows, max=n_rows - 1)
     w = weights.float()
     if active is not None:
         w = w * active.to(w.dtype)
-    return _combine(y_buf, row_of, w, t, K)
+    return _contrib(y_buf, torch.clamp(row_full, max=n_rows - 1), w, t, K)
 
 
 def _dense_dispatch_ragged(p, xf, route_seed, *, top_k, n_experts, slots_of,
@@ -259,8 +328,8 @@ def _dense_dispatch_ragged(p, xf, route_seed, *, top_k, n_experts, slots_of,
     weights, _, slots, tally, _, aux = ops.route_select(
         xf, p["router"], slots_of, n_copies, copy_cdf, route_seed, top_k,
         row_valid)
-    out = _ragged_local_ffn(xf, weights, slots, None, p["w1"].shape[0], bm,
-                            ffn, p["w1"], p["w3"], p["w2"])
+    out = _ksum(_ragged_local_ffn(xf, weights, slots, None, p["w1"].shape[0],
+                                  bm, ffn, p["w1"], p["w3"], p["w2"]))
     return out.to(xf.dtype), tally, aux
 
 
@@ -289,7 +358,7 @@ def _dense_dispatch(p, xf, route_seed, *, top_k, n_experts, slots_of,
 
 
 # ---------------------------------------------------------------------------
-# capacity buckets on a one-rank expert-parallel group
+# expert-parallel bodies
 # ---------------------------------------------------------------------------
 
 def _fill_buckets(rows_x: torch.Tensor, dest: torch.Tensor,
@@ -304,66 +373,179 @@ def _fill_buckets(rows_x: torch.Tensor, dest: torch.Tensor,
     return buf[:n_rows]
 
 
-def _capacity_route(router_w, xf, slots_of, n_copies, copy_cdf, route_seed,
-                    top_k):
-    """The routing stage of a capacity body: flat gate weights and slots
-    (t·K,), the tally (E+1,) whose last entry the body fills with its
-    drops, and the aux loss."""
+def _expert_weights(w1, w3, w2, fsdp_group, rep_group, summed=True):
+    """The rank's expert weights as its FFN reads them: replicated over
+    ``rep_group`` (the batch axes the weights are not sharded over) and
+    gathered over ``fsdp_group`` on axis 1 (ZeRO-3; the reference's
+    ``all_gather(..., axis=1, tiled=True)``)."""
+    return tuple(C.gather_shards(C.replicate(w, rep_group), fsdp_group,
+                                 dim=1, summed=summed) for w in (w1, w3, w2))
+
+
+def _psum(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum of a count (no gradient) over ``group``, as a new tensor."""
+    return t if group is None else C.all_reduce_(t.clone(), group)
+
+
+def _global_aux(tally, mean_prob, aux, n_experts, group):
+    """The aux loss from the group's summed tally and averaged
+    ``mean_prob`` (the reference's psum / pmean); on one rank the routing
+    stage's own ``aux`` is that already."""
+    if group is None:
+        return aux
+    return ref.aux_loss(tally[:n_experts], C.mean_over(mean_prob, group),
+                        n_experts)
+
+
+def _a2a_body_ragged(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
+                     route_seed, *, top_k, n_experts, n_slots, bm, ep,
+                     ep_group, stat_group, fsdp_group, rep_group,
+                     ffn: Callable):
+    """Dropless a2a dispatch (``src/repro/models/moe.py:386-464``): sorted
+    per-destination frames + ragged FFN.
+
+    The exchange cannot be ragged itself (``all_to_all`` with equal
+    splits), so the send buffer holds one frame of ``A = t_loc·top_k``
+    rows per destination rank — the worst case, so nothing can overflow.
+    Assignments are slot-sorted (slots are rank-major, so one sort orders
+    by destination rank and groups by slot), packed into their
+    destination's frame, and their local-slot ids ride along in a parallel
+    int frame (``e_loc`` marks padding). The receiver sorts the ``ep·A``
+    rows by local slot into the ragged buffer, runs the grouped FFN over
+    occupied tiles, and the results return through the mirror exchange;
+    the combine gathers each token's rows in k order."""
+    Bl, Sl, D = xb.shape
+    e_loc = n_slots // ep
+    w1, w3, w2 = _expert_weights(w1, w3, w2, fsdp_group, rep_group)
+    xf = xb.reshape(Bl * Sl, D)
+    t = xf.shape[0]
+    A = t * top_k
+    dev = xf.device
+    weights, _, slots, tally, mean_prob, aux = ops.route_select(
+        xf, C.replicate(router_w, stat_group), slots_of, n_copies, copy_cdf,
+        route_seed, top_k)
+
+    # slot-major order == (dest rank, local slot) order
+    order, ss, starts, _ = _sort_by_slot(slots.reshape(-1), n_slots)
+    rank_sorted = torch.div(ss, e_loc, rounding_mode="floor")
+    rank_starts = starts[torch.arange(ep + 1, device=dev) * e_loc]
+    pos_in_rank = (torch.arange(A, dtype=torch.int32, device=dev)
+                   - rank_starts[rank_sorted.long()])
+    send_row = (rank_sorted * A + pos_in_rank).long()
+    frame_row = torch.empty_like(send_row)       # each assignment's row
+    frame_row[order] = send_row
+    send = _fill(xf, send_row, torch.div(order, top_k, rounding_mode="floor"),
+                 frame_row.reshape(t, top_k), ep * A)
+    loc_ids = torch.full((ep * A,), e_loc, dtype=torch.int32, device=dev)
+    loc_ids[send_row] = ss % e_loc
+    recv = C.all_to_all(send, ep_group)
+    rloc = C.all_to_all(loc_ids, ep_group)
+
+    # receiver: the ep·A frame rows into the slot-sorted ragged buffer
+    active = rloc < e_loc
+    order2, rows2, tile_group, n_rows, row_off, sizes = _ragged_plan(
+        rloc, e_loc, bm, active=active)
+    rows2 = rows2.long()
+    buf = recv.new_zeros((n_rows + 1, D))
+    buf[rows2] = recv[order2]
+    # a slot gets at most t_loc rows from each of the ep senders
+    y_buf = ffn(w1, w3, w2, buf[:n_rows], tile_group, row_offsets=row_off,
+                sizes=sizes, max_rows=ep * t)
+    row_of_recv = torch.empty_like(rows2)
+    row_of_recv[order2] = torch.clamp(rows2, max=n_rows - 1)
+    y_recv = y_buf[row_of_recv] * active[:, None].to(y_buf.dtype)
+    back = C.all_to_all(y_recv, ep_group)
+
+    out = _combine(back, frame_row, weights, t, top_k)
+    tally = _psum(tally, stat_group)                  # dropless: tally[E] 0
+    aux = _global_aux(tally, mean_prob, aux, n_experts, stat_group)
+    return out.to(xb.dtype).reshape(Bl, Sl, D), tally, aux
+
+
+def _replicated_body_ragged(xb, router_w, w1, w3, w2, slots_of, n_copies,
+                            copy_cdf, route_seed, *, top_k, n_experts, bm,
+                            my_rank, psum_group, ffn: Callable):
+    """Dropless decode (``src/repro/models/moe.py:467-501``): every rank
+    routes every token, runs the assignments whose slot it holds
+    (``slot // e_loc == my_rank``) through the ragged buffer, and a
+    ``psum`` combines (:func:`_sum_contrib`)."""
+    B, S, D = xb.shape
+    e_loc = w1.shape[0]
+    xf = xb.reshape(B * S, D)
     weights, _, slots, tally, _, aux = ops.route_select(
         xf, router_w, slots_of, n_copies, copy_cdf, route_seed, top_k)
-    return weights.reshape(-1), slots.reshape(-1), tally, aux
+    mine = torch.div(slots, e_loc, rounding_mode="floor") == my_rank
+    contrib = _ragged_local_ffn(C.replicate(xf, psum_group),
+                                C.replicate(weights, psum_group),
+                                slots % e_loc, mine, e_loc, bm, ffn, w1, w3,
+                                w2)
+    out = _sum_contrib(contrib, psum_group)
+    return out.to(xb.dtype).reshape(B, S, D), tally, aux
+
+
+def _capacity_route(router_w, xf, slots_of, n_copies, copy_cdf, route_seed,
+                    top_k):
+    """The routing stage of a capacity body: gate weights (t, K) and flat
+    slots (t·K,), the tally (E+1,) whose last entry the body fills with its
+    drops, the mean probabilities and the aux loss."""
+    weights, _, slots, tally, mean_prob, aux = ops.route_select(
+        xf, router_w, slots_of, n_copies, copy_cdf, route_seed, top_k)
+    return weights, slots.reshape(-1), tally, mean_prob, aux
 
 
 def _a2a_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
               route_seed, *, top_k, n_experts, n_slots, capacity, ep,
-              ffn: Callable):
-    """One rank's block of the a2a capacity dispatch (train / prefill).
-
-    The reference's ``_a2a_body`` with its ``(ep, e_loc, C, D)`` layout,
-    at ``ep = 1`` (``ShardingRules`` refuses larger groups): the two
-    ``all_to_all`` exchanges and the ``psum`` of the tally are the
-    identity. ``tally[E]`` counts the assignments past their slot's
-    bucket, ``sum(1 - keep)``.
-    """
+              ffn: Callable, ep_group=None, stat_group=None, fsdp_group=None,
+              rep_group=None):
+    """One rank's block of the a2a capacity dispatch (train / prefill;
+    ``src/repro/models/moe.py:508-563``), in its ``(ep, e_loc, C, D)``
+    layout: bucket ``slot·C + pos`` holds an assignment kept by its
+    slot's capacity; the buckets of rank ``r``'s slots go to rank ``r``.
+    ``tally[E]`` counts the assignments past their slot's bucket,
+    ``sum(1 - keep)``, summed over the group."""
     Bl, Sl, D = xb.shape
     e_loc = n_slots // ep
+    w1, w3, w2 = _expert_weights(w1, w3, w2, fsdp_group, rep_group)
     xf = xb.reshape(Bl * Sl, D)
     t = xf.shape[0]
-    wgt_flat, slot_flat, tally, aux = _capacity_route(
-        router_w, xf, slots_of, n_copies, copy_cdf, route_seed, top_k)
+    weights, slot_flat, tally, mean_prob, aux = _capacity_route(
+        C.replicate(router_w, stat_group), xf, slots_of, n_copies, copy_cdf,
+        route_seed, top_k)
     pos = _bucket_positions(slot_flat, n_slots)
     keep = pos < capacity
     dest = (slot_flat.long() * capacity
             + torch.where(keep, pos, torch.zeros_like(pos)).long())
     send = _fill_buckets(xf.repeat_interleave(top_k, dim=0), dest, keep,
                          n_slots * capacity)
-    # dispatch (ep, E_loc, C, D): chunk i goes to rank i (all_to_all over
-    # one rank: the identity); recv[j] = tokens from rank j for my experts
-    recv = send.reshape(ep, e_loc, capacity, D)
-    toks = recv.movedim(0, 1).reshape(e_loc, ep * capacity, D).contiguous()
-    y = ffn(w1, w3, w2, toks)                       # (E_loc, ep·C, D)
+    # block j of recv: rank j's buckets for my slots
+    recv = C.all_to_all(send, ep_group)
+    toks = recv.reshape(ep, e_loc, capacity, D).movedim(0, 1)
+    y = ffn(w1, w3, w2, toks.reshape(e_loc, ep * capacity, D).contiguous())
     back = y.reshape(e_loc, ep, capacity, D).movedim(1, 0)
-    back = back.reshape(n_slots * capacity, D)      # my sends, processed
-    out = _combine(back, dest, wgt_flat * keep, t, top_k)
+    back = C.all_to_all(back.reshape(n_slots * capacity, D), ep_group)
+    out = _combine(back, dest, weights.reshape(-1) * keep, t, top_k)
     tally[n_experts] = (1.0 - keep.float()).sum()
+    tally = _psum(tally, stat_group)
+    aux = _global_aux(tally, mean_prob, aux, n_experts, stat_group)
     return out.to(xb.dtype).reshape(Bl, Sl, D), tally, aux
 
 
 def _replicated_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
                      route_seed, *, top_k, n_experts, capacity,
-                     ffn: Callable):
-    """One rank's block of the replicated capacity dispatch (decode).
-
-    The reference's ``_replicated_body`` on a one-rank fleet: every slot
-    is local (``my_rank = 0``, ``e_loc = n_slots``) and the ``psum``
-    combine is the identity. ``tally[E]`` counts ``mine & pos >= C``.
-    """
+                     ffn: Callable, my_rank=0, psum_group=None,
+                     drop_group=None):
+    """Tokens replicated fleet-wide, each rank computes its slots only
+    (decode; ``src/repro/models/moe.py:570-615``), combined by
+    :func:`_sum_contrib`. With expert-TP the local w1/w3 carry an F-slice
+    and w2 the matching rows: ``y`` is a partial sum over F, folded in by
+    the wider ``psum_group``. ``tally[E]`` counts
+    ``mine & pos >= C``, summed over the slot ranks (``drop_group``) only:
+    expert-TP ranks see the same drops."""
     B, S, D = xb.shape
     e_loc = w1.shape[0]
-    my_rank = 0
     xf = xb.reshape(B * S, D)
     t = xf.shape[0]
-    wgt_flat, slot_flat, tally, aux = _capacity_route(
+    weights, slot_flat, tally, _, aux = _capacity_route(
         router_w, xf, slots_of, n_copies, copy_cdf, route_seed, top_k)
     mine = torch.div(slot_flat, e_loc, rounding_mode="floor") == my_rank
     loc = slot_flat % e_loc
@@ -371,12 +553,15 @@ def _replicated_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
     keep = mine & (pos >= 0) & (pos < capacity)
     dest = (loc.long() * capacity
             + torch.where(keep, pos, torch.zeros_like(pos)).long())
-    buckets = _fill_buckets(xf.repeat_interleave(top_k, dim=0), dest, keep,
-                            e_loc * capacity)
+    buckets = _fill_buckets(
+        C.replicate(xf, psum_group).repeat_interleave(top_k, dim=0), dest,
+        keep, e_loc * capacity)
     y = ffn(w1, w3, w2, buckets.reshape(e_loc, capacity, D))
-    out = _combine(y.reshape(e_loc * capacity, D), dest, wgt_flat * keep, t,
-                   top_k)
-    tally[n_experts] = (mine & (pos >= capacity)).float().sum()
+    wgt = C.replicate(weights, psum_group).reshape(-1)
+    out = _sum_contrib(_contrib(y.reshape(e_loc * capacity, D), dest,
+                                wgt * keep, t, top_k), psum_group)
+    tally[n_experts] = _psum((mine & (pos >= capacity)).float().sum(),
+                             drop_group)
     return out.to(xb.dtype).reshape(B, S, D), tally, aux
 
 
@@ -396,15 +581,21 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     ``rules=None`` means ``ShardingRules()``: the single-device ragged path
     (the reference's ``rules=None`` is its dense oracle). The dispatch is
     chosen as the reference chooses it (``moe.py:676-700``), with
-    ``rules.ep_ranks`` in place of its mesh:
+    ``rules.ep_ranks`` (and the grid) in place of its mesh:
 
     * no group (``ep_ranks=0``): ragged → the single-device ragged
       dispatch; capacity → the dense oracle;
-    * a one-rank group: capacity → the a2a body (prefill, train, chunk) or
-      the replicated body (decode), as ``rules.moe_dispatch`` selects;
-      ragged → the single-device ragged dispatch, which computes what the
-      reference's one-rank ragged bodies compute (summed in another
-      order).
+    * a group: the a2a body (prefill, train, chunk) or the replicated body
+      (decode), as ``rules.moe_dispatch`` selects; a2a falls back to
+      replicated when ``S`` is not a multiple of the group. On a one-rank
+      group without a grid ragged runs the single-device ragged dispatch,
+      which computes what the reference's one-rank ragged bodies compute
+      (summed in another order).
+
+    On a grid, ``p`` holds the rank's slice of the expert weights
+    (``launch.sharding.shard_params`` for this ``phase``: the a2a layout
+    for train and prefill, the decode fleet's for decode), ``x`` and the
+    tables are replicated, and so are the outputs.
 
     ``tally[:E]`` counts logical-expert assignments (pre-capacity);
     ``tally[E]`` the capacity drops (0 on the ragged and dense paths).
@@ -438,6 +629,8 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
             mode = "replicated"
         else:
             mode = "a2a"
+        if mode == "a2a" and S % rules.ep_size != 0:
+            mode = "replicated"
         if mode != "dense" and row_valid is not None:
             raise NotImplementedError(
                 "row_valid (chunked-prefill padding mask) is only supported "
@@ -451,34 +644,82 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
             "FFN kernel (csrc/moe_ffn.cu) has no backward kernel yet "
             "(ROADMAP Queue 2, \"A backward for the capacity FFN\"); train "
             "with moe_impl='ragged'")
-    if rules.moe_impl == "ragged":
-        out, tally, aux = _dense_dispatch_ragged(
-            p, xf, route_seed, top_k=top_k, n_experts=n_experts,
-            bm=rules.moe_block_m, ffn=ops.ragged_moe_ffn,
-            row_valid=row_valid, **tables)
+    ragged = rules.moe_impl == "ragged"
+    if rules.grid is None and (ragged or mode == "dense"):
+        if ragged:
+            out, tally, aux = _dense_dispatch_ragged(
+                p, xf, route_seed, top_k=top_k, n_experts=n_experts,
+                bm=rules.moe_block_m, ffn=ops.ragged_moe_ffn,
+                row_valid=row_valid, **tables)
+        else:
+            out, tally, aux = _dense_dispatch(
+                p, xf, route_seed, top_k=top_k, n_experts=n_experts,
+                row_valid=row_valid, **tables)
         return out.reshape(B, S, D), tally, aux
     if mode == "dense":
-        out, tally, aux = _dense_dispatch(
-            p, xf, route_seed, top_k=top_k, n_experts=n_experts,
-            row_valid=row_valid, **tables)
-        return out.reshape(B, S, D), tally, aux
+        raise NotImplementedError(
+            "moe_dispatch='dense' on a grid: the ranks hold slices of the "
+            "expert weights, and the dense oracle reads all of them")
 
-    n_slots = p["w1"].shape[0]
+    grid = rules.grid
+    group = (lambda axes: None) if grid is None else grid.group
+    ffn = ops.ragged_moe_ffn if ragged else ops.fused_moe_ffn
     cf = rules.capacity_factor
-    args = (x, p["router"], p["w1"], p["w3"], p["w2"], slots_of, n_copies,
+    args = (p["router"], p["w1"], p["w3"], p["w2"], slots_of, n_copies,
             copy_cdf, route_seed)
     if mode == "a2a":
-        t_loc = B * S                                 # one rank holds all
-        capacity = _round_up(max(math.ceil(t_loc * top_k / n_slots * cf), 1),
-                             4)
-        return _a2a_body(*args, top_k=top_k, n_experts=n_experts,
-                         n_slots=n_slots, capacity=capacity,
-                         ep=rules.ep_ranks, ffn=ops.fused_moe_ffn)
-    t = B * S
+        ep, dp_axes, ep_axes = rules.ep_size, rules.dp_axes, rules.ep_axes
+        dp = rules.axis_size(dp_axes)
+        if B % dp:
+            raise ValueError(f"a2a dispatch: batch {B} over {dp} dp ranks")
+        n_slots = p["w1"].shape[0] * ep
+        t_loc = (B // dp) * (S // ep)
+        blk = dp_axes + ep_axes
+        xb, coords, me = x, (), 0
+        if grid is not None:
+            coords = [(grid.index(dp_axes, c), grid.index(ep_axes, c))
+                      for c in grid.members(blk)]
+            me = grid.index(blk)
+            xb = C.take_block(x, group(blk), coords, me)
+        kw = dict(top_k=top_k, n_experts=n_experts, n_slots=n_slots, ep=ep,
+                  ffn=ffn, ep_group=group(ep_axes), stat_group=group(blk),
+                  fsdp_group=group(rules.fsdp_axes),
+                  rep_group=group(tuple(a for a in dp_axes
+                                        if a not in rules.fsdp_axes)))
+        if ragged:
+            out, tally, aux = _a2a_body_ragged(xb, *args, bm=rules.moe_block_m,
+                                               **kw)
+        else:
+            capacity = _round_up(
+                max(math.ceil(t_loc * top_k / n_slots * cf), 1), 4)
+            out, tally, aux = _a2a_body(xb, *args, capacity=capacity, **kw)
+        if grid is not None:
+            out = C.gather_blocks(out, group(blk), coords, me, x.shape)
+        return out, tally, aux
+
+    # replicated: the decode fleet's layout at decode; at train / prefill
+    # (a fallback, or asked for) the a2a layout, slots over ep, the FSDP
+    # shards gathered, every batch replica doing the same work
+    w = (p["w1"], p["w3"], p["w2"])
+    if phase == "decode":
+        slot_axes, ftp_axes = rules.decode_axes
+    else:
+        slot_axes, ftp_axes = rules.ep_axes, ()
+        w = _expert_weights(*w, group(rules.fsdp_axes), None, summed=False)
+    args = (p["router"],) + tuple(w) + args[4:]
+    n_slots = w[0].shape[0] * rules.axis_size(slot_axes)
+    my_rank = 0 if grid is None else grid.index(slot_axes)
+    psum_group = group(slot_axes + ftp_axes)
+    if ragged:
+        return _replicated_body_ragged(
+            x, *args, top_k=top_k, n_experts=n_experts, bm=rules.moe_block_m,
+            my_rank=my_rank, psum_group=psum_group, ffn=ffn)
     capacity = _round_up(
-        max(math.ceil(t * top_k / n_slots * max(cf, 2.0)), 4), 4)
-    return _replicated_body(*args, top_k=top_k, n_experts=n_experts,
-                            capacity=capacity, ffn=ops.fused_moe_ffn)
+        max(math.ceil(B * S * top_k / n_slots * max(cf, 2.0)), 4), 4)
+    return _replicated_body(x, *args, top_k=top_k, n_experts=n_experts,
+                            capacity=capacity, ffn=ffn, my_rank=my_rank,
+                            psum_group=psum_group,
+                            drop_group=group(slot_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -523,3 +764,28 @@ def apply_placement(expert_params: dict, old_perm: np.ndarray,
             lidx = torch.arange(g.shape[0], device=leaf.device)[:, None]
             out[k] = leaf[lidx, g]
     return out, moved
+
+
+def expand_experts(expert_params: dict, perm_a2a: np.ndarray,
+                   perm_dec: np.ndarray) -> dict:
+    """Decode-fleet expert tensors (replicated slots) from the a2a layout:
+    decode slot p holds logical expert ``perm_dec[l, p]``, fetched from the
+    first a2a slot holding that expert; a decode expert absent from the
+    a2a layout is an error (the reference's, ``moe.py:842-866``)."""
+    perm_dec = np.atleast_2d(perm_dec)
+    perm_a2a = np.atleast_2d(perm_a2a)
+    L = perm_dec.shape[0]
+    n_ids = int(max(perm_a2a.max(), perm_dec.max())) + 1
+    inv = _first_slot_of(perm_a2a, n_ids)
+    gi = inv[np.arange(L)[:, None], perm_dec]
+    if (gi < 0).any():
+        missing = sorted(set(perm_dec[gi < 0].tolist()))
+        raise KeyError(f"decode experts absent from a2a layout: {missing}")
+    out = dict(expert_params)
+    for k in ("w1", "w2", "w3"):
+        if k in out:
+            leaf = out[k]
+            g = torch.as_tensor(gi, dtype=torch.int64, device=leaf.device)
+            lidx = torch.arange(L, device=leaf.device)[:, None]
+            out[k] = leaf[lidx, g]
+    return out

@@ -1,10 +1,12 @@
-"""Sharding rules of one device and the placement lookup tables.
+"""Sharding rules and the placement lookup tables.
 
-The port's :class:`ShardingRules` holds what the MoE dispatch choice reads:
-the implementation, the dispatch body, the size of the expert-parallel
-group, the ragged row tile and the capacity factor. The mesh axes of the
-reference's rules wait for the multi-rank slice (ROADMAP Queue 1,
-"Multi-rank dispatch").
+The port's :class:`ShardingRules` holds what the MoE dispatch reads: the
+implementation, the dispatch body, the expert-parallel group, the ragged
+row tile and the capacity factor, and — on a rank grid
+(:class:`repro_torch.launch.mesh.Grid`) — the reference's axis roles
+(``dp``, ``ep``, ``ep_all``, ``fsdp``, ``decode_expert_tp``), with the
+grid in place of its ``Mesh``. Dense layers stay replicated on every rank:
+tensor parallelism of attention and dense FSDP are not ported.
 
 ``build_slots_of`` and ``build_copy_cdf`` are the reference's numpy table
 builders (``repro.models.sharding``), copied.
@@ -13,7 +15,7 @@ builders (``repro.models.sharding``), copied.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -28,7 +30,7 @@ _DISPATCHES = ("auto", "a2a", "replicated", "dense")
 
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
-    """How the model maps onto one device.
+    """How the model maps onto one device or a grid of ranks.
 
     ``moe_impl`` — ``"ragged"``: sort-based dropless dispatch, the grouped
     FFN over occupied tiles only; ``"capacity"``: fixed per-slot buckets
@@ -37,22 +39,35 @@ class ShardingRules:
 
     ``ep_ranks`` — the expert-parallel group, in the reference's terms:
 
-    * ``0`` — no group: the reference's ``mesh=None``. Ragged runs the
-      single-device ragged dispatch; capacity runs the dense oracle
-      (every expert on every token, nothing dropped).
-    * ``1`` — a one-rank group: the reference's one-device mesh
-      (``ep=ep_all=("model",)``, ``dp=()``, ``fsdp=None``). Capacity runs
-      the a2a body at prefill and the replicated body at decode, as
+    * ``0`` without a grid — no group: the reference's ``mesh=None``.
+      Ragged runs the single-device ragged dispatch; capacity runs the
+      dense oracle (every expert on every token, nothing dropped).
+    * ``1`` without a grid — a one-rank group: the reference's one-device
+      mesh (``ep=ep_all=("model",)``, ``dp=()``, ``fsdp=None``). Capacity
+      runs the a2a body at prefill and the replicated body at decode, as
       ``moe_dispatch`` selects, with ``all_to_all`` and ``psum`` the
       identity; ragged computes what the reference's one-rank ragged
       bodies compute.
-    * ``> 1`` — not ported (ROADMAP Queue 1, "Multi-rank dispatch"):
-      raises.
+    * with a ``grid`` — the grid's ``ep`` axes are the group and
+      ``ep_ranks`` is their size (filled in when left 0). The four bodies
+      of the reference run over ``torch.distributed``: a2a (train,
+      prefill) over ``ep`` with the batch over ``dp``, the expert weights
+      FSDP-sharded over ``fsdp`` on their axis 1; replicated (decode) over
+      ``ep_all``, or, with ``decode_expert_tp``, slots over ``ep`` and
+      each expert's F sliced over the rest of ``ep_all``. Axis names the
+      grid lacks are dropped, as the reference drops axes its mesh lacks.
 
     ``moe_dispatch`` — ``"auto"`` (decode → replicated, else a2a),
     ``"a2a"``, ``"replicated"`` or ``"dense"``; read only with a group.
     ``moe_block_m`` — the ragged row tile: a multiple of the CUDA kernel's
     64-row block on the card, any size on the CPU.
+
+    ``remat`` — recompute each block in the backward of the train phase
+    (``torch.utils.checkpoint``). Off by default, where the reference's
+    default is on: the port's ``rules=None`` means ``ShardingRules()``,
+    and the reference's ``rules=None`` does not checkpoint;
+    ``launch.sharding.make_rules`` turns it on for training, as the
+    reference's does.
     """
 
     moe_impl: str = "ragged"
@@ -60,6 +75,13 @@ class ShardingRules:
     ep_ranks: int = 0
     moe_block_m: int = 128
     capacity_factor: float = 1.25
+    grid: Optional[object] = None
+    dp: Tuple[str, ...] = ("pod", "data")
+    ep: Tuple[str, ...] = ("model",)
+    ep_all: Tuple[str, ...] = ("pod", "data", "model")
+    fsdp: Optional[Union[str, Tuple[str, ...]]] = "data"
+    decode_expert_tp: bool = False
+    remat: bool = False
 
     def __post_init__(self):
         if self.moe_impl not in _IMPLS:
@@ -68,13 +90,71 @@ class ShardingRules:
         if self.moe_dispatch not in _DISPATCHES:
             raise ValueError(f"moe_dispatch must be one of {_DISPATCHES}, "
                              f"got {self.moe_dispatch!r}")
-        if self.ep_ranks > 1:
-            raise NotImplementedError(
-                f"ep_ranks={self.ep_ranks}: expert-parallel groups of more "
-                "than one rank are not ported yet (ROADMAP Queue 1, "
-                "\"Multi-rank dispatch\")")
         if self.ep_ranks < 0:
             raise ValueError(f"ep_ranks must be >= 0, got {self.ep_ranks}")
+        if self.grid is None:
+            if self.ep_ranks > 1:
+                raise ValueError(
+                    f"ep_ranks={self.ep_ranks}: a group of more than one "
+                    "rank needs a grid (repro_torch.launch.mesh.make_mesh)")
+            return
+        size = self.grid.axis_size(self.ep)
+        if self.ep_ranks == 0:
+            object.__setattr__(self, "ep_ranks", size)
+        elif self.ep_ranks != size:
+            raise ValueError(f"ep_ranks={self.ep_ranks} but the grid's ep "
+                             f"axes {self.ep_axes} hold {size} ranks")
+
+    # -- grid helpers (the reference's mesh helpers) ----------------------
+
+    def _axes(self, axes) -> Tuple[str, ...]:
+        if self.grid is None:
+            return ()
+        return self.grid.canon(axes)
+
+    def axis_size(self, axes) -> int:
+        return 1 if self.grid is None else self.grid.axis_size(axes)
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        return self._axes(self.dp)
+
+    @property
+    def ep_axes(self) -> Tuple[str, ...]:
+        return self._axes(self.ep)
+
+    @property
+    def ep_all_axes(self) -> Tuple[str, ...]:
+        return self._axes(self.ep_all)
+
+    @property
+    def fsdp_axes(self) -> Tuple[str, ...]:
+        return self._axes(self.fsdp)
+
+    @property
+    def ep_size(self) -> int:
+        return self.axis_size(self.ep_axes) if self.grid is not None \
+            else max(self.ep_ranks, 1)
+
+    @property
+    def ep_all_size(self) -> int:
+        return self.axis_size(self.ep_all_axes) if self.grid is not None \
+            else max(self.ep_ranks, 1)
+
+    @property
+    def decode_fleet(self) -> int:
+        """Ranks the decode dispatch spreads its slots over."""
+        return self.axis_size(self.decode_axes[0])
+
+    @property
+    def decode_axes(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+        """(slot axes, F-slice axes) of the replicated (decode) dispatch:
+        ``(ep_all, ())``, or with ``decode_expert_tp`` ``(ep, ep_all minus
+        ep)``."""
+        if self.decode_expert_tp:
+            return self.ep_axes, tuple(a for a in self.ep_all_axes
+                                       if a not in self.ep_axes)
+        return self.ep_all_axes, ()
 
 
 def build_slots_of(perm: np.ndarray, n_experts: int, n_slots: int,

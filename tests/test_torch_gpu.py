@@ -721,3 +721,73 @@ def test_recurrent_mixers_on_card_match_cpu(cuda, mixer, S, chunk):
     y_c, st_c = fn(p_c, x.to(cuda), st_c, **kw)
     assert _rel_l2(y_c.cpu(), y) <= 1e-5
     assert _rel_l2_leaves(st_c, st) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the kernels at one rank's shapes of the expert-parallel bodies
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("e_loc,ep", [(10, 4), (5, 8), (2, 20)])
+def test_ragged_ffn_on_a_receiver_buffer(cuda, e_loc, ep):
+    """The a2a ragged body's receiver: ``ep`` frames of ``A = t_loc·8``
+    rows (granite's 40 experts over ``ep`` ranks, 1024 tokens in all),
+    each row a local slot or the padding id ``e_loc``, laid out by the
+    body's own plan; the kernel against the plain version, padding rows
+    and sentinel tiles exactly zero."""
+    D, F, K, bm = 1536, 512, 8, 128
+    A = 1024 // ep * K
+    g = torch.Generator().manual_seed(e_loc)
+    rloc = torch.randint(0, e_loc, (ep * A,), generator=g, dtype=torch.int32)
+    rloc[torch.rand(ep * A, generator=g) < 1 - 1 / ep] = e_loc   # padding
+    order, rows, tg, n_rows, ro, sz = tmoe._ragged_plan(
+        rloc.to(cuda), e_loc, bm, active=rloc.to(cuda) < e_loc)
+    buf = torch.zeros((n_rows + 1, D), device=cuda, dtype=torch.bfloat16)
+    buf[rows.long()] = torch.randn((ep * A, D), generator=g).to(
+        cuda, torch.bfloat16)[order]
+    buf = buf[:n_rows]
+    w = [(torch.randn(s, generator=g) / math.sqrt(s[1])).to(
+        cuda, torch.bfloat16) for s in ((e_loc, D, F), (e_loc, D, F),
+                                        (e_loc, F, D))]
+    ops.reset_launch_counts()
+    # a slot gets at most t_loc rows from each of the ep senders
+    y = ops.ragged_moe_ffn(*w, buf, tg, row_offsets=ro, sizes=sz,
+                           max_rows=1024)
+    y_ref = ref.ragged_moe_ffn_ref(*w, buf, tg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ragged_moe_ffn.tma"] == 1
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    tr = t_ragged.ragged_tile_rows(ro, sz, tg, bm)
+    real = (torch.arange(n_rows, device=cuda) % bm) < tr.repeat_interleave(bm)
+    assert (~real).any() and bool((y[~real] == 0).all())
+
+
+@pytest.mark.parametrize("e_loc,rows", [(10, 4 * 64), (10, 4 * 412),
+                                        (5, 8 * 36)])
+def test_capacity_ffn_at_rank_bucket_shapes(cuda, e_loc, rows):
+    """The a2a capacity body's FFN input ``(e_loc, ep·C, D)``: ep 4 at
+    capacity factor 1.25 (C 64) and 8 (C 412, dropless), ep 8 at 1.25
+    (C 36), 256 or 128 tokens a rank, granite's widths."""
+    w1, w3, w2, toks = _capacity_inputs(cuda, e_loc, rows, 1536, 512,
+                                        empty_rows=3)
+    ops.reset_launch_counts()
+    y = ops.fused_moe_ffn(w1, w3, w2, toks)
+    y_ref = ref.moe_ffn_ref(w1, w3, w2, toks)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_moe_ffn.tma"] == 1
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    assert bool((y[:, rows - 3:] == 0).all())
+
+
+@pytest.mark.parametrize("T", [8, 128, 256, 1024])
+def test_route_select_at_rank_rows(cuda, T):
+    """The routing stage at the rows one rank routes (a 1024-token batch
+    over ep 4 and 8, the 8-lane decode every rank routes whole) and the
+    single rank's 1024: the kernel against its plain version."""
+    (x, w, so, nc, cdf, seed), _ = _route_inputs(cuda, T, 1536, 40, 1,
+                                                 False, seed=T)
+    got = ops.route_select(x, w, so, nc, cdf, seed, 8)
+    want = ref.route_select_ref(x, w, so, nc, cdf, seed, 8)
+    torch.cuda.synchronize()
+    _check_route(list(got), list(want), x, w, 8, None)

@@ -315,7 +315,8 @@ def test_group_refuses_row_valid_and_more_than_one_rank():
     with pytest.raises(NotImplementedError, match="row_valid"):
         tmoe.moe_layer(tp, x, top_k=2, n_experts=4, rules=rules,
                        phase="prefill", row_valid=torch.ones(3, dtype=bool))
-    with pytest.raises(NotImplementedError, match="Multi-rank dispatch"):
+    # a group of more than one rank lives on a grid of ranks
+    with pytest.raises(ValueError, match="needs a grid"):
         ShardingRules(moe_impl="capacity", ep_ranks=2)
     with pytest.raises(ValueError, match="moe_dispatch"):
         ShardingRules(moe_dispatch="ring")
