@@ -13,10 +13,6 @@ field.
 bf16 leaves arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects: they go through a ``uint16`` view and back to ``torch.bfloat16``
 bit for bit.
-
-``rank_params_from_numpy(tree, rules, phase, device)`` carries such a tree
-onto one rank of a grid: it takes the rank's slice on the host
-(``launch.sharding.shard_params``) and moves only that to ``device``.
 """
 
 from __future__ import annotations
@@ -24,11 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.launch.sharding import shard_params
-from repro_torch.tree import tree_map
-
-__all__ = ["params_from_numpy", "tensor_from_numpy",
-           "rank_params_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -53,10 +45,3 @@ def params_from_numpy(tree, device=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     return tensor_from_numpy(np.asarray(tree), device)
-
-
-def rank_params_from_numpy(tree, rules, phase: str = "train", device=None):
-    """One rank's params from a whole numpy params tree: the slice that
-    ``rules`` and ``phase`` give this rank, then on ``device``."""
-    return tree_map(lambda t: t.to(device),
-                    shard_params(params_from_numpy(tree), rules, phase))

@@ -111,7 +111,7 @@ def moe_perm_shape(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
     decode (the reference's group branches; a one-rank group gives E)."""
     nb, specs = block_layout(cfg)
     n_moe = nb * sum(1 for s in specs if s.ffn == "moe")
-    if rules is None or not rules.ep_ranks:
+    if rules is None or not rules.grouped:
         return n_moe, cfg.n_experts
     if phase == "decode":
         return n_moe, default_perm_replicated(1, cfg.n_experts,
@@ -125,7 +125,7 @@ def default_moe_perm(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
     replication over the decode fleet at decode with a group, else
     contiguous with phantoms at the tail."""
     n_moe, _ = moe_perm_shape(cfg, rules, phase)
-    if rules is not None and rules.ep_ranks and phase == "decode":
+    if rules is not None and rules.grouped and phase == "decode":
         return default_perm_replicated(n_moe, cfg.n_experts,
                                        rules.decode_fleet)
     return default_perm_a2a(n_moe, cfg.n_experts,
@@ -565,11 +565,11 @@ def prefill_chunk_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
             f"{cfg.name}: chunked prefill needs a resumable per-position "
             "cache; SSM/hybrid mixers carry recurrent state and are not "
             "supported")
-    if rules is not None and rules.ep_ranks:
+    if rules is not None and rules.grouped:
         raise NotImplementedError(
             "chunked prefill runs without an expert-parallel group (the "
-            "reference's single-device configuration); ep_ranks="
-            f"{rules.ep_ranks} is not supported")
+            "reference's single-device configuration); a group of "
+            f"{rules.ep_size} rank(s) is not supported")
 
     def fn(params, tokens, cache, lane: int, offset: int, n_valid: int,
            moe_tables=None):

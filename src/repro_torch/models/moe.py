@@ -20,7 +20,7 @@ a layer on the card, its plain version on the CPU).
 * **dense oracle** (capacity without a group, the reference's
   ``rules=None``): every expert on every token with the plain FFN.
 
-With a group (``ShardingRules.ep_ranks``) the reference's four bodies run
+With a group (``ShardingRules.grouped``) the reference's four bodies run
 as it chooses them (``moe_layer``): ``_a2a_body_ragged`` and ``_a2a_body``
 (train, prefill: each rank routes its ``(B/dp, S/ep)`` block, the rows go
 to the rank that holds their slot through ``all_to_all`` and come back
@@ -216,16 +216,6 @@ def _ksum(contrib: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _sum_contrib(contrib: torch.Tensor, group) -> torch.Tensor:
-    """The replicated bodies' ``psum``, exact: each assignment's weighted
-    row is nonzero on the one rank that holds its slot, so summing the
-    (t, K, D) rows over the group adds zeros only, in any order; the k
-    sum after it is the single rank's. (The reference sums the ranks'
-    (t, D) partials, whose f32 order the group would set.) Under
-    expert-TP each row is itself a partial sum over F, and adds as such."""
-    return _ksum(C.sum_partials(contrib, group))
-
-
 def _ragged_plan(slot_flat: torch.Tensor, n_slots: int, bm: int,
                  active: Optional[torch.Tensor] = None):
     """Sort-based dropless dispatch plan. Returns ``(order, rows,
@@ -291,7 +281,7 @@ def _fill(xf, rows, src, row_of, n_rows):
 def _ragged_local_ffn(xf, weights, slots, active, n_groups, bm, ffn,
                       w1, w3, w2):
     """Sorted-buffer grouped FFN; each assignment's weighted row (t, K, D)
-    f32 out, for :func:`_ksum` (or the replicated bodies' exact psum).
+    f32 out, for :func:`_ksum`.
 
     ``weights``/``slots`` are (t, K): assignment ``a`` belongs to token
     ``a // K``. Rows are scattered into an ``n_rows + 1`` buffer whose spare
@@ -468,7 +458,7 @@ def _replicated_body_ragged(xb, router_w, w1, w3, w2, slots_of, n_copies,
     """Dropless decode (``src/repro/models/moe.py:467-501``): every rank
     routes every token, runs the assignments whose slot it holds
     (``slot // e_loc == my_rank``) through the ragged buffer, and a
-    ``psum`` combines (:func:`_sum_contrib`)."""
+    ``psum`` of the ranks' (t, D) f32 partials combines."""
     B, S, D = xb.shape
     e_loc = w1.shape[0]
     xf = xb.reshape(B * S, D)
@@ -479,7 +469,7 @@ def _replicated_body_ragged(xb, router_w, w1, w3, w2, slots_of, n_copies,
                                 C.replicate(weights, psum_group),
                                 slots % e_loc, mine, e_loc, bm, ffn, w1, w3,
                                 w2)
-    out = _sum_contrib(contrib, psum_group)
+    out = C.sum_partials(_ksum(contrib), psum_group)
     return out.to(xb.dtype).reshape(B, S, D), tally, aux
 
 
@@ -535,10 +525,10 @@ def _replicated_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
                      ffn: Callable, my_rank=0, psum_group=None,
                      drop_group=None):
     """Tokens replicated fleet-wide, each rank computes its slots only
-    (decode; ``src/repro/models/moe.py:570-615``), combined by
-    :func:`_sum_contrib`. With expert-TP the local w1/w3 carry an F-slice
-    and w2 the matching rows: ``y`` is a partial sum over F, folded in by
-    the wider ``psum_group``. ``tally[E]`` counts
+    (decode; ``src/repro/models/moe.py:570-615``), combined by a ``psum``
+    of the ranks' (t, D) f32 partials. With expert-TP the local w1/w3
+    carry an F-slice and w2 the matching rows: ``y`` is a partial sum over
+    F, folded in by the wider ``psum_group``. ``tally[E]`` counts
     ``mine & pos >= C``, summed over the slot ranks (``drop_group``) only:
     expert-TP ranks see the same drops."""
     B, S, D = xb.shape
@@ -558,8 +548,8 @@ def _replicated_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
         keep, e_loc * capacity)
     y = ffn(w1, w3, w2, buckets.reshape(e_loc, capacity, D))
     wgt = C.replicate(weights, psum_group).reshape(-1)
-    out = _sum_contrib(_contrib(y.reshape(e_loc * capacity, D), dest,
-                                wgt * keep, t, top_k), psum_group)
+    out = C.sum_partials(_combine(y.reshape(e_loc * capacity, D), dest,
+                                  wgt * keep, t, top_k), psum_group)
     tally[n_experts] = _psum((mine & (pos >= capacity)).float().sum(),
                              drop_group)
     return out.to(xb.dtype).reshape(B, S, D), tally, aux
@@ -581,9 +571,9 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     ``rules=None`` means ``ShardingRules()``: the single-device ragged path
     (the reference's ``rules=None`` is its dense oracle). The dispatch is
     chosen as the reference chooses it (``moe.py:676-700``), with
-    ``rules.ep_ranks`` (and the grid) in place of its mesh:
+    the grid (or ``rules.ep_ranks=1``) in place of its mesh:
 
-    * no group (``ep_ranks=0``): ragged → the single-device ragged
+    * no group (no grid, ``ep_ranks=0``): ragged → the single-device ragged
       dispatch; capacity → the dense oracle;
     * a group: the a2a body (prefill, train, chunk) or the replicated body
       (decode), as ``rules.moe_dispatch`` selects; a2a falls back to
@@ -622,7 +612,7 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     tables = dict(slots_of=slots_of, n_copies=n_copies, copy_cdf=copy_cdf)
 
     mode = "dense"
-    if rules.ep_ranks:
+    if rules.grouped:
         if rules.moe_dispatch != "auto":
             mode = rules.moe_dispatch
         elif phase == "decode":

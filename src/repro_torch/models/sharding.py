@@ -48,8 +48,9 @@ class ShardingRules:
       ``moe_dispatch`` selects, with ``all_to_all`` and ``psum`` the
       identity; ragged computes what the reference's one-rank ragged
       bodies compute.
-    * with a ``grid`` — the grid's ``ep`` axes are the group and
-      ``ep_ranks`` is their size (filled in when left 0). The four bodies
+    * with a ``grid`` — the grid's ``ep`` axes are the group, whose size
+      is ``grid.axis_size(ep)`` (``ep_size``); ``ep_ranks`` stays 0 and
+      a non-zero value is refused. The four bodies
       of the reference run over ``torch.distributed``: a2a (train,
       prefill) over ``ep`` with the batch over ``dp``, the expert weights
       FSDP-sharded over ``fsdp`` on their axis 1; replicated (decode) over
@@ -97,13 +98,16 @@ class ShardingRules:
                 raise ValueError(
                     f"ep_ranks={self.ep_ranks}: a group of more than one "
                     "rank needs a grid (repro_torch.launch.mesh.make_mesh)")
-            return
-        size = self.grid.axis_size(self.ep)
-        if self.ep_ranks == 0:
-            object.__setattr__(self, "ep_ranks", size)
-        elif self.ep_ranks != size:
-            raise ValueError(f"ep_ranks={self.ep_ranks} but the grid's ep "
-                             f"axes {self.ep_axes} hold {size} ranks")
+        elif self.ep_ranks:
+            raise ValueError(
+                f"ep_ranks={self.ep_ranks} with a grid: the grid's ep axes "
+                "give the group's size; leave ep_ranks 0")
+
+    @property
+    def grouped(self) -> bool:
+        """Whether the MoE layer runs over an expert-parallel group (a
+        grid, or ``ep_ranks=1``)."""
+        return self.grid is not None or self.ep_ranks > 0
 
     # -- grid helpers (the reference's mesh helpers) ----------------------
 
@@ -133,13 +137,11 @@ class ShardingRules:
 
     @property
     def ep_size(self) -> int:
-        return self.axis_size(self.ep_axes) if self.grid is not None \
-            else max(self.ep_ranks, 1)
+        return self.axis_size(self.ep_axes)
 
     @property
     def ep_all_size(self) -> int:
-        return self.axis_size(self.ep_all_axes) if self.grid is not None \
-            else max(self.ep_ranks, 1)
+        return self.axis_size(self.ep_all_axes)
 
     @property
     def decode_fleet(self) -> int:

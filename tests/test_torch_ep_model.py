@@ -30,8 +30,7 @@ import _torch_ep_ranks as h  # noqa: E402
 from repro.configs import get_smoke  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models.sharding import ShardingRules as JRules  # noqa: E402
-from repro_torch.bridge import (params_from_numpy,  # noqa: E402
-                                rank_params_from_numpy)
+from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_smoke as t_get_smoke  # noqa: E402
 from repro_torch.launch.mesh import Grid, run_ranks  # noqa: E402
 from repro_torch.launch.sharding import (decode_params,  # noqa: E402
@@ -197,16 +196,14 @@ def test_shard_params_round_trips(tree, phase, expert_tp, fsdp):
         assert torch.equal(back, whole["blocks"][0]["ffn"][k]), k
 
 
-@pytest.mark.parametrize("rank", [0, 3])
-def test_rank_params_from_numpy_is_the_rank_slice(tree, rank):
-    """A reference checkpoint's numpy tree carried onto a rank: the slice
-    ``shard_params`` takes of the whole tree, leaf for leaf."""
-    rules = _rank_rules(rank)
-    got = rank_params_from_numpy(tree, rules, "train", device="cpu")
-    want = shard_params(params_from_numpy(tree), rules, "train")
-    assert len(leaves(got)) == len(leaves(want))
-    for a, b in zip(leaves(got), leaves(want)):
-        assert a.shape == b.shape and torch.equal(a, b)
+@pytest.mark.parametrize("ep_ranks", [2, 4])
+def test_grid_alone_gives_the_group_size(ep_ranks):
+    """On a grid the group's size comes from its ep axes only: an
+    ``ep_ranks`` beside it is refused, even one that agrees."""
+    rules = _rank_rules(0)
+    assert (rules.ep_ranks, rules.ep_size, rules.grouped) == (0, 4, True)
+    with pytest.raises(ValueError, match="leave ep_ranks 0"):
+        _rank_rules(0, ep_ranks=ep_ranks)
 
 
 @pytest.mark.parametrize("phase", ["train", "prefill", "decode"])
@@ -242,7 +239,7 @@ def test_make_rules_follows_the_reference():
     assert train.remat and not dec.remat
     assert (train.capacity_factor, dec.capacity_factor) == (1.25, 1.5)
     assert train.dp_axes == ("data",) and train.ep_axes == ("model",)
-    assert train.ep_all_axes == ("data", "model") and train.ep_ranks == 4
+    assert train.ep_all_axes == ("data", "model") and train.ep_size == 4
     assert not train.decode_expert_tp and train.fsdp is None
     assert make_rules(cfg, None).grid is None
 
