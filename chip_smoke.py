@@ -105,9 +105,9 @@ Run from the repository root on a machine with one NVIDIA H100. It
    width on 4 ranks sharing the card, joined by gloo on CUDA tensors
    (``launch.mesh.run_ranks``; the parent builds the kernels first and
    hands the ranks its seed-0 weights and results through CUDA IPC), each
-   rank on its slice of the experts: at ep 4 a prefill of 2 x 256 tokens
-   through the ragged a2a body and through the capacity a2a body (factor
-   8, dropless), a prefill of 4 x 256, 16 decode steps of 8 lanes through
+   rank on its slice of the experts: at ep 4 prefills of 2 x 256 and 4 x
+   256 tokens through the ragged a2a body and through the capacity a2a
+   body (factor 8, dropless), 16 decode steps of 8 lanes through
    the replicated ragged body on ``expand_experts``' weights, and one loss
    and backward at 4 x 256 through the ragged a2a body; at dp 2 x ep 2
    with FSDP of the expert weights, a 2-layer prefill. Each is held
@@ -2339,15 +2339,17 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
             local, {"tokens": inputs["tokens"]}, tables))
     for path in plan["paths"]:
         out["section_s"][path] = -time.perf_counter()
-        if path in ("prefill", "capacity", "prefill_wide"):
-            r = rules if path != "capacity" else dataclasses.replace(
+        if path in ("prefill", "capacity", "prefill_wide", "capacity_wide"):
+            capacity = path.startswith("capacity")
+            wide = path.endswith("_wide")
+            r = rules if not capacity else dataclasses.replace(
                 rules, moe_impl="capacity", capacity_factor=8.0)
-            key = "tokens_wide" if path == "prefill_wide" else "tokens"
+            key = "tokens_wide" if wide else "tokens"
             fn = prefill_fn(cfg, r)
             with torch.no_grad():
                 lg, _, tal = run(path, lambda: fn(
                     local, {"tokens": inputs[key]}, tables))
-                for way in ("", "/split") if path == "prefill_wide" else ("",):
+                for way in ("", "/split") if wide else ("",):
                     want_lg, want_tal = ref[f"prefill/{key}{way}"]
                     out["err"][path + way] = (lg.float() - want_lg.float()
                                               ).abs().max().item()
@@ -2355,7 +2357,7 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
                     out["moved"][path + way] = _moved(tal, want_tal)
                 out[f"{path}_drops"] = float(tal[:, -1].sum())
                 out[f"{path}_digest"] = lg.double().sum().item()
-                if path != "capacity":
+                if not capacity:
                     run(path, lambda: fn(local, {"tokens": inputs[key]},
                                          tables), clocked=True)
         elif path == "decode":
@@ -2463,8 +2465,8 @@ def _free_shared():
 
 def ep_phase(cfg, dev):
     """Phase 13: granite at full width on 4 ranks sharing the card (gloo on
-    CUDA tensors), ep 4: prefill of 2 x 256 through the ragged a2a body
-    and the capacity a2a body (factor 8: dropless), prefill of 4 x 256, 16
+    CUDA tensors), ep 4: prefills of 2 x 256 and 4 x 256 through the
+    ragged a2a body and the capacity a2a body (factor 8: dropless), 16
     decode steps of 8 lanes through the replicated ragged body on
     ``expand_experts``' weights, one loss and backward of 4 x 256 through
     the ragged a2a body; every kernel against its plain version on the
@@ -2514,7 +2516,8 @@ def ep_phase(cfg, dev):
                   if dev.type == "cuda" else 0.0)
     t_ref = time.perf_counter() - t_start
     plan = {"cfg": cfg, "grid": (1, ways), "fsdp": None, "small_cfg": small,
-            "paths": ["prefill", "capacity", "prefill_wide", "decode",
+            "paths": ["prefill", "capacity", "prefill_wide",
+                      "capacity_wide", "decode",
                       "backward", "vs_plain"]}
     t0 = time.perf_counter()
     ranks = run_ranks(ep_rank, ways, args=(plan, params, ref, inputs,
@@ -2533,6 +2536,8 @@ def ep_phase(cfg, dev):
         "warm-up": per, "prefill": per, "prefill_wide": per,
         "capacity": {"route_select": L, "fused_moe_ffn": L,
                      "fused_moe_ffn.tma": L},
+        "capacity_wide": {"route_select": L, "fused_moe_ffn": L,
+                          "fused_moe_ffn.tma": L},
         "decode": {k: v * EP_DECODE_STEPS for k, v in per.items()},
         "backward": per | {k: L for k in (
             "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
@@ -2552,12 +2557,14 @@ def ep_phase(cfg, dev):
                 check(n == want[path].get(k, 0) or not on_card,
                       f"{label} {path}: {k} launched {n} times, expected "
                       f"{want[path].get(k, 0)}")
-        for path in ("prefill", "capacity", "prefill_wide/split"):
+        for path in ("prefill", "capacity", "prefill_wide/split",
+                     "capacity_wide/split"):
             hold_same(f"{label} {path}", r["moved"][path], r["err"][path])
-        check(r["rel"]["prefill_wide"] <= EP_WIDE_LOGIT_REL_L2,
-              f"{label} prefill 4 x 256 against one device's own split: "
-              f"logits' relative L2 {r['rel']['prefill_wide']:.3e} (bound "
-              f"{EP_WIDE_LOGIT_REL_L2})")
+        for path in ("prefill_wide", "capacity_wide"):
+            check(r["rel"][path] <= EP_WIDE_LOGIT_REL_L2,
+                  f"{label} {path} against one device's own split: logits'"
+                  f" relative L2 {r['rel'][path]:.3e} (bound "
+                  f"{EP_WIDE_LOGIT_REL_L2})")
         check(r["decode_steps_compared"] == EP_DECODE_STEPS
               and r["decode_steps_compared/exact"] == EP_DECODE_STEPS,
               f"{label} decode: {r['decode_steps_compared']} and "
@@ -2575,8 +2582,9 @@ def ep_phase(cfg, dev):
             (i, j, f, dec_gaps[i][f][j])
             for i, first in enumerate(r["decode_first_moved_layer"])
             for j, f in enumerate(first) if f >= 0]
-        check(r["capacity_drops"] == 0, "ep 4 capacity at factor 8 dropped "
-              f"{r['capacity_drops']} assignments")
+        for path in ("capacity", "capacity_wide"):
+            check(r[f"{path}_drops"] == 0, f"ep 4 {path} at factor 8 "
+                  f"dropped {r[f'{path}_drops']} assignments")
         loss_err = {w: abs(r["loss"] - v) / abs(v)
                     for w, v in loss_ref.items()}
         check(not any(r["moved"]["backward/split"])
@@ -2613,7 +2621,7 @@ def ep_phase(cfg, dev):
               f"{label}: kernels vs plain at the ranks' shapes: "
               f"{vp['route_mismatch']} routing entries differ outside near "
               f"ties; errors {vp['err']} (bounds {bounds})")
-    for path in ("prefill", "capacity", "prefill_wide"):
+    for path in ("prefill", "capacity", "prefill_wide", "capacity_wide"):
         check(len({r[f"{path}_digest"] for r in ranks}) == 1,
               f"ep 4 {path}: the ranks' logits differ")
     # dp 2 x ep 2 with FSDP of the expert weights, 2 layers
