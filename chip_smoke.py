@@ -127,7 +127,24 @@ Run from the repository root on a machine with one NVIDIA H100. It
    and each rank's peak memory;
 14. remat (``remat_phase``): one loss and backward at 8 x 512 with and
    without ``ShardingRules(remat=True)``, loss and gradients bit for bit
-   equal; the step profile with remat at 8 x 512 and at 4 x 1024.
+   equal; the step profile with remat at 8 x 512 and at 4 x 1024;
+15. tensor parallelism of the dense layers (``tp_phase``) on 4 ranks
+   sharing the card: granite at full width on (1, 4) from ``make_rules``
+   (attention by heads, 6 heads and 2 KV heads a rank; EP 4) — a prefill
+   of 2 x 256, 16 decode steps of 8 lanes (the cache's KV heads over the
+   ranks), one loss and backward with remat; the same prefill and decode
+   in context mode (query rows, and 1024 cache rows, over the ranks; the
+   decode's softmax stats merged); smollm-360m at full width on (1, 4)
+   (context mode, the tied vocabulary and the MLP's F split; no kernel of
+   the port on its path); granite at 2 layers on (2, 2) with the dense
+   weights FSDP-sliced. Each is held against one device on the same
+   weights: bit for bit under a witness that computes the attention as
+   the ranks split it and adds their partials in rank order (the
+   gradients within 2e-2), and as the port runs within bounds set from
+   recorded readings; every rank's launches exact against the layer
+   count; each run's host wall time a rank, the exchanges' share of a
+   clocked run, their calls and bytes, peak memory and the dense weight
+   bytes a rank.
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -1928,24 +1945,38 @@ class rank_split:
         t_route.plan = self.saved
 
 
+class _Collectives:
+    """The collectives module as one module sees it, with some functions
+    replaced: a witness patches one module's calls and no other's."""
+
+    def __init__(self, real, **replaced):
+        self._real = real
+        self.__dict__.update(replaced)
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
 class exact_decode_psum:
     """Within the block the replicated ragged body psums each assignment's
     weighted row (t, K, D) and sums the k rows after it, in k order, where
     the port psums the ranks' (t, D) partials: each row is nonzero on the
     one rank that holds its slot, so the psum adds zeros only and gives one
     device's k-order sum bit for bit, at K times the bytes. A witness for
-    the ranks' decode, not a path of the port."""
+    the ranks' decode, not a path of the port; the MoE layer's calls only
+    (the attention's and the MLP's sums are left as they are)."""
 
     def __enter__(self):
         from repro_torch.models import moe as tmoe
-        self.saved = ksum, psum = tmoe._ksum, tmoe.C.sum_partials
+        self.saved = ksum, real = tmoe._ksum, tmoe.C
         tmoe._ksum = lambda contrib: contrib
-        tmoe.C.sum_partials = lambda x, group: ksum(psum(x, group))
+        tmoe.C = _Collectives(real, sum_partials=lambda x, group: ksum(
+            real.sum_partials(x, group)))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import moe as tmoe
-        tmoe._ksum, tmoe.C.sum_partials = self.saved
+        tmoe._ksum, tmoe.C = self.saved
 
 
 def _near_tie_rows(calls):
@@ -2238,12 +2269,12 @@ def _ep_vs_plain(cfg, rules, params, inputs, dev):
     from repro_torch.models import (decode_fn, init_cache, loss_fn,
                                     make_moe_tables, prefill_fn)
     from repro_torch.tree import leaves
-    local = shard_params(params, rules, "prefill")
+    local = shard_params(cfg, params, rules, "prefill")
     tables = make_moe_tables(cfg, rules, phase="prefill", device=dev)
-    dparams = shard_params(decode_params(cfg, params, rules), rules,
+    dparams = shard_params(cfg, decode_params(cfg, params, rules), rules,
                            "decode")
     dtables = make_moe_tables(cfg, rules, phase="decode", device=dev)
-    tparams = shard_params(params, rules, "train")
+    tparams = shard_params(cfg, params, rules, "train")
     for p in leaves(tparams):
         p.requires_grad_(True)
     cap = dataclasses.replace(rules, moe_impl="capacity",
@@ -2306,7 +2337,8 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
 
     cfg = plan["cfg"]
     grid = make_mesh(plan["grid"], EP_AXES)
-    rules = ShardingRules(grid=grid, dp=("data",), ep=("model",),
+    # the dense layers replicated over "model" (phase 15 splits them)
+    rules = ShardingRules(grid=grid, dp=("data",), tp=None, ep=("model",),
                           ep_all=EP_AXES, fsdp=plan["fsdp"])
     out = {"rank": rank, "seconds": {}, "launches": {}, "err": {},
            "rel": {}, "moved": {}, "exchange": {}, "section_s": {}}
@@ -2332,7 +2364,7 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
             out["launches"][name] = ops.launch_counts()
         return res
 
-    local = shard_params(params, rules, "prefill")
+    local = shard_params(cfg, params, rules, "prefill")
     tables = make_moe_tables(cfg, rules, phase="prefill", device=dev)
     with torch.no_grad():               # loads the kernels, warms the group
         run("warm-up", lambda: prefill_fn(cfg, rules)(
@@ -2361,8 +2393,8 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
                     run(path, lambda: fn(local, {"tokens": inputs[key]},
                                          tables), clocked=True)
         elif path == "decode":
-            dparams = shard_params(decode_params(cfg, params, rules), rules,
-                                   "decode")
+            dparams = shard_params(cfg, decode_params(cfg, params, rules),
+                                   rules, "decode")
             dtables = make_moe_tables(cfg, rules, phase="decode", device=dev)
             fn = decode_fn(cfg, rules)
             steps = inputs["dec_tokens"]
@@ -2417,7 +2449,7 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
                 out["seconds"]["decode_all"] = sum(times)
             del dparams
         elif path == "backward":
-            tparams = shard_params(params, rules, "train")
+            tparams = shard_params(cfg, params, rules, "train")
             for p in leaves(tparams):
                 p.requires_grad_(True)
             fn = loss_fn(cfg, rules)
@@ -2434,7 +2466,7 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
             for way in ("", "/split"):
                 out["moved"]["backward" + way] = _moved(
                     tal, ref["backward_tally" + way])
-                want = leaves(shard_params(ref["grads" + way], rules,
+                want = leaves(shard_params(cfg, ref["grads" + way], rules,
                                            "train"))
                 out["grad_rel_l2_max" + way] = max(
                     _rel_l2_chunked(p.grad, w)
@@ -2782,6 +2814,695 @@ def remat_phase(cfg, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor parallelism of the dense layers over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_DECODE_STEPS = 16
+TP_LANES = 8
+TP_S_MAX = 1024
+# lane j decodes from position 120 j: in context mode each rank's quarter
+# of the 1024 cache rows holds some lane's rows
+TP_LANE_STRIDE = 120
+# Against one device as it runs (the witness holds bit for bit): the
+# ranks' bf16 sums of wo's and the MLP's partials, and the context merge's
+# rescaled f32 stats, round otherwise than one device, and over 32 random-
+# weight layers that moves routing. Per run: the logits' relative L2 by
+# path, the loss's relative error and the gradient leaves' largest
+# relative L2, set at about twice the readings on an H100 80GB HBM3
+# (PERF.md, "Tensor parallelism"); the context prefill computes the same
+# products on fewer rows and reads bit for bit.
+# Readings (prefill, decode, loss, gradients): heads 0.0341, 0.0346,
+# 3.95e-5, 8.255e-02; context 0.0, 0.0297; smollm 0.0195, 0.0196, 3.7e-7,
+# 3.366e-02; fsdp 0.0140, -, 1.175e-4, 8.245e-02.
+TP_BOUNDS = {
+    "heads": {"prefill": 7e-2, "decode": 7e-2, "loss": 1e-4, "grads": 0.17},
+    "context": {"prefill": 0.0, "decode": 6e-2},
+    "smollm": {"prefill": 4e-2, "decode": 4e-2, "loss": 1e-6, "grads": 7e-2},
+    "fsdp": {"prefill": 3e-2, "loss": 3e-4, "grads": 0.17},
+}
+
+
+def _in_order(parts):
+    """The parts summed left to right, in rank order."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _ordered_sum():
+    """``sum_partials`` as an all_gather summed in rank order: every rank
+    and the one-device witness add the same parts in the same order (gloo's
+    all_reduce adds in its own). Backward: the gradient passes, as
+    ``sum_partials``'s."""
+    import torch
+    import torch.distributed as dist
+
+    class OrderedSum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            parts = [torch.empty_like(x)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, x.contiguous(), group=group)
+            return _in_order(parts)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    return lambda x, group: x if group is None else OrderedSum.apply(x,
+                                                                     group)
+
+
+class ordered_partials:
+    """On the ranks, within the block: the model's sums of rank partials
+    (wo's in heads mode, the context decode's merge) added in rank order
+    (:func:`_ordered_sum`); the MoE layer's are left as they are. With
+    :class:`split_attention` on one device, the witness of phase 15."""
+
+    def __enter__(self):
+        from repro_torch.models import model as tmodel
+        self.saved = real = tmodel.C
+        tmodel.C = _Collectives(real, sum_partials=_ordered_sum())
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as tmodel
+        tmodel.C = self.saved
+
+
+class split_attention:
+    """On one device, within the block: each attention layer computed as
+    ``ways`` ranks compute it. ``"heads"``: each rank's contiguous block of
+    KV heads with their query heads (its columns of wq, wk and wv, rows of
+    wo and heads of the cache), the partial outputs added in rank order.
+    ``"context"``: the prefill's query rows in ``ways`` blocks, gathered
+    before wo; at decode the cache in ``ways`` row shards, each written
+    where it holds the lane's row and attended alone, the shards' softmax
+    stats merged in rank order. A witness for the ranks (with
+    :class:`ordered_partials` there), not a path of the port."""
+
+    def __init__(self, mode, ways):
+        self.mode, self.ways = mode, ways
+
+    def __enter__(self):
+        from repro_torch.models import model as tmodel
+        self.saved = real = tmodel._run_attention
+        split = self._heads if self.mode == "heads" else self._context
+
+        def run(p, x, cfg, rules, window, positions, cache=None, pos=None):
+            return split(real, p, x, cfg, window, positions, cache, pos)
+
+        tmodel._run_attention = run
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as tmodel
+        tmodel._run_attention = self.saved
+
+    def _heads(self, real, p, x, cfg, window, positions, cache, pos):
+        import torch
+        w = self.ways
+
+        def cut(t, dim, r):
+            n = t.shape[dim] // w
+            return t.narrow(dim, r * n, n).contiguous()
+
+        parts, ks, vs = [], [], []
+        for r in range(w):
+            pr = {k: cut(t, 0 if k == "wo" else 1, r) for k, t in p.items()}
+            cr = None if cache is None else tuple(cut(c, 2, r)
+                                                  for c in cache)
+            out, st = real(pr, x, cfg, None, window, positions, cache=cr,
+                           pos=pos)
+            if cache is None:
+                ks.append(st[0])
+                vs.append(st[1])
+            else:
+                for c, new in zip(cache, cr):
+                    n = c.shape[2] // w
+                    c[:, :, r * n:(r + 1) * n] = new
+            parts.append(out)
+        total = _in_order(parts)
+        if cache is None:
+            return total, (torch.cat(ks, 2), torch.cat(vs, 2))
+        return total, cache
+
+    def _context(self, real, p, x, cfg, window, positions, cache, pos):
+        import torch
+        from repro_torch.models import model as tmodel
+        from repro_torch.models.flash import flash_attention, flash_decode
+        w = self.ways
+        B, S, _ = x.shape
+        if cache is None:
+            if S % w:
+                return real(p, x, cfg, None, window, positions)
+            q, k, v = tmodel._qkv(p, x, cfg, positions[None, :])
+            n = S // w
+            outs = [flash_attention(
+                q[:, r * n:(r + 1) * n], k, v, causal=cfg.causal,
+                window=window, q_positions=positions[r * n:(r + 1) * n],
+                kv_positions=positions) for r in range(w)]
+            return torch.cat(outs, 1).reshape(B, S, -1) @ p["wo"], (k, v)
+        k_cache, v_cache = cache
+        n = k_cache.shape[1] // w
+        q, k, v = tmodel._qkv(p, x, cfg, pos[:, None])
+        rows = pos.long()
+        lanes = torch.arange(B, device=x.device)
+        stats = []
+        for r in range(w):
+            off = r * n
+            shard = [c[:, off:off + n].contiguous() for c in cache]
+            upd = rows - off
+            owned = ((upd >= 0) & (upd < n))[:, None, None]
+            safe = upd.clamp(0, n - 1)
+            for cbuf, new in zip(shard, (k[:, 0], v[:, 0])):
+                cbuf[lanes, safe] = torch.where(owned, new.to(cbuf.dtype),
+                                                cbuf[lanes, safe])
+            stats.append(flash_decode(q[:, 0], *shard, rows, window=window,
+                                      kpos_offset=off, return_stats=True))
+            for c, s in zip(cache, shard):
+                c[:, off:off + n] = s
+        m_g = stats[0][1]
+        for _, m, _ in stats[1:]:
+            m_g = torch.maximum(m_g, m)
+        num = _in_order([acc * torch.exp(m - m_g)[..., None]
+                         for acc, m, _ in stats])
+        den = _in_order([l * torch.exp(m - m_g) for _, m, l in stats])
+        out = (num / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
+        return out.reshape(B, 1, -1) @ p["wo"], cache
+
+
+def tp_inputs(cfg, dev, seed, batch, params):
+    """Tokens and labels (``batch`` x 256), 16 decode steps of 8 lanes at
+    positions 120 j + i, and the whole decode cache they start from: one
+    device's prefill of 8 prompts of 1024 tokens (lane j's rows past 120 j
+    are masked, then overwritten, by its decode)."""
+    import torch
+    from repro_torch.models import make_moe_tables, prefill_fn
+    g = torch.Generator().manual_seed(seed)
+    V = cfg.vocab
+    prompts = torch.randint(0, V, (TP_LANES, TP_S_MAX), generator=g)
+    with torch.no_grad():
+        _, cache, _ = prefill_fn(cfg)(params, {"tokens": prompts.to(dev)},
+                                      make_moe_tables(cfg, device=dev))
+    return {
+        "tokens": torch.randint(0, V, (batch, 256), generator=g).to(dev),
+        "labels": torch.randint(0, V, (batch, 256), generator=g).to(dev),
+        "dec_tokens": torch.randint(0, V, (TP_DECODE_STEPS, TP_LANES, 1),
+                                    generator=g).to(dev),
+        "pos": (torch.arange(TP_LANES, dtype=torch.int32)
+                * TP_LANE_STRIDE).to(dev),
+        "cache": cache}
+
+
+def tp_reference(cfg, dev, params, inputs, paths, witness=None):
+    """One device (``rules=None``) on ``params``: the prefill's logits and
+    tallies, the 16 decode steps' (each from the one before, from the
+    inputs' cache) and the loss, its gradients and tallies, as the port
+    runs them and, with ``witness=(mode, ways)``, again under
+    :class:`split_attention` (keys ``.../witness``). Returns the params
+    (detached again) and the results."""
+    import contextlib
+    import torch
+    from repro_torch.models import (decode_fn, loss_fn, make_moe_tables,
+                                    prefill_fn)
+    from repro_torch.tree import leaves, tree_map
+    tables = make_moe_tables(cfg, device=dev)
+    ref = {}
+    ways = [("", contextlib.nullcontext)]
+    if witness is not None:
+        ways.append(("/witness", lambda: split_attention(*witness)))
+    for way, ctx in ways:
+        with ctx(), torch.no_grad():
+            if "prefill" in paths:
+                lg, _, tal = prefill_fn(cfg)(
+                    params, {"tokens": inputs["tokens"]}, tables)
+                ref["prefill" + way] = (lg, tal)
+            if "decode" in paths:
+                cache = tree_map(torch.clone, inputs["cache"])
+                ref["decode" + way] = []
+                for i, tok in enumerate(inputs["dec_tokens"]):
+                    lg, cache, tal = decode_fn(cfg)(
+                        params, tok, cache, inputs["pos"] + i, tables)
+                    ref["decode" + way].append((lg, tal))
+                del cache
+        if "backward" in paths:
+            for p in leaves(params):
+                p.requires_grad_(True)
+            with ctx():
+                loss, (tal, _) = loss_fn(cfg)(
+                    params, {"tokens": inputs["tokens"],
+                             "labels": inputs["labels"]}, tables)
+                loss.backward()
+            ref["loss" + way] = loss.detach()
+            ref["grads" + way] = tree_map(lambda p: p.grad, params)
+            ref["backward_tally" + way] = tal.detach()
+            params = tree_map(lambda p: p.detach(), params)
+    return params, ref
+
+
+def _dense_bytes(cfg, tree):
+    """Bytes of the attention weights, the dense MLPs' and the embedding
+    and head in ``tree``."""
+    from repro_torch.models.model import block_layout
+    _, specs = block_layout(cfg)
+    out = {"attention": 0, "mlp": 0, "embed_head": 0}
+    for spec, sub in zip(specs, tree["blocks"]):
+        if spec.mixer == "attn":
+            out["attention"] += sum(t.numel() * t.element_size()
+                                    for t in sub["mixer"].values())
+        if spec.ffn == "dense":
+            out["mlp"] += sum(t.numel() * t.element_size()
+                              for t in sub["ffn"].values())
+    for k in ("embed", "head"):
+        if k in tree:
+            out["embed_head"] += tree[k].numel() * tree[k].element_size()
+    return out
+
+
+def tp_rank(rank, plans, weights, refs, inputs):
+    """One rank on the card for each plan of ``plans`` (every rank runs
+    every plan, in order): its grid, the rules of ``make_rules`` with the
+    plan's overrides, the rank's slice of ``weights[plan["model"]]``
+    (shared with the parent, read only) for each phase, and the plan's
+    paths — the prefill, the 16 decode steps (from the rank's slice of the
+    inputs' cache), the loss and backward — each run under the witness
+    (:class:`ordered_partials`, and :class:`exact_decode_psum` at decode)
+    where the plan has one, as the port runs it (timed on the host clock,
+    launches counted) and again with the exchanges clocked. Returns the
+    numbers; the parent checks them."""
+    import contextlib
+    import dataclasses
+    import gc
+    import statistics as st
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import (decode_params, make_rules,
+                                             rank_cache, shard_params)
+    from repro_torch.models import (decode_fn, loss_fn, make_moe_tables,
+                                    prefill_fn)
+    from repro_torch.models import collectives
+    from repro_torch.tree import leaves, tree_map
+    dev = next(iter(inputs.values()))["tokens"].device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    results = {}
+    for plan in plans:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        label, cfg = plan["label"], plan["cfg"]
+        params, ref, inp = (weights[plan["model"]], refs[label],
+                            inputs[plan["model"]])
+        grid = make_mesh(plan["grid"], EP_AXES)
+
+        def rules_for(phase):
+            return dataclasses.replace(make_rules(cfg, grid, phase),
+                                       **plan["rules"])
+
+        out = {"rank": rank, "seconds": {}, "launches": {}, "exchange": {},
+               "rel": {}, "err": {}, "moved": {}, "bits": {}, "digest": {}}
+        wit = plan["witness"]
+
+        def run(name, fn, clocked=False):
+            dist.barrier()
+            sync()
+            ops.reset_launch_counts()
+            collectives.clock.reset()
+            collectives.clock.enabled = clocked
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            wall = time.perf_counter() - t0
+            collectives.clock.enabled = False
+            if clocked:
+                out["exchange"][name] = {
+                    "wall_s": wall, "exchange_s": collectives.clock.seconds,
+                    "calls": collectives.clock.calls,
+                    "bytes": collectives.clock.bytes}
+            else:
+                out["seconds"][name] = wall
+                out["launches"][name] = ops.launch_counts()
+            return res
+
+        def hold(name, lg, tal, want):
+            out["err"][name] = (lg.float() - want[0].float()).abs().max() \
+                .item()
+            out["rel"][name] = _rel_l2(lg, want[0])
+            if tal.shape[0]:
+                out["moved"][name] = sum(_moved(tal, want[1]))
+
+        rules = rules_for("prefill")
+        local = shard_params(cfg, params, rules, "prefill")
+        out["dense_bytes"] = _dense_bytes(cfg, local)
+        out["dense_bytes_whole"] = _dense_bytes(cfg, params)
+        tables = make_moe_tables(cfg, rules, phase="prefill", device=dev)
+        batch = {"tokens": inp["tokens"], "labels": inp["labels"]}
+        if "prefill" in plan["paths"]:
+            fn = prefill_fn(cfg, rules)
+            call = lambda: fn(local, {"tokens": inp["tokens"]}, tables)  # noqa: E731
+            with torch.no_grad():
+                if not wit:           # else the witness's run warms up
+                    run("warm-up", call)
+                if wit:
+                    with ordered_partials():
+                        lg, _, tal = call()
+                    want = ref["prefill/witness"]
+                    out["bits"]["prefill"] = bool(
+                        torch.equal(lg, want[0]) and torch.equal(tal,
+                                                                 want[1]))
+                lg, _, tal = run("prefill", call)
+                hold("prefill", lg, tal, ref["prefill"])
+                out["digest"]["prefill"] = lg.double().sum().item()
+                run("prefill", call, clocked=True)
+        del local
+        if "decode" in plan["paths"]:
+            drules = rules_for("decode")
+            dparams = params
+            if cfg.is_moe:
+                dparams = decode_params(cfg, params, drules)
+            dparams = shard_params(cfg, dparams, drules, "decode")
+            dtables = make_moe_tables(cfg, drules, phase="decode",
+                                      device=dev)
+            fn = decode_fn(cfg, drules)
+            steps = inp["dec_tokens"]
+            base = rank_cache(cfg, inp["cache"], drules)
+            out["cache_shape"] = list(base[0][0].shape)
+
+            def decode(ctx):
+                cache = tree_map(torch.clone, base)
+                res, times = [], []
+                for i, tok in enumerate(steps):
+                    dist.barrier()
+                    sync()
+                    t0 = time.perf_counter()
+                    with ctx():
+                        lg, cache, tal = fn(dparams, tok, cache,
+                                            inp["pos"] + i, dtables)
+                    sync()
+                    times.append(time.perf_counter() - t0)
+                    res.append((lg, tal))
+                return res, times, cache
+
+            def witness():
+                stack = contextlib.ExitStack()
+                stack.enter_context(ordered_partials())
+                stack.enter_context(exact_decode_psum())
+                return stack
+
+            with torch.no_grad():
+                if wit:
+                    res, _, _ = decode(witness)
+                    out["bits"]["decode"] = [
+                        bool(torch.equal(lg, w[0]) and torch.equal(t, w[1]))
+                        for (lg, t), w in zip(res, ref["decode/witness"])]
+                ops.reset_launch_counts()
+                res, times, cache = decode(contextlib.nullcontext)
+                out["launches"]["decode"] = ops.launch_counts()
+                out["seconds"]["decode"] = st.median(times)
+                out["seconds"]["decode_all"] = sum(times)
+                rels, errs, moved = [], [], []
+                for (lg, tal), w in zip(res, ref["decode"]):
+                    rels.append(_rel_l2(lg, w[0]))
+                    errs.append((lg.float() - w[0].float()).abs().max()
+                                .item())
+                    if tal.shape[0]:
+                        moved.append(sum(_moved(tal, w[1])))
+                out["rel"]["decode"] = max(rels)
+                out["err"]["decode"] = max(errs)
+                out["moved"]["decode"] = moved
+                out["digest"]["decode"] = res[-1][0].double().sum().item()
+                n = len(steps)
+                run("decode", lambda: fn(dparams, steps[-1], cache,
+                                         inp["pos"] + n, dtables),
+                    clocked=True)
+            del dparams, cache, res, base
+        if "backward" in plan["paths"]:
+            trules = rules_for("train")
+            tparams = shard_params(cfg, params, trules, "train")
+            for p in leaves(tparams):
+                p.requires_grad_(True)
+            ttables = make_moe_tables(cfg, trules, phase="train",
+                                      device=dev)
+            fn = loss_fn(cfg, trules)
+
+            def step():
+                loss, (tal, _) = fn(tparams, batch, ttables)
+                loss.backward()
+                return loss.detach(), tal.detach()
+
+            def grad_rel(key):
+                want = leaves(shard_params(cfg, ref[key], trules, "train"))
+                rel = max(_rel_l2_chunked(p.grad, w)
+                          for p, w in zip(leaves(tparams), want))
+                for p in leaves(tparams):
+                    p.grad = None
+                return rel
+
+            if wit:
+                with ordered_partials():
+                    loss, tal = step()
+                out["bits"]["loss"] = bool(
+                    torch.equal(loss, ref["loss/witness"])
+                    and torch.equal(tal, ref["backward_tally/witness"]))
+                out["grad_rel_l2_max/witness"] = grad_rel("grads/witness")
+            loss, tal = run("backward", step)
+            out["loss"] = loss.item()
+            out["loss_rel"] = abs(loss.item() - ref["loss"].item()) / abs(
+                ref["loss"].item())
+            if tal.shape[0]:
+                out["moved"]["backward"] = sum(_moved(tal,
+                                                      ref["backward_tally"]))
+            out["grad_rel_l2_max"] = grad_rel("grads")
+            out["grad_leaves"] = len(leaves(tparams))
+            run("backward", step, clocked=True)
+            del tparams
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+        results[label] = out
+        del params, ref, inp
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return results
+
+
+def tp_phase(cfg, dev, smollm=None):
+    """Phase 15: tensor parallelism of the dense layers on 4 ranks sharing
+    the card (gloo on CUDA tensors), each run held against one device on
+    the same weights in this run:
+
+    (a) granite at full width and depth on (1, 4) from ``make_rules``:
+        attention by heads (6 heads and 2 KV heads a rank), EP 4 through
+        the ragged a2a body, the vocabulary (49155) replicated; a prefill
+        of 2 x 256, 16 decode steps of 8 lanes (the replicated body on
+        ``decode_params``' weights, the cache's KV heads over the ranks)
+        and one loss and backward at 2 x 256 (remat, as ``make_rules``
+        trains);
+    (b) the same with ``attn_mode="context"``: the prefill's query rows and
+        the 1024 cache rows over the 4 ranks, the decode's softmax stats
+        merged;
+    (c) smollm-360m at full width and depth on (1, 4): 15 heads and 5 KV
+        heads force context mode, the tied vocabulary (49152) split, the
+        dense MLP's 2560 over 4; a prefill of 4 x 256, 16 decode steps, a
+        loss and backward; no kernel of the port runs;
+    (d) granite at 2 layers on (2, 2): heads over "model", the dense
+        weights FSDP-sliced over "data"; a prefill and a loss and backward.
+
+    (a), (b) and (d) are held against a witness, one device computing the
+    attention as the ranks split it (:class:`split_attention`) while the
+    ranks add their partials in rank order (:class:`ordered_partials`; at
+    decode also :class:`exact_decode_psum`): the prefill, each decode step
+    and the loss bit for bit, the gradients within ``STEP_TOL`` (gloo sums
+    the input's gradient over the ranks in its own order); and each run
+    against one device as it runs, within ``TP_BOUNDS`` set from
+    readings, the moved assignments counted."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import Grid, run_ranks
+    from repro_torch.launch.sharding import make_rules
+    from repro_torch.models import init_params
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        build.build_all()
+    smollm = smollm or get_config("smollm-360m")
+    small = dataclasses.replace(cfg, n_layers=2)
+    weights, inputs, refs = {}, {}, {}
+    for name, c in (("granite", cfg), ("smollm", smollm), ("small", small)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        weights[name] = init_params(c, gen, device=dev, dtype=torch.bfloat16)
+        inputs[name] = tp_inputs(c, dev, 15, 4 if name == "smollm" else 2,
+                                 weights[name])
+    paths = ["prefill", "decode", "backward"]
+    plans = [
+        {"label": "heads", "model": "granite", "cfg": cfg, "grid": (1, 4),
+         "rules": {}, "witness": True, "paths": paths},
+        {"label": "context", "model": "granite", "cfg": cfg, "grid": (1, 4),
+         "rules": {"attn_mode": "context"}, "witness": True,
+         "paths": paths[:2]},
+        {"label": "smollm", "model": "smollm", "cfg": smollm, "grid": (1, 4),
+         "rules": {}, "witness": False, "paths": paths},
+        {"label": "fsdp", "model": "small", "cfg": small, "grid": (2, 2),
+         "rules": {"fsdp": ("pod", "data")}, "witness": True,
+         "paths": ["prefill", "backward"]}]
+    for plan in plans:
+        # the attention's split as the plan's rules make it, for the witness
+        rules = dataclasses.replace(make_rules(
+            plan["cfg"], Grid(plan["grid"], EP_AXES, 0, {}), "prefill"),
+            **plan["rules"])
+        witness = None
+        if plan["witness"]:
+            witness = ("heads" if rules.heads_split(plan["cfg"])
+                       else "context", rules.tp_size)
+        weights[plan["model"]], refs[plan["label"]] = tp_reference(
+            plan["cfg"], dev, weights[plan["model"]], inputs[plan["model"]],
+            plan["paths"], witness)
+    _free_shared()
+    parent_gib = (torch.cuda.memory_allocated() / 2 ** 30
+                  if dev.type == "cuda" else 0.0)
+    t_ref = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, 4, args=(plans, weights, refs, inputs),
+                      timeout_s=600)
+    t_ranks = time.perf_counter() - t0
+    loss_ref = {k: r["loss"].item() for k, r in refs.items() if "loss" in r}
+    del weights, refs, inputs
+    _free_shared()
+    on_card = dev.type == "cuda"
+    L, l2 = cfg.n_layers, small.n_layers
+
+    def per(n, fwd=1):
+        return {"route_select": fwd * n, "ragged_moe_ffn": fwd * n,
+                "ragged_moe_ffn.tma": fwd * n}
+
+    def bwd(n):          # remat: the forward again in the backward
+        return per(n, 2) | {k: n for k in (
+            "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
+            "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
+            "route_select_bwd")}
+
+    want = {"heads": {"prefill": per(L), "decode": per(L, TP_DECODE_STEPS),
+                      "backward": bwd(L)},
+            "context": {"prefill": per(L),
+                        "decode": per(L, TP_DECODE_STEPS)},
+            "smollm": {}, "fsdp": {"prefill": per(l2), "backward": bwd(l2)}}
+    summary = {}
+    for label in ("heads", "context", "smollm", "fsdp"):
+        rs = [r[label] for r in ranks]
+        print(f"[tp] {label} launches per rank (rank 0): "
+              f"{json.dumps(rs[0]['launches'])}", flush=True)
+        for r in rs:
+            tag = f"tp {label} rank {r['rank']}"
+            for path, counts in r["launches"].items():
+                for k, n in counts.items():
+                    w = want[label].get(path, {}).get(k, 0)
+                    check(n == w or not on_card, f"{tag} {path}: {k} "
+                          f"launched {n} times, expected {w}")
+            if label in ("heads", "context", "fsdp"):
+                check(all(r["bits"].get("decode", [True])) and all(
+                    r["bits"].get(p, True) for p in ("prefill", "loss")),
+                      f"{tag} against the witness: bit for bit "
+                      f"{json.dumps(r['bits'])}")
+                if "grad_rel_l2_max/witness" in r:
+                    check(r["grad_rel_l2_max/witness"] <= STEP_TOL,
+                          f"{tag} gradients against the witness: "
+                          f"{r['grad_rel_l2_max/witness']:.3e} (bound "
+                          f"{STEP_TOL})")
+            bounds = TP_BOUNDS[label]
+            check(all(v <= bounds[p] for p, v in r["rel"].items()),
+                  f"{tag} against one device: logits' relative L2 "
+                  f"{json.dumps(r['rel'])} (bounds {json.dumps(bounds)})")
+            if "loss" in r:
+                check(r["loss_rel"] <= bounds["loss"]
+                      and r["grad_rel_l2_max"] <= bounds["grads"],
+                      f"{tag} backward against one device: loss "
+                      f"{r['loss_rel']:.3e} (bound {bounds['loss']}), "
+                      f"gradient leaves {r['grad_rel_l2_max']:.3e} (bound "
+                      f"{bounds['grads']})")
+        for path in rs[0]["digest"]:
+            check(len({r["digest"][path] for r in rs}) == 1,
+                  f"tp {label} {path}: the ranks' logits differ")
+        gib = 2 ** 30
+        summary[label] = {
+            "wall_s": {p: [r["seconds"][p] for r in rs]
+                       for p in rs[0]["seconds"]},
+            "exchange": {p: [r["exchange"][p] for r in rs]
+                         for p in rs[0]["exchange"]},
+            "peak_gib": [r["peak_bytes"] / gib for r in rs],
+            "dense_bytes_rank0": rs[0]["dense_bytes"],
+            "dense_bytes_whole": rs[0]["dense_bytes_whole"],
+            "cache_shape": rs[0].get("cache_shape"),
+            "logit_rel_l2": {p: max(r["rel"][p] for r in rs)
+                             for p in rs[0]["rel"]},
+            "max_abs_logit_err": {p: max(r["err"][p] for r in rs)
+                                  for p in rs[0]["err"]},
+            "moved": rs[0]["moved"], "bits": rs[0]["bits"],
+            "launches_rank0": rs[0]["launches"]}
+        if "loss" in rs[0]:
+            summary[label] |= {
+                "loss": rs[0]["loss"], "loss_one_device": loss_ref[label],
+                "loss_rel": rs[0]["loss_rel"],
+                "grad_rel_l2_max": max(r["grad_rel_l2_max"] for r in rs),
+                "grad_leaves": rs[0]["grad_leaves"]}
+            if "grad_rel_l2_max/witness" in rs[0]:
+                summary[label]["grad_rel_l2_max_witness"] = max(
+                    r["grad_rel_l2_max/witness"] for r in rs)
+    summary["phase_s"] = {"one_device_references": t_ref, "ranks": t_ranks,
+                          "all": time.perf_counter() - t_start,
+                          "parent_gib": parent_gib}
+    what = {"heads": "granite, heads (1, 4)",
+            "context": "granite, context (1, 4)",
+            "smollm": "smollm-360m, context (1, 4), no port kernel on its "
+                      "path", "fsdp": "granite 2 layers, heads over model "
+                                      "and dense FSDP over data (2, 2)"}
+    for label, s in summary.items():
+        if label == "phase_s":
+            continue
+        walls = "; ".join(f"{p} " + ", ".join(f"{w * 1e3:.1f}" for w in ws)
+                          for p, ws in s["wall_s"].items())
+        ex = "; ".join(
+            f"{p}: " + ", ".join(
+                f"{100 * x['exchange_s'] / x['wall_s']:.1f}%" for x in xs)
+            + f" of {xs[0]['wall_s'] * 1e3:.1f} ms, {xs[0]['calls']} calls, "
+              f"{xs[0]['bytes'] / 2 ** 20:.3f} MiB"
+            for p, xs in s["exchange"].items())
+        print(f"[tp] {what[label]}: host wall per rank (ms) {walls}; "
+              f"exchanges (each synchronised; rank 0's calls and bytes) "
+              f"{ex}; peak per rank "
+              f"{', '.join(f'{v:.2f}' for v in s['peak_gib'])} GiB; dense "
+              f"weight bytes a rank {json.dumps(s['dense_bytes_rank0'])} of "
+              f"{json.dumps(s['dense_bytes_whole'])}; decode cache a rank "
+              f"{s['cache_shape']}", flush=True)
+        print(f"[tp] {what[label]} against one device: logits' relative L2 "
+              f"{json.dumps(s['logit_rel_l2'])}, max |difference| "
+              f"{json.dumps(s['max_abs_logit_err'])}, assignments moved "
+              f"{json.dumps(s['moved'])}"
+              + (f"; loss {s['loss']:.6f} vs {s['loss_one_device']:.6f}, "
+                 f"gradient leaves' relative L2 max "
+                 f"{s['grad_rel_l2_max']:.3e} over {s['grad_leaves']} "
+                 f"leaves" if "loss" in s else "")
+              + (f"; against the witness: bit for bit "
+                 f"{json.dumps(s['bits'])}"
+                 + (f", gradients {s['grad_rel_l2_max_witness']:.3e}"
+                    if "grad_rel_l2_max_witness" in s else "")
+                 if s["bits"] else ""), flush=True)
+    print(f"[tp] phase wall {summary['phase_s']['all']:.1f} s (one-device "
+          f"references {t_ref:.1f}, ranks {t_ranks:.1f}); gloo on one "
+          f"shared card: not a fleet's links", flush=True)
+    return summary
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2887,6 +3608,8 @@ def main() -> int:
     # phase 13: expert-parallel dispatch on 4 ranks; phase 14: remat
     ep = ep_phase(cfg, dev)
     remat = remat_phase(cfg, dev)
+    # phase 15: tensor parallelism of the dense layers on 4 ranks
+    tp = tp_phase(cfg, dev)
 
     def ep_launches(name):
         """This kernel's launches on the expert-parallel paths, per rank
@@ -2895,6 +3618,13 @@ def main() -> int:
                         ep["ep4"]["launches_rank0"].items()},
                 "dp2_ep2_fsdp_prefill":
                     ep["dp2_ep2_fsdp"]["launches_rank0"].get(name, 0)}
+
+    def tp_launches(name):
+        """This kernel's launches on the tensor-parallel runs, per rank
+        (every rank launched the same; the phase checks each)."""
+        return {label: {p: c.get(name, 0) for p, c in
+                        tp[label]["launches_rank0"].items()}
+                for label in ("heads", "context", "smollm", "fsdp")}
 
     def ffn_entry(prefill_res, decode_res):
         """The prefill shape's numbers under the contract's keys, the
@@ -2914,13 +3644,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
          "launches": counts["ragged_moe_ffn"], **ffn_entry(prefill, decode),
-         "ep_launches": ep_launches("ragged_moe_ffn"), "library_ms": None},
+         "ep_launches": ep_launches("ragged_moe_ffn"),
+         "tp_launches": tp_launches("ragged_moe_ffn"), "library_ms": None},
         {"name": "route_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
          "launches": counts["route_select"], **route[(512, 1)],
          "by_shape": {f"T={T} R={R}": r for (T, R), r in route.items()},
-         "ep_launches": ep_launches("route_select"), "library_ms": None},
+         "ep_launches": ep_launches("route_select"),
+         "tp_launches": tp_launches("route_select"), "library_ms": None},
         {"name": "router_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
@@ -2928,13 +3660,15 @@ def main() -> int:
          "by_shape": {"T=8": router_dec, "T=4096": router_big},
          "earlier_design": {"route": "triton",
                             "source": "src/repro_torch/kernels/router.py"},
-         "ep_launches": ep_launches("router_topk"), "library_ms": None},
+         "ep_launches": ep_launches("router_topk"),
+         "tp_launches": tp_launches("router_topk"), "library_ms": None},
         {"name": "fused_moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
          "replaces": "src/repro/kernels/moe_ffn.py:58",
          "launches": counts_a["fused_moe_ffn"],
          **ffn_entry(cap_prefill, cap_decode),
-         "ep_launches": ep_launches("fused_moe_ffn"), "library_ms": None},
+         "ep_launches": ep_launches("fused_moe_ffn"),
+         "tp_launches": tp_launches("fused_moe_ffn"), "library_ms": None},
         {"name": "ragged_moe_ffn_dgrad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
@@ -2942,6 +3676,7 @@ def main() -> int:
          "tma_launches": tl["ragged_moe_ffn_dgrad.tma"], **k1,
          "tokens_4096": k1_big,
          "ep_launches": ep_launches("ragged_moe_ffn_dgrad"),
+         "tp_launches": tp_launches("ragged_moe_ffn_dgrad"),
          "library_ms": None},
         {"name": "ragged_moe_ffn_wgrad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
@@ -2950,17 +3685,20 @@ def main() -> int:
          "tma_launches": tl["ragged_moe_ffn_wgrad.tma"], **k2,
          "tokens_4096": k2_big,
          "ep_launches": ep_launches("ragged_moe_ffn_wgrad"),
+         "tp_launches": tp_launches("ragged_moe_ffn_wgrad"),
          "library_ms": None},
         {"name": "route_select_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
          "launches": tl["route_select_bwd"], **k3,
-         "ep_launches": ep_launches("route_select_bwd"), "library_ms": None},
+         "ep_launches": ep_launches("route_select_bwd"),
+         "tp_launches": tp_launches("route_select_bwd"), "library_ms": None},
     ]
     print(f"[train] summary: {json.dumps({k: v for k, v in trained.items() if k != 'launches'} | {'kernel_vs_plain': step_cmp})}")
     print(f"[slices] summary: {json.dumps({'drills': drills, 'xlstm': xlstm, 'jamba': jamba})}")
     print(f"[ep] summary: {json.dumps(ep)}")
     print(f"[remat] summary: {json.dumps(remat)}")
+    print(f"[tp] summary: {json.dumps(tp)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

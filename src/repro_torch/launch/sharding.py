@@ -1,17 +1,27 @@
-"""Per-arch rules on a rank grid, and a rank's slice of the params.
+"""Per-arch rules on a rank grid, and a rank's slice of the params and of
+the decode cache.
 
-The counterpart of the expert part of ``repro.launch.sharding``
-(``make_rules`` and the MoE leaves of ``param_specs``,
-``src/repro/launch/sharding.py:39-68, 83-121``). The port keeps its dense
-layers replicated on every rank, so a rank's tree differs from the whole
-tree only in the expert weights:
+The counterpart of ``repro.launch.sharding`` (``make_rules``,
+``param_specs``, ``cache_specs``; ``src/repro/launch/sharding.py:39-234``)
+in the port's convention: the batch is replicated over ``dp``, so no
+leaf is split by it. A rank's tree differs from the whole tree in
 
-* train and prefill (the a2a layout): the slot axis over ``ep``, and over
-  ``fsdp`` a slice of axis 1 of each matrix (D of w1 and w3, F of w2);
-* decode (the decode fleet's layout, :func:`repro_torch.models.moe.
-  expand_experts`): the slot axis over ``ep_all``; with
-  ``decode_expert_tp`` over ``ep``, and F over the rest of ``ep_all``
-  (the last axis of w1 and w3, axis 1 of w2).
+* the experts — train and prefill (the a2a layout): the slot axis over
+  ``ep``, and over ``fsdp`` a slice of axis 1 of each matrix (D of w1 and
+  w3, F of w2); decode (the decode fleet's layout,
+  :func:`repro_torch.models.moe.expand_experts`): the slot axis over
+  ``ep_all``; with ``decode_expert_tp`` over ``ep``, and F over the rest
+  of ``ep_all`` (the last axis of w1 and w3, axis 1 of w2);
+* the dense leaves, in every phase — over ``tp``: ``wq``/``wk``/``wv``'s
+  columns and ``wo``'s rows where attention splits by heads, the dense
+  MLP's (and shared experts') F, the vocabulary of ``embed`` (rows) and
+  ``head`` (columns) where it divides, ``frontend``'s d_model; over
+  ``fsdp``: the d_model axis of every one of them
+  (:data:`repro_torch.models.sharding.DENSE_D_AXIS`).
+
+Norms, the router and the recurrent mixers (Mamba, mLSTM, sLSTM) stay
+whole. :func:`rank_cache` gives a rank's decode cache: its KV heads when
+attention splits by heads, its ``S_max/tp`` rows in context mode.
 """
 
 from __future__ import annotations
@@ -24,10 +34,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import block_layout, default_moe_perm
 from repro_torch.models.moe import expand_experts
-from repro_torch.models.sharding import ShardingRules
+from repro_torch.models.sharding import (DENSE_D_AXIS, DENSE_TP_AXIS,
+                                         ShardingRules, heads_ok)
 
 __all__ = ["make_rules", "shard_params", "shard_experts", "decode_params",
-           "FSDP_THRESHOLD"]
+           "rank_cache", "FSDP_THRESHOLD"]
 
 #: params above this (count) get the experts' FSDP sharding over
 #: ("pod", "data"), as the reference's ``FSDP_THRESHOLD``
@@ -37,18 +48,22 @@ FSDP_THRESHOLD = 1e9
 def make_rules(cfg: ArchConfig, grid, phase: str = "train",
                moe_impl: str = "ragged") -> ShardingRules:
     """The reference's rules for ``cfg`` on ``grid`` (``None``: no group):
+    the dense layers TP over "model", attention by heads where
+    :func:`~repro_torch.models.sharding.heads_ok` holds, else by context;
     EP over "model" for train and prefill, over every axis at decode;
     expert-TP at decode where one expert matrix passes 256 MiB; FSDP of
-    the experts over ("pod", "data") for archs above 1e9 params; capacity
+    the weights over ("pod", "data") for archs above 1e9 params; capacity
     factor 1.25 for training and 1.5 for serving; remat for training."""
     if grid is None:
         return ShardingRules(moe_impl=moe_impl)
     expert_tp = (cfg.is_moe
                  and cfg.d_model * cfg.moe_d_ff * 2 > 256 * 1024 * 1024)
+    heads = heads_ok(cfg.n_heads, cfg.n_kv_heads, grid.axis_size("model"))
     return ShardingRules(
-        moe_impl=moe_impl, grid=grid, dp=("pod", "data"), ep=("model",),
-        ep_all=("pod", "data", "model"),
+        moe_impl=moe_impl, grid=grid, dp=("pod", "data"), tp="model",
+        ep=("model",), ep_all=("pod", "data", "model"),
         fsdp=("pod", "data") if cfg.n_params() > FSDP_THRESHOLD else None,
+        attn_mode="heads" if heads else "context",
         capacity_factor=1.25 if phase == "train" else 1.5,
         remat=(phase == "train"), decode_expert_tp=expert_tp)
 
@@ -86,19 +101,94 @@ def shard_experts(p: dict, rules: ShardingRules, phase: str) -> dict:
     return out
 
 
-def shard_params(params: Any, rules: ShardingRules,
+def _slice(t: torch.Tensor, rules: ShardingRules, cuts) -> torch.Tensor:
+    """``t`` cut by ``(dim, axes)`` pairs (``dim`` None: not cut), as a
+    contiguous copy when cut at all."""
+    grid = rules.grid
+    out = t
+    for dim, axes in cuts:
+        if dim is not None and axes and grid.axis_size(axes) > 1:
+            out = _part(out, dim, grid.axis_size(axes), grid.index(axes))
+    if out is t:
+        return t
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def _shard_dense(p: dict, rules: ShardingRules, split: bool) -> dict:
+    """An attention mixer's or a dense MLP's stacked leaves, each cut on
+    its d_model axis over ``fsdp`` and, with ``split``, on its TP axis
+    over ``tp``."""
+    return {k: _slice(w, rules, ((DENSE_D_AXIS[k] + 1, rules.fsdp_axes),
+                                 (DENSE_TP_AXIS[k] + 1 if split else None,
+                                  rules.tp_axes)))
+            for k, w in p.items()}
+
+
+def shard_params(cfg: ArchConfig, params: Any, rules: ShardingRules,
                  phase: str = "train") -> Any:
     """The rank's tree from a whole one (``models.init_params`` with the
     same rules and phase, or ``bridge.params_from_numpy`` of a reference
-    checkpoint): every MoE layer's experts sliced (:func:`shard_experts`),
-    every other leaf the same tensor."""
-    if isinstance(params, dict):
-        if "router" in params and "w1" in params:
-            return shard_experts(params, rules, phase)
-        return {k: shard_params(v, rules, phase) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(shard_params(v, rules, phase) for v in params)
-    return params
+    checkpoint), cut as the reference's ``param_specs`` cuts it (see the
+    module's docstring): every MoE layer's experts
+    (:func:`shard_experts`), the attention and dense MLP leaves, the
+    embedding and head. Cut leaves are contiguous copies; the others are
+    the same tensors."""
+    if rules.grid is None:
+        return params
+    _, specs = block_layout(cfg)
+    vocab = rules.tp_axes if rules.splits(cfg.vocab) else ()
+    f_axes = rules.fsdp_axes
+    out = dict(params)
+    out["embed"] = _slice(params["embed"], rules, ((0, vocab), (1, f_axes)))
+    if "head" in params:
+        out["head"] = _slice(params["head"], rules, ((0, f_axes), (1, vocab)))
+    if "frontend" in params and rules.splits(cfg.d_model):
+        out["frontend"] = _slice(params["frontend"], rules,
+                                 ((1, rules.tp_axes),))
+    blocks = []
+    for spec, sub in zip(specs, params["blocks"]):
+        sub = dict(sub)
+        if spec.mixer == "attn":
+            sub["mixer"] = _shard_dense(sub["mixer"], rules,
+                                        rules.heads_split(cfg))
+        if spec.ffn == "dense":
+            sub["ffn"] = _shard_dense(sub["ffn"], rules,
+                                      rules.splits(cfg.d_ff))
+        elif spec.ffn == "moe":
+            sub["ffn"] = shard_experts(sub["ffn"], rules, phase)
+        if "shared" in sub:
+            sub["shared"] = _shard_dense(
+                sub["shared"], rules,
+                rules.splits(cfg.n_shared_experts * cfg.moe_d_ff))
+        blocks.append(sub)
+    out["blocks"] = blocks
+    return out
+
+
+def rank_cache(cfg: ArchConfig, cache: list, rules: ShardingRules) -> list:
+    """The rank's decode cache from a whole one (``models.init_cache``'s
+    layout: per layer position a (k, v) pair of (n_blocks, B, S_max, KV,
+    hd), or a recurrent mixer's state), as the reference's ``cache_specs``
+    lays it out with the batch replicated: the rank's ``KV/tp`` heads
+    where attention splits by heads; in context mode its global rows
+    ``[r S_max/tp, (r + 1) S_max/tp)`` (``tp`` must divide ``S_max``, as
+    the reference's layout needs); else whole. Recurrent states stay
+    whole. Cut leaves are contiguous copies."""
+    if rules.grid is None or rules.tp_size == 1:
+        return cache
+    _, specs = block_layout(cfg)
+    if rules.heads_split(cfg):
+        dim = 3
+    elif rules.attn_mode == "context":
+        dim = 2
+    else:
+        return cache
+    out = []
+    for spec, c in zip(specs, cache):
+        if spec.mixer == "attn":
+            c = tuple(_slice(t, rules, ((dim, rules.tp_axes),)) for t in c)
+        out.append(c)
+    return out
 
 
 def decode_params(cfg: ArchConfig, params: Any,

@@ -1,4 +1,5 @@
-"""The collectives of the expert-parallel MoE bodies, for autograd.
+"""The collectives of the expert-parallel MoE bodies and of the tensor-
+parallel dense layers, for autograd.
 
 Each rank of a group runs the same program on its own share of the work
 and computes the same loss from the same replicated output. So the
@@ -12,17 +13,25 @@ is another all-reduce (as in ``torch.distributed.nn``) would give
 * :func:`all_to_all` — equal splits on dim 0; its backward is the mirror
   exchange.
 * :func:`sum_partials` — the ``psum`` of rank partials into a replicated
-  output; its backward passes the (replicated) gradient to each partial.
+  output (a row-parallel product's, the vocab-parallel lookup's); its
+  backward passes the (replicated) gradient to each partial.
+* :func:`max_over` — the ``pmax`` of a tensor outside autograd (decode's
+  merge of the ranks' softmax stats, the vocab-parallel loss's shift).
 * :func:`mean_over` — the ``pmean`` of ``mean_prob``; backward ``g / n``.
-* :func:`gather_shards` — the FSDP ``all_gather`` of expert weights along
-  a dim; backward the reduce-scatter of the gathered weight's gradient.
+* :func:`gather_shards` — the FSDP ``all_gather`` of weights along a dim
+  (backward: the reduce-scatter of the gathered weight's gradient, or,
+  where every rank does the same work with it, the rank's own slice), and
+  the gather of the context-parallel prefill's query rows.
 * :func:`replicate` — a replicated tensor read by work that each rank does
-  on its own share: identity forward, the ranks' gradient contributions
-  summed backward (the transpose of the reference's implicit broadcast
-  of a replicated ``shard_map`` input).
+  on its own share (a column-parallel product's input, the experts' router
+  and tokens): identity forward, the ranks' gradient contributions summed
+  backward (the transpose of the reference's implicit broadcast of a
+  replicated ``shard_map`` input).
 * :func:`take_block` / :func:`gather_blocks` — a rank's ``(B/dp, S/ep)``
-  block of a replicated ``(B, S, D)`` activation and back: the port keeps
-  its dense layers replicated, and the a2a bodies work on blocks.
+  block of a replicated ``(B, S, D)`` activation and back: the residual
+  stream stays replicated between layers (the batch over ``dp`` and the
+  reference's sequence-sharded residual are not ported), and the a2a
+  bodies work on blocks.
 
 A ``group`` of ``None`` is a one-rank group: every function is then the
 identity (no call is made). :data:`clock` times the exchanges on the host
@@ -38,7 +47,8 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_to_all", "sum_partials", "mean_over", "gather_shards",
+__all__ = ["all_to_all", "sum_partials", "max_over", "mean_over",
+           "gather_shards",
            "replicate", "take_block", "gather_blocks", "all_reduce_",
            "clock", "ExchangeClock"]
 
@@ -127,6 +137,21 @@ def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     return _SumPartials.apply(x, group)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over ``group`` of a tensor outside autograd,
+    as a new tensor. It has no gradient to give: a tensor that requires
+    one is refused."""
+    if x.requires_grad:
+        raise ValueError("max_over: the input requires grad; pass a "
+                         "detached tensor (the max is a shift, not a term)")
+    if group is None:
+        return x
+    t = x.clone()
+    clock.run(lambda: dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group),
+              t)
+    return t
 
 
 class _MeanOver(torch.autograd.Function):

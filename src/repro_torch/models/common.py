@@ -12,6 +12,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from . import collectives as C
+
 __all__ = ["rms_norm", "rope_tables", "apply_rope", "dense_init", "mlp",
            "softmax_xent_chunked"]
 
@@ -57,19 +59,24 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
-def mlp(p, x: torch.Tensor, gated: bool) -> torch.Tensor:
-    """SwiGLU (gated) or GELU (2-matrix) MLP."""
+def mlp(p, x: torch.Tensor, gated: bool, group=None) -> torch.Tensor:
+    """SwiGLU (gated) or GELU (2-matrix) MLP. With a tensor-parallel
+    ``group`` the weights are the rank's slice of F: ``w1`` and ``w3``
+    column-parallel (their input replicated: its gradient summed over the
+    group), ``w2`` row-parallel (the partials summed), as the reference's
+    TP-sharded hidden."""
+    x = C.replicate(x, group)
     h = x @ p["w1"]
     if gated:
         h = F.silu(h) * (x @ p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu default
-    return h @ p["w2"]
+    return C.sum_partials(h @ p["w2"], group)
 
 
 def softmax_xent_chunked(hidden: torch.Tensor, w_unemb: torch.Tensor,
-                         labels: torch.Tensor,
-                         n_chunks: int = 8) -> torch.Tensor:
+                         labels: torch.Tensor, n_chunks: int = 8,
+                         group=None, vocab_offset: int = 0) -> torch.Tensor:
     """Mean token cross-entropy without the whole (B, S, V) logits at once.
 
     The sequence axis is taken in ``n_chunks`` pieces (one if it does not
@@ -77,18 +84,44 @@ def softmax_xent_chunked(hidden: torch.Tensor, w_unemb: torch.Tensor,
     the reference's scan does. The unembedding product runs in the
     params' dtype and its result is cast to f32, the reference's rounding
     point.
+
+    With a tensor-parallel ``group``, ``w_unemb`` is the rank's vocabulary
+    slice (D, V/tp) starting at id ``vocab_offset`` (the reference's
+    ``logits_spec``; ``hidden``'s gradient is summed over the group), and
+    the loss is the vocab-parallel cross entropy:
+    the row max over the ranks (detached: a shift), ``sum exp`` summed over
+    the ranks, the gold logit from the rank that holds it.
     """
     B, S, D = hidden.shape
+    hidden = C.replicate(hidden, group)       # column-parallel over V
     if S % n_chunks != 0:
         n_chunks = 1
-    C = S // n_chunks
+    rows = S // n_chunks
     total = None
     for i in range(n_chunks):
-        hc = hidden[:, i * C:(i + 1) * C]
-        yc = labels[:, i * C:(i + 1) * C].long()
+        hc = hidden[:, i * rows:(i + 1) * rows]
+        yc = labels[:, i * rows:(i + 1) * rows].long()
         logits = (hc @ w_unemb).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        if group is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        else:
+            logz, gold = _xent_terms(logits, yc, group, vocab_offset)
         part = torch.sum(logz - gold)
         total = part if total is None else total + part
     return total / (B * S)
+
+
+def _xent_terms(logits: torch.Tensor, labels: torch.Tensor, group,
+                vocab_offset: int):
+    """(logsumexp, gold logit) of rows whose vocabulary is split over
+    ``group``; ``logits`` (..., V/tp) f32 is this rank's slice."""
+    n = logits.shape[-1]
+    m = C.max_over(logits.detach().amax(dim=-1), group)
+    total = C.sum_partials(torch.exp(logits - m[..., None]).sum(dim=-1),
+                           group)
+    local = labels - vocab_offset
+    mine = (local >= 0) & (local < n)
+    g = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = C.sum_partials(torch.where(mine, g, torch.zeros_like(g)), group)
+    return m + torch.log(total), gold

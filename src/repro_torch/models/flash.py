@@ -80,9 +80,15 @@ def flash_decode(
     *,
     window=None,
     kpos_offset: int = 0,                 # global position of cache row 0
-) -> torch.Tensor:
+    return_stats: bool = False,           # (acc, m, l) for a cross-shard merge
+):
     """Single-token decode against the cache; rows past ``pos`` (per
-    sequence, continuous batching) are masked. Returns (B, KV, G, hd)."""
+    sequence, continuous batching) are masked. Returns (B, KV, G, hd), or
+    with ``return_stats`` the un-normalised softmax over this cache's rows:
+    ``acc`` (B, KV, G, hd) f32 — sum of p·v, p cast to ``v``'s dtype —
+    ``m`` (B, KV, G) f32 — the row max after masking — and ``l`` — sum of
+    exp(s - m) over the valid rows. A cache (shard) with no valid row gives
+    ``m = _NEG`` and ``l = 0``."""
     B, S_max, KV, hd = k_cache.shape
     pos = torch.broadcast_to(torch.as_tensor(pos, device=q.device), (B,))
     kp = kpos_offset + torch.arange(S_max, device=q.device)
@@ -91,9 +97,14 @@ def flash_decode(
         valid = valid & _window_ok(pos[:, None] - kp[None, :], window)
     s = torch.einsum("bkgh,bskh->bkgs", q.float(), k_cache.float()) \
         * _scale(hd)
-    s = s.masked_fill(~valid[:, None, None, :], _NEG)
+    invalid = ~valid[:, None, None, :]
+    s = s.masked_fill(invalid, _NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
+    if return_stats:
+        p = p.masked_fill(invalid, 0.0)
     l = p.sum(dim=-1)
     pv = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache).float()
+    if return_stats:
+        return pv, m[..., 0], l
     return (pv / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

@@ -20,6 +20,14 @@ recurrent one, every leaf with the leading ``n_blocks`` axis. ``phase``
 ("train", "prefill", "chunk", "decode") reaches the MoE layer, which picks
 its dispatch body by it, as in the reference.
 
+On a rank grid the rules (:class:`ShardingRules`) split the dense
+layers over ``tp`` as the reference's do: attention by heads or by
+context (:func:`_run_attention`), the dense MLP's F, the vocabulary of
+the embedding, the head and the loss; the dense weights arrive FSDP-
+sliced and are gathered a block at a time (:func:`_gather_dense`). The
+residual stream stays replicated between layers, as does the batch over
+``dp``; the MoE layer takes its own block of it.
+
 :func:`loss_fn` is the reference's training loss. Its ``phase="train"``
 pass keeps no per-layer k/v stack (the reference's ``nc = []``) and hands
 each block its parameters through ``torch.unbind`` of the stacked leaves,
@@ -40,12 +48,14 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from .attention import attn_init
+from . import collectives as C
 from .common import (apply_rope, dense_init, mlp, rms_norm, rope_tables,
                      softmax_xent_chunked)
 from .flash import flash_attention, flash_decode
 from .moe import (default_perm_a2a, default_perm_replicated, moe_init,
                   moe_layer, n_slots_a2a)
-from .sharding import ShardingRules, build_copy_cdf, build_slots_of
+from .sharding import (DENSE_D_AXIS, ShardingRules, build_copy_cdf,
+                       build_slots_of)
 from . import ssm
 
 __all__ = [
@@ -263,10 +273,14 @@ def refresh_moe_share_tables(cfg: ArchConfig, moe_tables,
 
 def _qkv(p, x, cfg, rope_pos):
     """Projections with RoPE at ``rope_pos`` (broadcast against (B, S)):
-    q (B, S, KV, G, hd), k and v (B, S, KV, hd)."""
+    q (B, S, KV, G, hd), k and v (B, S, KV, hd), KV the heads the weights
+    hold (a rank's ``KV/tp`` when split by heads: ``wq``'s columns are in
+    (KV, G, hd) order, so its contiguous slice holds those KV heads' G
+    query heads each)."""
     B, S, D = x.shape
-    hd, KV = cfg.hd, cfg.n_kv_heads
-    G = cfg.n_heads // KV
+    hd = cfg.hd
+    G = cfg.n_heads // cfg.n_kv_heads
+    KV = p["wk"].shape[-1] // hd
     cos, sin = rope_tables(rope_pos, hd, cfg.rope_theta)
     q = apply_rope((x @ p["wq"]).reshape(B, S, KV * G, hd), cos, sin)
     k = apply_rope((x @ p["wk"]).reshape(B, S, KV, hd), cos, sin)
@@ -274,24 +288,81 @@ def _qkv(p, x, cfg, rope_pos):
     return q.reshape(B, S, KV, G, hd), k, v
 
 
-def _run_attention(p, x, cfg, window, positions, cache=None, pos=None):
+def _run_attention(p, x, cfg, rules, window, positions, cache=None,
+                   pos=None):
     """Prefill: returns (out, (k, v)); decode: writes the new row into the
-    cache in place and returns (out, cache)."""
+    cache in place and returns (out, cache).
+
+    On a grid (``rules``, :class:`ShardingRules`), split by heads: the
+    weights and the cache hold the rank's heads, the input is replicated
+    and ``wo``'s partials summed over ``tp``. Context mode: the
+    projections and ``wo`` replicated; at prefill each rank attends its
+    ``S/tp`` query rows against every key and the rows are gathered
+    before ``wo``; at decode the cache is the rank's ``S_max/tp`` rows
+    and the ranks' softmax stats are merged (:func:`_merge_decode`)."""
     B, S, D = x.shape
-    HD = cfg.n_heads * cfg.hd
+    tp = 1 if rules is None else rules.tp_size
+    group = None if tp == 1 else rules.group(rules.tp_axes)
+    heads = tp > 1 and rules.heads_split(cfg)
+    if heads:
+        x = C.replicate(x, group)
     if cache is None:
         q, k, v = _qkv(p, x, cfg, positions[None, :])
-        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                              q_positions=positions, kv_positions=positions)
-        return out.reshape(B, S, HD) @ p["wo"], (k, v)
+        if tp > 1 and rules.context_split(S):
+            n = S // tp
+            rows = slice(rules.index(rules.tp_axes) * n,
+                         (rules.index(rules.tp_axes) + 1) * n)
+            out = flash_attention(
+                C.replicate(q, group)[:, rows], C.replicate(k, group),
+                C.replicate(v, group), causal=cfg.causal, window=window,
+                q_positions=positions[rows], kv_positions=positions)
+            out = C.gather_shards(out, group, 1, summed=False)
+        else:
+            out = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                                  q_positions=positions,
+                                  kv_positions=positions)
+        out = out.reshape(B, S, -1) @ p["wo"]
+        return (C.sum_partials(out, group) if heads else out), (k, v)
     k_cache, v_cache = cache
     q, k, v = _qkv(p, x, cfg, pos[:, None])
     lanes = torch.arange(B, device=x.device)
     rows = pos.long()
-    k_cache[lanes, rows] = k[:, 0].to(k_cache.dtype)
-    v_cache[lanes, rows] = v[:, 0].to(v_cache.dtype)
-    out = flash_decode(q[:, 0], k_cache, v_cache, pos, window=window)
-    return out.reshape(B, 1, HD) @ p["wo"], cache
+    if tp > 1 and rules.attn_mode == "context":
+        out = _merge_decode(q[:, 0], k[:, 0], v[:, 0], k_cache, v_cache,
+                            rows, window, rules, group)
+    else:
+        k_cache[lanes, rows] = k[:, 0].to(k_cache.dtype)
+        v_cache[lanes, rows] = v[:, 0].to(v_cache.dtype)
+        out = flash_decode(q[:, 0], k_cache, v_cache, pos, window=window)
+    out = out.reshape(B, 1, -1) @ p["wo"]
+    return (C.sum_partials(out, group) if heads else out), cache
+
+
+def _merge_decode(q, k, v, k_cache, v_cache, pos, window, rules, group):
+    """Context-parallel decode: this rank's cache is global rows ``[r n,
+    (r + 1) n)``; the new k/v row is written only on the lanes whose
+    ``pos`` falls there (other lanes rewrite their own row, never an index
+    out of range), each rank attends its rows, and the ranks' un-
+    normalised softmax stats merge as the reference's ``pmax`` and two
+    ``psum`` (``src/repro/models/model.py:356-374``), the two sums in one
+    exchange."""
+    B, n = k_cache.shape[:2]
+    off = rules.index(rules.tp_axes) * n
+    lanes = torch.arange(B, device=q.device)
+    upd = pos - off
+    owned = ((upd >= 0) & (upd < n))[:, None, None]
+    safe = upd.clamp(0, n - 1)
+    for cbuf, new in ((k_cache, k), (v_cache, v)):
+        cbuf[lanes, safe] = torch.where(owned, new.to(cbuf.dtype),
+                                        cbuf[lanes, safe])
+    acc, m, l = flash_decode(q, k_cache, v_cache, pos, window=window,
+                             kpos_offset=off, return_stats=True)
+    m_g = C.max_over(m, group)
+    scale = torch.exp(m - m_g)
+    both = C.sum_partials(torch.cat([acc * scale[..., None],
+                                     (l * scale)[..., None]], -1), group)
+    num, den = both[..., :-1], both[..., -1]
+    return (num / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
 
 
 def _run_attention_chunk(p, x, cfg, window, cache, positions, lane, offset,
@@ -342,6 +413,7 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
     model call."""
     tallies, auxes, new_cache = [], [], []
     moe_i = 0
+    bp = _gather_dense(bp, specs, rules)
     for i, spec in enumerate(specs):
         sub = bp[i]
         h = rms_norm(x, sub["ln1"], cfg.norm_eps)
@@ -356,15 +428,16 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
                                          positions, lane, offset, n_valid,
                                          row_valid)
         else:
-            h, st = _run_attention(sub["mixer"], h, cfg, window, positions,
-                                   cache=cache, pos=pos)
+            h, st = _run_attention(sub["mixer"], h, cfg, rules, window,
+                                   positions, cache=cache, pos=pos)
         new_cache.append(st)
         x = x + h
         if spec.ffn == "none":
             continue
         h2 = rms_norm(x, sub["ln2"], cfg.norm_eps)
         if spec.ffn == "dense":
-            h2 = mlp(sub["ffn"], h2, cfg.mlp_gated)
+            h2 = mlp(sub["ffn"], h2, cfg.mlp_gated,
+                     _tp_group(rules, cfg.d_ff))
         else:
             so = nc = cdf = None
             if moe_tables_blk is not None:
@@ -374,7 +447,9 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
                 rules=rules, slots_of=so, n_copies=nc, copy_cdf=cdf,
                 route_seed=route_seed, phase=phase, row_valid=moe_row_valid)
             if cfg.n_shared_experts:
-                y = y + mlp(sub["shared"], h2, cfg.mlp_gated)
+                f = cfg.n_shared_experts * cfg.moe_d_ff
+                y = y + mlp(sub["shared"], h2, cfg.mlp_gated,
+                            _tp_group(rules, f))
             tallies.append(tally)
             auxes.append(aux)
             moe_i += 1
@@ -383,8 +458,72 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
     return x, tallies, auxes, new_cache
 
 
-def _embed(params, tokens):
-    return params["embed"][tokens]
+def _gather_dense(bp, specs, rules):
+    """A block's params with the FSDP slices of its attention and dense
+    MLP weights gathered over ``rules.fsdp`` (on their d_model axis); every
+    rank of that group does the same dense work, so each keeps its own
+    slice of the gradient. Other leaves (norms, the MoE layer, whose
+    experts gather in its body, the recurrent mixers) pass as they are."""
+    group = None if rules is None else rules.group(rules.fsdp_axes)
+    if group is None:
+        return bp
+    out = []
+    for spec, sub in zip(specs, bp):
+        sub = dict(sub)
+        dense = [k for k, ok in (("mixer", spec.mixer == "attn"),
+                                 ("ffn", spec.ffn == "dense"),
+                                 ("shared", "shared" in sub)) if ok]
+        for k in dense:
+            sub[k] = {n: C.gather_shards(w, group, DENSE_D_AXIS[n],
+                                         summed=False)
+                      for n, w in sub[k].items()}
+        out.append(sub)
+    return out
+
+
+def _whole_top(cfg, params, rules):
+    """The embedding and the head with their FSDP slices gathered (D of
+    ``embed``, axis 0 of ``head``); the vocabulary stays split over ``tp``
+    where it is."""
+    group = None if rules is None else rules.group(rules.fsdp_axes)
+    if group is None:
+        return params
+    out = dict(params)
+    out["embed"] = C.gather_shards(params["embed"], group, 1, summed=False)
+    if not cfg.tie_embeddings:
+        out["head"] = C.gather_shards(params["head"], group, 0, summed=False)
+    return out
+
+
+def _tp_group(rules, n: int):
+    """The ``tp`` group where an axis of ``n`` (a dense MLP's F, the
+    vocabulary) splits over it, else ``None``."""
+    if rules is None or not rules.splits(n):
+        return None
+    return rules.group(rules.tp_axes)
+
+
+def _vocab(cfg, rules):
+    """(tp group, first id of this rank's slice) when the vocabulary is
+    split over ``tp``, else (None, 0)."""
+    group = _tp_group(rules, cfg.vocab)
+    if group is None:
+        return None, 0
+    return group, rules.index(rules.tp_axes) * (cfg.vocab // rules.tp_size)
+
+
+def _embed(cfg, params, tokens, rules=None):
+    """The token lookup; vocab-parallel where the vocabulary is split: the
+    rank's rows, tokens outside them zero, summed over ``tp``."""
+    group, off = _vocab(cfg, rules)
+    w = params["embed"]
+    if group is None:
+        return w[tokens]
+    n = w.shape[0]
+    local = tokens - off
+    mine = ((local >= 0) & (local < n))[..., None]
+    x = w[local.clamp(0, n - 1)]
+    return C.sum_partials(torch.where(mine, x, torch.zeros_like(x)), group)
 
 
 def _unembed_w(cfg, params):
@@ -497,9 +636,13 @@ def _unbind_tree(blocks, nb: int):
     return [[pos[b] for pos in per_pos] for b in range(nb)]
 
 
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, rules=None):
+    """Last-position logits (B, V) f32; a split vocabulary's slices are
+    gathered whole."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1].float() @ _unembed_w(cfg, params).float()
+    logits = x[:, -1].float() @ _unembed_w(cfg, params).float()
+    group, _ = _vocab(cfg, rules)
+    return C.gather_shards(logits, group, 1, summed=False)
 
 
 def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
@@ -513,15 +656,18 @@ def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
 
     def fn(params, batch, moe_tables=None):
         tokens = batch["tokens"]
-        x = _embed(params, tokens)
+        params = _whole_top(cfg, params, rules)
+        x = _embed(cfg, params, tokens, rules)
         positions = torch.arange(x.shape[1], device=x.device)
         x, tallies, auxes, _ = _run_blocks(cfg, rules, params, x,
                                            phase="train",
                                            moe_tables=moe_tables,
                                            positions=positions)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        group, off = _vocab(cfg, rules)
         loss = softmax_xent_chunked(x, _unembed_w(cfg, params),
-                                    batch["labels"])
+                                    batch["labels"], group=group,
+                                    vocab_offset=off)
         aux = (torch.stack(auxes).sum() if auxes else
                torch.zeros((), dtype=torch.float32, device=x.device))
         return loss + aux_weight * aux, (tallies, aux)
@@ -535,13 +681,14 @@ def prefill_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
 
     def fn(params, batch, moe_tables=None):
         tokens = batch["tokens"]
-        x = _embed(params, tokens)
+        params = _whole_top(cfg, params, rules)
+        x = _embed(cfg, params, tokens, rules)
         positions = torch.arange(x.shape[1], device=x.device)
         x, tallies, _, cache = _run_blocks(cfg, rules, params, x,
                                            phase="prefill",
                                            moe_tables=moe_tables,
                                            positions=positions)
-        return _logits(cfg, params, x), cache, tallies
+        return _logits(cfg, params, x, rules), cache, tallies
 
     return fn
 
@@ -573,9 +720,9 @@ def prefill_chunk_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
 
     def fn(params, tokens, cache, lane: int, offset: int, n_valid: int,
            moe_tables=None):
-        x = _embed(params, tokens)
-        C = x.shape[1]
-        rows = torch.arange(C, device=x.device)
+        x = _embed(cfg, params, tokens)
+        n = x.shape[1]
+        rows = torch.arange(n, device=x.device)
         positions = offset + rows
         x, tallies, _, cache = _run_blocks(
             cfg, rules, params, x, phase="chunk", moe_tables=moe_tables,
@@ -595,7 +742,8 @@ def decode_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
     lane steps, busy or idle, as in the reference."""
 
     def fn(params, token, cache, pos, moe_tables=None):
-        x = _embed(params, token)
+        params = _whole_top(cfg, params, rules)
+        x = _embed(cfg, params, token, rules)
         pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
                                  (token.shape[0],))
         x, tallies, _, cache = _run_blocks(cfg, rules, params, x,
@@ -603,7 +751,7 @@ def decode_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
                                            moe_tables=moe_tables,
                                            positions=pos, cache=cache,
                                            pos=pos)
-        return _logits(cfg, params, x), cache, tallies
+        return _logits(cfg, params, x, rules), cache, tallies
 
     return fn
 

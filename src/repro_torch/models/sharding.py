@@ -1,12 +1,21 @@
 """Sharding rules and the placement lookup tables.
 
-The port's :class:`ShardingRules` holds what the MoE dispatch reads: the
+The port's :class:`ShardingRules` holds what the model reads: the MoE
 implementation, the dispatch body, the expert-parallel group, the ragged
 row tile and the capacity factor, and — on a rank grid
 (:class:`repro_torch.launch.mesh.Grid`) — the reference's axis roles
-(``dp``, ``ep``, ``ep_all``, ``fsdp``, ``decode_expert_tp``), with the
-grid in place of its ``Mesh``. Dense layers stay replicated on every rank:
-tensor parallelism of attention and dense FSDP are not ported.
+(``dp``, ``tp``, ``ep``, ``ep_all``, ``fsdp``, ``attn_mode``,
+``decode_expert_tp``), with the grid in place of its ``Mesh``.
+
+On a grid the dense layers split over ``tp`` as the reference's rules
+split them: attention by heads (:func:`heads_ok`) or, in ``"context"``
+mode, by query rows at prefill and by cache rows at decode; the dense
+MLP's F; the vocabulary of the embedding and the unembedding where it
+divides. The dense weights are also FSDP-sliced over ``fsdp`` and
+gathered a block at a time. The batch stays replicated over ``dp``, the
+residual stream between layers replicated, and the recurrent mixers
+(Mamba, mLSTM, sLSTM) replicated; ``tp=None`` keeps every dense layer
+replicated.
 
 ``build_slots_of`` and ``build_copy_cdf`` are the reference's numpy table
 builders (``repro.models.sharding``), copied.
@@ -21,11 +30,29 @@ import numpy as np
 
 from repro_torch.core.placement import copy_share_cdf
 
-__all__ = ["ShardingRules", "build_slots_of", "build_copy_cdf"]
+__all__ = ["ShardingRules", "heads_ok", "DENSE_D_AXIS", "DENSE_TP_AXIS",
+           "build_slots_of", "build_copy_cdf"]
 
 
 _IMPLS = ("ragged", "capacity")
 _DISPATCHES = ("auto", "a2a", "replicated", "dense")
+_ATTN_MODES = ("heads", "context")
+
+#: a dense block leaf's d_model axis (without the leading ``n_blocks``),
+#: which FSDP slices, and its tensor-parallel axis: the heads or F of the
+#: column-parallel in-projections, the rows of the row-parallel ones
+#: (``param_specs``, ``src/repro/launch/sharding.py:120-128``)
+DENSE_D_AXIS = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "w1": 0, "w3": 0,
+                "w2": 1}
+DENSE_TP_AXIS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w1": 1, "w3": 1,
+                 "w2": 0}
+
+
+def heads_ok(n_heads: int, n_kv_heads: int, tp: int) -> bool:
+    """Whether attention splits by heads over ``tp`` ranks: both head
+    counts divide and no rank is left without a head (the reference's
+    ``heads_ok``, ``src/repro/launch/sharding.py:45-47``)."""
+    return n_heads % tp == 0 and n_kv_heads % tp == 0 and tp <= n_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +90,15 @@ class ShardingRules:
     ``moe_block_m`` — the ragged row tile: a multiple of the CUDA kernel's
     64-row block on the card, any size on the CPU.
 
+    ``tp`` — the grid axis the dense layers split over (``None``: none,
+    every dense layer replicated); ``attn_mode`` — ``"heads"`` (each rank
+    a contiguous block of ``H/tp`` query and ``KV/tp`` KV heads, where
+    :func:`heads_ok`; else attention runs replicated) or ``"context"``
+    (prefill: each rank its ``S/tp`` query rows against every key, where
+    ``tp`` divides S; decode: the cache's rows split over the ranks, where
+    ``tp`` divides ``S_max``, the online-softmax stats merged). ``fsdp``
+    slices the dense weights as well as the experts.
+
     ``remat`` — recompute each block in the backward of the train phase
     (``torch.utils.checkpoint``). Off by default, where the reference's
     default is on: the port's ``rules=None`` means ``ShardingRules()``,
@@ -78,10 +114,12 @@ class ShardingRules:
     capacity_factor: float = 1.25
     grid: Optional[object] = None
     dp: Tuple[str, ...] = ("pod", "data")
+    tp: Optional[str] = "model"
     ep: Tuple[str, ...] = ("model",)
     ep_all: Tuple[str, ...] = ("pod", "data", "model")
     fsdp: Optional[Union[str, Tuple[str, ...]]] = "data"
     decode_expert_tp: bool = False
+    attn_mode: str = "heads"
     remat: bool = False
 
     def __post_init__(self):
@@ -91,6 +129,9 @@ class ShardingRules:
         if self.moe_dispatch not in _DISPATCHES:
             raise ValueError(f"moe_dispatch must be one of {_DISPATCHES}, "
                              f"got {self.moe_dispatch!r}")
+        if self.attn_mode not in _ATTN_MODES:
+            raise ValueError(f"attn_mode must be one of {_ATTN_MODES}, "
+                             f"got {self.attn_mode!r}")
         if self.ep_ranks < 0:
             raise ValueError(f"ep_ranks must be >= 0, got {self.ep_ranks}")
         if self.grid is None:
@@ -134,6 +175,41 @@ class ShardingRules:
     @property
     def fsdp_axes(self) -> Tuple[str, ...]:
         return self._axes(self.fsdp)
+
+    @property
+    def tp_axes(self) -> Tuple[str, ...]:
+        return self._axes(self.tp) if self.tp else ()
+
+    @property
+    def tp_size(self) -> int:
+        """Ranks the dense layers split over (1 without a grid)."""
+        return self.axis_size(self.tp_axes)
+
+    def group(self, axes):
+        """The process group over ``axes`` (``None``: one rank)."""
+        return None if self.grid is None else self.grid.group(axes)
+
+    def index(self, axes) -> int:
+        """This rank's place in the group over ``axes``."""
+        return 0 if self.grid is None else self.grid.index(axes)
+
+    def heads_split(self, cfg) -> bool:
+        """Attention runs split by heads (``attn_mode="heads"`` and
+        :func:`heads_ok`), as ``_attn_specs`` checks it at run time."""
+        return (self.tp_size > 1 and self.attn_mode == "heads"
+                and heads_ok(cfg.n_heads, cfg.n_kv_heads, self.tp_size))
+
+    def context_split(self, n_rows: int) -> bool:
+        """Context-parallel attention over ``n_rows`` (the prefill's S or
+        the cache's ``S_max``): ``attn_mode="context"`` and ``tp``
+        divides them."""
+        return (self.tp_size > 1 and self.attn_mode == "context"
+                and n_rows % self.tp_size == 0)
+
+    def splits(self, n: int) -> bool:
+        """An axis of ``n`` (the vocabulary, a dense MLP's F) splits over
+        ``tp``."""
+        return self.tp_size > 1 and n % self.tp_size == 0
 
     @property
     def ep_size(self) -> int:

@@ -17,7 +17,9 @@ memory is taken on the caller's thread, the file writes on a background
 thread; ``wait()`` joins it. An interrupted save leaves only a ``.tmp``
 directory, which :func:`latest_step` ignores and ``clean()`` removes.
 Restore places every leaf on the device and in the dtype of the matching
-leaf of the tree it is given.
+leaf of the tree it is given; with sharding rules on a rank grid it
+returns the rank's slice of each leaf of a checkpoint written whole (the
+reference's re-mesh restore, ``shardings=``).
 """
 
 from __future__ import annotations
@@ -122,11 +124,18 @@ def _np_dtype(name: str) -> np.dtype:
     return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
 
 
-def load_checkpoint(directory: str, step: int,
-                    tree_like: Any) -> Tuple[Any, Dict]:
+def load_checkpoint(directory: str, step: int, tree_like: Any,
+                    rules: Any = None, phase: str = "train",
+                    cfg: Any = None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``tree_like``, each leaf on the
     device and in the dtype of its counterpart there. Returns
-    ``(tree, extras)``."""
+    ``(tree, extras)``.
+
+    With ``rules`` on a rank grid (and the model's ``cfg``) the checkpoint
+    holds the whole model tree, and each leaf comes back as the rank's
+    slice of it (``launch.sharding.shard_params`` for ``phase``), read on
+    the host and moved alone; ``tree_like`` may be the whole tree or the
+    rank's (its shapes are checked against the one it matches)."""
     path = os.path.join(directory, f"ckpt_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -135,7 +144,7 @@ def load_checkpoint(directory: str, step: int,
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, "
             f"restore target has {len(leaves_like)}")
-    out = []
+    whole = []
     for i, (like, info) in enumerate(zip(leaves_like, manifest["leaves"])):
         dt = _np_dtype(info["dtype"])
         parts = []
@@ -149,10 +158,23 @@ def load_checkpoint(directory: str, step: int,
         t = torch.from_numpy(np.array(arr))
         if info["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
-        if t.dtype != like.dtype or tuple(t.shape) != tuple(like.shape):
+        whole.append(t)
+    host = unflatten(spec, whole)
+    if rules is not None and rules.grid is not None:
+        from repro_torch.launch.sharding import shard_params
+        if cfg is None:
+            raise ValueError("load_checkpoint: slicing onto a grid needs "
+                             "the model's cfg")
+        host = shard_params(cfg, host, rules, phase)
+    out = []
+    for i, (t, like, w) in enumerate(zip(flatten(host)[0], leaves_like,
+                                         whole)):
+        shape = tuple(like.shape)
+        if t.dtype != like.dtype or shape not in (tuple(t.shape),
+                                                  tuple(w.shape)):
             raise ValueError(f"leaf {i}: checkpoint {t.dtype} "
                              f"{tuple(t.shape)}, target {like.dtype} "
-                             f"{tuple(like.shape)}")
+                             f"{shape}")
         out.append(t.to(like.device))
     return unflatten(spec, out), manifest["extras"]
 

@@ -318,16 +318,18 @@ def jax_battery(path: str, names) -> None:
 
 
 def start_reference(fn: str, path: str, n_devices: int, *args):
-    """Start ``fn(path, *args)`` of this module in a fresh interpreter with
-    ``n_devices`` fake CPU devices; returns the ``Popen``."""
+    """Start ``fn(path, *args)`` of this module (or ``"module.fn"`` of
+    another test helper) in a fresh interpreter with ``n_devices`` fake CPU
+    devices; returns the ``Popen``."""
+    module, _, fn = fn.rpartition(".")
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(here, "..", "src")
     env = dict(os.environ)
     env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n_devices}"
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join([here, src])
-    code = (f"import _torch_ep_ranks as h; h.{fn}({path!r}, "
-            f"*{args!r})")
+    code = (f"import {module or '_torch_ep_ranks'} as h; "
+            f"h.{fn}({path!r}, *{args!r})")
     return subprocess.Popen([sys.executable, "-c", code], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -380,7 +382,7 @@ def model_rank(rank, tree, remat=False):
                           moe_block_m=8, remat=remat)
     tokens, labels, dec, pos = model_inputs(cfg.vocab)
     whole = params_from_numpy(tree)
-    params = shard_params(whole, rules, "train")
+    params = shard_params(cfg, whole, rules, "train")
     for leaf in leaves(params):
         leaf.requires_grad_(True)
     tables = tmodel.make_moe_tables(cfg, rules, phase="train")
@@ -391,11 +393,11 @@ def model_rank(rank, tree, remat=False):
     out = {"loss": float(loss.detach()), "train_tallies": tallies.numpy(),
            "grads": [leaf.grad.numpy() for leaf in leaves(params)]}
     with torch.no_grad():
-        params = shard_params(whole, rules, "prefill")
+        params = shard_params(cfg, whole, rules, "prefill")
         lg, _, tal = tmodel.prefill_fn(cfg, rules)(
             params, {"tokens": torch.from_numpy(tokens)}, tables)
         out["prefill"] = (lg.numpy(), tal.numpy())
-        params = shard_params(decode_params(cfg, whole, rules), rules,
+        params = shard_params(cfg, decode_params(cfg, whole, rules), rules,
                               "decode")
         tables = tmodel.make_moe_tables(cfg, rules, phase="decode")
         cache = tmodel.init_cache(cfg, DEC_B, DEC_S_MAX, dtype=torch.float32)

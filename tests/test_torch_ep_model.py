@@ -121,13 +121,14 @@ def test_loss_and_gradients_match_single_rank_and_jax_mesh(runs, single):
         np.testing.assert_array_equal(out["train_tallies"],
                                       ref["train_tallies"])
         rules = _rank_rules(r)
-        want = [g.numpy() for g in leaves(shard_params(single["grads"],
-                                                       rules, "train"))]
+        cfg = t_get_smoke(h.MODEL_ARCH)
+        want = [g.numpy() for g in leaves(shard_params(
+            cfg, single["grads"], rules, "train"))]
         jgrads = params_from_numpy(
             jax.tree.unflatten(jax.tree.structure(
                 tree_map(lambda g: 0, single["grads"])),
                 [ref[f"grad/{i}"] for i in range(len(want))]))
-        want_j = [g.numpy() for g in leaves(shard_params(jgrads, rules,
+        want_j = [g.numpy() for g in leaves(shard_params(cfg, jgrads, rules,
                                                          "train"))]
         assert len(out["grads"]) == len(want)
         for i, (g, w, wj) in enumerate(zip(out["grads"], want, want_j)):
@@ -166,24 +167,43 @@ def test_decode_with_expanded_experts_matches_single_rank_and_jax(runs,
     ("decode", False, None), ("decode", True, None)])
 def test_shard_params_round_trips(tree, phase, expert_tp, fsdp):
     """On a (2, 4) grid (rank r at data r // 4, model r % 4) the ranks'
-    slices, concatenated back, rebuild every expert leaf; every other leaf
-    is the same tensor on every rank."""
+    slices, concatenated back, rebuild every expert leaf, the vocab-
+    parallel embedding and head (the smoke vocab of 512 over "model") and
+    the attention weights (4 heads and 2 KV heads do not split over 4:
+    only FSDP's d_model slice); norms and the router are the same tensor
+    on every rank."""
     cfg = t_get_smoke(h.MODEL_ARCH)
     whole = params_from_numpy(tree)
     if phase == "decode":
         whole = decode_params(cfg, whole, _rank_rules(0))
-    parts = [shard_params(whole, ShardingRules(
+    parts = [shard_params(cfg, whole, ShardingRules(
         grid=Grid((2, 4), h.AXES, r, {}), dp=("data",), ep=("model",),
         ep_all=("data", "model"), fsdp=fsdp, decode_expert_tp=expert_tp),
         phase) for r in range(8)]
     for part in parts:
-        assert part["embed"] is whole["embed"]
+        assert part["final_norm"] is whole["final_norm"]
+        assert part["blocks"][0]["ln1"] is whole["blocks"][0]["ln1"]
         assert part["blocks"][0]["ffn"]["router"] is \
             whole["blocks"][0]["ffn"]["router"]
+
+    def back(get, model_dim, data_dim):
+        rows = [[get(parts[d * 4 + m]) for m in range(4)] for d in range(2)]
+        if model_dim is not None:
+            rows = [[torch.cat(r, model_dim)] for r in rows]
+        if fsdp and data_dim is not None:
+            return torch.cat([r[0] for r in rows], data_dim)
+        assert all(torch.equal(a, b) for a, b in zip(rows[0], rows[1]))
+        return rows[0][0]
+
+    assert torch.equal(back(lambda p: p["embed"], 0, 1), whole["embed"])
+    assert torch.equal(back(lambda p: p["head"], 1, 0), whole["head"])
+    for k, d_axis in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 2)):
+        got = back(lambda p: p["blocks"][0]["mixer"][k], None, d_axis)
+        assert torch.equal(got, whole["blocks"][0]["mixer"][k]), k
     for k in ("w1", "w3", "w2"):
         got = [p["blocks"][0]["ffn"][k] for p in parts]
         if phase == "decode" and not expert_tp:      # slots over all 8
-            back = torch.cat(got, 1)
+            whole_k = torch.cat(got, 1)
         else:                                        # slots over model
             inner = 2 if fsdp or k == "w2" else 3    # FSDP / the F slice
             if fsdp or expert_tp:
@@ -192,8 +212,8 @@ def test_shard_params_round_trips(tree, phase, expert_tp, fsdp):
             else:                                    # replicated over data
                 assert all(torch.equal(got[m], got[4 + m]) for m in range(4))
                 cols = got[:4]
-            back = torch.cat(cols, 1)
-        assert torch.equal(back, whole["blocks"][0]["ffn"][k]), k
+            whole_k = torch.cat(cols, 1)
+        assert torch.equal(whole_k, whole["blocks"][0]["ffn"][k]), k
 
 
 @pytest.mark.parametrize("ep_ranks", [2, 4])
@@ -242,6 +262,21 @@ def test_make_rules_follows_the_reference():
     assert train.ep_all_axes == ("data", "model") and train.ep_size == 4
     assert not train.decode_expert_tp and train.fsdp is None
     assert make_rules(cfg, None).grid is None
+    # every config's attention mode, FSDP and expert-TP against the
+    # reference's rules on meshes of the same names and sizes
+    from repro.configs import ALL_ARCHS, EXTRA_ARCHS, get as j_get
+    from repro.launch.sharding import make_rules as j_make_rules
+    from repro_torch.configs import get as t_get
+    for arch in ALL_ARCHS + EXTRA_ARCHS:
+        for shape in ((2, 4), (1, 2), (4, 16)):
+            mesh = types.SimpleNamespace(axis_names=h.AXES,
+                                         shape=dict(zip(h.AXES, shape)))
+            want = j_make_rules(j_get(arch), mesh, "train")
+            got = make_rules(t_get(arch), Grid(shape, h.AXES, 0, {}),
+                             "train")
+            assert (got.tp, got.attn_mode, got.decode_expert_tp) == \
+                (want.tp, want.attn_mode, want.decode_expert_tp), arch
+            assert got.fsdp == want.fsdp, arch
 
 
 def _loss_and_grads(rules, tree, cfg):
