@@ -130,21 +130,36 @@ Run from the repository root on a machine with one NVIDIA H100. It
    equal; the step profile with remat at 8 x 512 and at 4 x 1024;
 15. tensor parallelism of the dense layers (``tp_phase``) on 4 ranks
    sharing the card: granite at full width on (1, 4) from ``make_rules``
-   (attention by heads, 6 heads and 2 KV heads a rank; EP 4) — a prefill
-   of 2 x 256, 16 decode steps of 8 lanes (the cache's KV heads over the
-   ranks), one loss and backward with remat; the same prefill and decode
-   in context mode (query rows, and 1024 cache rows, over the ranks; the
-   decode's softmax stats merged); smollm-360m at full width on (1, 4)
-   (context mode, the tied vocabulary and the MLP's F split; no kernel of
-   the port on its path); granite at 2 layers on (2, 2) with the dense
-   weights FSDP-sliced. Each is held against one device on the same
-   weights: bit for bit under a witness that computes the attention as
-   the ranks split it and adds their partials in rank order (the
-   gradients within 2e-2), and as the port runs within bounds set from
-   recorded readings; every rank's launches exact against the layer
-   count; each run's host wall time a rank, the exchanges' share of a
-   clocked run, their calls and bytes, peak memory and the dense weight
-   bytes a rank.
+   (attention by heads, 6 heads and 2 KV heads a rank; EP 4; the
+   residual's positions over the ranks) — a prefill of 2 x 256, 8 decode
+   steps of 8 lanes (the cache's KV heads over the ranks), one loss and
+   backward with remat; the same prefill and decode in context mode (query
+   rows, and 1024 cache rows, over the ranks; the decode's softmax stats
+   merged); smollm-360m at full width on (1, 4) (context mode, the tied
+   vocabulary and the MLP's F split; no kernel of the port on its path);
+   granite at 2 layers on (2, 2) with the batch and the dense weights'
+   FSDP slices over "data". Each is held against one device on the same
+   weights: bit for bit under a witness that computes the attention and
+   the row-wise steps as the ranks split them and adds their partials in
+   rank order (the gradients within 2e-2), and as the port runs within
+   bounds set from recorded readings; every rank's launches exact against
+   the layer count; each run's host wall time a rank, the exchanges' share
+   of a clocked run, their calls and bytes, peak memory and the dense
+   weight bytes a rank;
+16. the batch over ``dp`` and the sequence-sharded residual (``sp_phase``)
+   on 4 ranks sharing the card, each rank holding and computing only its
+   rows: granite at full width on (2, 2) from ``make_rules`` (the batch
+   over "data", heads and positions over "model", dense and expert FSDP
+   over "data") — a prefill of 4 x 256, 8 decode steps of 8 lanes (4 a
+   rank), one loss and backward with remat, each bit for bit against the
+   witness and within recorded bounds against one device as it runs, with
+   the peak memory and the bytes of the block inputs remat keeps a rank;
+   granite on (1, 4) in context mode (a prefill of 2 x 256, the rank's
+   positions its query rows, and 8 decode steps) held the same two ways;
+   jamba at its smoke size on (2, 2) (the Mamba mixers on the gathered
+   sequence, the MoE layer through the port's kernels) against one device;
+   every kernel call on the ranks, at jamba's shapes and at granite's (2
+   layers), against its plain version; every rank's launches exact.
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -2818,7 +2833,7 @@ def remat_phase(cfg, dev):
 # phase 15: tensor parallelism of the dense layers over ranks sharing the card
 # ---------------------------------------------------------------------------
 
-TP_DECODE_STEPS = 16
+TP_DECODE_STEPS = 8
 TP_LANES = 8
 TP_S_MAX = 1024
 # lane j decodes from position 120 j: in context mode each rank's quarter
@@ -2840,6 +2855,24 @@ TP_BOUNDS = {
     "context": {"prefill": 0.0, "decode": 6e-2},
     "smollm": {"prefill": 4e-2, "decode": 4e-2, "loss": 1e-6, "grads": 7e-2},
     "fsdp": {"prefill": 3e-2, "loss": 3e-4, "grads": 0.17},
+}
+
+
+# phase 16: the batch over dp and the sequence-sharded residual
+SP_STEPS = 8
+# Against one device as it runs, per run (the witness holds bit for bit):
+# the logits' relative L2 by path, the loss's relative error and the
+# gradient leaves' largest relative L2, set at about twice the readings on
+# an H100 80GB HBM3 at 700 W (PERF.md, "Each rank's rows").
+# Readings (prefill, decode, loss, gradients): dp_sp 0.0446, 0.0348,
+# 5.3e-5, 0.1154; context 0.0 (the same products on the same rows as one
+# device), 0.0304; jamba at its smoke size 0.1441, 0.0822, 2.958e-4,
+# 0.2802 (14 of 4096 assignments moved: small random-weight logits).
+SP_BOUNDS = {
+    "dp_sp": {"prefill": 9e-2, "decode": 7e-2, "loss": 1.1e-4,
+              "grads": 0.23},
+    "context": {"prefill": 0.0, "decode": 6e-2},
+    "jamba": {"prefill": 0.29, "decode": 0.17, "loss": 6e-4, "grads": 0.56},
 }
 
 
@@ -2875,44 +2908,129 @@ def _ordered_sum():
                                                                      group)
 
 
+def _ordered_parts(x, group):
+    """Every rank's ``x`` of ``group``, in rank order (an all_gather)."""
+    import torch
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+def _ordered_scatter():
+    """``scatter_partials`` as an all_gather summed in rank order, then the
+    rank's rows: the sum one device adds in the same order. Backward: the
+    all-gather of the gradient, as ``scatter_partials``'s."""
+    import torch
+    import torch.distributed as dist
+
+    class OrderedScatter(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group, dim):
+            ctx.group, ctx.dim = group, dim
+            total = _in_order(_ordered_parts(x, group))
+            return total.chunk(dist.get_world_size(group), dim)[
+                dist.get_rank(group)].contiguous()
+
+        @staticmethod
+        def backward(ctx, g):
+            return torch.cat(_ordered_parts(g, ctx.group), ctx.dim), None, \
+                None
+
+    return lambda x, group, dim=1: (x if group is None else
+                                    OrderedScatter.apply(x, group, dim))
+
+
+def _ordered_mean():
+    """``mean_over`` as an all_gather summed in rank order over the group's
+    size; backward ``g / n``, as ``mean_over``'s."""
+    import torch
+    import torch.distributed as dist
+
+    class OrderedMean(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.n = dist.get_world_size(group)
+            return _in_order(_ordered_parts(x, group)) / ctx.n
+
+        @staticmethod
+        def backward(ctx, g):
+            return g / ctx.n, None
+
+    return lambda x, group: x if group is None else OrderedMean.apply(x,
+                                                                      group)
+
+
 class ordered_partials:
     """On the ranks, within the block: the model's sums of rank partials
-    (wo's in heads mode, the context decode's merge) added in rank order
-    (:func:`_ordered_sum`); the MoE layer's are left as they are. With
-    :class:`split_attention` on one device, the witness of phase 15."""
+    (wo's in heads mode, reduce-scattered back to the rank's rows under
+    sequence parallelism, the context decode's merge) and the mean of the
+    loss over the ranks' rows added in rank order (:func:`_ordered_sum`,
+    :func:`_ordered_scatter`, :func:`_ordered_mean`), and the MoE layer's
+    mean of the ranks' mean probabilities; the MoE layer's other sums are
+    left as they are. With :func:`_witness` on one device, the witness of
+    phases 15 and 16."""
 
     def __enter__(self):
         from repro_torch.models import model as tmodel
-        self.saved = real = tmodel.C
-        tmodel.C = _Collectives(real, sum_partials=_ordered_sum())
+        from repro_torch.models import moe as tmoe
+        self.saved = real, real_moe = tmodel.C, tmoe.C
+        tmodel.C = _Collectives(real, sum_partials=_ordered_sum(),
+                                scatter_partials=_ordered_scatter(),
+                                mean_over=_ordered_mean())
+        tmoe.C = _Collectives(real_moe, mean_over=_ordered_mean())
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import model as tmodel
-        tmodel.C = self.saved
+        from repro_torch.models import moe as tmoe
+        tmodel.C, tmoe.C = self.saved
 
 
 class split_attention:
     """On one device, within the block: each attention layer computed as
-    ``ways`` ranks compute it. ``"heads"``: each rank's contiguous block of
-    KV heads with their query heads (its columns of wq, wk and wv, rows of
-    wo and heads of the cache), the partial outputs added in rank order.
-    ``"context"``: the prefill's query rows in ``ways`` blocks, gathered
-    before wo; at decode the cache in ``ways`` row shards, each written
-    where it holds the lane's row and attended alone, the shards' softmax
-    stats merged in rank order. A witness for the ranks (with
-    :class:`ordered_partials` there), not a path of the port."""
+    ``dp`` x ``ways`` ranks compute it, the lanes in ``dp`` blocks (each
+    block a call of its own, as a rank of a ``dp`` group runs it) and
+    within a block: ``"heads"``: each rank's contiguous block of KV heads
+    with their query heads (its columns of wq, wk and wv, rows of wo and
+    heads of the cache) on every row, the partial outputs added in rank
+    order. ``"context"``: at prefill each rank's ``S/ways`` rows projected
+    alone, the keys and values of all of them attended by each rank's
+    queries, each rank's rows through wo; at decode the cache in ``ways``
+    row shards, each written where it holds the lane's row and attended
+    alone, the shards' softmax stats merged in rank order. A witness for
+    the ranks (with :class:`ordered_partials` there), not a path of the
+    port."""
 
-    def __init__(self, mode, ways):
-        self.mode, self.ways = mode, ways
+    def __init__(self, mode, ways, dp=1):
+        self.mode, self.ways, self.dp = mode, ways, dp
 
     def __enter__(self):
+        import torch
         from repro_torch.models import model as tmodel
         self.saved = real = tmodel._run_attention
         split = self._heads if self.mode == "heads" else self._context
+        dp = self.dp
 
-        def run(p, x, cfg, rules, window, positions, cache=None, pos=None):
-            return split(real, p, x, cfg, window, positions, cache, pos)
+        def run(p, x, cfg, rules, window, positions, cache=None, pos=None,
+                seq=None):
+            n = x.shape[0] // dp
+            outs, kvs = [], []
+            for b in range(dp):
+                lanes = slice(b * n, (b + 1) * n)
+                cb = None if cache is None else tuple(c[lanes]
+                                                      for c in cache)
+                out, st = split(real, p, x[lanes], cfg, window, positions,
+                                cb, None if pos is None else pos[lanes])
+                outs.append(out)
+                kvs.append(st)
+            if dp == 1:
+                return outs[0], kvs[0]
+            out = torch.cat(outs, 0)
+            if cache is not None:
+                return out, cache
+            return out, tuple(torch.cat([kv[i] for kv in kvs], 0)
+                              for i in range(2))
 
         tmodel._run_attention = run
         return self
@@ -2958,13 +3076,18 @@ class split_attention:
         if cache is None:
             if S % w:
                 return real(p, x, cfg, None, window, positions)
-            q, k, v = tmodel._qkv(p, x, cfg, positions[None, :])
             n = S // w
+            qkv = [tmodel._qkv(p, x[:, r * n:(r + 1) * n], cfg,
+                               positions[r * n:(r + 1) * n][None, :])
+                   for r in range(w)]
+            k = torch.cat([t[1] for t in qkv], 1)
+            v = torch.cat([t[2] for t in qkv], 1)
             outs = [flash_attention(
-                q[:, r * n:(r + 1) * n], k, v, causal=cfg.causal,
-                window=window, q_positions=positions[r * n:(r + 1) * n],
-                kv_positions=positions) for r in range(w)]
-            return torch.cat(outs, 1).reshape(B, S, -1) @ p["wo"], (k, v)
+                q, k, v, causal=cfg.causal, window=window,
+                q_positions=positions[r * n:(r + 1) * n],
+                kv_positions=positions).reshape(B, n, -1) @ p["wo"]
+                for r, (q, _, _) in enumerate(qkv)]
+            return torch.cat(outs, 1), (k, v)
         k_cache, v_cache = cache
         n = k_cache.shape[1] // w
         q, k, v = tmodel._qkv(p, x, cfg, pos[:, None])
@@ -2994,9 +3117,63 @@ class split_attention:
         return out.reshape(B, 1, -1) @ p["wo"], cache
 
 
+class split_rows:
+    """On one device, within the block: the row-wise steps as ranks that
+    split the batch over ``dp`` and the sequence over ``tp`` run them:
+    every norm and the logits on each of ``dp`` blocks of a ``batch``-lane
+    call's rows, and the loss's cross entropy on each rank's (``batch/dp``,
+    ``S/tp``) rows (every position where the vocabulary splits over
+    ``tp``: ``tp=1``), averaged in rank order. With
+    :class:`split_attention` and :class:`split_routing`, the witness of
+    phases 15 and 16."""
+
+    def __init__(self, dp, tp, batch):
+        self.dp, self.tp, self.piece = dp, tp, max(batch // dp, 1)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import model as tmodel
+        self.saved = (tmodel.rms_norm, tmodel._logits,
+                      tmodel.softmax_xent_chunked)
+        norm, logits, xent = self.saved
+        piece, dp, tp = self.piece, self.dp, self.tp
+
+        def rms_norm(x, scale, eps=1e-6):
+            if x.shape[0] <= piece:
+                return norm(x, scale, eps)
+            return torch.cat([norm(t, scale, eps)
+                              for t in x.split(piece, 0)], 0)
+
+        def split_logits(cfg, params, x, rules=None, rows=None):
+            return torch.cat([logits(cfg, params, t)
+                              for t in x.split(piece, 0)], 0)
+
+        def split_xent(hidden, w, labels, n_chunks=8, group=None,
+                       vocab_offset=0):
+            S = hidden.shape[1]
+            n = S // tp
+            parts = [xent(h[:, r * n:(r + 1) * n], w,
+                          y[:, r * n:(r + 1) * n], n_chunks)
+                     for h, y in zip(hidden.split(piece, 0),
+                                     labels.split(piece, 0))
+                     for r in range(tp)]
+            return _in_order(parts) / len(parts)
+
+        tmodel.rms_norm = rms_norm
+        tmodel._logits = split_logits
+        tmodel.softmax_xent_chunked = split_xent
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as tmodel
+        (tmodel.rms_norm, tmodel._logits,
+         tmodel.softmax_xent_chunked) = self.saved
+
+
 def tp_inputs(cfg, dev, seed, batch, params):
-    """Tokens and labels (``batch`` x 256), 16 decode steps of 8 lanes at
-    positions 120 j + i, and the whole decode cache they start from: one
+    """Tokens and labels (``batch`` x 256), ``TP_DECODE_STEPS`` decode
+    steps of 8 lanes at positions 120 j + i, and the whole decode cache
+    they start from: one
     device's prefill of 8 prompts of 1024 tokens (lane j's rows past 120 j
     are masked, then overwritten, by its decode)."""
     import torch
@@ -3017,13 +3194,81 @@ def tp_inputs(cfg, dev, seed, batch, params):
         "cache": cache}
 
 
-def tp_reference(cfg, dev, params, inputs, paths, witness=None):
+class split_routing:
+    """On one device, within the block: each routing call on a ``(B, S)``
+    call's rows made as the ranks make it, on each rank's a2a block
+    (``B/dp`` rows, ``S/ep`` positions) alone, the blocks' tallies summed
+    and their mean probabilities averaged in rank order, and the aux loss
+    from those, as the a2a bodies compute it. A witness for the ranks
+    (with :class:`ordered_partials` there), not a path of the port."""
+
+    def __init__(self, dp, ep, B, S):
+        self.dp, self.ep, self.B, self.S = dp, ep, B, S
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ref
+        from repro_torch.models import moe as tmoe
+        self.saved = real = tmoe.ops
+        dp, ep, B, S = self.dp, self.ep, self.B, self.S
+        b, s = B // dp, S // ep
+
+        class Ops:
+            def __getattr__(self, name):
+                return getattr(real, name)
+
+            @staticmethod
+            def route_select(xf, w, *args, **kw):
+                x = xf.reshape(B, S, -1)
+                outs = [[real.route_select(
+                    x[i * b:(i + 1) * b, j * s:(j + 1) * s].reshape(
+                        b * s, -1), w, *args, **kw) for j in range(ep)]
+                    for i in range(dp)]
+
+                def whole(k):
+                    return torch.cat([torch.cat(
+                        [o[k].reshape((b, s) + o[k].shape[1:]) for o in row],
+                        1) for row in outs], 0).reshape(
+                            (B * S,) + outs[0][0][k].shape[1:])
+
+                flat = [o for row in outs for o in row]
+                tally = _in_order([o[3] for o in flat])
+                mean_prob = _in_order([o[4] for o in flat]) / len(flat)
+                E = w.shape[1]
+                return (whole(0), whole(1), whole(2), tally, mean_prob,
+                        ref.aux_loss(tally[:E], mean_prob, E))
+
+        tmoe.ops = Ops()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as tmoe
+        tmoe.ops = self.saved
+
+
+def _witness(w, path, batch, seq):
+    """The one-device witness of a plan whose ranks split attention by
+    ``w["mode"]`` over ``w["tp"]``, the batch over ``w["dp"]`` and the
+    experts over ``w["ep"]``, for a ``path`` of ``batch`` lanes and
+    ``seq`` positions: :class:`split_attention`, :class:`split_rows` and,
+    outside decode (where every rank routes the whole batch),
+    :class:`split_routing` over the ranks' a2a blocks."""
+    import contextlib
+    stack = contextlib.ExitStack()
+    stack.enter_context(split_attention(w["mode"], w["tp"], w["dp"]))
+    stack.enter_context(split_rows(w["dp"], w["xent_tp"], batch))
+    if path != "decode":
+        stack.enter_context(split_routing(w["dp"], w["ep"], batch, seq))
+    return stack
+
+
+def tp_reference(cfg, dev, params, inputs, paths, witness=None, steps=None):
     """One device (``rules=None``) on ``params``: the prefill's logits and
-    tallies, the 16 decode steps' (each from the one before, from the
-    inputs' cache) and the loss, its gradients and tallies, as the port
-    runs them and, with ``witness=(mode, ways)``, again under
-    :class:`split_attention` (keys ``.../witness``). Returns the params
-    (detached again) and the results."""
+    tallies, the first ``steps`` decode steps' (each from the one before,
+    from the inputs' cache) and the loss, its gradients and tallies, as
+    the port runs them and, with ``witness`` (:func:`_witness`'s), again
+    under the witness (keys ``.../witness``). Returns the params (detached
+    again) and the results."""
     import contextlib
     import torch
     from repro_torch.models import (decode_fn, loss_fn, make_moe_tables,
@@ -3031,27 +3276,31 @@ def tp_reference(cfg, dev, params, inputs, paths, witness=None):
     from repro_torch.tree import leaves, tree_map
     tables = make_moe_tables(cfg, device=dev)
     ref = {}
-    ways = [("", contextlib.nullcontext)]
+    ways = [("", lambda path, batch: contextlib.nullcontext())]
     if witness is not None:
-        ways.append(("/witness", lambda: split_attention(*witness)))
+        ways.append(("/witness", lambda path, batch: _witness(
+            witness, path, batch, inputs["tokens"].shape[1])))
+    dec = inputs["dec_tokens"][:steps]
     for way, ctx in ways:
-        with ctx(), torch.no_grad():
+        with torch.no_grad():
             if "prefill" in paths:
-                lg, _, tal = prefill_fn(cfg)(
-                    params, {"tokens": inputs["tokens"]}, tables)
+                with ctx("prefill", inputs["tokens"].shape[0]):
+                    lg, _, tal = prefill_fn(cfg)(
+                        params, {"tokens": inputs["tokens"]}, tables)
                 ref["prefill" + way] = (lg, tal)
             if "decode" in paths:
                 cache = tree_map(torch.clone, inputs["cache"])
                 ref["decode" + way] = []
-                for i, tok in enumerate(inputs["dec_tokens"]):
-                    lg, cache, tal = decode_fn(cfg)(
-                        params, tok, cache, inputs["pos"] + i, tables)
-                    ref["decode" + way].append((lg, tal))
+                with ctx("decode", dec.shape[1]):
+                    for i, tok in enumerate(dec):
+                        lg, cache, tal = decode_fn(cfg)(
+                            params, tok, cache, inputs["pos"] + i, tables)
+                        ref["decode" + way].append((lg, tal))
                 del cache
         if "backward" in paths:
             for p in leaves(params):
                 p.requires_grad_(True)
-            with ctx():
+            with ctx("backward", inputs["tokens"].shape[0]):
                 loss, (tal, _) = loss_fn(cfg)(
                     params, {"tokens": inputs["tokens"],
                              "labels": inputs["labels"]}, tables)
@@ -3082,13 +3331,80 @@ def _dense_bytes(cfg, tree):
     return out
 
 
+class block_inputs:
+    """Within the block, the residual stream entering a train-phase block:
+    its shape (the rank's rows), and the bytes of one such input for each
+    of the model's blocks, what per-block remat keeps for the backward."""
+
+    def __init__(self, n_blocks):
+        self.n_blocks = n_blocks
+
+    def __enter__(self):
+        from repro_torch.models import model as tmodel
+        self.saved = real = tmodel._block_body
+        self.bytes, self.shape = 0, None
+
+        def body(*args, **kw):
+            x = args[4]
+            if kw.get("phase") == "train":
+                self.bytes = self.n_blocks * x.numel() * x.element_size()
+                self.shape = list(x.shape)
+            return real(*args, **kw)
+
+        tmodel._block_body = body
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as tmodel
+        tmodel._block_body = self.saved
+
+
+def _tp_vs_plain(cfg, rules_for, params, inp, dev):
+    """On one rank, a prefill, one decode step and a loss and backward of
+    the plan's model on its rules, each kernel call held against its plain
+    version on the same inputs (:class:`hold_calls`; launches not
+    counted). Returns the comparisons' numbers."""
+    import torch
+    from repro_torch.launch.sharding import (decode_params, rank_cache,
+                                             shard_params)
+    from repro_torch.models import (decode_fn, loss_fn, make_moe_tables,
+                                    prefill_fn)
+    from repro_torch.tree import leaves, tree_map
+    pr, dr, tr = rules_for("prefill"), rules_for("decode"), rules_for("train")
+    with hold_calls() as held:
+        with torch.no_grad():
+            prefill_fn(cfg, pr)(shard_params(cfg, params, pr, "prefill"),
+                                {"tokens": inp["tokens"]},
+                                make_moe_tables(cfg, pr, phase="prefill",
+                                                device=dev))
+            cache = rank_cache(cfg, tree_map(torch.clone, inp["cache"]), dr)
+            decode_fn(cfg, dr)(
+                shard_params(cfg, decode_params(cfg, params, dr), dr,
+                             "decode"), inp["dec_tokens"][0], cache,
+                inp["pos"], make_moe_tables(cfg, dr, phase="decode",
+                                            device=dev))
+            del cache
+        tparams = shard_params(cfg, params, tr, "train")
+        for p in leaves(tparams):
+            p.requires_grad_(True)
+        loss, _ = loss_fn(cfg, tr)(tparams, {"tokens": inp["tokens"],
+                                             "labels": inp["labels"]},
+                                   make_moe_tables(cfg, tr, phase="train",
+                                                   device=dev))
+        loss.backward()
+    return {"calls": dict(held.calls), "err": dict(held.err),
+            "route_mismatch": held.route_mismatch,
+            "near_rows": held.near_rows,
+            "rows_that_differ": held.rows_that_differ}
+
+
 def tp_rank(rank, plans, weights, refs, inputs):
     """One rank on the card for each plan of ``plans`` (every rank runs
     every plan, in order): its grid, the rules of ``make_rules`` with the
     plan's overrides, the rank's slice of ``weights[plan["model"]]``
     (shared with the parent, read only) for each phase, and the plan's
-    paths — the prefill, the 16 decode steps (from the rank's slice of the
-    inputs' cache), the loss and backward — each run under the witness
+    paths — the prefill, the plan's decode steps (from the rank's slice of
+    the inputs' cache), the loss and backward — each run under the witness
     (:class:`ordered_partials`, and :class:`exact_decode_psum` at decode)
     where the plan has one, as the port runs it (timed on the host clock,
     launches counted) and again with the exchanges clocked. Returns the
@@ -3106,6 +3422,7 @@ def tp_rank(rank, plans, weights, refs, inputs):
     from repro_torch.models import (decode_fn, loss_fn, make_moe_tables,
                                     prefill_fn)
     from repro_torch.models import collectives
+    from repro_torch.models.model import block_layout
     from repro_torch.tree import leaves, tree_map
     dev = next(iter(inputs.values()))["tokens"].device
     cuda = dev.type == "cuda"
@@ -3194,7 +3511,7 @@ def tp_rank(rank, plans, weights, refs, inputs):
             dtables = make_moe_tables(cfg, drules, phase="decode",
                                       device=dev)
             fn = decode_fn(cfg, drules)
-            steps = inp["dec_tokens"]
+            steps = inp["dec_tokens"][:plan["steps"]]
             base = rank_cache(cfg, inp["cache"], drules)
             out["cache_shape"] = list(base[0][0].shape)
 
@@ -3275,7 +3592,15 @@ def tp_rank(rank, plans, weights, refs, inputs):
                     torch.equal(loss, ref["loss/witness"])
                     and torch.equal(tal, ref["backward_tally/witness"]))
                 out["grad_rel_l2_max/witness"] = grad_rel("grads/witness")
-            loss, tal = run("backward", step)
+            with block_inputs(block_layout(cfg)[0]) as seen:
+                loss, tal = run("backward", step)
+            # what remat keeps of a block: its input, the rank's rows;
+            # beside it the whole batch's, each block's input replicated
+            out["block_input_bytes"] = seen.bytes
+            out["block_input_shape"] = seen.shape
+            out["block_input_bytes_whole"] = (
+                seen.bytes // math.prod(seen.shape)
+                * math.prod(batch["tokens"].shape) * cfg.d_model)
             out["loss"] = loss.item()
             out["loss_rel"] = abs(loss.item() - ref["loss"].item()) / abs(
                 ref["loss"].item())
@@ -3286,6 +3611,8 @@ def tp_rank(rank, plans, weights, refs, inputs):
             out["grad_leaves"] = len(leaves(tparams))
             run("backward", step, clocked=True)
             del tparams
+        if "vs_plain" in plan["paths"]:
+            out["vs_plain"] = _tp_vs_plain(cfg, rules_for, params, inp, dev)
         out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
         results[label] = out
         del params, ref, inp
@@ -3295,67 +3622,23 @@ def tp_rank(rank, plans, weights, refs, inputs):
     return results
 
 
-def tp_phase(cfg, dev, smollm=None):
-    """Phase 15: tensor parallelism of the dense layers on 4 ranks sharing
-    the card (gloo on CUDA tensors), each run held against one device on
-    the same weights in this run:
-
-    (a) granite at full width and depth on (1, 4) from ``make_rules``:
-        attention by heads (6 heads and 2 KV heads a rank), EP 4 through
-        the ragged a2a body, the vocabulary (49155) replicated; a prefill
-        of 2 x 256, 16 decode steps of 8 lanes (the replicated body on
-        ``decode_params``' weights, the cache's KV heads over the ranks)
-        and one loss and backward at 2 x 256 (remat, as ``make_rules``
-        trains);
-    (b) the same with ``attn_mode="context"``: the prefill's query rows and
-        the 1024 cache rows over the 4 ranks, the decode's softmax stats
-        merged;
-    (c) smollm-360m at full width and depth on (1, 4): 15 heads and 5 KV
-        heads force context mode, the tied vocabulary (49152) split, the
-        dense MLP's 2560 over 4; a prefill of 4 x 256, 16 decode steps, a
-        loss and backward; no kernel of the port runs;
-    (d) granite at 2 layers on (2, 2): heads over "model", the dense
-        weights FSDP-sliced over "data"; a prefill and a loss and backward.
-
-    (a), (b) and (d) are held against a witness, one device computing the
-    attention as the ranks split it (:class:`split_attention`) while the
-    ranks add their partials in rank order (:class:`ordered_partials`; at
-    decode also :class:`exact_decode_psum`): the prefill, each decode step
-    and the loss bit for bit, the gradients within ``STEP_TOL`` (gloo sums
-    the input's gradient over the ranks in its own order); and each run
-    against one device as it runs, within ``TP_BOUNDS`` set from
-    readings, the moved assignments counted."""
+def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
+              beside=None):
+    """The one-device references of ``plans`` (each against its witness
+    where the plan has one), then every plan on 4 ranks sharing the card
+    in one ``run_ranks`` (:func:`tp_rank`), each rank's launches checked
+    exact against the layer count and its results held: bit for bit
+    against the witness (gradients within ``STEP_TOL``), within
+    ``bounds[label]`` against one device as it runs, every kernel call on
+    the ranks within its bound of its plain version. Prints ``[tag]`` lines
+    (``beside[label]``, where given, after a plan's peak) and returns the
+    summary."""
     import dataclasses
     import torch
-    from repro_torch.configs import get as get_config
-    from repro_torch.kernels import build
     from repro_torch.launch.mesh import Grid, run_ranks
     from repro_torch.launch.sharding import make_rules
-    from repro_torch.models import init_params
-    t_start = time.perf_counter()
-    if dev.type == "cuda":
-        build.build_all()
-    smollm = smollm or get_config("smollm-360m")
-    small = dataclasses.replace(cfg, n_layers=2)
-    weights, inputs, refs = {}, {}, {}
-    for name, c in (("granite", cfg), ("smollm", smollm), ("small", small)):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        weights[name] = init_params(c, gen, device=dev, dtype=torch.bfloat16)
-        inputs[name] = tp_inputs(c, dev, 15, 4 if name == "smollm" else 2,
-                                 weights[name])
-    paths = ["prefill", "decode", "backward"]
-    plans = [
-        {"label": "heads", "model": "granite", "cfg": cfg, "grid": (1, 4),
-         "rules": {}, "witness": True, "paths": paths},
-        {"label": "context", "model": "granite", "cfg": cfg, "grid": (1, 4),
-         "rules": {"attn_mode": "context"}, "witness": True,
-         "paths": paths[:2]},
-        {"label": "smollm", "model": "smollm", "cfg": smollm, "grid": (1, 4),
-         "rules": {}, "witness": False, "paths": paths},
-        {"label": "fsdp", "model": "small", "cfg": small, "grid": (2, 2),
-         "rules": {"fsdp": ("pod", "data")}, "witness": True,
-         "paths": ["prefill", "backward"]}]
+    from repro_torch.models import moe_perm_shape
+    refs = {}
     for plan in plans:
         # the attention's split as the plan's rules make it, for the witness
         rules = dataclasses.replace(make_rules(
@@ -3363,11 +3646,17 @@ def tp_phase(cfg, dev, smollm=None):
             **plan["rules"])
         witness = None
         if plan["witness"]:
-            witness = ("heads" if rules.heads_split(plan["cfg"])
-                       else "context", rules.tp_size)
+            witness = {"mode": ("heads" if rules.heads_split(plan["cfg"])
+                                else "context"),
+                       "tp": rules.tp_size, "dp": rules.dp_size,
+                       "ep": rules.ep_size,
+                       # a split vocabulary's xent runs on every position
+                       "xent_tp": (1 if rules.splits(plan["cfg"].vocab)
+                                   else rules.tp_size)}
         weights[plan["model"]], refs[plan["label"]] = tp_reference(
             plan["cfg"], dev, weights[plan["model"]], inputs[plan["model"]],
-            plan["paths"], witness)
+            [p for p in plan["paths"] if p != "vs_plain"], witness,
+            plan["steps"])
     _free_shared()
     parent_gib = (torch.cuda.memory_allocated() / 2 ** 30
                   if dev.type == "cuda" else 0.0)
@@ -3380,7 +3669,6 @@ def tp_phase(cfg, dev, smollm=None):
     del weights, refs, inputs
     _free_shared()
     on_card = dev.type == "cuda"
-    L, l2 = cfg.n_layers, small.n_layers
 
     def per(n, fwd=1):
         return {"route_select": fwd * n, "ragged_moe_ffn": fwd * n,
@@ -3392,83 +3680,114 @@ def tp_phase(cfg, dev, smollm=None):
             "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
             "route_select_bwd")}
 
-    want = {"heads": {"prefill": per(L), "decode": per(L, TP_DECODE_STEPS),
-                      "backward": bwd(L)},
-            "context": {"prefill": per(L),
-                        "decode": per(L, TP_DECODE_STEPS)},
-            "smollm": {}, "fsdp": {"prefill": per(l2), "backward": bwd(l2)}}
+    kernel_bounds = {"ragged_moe_ffn": BF16_TOL, "fused_moe_ffn": BF16_TOL,
+                     "route_select": ROUTER_W_TOL,
+                     "ragged_moe_ffn_dgrad": BWD_TOL,
+                     "ragged_moe_ffn_wgrad": BWD_TOL,
+                     "route_select_bwd": ROUTER_W_TOL}
+    beside = beside or {}
     summary = {}
-    for label in ("heads", "context", "smollm", "fsdp"):
+    for plan in plans:
+        label = plan["label"]
+        n = moe_perm_shape(plan["cfg"])[0] if plan["cfg"].is_moe else 0
+        want = {"warm-up": per(n), "prefill": per(n),
+                "decode": per(n, plan["steps"]), "backward": bwd(n)}
         rs = [r[label] for r in ranks]
-        print(f"[tp] {label} launches per rank (rank 0): "
+        print(f"[{tag}] {label} launches per rank (rank 0): "
               f"{json.dumps(rs[0]['launches'])}", flush=True)
         for r in rs:
-            tag = f"tp {label} rank {r['rank']}"
+            name = f"{tag} {label} rank {r['rank']}"
             for path, counts in r["launches"].items():
-                for k, n in counts.items():
-                    w = want[label].get(path, {}).get(k, 0)
-                    check(n == w or not on_card, f"{tag} {path}: {k} "
-                          f"launched {n} times, expected {w}")
-            if label in ("heads", "context", "fsdp"):
+                for k, c in counts.items():
+                    w = want.get(path, {}).get(k, 0)
+                    check(c == w or not on_card, f"{name} {path}: {k} "
+                          f"launched {c} times, expected {w}")
+            if plan["witness"]:
                 check(all(r["bits"].get("decode", [True])) and all(
                     r["bits"].get(p, True) for p in ("prefill", "loss")),
-                      f"{tag} against the witness: bit for bit "
+                      f"{name} against the witness: bit for bit "
                       f"{json.dumps(r['bits'])}")
                 if "grad_rel_l2_max/witness" in r:
                     check(r["grad_rel_l2_max/witness"] <= STEP_TOL,
-                          f"{tag} gradients against the witness: "
+                          f"{name} gradients against the witness: "
                           f"{r['grad_rel_l2_max/witness']:.3e} (bound "
                           f"{STEP_TOL})")
-            bounds = TP_BOUNDS[label]
-            check(all(v <= bounds[p] for p, v in r["rel"].items()),
-                  f"{tag} against one device: logits' relative L2 "
-                  f"{json.dumps(r['rel'])} (bounds {json.dumps(bounds)})")
+            b = bounds.get(label, {})
+            check(all(v <= b[p] for p, v in r["rel"].items()),
+                  f"{name} against one device: logits' relative L2 "
+                  f"{json.dumps(r['rel'])} (bounds {json.dumps(b)})")
             if "loss" in r:
-                check(r["loss_rel"] <= bounds["loss"]
-                      and r["grad_rel_l2_max"] <= bounds["grads"],
-                      f"{tag} backward against one device: loss "
-                      f"{r['loss_rel']:.3e} (bound {bounds['loss']}), "
-                      f"gradient leaves {r['grad_rel_l2_max']:.3e} (bound "
-                      f"{bounds['grads']})")
+                check(r["loss_rel"] <= b["loss"]
+                      and r["grad_rel_l2_max"] <= b["grads"],
+                      f"{name} backward against one device: loss "
+                      f"{r['loss_rel']:.3e} (bound {b['loss']}), gradient "
+                      f"leaves {r['grad_rel_l2_max']:.3e} (bound "
+                      f"{b['grads']})")
+            if "vs_plain" in r:
+                vp = r["vs_plain"]
+                # a prefill, a decode step, the loss's forward and, with
+                # remat, its forward again in the backward
+                fwd = 3 + dataclasses.replace(make_rules(
+                    plan["cfg"], Grid(plan["grid"], EP_AXES, 0, {}),
+                    "train"), **plan["rules"]).remat
+                calls = {"route_select": fwd * n, "ragged_moe_ffn": fwd * n}
+                if on_card:   # the CPU's backward is the plain one
+                    calls |= {"ragged_moe_ffn_dgrad": n,
+                              "ragged_moe_ffn_wgrad": n,
+                              "route_select_bwd": n}
+                check(vp["calls"] == calls, f"{name}: kernel calls held "
+                      f"against their plain versions {vp['calls']} "
+                      f"(expected {calls})")
+                check(vp["route_mismatch"] == 0 and all(
+                    vp["err"].get(k, 0.0) <= v
+                    for k, v in kernel_bounds.items()),
+                      f"{name}: kernels vs plain at the ranks' shapes: "
+                      f"{vp['route_mismatch']} routing entries differ "
+                      f"outside near ties; errors {vp['err']} (bounds "
+                      f"{kernel_bounds})")
         for path in rs[0]["digest"]:
             check(len({r["digest"][path] for r in rs}) == 1,
-                  f"tp {label} {path}: the ranks' logits differ")
+                  f"{tag} {label} {path}: the ranks' logits differ")
         gib = 2 ** 30
-        summary[label] = {
-            "wall_s": {p: [r["seconds"][p] for r in rs]
-                       for p in rs[0]["seconds"]},
-            "exchange": {p: [r["exchange"][p] for r in rs]
-                         for p in rs[0]["exchange"]},
-            "peak_gib": [r["peak_bytes"] / gib for r in rs],
-            "dense_bytes_rank0": rs[0]["dense_bytes"],
-            "dense_bytes_whole": rs[0]["dense_bytes_whole"],
-            "cache_shape": rs[0].get("cache_shape"),
-            "logit_rel_l2": {p: max(r["rel"][p] for r in rs)
-                             for p in rs[0]["rel"]},
-            "max_abs_logit_err": {p: max(r["err"][p] for r in rs)
-                                  for p in rs[0]["err"]},
-            "moved": rs[0]["moved"], "bits": rs[0]["bits"],
-            "launches_rank0": rs[0]["launches"]}
+        s = {"wall_s": {p: [r["seconds"][p] for r in rs]
+                        for p in rs[0]["seconds"]},
+             "exchange": {p: [r["exchange"][p] for r in rs]
+                          for p in rs[0]["exchange"]},
+             "peak_gib": [r["peak_bytes"] / gib for r in rs],
+             "dense_bytes_rank0": rs[0]["dense_bytes"],
+             "dense_bytes_whole": rs[0]["dense_bytes_whole"],
+             "cache_shape": rs[0].get("cache_shape"),
+             "logit_rel_l2": {p: max(r["rel"][p] for r in rs)
+                              for p in rs[0]["rel"]},
+             "max_abs_logit_err": {p: max(r["err"][p] for r in rs)
+                                   for p in rs[0]["err"]},
+             "moved": rs[0]["moved"], "bits": rs[0]["bits"],
+             "launches_rank0": rs[0]["launches"]}
         if "loss" in rs[0]:
-            summary[label] |= {
-                "loss": rs[0]["loss"], "loss_one_device": loss_ref[label],
-                "loss_rel": rs[0]["loss_rel"],
-                "grad_rel_l2_max": max(r["grad_rel_l2_max"] for r in rs),
-                "grad_leaves": rs[0]["grad_leaves"]}
+            s |= {"loss": rs[0]["loss"], "loss_one_device": loss_ref[label],
+                  "loss_rel": rs[0]["loss_rel"],
+                  "grad_rel_l2_max": max(r["grad_rel_l2_max"] for r in rs),
+                  "grad_leaves": rs[0]["grad_leaves"],
+                  "block_input_bytes": rs[0]["block_input_bytes"],
+                  "block_input_bytes_whole":
+                      rs[0]["block_input_bytes_whole"],
+                  "block_input_shape": rs[0]["block_input_shape"]}
             if "grad_rel_l2_max/witness" in rs[0]:
-                summary[label]["grad_rel_l2_max_witness"] = max(
+                s["grad_rel_l2_max_witness"] = max(
                     r["grad_rel_l2_max/witness"] for r in rs)
+        if "vs_plain" in rs[0]:
+            s["vs_plain"] = rs[0]["vs_plain"] | {
+                "err": {k: max(r["vs_plain"]["err"].get(k, 0.0) for r in rs)
+                        for k in rs[0]["vs_plain"]["err"]},
+                "route_mismatch": max(r["vs_plain"]["route_mismatch"]
+                                      for r in rs)}
+        summary[label] = s
     summary["phase_s"] = {"one_device_references": t_ref, "ranks": t_ranks,
                           "all": time.perf_counter() - t_start,
                           "parent_gib": parent_gib}
-    what = {"heads": "granite, heads (1, 4)",
-            "context": "granite, context (1, 4)",
-            "smollm": "smollm-360m, context (1, 4), no port kernel on its "
-                      "path", "fsdp": "granite 2 layers, heads over model "
-                                      "and dense FSDP over data (2, 2)"}
-    for label, s in summary.items():
-        if label == "phase_s":
-            continue
+    for plan in plans:
+        label = plan["label"]
+        s = summary[label]
         walls = "; ".join(f"{p} " + ", ".join(f"{w * 1e3:.1f}" for w in ws)
                           for p, ws in s["wall_s"].items())
         ex = "; ".join(
@@ -3477,15 +3796,25 @@ def tp_phase(cfg, dev, smollm=None):
             + f" of {xs[0]['wall_s'] * 1e3:.1f} ms, {xs[0]['calls']} calls, "
               f"{xs[0]['bytes'] / 2 ** 20:.3f} MiB"
             for p, xs in s["exchange"].items())
-        print(f"[tp] {what[label]}: host wall per rank (ms) {walls}; "
+        remat = ""
+        if "block_input_bytes" in s:
+            remat = (f"; block inputs remat keeps a rank "
+                     f"{s['block_input_bytes'] / 2 ** 20:.1f} MiB (a block "
+                     f"{s['block_input_shape']}; "
+                     f"{s['block_input_bytes_whole'] / 2 ** 20:.1f} MiB "
+                     f"with every block's input the whole batch's)")
+        if label in beside:
+            remat += f" ({beside[label]})"
+        print(f"[{tag}] {what[label]}: host wall per rank (ms) {walls}; "
               f"exchanges (each synchronised; rank 0's calls and bytes) "
               f"{ex}; peak per rank "
-              f"{', '.join(f'{v:.2f}' for v in s['peak_gib'])} GiB; dense "
-              f"weight bytes a rank {json.dumps(s['dense_bytes_rank0'])} of "
+              f"{', '.join(f'{v:.2f}' for v in s['peak_gib'])} GiB{remat}; "
+              f"dense weight bytes a rank "
+              f"{json.dumps(s['dense_bytes_rank0'])} of "
               f"{json.dumps(s['dense_bytes_whole'])}; decode cache a rank "
               f"{s['cache_shape']}", flush=True)
-        print(f"[tp] {what[label]} against one device: logits' relative L2 "
-              f"{json.dumps(s['logit_rel_l2'])}, max |difference| "
+        print(f"[{tag}] {what[label]} against one device: logits' relative "
+              f"L2 {json.dumps(s['logit_rel_l2'])}, max |difference| "
               f"{json.dumps(s['max_abs_logit_err'])}, assignments moved "
               f"{json.dumps(s['moved'])}"
               + (f"; loss {s['loss']:.6f} vs {s['loss_one_device']:.6f}, "
@@ -3497,10 +3826,169 @@ def tp_phase(cfg, dev, smollm=None):
                  + (f", gradients {s['grad_rel_l2_max_witness']:.3e}"
                     if "grad_rel_l2_max_witness" in s else "")
                  if s["bits"] else ""), flush=True)
-    print(f"[tp] phase wall {summary['phase_s']['all']:.1f} s (one-device "
-          f"references {t_ref:.1f}, ranks {t_ranks:.1f}); gloo on one "
+        if "vs_plain" in s:
+            print(f"[{tag}] {what[label]}, each kernel call against its "
+                  f"plain version on the ranks (worst rank): "
+                  f"{json.dumps(s['vs_plain'])}", flush=True)
+    print(f"[{tag}] phase wall {summary['phase_s']['all']:.1f} s (one-device"
+          f" references {t_ref:.1f}, ranks {t_ranks:.1f}); gloo on one "
           f"shared card: not a fleet's links", flush=True)
     return summary
+
+
+def tp_phase(cfg, dev, smollm=None):
+    """Phase 15: tensor parallelism of the dense layers on 4 ranks sharing
+    the card (gloo on CUDA tensors), each run held against one device on
+    the same weights in this run:
+
+    (a) granite at full width and depth on (1, 4) from ``make_rules``:
+        attention by heads (6 heads and 2 KV heads a rank), EP 4 through
+        the ragged a2a body, the vocabulary (49155) replicated, the
+        residual's 256 positions split over the ranks (64 each); a prefill
+        of 2 x 256, 8 decode steps of 8 lanes (the replicated body on
+        ``decode_params``' weights, the cache's KV heads over the ranks)
+        and one loss and backward at 2 x 256 (remat, as ``make_rules``
+        trains);
+    (b) the same with ``attn_mode="context"``: the prefill's query rows
+        (the rank's positions) and the 1024 cache rows over the 4 ranks,
+        the decode's softmax stats merged;
+    (c) smollm-360m at full width and depth on (1, 4): 15 heads and 5 KV
+        heads force context mode, the tied vocabulary (49152) split, the
+        dense MLP's 2560 over 4; a prefill of 4 x 256, 8 decode steps, a
+        loss and backward; no kernel of the port runs;
+    (d) granite at 2 layers on (2, 2): heads over "model", the batch and
+        the dense weights' FSDP slices over "data"; a prefill and a loss
+        and backward.
+
+    (a), (b) and (d) are held against a witness, one device computing the
+    attention and the row-wise steps as the ranks split them
+    (:func:`_witness`) while the ranks add their partials in rank order
+    (:class:`ordered_partials`; at decode also :class:`exact_decode_psum`):
+    the prefill, each decode step and the loss bit for bit, the gradients
+    within ``STEP_TOL`` (gloo sums the leaves' gradients over the ranks in
+    its own order); and each run against one device as it runs, within
+    ``TP_BOUNDS`` set from readings, the moved assignments counted."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        build.build_all()
+    smollm = smollm or get_config("smollm-360m")
+    small = dataclasses.replace(cfg, n_layers=2)
+    weights, inputs = {}, {}
+    for name, c in (("granite", cfg), ("smollm", smollm), ("small", small)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        weights[name] = init_params(c, gen, device=dev, dtype=torch.bfloat16)
+        inputs[name] = tp_inputs(c, dev, 15, 4 if name == "smollm" else 2,
+                                 weights[name])
+    paths = ["prefill", "decode", "backward"]
+    steps = TP_DECODE_STEPS
+    plans = [
+        {"label": "heads", "model": "granite", "cfg": cfg, "grid": (1, 4),
+         "rules": {}, "witness": True, "paths": paths, "steps": steps},
+        {"label": "context", "model": "granite", "cfg": cfg, "grid": (1, 4),
+         "rules": {"attn_mode": "context"}, "witness": True,
+         "paths": paths[:2], "steps": steps},
+        {"label": "smollm", "model": "smollm", "cfg": smollm, "grid": (1, 4),
+         "rules": {}, "witness": False, "paths": paths, "steps": steps},
+        {"label": "fsdp", "model": "small", "cfg": small, "grid": (2, 2),
+         "rules": {"fsdp": ("pod", "data")}, "witness": True,
+         "paths": ["prefill", "backward"], "steps": steps}]
+    what = {"heads": "granite, heads (1, 4)",
+            "context": "granite, context (1, 4)",
+            "smollm": "smollm-360m, context (1, 4), no port kernel on its "
+                      "path", "fsdp": "granite 2 layers, heads over model "
+                                      "and dense FSDP over data (2, 2)"}
+    return _grid_run("tp", plans, weights, inputs, dev, TP_BOUNDS, what,
+                     t_start)
+
+
+def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
+    """Phase 16: the batch over ``dp`` and the sequence-sharded residual
+    (Megatron-SP) on 4 ranks sharing the card (gloo on CUDA tensors): each
+    rank holds and computes only its own rows. Each run held against one
+    device on the same weights in this run:
+
+    (a) granite at full width and depth on (2, 2) from ``make_rules``: the
+        batch over "data", attention by heads over "model" (12 heads and 4
+        KV heads a rank), the residual's positions over "model", dense and
+        expert FSDP over "data", EP over "model"; a prefill of 4 x 256, 8
+        decode steps of 8 lanes (4 a rank; the cache's lanes and KV heads
+        cut by ``rank_cache``) from one device's prefill of 8 x 1024, one
+        loss and backward at 4 x 256 with remat;
+    (b) granite on (1, 4) in context mode: a prefill of 2 x 256 (each
+        rank's 64 positions are its query rows, against the gathered keys
+        and values) and 8 decode steps;
+    (c) jamba at its smoke size on (2, 2) from ``make_rules``: seven Mamba
+        mixers gathered over "model" and run on the whole sequence, the
+        attention by heads, the MoE layer (E 4, K 2) through the port's
+        kernels; a prefill of 4 x 256, 4 decode steps, a loss and
+        backward; every kernel call on the ranks against its plain
+        version;
+    (d) granite at 2 layers on (2, 2) as (a): every kernel call on the
+        ranks (a prefill, a decode step, a loss and backward) against its
+        plain version on the same inputs.
+
+    (a) and (b) are held bit for bit against the witness of
+    :func:`_witness` (one device computing each ``dp`` block of the rows
+    as a rank does, the attention split as the ranks split it, the loss's
+    cross entropy on each rank's rows averaged in rank order, the routing
+    as a rank's a2a block plans it) with the ranks adding partials and the
+    loss in rank order, gradients within ``STEP_TOL``; each of (a)-(c)
+    against one device as it runs within ``SP_BOUNDS`` set from
+    readings. ``tp_peak_gib``: phase 15 (a)'s peak a rank in this run,
+    printed beside (a)'s."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        build.build_all()
+    jamba = jamba or get_smoke("jamba-1.5-large-398b")
+    small = dataclasses.replace(cfg, n_layers=2)
+    weights, inputs = {}, {}
+    for name, c, batch in (("granite", cfg, 4), ("jamba", jamba, 4),
+                           ("small", small, 4)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        weights[name] = init_params(c, gen, device=dev, dtype=torch.bfloat16)
+        inputs[name] = tp_inputs(c, dev, 16, batch, weights[name])
+    # (b) prefills the first two of (a)'s prompts
+    inputs["granite_b2"] = dict(inputs["granite"],
+                                tokens=inputs["granite"]["tokens"][:2],
+                                labels=inputs["granite"]["labels"][:2])
+    weights["granite_b2"] = weights["granite"]
+    plans = [
+        {"label": "dp_sp", "model": "granite", "cfg": cfg, "grid": (2, 2),
+         "rules": {}, "witness": True,
+         "paths": ["prefill", "decode", "backward"], "steps": SP_STEPS},
+        {"label": "context", "model": "granite_b2", "cfg": cfg,
+         "grid": (1, 4), "rules": {"attn_mode": "context"},
+         "witness": True, "paths": ["prefill", "decode"],
+         "steps": SP_STEPS},
+        {"label": "jamba", "model": "jamba", "cfg": jamba, "grid": (2, 2),
+         "rules": {}, "witness": False,
+         "paths": ["prefill", "decode", "backward", "vs_plain"],
+         "steps": 4},
+        {"label": "vs_plain", "model": "small", "cfg": small,
+         "grid": (2, 2), "rules": {}, "witness": False,
+         "paths": ["vs_plain"], "steps": 1}]
+    what = {"dp_sp": "granite, dp 2 x (heads + SP) 2 (2, 2)",
+            "context": "granite, context + SP (1, 4)",
+            "jamba": "jamba smoke, mixers gathered under SP (2, 2)",
+            "vs_plain": "granite 2 layers (2, 2)"}
+    beside = {}
+    if tp_peak_gib is not None:
+        beside["dp_sp"] = (f"phase 15 (a), granite heads on (1, 4) with the "
+                           f"batch whole: {tp_peak_gib:.2f} GiB")
+    return _grid_run("sp", plans, weights, inputs, dev, SP_BOUNDS, what,
+                     t_start, beside)
 
 
 def _leaves(tree):
@@ -3610,6 +4098,8 @@ def main() -> int:
     remat = remat_phase(cfg, dev)
     # phase 15: tensor parallelism of the dense layers on 4 ranks
     tp = tp_phase(cfg, dev)
+    # phase 16: the batch over dp and the sequence-sharded residual
+    sp = sp_phase(cfg, dev, tp_peak_gib=max(tp["heads"]["peak_gib"]))
 
     def ep_launches(name):
         """This kernel's launches on the expert-parallel paths, per rank
@@ -3625,6 +4115,13 @@ def main() -> int:
         return {label: {p: c.get(name, 0) for p, c in
                         tp[label]["launches_rank0"].items()}
                 for label in ("heads", "context", "smollm", "fsdp")}
+
+    def sp_launches(name):
+        """This kernel's launches on the batch- and sequence-split runs,
+        per rank (every rank launched the same; the phase checks each)."""
+        return {label: {p: c.get(name, 0) for p, c in
+                        sp[label]["launches_rank0"].items()}
+                for label in ("dp_sp", "context", "jamba")}
 
     def ffn_entry(prefill_res, decode_res):
         """The prefill shape's numbers under the contract's keys, the
@@ -3645,14 +4142,16 @@ def main() -> int:
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
          "launches": counts["ragged_moe_ffn"], **ffn_entry(prefill, decode),
          "ep_launches": ep_launches("ragged_moe_ffn"),
-         "tp_launches": tp_launches("ragged_moe_ffn"), "library_ms": None},
+         "tp_launches": tp_launches("ragged_moe_ffn"),
+         "sp_launches": sp_launches("ragged_moe_ffn"), "library_ms": None},
         {"name": "route_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
          "launches": counts["route_select"], **route[(512, 1)],
          "by_shape": {f"T={T} R={R}": r for (T, R), r in route.items()},
          "ep_launches": ep_launches("route_select"),
-         "tp_launches": tp_launches("route_select"), "library_ms": None},
+         "tp_launches": tp_launches("route_select"),
+         "sp_launches": sp_launches("route_select"), "library_ms": None},
         {"name": "router_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
@@ -3661,14 +4160,16 @@ def main() -> int:
          "earlier_design": {"route": "triton",
                             "source": "src/repro_torch/kernels/router.py"},
          "ep_launches": ep_launches("router_topk"),
-         "tp_launches": tp_launches("router_topk"), "library_ms": None},
+         "tp_launches": tp_launches("router_topk"),
+         "sp_launches": sp_launches("router_topk"), "library_ms": None},
         {"name": "fused_moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
          "replaces": "src/repro/kernels/moe_ffn.py:58",
          "launches": counts_a["fused_moe_ffn"],
          **ffn_entry(cap_prefill, cap_decode),
          "ep_launches": ep_launches("fused_moe_ffn"),
-         "tp_launches": tp_launches("fused_moe_ffn"), "library_ms": None},
+         "tp_launches": tp_launches("fused_moe_ffn"),
+         "sp_launches": sp_launches("fused_moe_ffn"), "library_ms": None},
         {"name": "ragged_moe_ffn_dgrad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
          "replaces": "src/repro/kernels/ragged_moe_ffn.py:102",
@@ -3677,6 +4178,7 @@ def main() -> int:
          "tokens_4096": k1_big,
          "ep_launches": ep_launches("ragged_moe_ffn_dgrad"),
          "tp_launches": tp_launches("ragged_moe_ffn_dgrad"),
+         "sp_launches": sp_launches("ragged_moe_ffn_dgrad"),
          "library_ms": None},
         {"name": "ragged_moe_ffn_wgrad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn_bwd.cu",
@@ -3686,19 +4188,22 @@ def main() -> int:
          "tokens_4096": k2_big,
          "ep_launches": ep_launches("ragged_moe_ffn_wgrad"),
          "tp_launches": tp_launches("ragged_moe_ffn_wgrad"),
+         "sp_launches": sp_launches("ragged_moe_ffn_wgrad"),
          "library_ms": None},
         {"name": "route_select_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",
          "launches": tl["route_select_bwd"], **k3,
          "ep_launches": ep_launches("route_select_bwd"),
-         "tp_launches": tp_launches("route_select_bwd"), "library_ms": None},
+         "tp_launches": tp_launches("route_select_bwd"),
+         "sp_launches": sp_launches("route_select_bwd"), "library_ms": None},
     ]
     print(f"[train] summary: {json.dumps({k: v for k, v in trained.items() if k != 'launches'} | {'kernel_vs_plain': step_cmp})}")
     print(f"[slices] summary: {json.dumps({'drills': drills, 'xlstm': xlstm, 'jamba': jamba})}")
     print(f"[ep] summary: {json.dumps(ep)}")
     print(f"[remat] summary: {json.dumps(remat)}")
     print(f"[tp] summary: {json.dumps(tp)}")
+    print(f"[sp] summary: {json.dumps(sp)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,12 @@
 the decode cache.
 
 The counterpart of ``repro.launch.sharding`` (``make_rules``,
-``param_specs``, ``cache_specs``; ``src/repro/launch/sharding.py:39-234``)
-in the port's convention: the batch is replicated over ``dp``, so no
-leaf is split by it. A rank's tree differs from the whole tree in
+``param_specs``, ``batch_specs``, ``cache_specs``;
+``src/repro/launch/sharding.py:39-234``). No parameter is split by the
+batch: the batch axes ``dp`` split the activations, each rank its
+``B/dp`` rows (``ShardingRules.batch_rows``, the counterpart of
+``batch_specs``), and the leaves are sliced by ``tp``
+and ``fsdp`` only. A rank's tree differs from the whole tree in
 
 * the experts — train and prefill (the a2a layout): the slot axis over
   ``ep``, and over ``fsdp`` a slice of axis 1 of each matrix (D of w1 and
@@ -20,8 +23,10 @@ leaf is split by it. A rank's tree differs from the whole tree in
   (:data:`repro_torch.models.sharding.DENSE_D_AXIS`).
 
 Norms, the router and the recurrent mixers (Mamba, mLSTM, sLSTM) stay
-whole. :func:`rank_cache` gives a rank's decode cache: its KV heads when
-attention splits by heads, its ``S_max/tp`` rows in context mode.
+whole. :func:`rank_cache` gives a rank's decode cache: its ``B/dp``
+lanes where ``dp`` divides the batch (every attention cache and every
+recurrent state), and its KV heads when attention splits by heads or its
+``S_max/tp`` rows in context mode.
 """
 
 from __future__ import annotations
@@ -168,25 +173,36 @@ def shard_params(cfg: ArchConfig, params: Any, rules: ShardingRules,
 def rank_cache(cfg: ArchConfig, cache: list, rules: ShardingRules) -> list:
     """The rank's decode cache from a whole one (``models.init_cache``'s
     layout: per layer position a (k, v) pair of (n_blocks, B, S_max, KV,
-    hd), or a recurrent mixer's state), as the reference's ``cache_specs``
-    lays it out with the batch replicated: the rank's ``KV/tp`` heads
-    where attention splits by heads; in context mode its global rows
+    hd), or a recurrent mixer's state, every leaf (n_blocks, B, ...)), as
+    the reference's ``cache_specs`` lays it out: the rank's ``B/dp`` lanes
+    where ``dp`` divides B (its ``b_ax``), every attention cache and
+    recurrent state; and of an attention cache the rank's ``KV/tp`` heads
+    where attention splits by heads, in context mode its global rows
     ``[r S_max/tp, (r + 1) S_max/tp)`` (``tp`` must divide ``S_max``, as
-    the reference's layout needs); else whole. Recurrent states stay
-    whole. Cut leaves are contiguous copies."""
-    if rules.grid is None or rules.tp_size == 1:
+    the reference's layout needs). Where the batch does not split, the
+    reference's heads-mode layout puts ``tp`` on the rows (a storage
+    layout under GSPMD); the port keeps the rank's KV heads there too.
+    Cut leaves are contiguous copies."""
+    if rules.grid is None:
         return cache
     _, specs = block_layout(cfg)
-    if rules.heads_split(cfg):
-        dim = 3
+    lanes = ((1, rules.dp_axes),)
+    if rules.tp_size == 1:
+        attn = ()
+    elif rules.heads_split(cfg):
+        attn = ((3, rules.tp_axes),)
     elif rules.attn_mode == "context":
-        dim = 2
+        attn = ((2, rules.tp_axes),)
     else:
-        return cache
+        attn = ()
     out = []
     for spec, c in zip(specs, cache):
+        first = next(iter(c.values())) if isinstance(c, dict) else c[0]
+        cuts = lanes if rules.batch_split(first.shape[1]) else ()
         if spec.mixer == "attn":
-            c = tuple(_slice(t, rules, ((dim, rules.tp_axes),)) for t in c)
+            c = tuple(_slice(t, rules, cuts + attn) for t in c)
+        else:
+            c = {k: _slice(t, rules, cuts) for k, t in c.items()}
         out.append(c)
     return out
 

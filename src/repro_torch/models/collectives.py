@@ -1,37 +1,54 @@
 """The collectives of the expert-parallel MoE bodies and of the tensor-
-parallel dense layers, for autograd.
+and sequence-parallel dense layers, for autograd.
 
-Each rank of a group runs the same program on its own share of the work
-and computes the same loss from the same replicated output. So the
-backward of each collective is chosen for that convention: the gradient
-a rank holds of a *replicated* tensor is the whole gradient, and of a
-*sharded* tensor the rank's slice of it. That is what ``jax.grad`` of the
-reference's ``shard_map`` bodies gives, and a collective whose backward
-is another all-reduce (as in ``torch.distributed.nn``) would give
-``world`` times that.
+Each rank of a group runs the same program on its own share of the work:
+its own rows of the batch and, under sequence parallelism, of the
+sequence. The backward of each collective is chosen for the convention
+that after ``loss.backward()`` the gradient a rank holds of a tensor it
+holds *whole* is the whole gradient, and of a *sliced* tensor the rank's
+slice of it. That is what ``jax.grad`` of the reference's mesh run gives,
+and a collective whose backward is another all-reduce (as in
+``torch.distributed.nn``) would give ``world`` times that.
 
 * :func:`all_to_all` — equal splits on dim 0; its backward is the mirror
   exchange.
 * :func:`sum_partials` — the ``psum`` of rank partials into a replicated
-  output (a row-parallel product's, the vocab-parallel lookup's); its
-  backward passes the (replicated) gradient to each partial.
+  output (a row-parallel product's at decode, the vocab-parallel lookup's
+  without sequence parallelism); its backward passes the (replicated)
+  gradient to each partial.
 * :func:`max_over` — the ``pmax`` of a tensor outside autograd (decode's
   merge of the ranks' softmax stats, the vocab-parallel loss's shift).
-* :func:`mean_over` — the ``pmean`` of ``mean_prob``; backward ``g / n``.
+* :func:`mean_over` — the ``pmean`` of ``mean_prob`` and of the loss over
+  the ranks' rows; backward ``g / n``.
 * :func:`gather_shards` — the FSDP ``all_gather`` of weights along a dim
-  (backward: the reduce-scatter of the gathered weight's gradient, or,
-  where every rank does the same work with it, the rank's own slice), and
-  the gather of the context-parallel prefill's query rows.
-* :func:`replicate` — a replicated tensor read by work that each rank does
-  on its own share (a column-parallel product's input, the experts' router
-  and tokens): identity forward, the ranks' gradient contributions summed
-  backward (the transpose of the reference's implicit broadcast of a
-  replicated ``shard_map`` input).
-* :func:`take_block` / :func:`gather_blocks` — a rank's ``(B/dp, S/ep)``
-  block of a replicated ``(B, S, D)`` activation and back: the residual
-  stream stays replicated between layers (the batch over ``dp`` and the
-  reference's sequence-sharded residual are not ported), and the a2a
-  bodies work on blocks.
+  (backward: the reduce-scatter of the gathered weight's gradient where
+  the ranks use it on different rows, or, where every rank does the same
+  work with it, the rank's own slice), and the gather of the last rows
+  and of the logits.
+* :func:`gather_seq` / :func:`scatter_partials` — Megatron-SP's pair. The
+  first gathers the ranks' rows along the sequence before a column-
+  parallel product (backward: the reduce-scatter of the gradient, since
+  each rank's downstream work touches every row); the second reduce-
+  scatters a row-parallel product's partials to the rank's rows
+  (backward: the all-gather of the gradient).
+* :func:`replicate` — a tensor held whole and read by ranks that work on
+  different rows or shares (a leaf's gradient summed over the ranks that
+  see different rows, a column-parallel product's input at decode, the
+  experts' router and tokens): identity forward, the ranks' gradient
+  contributions summed backward (the transpose of the reference's
+  implicit broadcast of a replicated ``shard_map`` input; for the leaves,
+  DDP's gradient all-reduce, placed where ``jax.grad`` puts it).
+* :func:`take_block` / :func:`gather_blocks` — a member's ``(b, s)`` block
+  of a ``(B, S, ...)`` tensor held whole, and back. The MoE layer uses
+  them to move between the rank's rows and the layout a dispatch body
+  needs where the two differ: the a2a block where the expert-parallel
+  axes are not the sequence-parallel ones (hand-built rules), or where
+  the batch splits and the sequence does not; the replicated bodies'
+  whole batch.
+
+gloo reduces in its own order, and ``reduce_scatter`` takes CUDA tensors
+on the card (the same call as :func:`gather_shards`' backward), so
+:func:`scatter_partials` is one ``reduce_scatter``.
 
 A ``group`` of ``None`` is a one-rank group: every function is then the
 identity (no call is made). :data:`clock` times the exchanges on the host
@@ -48,7 +65,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_to_all", "sum_partials", "max_over", "mean_over",
-           "gather_shards",
+           "gather_shards", "gather_seq", "scatter_partials",
            "replicate", "take_block", "gather_blocks", "all_reduce_",
            "clock", "ExchangeClock"]
 
@@ -207,6 +224,36 @@ def gather_shards(x: torch.Tensor, group, dim: int,
     return _GatherShards.apply(x, group, dim, summed)
 
 
+def gather_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Every rank's rows of ``x`` along the sequence ``dim``, in group
+    order; backward: the reduce-scatter of the gradient (each rank's work
+    on the gathered rows adds to every row's gradient)."""
+    return gather_shards(x, group, dim, summed=True)
+
+
+class _ScatterPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        chunks = [c.contiguous() for c in x.chunk(_n(group), dim)]
+        out = torch.empty_like(chunks[0])
+        clock.run(lambda: dist.reduce_scatter(out, chunks, group=group), x)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_gather(g, ctx.group), dim=ctx.dim), None, None
+
+
+def scatter_partials(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """The sum of the ranks' partials of ``x`` (each the whole sequence),
+    this rank's rows of it along ``dim`` (``psum_scatter``); backward: the
+    all-gather of the gradient."""
+    if group is None:
+        return x
+    return _ScatterPartials.apply(x, group, dim)
+
+
 class _Replicate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -268,9 +315,14 @@ def _assemble(parts, shape, coords) -> torch.Tensor:
 
 def take_block(x: torch.Tensor, group, coords: Sequence[tuple], me: int
                ) -> torch.Tensor:
-    """Member ``me``'s block of a replicated ``x (B, S, ...)``, where
+    """Member ``me``'s block of ``x (B, S, ...)`` held whole, where
     ``coords[i] = (b, s)`` places group member ``i``'s block on a grid of
-    ``B`` and ``S`` blocks (every member one)."""
+    ``B`` and ``S`` blocks (every member one). Backward: every member's
+    block gradient gathered and placed, so the whole tensor's gradient is
+    whole on every member. The MoE layer takes the a2a block of a
+    replicated input (``moe_layer(rows=None)``), or, from the rank's rows,
+    where the expert-parallel axes are not the sequence-parallel ones, and
+    the rank's rows back from a replicated body's whole batch."""
     if group is None:
         return x
     return _TakeBlock.apply(x, group, tuple(coords), me)
@@ -278,7 +330,9 @@ def take_block(x: torch.Tensor, group, coords: Sequence[tuple], me: int
 
 def gather_blocks(xb: torch.Tensor, group, coords: Sequence[tuple], me: int,
                   shape) -> torch.Tensor:
-    """The inverse of :func:`take_block`: every member's block, placed."""
+    """The inverse of :func:`take_block`: every member's block, placed
+    into a tensor of ``shape`` held whole; backward: the member's block of
+    the (whole) gradient."""
     if group is None:
         return xb
     return _GatherBlocks.apply(xb, group, tuple(coords), me, tuple(shape))

@@ -59,19 +59,25 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
-def mlp(p, x: torch.Tensor, gated: bool, group=None) -> torch.Tensor:
+def mlp(p, x: torch.Tensor, gated: bool, group=None,
+        seq: bool = False) -> torch.Tensor:
     """SwiGLU (gated) or GELU (2-matrix) MLP. With a tensor-parallel
     ``group`` the weights are the rank's slice of F: ``w1`` and ``w3``
-    column-parallel (their input replicated: its gradient summed over the
-    group), ``w2`` row-parallel (the partials summed), as the reference's
-    TP-sharded hidden."""
-    x = C.replicate(x, group)
+    column-parallel, ``w2`` row-parallel, as the reference's TP-sharded
+    hidden. The input is the rank's rows, replicated over the group
+    (its gradient summed over the group) and the partials summed; with
+    ``seq`` (sequence parallelism) the rank's rows of the sequence,
+    gathered over the group before ``w1`` and the partials reduce-
+    scattered back to them."""
+    x = C.gather_seq(x, group) if seq else C.replicate(x, group)
     h = x @ p["w1"]
     if gated:
         h = F.silu(h) * (x @ p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu default
-    return C.sum_partials(h @ p["w2"], group)
+    out = h @ p["w2"]
+    return C.scatter_partials(out, group) if seq else C.sum_partials(out,
+                                                                     group)
 
 
 def softmax_xent_chunked(hidden: torch.Tensor, w_unemb: torch.Tensor,
@@ -87,13 +93,14 @@ def softmax_xent_chunked(hidden: torch.Tensor, w_unemb: torch.Tensor,
 
     With a tensor-parallel ``group``, ``w_unemb`` is the rank's vocabulary
     slice (D, V/tp) starting at id ``vocab_offset`` (the reference's
-    ``logits_spec``; ``hidden``'s gradient is summed over the group), and
-    the loss is the vocab-parallel cross entropy:
+    ``logits_spec``), and the loss is the vocab-parallel cross entropy:
     the row max over the ranks (detached: a shift), ``sum exp`` summed over
-    the ranks, the gold logit from the rank that holds it.
+    the ranks, the gold logit from the rank that holds it. Each rank's
+    gradient of ``hidden`` is then its vocabulary slice's share: the
+    caller sums it over the group (``replicate``, or ``gather_seq``'s
+    reduce-scatter).
     """
     B, S, D = hidden.shape
-    hidden = C.replicate(hidden, group)       # column-parallel over V
     if S % n_chunks != 0:
         n_chunks = 1
     rows = S // n_chunks

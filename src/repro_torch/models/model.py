@@ -24,9 +24,16 @@ On a rank grid the rules (:class:`ShardingRules`) split the dense
 layers over ``tp`` as the reference's do: attention by heads or by
 context (:func:`_run_attention`), the dense MLP's F, the vocabulary of
 the embedding, the head and the loss; the dense weights arrive FSDP-
-sliced and are gathered a block at a time (:func:`_gather_dense`). The
-residual stream stays replicated between layers, as does the batch over
-``dp``; the MoE layer takes its own block of it.
+sliced and are gathered a block at a time (:func:`_gather_dense`). Each
+rank holds and computes only its own rows (:class:`_Rows`): its ``B/dp``
+of the batch where ``dp`` divides it, and at train and prefill its
+``S/tp`` of the sequence between blocks where ``tp`` divides it
+(Megatron-SP: gathered before a column-parallel product, reduce-scattered
+after a row-parallel one). The entry points take the global token arrays
+on every rank and return whole logits and tallies; the cache is the
+rank's own. A leaf held whole is read by ranks that see different rows,
+so :func:`_sum_over_rows` sums its gradient over them, once, at the top
+of each entry point.
 
 :func:`loss_fn` is the reference's training loss. Its ``phase="train"``
 pass keeps no per-layer k/v stack (the reference's ``nc = []``) and hands
@@ -289,40 +296,48 @@ def _qkv(p, x, cfg, rope_pos):
 
 
 def _run_attention(p, x, cfg, rules, window, positions, cache=None,
-                   pos=None):
+                   pos=None, seq=None):
     """Prefill: returns (out, (k, v)); decode: writes the new row into the
     cache in place and returns (out, cache).
 
-    On a grid (``rules``, :class:`ShardingRules`), split by heads: the
-    weights and the cache hold the rank's heads, the input is replicated
-    and ``wo``'s partials summed over ``tp``. Context mode: the
-    projections and ``wo`` replicated; at prefill each rank attends its
-    ``S/tp`` query rows against every key and the rows are gathered
-    before ``wo``; at decode the cache is the rank's ``S_max/tp`` rows
-    and the ranks' softmax stats are merged (:func:`_merge_decode`)."""
+    ``positions`` are the sequence's global positions; ``seq`` (sequence
+    parallelism) the slice of them whose rows ``x`` holds, else None. On a
+    grid (``rules``, :class:`ShardingRules`), split by heads: the weights
+    and the cache hold the rank's heads, the input is gathered over ``tp``
+    (under ``seq``) or replicated, and ``wo``'s partials reduce-scattered
+    back to the rank's rows or summed. Context mode at prefill: the rank's
+    rows are its query rows; their ``k`` and ``v`` are gathered over
+    ``tp`` (smaller than the normed input under GQA), so each rank attends
+    its queries against every key, and ``wo`` (replicated) gives its rows.
+    At decode the cache is the rank's ``S_max/tp`` rows and the ranks'
+    softmax stats are merged (:func:`_merge_decode`). Attention that does
+    not split runs on the gathered rows and keeps the rank's."""
     B, S, D = x.shape
     tp = 1 if rules is None else rules.tp_size
     group = None if tp == 1 else rules.group(rules.tp_axes)
     heads = tp > 1 and rules.heads_split(cfg)
-    if heads:
-        x = C.replicate(x, group)
     if cache is None:
-        q, k, v = _qkv(p, x, cfg, positions[None, :])
-        if tp > 1 and rules.context_split(S):
-            n = S // tp
-            rows = slice(rules.index(rules.tp_axes) * n,
-                         (rules.index(rules.tp_axes) + 1) * n)
-            out = flash_attention(
-                C.replicate(q, group)[:, rows], C.replicate(k, group),
-                C.replicate(v, group), causal=cfg.causal, window=window,
-                q_positions=positions[rows], kv_positions=positions)
-            out = C.gather_shards(out, group, 1, summed=False)
-        else:
+        if seq is not None and not heads and rules.attn_mode == "context":
+            q, k, v = _qkv(p, x, cfg, positions[seq][None, :])
+            k, v = C.gather_seq(k, group), C.gather_seq(v, group)
             out = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                                  q_positions=positions,
+                                  q_positions=positions[seq],
                                   kv_positions=positions)
-        out = out.reshape(B, S, -1) @ p["wo"]
-        return (C.sum_partials(out, group) if heads else out), (k, v)
+            return out.reshape(B, S, -1) @ p["wo"], (k, v)
+        if seq is not None:
+            x = C.gather_seq(x, group)
+        elif heads:
+            x = C.replicate(x, group)
+        q, k, v = _qkv(p, x, cfg, positions[None, :])
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                              q_positions=positions, kv_positions=positions)
+        out = out.reshape(B, x.shape[1], -1) @ p["wo"]
+        if heads:
+            out = (C.scatter_partials(out, group) if seq is not None
+                   else C.sum_partials(out, group))
+        elif seq is not None:
+            out = out[:, seq]
+        return out, (k, v)
     k_cache, v_cache = cache
     q, k, v = _qkv(p, x, cfg, pos[:, None])
     lanes = torch.arange(B, device=x.device)
@@ -399,21 +414,116 @@ _STEP = {"mamba": ssm.mamba_step, "mlstm": ssm.mlstm_step,
          "slstm": ssm.slstm_step}
 
 
+@dataclasses.dataclass(frozen=True)
+class _Rows:
+    """A rank's rows of a ``(B, S)`` call: ``b`` its batch rows (all but
+    where ``batch``: the batch splits over ``dp``), ``s`` its positions of
+    the sequence under sequence parallelism, else None (every row)."""
+    b: slice
+    s: Optional[slice] = None
+    batch: bool = False
+
+
+def _rows(rules, B: int, S: int, phase: str) -> _Rows:
+    """The rows a rank holds of a ``(B, S)`` call in ``phase``."""
+    if rules is None or rules.grid is None:
+        return _Rows(slice(0, B))
+    seq = rules.seq_rows(S, phase) if rules.seq_split(S, phase) else None
+    return _Rows(rules.batch_rows(B), seq, rules.batch_split(B))
+
+
+def _row_axes(rules, rows: _Rows, tp_split: bool) -> Tuple[str, ...]:
+    """The axes whose ranks read a leaf on different rows: ``dp`` where
+    the batch splits, and ``tp`` under sequence parallelism unless the
+    leaf is split over ``tp`` (then each rank's slice works on every row
+    of the sequence)."""
+    axes = rules.dp_axes if rows.batch else ()
+    if rows.s is not None and not tp_split:
+        axes = axes + rules.tp_axes
+    return axes
+
+
+def _fsdp_summed(rules, rows: _Rows, tp_split: bool) -> bool:
+    """Whether the ranks of the FSDP group read a gathered leaf on
+    different rows (the gather's backward then reduce-scatters the
+    gradient; where they all do the same work, each keeps its slice)."""
+    fsdp = set(rules.fsdp_axes)
+    over = set(_row_axes(rules, rows, tp_split))
+    if fsdp & over and not fsdp <= over:
+        raise NotImplementedError(
+            f"FSDP over {sorted(fsdp)}: the ranks see different rows over "
+            f"{sorted(over)}, which cut the FSDP group")
+    return bool(fsdp & over)
+
+
+def _sum_over_rows(cfg, params, rules, rows: _Rows):
+    """Each leaf the rank holds whole, read through ``replicate`` over the
+    ranks that read it on other rows (:func:`_row_axes`): its gradient is
+    summed over them, once a call. These are the norms, the attention and
+    dense MLP weights (their ``tp`` slices over ``dp`` only), the
+    embedding and the head, the recurrent mixers. An FSDP-sliced leaf
+    gets the rest of that sum from its gather's reduce-scatter
+    (:func:`_fsdp_summed`). The MoE layer's router and experts are left to
+    its bodies, which sum their gradients over the group they route."""
+    if rules is None or rules.grid is None or not (rows.batch
+                                                   or rows.s is not None):
+        return params
+    fsdp = rules.fsdp_axes
+
+    def rep(w, tp_split, sliced=False):
+        axes = _row_axes(rules, rows, tp_split)
+        if sliced and _fsdp_summed(rules, rows, tp_split):
+            axes = tuple(a for a in axes if a not in fsdp)
+        return C.replicate(w, rules.group(axes))
+
+    def dense(p, split):
+        return {k: rep(w, split, True) for k, w in p.items()}
+
+    _, specs = block_layout(cfg)
+    vocab = rules.splits(cfg.vocab)
+    out = dict(params)
+    out["final_norm"] = rep(params["final_norm"], False)
+    out["embed"] = rep(params["embed"], vocab, True)
+    if "head" in params:
+        out["head"] = rep(params["head"], vocab, True)
+    blocks = []
+    for spec, sub in zip(specs, params["blocks"]):
+        sub = dict(sub)
+        for n in ("ln1", "ln2"):
+            if n in sub:
+                sub[n] = rep(sub[n], False)
+        if spec.mixer == "attn":
+            sub["mixer"] = dense(sub["mixer"], rules.heads_split(cfg))
+        else:
+            sub["mixer"] = {k: rep(w, False) for k, w in sub["mixer"].items()}
+        if spec.ffn == "dense":
+            sub["ffn"] = dense(sub["ffn"], rules.splits(cfg.d_ff))
+        if "shared" in sub:
+            sub["shared"] = dense(sub["shared"], rules.splits(
+                cfg.n_shared_experts * cfg.moe_d_ff))
+        blocks.append(sub)
+    out["blocks"] = blocks
+    return out
+
+
 def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
-                positions, phase, cache_blk=None, pos=None, chunk_ctx=None,
-                route_seed=None, moe_row_valid=None):
-    """One super-block forward. Returns (x, tallies (m, E+1), aux losses
-    (a list, one a MoE layer), new caches: an attention position's (k, v),
-    a recurrent mixer's new state, whole).
+                positions, phase, rows: _Rows, cache_blk=None, pos=None,
+                chunk_ctx=None, route_seed=None, moe_row_valid=None):
+    """One super-block forward on the rank's ``rows``. Returns (x, tallies
+    (m, E+1), aux losses (a list, one a MoE layer), new caches: an
+    attention position's (k, v), a recurrent mixer's new state, whole).
 
     ``chunk_ctx`` — (lane, offset, n_valid, row_valid) of the chunked-
     prefill phase: attention goes through :func:`_run_attention_chunk`.
     ``route_seed`` and ``moe_row_valid`` (the padding mask, flat over the
     block's rows) go to every MoE layer; the caller computes them once a
-    model call."""
+    model call. Under sequence parallelism a recurrent mixer (replicated
+    over ``tp``) runs on the gathered sequence and keeps the rank's rows."""
     tallies, auxes, new_cache = [], [], []
     moe_i = 0
-    bp = _gather_dense(bp, specs, rules)
+    seq = rows.s
+    tp_group = None if seq is None else rules.group(rules.tp_axes)
+    bp = _gather_dense(cfg, bp, specs, rules, rows)
     for i, spec in enumerate(specs):
         sub = bp[i]
         h = rms_norm(x, sub["ln1"], cfg.norm_eps)
@@ -421,7 +531,11 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
         cache = None if cache_blk is None else cache_blk[i]
         if spec.mixer != "attn":
             fn = (_STEP if phase == "decode" else _SEQ)[spec.mixer]
-            h, st = fn(sub["mixer"], h, cache)
+            if seq is None:
+                h, st = fn(sub["mixer"], h, cache)
+            else:
+                h, st = fn(sub["mixer"], C.gather_seq(h, tp_group), cache)
+                h = h[:, seq]
         elif phase == "chunk":
             lane, offset, n_valid, row_valid = chunk_ctx
             h, st = _run_attention_chunk(sub["mixer"], h, cfg, window, cache,
@@ -429,7 +543,7 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
                                          row_valid)
         else:
             h, st = _run_attention(sub["mixer"], h, cfg, rules, window,
-                                   positions, cache=cache, pos=pos)
+                                   positions, cache=cache, pos=pos, seq=seq)
         new_cache.append(st)
         x = x + h
         if spec.ffn == "none":
@@ -437,7 +551,7 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
         h2 = rms_norm(x, sub["ln2"], cfg.norm_eps)
         if spec.ffn == "dense":
             h2 = mlp(sub["ffn"], h2, cfg.mlp_gated,
-                     _tp_group(rules, cfg.d_ff))
+                     _tp_group(rules, cfg.d_ff), seq is not None)
         else:
             so = nc = cdf = None
             if moe_tables_blk is not None:
@@ -445,11 +559,13 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
             y, tally, aux = moe_layer(
                 sub["ffn"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
                 rules=rules, slots_of=so, n_copies=nc, copy_cdf=cdf,
-                route_seed=route_seed, phase=phase, row_valid=moe_row_valid)
+                route_seed=route_seed, phase=phase, row_valid=moe_row_valid,
+                rows=None if rules is None or rules.grid is None
+                else (rows.batch, seq is not None))
             if cfg.n_shared_experts:
                 f = cfg.n_shared_experts * cfg.moe_d_ff
                 y = y + mlp(sub["shared"], h2, cfg.mlp_gated,
-                            _tp_group(rules, f))
+                            _tp_group(rules, f), seq is not None)
             tallies.append(tally)
             auxes.append(aux)
             moe_i += 1
@@ -458,11 +574,12 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
     return x, tallies, auxes, new_cache
 
 
-def _gather_dense(bp, specs, rules):
+def _gather_dense(cfg, bp, specs, rules, rows: _Rows):
     """A block's params with the FSDP slices of its attention and dense
-    MLP weights gathered over ``rules.fsdp`` (on their d_model axis); every
-    rank of that group does the same dense work, so each keeps its own
-    slice of the gradient. Other leaves (norms, the MoE layer, whose
+    MLP weights gathered over ``rules.fsdp`` (on their d_model axis). The
+    gather's backward reduce-scatters the gradient where the FSDP group's
+    ranks work on different rows, else each keeps its own slice
+    (:func:`_fsdp_summed`). Other leaves (norms, the MoE layer, whose
     experts gather in its body, the recurrent mixers) pass as they are."""
     group = None if rules is None else rules.group(rules.fsdp_axes)
     if group is None:
@@ -470,28 +587,33 @@ def _gather_dense(bp, specs, rules):
     out = []
     for spec, sub in zip(specs, bp):
         sub = dict(sub)
-        dense = [k for k, ok in (("mixer", spec.mixer == "attn"),
-                                 ("ffn", spec.ffn == "dense"),
-                                 ("shared", "shared" in sub)) if ok]
-        for k in dense:
+        dense = [(k, split) for k, ok, split in (
+            ("mixer", spec.mixer == "attn", rules.heads_split(cfg)),
+            ("ffn", spec.ffn == "dense", rules.splits(cfg.d_ff)),
+            ("shared", "shared" in sub, rules.splits(
+                cfg.n_shared_experts * cfg.moe_d_ff))) if ok]
+        for k, split in dense:
+            summed = _fsdp_summed(rules, rows, split)
             sub[k] = {n: C.gather_shards(w, group, DENSE_D_AXIS[n],
-                                         summed=False)
+                                         summed=summed)
                       for n, w in sub[k].items()}
         out.append(sub)
     return out
 
 
-def _whole_top(cfg, params, rules):
+def _whole_top(cfg, params, rules, rows: _Rows):
     """The embedding and the head with their FSDP slices gathered (D of
     ``embed``, axis 0 of ``head``); the vocabulary stays split over ``tp``
     where it is."""
     group = None if rules is None else rules.group(rules.fsdp_axes)
     if group is None:
         return params
+    summed = _fsdp_summed(rules, rows, rules.splits(cfg.vocab))
     out = dict(params)
-    out["embed"] = C.gather_shards(params["embed"], group, 1, summed=False)
+    out["embed"] = C.gather_shards(params["embed"], group, 1, summed=summed)
     if not cfg.tie_embeddings:
-        out["head"] = C.gather_shards(params["head"], group, 0, summed=False)
+        out["head"] = C.gather_shards(params["head"], group, 0,
+                                      summed=summed)
     return out
 
 
@@ -512,18 +634,26 @@ def _vocab(cfg, rules):
     return group, rules.index(rules.tp_axes) * (cfg.vocab // rules.tp_size)
 
 
-def _embed(cfg, params, tokens, rules=None):
-    """The token lookup; vocab-parallel where the vocabulary is split: the
-    rank's rows, tokens outside them zero, summed over ``tp``."""
+def _embed(cfg, params, tokens, rules=None, rows: Optional[_Rows] = None):
+    """The lookup of the rank's ``rows`` of the global ``tokens``. Vocab-
+    parallel where the vocabulary is split: every position of the rank's
+    batch rows looked up in the rank's slice, tokens outside it zero, the
+    ranks' partials summed, or under sequence parallelism reduce-scattered
+    to the rank's positions."""
+    rows = rows or _Rows(slice(0, tokens.shape[0]))
+    tokens = tokens[rows.b]
     group, off = _vocab(cfg, rules)
     w = params["embed"]
     if group is None:
-        return w[tokens]
+        return w[tokens if rows.s is None else tokens[:, rows.s]]
     n = w.shape[0]
     local = tokens - off
     mine = ((local >= 0) & (local < n))[..., None]
     x = w[local.clamp(0, n - 1)]
-    return C.sum_partials(torch.where(mine, x, torch.zeros_like(x)), group)
+    x = torch.where(mine, x, torch.zeros_like(x))
+    if rows.s is not None:
+        return C.scatter_partials(x, group)
+    return C.sum_partials(x, group)
 
 
 def _unembed_w(cfg, params):
@@ -531,9 +661,12 @@ def _unembed_w(cfg, params):
 
 
 def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
-                cache=None, pos=None, chunk_ctx=None):
+                rows: Optional[_Rows] = None, cache=None, pos=None,
+                chunk_ctx=None):
     """Loop over the ``n_blocks`` super-blocks (``lax.scan`` in the
-    reference). Returns (x, tallies (n_moe, E+1), the MoE layers' aux
+    reference) on the rank's ``rows`` (``positions`` the call's global
+    ones: the sequence's, or the decode's lanes', ``pos`` the rank's
+    lanes'). Returns (x, tallies (n_moe, E+1), the MoE layers' aux
     losses (a list), per-position caches; none when ``phase="train"``).
     With ``rules.remat`` the train phase checkpoints each block
     (``torch.utils.checkpoint``, non-reentrant): the backward recomputes a
@@ -542,6 +675,7 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
     (``src/repro/models/model.py:573``)."""
     nb, specs = block_layout(cfg)
     win = _windows(cfg)
+    rows = rows or _Rows(slice(0, x.shape[0]))
     tallies, auxes = [], []
     block_caches = []
     train = phase == "train"
@@ -565,8 +699,8 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
         body = functools.partial(
             _block_body, cfg, rules, specs, bp,
             windows_blk=None if win is None else win[b], moe_tables_blk=mt,
-            positions=positions, phase=phase, cache_blk=cb, pos=pos,
-            chunk_ctx=chunk_ctx, route_seed=seed, moe_row_valid=rv)
+            positions=positions, phase=phase, rows=rows, cache_blk=cb,
+            pos=pos, chunk_ctx=chunk_ctx, route_seed=seed, moe_row_valid=rv)
         if remat:
             x, tall, aux, nc = torch.utils.checkpoint.checkpoint(
                 body, x, use_reentrant=False)
@@ -636,13 +770,33 @@ def _unbind_tree(blocks, nb: int):
     return [[pos[b] for pos in per_pos] for b in range(nb)]
 
 
-def _logits(cfg, params, x, rules=None):
-    """Last-position logits (B, V) f32; a split vocabulary's slices are
-    gathered whole."""
+def _logits(cfg, params, x, rules=None, rows: Optional[_Rows] = None):
+    """Last-position logits (B, V) f32, whole: under sequence parallelism
+    the last position is the last ``tp`` rank's, so the ranks' last rows
+    are gathered over ``tp`` (``gather_shards``) and the last one taken; a
+    split vocabulary's slices are gathered, then the ``dp`` ranks'
+    lanes."""
+    rows = rows or _Rows(slice(0, x.shape[0]))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x[:, -1].float() @ _unembed_w(cfg, params).float()
+    last = x[:, -1]
+    if rows.s is not None:
+        last = C.gather_shards(last[None], rules.group(rules.tp_axes), 0,
+                               summed=False)[-1]
+    logits = last.float() @ _unembed_w(cfg, params).float()
     group, _ = _vocab(cfg, rules)
-    return C.gather_shards(logits, group, 1, summed=False)
+    logits = C.gather_shards(logits, group, 1, summed=False)
+    if rows.batch:
+        logits = C.gather_shards(logits, rules.group(rules.dp_axes), 0,
+                                 summed=False)
+    return logits
+
+
+def _top(cfg, params, rules, rows: _Rows):
+    """The params as a call on ``rows`` reads them: the whole leaves'
+    gradients summed over the rows' ranks, the embedding and head
+    gathered."""
+    return _whole_top(cfg, _sum_over_rows(cfg, params, rules, rows), rules,
+                      rows)
 
 
 def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
@@ -652,22 +806,43 @@ def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
     ``aux`` the MoE layers' load-balance losses summed (0 without
     experts). ``rules=None`` is the single-device ragged path (the
     reference's ``rules=None`` is its dense oracle). Differentiable:
-    call ``backward()`` on the loss."""
+    call ``backward()`` on the loss.
+
+    On a grid every rank takes the global ``batch`` and computes on its
+    rows; the loss, the tallies and ``aux`` come back global on every
+    rank. The xent is the mean over the rank's rows (every row of its
+    batch rows where the vocabulary splits over ``tp``: the final hidden
+    state is gathered over ``tp`` for the vocab-parallel xent, as the
+    reference's ``logits_spec`` has it), averaged over the ranks that
+    hold other rows; each holds as many rows, so that is the global mean.
+    The MoE bodies sum the tallies and average ``mean_prob`` over their
+    group already."""
 
     def fn(params, batch, moe_tables=None):
         tokens = batch["tokens"]
-        params = _whole_top(cfg, params, rules)
-        x = _embed(cfg, params, tokens, rules)
-        positions = torch.arange(x.shape[1], device=x.device)
+        B, S = tokens.shape
+        rows = _rows(rules, B, S, "train")
+        params = _top(cfg, params, rules, rows)
+        x = _embed(cfg, params, tokens, rules, rows)
+        positions = torch.arange(S, device=x.device)
         x, tallies, auxes, _ = _run_blocks(cfg, rules, params, x,
                                            phase="train",
                                            moe_tables=moe_tables,
-                                           positions=positions)
+                                           positions=positions, rows=rows)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         group, off = _vocab(cfg, rules)
-        loss = softmax_xent_chunked(x, _unembed_w(cfg, params),
-                                    batch["labels"], group=group,
-                                    vocab_offset=off)
+        labels = batch["labels"][rows.b]
+        if group is None:
+            labels = labels if rows.s is None else labels[:, rows.s]
+        elif rows.s is not None:
+            x = C.gather_seq(x, group)
+        else:
+            x = C.replicate(x, group)             # column-parallel over V
+        loss = softmax_xent_chunked(x, _unembed_w(cfg, params), labels,
+                                    group=group, vocab_offset=off)
+        if rules is not None and rules.grid is not None:
+            loss = C.mean_over(loss, rules.group(
+                _row_axes(rules, rows, group is not None)))
         aux = (torch.stack(auxes).sum() if auxes else
                torch.zeros((), dtype=torch.float32, device=x.device))
         return loss + aux_weight * aux, (tallies, aux)
@@ -677,18 +852,23 @@ def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
 
 def prefill_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
     """(params, batch, moe_tables) → (last-position logits (B, V) f32,
-    cache, tallies (n_moe, E+1))."""
+    cache, tallies (n_moe, E+1)). On a grid ``batch`` holds the global
+    tokens; the logits and tallies come back whole on every rank, the
+    cache is the rank's: its ``B/dp`` lanes, and its KV heads in heads
+    mode (every row of the prompt, in both modes)."""
 
     def fn(params, batch, moe_tables=None):
         tokens = batch["tokens"]
-        params = _whole_top(cfg, params, rules)
-        x = _embed(cfg, params, tokens, rules)
-        positions = torch.arange(x.shape[1], device=x.device)
+        B, S = tokens.shape
+        rows = _rows(rules, B, S, "prefill")
+        params = _top(cfg, params, rules, rows)
+        x = _embed(cfg, params, tokens, rules, rows)
+        positions = torch.arange(S, device=x.device)
         x, tallies, _, cache = _run_blocks(cfg, rules, params, x,
                                            phase="prefill",
                                            moe_tables=moe_tables,
-                                           positions=positions)
-        return _logits(cfg, params, x, rules), cache, tallies
+                                           positions=positions, rows=rows)
+        return _logits(cfg, params, x, rules, rows), cache, tallies
 
     return fn
 
@@ -739,19 +919,24 @@ def prefill_chunk_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
 def decode_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
     """(params, token (B, 1), cache, pos (B,), moe_tables) → (logits,
     cache, tallies). The cache is updated in place and returned; every
-    lane steps, busy or idle, as in the reference."""
+    lane steps, busy or idle, as in the reference. On a grid ``token`` and
+    ``pos`` are the global lanes' and the cache the rank's
+    (``launch.sharding.rank_cache``: its ``B/dp`` lanes where ``dp``
+    divides B); the logits (B, V) and tallies come back whole."""
 
     def fn(params, token, cache, pos, moe_tables=None):
-        params = _whole_top(cfg, params, rules)
-        x = _embed(cfg, params, token, rules)
+        B = token.shape[0]
+        rows = _rows(rules, B, 1, "decode")
+        params = _top(cfg, params, rules, rows)
+        x = _embed(cfg, params, token, rules, rows)
         pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
-                                 (token.shape[0],))
+                                 (B,))
         x, tallies, _, cache = _run_blocks(cfg, rules, params, x,
                                            phase="decode",
                                            moe_tables=moe_tables,
-                                           positions=pos, cache=cache,
-                                           pos=pos)
-        return _logits(cfg, params, x, rules), cache, tallies
+                                           positions=pos, rows=rows,
+                                           cache=cache, pos=pos[rows.b])
+        return _logits(cfg, params, x, rules, rows), cache, tallies
 
     return fn
 

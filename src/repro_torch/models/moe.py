@@ -33,9 +33,13 @@ one-rank group (no grid) they are the identity, and the ragged bodies
 reduce to the single-device ragged dispatch, which runs in their place.
 The expert weights a rank holds are its slice
 (:func:`repro_torch.launch.sharding.shard_params`): its slots, over
-``fsdp`` a slice of their axis 1, under expert-TP a slice of F. The dense
-layers around the MoE layer stay replicated, so the a2a bodies take the
-rank's block of the replicated input and gather the output back.
+``fsdp`` a slice of their axis 1, under expert-TP a slice of F. In the
+model the layer gets the rank's rows (``rows``): with the batch over
+``dp`` and the sequence over ``tp`` (= ``ep``, as ``make_rules`` sets
+them), they are the rank's a2a block as they are; other layouts are
+converted to the block and back, and the replicated bodies gather the
+whole batch, as GSPMD does around the reference's replicated
+``shard_map``.
 
 Placement is positional, as in the reference: the stacked expert weights
 live in physical slot order, ``slots_of``/``n_copies``/``copy_cdf`` map
@@ -565,7 +569,8 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
               n_copies: Optional[torch.Tensor] = None,
               copy_cdf: Optional[torch.Tensor] = None,
               route_seed=None, phase: str = "train",
-              row_valid: Optional[torch.Tensor] = None):
+              row_valid: Optional[torch.Tensor] = None,
+              rows: Optional[Tuple[bool, bool]] = None):
     """Returns (y (B, S, D), tally (E+1,), aux_loss).
 
     ``rules=None`` means ``ShardingRules()``: the single-device ragged path
@@ -584,8 +589,12 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
 
     On a grid, ``p`` holds the rank's slice of the expert weights
     (``launch.sharding.shard_params`` for this ``phase``: the a2a layout
-    for train and prefill, the decode fleet's for decode), ``x`` and the
-    tables are replicated, and so are the outputs.
+    for train and prefill, the decode fleet's for decode) and the tables
+    are replicated. ``rows=None``: ``x`` is replicated, and so is ``y``.
+    ``rows=(batch, seq)``: ``x`` holds the rank's rows, its ``B/dp`` of
+    the batch where ``batch`` and its ``S/tp`` of the sequence where
+    ``seq``, and ``y`` the same rows; the tally and ``aux`` are global in
+    both.
 
     ``tally[:E]`` counts logical-expert assignments (pre-capacity);
     ``tally[E]`` the capacity drops (0 on the ragged and dense paths).
@@ -619,7 +628,10 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
             mode = "replicated"
         else:
             mode = "a2a"
-        if mode == "a2a" and S % rules.ep_size != 0:
+        # the global sequence: under sequence parallelism x holds S/tp
+        seq_whole = S * (rules.tp_size if rules.grid is not None and rows
+                         and rows[1] else 1)
+        if mode == "a2a" and seq_whole % rules.ep_size != 0:
             mode = "replicated"
         if mode != "dense" and row_valid is not None:
             raise NotImplementedError(
@@ -657,20 +669,34 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     cf = rules.capacity_factor
     args = (p["router"], p["w1"], p["w3"], p["w2"], slots_of, n_copies,
             copy_cdf, route_seed)
+    rows = rows if grid is not None and rows is not None and any(rows) \
+        else None
+    dp_axes, ep_axes, tp_axes = rules.dp_axes, rules.ep_axes, rules.tp_axes
+    if rows is not None:
+        # the rank's rows of the global (Bg, Sg)
+        Bg = B * rules.axis_size(dp_axes) if rows[0] else B
+        Sg = S * rules.axis_size(tp_axes) if rows[1] else S
     if mode == "a2a":
-        ep, dp_axes, ep_axes = rules.ep_size, rules.dp_axes, rules.ep_axes
+        ep = rules.ep_size
         dp = rules.axis_size(dp_axes)
-        if B % dp:
-            raise ValueError(f"a2a dispatch: batch {B} over {dp} dp ranks")
+        Bb = B if rows is None else Bg
+        if Bb % dp:
+            raise ValueError(f"a2a dispatch: batch {Bb} over {dp} dp ranks")
         n_slots = p["w1"].shape[0] * ep
-        t_loc = (B // dp) * (S // ep)
         blk = dp_axes + ep_axes
-        xb, coords, me = x, (), 0
-        if grid is not None:
-            coords = [(grid.index(dp_axes, c), grid.index(ep_axes, c))
-                      for c in grid.members(blk)]
-            me = grid.index(blk)
-            xb = C.take_block(x, group(blk), coords, me)
+        if rows is None:
+            t_loc = (B // dp) * (S // ep)
+            xb, undo = x, None
+            if grid is not None:
+                coords = [(grid.index(dp_axes, c), grid.index(ep_axes, c))
+                          for c in grid.members(blk)]
+                me = grid.index(blk)
+                xb = C.take_block(x, group(blk), coords, me)
+                undo = lambda y: C.gather_blocks(  # noqa: E731
+                    y, group(blk), coords, me, x.shape)
+        else:
+            t_loc = (Bg // dp) * (Sg // ep)
+            xb, undo = _to_a2a_block(x, rows, rules, Sg)
         kw = dict(top_k=top_k, n_experts=n_experts, n_slots=n_slots, ep=ep,
                   ffn=ffn, ep_group=group(ep_axes), stat_group=group(blk),
                   fsdp_group=group(rules.fsdp_axes),
@@ -683,13 +709,21 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
             capacity = _round_up(
                 max(math.ceil(t_loc * top_k / n_slots * cf), 1), 4)
             out, tally, aux = _a2a_body(xb, *args, capacity=capacity, **kw)
-        if grid is not None:
-            out = C.gather_blocks(out, group(blk), coords, me, x.shape)
-        return out, tally, aux
+        return (out if undo is None else undo(out)), tally, aux
 
     # replicated: the decode fleet's layout at decode; at train / prefill
     # (a fallback, or asked for) the a2a layout, slots over ep, the FSDP
-    # shards gathered, every batch replica doing the same work
+    # shards gathered, every batch replica doing the same work. Every rank
+    # of the psum group routes the same tokens: the rank's rows are
+    # gathered to the whole batch first and taken back after.
+    xr = x
+    if rows is not None:
+        r_axes = (dp_axes if rows[0] else ()) + (tp_axes if rows[1] else ())
+        coords = [(grid.index(dp_axes, c) if rows[0] else 0,
+                   grid.index(tp_axes, c) if rows[1] else 0)
+                  for c in grid.members(r_axes)]
+        me = grid.index(r_axes)
+        xr = C.gather_blocks(x, group(r_axes), coords, me, (Bg, Sg, D))
     w = (p["w1"], p["w3"], p["w2"])
     if phase == "decode":
         slot_axes, ftp_axes = rules.decode_axes
@@ -700,16 +734,49 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     n_slots = w[0].shape[0] * rules.axis_size(slot_axes)
     my_rank = 0 if grid is None else grid.index(slot_axes)
     psum_group = group(slot_axes + ftp_axes)
+    Bw, Sw = xr.shape[:2]
     if ragged:
-        return _replicated_body_ragged(
-            x, *args, top_k=top_k, n_experts=n_experts, bm=rules.moe_block_m,
+        out, tally, aux = _replicated_body_ragged(
+            xr, *args, top_k=top_k, n_experts=n_experts, bm=rules.moe_block_m,
             my_rank=my_rank, psum_group=psum_group, ffn=ffn)
-    capacity = _round_up(
-        max(math.ceil(B * S * top_k / n_slots * max(cf, 2.0)), 4), 4)
-    return _replicated_body(x, *args, top_k=top_k, n_experts=n_experts,
-                            capacity=capacity, ffn=ffn, my_rank=my_rank,
-                            psum_group=psum_group,
-                            drop_group=group(slot_axes))
+    else:
+        capacity = _round_up(
+            max(math.ceil(Bw * Sw * top_k / n_slots * max(cf, 2.0)), 4), 4)
+        out, tally, aux = _replicated_body(
+            xr, *args, top_k=top_k, n_experts=n_experts, capacity=capacity,
+            ffn=ffn, my_rank=my_rank, psum_group=psum_group,
+            drop_group=group(slot_axes))
+    if rows is not None:
+        out = C.take_block(out, group(r_axes), coords, me)
+    return out, tally, aux
+
+
+def _to_a2a_block(x, rows, rules, Sg):
+    """The rank's a2a block ``(B/dp, S/ep)`` from its rows ``x`` (its
+    ``B/dp`` batch rows, and its ``S/tp`` positions where ``rows[1]``),
+    and the function that takes the block's output back to the rows.
+    Under sequence parallelism over the ``ep`` axes the rows are the block.
+    Otherwise the sequence is gathered over ``tp`` (where it is split) and
+    the block's positions taken over ``ep``, and back the same way; each
+    step's backward is its inverse's forward, so the gradient of a tensor
+    held whole is whole on every rank."""
+    ep_axes, tp_axes = rules.ep_axes, rules.tp_axes
+    if rows[1] and ep_axes == tp_axes:
+        return x, None
+    grid = rules.grid
+    B, _, D = x.shape
+    whole = (B, Sg, D)
+    seq = (grid.group(tp_axes), [(0, j) for j in range(rules.tp_size)],
+           grid.index(tp_axes))
+    blk = (grid.group(ep_axes), [(0, j) for j in range(rules.ep_size)],
+           grid.index(ep_axes))
+    xs = C.gather_blocks(x, *seq, whole) if rows[1] else x
+
+    def undo(y):
+        y = C.gather_blocks(y, *blk, whole)
+        return C.take_block(y, *seq) if rows[1] else y
+
+    return C.take_block(xs, *blk), undo
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,16 @@ split them: attention by heads (:func:`heads_ok`) or, in ``"context"``
 mode, by query rows at prefill and by cache rows at decode; the dense
 MLP's F; the vocabulary of the embedding and the unembedding where it
 divides. The dense weights are also FSDP-sliced over ``fsdp`` and
-gathered a block at a time. The batch stays replicated over ``dp``, the
-residual stream between layers replicated, and the recurrent mixers
-(Mamba, mLSTM, sLSTM) replicated; ``tp=None`` keeps every dense layer
-replicated.
+gathered a block at a time. Each rank holds and computes only its own
+rows: the batch splits over ``dp`` where ``dp`` divides it
+(:meth:`ShardingRules.batch_split`, the reference's ``dp_ok``), and at
+train and prefill the residual stream between blocks splits over ``tp``
+along the sequence where ``tp`` divides it
+(:meth:`ShardingRules.seq_split`, the reference's ``seq_ok``: Megatron
+sequence parallelism). Where neither divides, the rows stay whole on
+every rank. The recurrent mixers (Mamba, mLSTM, sLSTM) are replicated over
+``tp``: they run on the gathered sequence and keep the rank's rows.
+``tp=None`` keeps every dense layer replicated and the sequence whole.
 
 ``build_slots_of`` and ``build_copy_cdf`` are the reference's numpy table
 builders (``repro.models.sharding``), copied.
@@ -205,6 +211,42 @@ class ShardingRules:
         divides them."""
         return (self.tp_size > 1 and self.attn_mode == "context"
                 and n_rows % self.tp_size == 0)
+
+    @property
+    def dp_size(self) -> int:
+        """Ranks the batch splits over (1 without a grid)."""
+        return self.axis_size(self.dp_axes)
+
+    def batch_split(self, B: int) -> bool:
+        """A batch of ``B`` splits over ``dp``: ``dp > 1`` divides it (the
+        reference's ``dp_ok``, ``src/repro/launch/sharding.py:169``)."""
+        return self.dp_size > 1 and B % self.dp_size == 0
+
+    def seq_split(self, S: int, phase: str) -> bool:
+        """The residual stream of ``S`` rows splits over ``tp`` along the
+        sequence: not at decode, ``tp > 1`` divides ``S`` (the reference's
+        ``seq_ok``, ``src/repro/models/model.py:558-561``)."""
+        return (phase != "decode" and self.tp_size > 1
+                and S % self.tp_size == 0)
+
+    def batch_rows(self, B: int) -> slice:
+        """This rank's rows of a batch of ``B``: its ``B/dp`` where
+        :meth:`batch_split`, else all (the counterpart of the reference's
+        ``batch_specs``)."""
+        if not self.batch_split(B):
+            return slice(0, B)
+        n = B // self.dp_size
+        i = self.index(self.dp_axes)
+        return slice(i * n, (i + 1) * n)
+
+    def seq_rows(self, S: int, phase: str) -> slice:
+        """This rank's positions of a sequence of ``S``: its ``S/tp`` where
+        :meth:`seq_split`, else all."""
+        if not self.seq_split(S, phase):
+            return slice(0, S)
+        n = S // self.tp_size
+        i = self.index(self.tp_axes)
+        return slice(i * n, (i + 1) * n)
 
     def splits(self, n: int) -> bool:
         """An axis of ``n`` (the vocabulary, a dense MLP's F) splits over

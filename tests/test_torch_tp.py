@@ -348,10 +348,12 @@ def d_dim(n):
 @pytest.mark.parametrize("name", list(h.CASES) + ["jamba"])
 def test_rank_cache_gives_cache_specs_shapes(name):
     """Each rank's decode cache has the shape of the reference's
-    ``cache_specs`` slice (the batch replicated over ``dp``, as the port
-    keeps it); recurrent states stay whole."""
+    ``cache_specs`` slice: the lanes over ``dp`` (every batch here divides
+    over "data"), the KV heads or the rows over "model"; recurrent states
+    hold the rank's lanes and stay whole over "model" (the mixers are
+    replicated over ``tp``)."""
     if name == "jamba":
-        arch, shape, fields = "jamba-1.5-large-398b", (1, 2), dict(
+        arch, shape, fields = "jamba-1.5-large-398b", (2, 2), dict(
             dp=("data",), fsdp=None)
     else:
         arch, shape, fields, _ = h.CASES[name]
@@ -375,14 +377,15 @@ def test_rank_cache_gives_cache_specs_shapes(name):
         got = rank_cache(cfg, whole, rules)
         for spec, c, w, sh, sp in zip(lay, got, whole, shapes, specs):
             if spec.mixer != "attn":
-                assert all(a is b for a, b in zip(c.values(), w.values()))
+                for a, b in zip(c.values(), w.values()):
+                    assert a.shape[1] == b.shape[1] // shape[0], (name, rank)
+                    assert a.shape[2:] == b.shape[2:], (name, rank)
                 continue
             want = list(sh[0].shape)
             for d, part in enumerate(sp[0]):
                 axes = (part,) if isinstance(part, str) else (part or ())
                 for a in axes:
-                    if a != "data":           # the batch is replicated
-                        want[d] //= mesh.shape[a]
+                    want[d] //= mesh.shape[a]
             assert [list(t.shape) for t in c] == [want, want], (name, rank)
 
 
