@@ -41,12 +41,13 @@ Run from the repository root on a machine with one NVIDIA H100. It
    the fused routing stage launched exactly 32 times per model call (the
    logits-in router never), every FFN launch on the TMA route (the
    per-route counter equal to the total);
-6. admits a second batch into the same engine and traces 16 decode steps
+6. admits a second batch into the same engine and traces 4 decode steps
    with ``torch.profiler``: the device's busy and idle share of a step,
    its device operations, its largest kernels with the operation that
    launched each, and the FFN and routing kernels' device time a launch;
-7. path (A): serves the same 8 requests with ``moe_impl="capacity"``
-   (capacity buckets on a one-rank expert-parallel group), the capacity
+7. path (A): serves the same 8 requests, each cut to 64 output tokens,
+   with ``moe_impl="capacity"`` (capacity buckets on a one-rank
+   expert-parallel group), the capacity
    FFN (all on the TMA route) and the routing stage launched 32 times per
    model call, the ragged FFN never; prints the drops; then runs the
    inputs of every routing call of the run, captured, through the fused
@@ -107,7 +108,7 @@ Run from the repository root on a machine with one NVIDIA H100. It
    hands the ranks its seed-0 weights and results through CUDA IPC), each
    rank on its slice of the experts: at ep 4 prefills of 2 x 256 and 4 x
    256 tokens through the ragged a2a body and through the capacity a2a
-   body (factor 8, dropless), 16 decode steps of 8 lanes through
+   body (factor 8, dropless), 4 decode steps of 8 lanes through
    the replicated ragged body on ``expand_experts``' weights, and one loss
    and backward at 4 x 256 through the ragged a2a body; at dp 2 x ep 2
    with FSDP of the expert weights, a 2-layer prefill. Each is held
@@ -131,7 +132,7 @@ Run from the repository root on a machine with one NVIDIA H100. It
 15. tensor parallelism of the dense layers (``tp_phase``) on 4 ranks
    sharing the card: granite at full width on (1, 4) from ``make_rules``
    (attention by heads, 6 heads and 2 KV heads a rank; EP 4; the
-   residual's positions over the ranks) — a prefill of 2 x 256, 8 decode
+   residual's positions over the ranks) — a prefill of 2 x 256, 4 decode
    steps of 8 lanes (the cache's KV heads over the ranks), one loss and
    backward with remat; the same prefill and decode in context mode (query
    rows, and 1024 cache rows, over the ranks; the decode's softmax stats
@@ -150,16 +151,20 @@ Run from the repository root on a machine with one NVIDIA H100. It
    on 4 ranks sharing the card, each rank holding and computing only its
    rows: granite at full width on (2, 2) from ``make_rules`` (the batch
    over "data", heads and positions over "model", dense and expert FSDP
-   over "data") — a prefill of 4 x 256, 8 decode steps of 8 lanes (4 a
+   over "data") — a prefill of 4 x 256, 4 decode steps of 8 lanes (4 a
    rank), one loss and backward with remat, each bit for bit against the
    witness and within recorded bounds against one device as it runs, with
    the peak memory and the bytes of the block inputs remat keeps a rank;
-   granite on (1, 4) in context mode (a prefill of 2 x 256, the rank's
-   positions its query rows, and 8 decode steps) held the same two ways;
    jamba at its smoke size on (2, 2) (the Mamba mixers on the gathered
    sequence, the MoE layer through the port's kernels) against one device;
    every kernel call on the ranks, at jamba's shapes and at granite's (2
-   layers), against its plain version; every rank's launches exact.
+   layers), against its plain version; every rank's launches exact; and
+   the training step on the grid: granite at 2 layers on (2, 2) with FSDP
+   over "data", two steps of ``make_train_step`` (AdamW on each rank's
+   slices, clipped by the grid's global norm) each bit for bit against a
+   one-device witness on the gathered gradients and within a recorded
+   bound as it runs, the train state saved from the grid and restored
+   onto (1, 4) and onto one device, bit for bit.
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -174,6 +179,7 @@ import collections
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1114,7 +1120,7 @@ def jamba_phase(dev):
     return {"launches": counts, "first_prefill_max_abs_err": err}
 
 
-def trace_decode(engine, n_steps: int = 16) -> None:
+def trace_decode(engine, n_steps: int = 4) -> None:
     """Device busy share of full-width decode steps, from a profiler trace.
 
     Admits a fresh batch into the served engine (after the main path's
@@ -1916,7 +1922,7 @@ def checkpoint_restart(dev):
 # ---------------------------------------------------------------------------
 
 EP_AXES = ("data", "model")
-EP_DECODE_STEPS = 16
+EP_DECODE_STEPS = 4
 # The 4 x 256 runs held against one device as it routes 1024 rows (D split
 # into 8 ranges where a rank's 256 rows take 16; see ``ep_phase``): bounds
 # set at about twice the readings on an H100 80GB HBM3 (PERF.md, "Expert
@@ -2051,7 +2057,7 @@ def ep_reference(cfg, dev, inputs, ways, full=True):
     """The single-rank port on the card (``rules=None``) on seed 0's
     weights: prefill logits and tallies at 2 x 256 (with each layer's
     near-tie rows); with ``full`` also at 4 x 256, that prefill again
-    under :class:`rank_split` (``/split``), 16 decode steps (logits,
+    under :class:`rank_split` (``/split``), 4 decode steps (logits,
     tallies, each layer's picks and each row's gap to a tie, the cache
     before each step), and at 4 x 256 the loss, its gradients and the
     forward's tallies, both ways. Returns the whole params and the
@@ -2510,10 +2516,17 @@ def _free_shared():
         torch.cuda.empty_cache()
 
 
+def ep_ranks(rank, runs):
+    """:func:`ep_rank` on this rank for each argument tuple of ``runs`` in
+    turn: the plans share one start of the ranks. Returns each one's
+    numbers."""
+    return [ep_rank(rank, *args) for args in runs]
+
+
 def ep_phase(cfg, dev):
     """Phase 13: granite at full width on 4 ranks sharing the card (gloo on
     CUDA tensors), ep 4: prefills of 2 x 256 and 4 x 256 through the
-    ragged a2a body and the capacity a2a body (factor 8: dropless), 16
+    ragged a2a body and the capacity a2a body (factor 8: dropless), 4
     decode steps of 8 lanes through the replicated ragged body on
     ``expand_experts``' weights, one loss and backward of 4 x 256 through
     the ragged a2a body; every kernel against its plain version on the
@@ -2566,9 +2579,14 @@ def ep_phase(cfg, dev):
             "paths": ["prefill", "capacity", "prefill_wide",
                       "capacity_wide", "decode",
                       "backward", "vs_plain"]}
+    # dp 2 x ep 2 with FSDP of the expert weights, 2 layers: on the same
+    # ranks after the ep 4 plan
+    plan2 = {"cfg": small, "grid": (2, 2), "fsdp": "data",
+             "paths": ["prefill"]}
     t0 = time.perf_counter()
-    ranks = run_ranks(ep_rank, ways, args=(plan, params, ref, inputs,
-                                           params2), timeout_s=400)
+    ranks, fsdp = zip(*run_ranks(ep_ranks, ways, args=([
+        (plan, params, ref, inputs, params2),
+        (plan2, params2, ref2, inputs)],), timeout_s=400))
     t_ranks = time.perf_counter() - t0
     print("[ep] ep 4, each rank against the single rank: " + json.dumps(
         [{k: r[k] for k in ("err", "rel", "decode_steps_compared")}
@@ -2671,13 +2689,6 @@ def ep_phase(cfg, dev):
     for path in ("prefill", "capacity", "prefill_wide", "capacity_wide"):
         check(len({r[f"{path}_digest"] for r in ranks}) == 1,
               f"ep 4 {path}: the ranks' logits differ")
-    # dp 2 x ep 2 with FSDP of the expert weights, 2 layers
-    plan2 = {"cfg": small, "grid": (2, 2), "fsdp": "data",
-             "paths": ["prefill"]}
-    t0 = time.perf_counter()
-    fsdp = run_ranks(ep_rank, 4, args=(plan2, params2, ref2, inputs),
-                     timeout_s=300)
-    t_fsdp = time.perf_counter() - t0
     del params2, ref2, inputs
     _free_shared()
     for r in fsdp:
@@ -2725,9 +2736,9 @@ def ep_phase(cfg, dev):
             "peak_gib": [r["peak_bytes"] / gib for r in fsdp],
             "max_abs_logit_err": max(r["err"]["prefill"] for r in fsdp),
             "launches_rank0": fsdp[0]["launches"]["prefill"]},
-        "phase_s": {"single_rank_reference": t_ref, "ep4_ranks": t_ranks,
+        "phase_s": {"single_rank_reference": t_ref, "ranks": t_ranks,
                     "ep4_rank0_sections": ranks[0]["section_s"],
-                    "fsdp_ranks": t_fsdp,
+                    "fsdp_rank0_sections": fsdp[0]["section_s"],
                     "all": time.perf_counter() - t_start}}
     e4 = summary["ep4"]
     for p, walls in e4["wall_s"].items():
@@ -2745,7 +2756,8 @@ def ep_phase(cfg, dev):
           f"relative L2 {json.dumps(e4['logit_rel_l2'])}; assignments "
           f"moved {json.dumps(e4['moved'])} ({sum(near)} near-tie rows in "
           f"the single rank's 2 x 256 prefill, {sum(near_wide)} at 4 x 256,"
-          f" {e4['decode_near_tie_rows']} in its 16 decode steps); loss at "
+          f" {e4['decode_near_tie_rows']} in its {EP_DECODE_STEPS} decode "
+          f"steps); loss at "
           f"4 x 256 {e4['loss']:.6f} vs {loss_ref['']:.6f} (one device) and "
           f"{loss_ref['/split']:.6f} (one device, the rank's split); "
           f"gradient leaves' relative L2 max {e4['grad_rel_l2_max']:.3e} "
@@ -2770,9 +2782,9 @@ def ep_phase(cfg, dev):
           f"{', '.join(f'{v:.2f}' for v in d['peak_gib'])} GiB; launches "
           f"{json.dumps(d['launches_rank0'])}", flush=True)
     print(f"[ep] phase wall {summary['phase_s']['all']:.1f} s (single-rank "
-          f"references {t_ref:.1f}, ep 4 ranks {t_ranks:.1f} (rank 0 by "
-          f"path: {json.dumps(ranks[0]['section_s'])}), dp 2 x ep 2 "
-          f"{t_fsdp:.1f})", flush=True)
+          f"references {t_ref:.1f}, the ranks {t_ranks:.1f}: ep 4, rank 0 "
+          f"by path {json.dumps(ranks[0]['section_s'])}, then dp 2 x ep 2 "
+          f"{json.dumps(fsdp[0]['section_s'])})", flush=True)
     return summary
 
 
@@ -2833,7 +2845,7 @@ def remat_phase(cfg, dev):
 # phase 15: tensor parallelism of the dense layers over ranks sharing the card
 # ---------------------------------------------------------------------------
 
-TP_DECODE_STEPS = 8
+TP_DECODE_STEPS = 4
 TP_LANES = 8
 TP_S_MAX = 1024
 # lane j decodes from position 120 j: in context mode each rank's quarter
@@ -2859,20 +2871,22 @@ TP_BOUNDS = {
 
 
 # phase 16: the batch over dp and the sequence-sharded residual
-SP_STEPS = 8
+SP_STEPS = 4
 # Against one device as it runs, per run (the witness holds bit for bit):
 # the logits' relative L2 by path, the loss's relative error and the
 # gradient leaves' largest relative L2, set at about twice the readings on
 # an H100 80GB HBM3 at 700 W (PERF.md, "Each rank's rows").
 # Readings (prefill, decode, loss, gradients): dp_sp 0.0446, 0.0348,
-# 5.3e-5, 0.1154; context 0.0 (the same products on the same rows as one
-# device), 0.0304; jamba at its smoke size 0.1441, 0.0822, 2.958e-4,
+# 5.3e-5, 0.1154; jamba at its smoke size 0.1441, 0.0822, 2.958e-4,
 # 0.2802 (14 of 4096 assignments moved: small random-weight logits).
 SP_BOUNDS = {
     "dp_sp": {"prefill": 9e-2, "decode": 7e-2, "loss": 1.1e-4,
               "grads": 0.23},
-    "context": {"prefill": 0.0, "decode": 6e-2},
     "jamba": {"prefill": 0.29, "decode": 0.17, "loss": 6e-4, "grads": 0.56},
+    # (e): the params and state after each AdamW step as the port runs it
+    # (gloo's order of the norm's partials) against the witness's
+    # (reading 4.41e-6 at the second step, 0.0 at the first)
+    "step": {"step": 9e-6},
 }
 
 
@@ -3398,6 +3412,253 @@ def _tp_vs_plain(cfg, rules_for, params, inp, dev):
             "rows_that_differ": held.rows_that_differ}
 
 
+#: phase 16 (e): the optimizer's step before the two steps, past
+#: cosine_lr's warmup of 100 (at step 0 the learning rate is 0), and the
+#: schedule's length
+GRID_STEP0 = 100
+GRID_TOTAL = 10_000
+#: where (e) saves the train state from its grid and (f) restores it
+#: (git-ignored; removed by the parent after its own restore)
+GRID_CKPT = ROOT / "build" / "chip_smoke_grid_ckpt"
+
+
+def _ordered_all_reduce(t, group):
+    """``all_reduce_`` as an all_gather summed in rank order, in place."""
+    if group is not None:
+        t.copy_(_in_order(_ordered_parts(t, group)))
+    return t
+
+
+def _witness_norm(whole_g, cuts, grid):
+    """The one-device witness of the grid's global norm of the gradients
+    ``whole_g`` (gathered whole): every rank's partial sums of squares of
+    its slices (``norm_partials``), each set of axes' partials added in
+    the rank order of this rank's group over them, the sets' totals in
+    the order the ranks add them."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.sharding import cut_tree
+    from repro_torch.training import optimizer as topt
+    parts = []
+    for r in range(math.prod(grid.shape)):
+        at = Grid(grid.shape, grid.axes, r, {})
+        parts.append(topt.norm_partials(cut_tree(whole_g, cuts, at), cuts,
+                                        at))
+    total = None
+    for key in parts[grid.rank]:
+        if key:
+            ranks = [int(np.ravel_multi_index(tuple(c[a] for a in grid.axes),
+                                              grid.shape))
+                     for c in grid.members(key)]
+            part = _in_order([parts[r][key] for r in ranks])
+        else:
+            part = parts[grid.rank][key]
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def _sync():
+    """Wait for the card, where there is one in use."""
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _bits_digest(tree):
+    """Per leaf, two 64-bit sums of its bits as integers (plain and
+    weighted by position; integer sums, so in any order the same): a
+    digest that tells two trees apart unless they agree bit for bit."""
+    import torch
+    from repro_torch.tree import leaves
+    out = []
+    for t in leaves(tree):
+        words = t.detach().contiguous().view(-1)
+        words = words.view({2: torch.int16, 4: torch.int32}[
+            t.element_size()]).to(torch.int64)
+        pos = torch.arange(1, words.numel() + 1, dtype=torch.int64,
+                           device=words.device)
+        out.append([int(words.sum()), int((words * pos).sum())])
+        del words, pos
+    return out
+
+
+class step_witness:
+    """Within the block, ``make_train_step``'s AdamW (``launch.train.
+    adamw_update``) on each rank runs twice on the same gradients and
+    state: first as the port runs it (gloo's all_reduce of the norm's
+    partials; timed, with the exchanges clocked, and held against the
+    witness as it runs), then, from the same state again, with the
+    partials summed in rank order (``_ordered_all_reduce``), held bit for
+    bit. The witness: the rank gathers the whole gradients and runs the
+    one-device ``adamw_apply`` on its own whole copy of the params and
+    state (``self.whole``), clipped by :func:`_witness_norm`; the rank's
+    slices of it must be its state. The ranks go on from the ordered
+    run's state, so that the next step's witness starts where they do."""
+
+    def __init__(self, whole, cuts, grid):
+        self.whole, self.cuts, self.grid = whole, cuts, grid
+        self.steps = []
+
+    def update(self, grads, opt, params, ocfg, lr, cuts, grid):
+        import torch
+        with torch.no_grad():
+            return self._update(grads, opt, params, ocfg, lr, cuts, grid)
+
+    def _update(self, grads, opt, params, ocfg, lr, cuts, grid):
+        import torch
+        from repro_torch.launch.sharding import cut_tree, gather_params
+        from repro_torch.models import collectives
+        from repro_torch.training import optimizer as topt
+        from repro_torch.tree import leaves
+        _sync()
+        rec = {"backward_s": time.perf_counter() - self.t0}
+        whole_g = gather_params(grads, cuts, grid)
+        gnorm = _witness_norm(whole_g, cuts, grid)
+        wp, wo = topt.adamw_apply(whole_g, self.whole["opt"],
+                                  self.whole["params"], ocfg, lr,
+                                  topt.clip_scale(gnorm, ocfg))
+        self.whole = {"params": wp, "opt": wo}
+        del whole_g
+        want = leaves(cut_tree(self.whole, self.cuts, grid))
+        before = [t.clone() for t in leaves({"params": params, "opt": opt})]
+
+        collectives.clock.reset()
+        collectives.clock.enabled = True
+        _sync()
+        t0 = time.perf_counter()
+        p_run, o_run = self.real(grads, opt, params, ocfg, lr, cuts=cuts,
+                                 grid=grid)
+        _sync()
+        rec["update_s"] = time.perf_counter() - t0
+        collectives.clock.enabled = False
+        rec["norm_exchange"] = {"seconds": collectives.clock.seconds,
+                                "calls": collectives.clock.calls,
+                                "bytes": collectives.clock.bytes}
+        got = leaves({"params": p_run, "opt": o_run})
+        rec["rel"] = max(_rel_l2(a, b) for a, b in zip(got, want))
+        rec["err"] = max((a.float() - b.float()).abs().max().item()
+                         for a, b in zip(got, want))
+        for t, b in zip(leaves({"params": params, "opt": opt}), before):
+            t.copy_(b)
+        del before
+        saved, topt.C = topt.C, _Collectives(
+            topt.C, all_reduce_=_ordered_all_reduce)
+        try:
+            p_out, o_out = self.real(grads, opt, params, ocfg, lr,
+                                     cuts=cuts, grid=grid)
+        finally:
+            topt.C = saved
+        rec["bits"] = all(bool(torch.equal(a, b)) for a, b in zip(
+            leaves({"params": p_out, "opt": o_out}), want))
+        rec["gnorm"] = gnorm.item()
+        self.steps.append(rec)
+        return p_out, o_out
+
+    def __enter__(self):
+        from repro_torch.launch import train as ttrain
+        self.real = ttrain.adamw_update
+        ttrain.adamw_update = self.update
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train as ttrain
+        ttrain.adamw_update = self.real
+
+
+def _step_plan(cfg, rules, params, inp, grid, run, kept):
+    """Phase 16 (e) on one rank: two training steps of ``make_train_step``
+    at 4 x 256 on the rank's slices of ``params`` (shared, read only: the
+    rank's params are copies), from a state at step ``GRID_STEP0``, under
+    :class:`step_witness`, the first with every kernel call held against
+    its plain version (:class:`hold_calls`); then the train state saved
+    from the grid into ``GRID_CKPT``. Keeps the witness's whole state in
+    ``kept`` for the restore of (f). Returns the numbers."""
+    import torch
+    from repro_torch.launch.sharding import (opt_cuts, param_cuts,
+                                             shard_params)
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import make_moe_tables
+    from repro_torch.training import checkpoint as tckpt
+    from repro_torch.training import optimizer as topt
+    from repro_torch.tree import leaves, tree_map
+    ocfg = topt.AdamWConfig()
+    step0 = torch.tensor(GRID_STEP0, dtype=torch.int32,
+                         device=params["embed"].device)
+    cuts = param_cuts(cfg, rules, "train")
+    scuts = {"params": cuts, "opt": opt_cuts(cuts)}
+    local = tree_map(torch.clone, shard_params(cfg, params, rules, "train"))
+    for p in leaves(local):
+        p.requires_grad_(True)
+    opt = topt.adamw_init(local, ocfg)._replace(step=step0)
+    whole = tree_map(torch.clone, params)
+    witness = step_witness({"params": whole, "opt": topt.adamw_init(
+        whole, ocfg)._replace(step=step0.clone())}, scuts, grid)
+    step = make_train_step(cfg, ocfg, GRID_TOTAL, rules)
+    tables = make_moe_tables(cfg, rules, phase="train",
+                             device=local["embed"].device)
+    batch = {"tokens": inp["tokens"], "labels": inp["labels"]}
+    out = {"opt_bytes": sum(t.numel() * t.element_size() for t in leaves(
+        (opt.mu, opt.nu, opt.master)))}
+
+    def two_steps():
+        nonlocal local, opt
+        with witness:
+            with hold_calls() as held:
+                witness.t0 = time.perf_counter()
+                local, opt, _, _ = step(local, opt, batch, tables)
+            _sync()
+            witness.t0 = time.perf_counter()
+            local, opt, _, _ = step(local, opt, batch, tables)
+        return held
+
+    held = run("steps+witness", two_steps)
+    out["vs_plain"] = {"calls": dict(held.calls), "err": dict(held.err),
+                       "route_mismatch": held.route_mismatch,
+                       "near_rows": held.near_rows,
+                       "rows_that_differ": held.rows_that_differ}
+    out["steps"] = witness.steps
+    t0 = time.perf_counter()
+    tckpt.save_checkpoint(str(GRID_CKPT), GRID_STEP0 + 2,
+                          {"params": local, "opt": opt}, cuts=scuts,
+                          grid=grid)
+    out["save_s"] = time.perf_counter() - t0
+    kept["saved"] = witness.whole
+    if grid.rank == 0:
+        out["saved_digest"] = _bits_digest(witness.whole)
+    return out
+
+
+def _restore_plan(cfg, rules, params, grid, kept):
+    """Phase 16 (f) on one rank: (e)'s checkpoint restored onto this grid
+    (``load_checkpoint`` with the params' and ``opt_cuts``' cuts), each
+    leaf held bit for bit against the rank's slice of the state (e) saved
+    (its witness's, equal to the ranks' bit for bit). Returns the
+    numbers."""
+    import torch
+    from repro_torch.launch.sharding import (cut_tree, opt_cuts,
+                                             param_cuts, shard_params)
+    from repro_torch.training import checkpoint as tckpt
+    from repro_torch.training import optimizer as topt
+    from repro_torch.tree import leaves
+    cuts = param_cuts(cfg, rules, "train")
+    scuts = {"params": cuts, "opt": opt_cuts(cuts)}
+    like_p = shard_params(cfg, params, rules, "train")
+    like = {"params": like_p, "opt": topt.adamw_init(like_p)}
+    _sync()
+    t0 = time.perf_counter()
+    state, _ = tckpt.load_checkpoint(str(GRID_CKPT), GRID_STEP0 + 2, like,
+                                     cuts=scuts, grid=grid)
+    _sync()
+    out = {"restore_s": time.perf_counter() - t0}
+    del like
+    want = leaves(cut_tree(kept.pop("saved"), scuts, grid))
+    out["restore_bits"] = all(bool(torch.equal(a, b)) for a, b in zip(
+        leaves(state), want))
+    out["restore_leaves"] = len(want)
+    return out
+
+
 def tp_rank(rank, plans, weights, refs, inputs):
     """One rank on the card for each plan of ``plans`` (every rank runs
     every plan, in order): its grid, the rules of ``make_rules`` with the
@@ -3434,6 +3695,7 @@ def tp_rank(rank, plans, weights, refs, inputs):
             torch.cuda.synchronize()
 
     results = {}
+    kept = {}                 # (e)'s saved state, for (f)'s restore
     for plan in plans:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -3613,6 +3875,11 @@ def tp_rank(rank, plans, weights, refs, inputs):
             del tparams
         if "vs_plain" in plan["paths"]:
             out["vs_plain"] = _tp_vs_plain(cfg, rules_for, params, inp, dev)
+        if "step" in plan["paths"]:
+            out |= _step_plan(cfg, rules_for("train"), params, inp, grid,
+                              run, kept)
+        if "restore" in plan["paths"]:
+            out |= _restore_plan(cfg, rules_for("train"), params, grid, kept)
         out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
         results[label] = out
         del params, ref, inp
@@ -3638,6 +3905,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     from repro_torch.launch.mesh import Grid, run_ranks
     from repro_torch.launch.sharding import make_rules
     from repro_torch.models import moe_perm_shape
+    from repro_torch.training import AdamWConfig
     refs = {}
     for plan in plans:
         # the attention's split as the plan's rules make it, for the witness
@@ -3680,6 +3948,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
             "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
             "route_select_bwd")}
 
+    grad_clip = AdamWConfig().grad_clip
     kernel_bounds = {"ragged_moe_ffn": BF16_TOL, "fused_moe_ffn": BF16_TOL,
                      "route_select": ROUTER_W_TOL,
                      "ragged_moe_ffn_dgrad": BWD_TOL,
@@ -3691,7 +3960,8 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
         label = plan["label"]
         n = moe_perm_shape(plan["cfg"])[0] if plan["cfg"].is_moe else 0
         want = {"warm-up": per(n), "prefill": per(n),
-                "decode": per(n, plan["steps"]), "backward": bwd(n)}
+                "decode": per(n, plan["steps"]), "backward": bwd(n),
+                "steps+witness": {k: 2 * v for k, v in bwd(n).items()}}
         rs = [r[label] for r in ranks]
         print(f"[{tag}] {label} launches per rank (rank 0): "
               f"{json.dumps(rs[0]['launches'])}", flush=True)
@@ -3723,13 +3993,30 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                       f"{r['loss_rel']:.3e} (bound {b['loss']}), gradient "
                       f"leaves {r['grad_rel_l2_max']:.3e} (bound "
                       f"{b['grads']})")
+            if "steps" in r:
+                st = r["steps"]
+                check(all(x["bits"] for x in st)
+                      and all(x["gnorm"] > grad_clip for x in st),
+                      f"{name} AdamW against the witness: bit for bit "
+                      f"{[x['bits'] for x in st]}, global norms "
+                      f"{[x['gnorm'] for x in st]} (the clip active above "
+                      f"{grad_clip})")
+                check(all(x["rel"] <= b["step"] for x in st),
+                      f"{name} AdamW as it runs against the witness: "
+                      f"relative L2 {[x['rel'] for x in st]} (bound "
+                      f"{b['step']})")
+            if "restore_bits" in r:
+                check(r["restore_bits"], f"{name}: the restored state "
+                      f"against the saved one, bit for bit")
             if "vs_plain" in r:
                 vp = r["vs_plain"]
-                # a prefill, a decode step, the loss's forward and, with
-                # remat, its forward again in the backward
-                fwd = 3 + dataclasses.replace(make_rules(
-                    plan["cfg"], Grid(plan["grid"], EP_AXES, 0, {}),
-                    "train"), **plan["rules"]).remat
+                # a prefill, a decode step, the loss's forward (one
+                # training step's) and, with remat, its forward again in
+                # the backward
+                fwd = (3 if "vs_plain" in plan["paths"] else 1) + \
+                    dataclasses.replace(make_rules(
+                        plan["cfg"], Grid(plan["grid"], EP_AXES, 0, {}),
+                        "train"), **plan["rules"]).remat
                 calls = {"route_select": fwd * n, "ragged_moe_ffn": fwd * n}
                 if on_card:   # the CPU's backward is the plain one
                     calls |= {"ragged_moe_ffn_dgrad": n,
@@ -3775,6 +4062,25 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
             if "grad_rel_l2_max/witness" in rs[0]:
                 s["grad_rel_l2_max_witness"] = max(
                     r["grad_rel_l2_max/witness"] for r in rs)
+        if "steps" in rs[0]:
+            last = [r["steps"][-1] for r in rs]
+            s["step"] = {
+                "backward_s": [x["backward_s"] for x in last],
+                "update_s": [x["update_s"] for x in last],
+                "norm_exchange_rank0": last[0]["norm_exchange"],
+                "rel_l2_as_it_runs": max(x["rel"] for r in rs
+                                         for x in r["steps"]),
+                "max_abs_err_as_it_runs": max(x["err"] for r in rs
+                                              for x in r["steps"]),
+                "bits": [x["bits"] for x in rs[0]["steps"]],
+                "gnorm": [x["gnorm"] for x in rs[0]["steps"]],
+                "opt_bytes": [r["opt_bytes"] for r in rs],
+                "save_s": [r["save_s"] for r in rs],
+                "saved_digest": rs[0]["saved_digest"]}
+        if "restore_s" in rs[0]:
+            s["restore"] = {"restore_s": [r["restore_s"] for r in rs],
+                            "bits": [r["restore_bits"] for r in rs],
+                            "leaves": rs[0]["restore_leaves"]}
         if "vs_plain" in rs[0]:
             s["vs_plain"] = rs[0]["vs_plain"] | {
                 "err": {k: max(r["vs_plain"]["err"].get(k, 0.0) for r in rs)
@@ -3826,6 +4132,34 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                  + (f", gradients {s['grad_rel_l2_max_witness']:.3e}"
                     if "grad_rel_l2_max_witness" in s else "")
                  if s["bits"] else ""), flush=True)
+        if "step" in s:
+            st = s["step"]
+            ex = st["norm_exchange_rank0"]
+            wall = [a + u for a, u in zip(st["backward_s"], st["update_s"])]
+            print(f"[{tag}] {what[label]}: the second step's host wall per "
+                  f"rank (ms) {', '.join(f'{w * 1e3:.1f}' for w in wall)} "
+                  f"(loss and backward "
+                  f"{', '.join(f'{w * 1e3:.1f}' for w in st['backward_s'])};"
+                  f" AdamW "
+                  f"{', '.join(f'{w * 1e3:.1f}' for w in st['update_s'])}); "
+                  f"the norm's exchanges (rank 0, synchronised) "
+                  f"{ex['calls']} calls, {ex['bytes']} bytes, "
+                  f"{ex['seconds'] * 1e3:.2f} ms, "
+                  f"{100 * ex['seconds'] / st['update_s'][0]:.1f}% of its "
+                  f"AdamW; optimizer state a rank (f32 mu, nu, master) "
+                  f"{', '.join(f'{b / 2 ** 30:.3f}' for b in st['opt_bytes'])}"
+                  f" GiB; save from the grid (s) "
+                  f"{', '.join(f'{w:.2f}' for w in st['save_s'])}; "
+                  f"against the witness bit for bit {st['bits']} (global "
+                  f"norms {st['gnorm']}), as it runs relative L2 "
+                  f"{st['rel_l2_as_it_runs']:.3e}, max |difference| "
+                  f"{st['max_abs_err_as_it_runs']:.3e}", flush=True)
+        if "restore" in s:
+            rs_ = s["restore"]
+            print(f"[{tag}] {what[label]}: restore onto the grid (s) "
+                  f"{', '.join(f'{w:.2f}' for w in rs_['restore_s'])}, "
+                  f"{rs_['leaves']} leaves a rank bit for bit "
+                  f"{rs_['bits']}", flush=True)
         if "vs_plain" in s:
             print(f"[{tag}] {what[label]}, each kernel call against its "
                   f"plain version on the ranks (worst rank): "
@@ -3845,7 +4179,7 @@ def tp_phase(cfg, dev, smollm=None):
         attention by heads (6 heads and 2 KV heads a rank), EP 4 through
         the ragged a2a body, the vocabulary (49155) replicated, the
         residual's 256 positions split over the ranks (64 each); a prefill
-        of 2 x 256, 8 decode steps of 8 lanes (the replicated body on
+        of 2 x 256, 4 decode steps of 8 lanes (the replicated body on
         ``decode_params``' weights, the cache's KV heads over the ranks)
         and one loss and backward at 2 x 256 (remat, as ``make_rules``
         trains);
@@ -3854,7 +4188,7 @@ def tp_phase(cfg, dev, smollm=None):
         the decode's softmax stats merged;
     (c) smollm-360m at full width and depth on (1, 4): 15 heads and 5 KV
         heads force context mode, the tied vocabulary (49152) split, the
-        dense MLP's 2560 over 4; a prefill of 4 x 256, 8 decode steps, a
+        dense MLP's 2560 over 4; a prefill of 4 x 256, 4 decode steps, a
         loss and backward; no kernel of the port runs;
     (d) granite at 2 layers on (2, 2): heads over "model", the batch and
         the dense weights' FSDP slices over "data"; a prefill and a loss
@@ -3916,13 +4250,13 @@ def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
     (a) granite at full width and depth on (2, 2) from ``make_rules``: the
         batch over "data", attention by heads over "model" (12 heads and 4
         KV heads a rank), the residual's positions over "model", dense and
-        expert FSDP over "data", EP over "model"; a prefill of 4 x 256, 8
+        expert FSDP over "data", EP over "model"; a prefill of 4 x 256, 4
         decode steps of 8 lanes (4 a rank; the cache's lanes and KV heads
         cut by ``rank_cache``) from one device's prefill of 8 x 1024, one
         loss and backward at 4 x 256 with remat;
-    (b) granite on (1, 4) in context mode: a prefill of 2 x 256 (each
-        rank's 64 positions are its query rows, against the gathered keys
-        and values) and 8 decode steps;
+    (b) granite on (1, 4) in context mode is phase 15 (b)'s run (every
+        grid run splits the rows, so the rules, paths and shapes are the
+        same) and runs there only;
     (c) jamba at its smoke size on (2, 2) from ``make_rules``: seven Mamba
         mixers gathered over "model" and run on the whole sequence, the
         attention by heads, the MoE layer (E 4, K 2) through the port's
@@ -3931,14 +4265,28 @@ def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
         version;
     (d) granite at 2 layers on (2, 2) as (a): every kernel call on the
         ranks (a prefill, a decode step, a loss and backward) against its
-        plain version on the same inputs.
+        plain version on the same inputs;
+    (e) the same model and grid with dense and expert FSDP over "data"
+        (as (a); ``make_rules`` gives it only above 1e9 params), (d)'s
+        weights: two training steps of ``make_train_step`` at 4 x 256
+        with remat, AdamW on each rank's slices clipped by the grid's
+        global norm, from a state at step ``GRID_STEP0``; each step held
+        against one device's ``adamw_apply`` on the gathered gradients
+        (:class:`step_witness`): bit for bit with the norm's partials
+        summed in rank order, within ``SP_BOUNDS`` as it runs; the first
+        step's kernel calls against their plain versions; then the train
+        state saved from the grid;
+    (f) that checkpoint restored onto (1, 4) (``make_rules``' layout:
+        no FSDP, the vocabulary whole), bit for bit against the saved
+        state; and the parent restores it onto one device, its digest
+        against the saved one's.
 
-    (a) and (b) are held bit for bit against the witness of
+    (a) is held bit for bit against the witness of
     :func:`_witness` (one device computing each ``dp`` block of the rows
     as a rank does, the attention split as the ranks split it, the loss's
     cross entropy on each rank's rows averaged in rank order, the routing
     as a rank's a2a block plans it) with the ranks adding partials and the
-    loss in rank order, gradients within ``STEP_TOL``; each of (a)-(c)
+    loss in rank order, gradients within ``STEP_TOL``; (a) and (c)
     against one device as it runs within ``SP_BOUNDS`` set from
     readings. ``tp_peak_gib``: phase 15 (a)'s peak a rank in this run,
     printed beside (a)'s."""
@@ -3959,36 +4307,98 @@ def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
         gen.manual_seed(0)
         weights[name] = init_params(c, gen, device=dev, dtype=torch.bfloat16)
         inputs[name] = tp_inputs(c, dev, 16, batch, weights[name])
-    # (b) prefills the first two of (a)'s prompts
-    inputs["granite_b2"] = dict(inputs["granite"],
-                                tokens=inputs["granite"]["tokens"][:2],
-                                labels=inputs["granite"]["labels"][:2])
-    weights["granite_b2"] = weights["granite"]
     plans = [
         {"label": "dp_sp", "model": "granite", "cfg": cfg, "grid": (2, 2),
          "rules": {}, "witness": True,
          "paths": ["prefill", "decode", "backward"], "steps": SP_STEPS},
-        {"label": "context", "model": "granite_b2", "cfg": cfg,
-         "grid": (1, 4), "rules": {"attn_mode": "context"},
-         "witness": True, "paths": ["prefill", "decode"],
-         "steps": SP_STEPS},
         {"label": "jamba", "model": "jamba", "cfg": jamba, "grid": (2, 2),
          "rules": {}, "witness": False,
          "paths": ["prefill", "decode", "backward", "vs_plain"],
          "steps": 4},
         {"label": "vs_plain", "model": "small", "cfg": small,
          "grid": (2, 2), "rules": {}, "witness": False,
-         "paths": ["vs_plain"], "steps": 1}]
+         "paths": ["vs_plain"], "steps": 1},
+        {"label": "step", "model": "small", "cfg": small, "grid": (2, 2),
+         "rules": {"fsdp": ("pod", "data")}, "witness": False,
+         "paths": ["step"], "steps": 1},
+        {"label": "restore", "model": "small", "cfg": small,
+         "grid": (1, 4), "rules": {}, "witness": False,
+         "paths": ["restore"], "steps": 1}]
     what = {"dp_sp": "granite, dp 2 x (heads + SP) 2 (2, 2)",
-            "context": "granite, context + SP (1, 4)",
             "jamba": "jamba smoke, mixers gathered under SP (2, 2)",
-            "vs_plain": "granite 2 layers (2, 2)"}
+            "vs_plain": "granite 2 layers (2, 2)",
+            "step": "granite 2 layers, the training step (2, 2) with FSDP",
+            "restore": "granite 2 layers, (e)'s train state on (1, 4)"}
     beside = {}
     if tp_peak_gib is not None:
         beside["dp_sp"] = (f"phase 15 (a), granite heads on (1, 4) with the "
                            f"batch whole: {tp_peak_gib:.2f} GiB")
-    return _grid_run("sp", plans, weights, inputs, dev, SP_BOUNDS, what,
-                     t_start, beside)
+    shutil.rmtree(GRID_CKPT, ignore_errors=True)
+    summary = _grid_run("sp", plans, weights, inputs, dev, SP_BOUNDS, what,
+                        t_start, beside)
+    summary["restore"]["one_device"] = _restore_one_device(
+        weights["small"], summary["step"]["step"]["saved_digest"])
+    shutil.rmtree(GRID_CKPT, ignore_errors=True)
+    summary["reckoning"] = _state_reckoning(
+        cfg, max(summary["dp_sp"]["peak_gib"]))
+    summary["phase_s"]["all"] = time.perf_counter() - t_start
+    return summary
+
+
+def _restore_one_device(params, digest):
+    """(e)'s train state restored onto one device in the parent (the
+    checkpoint is whole: no cuts), its leaves' digest held against the
+    saved state's. Returns the wall and the result."""
+    import torch
+    from repro_torch.training import adamw_init, load_checkpoint
+    like = {"params": params, "opt": adamw_init(params)}
+    _sync()
+    t0 = time.perf_counter()
+    state, _ = load_checkpoint(str(GRID_CKPT), GRID_STEP0 + 2, like)
+    _sync()
+    wall = time.perf_counter() - t0
+    del like
+    same = _bits_digest(state) == digest
+    check(same, "sp (e)'s train state restored onto one device: its digest "
+                "against the saved state's")
+    print(f"[sp] granite 2 layers, (e)'s train state restored onto one "
+          f"device: {wall:.2f} s, {len(digest)} leaves, the digest of "
+          f"their bits as saved: {same}", flush=True)
+    return {"restore_s": wall, "digest_equal": same}
+
+
+def _state_reckoning(cfg, peak_gib):
+    """What (e) would hold at ``cfg``'s full depth on (2, 2) with FSDP
+    over "data", from the shapes (meta tensors): the params a rank, its
+    f32 mu, nu and master, and beside them phase 16 (a)'s peak a rank in
+    this run (``peak_gib``) and the parent's whole bf16 tree. Printed,
+    not run: it does not fit on one card."""
+    import dataclasses
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.launch.sharding import make_rules, shard_params
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+    meta = init_params(cfg, None, device="meta")
+    rules = dataclasses.replace(make_rules(cfg, Grid((2, 2), EP_AXES, 0, {}),
+                                           "train"), fsdp=("pod", "data"))
+    n_rank = sum(t.numel() for t in leaves(shard_params(cfg, meta, rules)))
+    n_whole = sum(t.numel() for t in leaves(meta))
+    gib = 2 ** 30
+    out = {"layers": cfg.n_layers, "params_rank": n_rank,
+           "state_gib_rank": 12 * n_rank / gib,
+           "state_gib_4_ranks": 4 * 12 * n_rank / gib,
+           "peak_a_gib_rank": peak_gib, "parent_bf16_gib": 2 * n_whole / gib}
+    out["total_gib"] = (out["state_gib_4_ranks"] + 4 * peak_gib
+                        + out["parent_bf16_gib"])
+    print(f"[sp] (e) at {cfg.n_layers} layers on (2, 2), reckoned from the "
+          f"shapes, not run: {n_rank / 1e6:.1f}M params a rank, "
+          f"{out['state_gib_rank']:.2f} GiB of f32 mu, nu and master a rank "
+          f"({out['state_gib_4_ranks']:.1f} GiB for 4 ranks); with (a)'s "
+          f"peak a rank ({peak_gib:.2f} GiB x 4) and the parent's bf16 tree "
+          f"({out['parent_bf16_gib']:.2f} GiB) {out['total_gib']:.1f} GiB "
+          f"before AdamW's temporaries and four CUDA contexts: more than "
+          f"the card's 80 GB", flush=True)
+    return out
 
 
 def _leaves(tree):
@@ -4017,6 +4427,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
+
+    def stamp(done):
+        print(f"[time] {done} done at {time.perf_counter() - t_main:.1f} s",
+              flush=True)
+
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
           f"({smi})", flush=True)
@@ -4055,28 +4471,36 @@ def main() -> int:
                          (512, 1, False), (512, 3, False), (4096, 1, False),
                          (4096, 3, False)):
         route[(T, R)] = route_case(cfg, gen, cgen, dev, T, R, masked)
+    stamp("phase 3, the kernels")
     layer_case(cfg, cgen, dev)
     capacity_layer_case(cfg, cgen, dev)
+    stamp("phase 4, the MoE layers")
     engine, counts, _ = serve_path(cfg, dev, "slice")
     trace_decode(engine)
     del engine
+    stamp("phases 5-6, the ragged slice and its trace")
     torch.cuda.empty_cache()
     # the first routing calls' inputs on path A, for the near-tie check
     with capture_routes(64) as cap:
         engine, counts_a, _ = serve_path(cfg, dev, "path A",
-                                         moe_impl="capacity")
+                                         output_cap=64, moe_impl="capacity")
     del engine
     torch.cuda.empty_cache()
     route_near_ties(cap.calls, "path A")
     del cap
+    stamp("phase 7, path A")
     engine, _, _ = serve_path(cfg, dev, "path B", n_requests=4,
                               output_cap=64, prefill_chunk=128)
     chunk_vs_whole(engine)
     del engine
     torch.cuda.empty_cache()
+    stamp("phase 8, path B")
     drills = drill_phase(cfg, dev)
+    stamp("phase 9, the drills")
     xlstm = xlstm_phase(dev)
+    stamp("phase 10, xlstm")
     jamba = jamba_phase(dev)
+    stamp("phase 11, jamba")
     # phase 12: training
     k1, k2 = backward_ffn_case(cfg, gen, cgen, dev)
     # the 4096-token training shape, where the bound is the tensor cores
@@ -4093,13 +4517,18 @@ def main() -> int:
     step_cmp = kernel_vs_plain_step(cfg, dev)
     checkpoint_restart(dev)
     tl = trained["launches"]
+    stamp("phase 12, training")
     # phase 13: expert-parallel dispatch on 4 ranks; phase 14: remat
     ep = ep_phase(cfg, dev)
+    stamp("phase 13, expert parallelism")
     remat = remat_phase(cfg, dev)
+    stamp("phase 14, remat")
     # phase 15: tensor parallelism of the dense layers on 4 ranks
     tp = tp_phase(cfg, dev)
+    stamp("phase 15, tensor parallelism")
     # phase 16: the batch over dp and the sequence-sharded residual
     sp = sp_phase(cfg, dev, tp_peak_gib=max(tp["heads"]["peak_gib"]))
+    stamp("phase 16, each rank's rows and the training step")
 
     def ep_launches(name):
         """This kernel's launches on the expert-parallel paths, per rank
@@ -4121,7 +4550,7 @@ def main() -> int:
         per rank (every rank launched the same; the phase checks each)."""
         return {label: {p: c.get(name, 0) for p, c in
                         sp[label]["launches_rank0"].items()}
-                for label in ("dp_sp", "context", "jamba")}
+                for label in ("dp_sp", "jamba", "step")}
 
     def ffn_entry(prefill_res, decode_res):
         """The prefill shape's numbers under the contract's keys, the

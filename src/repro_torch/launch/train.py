@@ -26,14 +26,47 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs import get, get_smoke
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import init_params, loss_fn, make_moe_tables
+from repro_torch.launch.sharding import param_cuts
+from repro_torch.models import (ShardingRules, init_params, loss_fn,
+                                make_moe_tables)
 from repro_torch.training import (AdamWConfig, Checkpointer, DataConfig,
                                   adamw_init, adamw_update, cosine_lr,
                                   synthetic_batch)
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["train", "main"]
+__all__ = ["make_train_step", "train", "main"]
+
+
+def make_train_step(cfg: ArchConfig, ocfg: AdamWConfig, total: int,
+                    rules: Optional[ShardingRules] = None):
+    """The training step ``step(params, opt, batch, tables) -> (params,
+    opt, loss, tallies)``: the loss and its backward, then AdamW at
+    ``cosine_lr(ocfg, opt.step, total=total)``, in place (the reference's
+    ``step_fn``, ``src/repro/launch/train.py:53-60``, and the mesh step
+    ``launch/dryrun.py`` lowers). On a grid (``rules.grid``) ``params``
+    and ``opt`` are the rank's slices (``shard_params``; the state of
+    ``adamw_init`` on them, or restored with ``opt_cuts``), and the clip
+    takes the whole tree's norm over the ranks. Every leaf of ``params``
+    must require its gradient; the step leaves their ``grad`` unset."""
+    lossf = loss_fn(cfg, rules)
+    grid = None if rules is None else rules.grid
+    cuts = None if grid is None else param_cuts(cfg, rules, "train")
+
+    def step(params, opt, batch, tables):
+        loss, (tallies, _) = lossf(params, batch, tables)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad if p.grad is not None
+                         else torch.zeros_like(p), params)
+        lr = cosine_lr(ocfg, opt.step, total=max(total, 1))
+        params, opt = adamw_update(grads, opt, params, ocfg, lr, cuts=cuts,
+                                   grid=grid)
+        for p in leaves(params):
+            p.grad = None
+        return params, opt, loss.detach(), tallies.detach()
+
+    return step
 
 
 def train(arch: str, *, smoke: bool = True, steps: int = 20,
@@ -48,7 +81,6 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
     dev = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get(arch)
     data = DataConfig(seq_len=seq_len, global_batch=batch, seed=seed)
-    lossf = loss_fn(cfg)
     ocfg = AdamWConfig()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -66,17 +98,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
             print(f"[train] resumed from step {start}")
     for p in leaves(params):
         p.requires_grad_(True)
-
-    def step_fn(params, opt, b):
-        loss, (tallies, _) = lossf(params, b, mt)
-        loss.backward()
-        grads = tree_map(lambda p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), params)
-        lr = cosine_lr(ocfg, opt.step, total=max(steps, 1))
-        params, opt = adamw_update(grads, opt, params, ocfg, lr)
-        for p in leaves(params):
-            p.grad = None
-        return params, opt, loss.detach(), tallies.detach()
+    step_fn = make_train_step(cfg, ocfg, steps)
 
     tallies_acc = None
     losses = []
@@ -84,7 +106,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20,
         b = {k: torch.as_tensor(v, device=dev)
              for k, v in synthetic_batch(cfg, data, s).items()}
         t0 = time.time()
-        params, opt, loss, tallies = step_fn(params, opt, b)
+        params, opt, loss, tallies = step_fn(params, opt, b, mt)
         loss = float(loss)
         dt = time.time() - t0
         if step_times is not None:

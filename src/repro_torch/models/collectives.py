@@ -25,6 +25,8 @@ and a collective whose backward is another all-reduce (as in
   the ranks use it on different rows, or, where every rank does the same
   work with it, the rank's own slice), and the gather of the last rows
   and of the logits.
+* :func:`gather_to` — a tensor from every rank of a group to one rank,
+  outside autograd (a checkpoint's save from a grid, on the host).
 * :func:`gather_seq` / :func:`scatter_partials` — Megatron-SP's pair. The
   first gathers the ranks' rows along the sequence before a column-
   parallel product (backward: the reduce-scatter of the gradient, since
@@ -65,7 +67,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_to_all", "sum_partials", "max_over", "mean_over",
-           "gather_shards", "gather_seq", "scatter_partials",
+           "gather_shards", "gather_to", "gather_seq", "scatter_partials",
            "replicate", "take_block", "gather_blocks", "all_reduce_",
            "clock", "ExchangeClock"]
 
@@ -222,6 +224,19 @@ def gather_shards(x: torch.Tensor, group, dim: int,
     if group is None:
         return x
     return _GatherShards.apply(x, group, dim, summed)
+
+
+def gather_to(x: torch.Tensor, group, dst: int):
+    """Every rank's ``x`` of ``group`` (same shape and dtype), in group
+    order, on the rank of global rank ``dst`` (a member); ``None`` on the
+    others. Outside autograd; gloo gathers CPU tensors."""
+    if group is None:
+        return [x]
+    x = x.contiguous()
+    parts = ([torch.empty_like(x) for _ in range(_n(group))]
+             if dist.get_rank() == dst else None)
+    clock.run(lambda: dist.gather(x, parts, dst=dst, group=group), x)
+    return parts
 
 
 def gather_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:

@@ -17,9 +17,18 @@ memory is taken on the caller's thread, the file writes on a background
 thread; ``wait()`` joins it. An interrupted save leaves only a ``.tmp``
 directory, which :func:`latest_step` ignores and ``clean()`` removes.
 Restore places every leaf on the device and in the dtype of the matching
-leaf of the tree it is given; with sharding rules on a rank grid it
-returns the rank's slice of each leaf of a checkpoint written whole (the
-reference's re-mesh restore, ``shardings=``).
+leaf of the tree it is given.
+
+On a rank grid a tree holds the rank's slices, cut as a tree of
+``launch.sharding.Cuts`` says (``param_cuts``, ``opt_cuts``). A save from
+the grid gathers each leaf whole on rank 0's host, one leaf at a time on
+the caller's thread (a collective cannot run on the writer thread); rank
+0 alone keeps the snapshot and writes it, in the layout above, so a
+checkpoint from a grid is a whole one and reads anywhere; the other ranks
+wait at a barrier until it is committed. A restore with the cuts of the
+tree it fills (the counterpart of the reference's ``shardings=``) reads
+each leaf whole on the host and keeps the rank's slice of it, so a
+checkpoint restores onto any grid, or onto one device without cuts.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import flatten, unflatten
 
@@ -46,8 +56,13 @@ def _host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     of its dtype ("bfloat16", "float32", ...). Always a copy: a CPU leaf's
     ``.cpu()`` is the leaf itself, which training updates in place while
     the background thread writes."""
+    return _numpy(t.detach().to("cpu", copy=True).contiguous())
+
+
+def _numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A contiguous host tensor as numpy, sharing its memory, and the
+    name of its dtype."""
     name = str(t.dtype).removeprefix("torch.")
-    t = t.detach().to("cpu", copy=True).contiguous()
     if t.dtype in _NUMPY_OF:
         return t.view(torch.int16).numpy().view(_NUMPY_OF[t.dtype]), name
     return t.numpy(), name
@@ -74,7 +89,7 @@ def _write_snapshot(directory: str, step: int, leaves, names, spec,
             "shard_shapes": [list(sh.shape) for sh in shards],
         })
         for k, sh in enumerate(shards):
-            raw = np.frombuffer(np.ascontiguousarray(sh).tobytes(), np.uint8)
+            raw = np.ascontiguousarray(sh).reshape(-1).view(np.uint8)
             with open(os.path.join(tmp, f"leaf{i}.s{k}.npy"), "wb") as f:
                 np.save(f, raw)
                 f.flush()
@@ -91,18 +106,47 @@ def _write_snapshot(directory: str, step: int, leaves, names, spec,
     return final
 
 
-def _snapshot(tree):
+def _snapshot(tree, cuts=None, grid=None):
+    """The host snapshot of ``tree`` — ``(leaves, dtype names, spec)`` —
+    and, with the ``cuts`` of a rank's slices on ``grid``, of the whole
+    tree: each leaf gathered whole on rank 0's host, one at a time
+    (``launch.sharding.gather_to_rank0``); ``None`` on the other ranks."""
     leaves, spec = flatten(tree)
-    host = [_host(t) for t in leaves]
+    if cuts is None or grid is None:
+        host = [_host(t) for t in leaves]
+    else:
+        from repro_torch.launch.sharding import gather_to_rank0
+        host = []
+        for t, c in zip(leaves, _cut_leaves(cuts, spec)):
+            whole = gather_to_rank0(t, c, grid)
+            if whole is not None:
+                host.append(_numpy(whole))
+        if grid.rank != 0:
+            return None
     return [h for h, _ in host], [n for _, n in host], spec
 
 
+def _cut_leaves(cuts, spec) -> list:
+    flat, cut_spec = flatten(cuts)
+    if cut_spec != spec:
+        raise ValueError("the tree and its cuts differ in structure")
+    return flat
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
-                    extras: Optional[Dict] = None, n_shards: int = 1) -> str:
-    """Synchronous save. Returns the committed checkpoint path."""
-    leaves, names, spec = _snapshot(tree)
-    return _write_snapshot(directory, step, leaves, names, spec, extras,
-                           n_shards)
+                    extras: Optional[Dict] = None, n_shards: int = 1,
+                    cuts: Any = None, grid: Any = None) -> str:
+    """Synchronous save. Returns the committed checkpoint path. With the
+    ``cuts`` of a rank's slices on ``grid`` every rank of the grid calls
+    it: the whole tree is written once, by rank 0, and every rank returns
+    once it is committed."""
+    snap = _snapshot(tree, cuts, grid)
+    final = os.path.join(directory, f"ckpt_{step}")
+    if snap is not None:
+        final = _write_snapshot(directory, step, *snap, extras, n_shards)
+    if cuts is not None and grid is not None:
+        dist.barrier()
+    return final
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -126,16 +170,21 @@ def _np_dtype(name: str) -> np.dtype:
 
 def load_checkpoint(directory: str, step: int, tree_like: Any,
                     rules: Any = None, phase: str = "train",
-                    cfg: Any = None) -> Tuple[Any, Dict]:
+                    cfg: Any = None, cuts: Any = None,
+                    grid: Any = None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``tree_like``, each leaf on the
     device and in the dtype of its counterpart there. Returns
     ``(tree, extras)``.
 
-    With ``rules`` on a rank grid (and the model's ``cfg``) the checkpoint
-    holds the whole model tree, and each leaf comes back as the rank's
-    slice of it (``launch.sharding.shard_params`` for ``phase``), read on
-    the host and moved alone; ``tree_like`` may be the whole tree or the
-    rank's (its shapes are checked against the one it matches)."""
+    With ``cuts`` (a tree of ``launch.sharding.Cuts`` matching
+    ``tree_like``, e.g. ``{"params": param_cuts(...), "opt":
+    opt_cuts(...)}``) and the ``grid`` they cut on, each leaf of the
+    checkpoint (written whole, or from any grid) comes back as the rank's
+    slice of it, read on the host and moved alone; ``tree_like`` may hold
+    the whole leaves or the rank's (each shape is checked against the one
+    it matches). ``rules`` on a grid with the model's ``cfg`` stands for
+    the params' cuts, ``param_cuts(cfg, rules, phase)`` on
+    ``rules.grid``."""
     path = os.path.join(directory, f"ckpt_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -144,34 +193,38 @@ def load_checkpoint(directory: str, step: int, tree_like: Any,
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, "
             f"restore target has {len(leaves_like)}")
-    whole = []
-    for i, (like, info) in enumerate(zip(leaves_like, manifest["leaves"])):
+    if rules is not None and rules.grid is not None:
+        from repro_torch.launch.sharding import param_cuts
+        if cfg is None:
+            raise ValueError("load_checkpoint: slicing onto a grid needs "
+                             "the model's cfg")
+        cuts, grid = param_cuts(cfg, rules, phase), rules.grid
+    flat_cuts = ([None] * len(leaves_like) if cuts is None
+                 else _cut_leaves(cuts, spec))
+    out = []
+    for i, (like, info, c) in enumerate(zip(leaves_like,
+                                            manifest["leaves"], flat_cuts)):
         dt = _np_dtype(info["dtype"])
         parts = []
         for k in range(info["n_shards"]):
             raw = np.load(os.path.join(path, f"leaf{i}.s{k}.npy"))
-            parts.append(np.frombuffer(raw.tobytes(), dt)
-                         .reshape(info["shard_shapes"][k]))
+            parts.append(raw.view(dt).reshape(info["shard_shapes"][k]))
         arr = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
         if list(arr.shape) != info["shape"]:
             raise ValueError(f"leaf {i} shape mismatch")
-        t = torch.from_numpy(np.array(arr))
+        whole = torch.from_numpy(arr)
         if info["dtype"] == "bfloat16":
-            t = t.view(torch.bfloat16)
-        whole.append(t)
-    host = unflatten(spec, whole)
-    if rules is not None and rules.grid is not None:
-        from repro_torch.launch.sharding import shard_params
-        if cfg is None:
-            raise ValueError("load_checkpoint: slicing onto a grid needs "
-                             "the model's cfg")
-        host = shard_params(cfg, host, rules, phase)
-    out = []
-    for i, (t, like, w) in enumerate(zip(flatten(host)[0], leaves_like,
-                                         whole)):
+            whole = whole.view(torch.bfloat16)
+        t = whole
+        if c is not None and c.pairs:
+            if grid is None:
+                raise ValueError("load_checkpoint: cuts without the grid "
+                                 "they cut on")
+            from repro_torch.launch.sharding import cut_tree
+            t = cut_tree(whole, c, grid)
         shape = tuple(like.shape)
         if t.dtype != like.dtype or shape not in (tuple(t.shape),
-                                                  tuple(w.shape)):
+                                                  tuple(whole.shape)):
             raise ValueError(f"leaf {i}: checkpoint {t.dtype} "
                              f"{tuple(t.shape)}, target {like.dtype} "
                              f"{shape}")
@@ -180,7 +233,11 @@ def load_checkpoint(directory: str, step: int, tree_like: Any,
 
 
 class Checkpointer:
-    """Async wrapper: snapshot on the caller thread, write in background."""
+    """Async wrapper: snapshot on the caller thread, write in background.
+    On a grid (``save(..., cuts=, grid=)``) every rank calls it alike:
+    every rank takes part in the snapshot's gather, rank 0 writes, and
+    :meth:`wait` (every rank's, before the next save or at the end) holds
+    the ranks at a barrier until rank 0's write is committed."""
 
     def __init__(self, directory: str, keep: int = 3, n_shards: int = 1):
         self.directory = directory
@@ -188,6 +245,7 @@ class Checkpointer:
         self.n_shards = n_shards
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False
         os.makedirs(directory, exist_ok=True)
         self.clean()
 
@@ -198,24 +256,31 @@ class Checkpointer:
                               ignore_errors=True)
 
     def wait(self) -> None:
-        """Join the background save; raise what it raised."""
+        """Join the background save (and, after a save from a grid, meet
+        the other ranks once it is committed); raise what it raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def save(self, step: int, tree: Any, extras: Optional[Dict] = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, cuts: Any = None,
+             grid: Any = None) -> None:
         self.wait()
         # host copies, taken before training updates the tensors in place
-        leaves, names, spec = _snapshot(tree)
+        snap = _snapshot(tree, cuts, grid)
+        self._barrier = cuts is not None and grid is not None
 
         def work():
-            _write_snapshot(self.directory, step, leaves, names, spec,
-                            extras, self.n_shards)
-            self._gc()
+            if snap is not None:
+                _write_snapshot(self.directory, step, *snap, extras,
+                                self.n_shards)
+                self._gc()
 
         def guarded():
             try:
@@ -224,7 +289,10 @@ class Checkpointer:
                 self._error = e
 
         if blocking:
-            work()
+            try:
+                work()
+            finally:
+                self.wait()
         else:
             self._thread = threading.Thread(target=guarded, daemon=True)
             self._thread.start()
@@ -237,9 +305,15 @@ class Checkpointer:
             shutil.rmtree(os.path.join(self.directory, f"ckpt_{s}"),
                           ignore_errors=True)
 
-    def restore_latest(self, tree_like: Any):
+    def restore_latest(self, tree_like: Any, cuts: Any = None,
+                       grid: Any = None):
+        """The newest committed checkpoint restored into ``tree_like``
+        (with ``cuts`` on ``grid``: the rank's slices; see
+        :func:`load_checkpoint`): ``(step, tree, extras)``, or ``(None,
+        None, {})`` when there is none."""
         step = latest_step(self.directory)
         if step is None:
             return None, None, {}
-        tree, extras = load_checkpoint(self.directory, step, tree_like)
+        tree, extras = load_checkpoint(self.directory, step, tree_like,
+                                       cuts=cuts, grid=grid)
         return step, tree, extras

@@ -15,20 +15,29 @@ three f32 copies of the parameters already, so no fourth may be live.
 Every scalar of the step (the clip scale, the bias corrections, the
 learning rate) stays a tensor on the parameters' device, so a step never
 waits for the card.
+
+On a rank grid each rank holds its slices of the parameters, gradients
+and state (``launch.sharding.param_cuts`` / ``opt_cuts``, as the
+reference's state mirrors its param specs). The update is elementwise and
+runs on the slices as they are; only the clip's norm is the whole tree's:
+:func:`global_norm` with the tree's cuts adds each rank's sums of squares
+over the ranks that hold the other slices of the same leaves.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.models import collectives as C
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
-           "global_norm", "cosine_lr"]
+           "adamw_apply", "clip_scale", "global_norm", "norm_partials",
+           "cosine_lr"]
 
 #: most elements of a leaf updated at once (256 MB of f32 temporaries)
 _SLICE = 1 << 26
@@ -81,13 +90,43 @@ def _slices(*tensors) -> Iterator[Tuple[torch.Tensor, ...]]:
 
 
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    total = None
-    for leaf in leaves(tree):
+def norm_partials(tree, cuts=None, grid=None
+                  ) -> Dict[Tuple[str, ...], torch.Tensor]:
+    """This rank's f32 sums of squares of the leaves of ``tree``, one sum
+    for each set of grid axes that cuts some leaf (``cuts``, a tree of
+    ``launch.sharding.Cuts`` matching ``tree``; ``()`` for the whole
+    leaves, every leaf without ``cuts``), keyed by the set in grid order,
+    in the order the leaves first show each set. Each sum adds its leaves
+    in tree order, each leaf in slices of at most ``_SLICE`` elements."""
+    flat = leaves(tree)
+    flat_cuts = [None] * len(flat) if cuts is None else leaves(cuts)
+    if len(flat_cuts) != len(flat):
+        raise ValueError("global_norm: the tree and its cuts differ in "
+                         "structure")
+    out: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for leaf, c in zip(flat, flat_cuts):
+        key = () if c is None or grid is None else grid.canon(c.axes)
         for (s,) in _slices(leaf):
             v = torch.sum(torch.square(s.to(torch.float32)))
-            total = v if total is None else total + v
+            out[key] = out[key] + v if key in out else v
+    return out
+
+
+@torch.no_grad()
+def global_norm(tree, cuts=None, grid=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32. With ``cuts`` (and
+    the ``grid`` they cut on) ``tree`` holds this rank's slices and the
+    norm is the whole tree's, equal on every rank: each set of axes'
+    partial sum (:func:`norm_partials`) is summed over the group of those
+    axes, one ``all_reduce`` a set, and the sets' totals are added in
+    order. Over the axes that do not cut it, a leaf is counted once: its
+    slice is the same on those ranks (its gradient was summed over them in
+    the backward)."""
+    total = None
+    for axes, part in norm_partials(tree, cuts, grid).items():
+        if axes:
+            part = C.all_reduce_(part, grid.group(axes))
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -101,22 +140,39 @@ def cosine_lr(cfg: AdamWConfig, step, warmup: int = 100,
     return cfg.lr * torch.where(s < warmup, warm, 0.1 + 0.9 * cos)
 
 
+def clip_scale(gnorm: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
+    """The gradients' factor for a global norm ``gnorm`` (``grad_clip >
+    0``): ``grad_clip / gnorm``, at most 1."""
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                       max=1.0)
+
+
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params,
                  cfg: AdamWConfig = AdamWConfig(),
-                 lr: Optional[torch.Tensor] = None) -> Tuple[Any, OptState]:
-    """One AdamW step, in place. Returns ``(params, state)``: the same
-    tensors, updated."""
+                 lr: Optional[torch.Tensor] = None, cuts=None,
+                 grid=None) -> Tuple[Any, OptState]:
+    """One AdamW step, in place, clipped by the global norm of ``grads``
+    (the whole tree's, with the ``cuts`` of a rank's slices on ``grid``:
+    :func:`global_norm`). Returns ``(params, state)``: the same tensors,
+    updated."""
+    if cfg.grad_clip > 0:
+        scale = clip_scale(global_norm(grads, cuts, grid), cfg)
+    else:
+        scale = torch.ones((), dtype=torch.float32, device=state.step.device)
+    return adamw_apply(grads, state, params, cfg, lr, scale)
+
+
+@torch.no_grad()
+def adamw_apply(grads, state: OptState, params, cfg: AdamWConfig,
+                lr: Optional[torch.Tensor], scale: torch.Tensor
+                ) -> Tuple[Any, OptState]:
+    """The per-leaf update of :func:`adamw_update` with the gradients'
+    clip factor ``scale`` given: elementwise and in place, no exchange."""
     step = state.step + 1
     dev = step.device
     if lr is None:
         lr = torch.tensor(cfg.lr, dtype=torch.float32, device=dev)
-    if cfg.grad_clip > 0:
-        gnorm = global_norm(grads)
-        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
-    else:
-        scale = torch.ones((), dtype=torch.float32, device=dev)
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(cfg.b1, t)
     bc2 = 1.0 - torch.pow(cfg.b2, t)
