@@ -34,8 +34,9 @@ Run from the repository root on a machine with one NVIDIA H100. It
    through the capacity bodies, each with the kernel and with the plain
    version, and the capacity layer at capacity factor 8 against the
    ragged layer;
-5. serves 8 sharegpt requests with the published ``granite-moe-3b-a800m``
-   config (32 layers, full widths, seeded random weights) through the
+5. serves 8 sharegpt requests, each cut to 64 output tokens, with the
+   published ``granite-moe-3b-a800m`` config (32 layers, full widths,
+   seeded random weights) through the
    port's serve construction under ``vibe`` (the ragged path), checks that
    every request finishes, the logits are finite, and the ragged FFN and
    the fused routing stage launched exactly 32 times per model call (the
@@ -132,7 +133,7 @@ Run from the repository root on a machine with one NVIDIA H100. It
 15. tensor parallelism of the dense layers (``tp_phase``) on 4 ranks
    sharing the card: granite at full width on (1, 4) from ``make_rules``
    (attention by heads, 6 heads and 2 KV heads a rank; EP 4; the
-   residual's positions over the ranks) — a prefill of 2 x 256, 4 decode
+   residual's positions over the ranks) — a prefill of 2 x 256, 2 decode
    steps of 8 lanes (the cache's KV heads over the ranks), one loss and
    backward with remat; the same prefill and decode in context mode (query
    rows, and 1024 cache rows, over the ranks; the decode's softmax stats
@@ -151,20 +152,26 @@ Run from the repository root on a machine with one NVIDIA H100. It
    on 4 ranks sharing the card, each rank holding and computing only its
    rows: granite at full width on (2, 2) from ``make_rules`` (the batch
    over "data", heads and positions over "model", dense and expert FSDP
-   over "data") — a prefill of 4 x 256, 4 decode steps of 8 lanes (4 a
+   over "data") — a prefill of 4 x 256, 2 decode steps of 8 lanes (4 a
    rank), one loss and backward with remat, each bit for bit against the
    witness and within recorded bounds against one device as it runs, with
    the peak memory and the bytes of the block inputs remat keeps a rank;
-   jamba at its smoke size on (2, 2) (the Mamba mixers on the gathered
-   sequence, the MoE layer through the port's kernels) against one device;
-   every kernel call on the ranks, at jamba's shapes and at granite's (2
-   layers), against its plain version; every rank's launches exact; and
-   the training step on the grid: granite at 2 layers on (2, 2) with FSDP
-   over "data", two steps of ``make_train_step`` (AdamW on each rank's
-   slices, clipped by the grid's global norm) each bit for bit against a
-   one-device witness on the gathered gradients and within a recorded
-   bound as it runs, the train state saved from the grid and restored
-   onto (1, 4) and onto one device, bit for bit.
+   jamba at its smoke size on (2, 2) (the Mamba mixers split by channels
+   over "model", the MoE layer through the port's kernels) against one
+   device; every kernel call on the ranks, at jamba's shapes and at
+   granite's (2 layers), against its plain version; every rank's launches
+   exact; the training step on the grid: granite at 2 layers on (2, 2)
+   with FSDP over "data", two steps of ``make_train_step`` (AdamW on each
+   rank's slices, clipped by the grid's global norm) each bit for bit
+   against a one-device witness on the gathered gradients and within a
+   recorded bound as it runs, the train state saved from the grid and
+   restored onto (1, 4) and onto one device, bit for bit; and xlstm-350m
+   at full width and depth on (2, 2) from ``make_rules`` (mLSTM and sLSTM
+   split by heads over "model", 2 of 4 a rank) — a prefill of 4 x 256, 2
+   decode steps of 8 lanes and one loss and backward with remat, each bit
+   for bit against a witness that computes each mixer as the ranks split
+   it and within recorded bounds against one device, with the mixer
+   weight and state bytes a rank (on phase 15's ranks: one start of them).
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -1010,7 +1017,7 @@ def xlstm_phase(dev):
     check(not any(res["launches"].values()),
           f"xlstm: kernels launched {res['launches']}")
     walls = [time.perf_counter() - t0]
-    res["profile"] = train_step_profile(cfg, dev)
+    res["profile"] = train_step_profile(cfg, dev, steps=1)
     walls.append(time.perf_counter() - t0 - sum(walls))
     res["serve"] = xlstm_serve(cfg, dev)
     walls.append(time.perf_counter() - t0 - sum(walls))
@@ -1612,8 +1619,9 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3, rules=None):
     phases = [step(s) for s in range(1, 1 + steps)]
     fwd, bwd, adam = (statistics.median(p[i] for p in phases)
                       for i in range(3))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: the host's events are not read here,
+    # and collecting them doubles the trace's processing (xlstm: 34 s)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(steps + 1)
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1922,7 +1930,7 @@ def checkpoint_restart(dev):
 # ---------------------------------------------------------------------------
 
 EP_AXES = ("data", "model")
-EP_DECODE_STEPS = 4
+EP_DECODE_STEPS = 2
 # The 4 x 256 runs held against one device as it routes 1024 rows (D split
 # into 8 ranges where a rank's 256 rows take 16; see ``ep_phase``): bounds
 # set at about twice the readings on an H100 80GB HBM3 (PERF.md, "Expert
@@ -2845,7 +2853,7 @@ def remat_phase(cfg, dev):
 # phase 15: tensor parallelism of the dense layers over ranks sharing the card
 # ---------------------------------------------------------------------------
 
-TP_DECODE_STEPS = 4
+TP_DECODE_STEPS = 2
 TP_LANES = 8
 TP_S_MAX = 1024
 # lane j decodes from position 120 j: in context mode each rank's quarter
@@ -2871,7 +2879,7 @@ TP_BOUNDS = {
 
 
 # phase 16: the batch over dp and the sequence-sharded residual
-SP_STEPS = 4
+SP_STEPS = 2
 # Against one device as it runs, per run (the witness holds bit for bit):
 # the logits' relative L2 by path, the loss's relative error and the
 # gradient leaves' largest relative L2, set at about twice the readings on
@@ -2883,6 +2891,13 @@ SP_BOUNDS = {
     "dp_sp": {"prefill": 9e-2, "decode": 7e-2, "loss": 1.1e-4,
               "grads": 0.23},
     "jamba": {"prefill": 0.29, "decode": 0.17, "loss": 6e-4, "grads": 0.56},
+    # (g), xlstm-350m at full depth in bf16: its logits and gradients
+    # drift far from one device's from the last bits up (as its chunkwise
+    # and stepwise forms do, phase 10), so these hold little beyond
+    # finiteness; the witness holds the ranks bit for bit. Readings
+    # 0.8057, 0.4649, 2.796e-3, 1.559 (PERF.md, "The recurrent mixers on
+    # the grid").
+    "xlstm": {"prefill": 1.6, "decode": 0.93, "loss": 5.6e-3, "grads": 3.2},
     # (e): the params and state after each AdamW step as the port runs it
     # (gloo's order of the norm's partials) against the witness's
     # (reading 4.41e-6 at the second step, 0.0 at the first)
@@ -2982,23 +2997,29 @@ class ordered_partials:
     loss over the ranks' rows added in rank order (:func:`_ordered_sum`,
     :func:`_ordered_scatter`, :func:`_ordered_mean`), and the MoE layer's
     mean of the ranks' mean probabilities; the MoE layer's other sums are
-    left as they are. With :func:`_witness` on one device, the witness of
-    phases 15 and 16."""
+    left as they are; the recurrent mixers' sums (mLSTM's norm's sums of
+    squares, Mamba's ``x_proj`` partials, the out-projections' partials,
+    summed or reduce-scattered) in rank order too. With :func:`_witness`
+    on one device, the witness of phases 15 and 16."""
 
     def __enter__(self):
         from repro_torch.models import model as tmodel
         from repro_torch.models import moe as tmoe
-        self.saved = real, real_moe = tmodel.C, tmoe.C
+        from repro_torch.models import ssm as tssm
+        self.saved = real, real_moe, real_ssm = tmodel.C, tmoe.C, tssm.C
         tmodel.C = _Collectives(real, sum_partials=_ordered_sum(),
                                 scatter_partials=_ordered_scatter(),
                                 mean_over=_ordered_mean())
         tmoe.C = _Collectives(real_moe, mean_over=_ordered_mean())
+        tssm.C = _Collectives(real_ssm, sum_partials=_ordered_sum(),
+                              scatter_partials=_ordered_scatter())
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import model as tmodel
         from repro_torch.models import moe as tmoe
-        tmodel.C, tmoe.C = self.saved
+        from repro_torch.models import ssm as tssm
+        tmodel.C, tmoe.C, tssm.C = self.saved
 
 
 class split_attention:
@@ -3131,18 +3152,134 @@ class split_attention:
         return out.reshape(B, 1, -1) @ p["wo"], cache
 
 
+class split_mixers:
+    """On one device, within the block: each mLSTM and sLSTM mixer
+    computed as ``dp`` x ``tp`` ranks compute it where it splits by heads
+    (``rules.mixer_split``): each ``dp`` block of the lanes a call of its
+    own, and within it each rank's slices of the mixer's leaves
+    (``param_cuts``) and of its state (its heads), mLSTM's norm over the
+    ranks' sums of squares added in rank order, the out-projection's
+    partials added in rank order, the states put back together. A witness
+    for the ranks (with :class:`ordered_partials` there), not a path of
+    the port."""
+
+    def __init__(self, cfg, tp, dp):
+        from repro_torch.launch.mesh import Grid
+        from repro_torch.launch.sharding import make_rules, param_cuts
+        from repro_torch.models.model import block_layout
+        self.tp, self.dp = tp, dp
+        _, specs = block_layout(cfg)
+        self.grids = [Grid((dp, tp), EP_AXES, r, {}) for r in range(tp)]
+        self.cuts = [dict() for _ in range(tp)]
+        for r, grid in enumerate(self.grids):
+            rules = make_rules(cfg, grid, "train")
+            blocks = param_cuts(cfg, rules)["blocks"]
+            for spec, sub in zip(specs, blocks):
+                if spec.mixer in ("mlstm", "slstm"):
+                    if not rules.mixer_split(cfg, spec.mixer):
+                        raise ValueError(f"{cfg.name}: {spec.mixer} does "
+                                         f"not split over {tp}")
+                    self.cuts[r][spec.mixer] = sub["mixer"]
+                elif spec.mixer == "mamba":
+                    raise NotImplementedError("split_mixers: Mamba")
+
+    def __enter__(self):
+        import functools
+        from repro_torch.models import model as tmodel
+        self.saved = dict(tmodel._SEQ), dict(tmodel._STEP)
+        for kind in self.cuts[0]:
+            tmodel._SEQ[kind] = functools.partial(self._run, kind, 128)
+            tmodel._STEP[kind] = functools.partial(self._run, kind, 1)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as tmodel
+        tmodel._SEQ.update(self.saved[0])
+        tmodel._STEP.update(self.saved[1])
+
+    def _run(self, kind, chunk, p, x, state=None):
+        import torch
+        import torch.nn.functional as F
+        from repro_torch.launch.sharding import cut_tree
+        from repro_torch.models import ssm
+        n = x.shape[0] // self.dp
+        outs, states = [], []
+        for b in range(self.dp):
+            xb = x[b * n:(b + 1) * n]
+            parts, hs, zs, sts = [], [], [], []
+            for r, grid in enumerate(self.grids):
+                pr = {k: cut_tree(w[None], self.cuts[r][kind][k], grid)[0]
+                      for k, w in p.items()}
+                sr = None
+                if state is not None:
+                    sr = {k: v[b * n:(b + 1) * n].chunk(self.tp, 1)[r]
+                          .contiguous() for k, v in state.items()}
+                if kind == "slstm":
+                    part, st = ssm.slstm_seq(pr, xb, sr)
+                    parts.append(part)
+                else:
+                    h, z, st = ssm._mlstm_heads(pr, xb, sr, chunk)
+                    hs.append((h, z, pr))
+                sts.append(st)
+            if kind == "mlstm":
+                ss = _in_order([ssm._sq_sum(h) for h, _, _ in hs])
+                width = hs[0][0].shape[-1] * self.tp
+                parts = [(ssm._norm_with(h, ss, width, pr["ln_scale"])
+                          * F.silu(z)) @ pr["down"] for h, z, pr in hs]
+            outs.append(_in_order(parts))
+            states.append({k: torch.cat([st[k] for st in sts], 1)
+                           for k in sts[0]})
+        return torch.cat(outs, 0), {k: torch.cat([st[k] for st in states],
+                                                 0) for k in states[0]}
+
+
+def _vocab_xent(hidden, ws, labels, n_chunks):
+    """``softmax_xent_chunked`` of one rank's rows as the ranks over which
+    the vocabulary splits compute it, their slices ``ws`` of the
+    unembedding on one device: each slice's logits, the shift their
+    maximum, the sums of exponentials and the gold logits added in rank
+    order."""
+    import torch
+    B, S, _ = hidden.shape
+    if S % n_chunks:
+        n_chunks = 1
+    rows, n = S // n_chunks, ws[0].shape[1]
+    total = None
+    for i in range(n_chunks):
+        hc = hidden[:, i * rows:(i + 1) * rows]
+        yc = labels[:, i * rows:(i + 1) * rows].long()
+        logits = [(hc @ w).float() for w in ws]
+        m = logits[0].detach().amax(dim=-1)
+        for lg in logits[1:]:
+            m = torch.maximum(m, lg.detach().amax(dim=-1))
+        tot = _in_order([torch.exp(lg - m[..., None]).sum(dim=-1)
+                         for lg in logits])
+        golds = []
+        for r, lg in enumerate(logits):
+            local = yc - r * n
+            mine = (local >= 0) & (local < n)
+            g = torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+            golds.append(torch.where(mine, g, torch.zeros_like(g)))
+        part = torch.sum((m + torch.log(tot)) - _in_order(golds))
+        total = part if total is None else total + part
+    return total / (B * S)
+
+
 class split_rows:
     """On one device, within the block: the row-wise steps as ranks that
     split the batch over ``dp`` and the sequence over ``tp`` run them:
     every norm and the logits on each of ``dp`` blocks of a ``batch``-lane
     call's rows, and the loss's cross entropy on each rank's (``batch/dp``,
     ``S/tp``) rows (every position where the vocabulary splits over
-    ``tp``: ``tp=1``), averaged in rank order. With
+    ``tp``: ``tp=1``), averaged in rank order; where the vocabulary splits
+    over ``vocab_tp`` ranks, the logits and the cross entropy (its
+    :func:`_vocab_xent`) of each of their slices. With
     :class:`split_attention` and :class:`split_routing`, the witness of
     phases 15 and 16."""
 
-    def __init__(self, dp, tp, batch):
+    def __init__(self, dp, tp, batch, vocab_tp=1):
         self.dp, self.tp, self.piece = dp, tp, max(batch // dp, 1)
+        self.vocab_tp = vocab_tp
 
     def __enter__(self):
         import torch
@@ -3150,7 +3287,7 @@ class split_rows:
         self.saved = (tmodel.rms_norm, tmodel._logits,
                       tmodel.softmax_xent_chunked)
         norm, logits, xent = self.saved
-        piece, dp, tp = self.piece, self.dp, self.tp
+        piece, dp, tp, vtp = self.piece, self.dp, self.tp, self.vocab_tp
 
         def rms_norm(x, scale, eps=1e-6):
             if x.shape[0] <= piece:
@@ -3158,12 +3295,25 @@ class split_rows:
             return torch.cat([norm(t, scale, eps)
                               for t in x.split(piece, 0)], 0)
 
+        def slices(w):
+            return [c.contiguous() for c in w.chunk(vtp, 1)]
+
         def split_logits(cfg, params, x, rules=None, rows=None):
-            return torch.cat([logits(cfg, params, t)
-                              for t in x.split(piece, 0)], 0)
+            if vtp == 1:
+                return torch.cat([logits(cfg, params, t)
+                                  for t in x.split(piece, 0)], 0)
+            ws = slices(tmodel._unembed_w(cfg, params))
+            return torch.cat([torch.cat(
+                [norm(t, params["final_norm"], cfg.norm_eps)[:, -1].float()
+                 @ w.float() for w in ws], 1) for t in x.split(piece, 0)], 0)
 
         def split_xent(hidden, w, labels, n_chunks=8, group=None,
                        vocab_offset=0):
+            if vtp > 1:
+                parts = [_vocab_xent(h, slices(w), y, n_chunks)
+                         for h, y in zip(hidden.split(piece, 0),
+                                         labels.split(piece, 0))]
+                return _in_order(parts) / len(parts)
             S = hidden.shape[1]
             n = S // tp
             parts = [xent(h[:, r * n:(r + 1) * n], w,
@@ -3184,17 +3334,18 @@ class split_rows:
          tmodel.softmax_xent_chunked) = self.saved
 
 
-def tp_inputs(cfg, dev, seed, batch, params):
+def tp_inputs(cfg, dev, seed, batch, params, s_max=TP_S_MAX):
     """Tokens and labels (``batch`` x 256), ``TP_DECODE_STEPS`` decode
     steps of 8 lanes at positions 120 j + i, and the whole decode cache
     they start from: one
-    device's prefill of 8 prompts of 1024 tokens (lane j's rows past 120 j
-    are masked, then overwritten, by its decode)."""
+    device's prefill of 8 prompts of ``s_max`` tokens (lane j's rows past
+    120 j are masked, then overwritten, by its decode; a recurrent
+    mixer's state is the prompt's whole)."""
     import torch
     from repro_torch.models import make_moe_tables, prefill_fn
     g = torch.Generator().manual_seed(seed)
     V = cfg.vocab
-    prompts = torch.randint(0, V, (TP_LANES, TP_S_MAX), generator=g)
+    prompts = torch.randint(0, V, (TP_LANES, s_max), generator=g)
     with torch.no_grad():
         _, cache, _ = prefill_fn(cfg)(params, {"tokens": prompts.to(dev)},
                                       make_moe_tables(cfg, device=dev))
@@ -3264,13 +3415,17 @@ def _witness(w, path, batch, seq):
     """The one-device witness of a plan whose ranks split attention by
     ``w["mode"]`` over ``w["tp"]``, the batch over ``w["dp"]`` and the
     experts over ``w["ep"]``, for a ``path`` of ``batch`` lanes and
-    ``seq`` positions: :class:`split_attention`, :class:`split_rows` and,
-    outside decode (where every rank routes the whole batch),
-    :class:`split_routing` over the ranks' a2a blocks."""
+    ``seq`` positions: :class:`split_attention`, :class:`split_rows`,
+    :class:`split_mixers` where ``w["mixers"]`` (the config) has mixers
+    split over ``tp`` and, outside decode (where every rank routes the
+    whole batch), :class:`split_routing` over the ranks' a2a blocks."""
     import contextlib
     stack = contextlib.ExitStack()
     stack.enter_context(split_attention(w["mode"], w["tp"], w["dp"]))
-    stack.enter_context(split_rows(w["dp"], w["xent_tp"], batch))
+    if w.get("mixers") is not None:
+        stack.enter_context(split_mixers(w["mixers"], w["tp"], w["dp"]))
+    stack.enter_context(split_rows(w["dp"], w["xent_tp"], batch,
+                                   w["vocab_tp"]))
     if path != "decode":
         stack.enter_context(split_routing(w["dp"], w["ep"], batch, seq))
     return stack
@@ -3327,15 +3482,14 @@ def tp_reference(cfg, dev, params, inputs, paths, witness=None, steps=None):
 
 
 def _dense_bytes(cfg, tree):
-    """Bytes of the attention weights, the dense MLPs' and the embedding
-    and head in ``tree``."""
+    """Bytes of the attention weights, the recurrent mixers', the dense
+    MLPs' and the embedding and head in ``tree``."""
     from repro_torch.models.model import block_layout
     _, specs = block_layout(cfg)
-    out = {"attention": 0, "mlp": 0, "embed_head": 0}
+    out = {"attention": 0, "mixers": 0, "mlp": 0, "embed_head": 0}
     for spec, sub in zip(specs, tree["blocks"]):
-        if spec.mixer == "attn":
-            out["attention"] += sum(t.numel() * t.element_size()
-                                    for t in sub["mixer"].values())
+        out["attention" if spec.mixer == "attn" else "mixers"] += sum(
+            t.numel() * t.element_size() for t in sub["mixer"].values())
         if spec.ffn == "dense":
             out["mlp"] += sum(t.numel() * t.element_size()
                               for t in sub["ffn"].values())
@@ -3762,7 +3916,8 @@ def tp_rank(rank, plans, weights, refs, inputs):
                 lg, _, tal = run("prefill", call)
                 hold("prefill", lg, tal, ref["prefill"])
                 out["digest"]["prefill"] = lg.double().sum().item()
-                run("prefill", call, clocked=True)
+                if "prefill" in plan.get("clocked", plan["paths"]):
+                    run("prefill", call, clocked=True)
         del local
         if "decode" in plan["paths"]:
             drules = rules_for("decode")
@@ -3775,7 +3930,12 @@ def tp_rank(rank, plans, weights, refs, inputs):
             fn = decode_fn(cfg, drules)
             steps = inp["dec_tokens"][:plan["steps"]]
             base = rank_cache(cfg, inp["cache"], drules)
-            out["cache_shape"] = list(base[0][0].shape)
+            first = leaves(base[0])[0]
+            out["cache_shape"] = list(first.shape)
+            out["cache_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in leaves(base))
+            out["cache_bytes_whole"] = sum(t.numel() * t.element_size()
+                                           for t in leaves(inp["cache"]))
 
             def decode(ctx):
                 cache = tree_map(torch.clone, base)
@@ -3821,9 +3981,10 @@ def tp_rank(rank, plans, weights, refs, inputs):
                 out["moved"]["decode"] = moved
                 out["digest"]["decode"] = res[-1][0].double().sum().item()
                 n = len(steps)
-                run("decode", lambda: fn(dparams, steps[-1], cache,
-                                         inp["pos"] + n, dtables),
-                    clocked=True)
+                if "decode" in plan.get("clocked", plan["paths"]):
+                    run("decode", lambda: fn(dparams, steps[-1], cache,
+                                             inp["pos"] + n, dtables),
+                        clocked=True)
             del dparams, cache, res, base
         if "backward" in plan["paths"]:
             trules = rules_for("train")
@@ -3871,7 +4032,8 @@ def tp_rank(rank, plans, weights, refs, inputs):
                                                       ref["backward_tally"]))
             out["grad_rel_l2_max"] = grad_rel("grads")
             out["grad_leaves"] = len(leaves(tparams))
-            run("backward", step, clocked=True)
+            if "backward" in plan.get("clocked", plan["paths"]):
+                run("backward", step, clocked=True)
             del tparams
         if "vs_plain" in plan["paths"]:
             out["vs_plain"] = _tp_vs_plain(cfg, rules_for, params, inp, dev)
@@ -3905,6 +4067,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     from repro_torch.launch.mesh import Grid, run_ranks
     from repro_torch.launch.sharding import make_rules
     from repro_torch.models import moe_perm_shape
+    from repro_torch.models.model import block_layout
     from repro_torch.training import AdamWConfig
     refs = {}
     for plan in plans:
@@ -3914,13 +4077,20 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
             **plan["rules"])
         witness = None
         if plan["witness"]:
+            _, specs = block_layout(plan["cfg"])
+            split = any(rules.mixer_split(plan["cfg"], sp.mixer)
+                        for sp in specs)
             witness = {"mode": ("heads" if rules.heads_split(plan["cfg"])
                                 else "context"),
                        "tp": rules.tp_size, "dp": rules.dp_size,
                        "ep": rules.ep_size,
+                       "mixers": plan["cfg"] if split else None,
                        # a split vocabulary's xent runs on every position
                        "xent_tp": (1 if rules.splits(plan["cfg"].vocab)
-                                   else rules.tp_size)}
+                                   else rules.tp_size),
+                       "vocab_tp": (rules.tp_size
+                                    if rules.splits(plan["cfg"].vocab)
+                                    else 1)}
         weights[plan["model"]], refs[plan["label"]] = tp_reference(
             plan["cfg"], dev, weights[plan["model"]], inputs[plan["model"]],
             [p for p in plan["paths"] if p != "vs_plain"], witness,
@@ -4044,6 +4214,8 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
              "dense_bytes_rank0": rs[0]["dense_bytes"],
              "dense_bytes_whole": rs[0]["dense_bytes_whole"],
              "cache_shape": rs[0].get("cache_shape"),
+             "cache_bytes_rank0": rs[0].get("cache_bytes"),
+             "cache_bytes_whole": rs[0].get("cache_bytes_whole"),
              "logit_rel_l2": {p: max(r["rel"][p] for r in rs)
                               for p in rs[0]["rel"]},
              "max_abs_logit_err": {p: max(r["err"][p] for r in rs)
@@ -4118,7 +4290,10 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
               f"dense weight bytes a rank "
               f"{json.dumps(s['dense_bytes_rank0'])} of "
               f"{json.dumps(s['dense_bytes_whole'])}; decode cache a rank "
-              f"{s['cache_shape']}", flush=True)
+              f"{s['cache_shape']}"
+              + (f", {s['cache_bytes_rank0']} bytes of "
+                 f"{s['cache_bytes_whole']} whole"
+                 if s["cache_bytes_rank0"] is not None else ""), flush=True)
         print(f"[{tag}] {what[label]} against one device: logits' relative "
               f"L2 {json.dumps(s['logit_rel_l2'])}, max |difference| "
               f"{json.dumps(s['max_abs_logit_err'])}, assignments moved "
@@ -4170,7 +4345,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     return summary
 
 
-def tp_phase(cfg, dev, smollm=None):
+def tp_phase(cfg, dev, smollm=None, xlstm=None):
     """Phase 15: tensor parallelism of the dense layers on 4 ranks sharing
     the card (gloo on CUDA tensors), each run held against one device on
     the same weights in this run:
@@ -4179,7 +4354,7 @@ def tp_phase(cfg, dev, smollm=None):
         attention by heads (6 heads and 2 KV heads a rank), EP 4 through
         the ragged a2a body, the vocabulary (49155) replicated, the
         residual's 256 positions split over the ranks (64 each); a prefill
-        of 2 x 256, 4 decode steps of 8 lanes (the replicated body on
+        of 2 x 256, 2 decode steps of 8 lanes (the replicated body on
         ``decode_params``' weights, the cache's KV heads over the ranks)
         and one loss and backward at 2 x 256 (remat, as ``make_rules``
         trains);
@@ -4188,14 +4363,18 @@ def tp_phase(cfg, dev, smollm=None):
         the decode's softmax stats merged;
     (c) smollm-360m at full width and depth on (1, 4): 15 heads and 5 KV
         heads force context mode, the tied vocabulary (49152) split, the
-        dense MLP's 2560 over 4; a prefill of 4 x 256, 4 decode steps, a
+        dense MLP's 2560 over 4; a prefill of 4 x 256, 2 decode steps, a
         loss and backward; no kernel of the port runs;
     (d) granite at 2 layers on (2, 2): heads over "model", the batch and
         the dense weights' FSDP slices over "data"; a prefill and a loss
-        and backward.
+        and backward;
 
-    (a), (b) and (d) are held against a witness, one device computing the
-    attention and the row-wise steps as the ranks split them
+    and phase 16 (g) (:func:`sp_phase`), xlstm-350m on (2, 2), on the
+    same ranks: one start of them for both (it takes ~30 s).
+
+    (a), (b), (d) and 16 (g) are held against a witness, one device
+    computing the attention, the recurrent mixers and the row-wise steps
+    as the ranks split them
     (:func:`_witness`) while the ranks add their partials in rank order
     (:class:`ordered_partials`; at decode also :class:`exact_decode_psum`):
     the prefill, each decode step and the loss bit for bit, the gradients
@@ -4211,6 +4390,7 @@ def tp_phase(cfg, dev, smollm=None):
     if dev.type == "cuda":
         build.build_all()
     smollm = smollm or get_config("smollm-360m")
+    xlstm = xlstm or get_config("xlstm-350m")
     small = dataclasses.replace(cfg, n_layers=2)
     weights, inputs = {}, {}
     for name, c in (("granite", cfg), ("smollm", smollm), ("small", small)):
@@ -4219,6 +4399,7 @@ def tp_phase(cfg, dev, smollm=None):
         weights[name] = init_params(c, gen, device=dev, dtype=torch.bfloat16)
         inputs[name] = tp_inputs(c, dev, 15, 4 if name == "smollm" else 2,
                                  weights[name])
+    weights["xlstm"], inputs["xlstm"] = _mixers_inputs(xlstm, dev)
     paths = ["prefill", "decode", "backward"]
     steps = TP_DECODE_STEPS
     plans = [
@@ -4231,13 +4412,17 @@ def tp_phase(cfg, dev, smollm=None):
          "rules": {}, "witness": False, "paths": paths, "steps": steps},
         {"label": "fsdp", "model": "small", "cfg": small, "grid": (2, 2),
          "rules": {"fsdp": ("pod", "data")}, "witness": True,
-         "paths": ["prefill", "backward"], "steps": steps}]
+         "paths": ["prefill", "backward"], "steps": steps},
+        _mixers_plan(xlstm)]
     what = {"heads": "granite, heads (1, 4)",
             "context": "granite, context (1, 4)",
             "smollm": "smollm-360m, context (1, 4), no port kernel on its "
                       "path", "fsdp": "granite 2 layers, heads over model "
-                                      "and dense FSDP over data (2, 2)"}
-    return _grid_run("tp", plans, weights, inputs, dev, TP_BOUNDS, what,
+                                      "and dense FSDP over data (2, 2)",
+            "xlstm": "phase 16 (g), xlstm-350m, mLSTM and sLSTM by heads "
+                     "(2, 2)"}
+    return _grid_run("tp", plans, weights, inputs, dev,
+                     dict(TP_BOUNDS, xlstm=SP_BOUNDS["xlstm"]), what,
                      t_start)
 
 
@@ -4258,7 +4443,7 @@ def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
         grid run splits the rows, so the rules, paths and shapes are the
         same) and runs there only;
     (c) jamba at its smoke size on (2, 2) from ``make_rules``: seven Mamba
-        mixers gathered over "model" and run on the whole sequence, the
+        mixers split by channels over "model" (128 of 256 a rank), the
         attention by heads, the MoE layer (E 4, K 2) through the port's
         kernels; a prefill of 4 x 256, 4 decode steps, a loss and
         backward; every kernel call on the ranks against its plain
@@ -4279,17 +4464,26 @@ def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
     (f) that checkpoint restored onto (1, 4) (``make_rules``' layout:
         no FSDP, the vocabulary whole), bit for bit against the saved
         state; and the parent restores it onto one device, its digest
-        against the saved one's.
+        against the saved one's;
+    (g) xlstm-350m at full width and depth on (2, 2) from ``make_rules``
+        (24 layers, d 1024; the batch over "data", the residual's
+        positions over "model", the 21 mLSTM and 3 sLSTM mixers split by
+        heads over "model", 2 of 4 a rank, their states too; the
+        vocabulary over "model"): a prefill of 4 x 256, 2 decode steps of
+        8 lanes from one device's prefill of 8 x 256, one loss and
+        backward with remat; the mixer weight and state bytes a rank. It
+        runs on phase 15's ranks (:func:`_mixers_plan`) and prints with
+        them.
 
-    (a) is held bit for bit against the witness of
+    (a) and (g) are held bit for bit against the witness of
     :func:`_witness` (one device computing each ``dp`` block of the rows
-    as a rank does, the attention split as the ranks split it, the loss's
-    cross entropy on each rank's rows averaged in rank order, the routing
-    as a rank's a2a block plans it) with the ranks adding partials and the
-    loss in rank order, gradients within ``STEP_TOL``; (a) and (c)
-    against one device as it runs within ``SP_BOUNDS`` set from
-    readings. ``tp_peak_gib``: phase 15 (a)'s peak a rank in this run,
-    printed beside (a)'s."""
+    as a rank does, the attention and the recurrent mixers split as the
+    ranks split them, the loss's cross entropy on each rank's rows
+    averaged in rank order, the routing as a rank's a2a block plans it)
+    with the ranks adding partials and the loss in rank order, gradients
+    within ``STEP_TOL``; (a), (c) and (g) against one device as it runs
+    within ``SP_BOUNDS`` set from readings. ``tp_peak_gib``: phase 15
+    (a)'s peak a rank in this run, printed beside (a)'s."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke
@@ -4301,20 +4495,22 @@ def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
     jamba = jamba or get_smoke("jamba-1.5-large-398b")
     small = dataclasses.replace(cfg, n_layers=2)
     weights, inputs = {}, {}
-    for name, c, batch in (("granite", cfg, 4), ("jamba", jamba, 4),
-                           ("small", small, 4)):
+    for name, c in (("granite", cfg), ("jamba", jamba), ("small", small)):
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         weights[name] = init_params(c, gen, device=dev, dtype=torch.bfloat16)
-        inputs[name] = tp_inputs(c, dev, 16, batch, weights[name])
+        inputs[name] = tp_inputs(c, dev, 16, 4, weights[name])
     plans = [
         {"label": "dp_sp", "model": "granite", "cfg": cfg, "grid": (2, 2),
          "rules": {}, "witness": True,
-         "paths": ["prefill", "decode", "backward"], "steps": SP_STEPS},
+         "paths": ["prefill", "decode", "backward"], "steps": SP_STEPS,
+         # its backward's exchange share (90.7-91.0%, PERF.md) is not
+         # clocked again
+         "clocked": ["prefill", "decode"]},
         {"label": "jamba", "model": "jamba", "cfg": jamba, "grid": (2, 2),
          "rules": {}, "witness": False,
          "paths": ["prefill", "decode", "backward", "vs_plain"],
-         "steps": 4},
+         "steps": SP_STEPS},
         {"label": "vs_plain", "model": "small", "cfg": small,
          "grid": (2, 2), "rules": {}, "witness": False,
          "paths": ["vs_plain"], "steps": 1},
@@ -4325,7 +4521,7 @@ def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
          "grid": (1, 4), "rules": {}, "witness": False,
          "paths": ["restore"], "steps": 1}]
     what = {"dp_sp": "granite, dp 2 x (heads + SP) 2 (2, 2)",
-            "jamba": "jamba smoke, mixers gathered under SP (2, 2)",
+            "jamba": "jamba smoke, Mamba by channels (2, 2)",
             "vs_plain": "granite 2 layers (2, 2)",
             "step": "granite 2 layers, the training step (2, 2) with FSDP",
             "restore": "granite 2 layers, (e)'s train state on (1, 4)"}
@@ -4339,10 +4535,34 @@ def sp_phase(cfg, dev, jamba=None, tp_peak_gib=None):
     summary["restore"]["one_device"] = _restore_one_device(
         weights["small"], summary["step"]["step"]["saved_digest"])
     shutil.rmtree(GRID_CKPT, ignore_errors=True)
+
     summary["reckoning"] = _state_reckoning(
         cfg, max(summary["dp_sp"]["peak_gib"]))
     summary["phase_s"]["all"] = time.perf_counter() - t_start
     return summary
+
+
+def _mixers_inputs(xlstm, dev):
+    """Phase 16 (g)'s weights (seed 0, bf16) and inputs: a prefill and a
+    loss of 4 x 256, 2 decode steps of 8 lanes from one device's prefill
+    of 8 x 256."""
+    import torch
+    from repro_torch.models import init_params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(xlstm, gen, device=dev, dtype=torch.bfloat16)
+    return params, tp_inputs(xlstm, dev, 16, 4, params, s_max=256)
+
+
+def _mixers_plan(xlstm):
+    """Phase 16 (g)'s plan (see :func:`sp_phase`): xlstm-350m on (2, 2)
+    from ``make_rules``, held bit for bit against its witness. It runs on
+    phase 15's ranks (:func:`tp_phase`): beside phase 16 (e)'s states the
+    card has no room for its weights and one-device references, and ranks
+    of its own would take ~30 s to start."""
+    return {"label": "xlstm", "model": "xlstm", "cfg": xlstm,
+            "grid": (2, 2), "rules": {}, "witness": True,
+            "paths": ["prefill", "decode", "backward"], "steps": 2}
 
 
 def _restore_one_device(params, digest):
@@ -4475,7 +4695,7 @@ def main() -> int:
     layer_case(cfg, cgen, dev)
     capacity_layer_case(cfg, cgen, dev)
     stamp("phase 4, the MoE layers")
-    engine, counts, _ = serve_path(cfg, dev, "slice")
+    engine, counts, _ = serve_path(cfg, dev, "slice", output_cap=64)
     trace_decode(engine)
     del engine
     stamp("phases 5-6, the ragged slice and its trace")

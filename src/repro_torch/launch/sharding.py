@@ -20,18 +20,55 @@ and ``fsdp`` only. A rank's tree differs from the whole tree in
   MLP's (and shared experts') F, the vocabulary of ``embed`` (rows) and
   ``head`` (columns) where it divides, ``frontend``'s d_model; over
   ``fsdp``: the d_model axis of every one of them
-  (:data:`repro_torch.models.sharding.DENSE_D_AXIS`).
+  (:data:`repro_torch.models.sharding.DENSE_D_AXIS`);
+* the recurrent mixers, in every phase — over ``tp``
+  (:data:`repro_torch.models.sharding.MIXER_TP_CUT`): Mamba by channels
+  where ``tp`` divides ``di``, mLSTM and sLSTM by heads where it divides
+  the heads (else the mixer stays whole); over ``fsdp``: the d_model axis
+  of ``in_proj``, ``out_proj``, ``up`` and ``down``
+  (:data:`~repro_torch.models.sharding.MIXER_D_AXIS`).
 
-Norms, the router and the recurrent mixers (Mamba, mLSTM, sLSTM) stay
-whole. :func:`param_cuts` describes these cuts leaf by leaf (the
-counterpart of ``param_specs``): :func:`shard_params` and :func:`cut_tree`
-take the rank's slices by it, :func:`gather_params` gathers them whole
-again, and the optimizer's norm and the checkpoints read it too; the
-optimizer state takes the params' cuts (:func:`opt_cuts`).
-:func:`rank_cache` gives a rank's decode cache: its ``B/dp`` lanes where
-``dp`` divides the batch (every attention cache and every recurrent
-state), and its KV heads when attention splits by heads or its
-``S_max/tp`` rows in context mode.
+Norms and the router stay whole. :func:`param_cuts` describes these cuts
+leaf by leaf (the counterpart of ``param_specs``): :func:`shard_params`
+and :func:`cut_tree` take the rank's slices by it, :func:`gather_params`
+gathers them whole again, and the optimizer's norm and the checkpoints
+read it too; the optimizer state takes the params' cuts
+(:func:`opt_cuts`). :func:`rank_cache` gives a rank's decode cache: its
+``B/dp`` lanes where ``dp`` divides the batch (every attention cache and
+every recurrent state), its KV heads when attention splits by heads or
+its ``S_max/tp`` rows in context mode, and a split mixer's state slice.
+
+Departures from the reference's storage layout. Each rank computes with
+the slices it holds, so where the reference's ``param_specs`` or
+``cache_specs`` lays a leaf out in a way no rank could compute with, the
+port cuts it otherwise. Values do not depend on the layout, and a
+checkpoint is written whole, so no file differs:
+
+* Mamba ``in_proj``: a grouped cut of its columns (the rank's block of
+  u and of z); the reference cuts 2 di contiguously, which gives one rank
+  all of u and the other all of z.
+* mLSTM ``up``: a grouped cut of the z half only, the u half whole (every
+  head's q, k and v read all of u: computing it beats gathering it); the
+  reference cuts 2 di contiguously.
+* mLSTM ``wq``/``wk``/``wv``: their columns by heads in both attention
+  modes, no FSDP cut; the reference matches them with attention's leaves
+  (its xLSTM branch is dead), so their columns split only in "heads"
+  mode and FSDP cuts their rows (di, not d_model).
+* mLSTM ``w_if``: a grouped cut of its columns (the rank's input- and
+  forget-gate heads); the reference cuts its rows.
+* mLSTM ``ln_scale``: the rank's channels; the reference keeps it whole.
+* sLSTM ``w_gates``: its columns by heads (each head's 4 hd columns); the
+  reference cuts its rows.
+* sLSTM ``up``: whole over ``tp`` (every head reads all of u); the
+  reference cuts its columns.
+* Where ``tp`` does not divide the heads, mLSTM and sLSTM stay whole over
+  ``tp`` (and run on the gathered sequence); the reference still cuts
+  ``up``, ``w_if``, ``w_gates`` and ``down`` (and ``wq``/``wk``/``wv`` in
+  "heads" mode).
+* States: mLSTM's ``m`` by heads, where ``cache_specs`` keeps it whole;
+  where ``tp`` does not divide the heads the xLSTM states stay whole,
+  where ``cache_specs`` cuts the 4-d ones (mLSTM ``n``, every sLSTM
+  state) along hd.
 """
 
 from __future__ import annotations
@@ -48,7 +85,9 @@ from repro_torch.models.model import (block_layout, default_moe_perm,
                                       init_params)
 from repro_torch.models.moe import expand_experts
 from repro_torch.models.sharding import (DENSE_D_AXIS, DENSE_TP_AXIS,
-                                         ShardingRules, heads_ok)
+                                         MIXER_D_AXIS, MIXER_STATE_TP_AXIS,
+                                         MIXER_TP_CUT, ShardingRules,
+                                         heads_ok, rank_group_sizes)
 from repro_torch.training.optimizer import OptState
 from repro_torch.tree import tree_map
 
@@ -87,28 +126,56 @@ def make_rules(cfg: ArchConfig, grid, phase: str = "train",
 
 @dataclasses.dataclass(frozen=True)
 class Cuts:
-    """How one leaf is cut on a grid: ``(dim, axes)`` pairs, applied in
-    order, each a cut of axis ``dim`` into the group over ``axes`` (more
-    than one rank; ``axes`` in grid order), the rank taking the block at
-    its index in that group. No pair: the leaf stays whole. The
-    counterpart of one ``PartitionSpec``; a tree leaf, not a sequence."""
+    """How one leaf is cut on a grid: pairs, applied in order, each a cut
+    of one axis into the group over ``axes`` (more than one rank; ``axes``
+    in grid order). ``(dim, axes)``: the rank takes the contiguous block at
+    its index in that group. ``(dim, axes, groups)`` (a grouped cut): axis
+    ``dim`` seen as ``len(groups)`` equal groups, the rank taking its block
+    of each group flagged True and each group flagged False whole (a leaf
+    whose last axis is halves split after the product, e.g. Mamba's
+    ``in_proj``). No pair: the leaf stays whole. The counterpart of one
+    ``PartitionSpec``; a tree leaf, not a sequence."""
 
-    pairs: Tuple[Tuple[int, Tuple[str, ...]], ...] = ()
+    pairs: Tuple[tuple, ...] = ()
 
     @property
     def axes(self) -> Tuple[str, ...]:
         """Every axis that cuts the leaf (in the pairs' order)."""
-        return tuple(a for _, axes in self.pairs for a in axes)
+        return tuple(a for p in self.pairs for a in p[1])
+
+    def pieces(self, t: torch.Tensor, grid) -> list:
+        """``(piece, axes)`` of the rank's slice ``t``: the axes that cut
+        each piece, the whole groups of a grouped cut apart (the same on
+        every rank of that cut's group); one piece without such a group."""
+        for dim, axes, groups in map(_pair, self.pairs):
+            if groups and not all(groups):
+                sizes = rank_group_sizes(t.shape[dim], groups,
+                                         grid.axis_size(axes))
+                rest = tuple(a for a in self.axes if a not in axes)
+                return [(p, self.axes if cut else rest)
+                        for p, cut in zip(t.split(sizes, dim), groups)]
+        return [(t, self.axes)]
+
+
+def _pair(pair) -> tuple:
+    """``(dim, axes, groups)`` of a pair of :class:`Cuts` (``groups``
+    ``None`` for a contiguous cut)."""
+    return pair if len(pair) == 3 else (*pair, None)
 
 
 def _cuts(rules: ShardingRules, *pairs) -> Cuts:
     """The pairs that cut on ``rules``' grid: ``dim`` not None, ``axes``
-    over more than one rank. A leaf cut twice over one axis would not be
-    tiled by its ranks' blocks, and is refused."""
+    over more than one rank; a pair may carry a grouped cut's ``groups``
+    (None: contiguous). A leaf cut twice over one axis would not be tiled
+    by its ranks' blocks, and is refused."""
     grid = rules.grid
-    kept = tuple((dim, grid.canon(axes)) for dim, axes in pairs
-                 if dim is not None and axes and grid.axis_size(axes) > 1)
-    out = Cuts(kept)
+    kept = []
+    for dim, axes, groups in map(_pair, pairs):
+        if dim is None or not axes or grid.axis_size(axes) == 1:
+            continue
+        kept.append((dim, grid.canon(axes)) + ((tuple(groups),) if groups
+                                               else ()))
+    out = Cuts(tuple(kept))
     if len(set(out.axes)) != len(out.axes):
         raise ValueError(f"a leaf cut twice over one axis: {kept}")
     return out
@@ -136,16 +203,34 @@ def _dense_cuts(p: dict, rules: ShardingRules, split: bool) -> dict:
             for k in p}
 
 
+def _mixer_cuts(p: dict, rules: ShardingRules, mixer: str,
+                split: bool) -> dict:
+    """A recurrent mixer's stacked leaves, each cut on its d_model axis
+    over ``fsdp`` (:data:`~repro_torch.models.sharding.MIXER_D_AXIS`) and,
+    with ``split``, over ``tp`` as
+    :data:`~repro_torch.models.sharding.MIXER_TP_CUT` says."""
+    tp_cut = MIXER_TP_CUT[mixer] if split else {}
+    out = {}
+    for k in p:
+        axis, groups = tp_cut.get(k, (None, None))
+        out[k] = _cuts(rules, (MIXER_D_AXIS[k] + 1 if k in MIXER_D_AXIS
+                               else None, rules.fsdp_axes),
+                       (None if axis is None else axis + 1, rules.tp_axes,
+                        groups))
+    return out
+
+
 def param_cuts(cfg: ArchConfig, rules: ShardingRules,
                phase: str = "train") -> Any:
     """A tree of :class:`Cuts` matching the params tree of ``cfg`` (the
     whole one, or the decode fleet's from :func:`decode_params`), each
     leaf's cuts as the reference's ``param_specs`` cuts it on ``rules``'
-    grid (see the module's docstring; every leaf whole without a grid):
-    the experts (:func:`shard_experts`), the attention and dense MLP
-    leaves, the embedding and head (the vocabulary over ``tp`` where it
-    divides), the frontend; norms, the router and the recurrent mixers
-    whole."""
+    grid (see the module's docstring, which lists where the port departs
+    from it; every leaf whole without a grid): the experts
+    (:func:`shard_experts`), the attention and dense MLP leaves, the
+    recurrent mixers (:func:`_mixer_cuts`), the embedding and head (the
+    vocabulary over ``tp`` where it divides), the frontend; norms and the
+    router whole."""
     whole = Cuts()
     # the tree's structure, as the reference's eval_shape gives it
     out = tree_map(lambda _: whole, init_params(cfg, None, device="meta"))
@@ -163,6 +248,9 @@ def param_cuts(cfg: ArchConfig, rules: ShardingRules,
         if spec.mixer == "attn":
             sub["mixer"] = _dense_cuts(sub["mixer"], rules,
                                        rules.heads_split(cfg))
+        else:
+            sub["mixer"] = _mixer_cuts(sub["mixer"], rules, spec.mixer,
+                                       rules.mixer_split(cfg, spec.mixer))
         if spec.ffn == "dense":
             sub["ffn"] = _dense_cuts(sub["ffn"], rules,
                                      rules.splits(cfg.d_ff))
@@ -184,12 +272,20 @@ def opt_cuts(cuts: Any, master: bool = True) -> OptState:
     return OptState(Cuts(), cuts, cuts, cuts if master else None)
 
 
-def _part(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
-    size = t.shape[dim]
-    if size % n:
+def _part(t: torch.Tensor, pair: tuple, n: int, i: int) -> torch.Tensor:
+    """Rank ``i`` of ``n``'s block of ``t`` by one pair of :class:`Cuts`
+    (a view for a contiguous cut, a new tensor for a grouped one)."""
+    dim, _, groups = _pair(pair)
+    size, g = t.shape[dim], len(groups or (True,))
+    if size % (g * n):
         raise ValueError(f"shard_params: axis {dim} of {tuple(t.shape)} "
-                         f"over {n} ranks")
-    return t.narrow(dim, i * (size // n), size // n)
+                         f"in {g} group(s) over {n} ranks")
+    if groups is None:
+        return t.narrow(dim, i * (size // n), size // n)
+    unit = size // g
+    return torch.cat([p.narrow(dim, i * (unit // n), unit // n) if cut
+                      else p for p, cut in zip(t.split(unit, dim), groups)],
+                     dim)
 
 
 def _map_cuts(fn, tree: Any, cuts: Any) -> Any:
@@ -212,8 +308,9 @@ def _map_cuts(fn, tree: Any, cuts: Any) -> Any:
 
 def _cut_leaf(t: torch.Tensor, c: Cuts, grid) -> torch.Tensor:
     part = t
-    for dim, axes in c.pairs:
-        part = _part(part, dim, grid.axis_size(axes), grid.index(axes))
+    for pair in c.pairs:
+        axes = pair[1]
+        part = _part(part, pair, grid.axis_size(axes), grid.index(axes))
     if part is t:
         return t
     return part.clone(memory_format=torch.contiguous_format)
@@ -227,8 +324,15 @@ def cut_tree(tree: Any, cuts: Any, grid) -> Any:
 
 
 def _gather_leaf(t: torch.Tensor, c: Cuts, grid) -> torch.Tensor:
-    for dim, axes in reversed(c.pairs):
-        t = C.gather_shards(t, grid.group(axes), dim, summed=False)
+    for dim, axes, groups in map(_pair, reversed(c.pairs)):
+        group = grid.group(axes)
+        if groups is None:
+            t = C.gather_shards(t, group, dim, summed=False)
+            continue
+        sizes = rank_group_sizes(t.shape[dim], groups, grid.axis_size(axes))
+        t = torch.cat([C.gather_shards(p, group, dim, summed=False) if cut
+                       else p for p, cut in zip(t.split(sizes, dim),
+                                                groups)], dim)
     return t
 
 
@@ -264,16 +368,44 @@ def gather_to_rank0(t: torch.Tensor, c: Cuts, grid):
     if grid.rank != 0:
         return None
     shape = list(part.shape)
-    for dim, ax in c.pairs:
-        shape[dim] *= grid.axis_size(ax)
+    for dim, ax, groups in map(_pair, c.pairs):
+        shape[dim] = _whole_size(shape[dim], groups, grid.axis_size(ax))
     whole = part.new_empty(shape)
     for coords, raw in zip(grid.members(axes), parts):
-        view = whole
-        for dim, ax in c.pairs:
-            size = view.shape[dim] // grid.axis_size(ax)
-            view = view.narrow(dim, grid.index(ax, coords) * size, size)
-        view.copy_(raw.view(part.dtype).view(part.shape))
+        _place(whole, raw.view(part.dtype).view(part.shape), c.pairs, grid,
+               coords)
     return whole
+
+
+def _whole_size(size: int, groups, n: int) -> int:
+    """The whole size of an axis whose rank's slice has ``size``."""
+    if groups is None:
+        return size * n
+    sizes = rank_group_sizes(size, groups, n)
+    return sum(s * n if cut else s for s, cut in zip(sizes, groups))
+
+
+def _place(view: torch.Tensor, raw: torch.Tensor, pairs, grid, coords
+           ) -> None:
+    """Copy ``raw``, the slice the rank at ``coords`` holds by ``pairs``,
+    to where :func:`cut_tree` takes it in ``view``."""
+    if not pairs:
+        view.copy_(raw)
+        return
+    dim, ax, groups = _pair(pairs[0])
+    n, i = grid.axis_size(ax), grid.index(ax, coords)
+    if groups is None:
+        size = view.shape[dim] // n
+        _place(view.narrow(dim, i * size, size), raw, pairs[1:], grid,
+               coords)
+        return
+    unit = view.shape[dim] // len(groups)
+    sizes = rank_group_sizes(raw.shape[dim], groups, n)
+    for j, (piece, cut) in enumerate(zip(raw.split(sizes, dim), groups)):
+        sub = view.narrow(dim, j * unit, unit)
+        if cut:
+            sub = sub.narrow(dim, i * (unit // n), unit // n)
+        _place(sub, piece, pairs[1:], grid, coords)
 
 
 def shard_experts(p: dict, rules: ShardingRules, phase: str) -> dict:
@@ -311,8 +443,13 @@ def rank_cache(cfg: ArchConfig, cache: list, rules: ShardingRules) -> list:
     ``[r S_max/tp, (r + 1) S_max/tp)`` (``tp`` must divide ``S_max``, as
     the reference's layout needs). Where the batch does not split, the
     reference's heads-mode layout puts ``tp`` on the rows (a storage
-    layout under GSPMD); the port keeps the rank's KV heads there too.
-    Cut leaves are contiguous copies."""
+    layout under GSPMD); the port keeps the rank's KV heads there too. A
+    recurrent mixer split over ``tp`` (``rules.mixer_split``) holds its
+    state's slice too: Mamba's ``h`` (n_blocks, B, di, ds) and ``conv``
+    (n_blocks, B, k-1, di) by channels, mLSTM's ``C``, ``n`` and ``m`` and
+    sLSTM's ``c``, ``n``, ``h`` and ``m`` by heads (the departures from
+    ``cache_specs`` are in the module's docstring). Cut leaves are
+    contiguous copies."""
     if rules.grid is None:
         return cache
     _, specs = block_layout(cfg)
@@ -333,7 +470,11 @@ def rank_cache(cfg: ArchConfig, cache: list, rules: ShardingRules) -> list:
             c = cut_tree(c, tuple(_cuts(rules, *cuts, *attn) for _ in c),
                          rules.grid)
         else:
-            c = cut_tree(c, {k: _cuts(rules, *cuts) for k in c}, rules.grid)
+            axis = (MIXER_STATE_TP_AXIS[spec.mixer]
+                    if rules.mixer_split(cfg, spec.mixer) else {})
+            c = cut_tree(c, {k: _cuts(rules, *cuts, (
+                None if k not in axis else axis[k] + 1, rules.tp_axes))
+                for k in c}, rules.grid)
         out.append(c)
     return out
 

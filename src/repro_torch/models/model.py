@@ -23,8 +23,11 @@ its dispatch body by it, as in the reference.
 On a rank grid the rules (:class:`ShardingRules`) split the dense
 layers over ``tp`` as the reference's do: attention by heads or by
 context (:func:`_run_attention`), the dense MLP's F, the vocabulary of
-the embedding, the head and the loss; the dense weights arrive FSDP-
-sliced and are gathered a block at a time (:func:`_gather_dense`). Each
+the embedding, the head and the loss; the recurrent mixers by channels
+(Mamba) or by heads (mLSTM, sLSTM) where ``tp`` divides them
+(``ShardingRules.mixer_split``, :mod:`.ssm`); the dense and mixer weights
+arrive FSDP-sliced and are gathered a block at a time
+(:func:`_gather_dense`). Each
 rank holds and computes only its own rows (:class:`_Rows`): its ``B/dp``
 of the batch where ``dp`` divides it, and at train and prefill its
 ``S/tp`` of the sequence between blocks where ``tp`` divides it
@@ -61,8 +64,9 @@ from .common import (apply_rope, dense_init, mlp, rms_norm, rope_tables,
 from .flash import flash_attention, flash_decode
 from .moe import (default_perm_a2a, default_perm_replicated, moe_init,
                   moe_layer, n_slots_a2a)
-from .sharding import (DENSE_D_AXIS, ShardingRules, build_copy_cdf,
-                       build_slots_of)
+from .sharding import (DENSE_D_AXIS, MIXER_D_AXIS, MIXER_TP_CUT,
+                       ShardingRules, build_copy_cdf, build_slots_of,
+                       rank_group_sizes)
 from . import ssm
 
 __all__ = [
@@ -461,17 +465,27 @@ def _sum_over_rows(cfg, params, rules, rows: _Rows):
     ranks that read it on other rows (:func:`_row_axes`): its gradient is
     summed over them, once a call. These are the norms, the attention and
     dense MLP weights (their ``tp`` slices over ``dp`` only), the
-    embedding and the head, the recurrent mixers. An FSDP-sliced leaf
-    gets the rest of that sum from its gather's reduce-scatter
-    (:func:`_fsdp_summed`). The MoE layer's router and experts are left to
-    its bodies, which sum their gradients over the group they route."""
-    if rules is None or rules.grid is None or not (rows.batch
-                                                   or rows.s is not None):
+    embedding and the head, the recurrent mixers: a split mixer's ``tp``
+    slices over ``dp`` only, and its leaves (or a grouped cut's groups)
+    that the rank holds whole but reads in part (Mamba's ``dt_bias`` and
+    ``D_skip``, mLSTM's u half of ``up``, sLSTM's ``up``) over ``tp`` as
+    well, where each rank adds its own share; a mixer that does not split
+    as the norms. An FSDP-sliced leaf gets the rest of that sum from its
+    gather's reduce-scatter (:func:`_fsdp_summed`). The MoE layer's
+    router and experts are left to its bodies, which sum their gradients
+    over the group they route."""
+    if rules is None or rules.grid is None:
+        return params
+    _, specs = block_layout(cfg)
+    split = [rules.mixer_split(cfg, spec.mixer) for spec in specs]
+    if not (rows.batch or rows.s is not None or any(split)):
         return params
     fsdp = rules.fsdp_axes
 
-    def rep(w, tp_split, sliced=False):
+    def rep(w, tp_split, sliced=False, over_tp=False):
         axes = _row_axes(rules, rows, tp_split)
+        if over_tp:
+            axes = axes + tuple(a for a in rules.tp_axes if a not in axes)
         if sliced and _fsdp_summed(rules, rows, tp_split):
             axes = tuple(a for a in axes if a not in fsdp)
         return C.replicate(w, rules.group(axes))
@@ -479,7 +493,23 @@ def _sum_over_rows(cfg, params, rules, rows: _Rows):
     def dense(p, split):
         return {k: rep(w, split, True) for k, w in p.items()}
 
-    _, specs = block_layout(cfg)
+    def mixer(p, kind):
+        out = {}
+        for k, w in p.items():
+            sliced = k in MIXER_D_AXIS
+            axis, groups = MIXER_TP_CUT[kind].get(k, (None, None))
+            if axis is None:                        # whole, read in part
+                out[k] = rep(w, True, sliced, over_tp=True)
+            elif groups is None or all(groups):     # the rank's slice
+                out[k] = rep(w, True, sliced)
+            else:                                   # some groups whole
+                dim = axis + 1
+                sizes = rank_group_sizes(w.shape[dim], groups, rules.tp_size)
+                out[k] = torch.cat([
+                    rep(piece, True, sliced, over_tp=not cut)
+                    for piece, cut in zip(w.split(sizes, dim), groups)], dim)
+        return out
+
     vocab = rules.splits(cfg.vocab)
     out = dict(params)
     out["final_norm"] = rep(params["final_norm"], False)
@@ -487,15 +517,18 @@ def _sum_over_rows(cfg, params, rules, rows: _Rows):
     if "head" in params:
         out["head"] = rep(params["head"], vocab, True)
     blocks = []
-    for spec, sub in zip(specs, params["blocks"]):
+    for spec, sub, mixer_split in zip(specs, params["blocks"], split):
         sub = dict(sub)
         for n in ("ln1", "ln2"):
             if n in sub:
                 sub[n] = rep(sub[n], False)
         if spec.mixer == "attn":
             sub["mixer"] = dense(sub["mixer"], rules.heads_split(cfg))
+        elif mixer_split:
+            sub["mixer"] = mixer(sub["mixer"], spec.mixer)
         else:
-            sub["mixer"] = {k: rep(w, False) for k, w in sub["mixer"].items()}
+            sub["mixer"] = {k: rep(w, False, k in MIXER_D_AXIS)
+                            for k, w in sub["mixer"].items()}
         if spec.ffn == "dense":
             sub["ffn"] = dense(sub["ffn"], rules.splits(cfg.d_ff))
         if "shared" in sub:
@@ -511,18 +544,22 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
                 chunk_ctx=None, route_seed=None, moe_row_valid=None):
     """One super-block forward on the rank's ``rows``. Returns (x, tallies
     (m, E+1), aux losses (a list, one a MoE layer), new caches: an
-    attention position's (k, v), a recurrent mixer's new state, whole).
+    attention position's (k, v), a recurrent mixer's new state: the
+    rank's slice where the mixer splits, else whole).
 
     ``chunk_ctx`` — (lane, offset, n_valid, row_valid) of the chunked-
     prefill phase: attention goes through :func:`_run_attention_chunk`.
     ``route_seed`` and ``moe_row_valid`` (the padding mask, flat over the
     block's rows) go to every MoE layer; the caller computes them once a
-    model call. Under sequence parallelism a recurrent mixer (replicated
-    over ``tp``) runs on the gathered sequence and keeps the rank's rows."""
+    model call. A recurrent mixer split over ``tp`` takes its input and
+    gives its partial output as the dense MLP does (replicated and summed,
+    or under sequence parallelism gathered and reduce-scattered); one that
+    does not split, whole on every rank, runs on the gathered sequence
+    under sequence parallelism and keeps the rank's rows."""
     tallies, auxes, new_cache = [], [], []
     moe_i = 0
     seq = rows.s
-    tp_group = None if seq is None else rules.group(rules.tp_axes)
+    tp_group = None if rules is None else rules.group(rules.tp_axes)
     bp = _gather_dense(cfg, bp, specs, rules, rows)
     for i, spec in enumerate(specs):
         sub = bp[i]
@@ -531,7 +568,10 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
         cache = None if cache_blk is None else cache_blk[i]
         if spec.mixer != "attn":
             fn = (_STEP if phase == "decode" else _SEQ)[spec.mixer]
-            if seq is None:
+            if rules is not None and rules.mixer_split(cfg, spec.mixer):
+                kw = {} if seq is None else {"seq": True}
+                h, st = fn(sub["mixer"], h, cache, group=tp_group, **kw)
+            elif seq is None:
                 h, st = fn(sub["mixer"], h, cache)
             else:
                 h, st = fn(sub["mixer"], C.gather_seq(h, tp_group), cache)
@@ -579,14 +619,22 @@ def _gather_dense(cfg, bp, specs, rules, rows: _Rows):
     MLP weights gathered over ``rules.fsdp`` (on their d_model axis). The
     gather's backward reduce-scatters the gradient where the FSDP group's
     ranks work on different rows, else each keeps its own slice
-    (:func:`_fsdp_summed`). Other leaves (norms, the MoE layer, whose
-    experts gather in its body, the recurrent mixers) pass as they are."""
+    (:func:`_fsdp_summed`); so are the recurrent mixers' d_model slices
+    (``MIXER_D_AXIS``). Other leaves (norms, the MoE layer, whose experts
+    gather in its body) pass as they are."""
     group = None if rules is None else rules.group(rules.fsdp_axes)
     if group is None:
         return bp
     out = []
     for spec, sub in zip(specs, bp):
         sub = dict(sub)
+        if spec.mixer != "attn":
+            summed = _fsdp_summed(rules, rows,
+                                  rules.mixer_split(cfg, spec.mixer))
+            sub["mixer"] = {n: C.gather_shards(w, group, MIXER_D_AXIS[n],
+                                               summed=summed)
+                            if n in MIXER_D_AXIS else w
+                            for n, w in sub["mixer"].items()}
         dense = [(k, split) for k, ok, split in (
             ("mixer", spec.mixer == "attn", rules.heads_split(cfg)),
             ("ffn", spec.ffn == "dense", rules.splits(cfg.d_ff)),
@@ -709,8 +757,9 @@ def _run_blocks(cfg, rules, params, x, *, phase, moe_tables, positions,
         tallies.extend(tall)
         auxes.extend(aux)
         if cache is not None:
-            # a recurrent state comes back whole: copy it over the old one
-            # (attention wrote its rows in place already)
+            # a recurrent state comes back new (the rank's slice where the
+            # mixer splits): copy it over the old one (attention wrote its
+            # rows in place already)
             for i, spec in enumerate(specs):
                 if spec.mixer != "attn":
                     for k, leaf in cb[i].items():

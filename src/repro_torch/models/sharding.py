@@ -19,9 +19,12 @@ train and prefill the residual stream between blocks splits over ``tp``
 along the sequence where ``tp`` divides it
 (:meth:`ShardingRules.seq_split`, the reference's ``seq_ok``: Megatron
 sequence parallelism). Where neither divides, the rows stay whole on
-every rank. The recurrent mixers (Mamba, mLSTM, sLSTM) are replicated over
-``tp``: they run on the gathered sequence and keep the rank's rows.
-``tp=None`` keeps every dense layer replicated and the sequence whole.
+every rank. The recurrent mixers split over ``tp`` as well
+(:meth:`ShardingRules.mixer_split`, :data:`MIXER_TP_CUT`): Mamba by
+channels where ``tp`` divides ``di``, mLSTM and sLSTM by heads where it
+divides the heads; a mixer that does not split is whole on every rank and
+runs on the gathered sequence, keeping the rank's rows. ``tp=None`` keeps
+every dense layer and mixer replicated and the sequence whole.
 
 ``build_slots_of`` and ``build_copy_cdf`` are the reference's numpy table
 builders (``repro.models.sharding``), copied.
@@ -37,7 +40,8 @@ import numpy as np
 from repro_torch.core.placement import copy_share_cdf
 
 __all__ = ["ShardingRules", "heads_ok", "DENSE_D_AXIS", "DENSE_TP_AXIS",
-           "build_slots_of", "build_copy_cdf"]
+           "MIXER_D_AXIS", "MIXER_TP_CUT", "MIXER_STATE_TP_AXIS",
+           "rank_group_sizes", "build_slots_of", "build_copy_cdf"]
 
 
 _IMPLS = ("ragged", "capacity")
@@ -52,6 +56,56 @@ DENSE_D_AXIS = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "w1": 0, "w3": 0,
                 "w2": 1}
 DENSE_TP_AXIS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w1": 1, "w3": 1,
                  "w2": 0}
+
+
+#: a recurrent mixer's leaves (without the leading ``n_blocks``) that FSDP
+#: slices on their d_model axis, as the reference's ``f``
+MIXER_D_AXIS = {"in_proj": 0, "out_proj": 1, "up": 0, "down": 1}
+
+#: how ``tp`` cuts a split recurrent mixer's leaves (without the leading
+#: ``n_blocks``): leaf → (axis, groups). ``groups`` ``None``: the axis cut
+#: in contiguous blocks; else the axis seen as ``len(groups)`` equal groups,
+#: the rank taking its block of each group flagged True and every group
+#: flagged False whole. Mamba by channels: ``in_proj``'s u and z halves
+#: (``split`` after the product), ``conv_w``'s and ``dt_proj``'s columns,
+#: ``x_proj``'s, ``A_log``'s and ``out_proj``'s rows. mLSTM by heads:
+#: ``wq``/``wk``/``wv``'s columns, ``w_if``'s input- and forget-gate heads,
+#: ``up``'s z half (its u half whole: every head's q, k and v read all of
+#: u), ``ln_scale``'s channels, ``down``'s rows. sLSTM by heads:
+#: ``w_gates``' columns (each head's 4 hd contiguous), ``r_gates``' heads,
+#: ``down``'s rows. The leaves left out are whole on every rank: Mamba's
+#: ``dt_bias`` and ``D_skip`` (the rank reads its channels), sLSTM's
+#: ``up``.
+MIXER_TP_CUT = {
+    "mamba": {"in_proj": (1, (True, True)), "conv_w": (1, None),
+              "x_proj": (0, None), "dt_proj": (1, None), "A_log": (0, None),
+              "out_proj": (0, None)},
+    "mlstm": {"up": (1, (False, True)), "wq": (1, None), "wk": (1, None),
+              "wv": (1, None), "w_if": (1, (True, True)),
+              "ln_scale": (0, None), "down": (0, None)},
+    "slstm": {"w_gates": (1, None), "r_gates": (0, None),
+              "down": (0, None)},
+}
+
+#: the axis ``tp`` cuts of a split mixer's state leaves (without the
+#: leading ``n_blocks``; the lanes first): Mamba's channels, the heads of
+#: mLSTM and sLSTM
+MIXER_STATE_TP_AXIS = {
+    "mamba": {"h": 1, "conv": 2},
+    "mlstm": {"C": 1, "n": 1, "m": 1},
+    "slstm": {"c": 1, "n": 1, "h": 1, "m": 1},
+}
+
+
+def rank_group_sizes(size: int, groups: Tuple[bool, ...], n: int) -> list:
+    """The sizes of a rank's pieces of an axis of ``size`` (the rank's)
+    cut as ``groups`` over ``n`` ranks: each group flagged True a rank's
+    block, each other group whole."""
+    n_cut = sum(groups)
+    unit, rem = divmod(size, n * (len(groups) - n_cut) + n_cut)
+    if rem:
+        raise ValueError(f"an axis of {size} is not {groups} over {n}")
+    return [unit if cut else unit * n for cut in groups]
 
 
 def heads_ok(n_heads: int, n_kv_heads: int, tp: int) -> bool:
@@ -204,6 +258,16 @@ class ShardingRules:
         :func:`heads_ok`), as ``_attn_specs`` checks it at run time."""
         return (self.tp_size > 1 and self.attn_mode == "heads"
                 and heads_ok(cfg.n_heads, cfg.n_kv_heads, self.tp_size))
+
+    def mixer_split(self, cfg, mixer: str) -> bool:
+        """A recurrent mixer (``"mamba"``, ``"mlstm"``, ``"slstm"``) splits
+        over ``tp`` (:data:`MIXER_TP_CUT`): Mamba where ``tp`` divides its
+        ``di`` channels, mLSTM and sLSTM where it divides the heads."""
+        if self.tp_size == 1 or mixer not in MIXER_TP_CUT:
+            return False
+        n = (cfg.ssm_expand * cfg.d_model if mixer == "mamba"
+             else cfg.n_heads)
+        return n % self.tp_size == 0
 
     def context_split(self, n_rows: int) -> bool:
         """Context-parallel attention over ``n_rows`` (the prefill's S or

@@ -22,6 +22,25 @@ Departures, each within the tests' tolerances:
 * Nothing is checkpointed: the reference's ``jax.checkpoint`` on each
   chunk body saves memory under autograd only, and the full-width xLSTM
   step does not need it.
+* ``mamba_seq`` takes ``u @ x_proj`` for the whole sequence in one
+  product before the chunks, where the reference takes it a chunk at a
+  time: the product is per token, so only the products' shapes differ.
+
+Tensor parallelism (``group``, ``seq``; as ``common.mlp`` takes them):
+with a tensor-parallel ``group`` the params and the state are the rank's
+slice (``launch.sharding``'s cuts, :data:`~.sharding.MIXER_TP_CUT`) —
+Mamba's ``di/tp`` channels, mLSTM's and sLSTM's ``H/tp`` heads. The input
+is the rank's rows replicated over the group (its gradient summed), or
+with ``seq`` (sequence parallelism) the rank's positions gathered over
+it; the output is the rank's partial of the row-parallel out-projection,
+summed over the group or reduce-scattered back to the rank's positions.
+Inside, Mamba sums ``u @ x_proj``'s (B, S, dt_rank + 2 ds) partials over
+the group in f32 and rounds them once, where one device rounds the whole
+product; mLSTM sums its norm's sums of squares over the group (the norm
+is over the whole ``di``); sLSTM needs no exchange. A whole leaf that a
+rank reads in part (Mamba's ``dt_bias`` and ``D_skip``, mLSTM's u half of
+``up``, sLSTM's ``up``) gets its gradient summed over the group by the
+caller (``model._sum_over_rows``).
 """
 
 from __future__ import annotations
@@ -32,6 +51,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import collectives as C
 from .common import dense_init, rms_norm
 
 __all__ = [
@@ -51,6 +71,30 @@ def _chunk_width(S: int, chunk: int) -> int:
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``-softplus(-x)``, the reference's log sigmoid."""
     return -F.softplus(-x)
+
+
+def _enter(x: torch.Tensor, group, seq: bool) -> torch.Tensor:
+    """A mixer's input on a tensor-parallel ``group``: the rank's rows
+    replicated, or under ``seq`` its positions gathered."""
+    return C.gather_seq(x, group) if seq else C.replicate(x, group)
+
+
+def _leave(out: torch.Tensor, group, seq: bool) -> torch.Tensor:
+    """A row-parallel product's partial: summed over ``group``, or under
+    ``seq`` reduce-scattered to the rank's positions."""
+    return (C.scatter_partials(out, group) if seq
+            else C.sum_partials(out, group))
+
+
+def _summed(part: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partials summed over ``group``, each rank reading the sum
+    for its own share: forward one sum, backward the sum of the ranks'
+    gradients (``replicate``)."""
+    return C.replicate(C.sum_partials(part, group), group)
+
+
+def _rank(group) -> int:
+    return 0 if group is None else torch.distributed.get_rank(group)
 
 
 # ---------------------------------------------------------------------------
@@ -125,40 +169,57 @@ def _ssm_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def mamba_seq(p, x: torch.Tensor, state=None, chunk: int = 128):
-    """Full-sequence Mamba mixer. Returns (y (B, S, D), new_state)."""
+def _x_proj(u: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """``u @ x_proj`` (B, S, dt_rank + 2 ds) in f32, rounded to ``u``'s
+    dtype once as one device's product rounds; on a ``group`` the ranks'
+    f32 partials (their channels' rows) summed before that rounding."""
+    if group is None:
+        return (u @ w).float()
+    return _summed(u.float() @ w.float(), group).to(u.dtype).float()
+
+
+def mamba_seq(p, x: torch.Tensor, state=None, chunk: int = 128,
+              group=None, seq: bool = False):
+    """Full-sequence Mamba mixer. Returns (y (B, S, D), new_state). On a
+    tensor-parallel ``group`` the params and state are the rank's
+    channels (see the module's docstring)."""
+    x = _enter(x, group, seq)
     B, S, D = x.shape
     u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    di = u.shape[-1]
+    r = _rank(group)
+    own = slice(r * di, (r + 1) * di)       # its dt_bias, D_skip channels
     ds = p["A_log"].shape[1]
     u, conv_tail = _causal_conv(u, p["conv_w"],
                                 None if state is None else state["conv"])
     u = F.silu(u)
     A = -torch.exp(p["A_log"])                              # (di, ds)
     dt_rank = p["dt_proj"].shape[0]
+    proj = _x_proj(u, p["x_proj"], group)
     W = _chunk_width(S, chunk)
-    h = (torch.zeros((B, u.shape[-1], ds), dtype=torch.float32,
-                     device=x.device) if state is None else state["h"])
+    h = (torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+         if state is None else state["h"])
     ys = []
     for c in range(S // W):
-        u_w = u[:, c * W:(c + 1) * W]
-        uf = u_w.float()
-        proj = (u_w @ p["x_proj"]).float()
-        dt_in, Bm, Cm = proj.split([dt_rank, ds, ds], dim=-1)
-        dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"])
+        sl = slice(c * W, (c + 1) * W)
+        uf = u[:, sl].float()
+        dt_in, Bm, Cm = proj[:, sl].split([dt_rank, ds, ds], dim=-1)
+        dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"][own])
         a = torch.exp(dt[..., None] * A)                    # (B, W, di, ds)
         bx = dt[..., None] * Bm[:, :, None, :] * uf[..., None]
         aa, bb = _ssm_scan(a, bx)
         h_all = aa * h[:, None] + bb
-        y_w = (h_all * Cm[:, :, None, :]).sum(-1) + p["D_skip"] * uf
+        y_w = (h_all * Cm[:, :, None, :]).sum(-1) + p["D_skip"][own] * uf
         h = h_all[:, -1]
         ys.append(y_w.to(x.dtype))
     y = torch.cat(ys, dim=1) * F.silu(z)
-    return y @ p["out_proj"], {"h": h, "conv": conv_tail}
+    return _leave(y @ p["out_proj"], group, seq), {"h": h,
+                                                   "conv": conv_tail}
 
 
-def mamba_step(p, x: torch.Tensor, state):
+def mamba_step(p, x: torch.Tensor, state, group=None):
     """Single-token decode. x (B, 1, D) → (y (B, 1, D), new_state)."""
-    return mamba_seq(p, x, state, chunk=1)
+    return mamba_seq(p, x, state, chunk=1, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -232,13 +293,16 @@ def _mlstm_chunk(q, k, v, log_i, log_f, C0, n0, m0):
     return h, C1, n1, m1[..., -1]
 
 
-def mlstm_seq(p, x: torch.Tensor, state=None, chunk: int = 128):
-    """Full-sequence mLSTM block. x (B, S, D) → (y (B, S, D), new_state)."""
+def _mlstm_heads(p, x: torch.Tensor, state=None, chunk: int = 128):
+    """The mLSTM block up to its norm, on the heads ``p`` holds (all, or a
+    rank's): returns (h (B, S, H hd) in ``x``'s dtype, z (B, S, H hd),
+    new state)."""
     B, S, D = x.shape
-    di = p["down"].shape[0]
+    di = p["wq"].shape[0]                  # u's width: every channel
     H = p["w_if"].shape[1] // 2
-    hd = di // H
-    u, z = (x @ p["up"]).chunk(2, dim=-1)
+    hd = p["wq"].shape[1] // H
+    uz = x @ p["up"]
+    u, z = uz.split([di, uz.shape[-1] - di], dim=-1)
 
     def heads(w):                                           # (B, H, S, hd)
         return (u @ w).reshape(B, S, H, hd).transpose(1, 2)
@@ -247,23 +311,57 @@ def mlstm_seq(p, x: torch.Tensor, state=None, chunk: int = 128):
     gates = (u.float() @ p["w_if"]).transpose(1, 2)         # (B, 2H, S)
     log_i, log_f = gates[:, :H], _log_sigmoid(gates[:, H:])
     W = _chunk_width(S, chunk)
-    st = (mlstm_state_init(B, D, n_heads=H, expand=di // D, device=x.device)
-          if state is None else state)
-    C, n, m = st["C"], st["n"], st["m"]
+    if state is None:
+        state = mlstm_state_init(B, H * hd, n_heads=H, expand=1,
+                                 device=x.device)
+    C_, n, m = state["C"], state["n"], state["m"]
     hs = []
     for c in range(S // W):
         sl = slice(c * W, (c + 1) * W)
-        h, C, n, m = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                                  log_i[..., sl], log_f[..., sl], C, n, m)
+        h, C_, n, m = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                   log_i[..., sl], log_f[..., sl], C_, n, m)
         hs.append(h)
-    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, S, di)
-    h = rms_norm(h.to(x.dtype), p["ln_scale"])
-    y = h * F.silu(z)
-    return y @ p["down"], {"C": C, "n": n, "m": m}
+    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, S, H * hd)
+    return h.to(x.dtype), z, {"C": C_, "n": n, "m": m}
 
 
-def mlstm_step(p, x: torch.Tensor, state):
-    return mlstm_seq(p, x, state, chunk=1)
+def _sq_sum(h: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of each row of ``h`` (B, S, 1)."""
+    hf = h.float()
+    return (hf * hf).sum(-1, keepdim=True)
+
+
+def _norm_with(h: torch.Tensor, ss: torch.Tensor, n: int,
+               scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` of ``h`` given the sums of squares ``ss`` of its rows'
+    ``n`` elements (``h`` may hold a share of them)."""
+    out = h.float() * torch.rsqrt(ss / n + eps) * (1.0 + scale.float())
+    return out.to(h.dtype)
+
+
+def _norm_over(h: torch.Tensor, scale: torch.Tensor, group,
+               eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` over the whole ``di`` of a rank's channels ``h``: the
+    sums of squares summed over ``group`` (one device: ``rms_norm``)."""
+    if group is None:
+        return rms_norm(h, scale, eps)
+    n = h.shape[-1] * torch.distributed.get_world_size(group)
+    return _norm_with(h, _summed(_sq_sum(h), group), n, scale, eps)
+
+
+def mlstm_seq(p, x: torch.Tensor, state=None, chunk: int = 128,
+              group=None, seq: bool = False):
+    """Full-sequence mLSTM block. x (B, S, D) → (y (B, S, D), new_state).
+    On a tensor-parallel ``group`` the params and state are the rank's
+    heads (see the module's docstring)."""
+    x = _enter(x, group, seq)
+    h, z, st = _mlstm_heads(p, x, state, chunk)
+    y = _norm_over(h, p["ln_scale"], group) * F.silu(z)
+    return _leave(y @ p["down"], group, seq), st
+
+
+def mlstm_step(p, x: torch.Tensor, state, group=None):
+    return mlstm_seq(p, x, state, chunk=1, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -319,22 +417,26 @@ def _slstm_cell(p, gx_t: torch.Tensor, st, n_heads: int, hd: int):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
-def slstm_seq(p, x: torch.Tensor, state=None):
-    """Sequential sLSTM (a non-linear recurrence has no parallel form)."""
+def slstm_seq(p, x: torch.Tensor, state=None, group=None,
+              seq: bool = False):
+    """Sequential sLSTM (a non-linear recurrence has no parallel form). On
+    a tensor-parallel ``group`` the params and state are the rank's heads
+    (see the module's docstring): the heads never mix, so the recurrence
+    needs no exchange."""
+    x = _enter(x, group, seq)
     B, S, D = x.shape
-    di = p["down"].shape[0]
     H, hd = p["r_gates"].shape[0], p["r_gates"].shape[2] // 4
     u = x @ p["up"]
-    st = (slstm_state_init(B, D, n_heads=H, expand=di // D, device=x.device)
+    st = (slstm_state_init(B, H * hd, n_heads=H, expand=1, device=x.device)
           if state is None else state)
     gx = (u @ p["w_gates"]).reshape(B, S, H, 4 * hd)
     hs = []
     for t in range(S):
         st = _slstm_cell(p, gx[:, t], st, H, hd)
         hs.append(st["h"])
-    h = torch.stack(hs, dim=1).reshape(B, S, di)
-    return h.to(x.dtype) @ p["down"], st
+    h = torch.stack(hs, dim=1).reshape(B, S, H * hd)
+    return _leave(h.to(x.dtype) @ p["down"], group, seq), st
 
 
-def slstm_step(p, x: torch.Tensor, state):
-    return slstm_seq(p, x, state)
+def slstm_step(p, x: torch.Tensor, state, group=None):
+    return slstm_seq(p, x, state, group=group)

@@ -96,8 +96,10 @@ def norm_partials(tree, cuts=None, grid=None
     for each set of grid axes that cuts some leaf (``cuts``, a tree of
     ``launch.sharding.Cuts`` matching ``tree``; ``()`` for the whole
     leaves, every leaf without ``cuts``), keyed by the set in grid order,
-    in the order the leaves first show each set. Each sum adds its leaves
-    in tree order, each leaf in slices of at most ``_SLICE`` elements."""
+    in the order the leaves first show each set. A leaf whose grouped cut
+    keeps some groups whole counts those with the axes that cut them
+    (``Cuts.pieces``). Each sum adds its leaves in tree order, each leaf in
+    slices of at most ``_SLICE`` elements."""
     flat = leaves(tree)
     flat_cuts = [None] * len(flat) if cuts is None else leaves(cuts)
     if len(flat_cuts) != len(flat):
@@ -105,10 +107,13 @@ def norm_partials(tree, cuts=None, grid=None
                          "structure")
     out: Dict[Tuple[str, ...], torch.Tensor] = {}
     for leaf, c in zip(flat, flat_cuts):
-        key = () if c is None or grid is None else grid.canon(c.axes)
-        for (s,) in _slices(leaf):
-            v = torch.sum(torch.square(s.to(torch.float32)))
-            out[key] = out[key] + v if key in out else v
+        parts = ([(leaf, ())] if c is None or grid is None
+                 else c.pieces(leaf, grid))
+        for piece, axes in parts:
+            key = () if grid is None else grid.canon(axes)
+            for (s,) in _slices(piece):
+                v = torch.sum(torch.square(s.to(torch.float32)))
+                out[key] = out[key] + v if key in out else v
     return out
 
 

@@ -85,11 +85,11 @@ def _torch():
     return torch
 
 
-def port_rules(name: str, grid):
+def port_rules(name: str, grid, cases=None):
     from repro_torch.configs import get_smoke
     from repro_torch.launch.sharding import make_rules
     from repro_torch.models.sharding import ShardingRules
-    arch, _, fields = CASES[name]
+    arch, _, fields = (cases or CASES)[name][:3]
     if fields == "make_rules":
         return make_rules(get_smoke(arch), grid, "train")
     return ShardingRules(grid=grid, **fields)
@@ -100,9 +100,10 @@ def _numpy(tree):
     return [t.detach().numpy().copy() for t in leaves(tree)]
 
 
-def port_steps(name: str, tree, grid=None):
-    """Case ``name``'s two AdamW steps on the given gradients and its three
-    training steps, on ``grid`` (each rank its slices, the states gathered
+def port_steps(name: str, tree, grid=None, cases=None):
+    """Case ``name``'s (of ``cases``, None: :data:`CASES`) two AdamW
+    steps on the given gradients and its three training steps, on
+    ``grid`` (each rank its slices, the states gathered
     whole) or, without one, on one process (``rules=None``). Returns the
     norms, the losses and each final ``{"params", "opt"}`` state's leaves
     (numpy, in ``tree.flatten``'s order), and the trained state itself."""
@@ -116,9 +117,9 @@ def port_steps(name: str, tree, grid=None):
     from repro_torch.models import model as tmodel
     from repro_torch.training import optimizer as topt
     from repro_torch.tree import flatten, leaves, unflatten
-    cfg = get_smoke(CASES[name][0])
+    cfg = get_smoke((cases or CASES)[name][0])
     ocfg = topt.AdamWConfig()
-    rules = None if grid is None else port_rules(name, grid)
+    rules = None if grid is None else port_rules(name, grid, cases)
     cuts = None if grid is None else param_cuts(cfg, rules)
     state_cuts = (None if grid is None else
                   {"params": cuts, "opt": opt_cuts(cuts)})
@@ -273,8 +274,9 @@ def reference_adamw(tree, steps: int = 2):
     return states, norms
 
 
-def jax_grid_train(path: str, names) -> None:
-    """For each case of ``names``: three steps of the reference's mesh
+def jax_grid_train(path: str, names, cases=None) -> None:
+    """For each case of ``names`` (of ``cases``, None: :data:`CASES`):
+    three steps of the reference's mesh
     train step (``value_and_grad`` and ``adamw_update`` jitted with
     ``param_specs`` and the opt specs that mirror them,
     ``launch/dryrun.py:84-124``), each step's loss and gradient norm and
@@ -292,7 +294,7 @@ def jax_grid_train(path: str, names) -> None:
     from repro.training import optimizer as jopt
     res = {}
     for name in names:
-        arch, shape, fields = CASES[name]
+        arch, shape, fields = (cases or CASES)[name][:3]
         cfg = get_smoke(arch)
         ocfg = jopt.AdamWConfig()
         jp = jax.tree.map(jnp.asarray, reference_params(arch))

@@ -72,9 +72,10 @@ CASES = {
 RESTORE = "heads"
 
 
-def inputs(name: str, vocab: int):
-    """Tokens and labels (B, S) and three decode steps' tokens (B, 1)."""
-    _, _, _, B, S = CASES[name]
+def inputs(name: str, vocab: int, cases=None):
+    """Tokens and labels (B, S) and three decode steps' tokens (B, 1) of
+    case ``name`` of ``cases`` (None: :data:`CASES`)."""
+    _, _, _, B, S = (cases or CASES)[name]
     rng = np.random.default_rng(20)
     tokens = rng.integers(0, vocab, size=(B, S)).astype(np.int32)
     labels = rng.integers(0, vocab, size=(B, S)).astype(np.int32)
@@ -82,9 +83,9 @@ def inputs(name: str, vocab: int):
     return tokens, labels, dec
 
 
-def positions(name: str, step: int) -> np.ndarray:
+def positions(name: str, step: int, cases=None) -> np.ndarray:
     """The decode's positions: lane j continues from row ``S - j``."""
-    _, _, _, B, S = CASES[name]
+    _, _, _, B, S = (cases or CASES)[name]
     return (S - np.arange(B) % 3 + step).astype(np.int32)
 
 
@@ -143,13 +144,14 @@ def _torch():
     return torch
 
 
-def port_rules(name: str, grid, phase: str):
-    """The port's rules for case ``name`` on ``grid`` (a ``Grid``, with or
-    without process groups) in ``phase``."""
+def port_rules(name: str, grid, phase: str, cases=None):
+    """The port's rules for case ``name`` of ``cases`` (None:
+    :data:`CASES`) on ``grid`` (a ``Grid``, with or without process
+    groups) in ``phase``."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch.sharding import make_rules
     from repro_torch.models.sharding import ShardingRules
-    arch, _, fields, _, _ = CASES[name]
+    arch, _, fields, _, _ = (cases or CASES)[name]
     if fields == "make_rules":
         return make_rules(get_smoke(arch), grid, phase)
     return ShardingRules(grid=grid, **fields)
@@ -178,13 +180,13 @@ class _Shapes:
 
 
 def _run_port(torch, name, cfg, params_for, rules_for, tables_for,
-              whole_cache, cache_for):
-    """The loss (and gradients), prefill and decode of case ``name``, with
-    the params, rules, tables and decode cache each phase's callables
-    give. Returns numpy results."""
+              whole_cache, cache_for, cases=None):
+    """The loss (and gradients), prefill and decode of case ``name`` of
+    ``cases`` (None: :data:`CASES`), with the params, rules, tables and
+    decode cache each phase's callables give. Returns numpy results."""
     from repro_torch.models import model as tmodel
     from repro_torch.tree import leaves, tree_map
-    tokens, labels, dec = inputs(name, cfg.vocab)
+    tokens, labels, dec = inputs(name, cfg.vocab, cases)
     batch = {"tokens": torch.from_numpy(tokens),
              "labels": torch.from_numpy(labels)}
     out = {}
@@ -211,24 +213,25 @@ def _run_port(torch, name, cfg, params_for, rules_for, tables_for,
             out["decode"] = []
             for i, tok in enumerate(dec):
                 lg, cache, tal = step(params, torch.from_numpy(tok), cache,
-                                      torch.from_numpy(positions(name, i)),
+                                      torch.from_numpy(positions(name, i,
+                                                                 cases)),
                                       tables_for("decode"))
                 out["decode"].append((lg.numpy(), tal.numpy()))
     out["shapes"] = {k: sorted(v) for k, v in shapes.seen.items()}
     return out
 
 
-def single(name: str, tree):
-    """Case ``name``'s model through the port's ``rules=None`` on one
-    process, decoding from its own prefill's cache (returned as
-    ``whole_cache``)."""
+def single(name: str, tree, cases=None):
+    """Case ``name`` of ``cases`` (None: :data:`CASES`): its model through
+    the port's ``rules=None`` on one process, decoding from its own
+    prefill's cache (returned as ``whole_cache``)."""
     torch = _torch()
     from repro_torch.bridge import params_from_numpy
     from repro_torch.configs import get_smoke
     from repro_torch.models import model as tmodel
-    cfg = get_smoke(CASES[name][0])
+    cfg = get_smoke((cases or CASES)[name][0])
     tables = tmodel.make_moe_tables(cfg)
-    tokens = inputs(name, cfg.vocab)[0]
+    tokens = inputs(name, cfg.vocab, cases)[0]
     with torch.no_grad():
         _, cache, _ = tmodel.prefill_fn(cfg)(
             params_from_numpy(tree), {"tokens": torch.from_numpy(tokens)},
@@ -236,7 +239,7 @@ def single(name: str, tree):
     whole_cache = padded_cache([_np(c) for c in cache])
     out = _run_port(torch, name, cfg, lambda phase: params_from_numpy(tree),
                     lambda phase: None, lambda phase: tables, whole_cache,
-                    lambda c: c)
+                    lambda c: c, cases)
     out["whole_cache"] = whole_cache
     return out
 
@@ -308,8 +311,9 @@ def sp_rank(rank: int, trees, caches, ckpt_dir):
 GRADS_WITHOUT_MESH = ("odd_batch",)
 
 
-def jax_sp(path: str, caches_path: str, names=None) -> None:
-    """Every case of ``names`` (None: all) through the reference on a mesh
+def jax_sp(path: str, caches_path: str, names=None, cases=None) -> None:
+    """Every case of ``names`` (None: all) of ``cases`` (None:
+    :data:`CASES`) through the reference on a mesh
     of its shape (the loss by ``jax.value_and_grad``, the prefill, three
     decode steps from the whole cache in ``caches_path``, written by the
     test), written to ``path`` (.npz); the loss of
@@ -326,7 +330,7 @@ def jax_sp(path: str, caches_path: str, names=None) -> None:
     with np.load(caches_path) as f:
         stored = {k: f[k] for k in f.files}
     res = {}
-    for name, (arch, shape, fields, _, _) in CASES.items():
+    for name, (arch, shape, fields, _, _) in (cases or CASES).items():
         if names is not None and name not in names:
             continue
         cfg = get_smoke(arch)
@@ -339,7 +343,7 @@ def jax_sp(path: str, caches_path: str, names=None) -> None:
             return ShardingRules(mesh=mesh, **fields)
 
         jp = jmodel.init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
-        tokens, labels, dec = inputs(name, cfg.vocab)
+        tokens, labels, dec = inputs(name, cfg.vocab, cases)
         _, specs = jmodel.block_layout(cfg)
         whole = unflat_cache(
             {k[len(name) + 1:]: v for k, v in stored.items()
@@ -391,7 +395,8 @@ def jax_sp(path: str, caches_path: str, names=None) -> None:
             step = jax.jit(jmodel.decode_fn(cfg, rd))
             for i, tok in enumerate(dec):
                 lg, cache, tal = step(jd, jnp.asarray(tok), cache,
-                                      jnp.asarray(positions(name, i)), tab)
+                                      jnp.asarray(positions(name, i, cases)),
+                                      tab)
                 res[key + f"decode/{i}/logits"] = np.asarray(lg)
                 res[key + f"decode/{i}/tallies"] = np.asarray(tal)
     np.savez(path, **res)

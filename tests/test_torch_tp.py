@@ -36,8 +36,8 @@ from repro.models.sharding import ShardingRules as JRules  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_smoke as t_get_smoke  # noqa: E402
 from repro_torch.launch.mesh import Grid, run_ranks  # noqa: E402
-from repro_torch.launch.sharding import (rank_cache,  # noqa: E402
-                                         shard_params)
+from repro_torch.launch.sharding import (make_rules,  # noqa: E402
+                                         rank_cache, shard_params)
 from repro_torch.models import collectives  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.flash import _NEG, flash_decode  # noqa: E402
@@ -266,9 +266,11 @@ def test_heads_split_pairs_kv_groups():
         assert torch.equal(vr, v[:, :, heads])
 
 
-def _cuts(a, parts_grid, dims):
+def _cuts(a, parts_grid, dims, groups=1):
     """Concatenate a (data, model) grid of parts back: ``dims`` = (dim
-    over model or None, dim over data or None); uncut axes must agree."""
+    over model or None, dim over data or None); uncut axes must agree.
+    ``groups``: the model dim is that many equal groups, each part holding
+    its block of each."""
     md, dd = dims
     rows = []
     for row in parts_grid:
@@ -276,7 +278,9 @@ def _cuts(a, parts_grid, dims):
             assert all(torch.equal(x, row[0]) for x in row), a
             rows.append(row[0])
         else:
-            rows.append(torch.cat(row, md))
+            pieces = [x.chunk(groups, md) for x in row]
+            rows.append(torch.cat([torch.cat([p[g] for p in pieces], md)
+                                   for g in range(groups)], md))
     if dd is None:
         assert all(torch.equal(x, rows[0]) for x in rows), a
         return rows[0]
@@ -289,8 +293,10 @@ def _cuts(a, parts_grid, dims):
 def test_shard_params_cuts_every_leaf_kind(arch, attn_mode):
     """On a (2, 2) grid with FSDP over "data" and TP over "model": every
     cut leaf rebuilds from the ranks' slices (attention by heads or whole
-    heads, the dense MLP's F, the (tied) vocabulary, FSDP's d_model); the
-    norms, routers and recurrent mixers are the same tensors."""
+    heads, the dense MLP's F, the (tied) vocabulary, FSDP's d_model, the
+    Mamba mixers' channels, ``in_proj`` as u and z halves); the norms,
+    routers and Mamba's ``dt_bias`` and ``D_skip`` are the same
+    tensors."""
     cfg = t_get_smoke(arch)
     jp = jmodel.init_params(get_smoke(arch), jax.random.PRNGKey(0),
                             dtype=jnp.float32)
@@ -325,6 +331,14 @@ def test_shard_params_cuts_every_leaf_kind(arch, attn_mode):
                 sub[kind]["w1"].shape[-1]) if dense else False
             for n, w in sub[kind].items():
                 got = grid_of(lambda p: p["blocks"][i][kind][n])
+                if kind == "mixer" and spec.mixer == "mamba":
+                    dims = MAMBA_DIMS[n]
+                    if dims is None:
+                        assert all(x is w for row in got for x in row), n
+                    else:
+                        assert torch.equal(_cuts(n, got, dims, 2 if n ==
+                                                 "in_proj" else 1), w), n
+                    continue
                 if not dense:
                     if kind == "mixer" or n == "router":
                         assert all(x is w for row in got for x in row), n
@@ -337,6 +351,12 @@ def test_shard_params_cuts_every_leaf_kind(arch, attn_mode):
                            for p in row)
 
 
+#: a Mamba leaf's (dim over model, dim over data), None: whole
+MAMBA_DIMS = {"in_proj": (2, 1), "conv_w": (2, None), "x_proj": (1, None),
+              "dt_proj": (2, None), "A_log": (1, None), "out_proj": (1, 2),
+              "dt_bias": None, "D_skip": None}
+
+
 def h_dim(n):
     return {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "w1": 2, "w3": 2, "w2": 1}[n]
 
@@ -345,16 +365,39 @@ def d_dim(n):
     return {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w1": 1, "w3": 1, "w2": 2}[n]
 
 
-@pytest.mark.parametrize("name", list(h.CASES) + ["jamba"])
+#: cases beside ``h.CASES``: (arch, grid shape, the rules' fields or
+#: "make_rules")
+CACHE_CASES = {
+    "jamba": ("jamba-1.5-large-398b", (2, 2), dict(dp=("data",),
+                                                   fsdp=None)),
+    "xlstm": ("xlstm-350m", (2, 2), "make_rules"),
+    "xlstm_whole": ("xlstm-350m", (1, 4), "make_rules"),
+}
+
+
+def _spec_slice(shape, spec, mesh):
+    """The shape of a rank's slice of ``shape`` cut by ``spec``."""
+    want = list(shape)
+    for d, part in enumerate(spec):
+        axes = (part,) if isinstance(part, str) else (part or ())
+        for a in axes:
+            want[d] //= mesh.shape[a]
+    return want
+
+
+@pytest.mark.parametrize("name", list(h.CASES) + list(CACHE_CASES))
 def test_rank_cache_gives_cache_specs_shapes(name):
     """Each rank's decode cache has the shape of the reference's
     ``cache_specs`` slice: the lanes over ``dp`` (every batch here divides
-    over "data"), the KV heads or the rows over "model"; recurrent states
-    hold the rank's lanes and stay whole over "model" (the mixers are
-    replicated over ``tp``)."""
-    if name == "jamba":
-        arch, shape, fields = "jamba-1.5-large-398b", (2, 2), dict(
-            dp=("data",), fsdp=None)
+    over "data"), the KV heads or the rows over "model", a split mixer's
+    state by channels (Mamba's ``h`` and ``conv``) or by heads (mLSTM's
+    ``C`` and ``n``, sLSTM's states) over "model". Two departures, named
+    in ``launch/sharding.py``'s docstring: mLSTM's ``m`` is cut by heads
+    where ``cache_specs`` keeps it whole, and where "model" does not
+    divide the heads the xLSTM states stay whole where ``cache_specs``
+    cuts the 4-d ones along hd."""
+    if name in CACHE_CASES:
+        arch, shape, fields = CACHE_CASES[name]
     else:
         arch, shape, fields, _ = h.CASES[name]
     cfg, jcfg = t_get_smoke(arch), get_smoke(arch)
@@ -370,23 +413,37 @@ def test_rank_cache_gives_cache_specs_shapes(name):
     shapes, specs = cache_specs(jcfg, jrules, batch, h.S_MAX)
     whole = tmodel.init_cache(cfg, batch, h.S_MAX, dtype=torch.float32)
     _, lay = tmodel.block_layout(cfg)
+    departed = set()
     for rank in range(shape[0] * shape[1]):
         grid = Grid(shape, h.AXES, rank, {})
-        rules = (h.port_rules(name, grid, "decode") if name != "jamba"
-                 else ShardingRules(grid=grid, **fields))
+        if name not in CACHE_CASES:
+            rules = h.port_rules(name, grid, "decode")
+        elif fields == "make_rules":
+            rules = make_rules(cfg, grid, "decode")
+        else:
+            rules = ShardingRules(grid=grid, **fields)
         got = rank_cache(cfg, whole, rules)
-        for spec, c, w, sh, sp in zip(lay, got, whole, shapes, specs):
-            if spec.mixer != "attn":
-                for a, b in zip(c.values(), w.values()):
-                    assert a.shape[1] == b.shape[1] // shape[0], (name, rank)
-                    assert a.shape[2:] == b.shape[2:], (name, rank)
+        for spec, c, sh, sp in zip(lay, got, shapes, specs):
+            if spec.mixer == "attn":
+                want = _spec_slice(sh[0].shape, sp[0], mesh)
+                assert [list(t.shape) for t in c] == [want, want], (name,
+                                                                    rank)
                 continue
-            want = list(sh[0].shape)
-            for d, part in enumerate(sp[0]):
-                axes = (part,) if isinstance(part, str) else (part or ())
-                for a in axes:
-                    want[d] //= mesh.shape[a]
-            assert [list(t.shape) for t in c] == [want, want], (name, rank)
+            split = rules.mixer_split(cfg, spec.mixer)
+            for k, a in c.items():
+                want = _spec_slice(sh[k].shape, sp[k], mesh)
+                if spec.mixer == "mlstm" and k == "m" and split:
+                    want[2] //= rules.tp_size
+                    departed.add(("m by heads", k))
+                elif spec.mixer != "mamba" and not split and a.dim() == 4:
+                    assert want[3] < sh[k].shape[3], (name, k)
+                    want[3] = sh[k].shape[3]
+                    departed.add(("whole, not along hd", k))
+                assert list(a.shape) == want, (name, rank, spec.mixer, k)
+    assert departed == {"xlstm": {("m by heads", "m")},
+                        "xlstm_whole": {("whole, not along hd", k)
+                                        for k in ("n", "c", "h", "m")}
+                        }.get(name, set()), departed
 
 
 def test_checkpoint_restores_each_ranks_slice(tmp_path, trees):
