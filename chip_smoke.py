@@ -125,8 +125,9 @@ Run from the repository root on a machine with one NVIDIA H100. It
    and backward, is held against its plain version on the same inputs
    (``hold_calls``). Each rank's
    launches are exact against the layer count; each path's host wall
-   time, the exchanges' share of a second run with each collective timed,
-   and each rank's peak memory;
+   time, the exchanges' share of a second run of the 2 x 256 prefill and
+   of a decode step with each collective timed, and each rank's peak
+   memory;
 14. remat (``remat_phase``): one loss and backward at 8 x 512 with and
    without ``ShardingRules(remat=True)``, loss and gradients bit for bit
    equal; the step profile with remat at 8 x 512 and at 4 x 1024;
@@ -171,7 +172,19 @@ Run from the repository root on a machine with one NVIDIA H100. It
    decode steps of 8 lanes and one loss and backward with remat, each bit
    for bit against a witness that computes each mixer as the ranks split
    it and within recorded bounds against one device, with the mixer
-   weight and state bytes a rank (on phase 15's ranks: one start of them).
+   weight and state bytes a rank (on phase 15's ranks: one start of them);
+   and (h), on phase 15's ranks too, the serving engine on the grid:
+   granite at full width and depth on (2, 2) from ``make_rules(cfg, grid,
+   "prefill")`` serving 4 sharegpt requests (16 output tokens each) under
+   ``vibe`` with recalibrations that move expert slots between ranks;
+   the step, token and KV counts against the one-device engine, the first
+   prefill and decode step bit for bit against a one-device witness, each
+   rank's expert slices of both trees after each migration against the
+   whole tree migrated on one device (by digest), every rank's tokens the
+   same, the tokens and TTFT within recorded bounds of the one-device
+   engine, each kernel call of the witness steps against its plain
+   version; a rank's prefill and decode walls, the exchanges' share, each
+   migration's wall and the bytes that crossed ranks, the peak a rank.
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -2418,7 +2431,10 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
                     out["moved"][path + way] = _moved(tal, want_tal)
                 out[f"{path}_drops"] = float(tal[:, -1].sum())
                 out[f"{path}_digest"] = lg.double().sum().item()
-                if not capacity:
+                # the exchanges' share of 4 x 256 and of the backward (83-
+                # 87% in PRs 18-22) are not clocked again: phases 15 and 16
+                # clock theirs
+                if not capacity and not wide:
                     run(path, lambda: fn(local, {"tokens": inputs[key]},
                                          tables), clocked=True)
         elif path == "decode":
@@ -2504,7 +2520,6 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
             out["grad_leaves"] = len(leaves(tparams))
             for p in leaves(tparams):
                 p.grad = None
-            run("backward", step, clocked=True)
             del tparams
         elif path == "vs_plain":
             t0 = time.perf_counter()
@@ -3862,6 +3877,14 @@ def tp_rank(rank, plans, weights, refs, inputs):
             return dataclasses.replace(make_rules(cfg, grid, phase),
                                        **plan["rules"])
 
+        if "engine" in plan["paths"]:
+            results[label] = {"rank": rank} | _engine_rank(
+                cfg, rules_for("prefill"), params, ref, dev)
+            del params, ref, inp
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            continue
         out = {"rank": rank, "seconds": {}, "launches": {}, "exchange": {},
                "rel": {}, "err": {}, "moved": {}, "bits": {}, "digest": {}}
         wit = plan["witness"]
@@ -4076,7 +4099,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
             plan["cfg"], Grid(plan["grid"], EP_AXES, 0, {}), "prefill"),
             **plan["rules"])
         witness = None
-        if plan["witness"]:
+        if plan["witness"] or "engine" in plan["paths"]:
             _, specs = block_layout(plan["cfg"])
             split = any(rules.mixer_split(plan["cfg"], sp.mixer)
                         for sp in specs)
@@ -4091,6 +4114,10 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                        "vocab_tp": (rules.tp_size
                                     if rules.splits(plan["cfg"].vocab)
                                     else 1)}
+        if "engine" in plan["paths"]:
+            refs[plan["label"]] = engine_reference(
+                plan["cfg"], dev, weights[plan["model"]], witness)
+            continue
         weights[plan["model"]], refs[plan["label"]] = tp_reference(
             plan["cfg"], dev, weights[plan["model"]], inputs[plan["model"]],
             [p for p in plan["paths"] if p != "vs_plain"], witness,
@@ -4104,6 +4131,9 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                       timeout_s=600)
     t_ranks = time.perf_counter() - t0
     loss_ref = {k: r["loss"].item() for k, r in refs.items() if "loss" in r}
+    refs_small = {p["label"]: {k: v for k, v in refs[p["label"]].items()
+                               if k != "witness"}
+                  for p in plans if "engine" in p["paths"]}
     del weights, refs, inputs
     _free_shared()
     on_card = dev.type == "cuda"
@@ -4128,6 +4158,11 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     summary = {}
     for plan in plans:
         label = plan["label"]
+        if "engine" in plan["paths"]:
+            summary[label] = _engine_report(
+                tag, label, plan["cfg"], [r[label] for r in ranks],
+                refs_small[label], kernel_bounds, on_card)
+            continue
         n = moe_perm_shape(plan["cfg"])[0] if plan["cfg"].is_moe else 0
         want = {"warm-up": per(n), "prefill": per(n),
                 "decode": per(n, plan["steps"]), "backward": bwd(n),
@@ -4265,6 +4300,8 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                           "parent_gib": parent_gib}
     for plan in plans:
         label = plan["label"]
+        if "engine" in plan["paths"]:
+            continue
         s = summary[label]
         walls = "; ".join(f"{p} " + ", ".join(f"{w * 1e3:.1f}" for w in ws)
                           for p, ws in s["wall_s"].items())
@@ -4369,8 +4406,27 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
         the dense weights' FSDP slices over "data"; a prefill and a loss
         and backward;
 
-    and phase 16 (g) (:func:`sp_phase`), xlstm-350m on (2, 2), on the
-    same ranks: one start of them for both (it takes ~30 s).
+    and phase 16 (g) (:func:`sp_phase`), xlstm-350m on (2, 2), and phase
+    16 (h), the serving engine on (2, 2), on the same ranks: one start of
+    them for all (it takes ~30 s).
+
+    (h): granite at full width and depth on (2, 2) from ``make_rules(cfg,
+    grid, "prefill")`` (EP 2 over "model" at prefill, EP 4 over both axes
+    at decode, FSDP over "data", heads over "model", 2 lanes a rank) serves
+    the slice's 4 sharegpt requests, each cut to 16 output tokens,
+    ``max_batch`` 4, under the ``vibe`` controller (``mi325x``, drift
+    window :data:`ENGINE_DRIFT`), on the seed-0 weights. Held: every
+    request finished, every logit finite; the step, token and KV counts
+    the one-device engine's on the same requests (:func:`engine_reference`);
+    the tallies global at every step (the engine's own assert) and every
+    rank's tokens and tallies the same; after each placement change each
+    rank's expert slices of both trees, by digest, the slices of the whole
+    tree migrated on one device (:func:`_slices_hold`); a recalibration
+    moved slots between ranks; the first prefill and decode step bit for
+    bit against the one-device witness (:func:`_engine_witness`), the
+    tokens and the TTFT within ``ENGINE_BOUNDS`` against the one-device
+    engine as it runs; each rank's launches exact, and in the witness run
+    every kernel call against its plain version (:class:`hold_calls`).
 
     (a), (b), (d) and 16 (g) are held against a witness, one device
     computing the attention, the recurrent mixers and the row-wise steps
@@ -4409,18 +4465,24 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
          "rules": {"attn_mode": "context"}, "witness": True,
          "paths": paths[:2], "steps": steps},
         {"label": "smollm", "model": "smollm", "cfg": smollm, "grid": (1, 4),
-         "rules": {}, "witness": False, "paths": paths, "steps": steps},
+         "rules": {}, "witness": False, "paths": paths, "steps": steps,
+         # its backward's exchange share (89.6-89.9%, PERF.md) is not
+         # clocked again
+         "clocked": ["prefill", "decode"]},
         {"label": "fsdp", "model": "small", "cfg": small, "grid": (2, 2),
          "rules": {"fsdp": ("pod", "data")}, "witness": True,
          "paths": ["prefill", "backward"], "steps": steps},
-        _mixers_plan(xlstm)]
+        _mixers_plan(xlstm),
+        {"label": "engine", "model": "granite", "cfg": cfg, "grid": (2, 2),
+         "rules": {}, "witness": False, "paths": ["engine"], "steps": 1}]
     what = {"heads": "granite, heads (1, 4)",
             "context": "granite, context (1, 4)",
             "smollm": "smollm-360m, context (1, 4), no port kernel on its "
                       "path", "fsdp": "granite 2 layers, heads over model "
                                       "and dense FSDP over data (2, 2)",
             "xlstm": "phase 16 (g), xlstm-350m, mLSTM and sLSTM by heads "
-                     "(2, 2)"}
+                     "(2, 2)",
+            "engine": "phase 16 (h), the serving engine (2, 2)"}
     return _grid_run("tp", plans, weights, inputs, dev,
                      dict(TP_BOUNDS, xlstm=SP_BOUNDS["xlstm"]), what,
                      t_start)
@@ -4563,6 +4625,453 @@ def _mixers_plan(xlstm):
     return {"label": "xlstm", "model": "xlstm", "cfg": xlstm,
             "grid": (2, 2), "rules": {}, "witness": True,
             "paths": ["prefill", "decode", "backward"], "steps": 2}
+
+
+# phase 16 (h): the serving engine on the grid
+ENGINE_REQUESTS = 4
+ENGINE_OUTPUT = 16
+ENGINE_MAX_BATCH = 4
+ENGINE_MAX_SEQ = 1024
+# the controller's drift window: the slice's (``build_engine``: 20 steps)
+# would not fill in the 19 steps of 4 requests of 16 tokens, so nothing
+# would recalibrate; a rolling mean of 4 steps, checked every 2 after a
+# cooldown of 4, recalibrates once decode steps follow the prefills
+ENGINE_DRIFT = dict(window=4, interval=2, cooldown=4)
+# The grid engine against the one-device engine as it runs (the witness
+# holds the first prefill and decode bit for bit): the share of the
+# logged (step, lane) tokens that differ, and the largest relative
+# difference of a request's TTFT on the virtual clock; set at about twice
+# the readings on an H100 80GB HBM3 at 700 W (PERF.md, PR 23; the same
+# in two calls): 13 of 76 tokens (a lane's greedy token flips at a near
+# tie, and the lane decodes another sequence from there), TTFT 1.7e-3.
+ENGINE_BOUNDS = {"tokens": 0.35, "ttft": 3.5e-3}
+
+
+def _engine(cfg, rules, params, dev):
+    """Phase 16 (h)'s engine: the slice's construction (``build_engine``:
+    the ``vibe`` controller on 8 virtual ranks of the ``mi325x`` regime,
+    seed 0) with the drift window :data:`ENGINE_DRIFT`, on ``rules`` (a
+    grid's, or ``None``: one device) and the whole tree ``params``."""
+    from repro_torch.core import (DriftConfig, ViBEConfig, ViBEController,
+                                  make_cluster)
+    from repro_torch.models import moe_perm_shape
+    from repro_torch.serving import Engine, EngineConfig
+    n_moe, n_slots = moe_perm_shape(cfg, rules)
+    ranks = min(8, n_slots)
+    cluster = make_cluster(ranks, "mi325x", d_model=cfg.d_model,
+                           d_ff=cfg.moe_d_ff,
+                           experts_per_rank=max(n_slots // ranks, 1), seed=0)
+    ctl = ViBEController(
+        n_moe, n_slots, ranks, cluster.fit_models(),
+        ViBEConfig(policy="vibe", drift=DriftConfig(**ENGINE_DRIFT),
+                   expert_bytes=3 * cfg.d_model * cfg.moe_d_ff * 2))
+    return Engine(cfg, EngineConfig(max_batch=ENGINE_MAX_BATCH,
+                                    max_seq=ENGINE_MAX_SEQ, seed=0),
+                  rules=rules, controller=ctl, cluster=cluster, device=dev,
+                  params=params)
+
+
+def _engine_requests():
+    """The slice's 4 sharegpt requests, each cut to 16 output tokens."""
+    import dataclasses
+    from repro_torch.launch.serve import make_requests
+    return [dataclasses.replace(r, output_len=min(r.output_len,
+                                                  ENGINE_OUTPUT))
+            for r in make_requests("sharegpt", ENGINE_REQUESTS, qps=50.0,
+                                   max_seq=ENGINE_MAX_SEQ, seed=0)]
+
+
+def _watch_engine(engine, ctx=None):
+    """Wrap ``engine``'s model calls and telemetry. Each prefill and decode
+    call runs inside ``ctx(kind)`` where given, synchronised and timed on
+    the host; the log keeps each call's wall, whether its logits are
+    finite, its tallies' sum, the first call of each kind's logits and
+    tallies, and the lanes' tokens after each step."""
+    import contextlib
+    import torch
+    log = {"walls": {"prefill": [], "decode": []}, "finite": [],
+           "tally_sums": [], "first": {}, "tokens": [], "kinds": []}
+
+    def wrap(kind, fn):
+        def call(*args, **kw):
+            _sync()
+            t0 = time.perf_counter()
+            with (ctx(kind) if ctx else contextlib.nullcontext()):
+                res = fn(*args, **kw)
+            _sync()
+            log["walls"][kind].append(time.perf_counter() - t0)
+            log["kinds"].append(kind)
+            log["finite"].append(bool(torch.isfinite(res[0]).all()))
+            log["tally_sums"].append(float(res[2].sum()))
+            log["first"].setdefault(kind, (res[0].clone(), res[2].clone()))
+            return res
+        return call
+
+    engine._prefill = wrap("prefill", engine._prefill)
+    engine._decode = wrap("decode", engine._decode)
+    observe = engine.observe_step
+
+    def observing(tallies, tokens, latencies=None):
+        log["tokens"].append(engine.tokens.cpu().numpy().copy())
+        return observe(tallies, tokens, latencies)
+
+    engine.observe_step = observing
+    return log
+
+
+def _engine_witness(w, kind):
+    """The one-device witness of the grid engine's prefill (batch 1: every
+    rank computes the whole prompt, attention split by heads; the MoE
+    layer's replicated body adds the ranks' rows, nonzero on one rank
+    each) or decode (the lanes in ``dp`` blocks): :class:`split_attention`
+    and :class:`split_rows` (the ranks run under
+    :class:`ordered_partials` and :class:`exact_decode_psum`)."""
+    import contextlib
+    dp, batch = (1, 1) if kind == "prefill" else (w["dp"], ENGINE_MAX_BATCH)
+    stack = contextlib.ExitStack()
+    stack.enter_context(split_attention(w["mode"], w["tp"], dp))
+    stack.enter_context(split_rows(dp, w["xent_tp"], batch, w["vocab_tp"]))
+    return stack
+
+
+def _engine_ranks_witness():
+    """The ranks' side of :func:`_engine_witness`: the model's sums of
+    rank partials in rank order, the MoE layer's replicated body's rows
+    summed over the ranks before the k-order sum."""
+    import contextlib
+    stack = contextlib.ExitStack()
+    stack.enter_context(ordered_partials())
+    stack.enter_context(exact_decode_psum())
+    return stack
+
+
+def engine_reference(cfg, dev, params, w):
+    """Phase 16 (h)'s one-device runs on ``params``: the engine as it runs
+    (its counts, tokens, TTFTs, walls and migrations) and, under the
+    witness ``w`` (:func:`_engine_witness`), the first prefill's and the
+    first decode step's logits and tallies. Each engine is collected
+    before the next (its wrapped methods hold it in a cycle)."""
+    import gc
+    import torch
+    from repro_torch.serving import summarize
+    eng = _engine(cfg, None, params, dev)
+    log = _watch_engine(eng)
+    eng.submit(_engine_requests())
+    eng.run()
+    st = eng.stats
+    ref = {"counts": {f: getattr(st, f) for f in (
+        "steps", "prefill_steps", "decode_steps", "prefill_tokens",
+        "decode_tokens")}, "kv_peak": eng.kv.peak_blocks,
+        "tokens": log["tokens"], "walls": log["walls"],
+        "ttft": {rid: r.first_token_at - r.arrival
+                 for rid, r in eng.records.items()},
+        "migrations": st.migrations, "migrated_slots": st.migrated_slots,
+        "ttft_p50": summarize(list(eng.records.values()))["ttft_p50"]}
+    del eng, log
+    gc.collect()
+    eng = _engine(cfg, None, params, dev)
+    log = _watch_engine(eng, lambda kind: _engine_witness(w, kind))
+    eng.submit(_engine_requests())
+    with torch.no_grad():
+        while eng.stats.decode_steps < 1:
+            eng.step()
+    ref["witness"] = log["first"]
+    del eng, log
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _slices_hold(engine, whole, gather, rules):
+    """Whether each of the rank's expert slices of both trees is, block by
+    block, by its digest, the slice ``param_cuts`` cuts from the whole tree
+    migrated on one device: slot ``p`` of MoE row ``l`` holding the whole
+    tree's slot ``gather[l, p]`` (the composition of each placement
+    change's ``placement_gather_indices``; what ``apply_placement`` gives
+    applied change by change)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.sharding import cut_tree, param_cuts
+    from repro_torch.models.model import block_layout
+    cfg = engine.cfg
+    nb, specs = block_layout(cfg)
+    pos = [i for i, sp in enumerate(specs) if sp.ffn == "moe"]
+    ok = True
+    for phase, tree in (("prefill", engine.params),
+                        ("decode", engine.decode_params)):
+        cuts = param_cuts(cfg, rules, phase)["blocks"]
+        for jj, i in enumerate(pos):
+            rows = np.arange(nb) * len(pos) + jj
+            for k in ("w1", "w3", "w2"):
+                src, got = whole["blocks"][i]["ffn"][k], \
+                    tree["blocks"][i]["ffn"][k]
+                for b in range(nb):
+                    idx = torch.as_tensor(gather[rows[b]], device=src.device)
+                    want = cut_tree(src[b:b + 1, idx],
+                                    cuts[i]["ffn"][k], rules.grid)[0]
+                    ok &= _bits_digest(want) == _bits_digest(got[b])
+    return bool(ok)
+
+
+def _engine_rank(cfg, rules, params, ref, dev):
+    """Phase 16 (h) on one rank (see :func:`tp_phase`): the engine on the
+    requests, its steps up to the first decode step run under the witness
+    (:class:`ordered_partials` and :class:`exact_decode_psum`, each kernel
+    call held against its plain version), the later ones as it runs; each
+    placement change timed and its slices checked (:func:`_slices_hold`);
+    then one prefill and one decode step again, as it runs, with the
+    exchanges clocked. Returns the numbers; the parent checks them."""
+    import contextlib
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import collectives
+    from repro_torch.models.moe import placement_gather_indices
+    cuda = dev.type == "cuda"
+    out = {}
+    _sync()
+    t0 = time.perf_counter()
+    eng = _engine(cfg, rules, params, dev)
+    _sync()
+    out["build_s"] = time.perf_counter() - t0
+    n_slots = eng.n_slots
+    identity = np.tile(np.arange(n_slots, dtype=np.int32), (eng.n_moe, 1))
+    gather = placement_gather_indices(identity, eng._perm)
+    out["follows"] = eng._dec_follows
+    migrations = [{"wall_s": 0.0, "slots": 0, "rank_bytes":
+                   eng.stats.migration_rank_bytes, "construction": True,
+                   "holds": _slices_hold(eng, params, gather, rules)}]
+    real_apply = eng._apply_perm
+
+    def timed_apply(new_perm, *args, **kw):
+        nonlocal gather
+        before, sent = eng._perm.copy(), eng.stats.migration_rank_bytes
+        _sync()
+        t0 = time.perf_counter()
+        moved = real_apply(new_perm, *args, **kw)
+        _sync()
+        wall = time.perf_counter() - t0
+        gi = placement_gather_indices(before, eng._perm)
+        gather = np.take_along_axis(gather, gi, axis=1)
+        migrations.append({"wall_s": wall, "slots": moved,
+                           "rank_bytes": eng.stats.migration_rank_bytes
+                           - sent, "construction": False,
+                           "holds": _slices_hold(eng, params, gather,
+                                                 rules)})
+        return moved
+
+    eng._apply_perm = timed_apply
+    prefill, decode = eng._prefill, eng._decode
+    held = hold_calls()
+
+    def witness(kind):
+        if log["walls"]["decode"]:          # past the first decode step
+            return contextlib.nullcontext()
+        stack = _engine_ranks_witness()
+        stack.enter_context(held)
+        return stack
+
+    log = _watch_engine(eng, witness)
+    reqs = _engine_requests()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        eng.submit(reqs)
+        eng.run()
+    _sync()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    out["bits"] = {k: bool(torch.equal(log["first"][k][0],
+                                       ref["witness"][k][0])
+                           and torch.equal(log["first"][k][1],
+                                           ref["witness"][k][1]))
+                   for k in ("prefill", "decode")}
+    out["vs_plain"] = {"calls": dict(held.calls), "err": dict(held.err),
+                       "route_mismatch": held.route_mismatch,
+                       "near_rows": held.near_rows}
+    st = eng.stats
+    out["counts"] = {f: getattr(st, f) for f in ref["counts"]}
+    out["kv_peak"] = eng.kv.peak_blocks
+    out["finished"] = sum(bool(np.isfinite(r.finished_at))
+                          for r in eng.records.values())
+    out["ttft"] = {rid: r.first_token_at - r.arrival
+                   for rid, r in eng.records.items()}
+    out["stats"] = {"migrations": st.migrations,
+                    "migrated_slots": st.migrated_slots,
+                    "migration_bytes": st.migration_bytes,
+                    "migration_rank_bytes": st.migration_rank_bytes}
+    out["migrations"] = migrations
+    out |= {k: log[k] for k in ("walls", "finite", "tally_sums", "tokens")}
+    out["calls"] = len(log["finite"])
+    out["witness_calls"] = log["kinds"].index("decode") + 1
+    out["prompts"] = [r.prompt_len for r in reqs]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+
+    # one prefill and one decode step again, each exchange clocked
+    first = reqs[0]
+    prompt = torch.as_tensor(np.random.default_rng(first.req_id).integers(
+        0, cfg.vocab, size=(1, first.prompt_len)), dtype=torch.int32,
+        device=dev)
+    pos = torch.as_tensor(np.minimum(eng.pos, ENGINE_MAX_SEQ - 1),
+                          dtype=torch.int32, device=dev)
+    out["exchange"] = {}
+    for kind, call in (
+            ("prefill", lambda: prefill(eng.params, {"tokens": prompt},
+                                        eng.moe_tables)),
+            ("decode", lambda: decode(eng.decode_params, eng.tokens,
+                                      eng.cache, pos, eng.decode_tables))):
+        collectives.clock.reset()
+        collectives.clock.enabled = True
+        _sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            call()
+        _sync()
+        collectives.clock.enabled = False
+        c = collectives.clock
+        out["exchange"][kind] = {"wall_s": time.perf_counter() - t0,
+                                 "exchange_s": c.seconds, "calls": c.calls,
+                                 "bytes": c.bytes, "prompt": prompt.shape[1]}
+    del eng, log
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _engine_report(tag, label, cfg, rs, ref, kernel_bounds, on_card):
+    """Phase 16 (h)'s checks on the ranks' results ``rs`` against the
+    one-device runs ``ref``, its printed lines, and its summary."""
+    import numpy as np
+    K, L = cfg.top_k, cfg.n_layers
+    name = f"{tag} {label}"
+    for r in rs:
+        who = f"{name} rank {r['rank']}"
+        check(r["counts"] == ref["counts"] and r["kv_peak"] == ref["kv_peak"],
+              f"{who}: steps, tokens and KV {r['counts']}, {r['kv_peak']} "
+              f"against one device's {ref['counts']}, {ref['kv_peak']}")
+        check(r["finished"] == ENGINE_REQUESTS and all(r["finite"]),
+              f"{who}: every request finished, every logit finite")
+        check(all(r["bits"].values()), f"{who}: the first prefill and decode "
+              f"step against the witness, bit for bit {r['bits']}")
+        check(r["follows"], f"{who}: the decode layout follows the a2a "
+              "placement (40 slots in both)")
+        check(all(m["holds"] for m in r["migrations"]),
+              f"{who}: the expert slices of both trees after each placement "
+              f"change against the whole tree migrated on one device "
+              f"{[m['holds'] for m in r['migrations']]}")
+        n = L * r["calls"]
+        want = {"route_select": n, "ragged_moe_ffn": n,
+                "ragged_moe_ffn.tma": n}
+        for k, c in r["launches"].items():
+            check(c == want.get(k, 0) or not on_card,
+                  f"{who}: {k} launched {c} times, expected "
+                  f"{want.get(k, 0)} ({L} x {r['calls']} model calls)")
+        vp = r["vs_plain"]
+        calls = {"route_select": r["witness_calls"] * L,
+                 "ragged_moe_ffn": r["witness_calls"] * L}
+        check(vp["calls"] == calls and vp["route_mismatch"] == 0 and all(
+            vp["err"].get(k, 0.0) <= v for k, v in kernel_bounds.items()),
+              f"{who}: kernel calls against their plain versions "
+              f"{json.dumps(vp)} (expected {calls}, bounds "
+              f"{kernel_bounds})")
+    first = rs[0]
+    for r in rs[1:]:
+        check(len(r["tokens"]) == len(first["tokens"]) and all(
+            np.array_equal(a, b) for a, b in zip(r["tokens"],
+                                                 first["tokens"]))
+              and r["tally_sums"] == first["tally_sums"],
+              f"{name}: rank {r['rank']}'s tokens and tallies against rank "
+              f"0's, step by step")
+    steps = len(ref["tokens"])
+    differ = sum(int((a != b).sum()) for a, b in zip(first["tokens"],
+                                                       ref["tokens"]))
+    token_share = differ / (steps * ENGINE_MAX_BATCH)
+    ttft = max(abs(first["ttft"][k] - v) / v for k, v in ref["ttft"].items())
+    check(token_share <= ENGINE_BOUNDS["tokens"]
+          and ttft <= ENGINE_BOUNDS["ttft"],
+          f"{name} against one device as it runs: tokens that differ "
+          f"{token_share:.4f} of {steps} steps x {ENGINE_MAX_BATCH} lanes, "
+          f"TTFT {ttft:.4f} relative (bounds {ENGINE_BOUNDS})")
+    moved = [m for m in first["migrations"] if not m["construction"]]
+    crossed = max(m["rank_bytes"] for r in rs for m in r["migrations"]
+                  if not m["construction"]) if moved else 0
+    check(first["stats"]["migrations"] >= 1 and crossed > 0,
+          f"{name}: a recalibration moved slots between ranks "
+          f"({first['stats']})")
+    gib = 2 ** 30
+    routed = [s / (K * L) for s in first["tally_sums"]]
+    # the prefills ran under the witness, the decode steps after the first
+    # as they run
+    walls = {"prefill": [statistics.median(r["walls"]["prefill"])
+                         for r in rs],
+             "decode": [statistics.median(r["walls"]["decode"][1:])
+                        for r in rs]}
+    ex = {k: [r["exchange"][k] for r in rs] for k in ("prefill", "decode")}
+
+    def each(xs, scale=1.0, fmt="{:.1f}"):
+        return ", ".join(fmt.format(x * scale) for x in xs)
+
+    c = first["counts"]
+    print(f"[{tag}] phase 16 (h), the engine on (2, 2): {c['steps']} steps "
+          f"({c['prefill_steps']} prefill / {c['decode_steps']} decode), "
+          f"{c['prefill_tokens']} prefill + {c['decode_tokens']} decode "
+          f"tokens, KV peak {first['kv_peak']} blocks (one device the "
+          f"same); built in {each([r['build_s'] for r in rs], fmt='{:.2f}')}"
+          f" s, served in {each([r['run_s'] for r in rs], fmt='{:.2f}')} s "
+          f"a rank; host wall a rank (median, ms) prefill under the "
+          f"witness (partials in rank order, each kernel call held against "
+          f"its plain version) {each(walls['prefill'], 1e3)} (rank 0, "
+          f"prompts of {first['prompts']} tokens in order: "
+          f"{each(first['walls']['prefill'], 1e3)}), as it runs with its "
+          f"exchanges clocked (below) "
+          f"{each([x['wall_s'] for x in ex['prefill']], 1e3)}; decode as "
+          f"it runs {each(walls['decode'], 1e3)}; one device (median, ms) "
+          f"prefill "
+          f"{statistics.median(ref['walls']['prefill']) * 1e3:.1f}, decode "
+          f"{statistics.median(ref['walls']['decode']) * 1e3:.1f}", flush=True)
+    print(f"[{tag}] phase 16 (h) exchanges (each synchronised, rank 0's "
+          f"calls and bytes): " + "; ".join(
+              f"{k} ({xs[0]['prompt'] if k == 'prefill' else ENGINE_MAX_BATCH}"
+              f" {'tokens' if k == 'prefill' else 'lanes'}): "
+              + ", ".join(f"{100 * x['exchange_s'] / x['wall_s']:.1f}%"
+                          for x in xs)
+              + f" of {xs[0]['wall_s'] * 1e3:.1f} ms, {xs[0]['calls']} "
+                f"calls, {xs[0]['bytes'] / 2 ** 20:.3f} MiB"
+              for k, xs in ex.items()), flush=True)
+    print(f"[{tag}] phase 16 (h) placement changes (rank 0; the first is the "
+          f"construction's): walls (s) "
+          f"{[round(m['wall_s'], 4) for m in first['migrations']]}, slots "
+          f"moved {[m['slots'] for m in first['migrations']]} (stats "
+          f"{json.dumps(first['stats'])}; one device "
+          f"{ref['migrations']} recalibrations, {ref['migrated_slots']} "
+          f"slots); expert bytes sent to other ranks a rank "
+          + "; ".join(f"rank {r['rank']} "
+                      f"{[m['rank_bytes'] for m in r['migrations']]}"
+                      for r in rs)
+          + "; slices against the whole tree migrated on one device "
+          f"{[m['holds'] for m in first['migrations']]}", flush=True)
+    print(f"[{tag}] phase 16 (h): peak a rank "
+          f"{each([r['peak_bytes'] / gib for r in rs], fmt='{:.2f}')} GiB; "
+          f"assignments a layer and call (tallies' sum / (top-k x layers)) "
+          f"{routed} (top-{K} x rows: global); launches a rank (rank 0) "
+          f"{json.dumps(first['launches'])} for {first['calls']} model calls;"
+          f" the witness run's kernel calls against their plain versions "
+          f"(worst rank) {json.dumps(first['vs_plain'])}; against one device"
+          f" as it runs: tokens that differ {differ} of "
+          f"{steps * ENGINE_MAX_BATCH}, largest TTFT difference {ttft:.4f} "
+          f"relative (p50 one device {ref['ttft_p50']:.4f} s); the first "
+          f"prefill and decode against the witness {first['bits']}",
+          flush=True)
+    return {"launches_rank0": {"engine": first["launches"]},
+            "calls": first["calls"], "walls_s": walls, "exchange": ex,
+            "migrations": first["migrations"], "stats": first["stats"],
+            "peak_gib": [r["peak_bytes"] / gib for r in rs],
+            "token_share_differ": token_share, "ttft_rel": ttft,
+            "bits": first["bits"], "vs_plain": first["vs_plain"],
+            "counts": first["counts"]}
 
 
 def _restore_one_device(params, digest):
@@ -4847,6 +5356,10 @@ def main() -> int:
          "tp_launches": tp_launches("route_select_bwd"),
          "sp_launches": sp_launches("route_select_bwd"), "library_ms": None},
     ]
+    # phase 16 (h)'s launches a rank, the serving engine on the grid
+    for entry in kernels:
+        entry["engine_launches"] = tp["engine"]["launches_rank0"][
+            "engine"].get(entry["name"], 0)
     print(f"[train] summary: {json.dumps({k: v for k, v in trained.items() if k != 'launches'} | {'kernel_vs_plain': step_cmp})}")
     print(f"[slices] summary: {json.dumps({'drills': drills, 'xlstm': xlstm, 'jamba': jamba})}")
     print(f"[ep] summary: {json.dumps(ep)}")

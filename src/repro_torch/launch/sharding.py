@@ -83,7 +83,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import collectives as C
 from repro_torch.models.model import (block_layout, default_moe_perm,
                                       init_params)
-from repro_torch.models.moe import expand_experts
+from repro_torch.models.moe import expand_experts, placement_gather_indices
 from repro_torch.models.sharding import (DENSE_D_AXIS, DENSE_TP_AXIS,
                                          MIXER_D_AXIS, MIXER_STATE_TP_AXIS,
                                          MIXER_TP_CUT, ShardingRules,
@@ -93,7 +93,7 @@ from repro_torch.tree import tree_map
 
 __all__ = ["make_rules", "Cuts", "param_cuts", "opt_cuts", "cut_tree",
            "gather_params", "gather_to_rank0", "shard_params",
-           "shard_experts",
+           "shard_experts", "migrate_experts",
            "decode_params", "rank_cache", "FSDP_THRESHOLD"]
 
 #: params above this (count) get the experts' FSDP sharding over
@@ -418,6 +418,68 @@ def shard_experts(p: dict, rules: ShardingRules, phase: str) -> dict:
     for k in ("w1", "w3", "w2"):
         out[k] = cut_tree(p[k], _expert_cuts(rules, phase, k), rules.grid)
     return out
+
+
+@torch.no_grad()
+def migrate_experts(leaf: torch.Tensor, cuts: Cuts, old: np.ndarray,
+                    new: np.ndarray, grid) -> Tuple[torch.Tensor, int]:
+    """The rank's slice of a stacked expert matrix after a placement
+    change, and the bytes it sent to other ranks.
+
+    ``leaf`` (L, slots a rank, a, b) is the rank's slice, cut by ``cuts``
+    (:func:`param_cuts`' for an expert matrix: the slot axis, -3, over
+    some axes, possibly another axis over others) of a whole leaf whose
+    ``L`` rows follow the permutations ``old`` and ``new`` (L, n_slots).
+    The result is the rank's slice, by the same cuts, of
+    :func:`repro_torch.models.moe.apply_placement` of the whole leaf:
+    new slot ``p`` takes old slot ``g = placement_gather_indices(old,
+    new)[l, p]``. A slot whose old and new homes are the same rank is
+    copied in place; the others travel in one :func:`collectives.exchange
+    <repro_torch.models.collectives.exchange>` over the group of the slot
+    axes (each rank sending its piece of each such slot to the slot's new
+    home, in (layer, slot) order), and not at all when no slot of the
+    group changes rank. Every rank of the grid calls it with the same
+    permutations."""
+    old, new = np.atleast_2d(old), np.atleast_2d(new)
+    gi = placement_gather_indices(old, new)
+    L, n_slots = gi.shape
+    axes = next((ax for dim, ax, _ in map(_pair, cuts.pairs)
+                 if dim % leaf.dim() == leaf.dim() - 3), ())
+    n = grid.axis_size(axes) if axes else 1
+    r = grid.index(axes) if axes else 0
+    e = n_slots // n
+    flat = leaf.reshape((L, e) + tuple(leaf.shape[-2:]))
+    if flat.shape[0] != L or e * n != n_slots:
+        raise ValueError(f"migrate_experts: a slice {tuple(leaf.shape)} of "
+                         f"{n_slots} slots over {n} ranks, {L} layers")
+    dst = np.broadcast_to(np.arange(n_slots) // e, gi.shape)
+    src = gi // e
+    out = torch.empty_like(flat)
+    here = np.nonzero((dst == r) & (src == r))
+    if here[0].size:
+        li = torch.as_tensor(here[0], device=leaf.device)
+        out[li, torch.as_tensor(here[1] - r * e, device=leaf.device)] = \
+            flat[li, torch.as_tensor(gi[here] - r * e, device=leaf.device)]
+    sent = 0
+    if (src != dst).any():
+        def moves(mask, by):
+            ls, ps = np.nonzero(mask)
+            order = np.argsort(by[ls, ps], kind="stable")
+            ls, ps = ls[order], ps[order]
+            return ls, ps, np.bincount(by[ls, ps], minlength=n)
+
+        ls, ps, n_send = moves((src == r) & (dst != r), dst)
+        lr, pr, n_recv = moves((dst == r) & (src != r), src)
+        rows = flat[torch.as_tensor(ls, device=leaf.device),
+                    torch.as_tensor(gi[ls, ps] - r * e, device=leaf.device)]
+        got = C.exchange(rows.flatten(1), grid.group(axes),
+                         n_send, n_recv)
+        if lr.size:
+            out[torch.as_tensor(lr, device=leaf.device),
+                torch.as_tensor(pr - r * e, device=leaf.device)] = \
+                got.view((len(lr),) + tuple(flat.shape[2:]))
+        sent = rows.numel() * rows.element_size()
+    return out.view(leaf.shape), sent
 
 
 def shard_params(cfg: ArchConfig, params: Any, rules: ShardingRules,

@@ -12,6 +12,8 @@ and a collective whose backward is another all-reduce (as in
 
 * :func:`all_to_all` — equal splits on dim 0; its backward is the mirror
   exchange.
+* :func:`exchange` — rows of dim 0 to each rank in counts of their own
+  (the weights' migration between ranks), outside autograd.
 * :func:`sum_partials` — the ``psum`` of rank partials into a replicated
   output (a row-parallel product's at decode, the vocab-parallel lookup's
   without sequence parallelism); its backward passes the (replicated)
@@ -66,7 +68,7 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_to_all", "sum_partials", "max_over", "mean_over",
+__all__ = ["all_to_all", "exchange", "sum_partials", "max_over", "mean_over",
            "gather_shards", "gather_to", "gather_seq", "scatter_partials",
            "replicate", "take_block", "gather_blocks", "all_reduce_",
            "clock", "ExchangeClock"]
@@ -140,6 +142,23 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
         return _AllToAll.apply(x, group)
     return _a2a(x, group)
+
+
+def exchange(x: torch.Tensor, group, send_counts: Sequence[int],
+             recv_counts: Sequence[int]) -> torch.Tensor:
+    """Rows of ``x`` to the ranks of ``group``: its first ``send_counts[0]``
+    rows to rank 0, the next ``send_counts[1]`` to rank 1, and so on; the
+    result holds the rows each rank sent here, in group order
+    (``recv_counts[j]`` from rank ``j``). Outside autograd. Every rank of
+    the group calls it, and each pair's counts agree."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    out = x.new_empty((int(sum(recv_counts)),) + tuple(x.shape[1:]))
+    clock.run(lambda: dist.all_to_all_single(
+        out, x, output_split_sizes=[int(n) for n in recv_counts],
+        input_split_sizes=[int(n) for n in send_counts], group=group), x)
+    return out
 
 
 class _SumPartials(torch.autograd.Function):

@@ -582,7 +582,13 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
       dispatch; capacity → the dense oracle;
     * a group: the a2a body (prefill, train, chunk) or the replicated body
       (decode), as ``rules.moe_dispatch`` selects; a2a falls back to
-      replicated when ``S`` is not a multiple of the group. On a one-rank
+      replicated when ``S`` is not a multiple of the group, and, a
+      departure from the reference (whose a2a ``shard_map`` needs the
+      batch to split), when ``dp`` does not divide the batch: a prefill of
+      one request on a grid with ``dp > 1`` runs the replicated body on
+      the a2a layout, every rank routing the whole batch, so the tally is
+      global without a sum over the group (a sum over ``dp`` would count
+      it ``dp`` times). On a one-rank
       group without a grid ragged runs the single-device ragged dispatch,
       which computes what the reference's one-rank ragged bodies compute
       (summed in another order).
@@ -633,6 +639,13 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
                          and rows[1] else 1)
         if mode == "a2a" and seq_whole % rules.ep_size != 0:
             mode = "replicated"
+        # the global batch: where the batch splits x holds B/dp rows. A
+        # batch that dp does not divide (the engine's one-request prefill)
+        # has no a2a block on every rank: every rank routes it whole
+        batch_whole = B * (rules.dp_size if rules.grid is not None and rows
+                           and rows[0] else 1)
+        if mode == "a2a" and batch_whole % rules.dp_size != 0:
+            mode = "replicated"
         if mode != "dense" and row_valid is not None:
             raise NotImplementedError(
                 "row_valid (chunked-prefill padding mask) is only supported "
@@ -679,9 +692,6 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     if mode == "a2a":
         ep = rules.ep_size
         dp = rules.axis_size(dp_axes)
-        Bb = B if rows is None else Bg
-        if Bb % dp:
-            raise ValueError(f"a2a dispatch: batch {Bb} over {dp} dp ranks")
         n_slots = p["w1"].shape[0] * ep
         blk = dp_axes + ep_axes
         if rows is None:

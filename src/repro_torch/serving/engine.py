@@ -26,8 +26,45 @@ Differences from the reference:
   (zeroing the rest of a KV lane, as the reference's padded copy does),
   and decode writes each new KV row, and each recurrent mixer's new state
   whole, into the cache in place.
-* Routing tallies come to the host once per step.
+* Routing tallies come to the host once per step, and each step checks
+  that they count ``top_k`` assignments a routed row (a host assert: a
+  tally summed twice over a group fails it).
 * Chunked prefill writes each chunk into its cache lane in place.
+
+On a rank grid (``rules`` with a ``grid``, e.g. ``launch.sharding.
+make_rules(cfg, grid, "prefill")``) the engine runs on every rank of a
+``launch.mesh.run_ranks`` group, each rank holding only its slices:
+
+* two trees: the prefill tree, ``shard_params(cfg, whole, rules,
+  "prefill")`` (the a2a layout: slots over ``ep``, FSDP over ``fsdp``),
+  and the decode tree, whose experts are ``shard_params``' decode cut of
+  the decode fleet's layout (slots over ``ep_all``, or over ``ep`` with F
+  over the rest under ``decode_expert_tp``) and whose other leaves are
+  the prefill tree's (their cuts do not depend on the phase). The whole
+  tree (``params``, or the seeded draw, with the a2a slot count) is cut
+  once and dropped. Each tree has its own tables.
+* one placement, two layouts: the controller's ``perm`` is the a2a
+  layout's (``moe_perm_shape(cfg, rules, "train")``). Where the decode
+  fleet's slot count equals the a2a count, the decode layout takes the
+  same ``perm`` (its slots then map to ranks by the decode fleet's axes);
+  otherwise it is the default replicated layout, each decode slot filled
+  from the first a2a slot that holds its expert, as ``decode_params``
+  builds it.
+* the cache is ``rank_cache(cfg, init_cache(...), rules)``: each rank's
+  ``B/dp`` lanes (``dp`` must divide ``max_batch``); the token buffer and
+  the positions stay whole, and the step functions take the rank's rows.
+  A prefill (one request) returns whole logits and global tallies on
+  every rank, so every rank takes the same token and every rank's
+  scheduler, KV accounting and controller stay in step; its cache is
+  written into the lane on the ``dp`` rank that owns the lane only.
+* a placement change migrates the slots between ranks
+  (``launch.sharding.migrate_experts``: only the slots whose home rank
+  changes cross, in one exchange a leaf), in both trees; both sets of
+  tables are rebuilt. ``stats.migrated_slots`` and ``migration_bytes``
+  count as on one device (the virtual clock is unchanged);
+  ``stats.migration_rank_bytes`` counts the expert bytes this rank sent.
+* refused: chunked prefill (the reference masks no padded rows on a
+  mesh), the capacity path, a ``dp`` that does not divide ``max_batch``.
 """
 
 from __future__ import annotations
@@ -43,12 +80,16 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import (ClusterVariability, ReplicatedPlacement,
                               ViBEController)
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import (migrate_experts, param_cuts,
+                                         rank_cache, shard_experts,
+                                         shard_params)
 from repro_torch.models import (ShardingRules, decode_fn, init_cache,
                                 init_params, make_moe_tables, moe_perm_shape,
                                 prefill_chunk_fn, prefill_fn,
                                 refresh_moe_share_tables)
-from repro_torch.models.model import block_layout
-from repro_torch.models.moe import apply_placement
+from repro_torch.models.model import block_layout, default_moe_perm
+from repro_torch.models.moe import (apply_placement, expand_experts,
+                                    placement_gather_indices)
 from repro_torch.tree import leaves
 from .config import EngineConfig
 from .kvcache import PagedKVCache
@@ -82,6 +123,9 @@ class EngineStats:
     lost_tokens: int = 0
     preemptions: int = 0
     rejected: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # on a rank grid: expert bytes this rank sent to other ranks in
+    # migrations (its pieces of both trees); 0 on one device
+    migration_rank_bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -95,12 +139,16 @@ class _Prefilling:
 
 
 class Engine:
-    """Continuous-batching engine for one model on one device.
+    """Continuous-batching engine for one model on one device, or on every
+    rank of a grid (``rules`` with a ``grid``; see the module's
+    docstring).
 
-    ``Engine(cfg, EngineConfig(...), controller=..., cluster=...,
-    device=None, params=None)``. ``params`` (the port's layout, one slot per
-    expert) replaces the seeded draw — the tests pass the reference's
-    weights through :func:`repro_torch.bridge.params_from_numpy`.
+    ``Engine(cfg, EngineConfig(...), rules=None, controller=...,
+    cluster=..., device=None, params=None)``. ``params`` (the port's
+    layout, whole: one slot per expert, or the a2a slot count on a grid)
+    replaces the seeded draw — the tests pass the reference's weights
+    through :func:`repro_torch.bridge.params_from_numpy`; the engine does
+    not change the caller's tree.
     """
 
     config = EngineConfig()
@@ -134,11 +182,18 @@ class Engine:
         self.moe_impl = moe_impl
         self.weighted_routing = config.weighted_routing
         self.stats = EngineStats()
+        self.grid = self.rules.grid
+        if self.grid is not None:
+            self._refuse_on_grid(config)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = init_params(cfg, gen, self.device)
-        self.params = params
+            params = init_params(cfg, gen, self.device,
+                                 rules=rules, phase="prefill")
+        # the caller's tree keeps its leaves: placement changes replace
+        # the expert leaves in this engine's own dicts
+        self.params = dict(params, blocks=[dict(b) for b in params["blocks"]])
+        del params
         self.n_moe, self.n_slots = (moe_perm_shape(cfg, self.rules, "train")
                                     if cfg.is_moe else (0, 0))
         self._perm = (np.tile(np.arange(self.n_slots, dtype=np.int32),
@@ -166,12 +221,17 @@ class Engine:
             raise ValueError(f"topology has {config.topology.n_ranks} ranks "
                              f"but the controller has {controller.G}")
         self._steal_version = 0
+        self.decode_params = self.decode_tables = None
+        if self.grid is not None:
+            self._cut_trees()
         if controller is not None:
             self._apply_perm(self._controller_perm(), charge=False)
         else:
             self.moe_tables = make_moe_tables(
                 cfg, self.rules, perm=self._perm, n_slots=self.n_slots,
                 device=self.device) if cfg.is_moe else None
+            if self.grid is not None and cfg.is_moe:
+                self._decode_tables_for(None)
         self._prefill = prefill_fn(cfg, self.rules)
         self._decode = decode_fn(cfg, self.rules)
         self.scheduler = get_scheduler(config.scheduler.name)
@@ -184,6 +244,8 @@ class Engine:
         dtype = self.params["embed"].dtype
         self.cache = init_cache(cfg, self.max_batch, self.max_seq,
                                 dtype=dtype, device=self.device)
+        if self.grid is not None:
+            self.cache = rank_cache(cfg, self.cache, self.rules)
         self.tokens = torch.zeros((self.max_batch, 1), dtype=torch.int32,
                                   device=self.device)
         self.pos = np.zeros(self.max_batch, np.int64)
@@ -192,6 +254,88 @@ class Engine:
         self.records: Dict[int, RequestRecord] = {}
         self.waiting: collections.deque = collections.deque()
         self._prefilling: Dict[int, _Prefilling] = {}
+
+    # -- the rank grid --------------------------------------------------------
+
+    def _refuse_on_grid(self, config: EngineConfig) -> None:
+        """What the grid engine does not run, as the reference does not."""
+        if config.scheduler.prefill_chunk > 0:
+            raise ValueError(
+                "prefill_chunk > 0 on a rank grid: chunked prefill masks its "
+                "padded rows only without an expert-parallel group (the "
+                "reference does not implement the row mask on a mesh)")
+        if self.moe_impl == "capacity" or self.rules.moe_impl == "capacity":
+            raise ValueError(
+                "moe_impl='capacity' on a rank grid: its drops depend on the "
+                "rank count, so no one-device run witnesses them; serve the "
+                "ragged path")
+        dp = self.rules.dp_size
+        if self.max_batch % dp:
+            raise ValueError(f"max_batch {self.max_batch} over {dp} dp "
+                             "ranks: each rank holds max_batch/dp lanes, so "
+                             "dp must divide it")
+
+    def _cut_trees(self) -> None:
+        """The rank's prefill and decode trees from the whole one in
+        ``self.params`` (grown to the controller's slot budget already),
+        which is dropped after."""
+        whole, rules = self.params, self.rules
+        self._cuts = {ph: param_cuts(self.cfg, rules, ph)
+                      for ph in ("prefill", "decode")}
+        self.params = shard_params(self.cfg, whole, rules, "prefill")
+        self._dec_follows = False
+        if not self.cfg.is_moe:
+            self.decode_params = self.params
+            return
+        n_moe, self.n_dec = moe_perm_shape(self.cfg, rules, "decode")
+        # the decode layout follows the a2a placement where the slot counts
+        # agree, else it is the default replicated one, fixed
+        self._dec_follows = self.n_dec == self.n_slots
+        self._perm_dec = (self._perm if self._dec_follows
+                          else default_moe_perm(self.cfg, rules, "decode"))
+        nb, specs = block_layout(self.cfg)
+        m = n_moe // nb
+        blocks = list(self.params["blocks"])
+        moe_pos = [i for i, sp in enumerate(specs) if sp.ffn == "moe"]
+        for jj, i in enumerate(moe_pos):
+            ffn = whole["blocks"][i]["ffn"]
+            if not self._dec_follows:
+                ffn = expand_experts(ffn, self._perm[jj::m],
+                                     self._perm_dec[jj::m])
+            blocks[i] = dict(blocks[i], ffn=shard_experts(ffn, rules,
+                                                          "decode"))
+        self.decode_params = dict(self.params, blocks=blocks)
+
+    def _decode_tables_for(self, share) -> None:
+        """The decode tree's tables for the current placement."""
+        if not self.cfg.is_moe:
+            return
+        follows = self._dec_follows
+        self.decode_tables = make_moe_tables(
+            self.cfg, self.rules, perm=self._perm_dec, phase="decode",
+            n_slots=self.n_dec, share=share if follows else None,
+            r_max=self._r_max if follows else None, device=self.device)
+
+    def _migrate_grid(self, i: int, old: np.ndarray,
+                      new: np.ndarray) -> None:
+        """Layer position ``i``'s expert slices in both trees, from the
+        placement ``old`` to ``new`` (the a2a layout's rows of that
+        position), moved between ranks; counts the bytes sent."""
+        trees = [("prefill", self.params, old, new)]
+        if self._dec_follows:
+            trees.append(("decode", self.decode_params, old, new))
+        sent = 0
+        for phase, tree, o, n in trees:
+            leaf = tree["blocks"][i]["ffn"]
+            cuts = self._cuts[phase]["blocks"][i]["ffn"]
+            moved = {}
+            for k in ("w1", "w3", "w2"):
+                moved[k], b = migrate_experts(leaf[k], cuts[k], o, n,
+                                              self.grid)
+                sent += b
+            tree["blocks"][i] = dict(tree["blocks"][i],
+                                     ffn={**leaf, **moved})
+        self.stats.migration_rank_bytes += sent
 
     # -- placement plumbing -------------------------------------------------
 
@@ -249,6 +393,11 @@ class Engine:
         for jj, i in enumerate(moe_positions):
             old_j = self._perm[jj::m] if m else self._perm
             new_j = new_perm[jj::m]
+            if self.grid is not None:
+                gi = placement_gather_indices(old_j, new_j)
+                moved_total += int((gi != np.arange(gi.shape[1])).sum())
+                self._migrate_grid(i, old_j, new_j)
+                continue
             leaf = self.params["blocks"][i]["ffn"]
             migrated, moved = apply_placement(leaf, old_j, new_j)
             self.params["blocks"][i]["ffn"] = {**leaf, **migrated}
@@ -261,6 +410,10 @@ class Engine:
                                           share=self._share,
                                           r_max=self._r_max,
                                           device=self.device)
+        if self.grid is not None:
+            if self._dec_follows:
+                self._perm_dec = self._perm
+            self._decode_tables_for(self._share)
         self._sync_steal_version()
         if charge:
             per_slot = 3 * self.cfg.d_model * self.cfg.moe_d_ff * 2
@@ -302,6 +455,9 @@ class Engine:
         self._share = np.array(rs.placement.share)
         self.moe_tables = refresh_moe_share_tables(
             self.cfg, self.moe_tables, self._perm, self._share)
+        if self.grid is not None and self._dec_follows:
+            self.decode_tables = refresh_moe_share_tables(
+                self.cfg, self.decode_tables, self._perm_dec, self._share)
         self._sync_steal_version()
         self.stats.steal_updates += 1
         if self.cluster is not None:
@@ -428,14 +584,38 @@ class Engine:
         """Copy a prefilled (batch-1) cache into lane ``slot`` in place,
         leaf by leaf: a KV leaf gets the prompt rows, then zeros to
         ``max_seq`` (the reference pads axis 2 where the lengths differ and
-        sets the whole lane); a recurrent state leaf is set whole."""
-        for ec, pc in zip(leaves(self.cache), leaves(pre_cache)):
-            S = pc.shape[2] if pc.ndim >= 3 else None
-            if S is not None and S != ec.shape[2]:
-                ec[:, slot, :S].copy_(pc[:, 0])
+        sets the whole lane); a recurrent state leaf is set whole.
+
+        On a grid the lane is written only on the ``dp`` rank that holds
+        it (its lanes ``[i B/dp, (i + 1) B/dp)``), at its index there, in
+        the rank's layout: the prefill's KV leaves hold the rank's KV heads
+        (heads mode) or every head (else), and every row of the prompt; a
+        context-mode cache holds the rank's ``S_max/tp`` rows, so it takes
+        the prompt's rows that fall there. A split mixer's state is the
+        rank's slice in both."""
+        rows = 0, self.max_seq
+        if self.grid is not None:
+            rules = self.rules
+            if rules.batch_split(self.max_batch):
+                n = self.max_batch // rules.dp_size
+                if slot // n != rules.index(rules.dp_axes):
+                    return                   # another dp rank's lane
+                slot %= n
+            if rules.tp_size > 1 and not rules.heads_split(self.cfg) \
+                    and rules.attn_mode == "context":
+                n = self.max_seq // rules.tp_size
+                r = rules.index(rules.tp_axes)
+                rows = r * n, (r + 1) * n
+        _, specs = block_layout(self.cfg)
+        for spec, ecs, pcs in zip(specs, self.cache, pre_cache):
+            for ec, pc in zip(leaves(ecs), leaves(pcs)):
+                if spec.mixer != "attn":
+                    ec[:, slot].copy_(pc[:, 0])
+                    continue
+                lo, hi = rows
+                S = max(min(pc.shape[2], hi) - lo, 0)
+                ec[:, slot, :S].copy_(pc[:, 0, lo:lo + S])
                 ec[:, slot, S:].zero_()
-            else:
-                ec[:, slot].copy_(pc[:, 0])
 
     def _release(self, lane: int) -> None:
         r = self.slot_req[lane]
@@ -565,9 +745,7 @@ class Engine:
         st.prefilled = r.prompt_len
         self.kv.advance(r.req_id, min(r.prompt_len, self.max_seq))
         self.stats.prefill_tokens += r.prompt_len
-        tall = tallies.cpu().numpy()                  # one host copy a step
-        if self.cfg.is_moe and tall.size:
-            self.stats.dropped_assignments += float(tall[:, -1].sum())
+        tall = self._tallies(tallies, r.prompt_len)
         self.observe_step(tall, float(r.prompt_len))
         self._finish_prefill(st)
         self.stats.prefill_steps += 1
@@ -591,9 +769,7 @@ class Engine:
         # reserved lanes; parking pos at the next chunk offset makes the
         # next chunk's first (always valid) row overwrite it
         self.pos[st.lane] = st.prefilled
-        tall = tallies.cpu().numpy()                  # one host copy a step
-        if self.cfg.is_moe and tall.size:
-            self.stats.dropped_assignments += float(tall[:, -1].sum())
+        tall = self._tallies(tallies, n_valid)
         self.observe_step(tall, float(n_valid))
         self.stats.chunk_steps += 1
         if st.prefilled >= r.prompt_len:
@@ -601,6 +777,22 @@ class Engine:
             self.tokens[st.lane, 0] = nxt[0]
             self._finish_prefill(st)
             self.stats.prefill_steps += 1
+
+    def _tallies(self, tallies: torch.Tensor, rows: int) -> np.ndarray:
+        """A model call's tallies on the host (one copy a step), its drops
+        counted. Each MoE layer routes ``top_k`` assignments a row of the
+        call: a tally that is not global (a rank's own) or is summed twice
+        over a group fails here, before it reaches the controller."""
+        tall = tallies.cpu().numpy()
+        if self.cfg.is_moe and tall.size:
+            routed = tall[:, :self.cfg.n_experts].sum(axis=1)
+            if not np.all(routed == self.cfg.top_k * rows):
+                raise AssertionError(
+                    f"tallies count {sorted(set(routed.tolist()))} "
+                    f"assignments a layer, not top_k x rows = "
+                    f"{self.cfg.top_k} x {rows}")
+            self.stats.dropped_assignments += float(tall[:, -1].sum())
+        return tall
 
     def _finish_prefill(self, st: _Prefilling) -> None:
         r = st.req
@@ -621,12 +813,15 @@ class Engine:
                   if self.slot_req[b] is not None]
         pos = torch.as_tensor(np.minimum(self.pos, self.max_seq - 1),
                               dtype=torch.int32, device=self.device)
+        if self.grid is None:
+            params, tables = self.params, self.moe_tables
+        else:
+            params, tables = self.decode_params, self.decode_tables
         logits, self.cache, tallies = self._decode(
-            self.params, self.tokens, self.cache, pos, self.moe_tables)
+            params, self.tokens, self.cache, pos, tables)
         self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        tall = tallies.cpu().numpy()                  # one host copy a step
-        if self.cfg.is_moe and tall.size:
-            self.stats.dropped_assignments += float(tall[:, -1].sum())
+        # every lane steps, busy or idle, as in the reference
+        tall = self._tallies(tallies, self.max_batch)
         self.observe_step(tall, float(len(active)))
         self.stats.decode_tokens += len(active)
         for b in active:
