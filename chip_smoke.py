@@ -175,7 +175,7 @@ Run from the repository root on a machine with one NVIDIA H100. It
    weight and state bytes a rank (on phase 15's ranks: one start of them);
    and (h), on phase 15's ranks too, the serving engine on the grid:
    granite at full width and depth on (2, 2) from ``make_rules(cfg, grid,
-   "prefill")`` serving 4 sharegpt requests (16 output tokens each) under
+   "prefill")`` serving 4 sharegpt requests (8 output tokens each) under
    ``vibe`` with recalibrations that move expert slots between ranks;
    the step, token and KV counts against the one-device engine, the first
    prefill and decode step bit for bit against a one-device witness, each
@@ -184,7 +184,19 @@ Run from the repository root on a machine with one NVIDIA H100. It
    same, the tokens and TTFT within recorded bounds of the one-device
    engine, each kernel call of the witness steps against its plain
    version; a rank's prefill and decode walls, the exchanges' share, each
-   migration's wall and the bytes that crossed ranks, the peak a rank.
+   migration's wall and the bytes that crossed ranks, the peak a rank;
+   (i), on the same ranks, the chaos drill on the grid engine (``vibe_h``
+   on 2 x 4 at its default slot budget, 48 slots; a virtual rank fails, a
+   stall, a DCN brownout, the rank recovers) with every step under the
+   witness, beside the same drill on one device: the chaos report, the
+   counts, every step's tokens and tallies exactly, each rank's slices of
+   both trees after each migration, no KV block left; each rank's
+   ``fail_rank`` and ``recover_rank`` wall, bytes sent and peak; and (j)
+   the capacity path on the grid engine (the replicated body in every
+   call): every rank's tokens, tallies and drops the same at every step,
+   each call's drops a recount from its routing, ``dropped_assignments``
+   their sum counted once, the first steps' kernel calls against their
+   plain versions; the drops, the walls, the exchanges' share.
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -845,7 +857,8 @@ def chunk_vs_whole(engine, prompt_len=512):
 class timed_faults:
     """Within the block, each ``fail_rank`` and ``recover_rank`` of the
     drills runs with the card synchronised before and after: ``calls``
-    holds (name, rank, wall s, bytes allocated before, peak bytes during).
+    holds (name, rank, wall s, bytes allocated before, peak bytes during,
+    expert bytes the rank sent: 0 on one device).
     The peak counter is reset at each call, so a later read of
     ``max_memory_allocated`` covers the time since the last fault."""
 
@@ -861,14 +874,19 @@ class timed_faults:
         import torch
 
         def call(engine, rank):
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
+            cuda = engine.device.type == "cuda"
+            _sync()
+            before = torch.cuda.memory_allocated() if cuda else 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sent = engine.stats.migration_rank_bytes
             t0 = time.perf_counter()
             report = fn(engine, rank)
-            torch.cuda.synchronize()
+            _sync()
             self.calls.append((fn.__name__, rank, time.perf_counter() - t0,
-                               before, torch.cuda.max_memory_allocated()))
+                               before, torch.cuda.max_memory_allocated()
+                               if cuda else 0,
+                               engine.stats.migration_rank_bytes - sent))
             return report
         return call
 
@@ -881,7 +899,7 @@ def _fault_lines(calls):
     return "; ".join(f"{name}({rank}) {secs * 1e3:.1f} ms, memory "
                      f"{before / 2**30:.2f} GiB before, peak "
                      f"{peak / 2**30:.2f} GiB" for name, rank, secs, before,
-                     peak in calls)
+                     peak, _ in calls)
 
 
 def drill_phase(cfg, dev):
@@ -3877,9 +3895,9 @@ def tp_rank(rank, plans, weights, refs, inputs):
             return dataclasses.replace(make_rules(cfg, grid, phase),
                                        **plan["rules"])
 
-        if "engine" in plan["paths"]:
+        if _served(plan):
             results[label] = {"rank": rank} | _engine_rank(
-                cfg, rules_for("prefill"), params, ref, dev)
+                cfg, rules_for("prefill"), params, ref, dev, _served(plan))
             del params, ref, inp
             gc.collect()
             if cuda:
@@ -4099,7 +4117,8 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
             plan["cfg"], Grid(plan["grid"], EP_AXES, 0, {}), "prefill"),
             **plan["rules"])
         witness = None
-        if plan["witness"] or "engine" in plan["paths"]:
+        kind = _served(plan)
+        if plan["witness"] or kind:
             _, specs = block_layout(plan["cfg"])
             split = any(rules.mixer_split(plan["cfg"], sp.mixer)
                         for sp in specs)
@@ -4114,9 +4133,11 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                        "vocab_tp": (rules.tp_size
                                     if rules.splits(plan["cfg"].vocab)
                                     else 1)}
-        if "engine" in plan["paths"]:
-            refs[plan["label"]] = engine_reference(
-                plan["cfg"], dev, weights[plan["model"]], witness)
+        if kind:
+            refs[plan["label"]] = ({} if kind == "capacity" else
+                                   engine_reference(plan["cfg"], dev,
+                                                    weights[plan["model"]],
+                                                    witness, kind))
             continue
         weights[plan["model"]], refs[plan["label"]] = tp_reference(
             plan["cfg"], dev, weights[plan["model"]], inputs[plan["model"]],
@@ -4133,7 +4154,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     loss_ref = {k: r["loss"].item() for k, r in refs.items() if "loss" in r}
     refs_small = {p["label"]: {k: v for k, v in refs[p["label"]].items()
                                if k != "witness"}
-                  for p in plans if "engine" in p["paths"]}
+                  for p in plans if _served(p)}
     del weights, refs, inputs
     _free_shared()
     on_card = dev.type == "cuda"
@@ -4158,10 +4179,10 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     summary = {}
     for plan in plans:
         label = plan["label"]
-        if "engine" in plan["paths"]:
+        if _served(plan):
             summary[label] = _engine_report(
                 tag, label, plan["cfg"], [r[label] for r in ranks],
-                refs_small[label], kernel_bounds, on_card)
+                refs_small[label], kernel_bounds, on_card, _served(plan))
             continue
         n = moe_perm_shape(plan["cfg"])[0] if plan["cfg"].is_moe else 0
         want = {"warm-up": per(n), "prefill": per(n),
@@ -4300,7 +4321,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                           "parent_gib": parent_gib}
     for plan in plans:
         label = plan["label"]
-        if "engine" in plan["paths"]:
+        if _served(plan):
             continue
         s = summary[label]
         walls = "; ".join(f"{p} " + ", ".join(f"{w * 1e3:.1f}" for w in ws)
@@ -4407,13 +4428,13 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
         and backward;
 
     and phase 16 (g) (:func:`sp_phase`), xlstm-350m on (2, 2), and phase
-    16 (h), the serving engine on (2, 2), on the same ranks: one start of
-    them for all (it takes ~30 s).
+    16 (h)-(j), the serving engine on (2, 2), its drills and its capacity
+    path, on the same ranks: one start of them for all (it takes ~30 s).
 
     (h): granite at full width and depth on (2, 2) from ``make_rules(cfg,
     grid, "prefill")`` (EP 2 over "model" at prefill, EP 4 over both axes
     at decode, FSDP over "data", heads over "model", 2 lanes a rank) serves
-    the slice's 4 sharegpt requests, each cut to 16 output tokens,
+    the slice's 4 sharegpt requests, each cut to 8 output tokens,
     ``max_batch`` 4, under the ``vibe`` controller (``mi325x``, drift
     window :data:`ENGINE_DRIFT`), on the seed-0 weights. Held: every
     request finished, every logit finite; the step, token and KV counts
@@ -4427,6 +4448,22 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
     tokens and the TTFT within ``ENGINE_BOUNDS`` against the one-device
     engine as it runs; each rank's launches exact, and in the witness run
     every kernel call against its plain version (:class:`hold_calls`).
+
+    (i): the same engine under ``vibe_h`` on a 2 x 4 topology at the
+    policy's default slot budget (48 slots, the decode tree in the decode
+    fleet's default 40) runs the chaos drill :data:`DRILL_SCHEDULE` with
+    every step under the witness, beside the same drill on one device
+    under the witness (a routing flip as it runs would move the masked
+    re-solve): the chaos report field for field, the counts and the KV
+    peak, every step's tokens and tallies and every TTFT, each rank's
+    slices after each migration, no KV block held. (j): ``vibe`` on the
+    capacity path (``make_rules(..., moe_impl="capacity")``, factor 1.5:
+    the one-request prefill and decode both run the replicated body, its
+    buckets sized from 2.0) as it runs: every rank's tokens, tallies and
+    drops the same at every step, each call's drops the recount from its
+    routing (:func:`_recount_drops`), ``dropped_assignments`` their sum.
+    Both hold each kernel call of the steps up to the first decode step
+    against its plain version.
 
     (a), (b), (d) and 16 (g) are held against a witness, one device
     computing the attention, the recurrent mixers and the row-wise steps
@@ -4474,7 +4511,12 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
          "paths": ["prefill", "backward"], "steps": steps},
         _mixers_plan(xlstm),
         {"label": "engine", "model": "granite", "cfg": cfg, "grid": (2, 2),
-         "rules": {}, "witness": False, "paths": ["engine"], "steps": 1}]
+         "rules": {}, "witness": False, "paths": ["engine"], "steps": 1},
+        {"label": "drills", "model": "granite", "cfg": cfg, "grid": (2, 2),
+         "rules": {}, "witness": False, "paths": ["drills"], "steps": 1},
+        {"label": "capacity", "model": "granite", "cfg": cfg,
+         "grid": (2, 2), "rules": {"moe_impl": "capacity"},
+         "witness": False, "paths": ["capacity"], "steps": 1}]
     what = {"heads": "granite, heads (1, 4)",
             "context": "granite, context (1, 4)",
             "smollm": "smollm-360m, context (1, 4), no port kernel on its "
@@ -4482,7 +4524,10 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
                                       "and dense FSDP over data (2, 2)",
             "xlstm": "phase 16 (g), xlstm-350m, mLSTM and sLSTM by heads "
                      "(2, 2)",
-            "engine": "phase 16 (h), the serving engine (2, 2)"}
+            "engine": "phase 16 (h), the serving engine (2, 2)",
+            "drills": "phase 16 (i), the drills on the grid engine (2, 2)",
+            "capacity": "phase 16 (j), the capacity path on the grid engine "
+                        "(2, 2)"}
     return _grid_run("tp", plans, weights, inputs, dev,
                      dict(TP_BOUNDS, xlstm=SP_BOUNDS["xlstm"]), what,
                      t_start)
@@ -4627,13 +4672,13 @@ def _mixers_plan(xlstm):
             "paths": ["prefill", "decode", "backward"], "steps": 2}
 
 
-# phase 16 (h): the serving engine on the grid
+# phase 16 (h)-(j): the serving engine on the grid, its drills, its
+# capacity path
 ENGINE_REQUESTS = 4
-ENGINE_OUTPUT = 16
 ENGINE_MAX_BATCH = 4
 ENGINE_MAX_SEQ = 1024
 # the controller's drift window: the slice's (``build_engine``: 20 steps)
-# would not fill in the 19 steps of 4 requests of 16 tokens, so nothing
+# would not fill in the 11 steps of 4 requests of 8 tokens, so nothing
 # would recalibrate; a rolling mean of 4 steps, checked every 2 after a
 # cooldown of 4, recalibrates once decode steps follow the prefills
 ENGINE_DRIFT = dict(window=4, interval=2, cooldown=4)
@@ -4641,19 +4686,46 @@ ENGINE_DRIFT = dict(window=4, interval=2, cooldown=4)
 # holds the first prefill and decode bit for bit): the share of the
 # logged (step, lane) tokens that differ, and the largest relative
 # difference of a request's TTFT on the virtual clock; set at about twice
-# the readings on an H100 80GB HBM3 at 700 W (PERF.md, PR 23; the same
-# in two calls): 13 of 76 tokens (a lane's greedy token flips at a near
-# tie, and the lane decodes another sequence from there), TTFT 1.7e-3.
+# the readings on an H100 80GB HBM3 at 700 W (PERF.md, PR 23, at 16
+# output tokens; the same in two calls): 13 of 76 tokens (a lane's greedy
+# token flips at a near tie, and the lane decodes another sequence from
+# there), TTFT 1.7e-3.
 ENGINE_BOUNDS = {"tokens": 0.35, "ttft": 3.5e-3}
+# (i)'s chaos schedule on the 8 virtual ranks: rank 3 (lane 3, which the
+# grid puts on dp rank 1) fails once the 4 prompts are in and decoding,
+# another rank stalls, the DCN degrades, and rank 3 recovers
+DRILL_SCHEDULE = "fail@5:3,stall@6:2x0.4+0.5,dcn@7x0.5+0.8,recover@10:3"
+# each served plan's output tokens a request and engine (``_engine``'s
+# keywords): (h) the slice's ``vibe`` with the short drift window; (i) the
+# drills' ``vibe_h`` on a 2 x 4 topology at the policy's default slot
+# budget (``vibe`` cannot re-solve 40 experts over 7 survivors) with the
+# serve driver's window; (j) as (h), its rules the capacity path's (the
+# plan's). Outputs cut to what each needs (a decode step takes ~1 s a
+# rank): (h) recalibrates once decode steps follow the prefills, (i)'s
+# faults all fire before the queue drains, (j)'s drops are the prefills'
+SERVED = {"engine": {"output": 8, "engine": {"policy": "vibe",
+                                             "drift": ENGINE_DRIFT}},
+          "drills": {"output": 6, "engine": {
+              "policy": "vibe_h", "topology": "2x4",
+              "drift": dict(window=20, interval=5, cooldown=5)}},
+          "capacity": {"output": 4, "engine": {"policy": "vibe",
+                                               "drift": ENGINE_DRIFT}}}
 
 
-def _engine(cfg, rules, params, dev):
-    """Phase 16 (h)'s engine: the slice's construction (``build_engine``:
-    the ``vibe`` controller on 8 virtual ranks of the ``mi325x`` regime,
-    seed 0) with the drift window :data:`ENGINE_DRIFT`, on ``rules`` (a
-    grid's, or ``None``: one device) and the whole tree ``params``."""
+def _served(plan):
+    """The served path of ``plan`` (a key of :data:`SERVED`), or None."""
+    return next((p for p in plan["paths"] if p in SERVED), None)
+
+
+def _engine(cfg, rules, params, dev, policy="vibe", topology=None,
+            drift=ENGINE_DRIFT):
+    """Phase 16 (h)-(j)'s engine: the slice's construction (``build_engine``:
+    the controller under ``policy`` at its default slot budget on 8 virtual
+    ranks of the ``mi325x`` regime, seed 0, on ``topology`` where given)
+    with the drift window ``drift``, on ``rules`` (a grid's, or ``None``:
+    one device) and the whole tree ``params``."""
     from repro_torch.core import (DriftConfig, ViBEConfig, ViBEController,
-                                  make_cluster)
+                                  make_cluster, parse_topology)
     from repro_torch.models import moe_perm_shape
     from repro_torch.serving import Engine, EngineConfig
     n_moe, n_slots = moe_perm_shape(cfg, rules)
@@ -4661,36 +4733,69 @@ def _engine(cfg, rules, params, dev):
     cluster = make_cluster(ranks, "mi325x", d_model=cfg.d_model,
                            d_ff=cfg.moe_d_ff,
                            experts_per_rank=max(n_slots // ranks, 1), seed=0)
+    topo = (parse_topology(topology, ici_bw=cluster.ici_bw) if topology
+            else None)
     ctl = ViBEController(
         n_moe, n_slots, ranks, cluster.fit_models(),
-        ViBEConfig(policy="vibe", drift=DriftConfig(**ENGINE_DRIFT),
-                   expert_bytes=3 * cfg.d_model * cfg.moe_d_ff * 2))
+        ViBEConfig(policy=policy, drift=DriftConfig(**drift),
+                   expert_bytes=3 * cfg.d_model * cfg.moe_d_ff * 2,
+                   topology=topo))
     return Engine(cfg, EngineConfig(max_batch=ENGINE_MAX_BATCH,
-                                    max_seq=ENGINE_MAX_SEQ, seed=0),
+                                    max_seq=ENGINE_MAX_SEQ, seed=0,
+                                    topology=topo),
                   rules=rules, controller=ctl, cluster=cluster, device=dev,
                   params=params)
 
 
-def _engine_requests():
-    """The slice's 4 sharegpt requests, each cut to 16 output tokens."""
+def _engine_requests(kind):
+    """The slice's 4 sharegpt requests, their outputs cut to the served
+    plan ``kind``'s (:data:`SERVED`)."""
     import dataclasses
     from repro_torch.launch.serve import make_requests
-    return [dataclasses.replace(r, output_len=min(r.output_len,
-                                                  ENGINE_OUTPUT))
+    cap = SERVED[kind]["output"]
+    return [dataclasses.replace(r, output_len=min(r.output_len, cap))
             for r in make_requests("sharegpt", ENGINE_REQUESTS, qps=50.0,
                                    max_seq=ENGINE_MAX_SEQ, seed=0)]
+
+
+def _serve(engine, kind):
+    """The requests through ``engine``: (i)'s chaos drill (its report), or
+    the step loop (None)."""
+    from repro_torch.serving import FaultSchedule, run_chaos
+    reqs = _engine_requests(kind)
+    if kind == "drills":
+        return run_chaos(engine, reqs, FaultSchedule.parse(DRILL_SCHEDULE,
+                                                           8))
+    engine.submit(reqs)
+    engine.run()
+    return None
+
+
+def _chaos_fields(rep):
+    """A chaos report's faults, comparable across engines: each applied
+    spec with its result (a report's fields, a stall's event, a DCN
+    window's bandwidth), the skipped, the steps and the violations."""
+    import dataclasses
+    applied = [(dataclasses.astuple(s),
+                {"dcn_bw": res.dcn_bw} if s.kind == "dcn_degrade"
+                else dataclasses.asdict(res)) for s, res in rep.applied]
+    return {"applied": applied,
+            "skipped": [(dataclasses.astuple(s), why)
+                        for s, why in rep.skipped],
+            "steps": rep.steps, "violations": list(rep.violations)}
 
 
 def _watch_engine(engine, ctx=None):
     """Wrap ``engine``'s model calls and telemetry. Each prefill and decode
     call runs inside ``ctx(kind)`` where given, synchronised and timed on
     the host; the log keeps each call's wall, whether its logits are
-    finite, its tallies' sum, the first call of each kind's logits and
-    tallies, and the lanes' tokens after each step."""
+    finite, its tallies' sum and drop column, the first call of each
+    kind's logits and tallies, and the lanes' tokens after each step."""
     import contextlib
     import torch
     log = {"walls": {"prefill": [], "decode": []}, "finite": [],
-           "tally_sums": [], "first": {}, "tokens": [], "kinds": []}
+           "tally_sums": [], "drops": [], "first": {}, "tokens": [],
+           "kinds": [], "rows": []}
 
     def wrap(kind, fn):
         def call(*args, **kw):
@@ -4701,8 +4806,11 @@ def _watch_engine(engine, ctx=None):
             _sync()
             log["walls"][kind].append(time.perf_counter() - t0)
             log["kinds"].append(kind)
+            log["rows"].append(args[1]["tokens"].shape[1] if kind == "prefill"
+                               else args[1].shape[0])
             log["finite"].append(bool(torch.isfinite(res[0]).all()))
             log["tally_sums"].append(float(res[2].sum()))
+            log["drops"].append(res[2][:, -1].cpu().tolist())
             log["first"].setdefault(kind, (res[0].clone(), res[2].clone()))
             return res
         return call
@@ -4745,36 +4853,56 @@ def _engine_ranks_witness():
     return stack
 
 
-def engine_reference(cfg, dev, params, w):
-    """Phase 16 (h)'s one-device runs on ``params``: the engine as it runs
-    (its counts, tokens, TTFTs, walls and migrations) and, under the
-    witness ``w`` (:func:`_engine_witness`), the first prefill's and the
-    first decode step's logits and tallies. Each engine is collected
-    before the next (its wrapped methods hold it in a cycle)."""
+def engine_reference(cfg, dev, params, w, kind="engine"):
+    """The one-device runs of a served plan on ``params``. (h): the engine
+    as it runs (its counts, tokens, TTFTs, walls and migrations) and,
+    under the witness ``w`` (:func:`_engine_witness`), the first prefill's
+    and the first decode step's logits and tallies. (i): the chaos drill
+    under the witness from its first step to its last (a routing flip as
+    it runs would move the masked re-solve), its report, counts, tokens,
+    tallies and TTFTs. Each engine is collected before the next (its
+    wrapped methods hold it in a cycle)."""
     import gc
     import torch
     from repro_torch.serving import summarize
-    eng = _engine(cfg, None, params, dev)
-    log = _watch_engine(eng)
-    eng.submit(_engine_requests())
-    eng.run()
-    st = eng.stats
-    ref = {"counts": {f: getattr(st, f) for f in (
-        "steps", "prefill_steps", "decode_steps", "prefill_tokens",
-        "decode_tokens")}, "kv_peak": eng.kv.peak_blocks,
-        "tokens": log["tokens"], "walls": log["walls"],
-        "ttft": {rid: r.first_token_at - r.arrival
-                 for rid, r in eng.records.items()},
-        "migrations": st.migrations, "migrated_slots": st.migrated_slots,
-        "ttft_p50": summarize(list(eng.records.values()))["ttft_p50"]}
-    del eng, log
-    gc.collect()
-    eng = _engine(cfg, None, params, dev)
-    log = _watch_engine(eng, lambda kind: _engine_witness(w, kind))
-    eng.submit(_engine_requests())
+    ref = {}
+    if kind == "engine":
+        eng = _engine(cfg, None, params, dev, **SERVED[kind]["engine"])
+        log = _watch_engine(eng)
+        _serve(eng, kind)
+        st = eng.stats
+        ref = {"counts": {f: getattr(st, f) for f in (
+            "steps", "prefill_steps", "decode_steps", "prefill_tokens",
+            "decode_tokens")}, "kv_peak": eng.kv.peak_blocks,
+            "tokens": log["tokens"], "walls": log["walls"],
+            "ttft": {rid: r.first_token_at - r.arrival
+                     for rid, r in eng.records.items()},
+            "migrations": st.migrations, "migrated_slots": st.migrated_slots,
+            "ttft_p50": summarize(list(eng.records.values()))["ttft_p50"]}
+        del eng, log
+        gc.collect()
+    eng = _engine(cfg, None, params, dev, **SERVED[kind]["engine"])
+    log = _watch_engine(eng, lambda k: _engine_witness(w, k))
     with torch.no_grad():
-        while eng.stats.decode_steps < 1:
-            eng.step()
+        if kind == "drills":
+            rep = _serve(eng, kind)
+            st = eng.stats
+            ref = {"counts": {f: getattr(st, f) for f in (
+                "steps", "prefill_steps", "decode_steps", "prefill_tokens",
+                "decode_tokens", "useful_tokens", "lost_tokens",
+                "migrations", "migrated_slots", "migration_bytes",
+                "virtual_time")}, "kv_peak": eng.kv.peak_blocks,
+                "tokens": log["tokens"], "tally_sums": log["tally_sums"],
+                "walls": log["walls"], "report": _chaos_fields(rep),
+                "ttft": {rid: r.first_token_at - r.arrival
+                         for rid, r in eng.records.items()},
+                "requeues": [r.requeues for r in eng.records.values()],
+                "ttft_p50": summarize(list(eng.records.values()))[
+                    "ttft_p50"]}
+        else:
+            eng.submit(_engine_requests(kind))
+            while eng.stats.decode_steps < 1:
+                eng.step()
     ref["witness"] = log["first"]
     del eng, log
     gc.collect()
@@ -4783,13 +4911,15 @@ def engine_reference(cfg, dev, params, w):
     return ref
 
 
-def _slices_hold(engine, whole, gather, rules):
+def _slices_hold(engine, whole, gather, rules, dec_gather=None):
     """Whether each of the rank's expert slices of both trees is, block by
     block, by its digest, the slice ``param_cuts`` cuts from the whole tree
     migrated on one device: slot ``p`` of MoE row ``l`` holding the whole
     tree's slot ``gather[l, p]`` (the composition of each placement
     change's ``placement_gather_indices``; what ``apply_placement`` gives
-    applied change by change)."""
+    applied change by change); the decode tree's slot ``q`` the whole
+    tree's ``dec_gather[l, q]`` where its layout does not follow the
+    placement."""
     import numpy as np
     import torch
     from repro_torch.launch.sharding import cut_tree, param_cuts
@@ -4798,8 +4928,9 @@ def _slices_hold(engine, whole, gather, rules):
     nb, specs = block_layout(cfg)
     pos = [i for i, sp in enumerate(specs) if sp.ffn == "moe"]
     ok = True
-    for phase, tree in (("prefill", engine.params),
-                        ("decode", engine.decode_params)):
+    for phase, tree, g in (("prefill", engine.params, gather),
+                           ("decode", engine.decode_params,
+                            gather if dec_gather is None else dec_gather)):
         cuts = param_cuts(cfg, rules, phase)["blocks"]
         for jj, i in enumerate(pos):
             rows = np.arange(nb) * len(pos) + jj
@@ -4807,42 +4938,121 @@ def _slices_hold(engine, whole, gather, rules):
                 src, got = whole["blocks"][i]["ffn"][k], \
                     tree["blocks"][i]["ffn"][k]
                 for b in range(nb):
-                    idx = torch.as_tensor(gather[rows[b]], device=src.device)
+                    idx = torch.as_tensor(g[rows[b]], device=src.device)
                     want = cut_tree(src[b:b + 1, idx],
                                     cuts[i]["ffn"][k], rules.grid)[0]
                     ok &= _bits_digest(want) == _bits_digest(got[b])
     return bool(ok)
 
 
-def _engine_rank(cfg, rules, params, ref, dev):
-    """Phase 16 (h) on one rank (see :func:`tp_phase`): the engine on the
-    requests, its steps up to the first decode step run under the witness
-    (:class:`ordered_partials` and :class:`exact_decode_psum`, each kernel
-    call held against its plain version), the later ones as it runs; each
-    placement change timed and its slices checked (:func:`_slices_hold`);
-    then one prefill and one decode step again, as it runs, with the
-    exchanges clocked. Returns the numbers; the parent checks them."""
+class clocked:
+    """Within the block the exchanges are clocked (``collectives.clock``,
+    each synchronised); on leaving it ``store[key]`` holds the block's
+    wall, the exchanges' seconds, calls and bytes, and ``extra``."""
+
+    def __init__(self, store, key, **extra):
+        self.store, self.key, self.extra = store, key, extra
+
+    def __enter__(self):
+        from repro_torch.models import collectives
+        collectives.clock.reset()
+        collectives.clock.enabled = True
+        _sync()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import collectives
+        _sync()
+        c = collectives.clock
+        c.enabled = False
+        self.store[self.key] = {"wall_s": time.perf_counter() - self.t0,
+                                "exchange_s": c.seconds, "calls": c.calls,
+                                "bytes": c.bytes} | self.extra
+
+
+class capture_slots:
+    """Within the block each routing call's slots (t, top_k) are kept on
+    the host, in call order (for a recount of the capacity drops)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as tmoe
+        self.saved = real = tmoe.ops
+        self.calls = calls = []
+
+        class Ops:
+            def __getattr__(self, name):
+                return getattr(real, name)
+
+            @staticmethod
+            def route_select(*args, **kw):
+                res = real.route_select(*args, **kw)
+                calls.append(res[2].cpu().numpy())
+                return res
+
+        tmoe.ops = Ops()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as tmoe
+        tmoe.ops = self.saved
+
+
+def _recount_drops(slots, t, top_k, n_slots, cf):
+    """A replicated capacity body's drops in one layer, recounted from its
+    routing (every rank routes the call's ``t`` rows whole): each slot
+    keeps its first ``C`` assignments, ``C`` sized as ``moe_layer`` sizes
+    it from ``max(cf, 2)``. Returns (drops, C)."""
+    import numpy as np
+    cap = max(math.ceil(t * top_k / n_slots * max(cf, 2.0)), 4)
+    cap = -(-cap // 4) * 4
+    counts = np.bincount(slots.reshape(-1), minlength=n_slots)
+    return int(np.maximum(counts - cap, 0).sum()), cap
+
+
+def _engine_rank(cfg, rules, params, ref, dev, kind="engine"):
+    """Phase 16 (h)-(j) on one rank (see :func:`tp_phase`): the plan's
+    engine on the requests (``kind``: the step loop, or (i)'s chaos drill
+    with each fault timed), each placement change timed and its slices
+    checked (:func:`_slices_hold`). (h): the steps up to the first decode
+    step under the witness (:class:`ordered_partials`,
+    :class:`exact_decode_psum`), the later ones as it runs; (i): every
+    step under the witness; (j): as it runs, each routing call's slots
+    kept for the recount of the drops. (h), (i): the steps up to the first
+    decode step hold each kernel call against its plain version, (j): its
+    first prefill and decode step; (h): its second decode step runs with
+    the exchanges clocked, (j): its second prefill and decode step (each
+    as it runs). Returns the numbers; the parent checks them."""
     import contextlib
     import gc
     import numpy as np
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.models import collectives
+    from repro_torch.models.model import default_moe_perm
     from repro_torch.models.moe import placement_gather_indices
     cuda = dev.type == "cuda"
     out = {}
     _sync()
     t0 = time.perf_counter()
-    eng = _engine(cfg, rules, params, dev)
+    eng = _engine(cfg, rules, params, dev, **SERVED[kind]["engine"])
     _sync()
     out["build_s"] = time.perf_counter() - t0
-    n_slots = eng.n_slots
-    identity = np.tile(np.arange(n_slots, dtype=np.int32), (eng.n_moe, 1))
-    gather = placement_gather_indices(identity, eng._perm)
-    out["follows"] = eng._dec_follows
+    out["build_peak_bytes"] = (torch.cuda.max_memory_allocated() if cuda
+                               else 0)
+    n_slots, n_whole = eng.n_slots, params["blocks"][0]["ffn"]["w1"].shape[1]
+    # the table at the cut: the whole tree's slots, grown round-robin
+    grown = np.tile(np.concatenate([np.arange(n_whole), np.arange(
+        n_whole, n_slots) % cfg.n_experts]).astype(np.int32), (eng.n_moe, 1))
+    gather = np.take_along_axis(
+        grown, placement_gather_indices(grown, eng._perm), axis=1)
+    out["follows"], out["n_slots"] = eng._dec_follows, n_slots
+    # a decode layout that does not follow holds each expert's whole slot
+    dec_gather = (None if eng._dec_follows
+                  else default_moe_perm(cfg, rules, "decode"))
     migrations = [{"wall_s": 0.0, "slots": 0, "rank_bytes":
                    eng.stats.migration_rank_bytes, "construction": True,
-                   "holds": _slices_hold(eng, params, gather, rules)}]
+                   "holds": _slices_hold(eng, params, gather, rules,
+                                         dec_gather)}]
     real_apply = eng._apply_perm
 
     def timed_apply(new_perm, *args, **kw):
@@ -4859,27 +5069,40 @@ def _engine_rank(cfg, rules, params, ref, dev):
                            "rank_bytes": eng.stats.migration_rank_bytes
                            - sent, "construction": False,
                            "holds": _slices_hold(eng, params, gather,
-                                                 rules)})
+                                                 rules, dec_gather)})
         return moved
 
     eng._apply_perm = timed_apply
-    prefill, decode = eng._prefill, eng._decode
     held = hold_calls()
 
-    def witness(kind):
-        if log["walls"]["decode"]:          # past the first decode step
-            return contextlib.nullcontext()
-        stack = _engine_ranks_witness()
-        stack.enter_context(held)
+    out["exchange"] = {}
+
+    def witness(k):
+        first = not log["walls"]["decode"]        # up to the first decode
+        stack = (_engine_ranks_witness() if kind == "drills"
+                 or (kind == "engine" and first)
+                 else contextlib.ExitStack())
+        # (h), (i): the calls up to the first decode step held; (j): the
+        # first call of each kind. (h): the second decode step clocked,
+        # (j): the second call of each kind (they run as they run)
+        n = len(log["walls"][k])
+        if (first if kind != "capacity" else n == 0):
+            stack.enter_context(held)
+        if n == 1 and (kind == "capacity"
+                       or (kind == "engine" and k == "decode")):
+            stack.enter_context(clocked(out["exchange"], k,
+                                        call=len(log["kinds"])))
         return stack
 
     log = _watch_engine(eng, witness)
-    reqs = _engine_requests()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with torch.no_grad():
-        eng.submit(reqs)
-        eng.run()
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+        faults = (stack.enter_context(timed_faults()) if kind == "drills"
+                  else None)
+        slots = (stack.enter_context(capture_slots()) if kind == "capacity"
+                 else None)
+        rep = _serve(eng, kind)
     _sync()
     out["run_s"] = time.perf_counter() - t0
     out["launches"] = ops.launch_counts()
@@ -4887,53 +5110,55 @@ def _engine_rank(cfg, rules, params, ref, dev):
                                        ref["witness"][k][0])
                            and torch.equal(log["first"][k][1],
                                            ref["witness"][k][1]))
-                   for k in ("prefill", "decode")}
+                   for k in ("prefill", "decode")} if ref else {}
     out["vs_plain"] = {"calls": dict(held.calls), "err": dict(held.err),
                        "route_mismatch": held.route_mismatch,
                        "near_rows": held.near_rows}
     st = eng.stats
-    out["counts"] = {f: getattr(st, f) for f in ref["counts"]}
+    out["counts"] = {f: getattr(st, f) for f in (
+        "steps", "prefill_steps", "decode_steps", "prefill_tokens",
+        "decode_tokens", "useful_tokens", "lost_tokens", "migrations",
+        "migrated_slots", "migration_bytes", "virtual_time")}
     out["kv_peak"] = eng.kv.peak_blocks
+    out["kv_held"] = (eng.kv.used_blocks, eng.kv.n_seqs)
     out["finished"] = sum(bool(np.isfinite(r.finished_at))
                           for r in eng.records.values())
     out["ttft"] = {rid: r.first_token_at - r.arrival
                    for rid, r in eng.records.items()}
+    out["requeues"] = [r.requeues for r in eng.records.values()]
     out["stats"] = {"migrations": st.migrations,
                     "migrated_slots": st.migrated_slots,
                     "migration_bytes": st.migration_bytes,
-                    "migration_rank_bytes": st.migration_rank_bytes}
+                    "migration_rank_bytes": st.migration_rank_bytes,
+                    "dropped_assignments": st.dropped_assignments}
     out["migrations"] = migrations
-    out |= {k: log[k] for k in ("walls", "finite", "tally_sums", "tokens")}
+    out |= {k: log[k] for k in ("walls", "finite", "tally_sums", "tokens",
+                                "drops", "kinds")}
     out["calls"] = len(log["finite"])
-    out["witness_calls"] = log["kinds"].index("decode") + 1
-    out["prompts"] = [r.prompt_len for r in reqs]
+    out["held_calls"] = (2 if kind == "capacity"
+                         else log["kinds"].index("decode") + 1)
+    out["rows"] = log["rows"]
+    out["prompts"] = [r.prompt_len for r in _engine_requests(kind)]
     out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
-
-    # one prefill and one decode step again, each exchange clocked
-    first = reqs[0]
-    prompt = torch.as_tensor(np.random.default_rng(first.req_id).integers(
-        0, cfg.vocab, size=(1, first.prompt_len)), dtype=torch.int32,
-        device=dev)
-    pos = torch.as_tensor(np.minimum(eng.pos, ENGINE_MAX_SEQ - 1),
-                          dtype=torch.int32, device=dev)
-    out["exchange"] = {}
-    for kind, call in (
-            ("prefill", lambda: prefill(eng.params, {"tokens": prompt},
-                                        eng.moe_tables)),
-            ("decode", lambda: decode(eng.decode_params, eng.tokens,
-                                      eng.cache, pos, eng.decode_tables))):
-        collectives.clock.reset()
-        collectives.clock.enabled = True
-        _sync()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            call()
-        _sync()
-        collectives.clock.enabled = False
-        c = collectives.clock
-        out["exchange"][kind] = {"wall_s": time.perf_counter() - t0,
-                                 "exchange_s": c.seconds, "calls": c.calls,
-                                 "bytes": c.bytes, "prompt": prompt.shape[1]}
+    if rep is not None:
+        out["report"] = _chaos_fields(rep)
+        out["faults"] = faults.calls
+    if slots is not None:
+        # each call's drops a layer, recounted (the replicated body: every
+        # rank routed the call's rows whole)
+        L, K = eng.n_moe, cfg.top_k
+        out["recount"], out["capacity_rows"], out["routed_whole"] = [], [], []
+        for c, (kind_c, t) in enumerate(zip(log["kinds"], log["rows"])):
+            n = n_slots if kind_c == "prefill" else eng.n_dec
+            got = [_recount_drops(s, t, K, n, rules.capacity_factor)
+                   for s in slots.calls[c * L:(c + 1) * L]]
+            out["recount"].append([g[0] for g in got])
+            out["capacity_rows"].append(got[0][1])
+            out["routed_whole"].append(all(
+                s.shape[0] == t for s in slots.calls[c * L:(c + 1) * L]))
+        out["route_calls"] = len(slots.calls)
+    for x in out["exchange"].values():
+        x["prompt"] = log["rows"][x.pop("call")]
     del eng, log
     gc.collect()
     if cuda:
@@ -4941,137 +5166,215 @@ def _engine_rank(cfg, rules, params, ref, dev):
     return out
 
 
-def _engine_report(tag, label, cfg, rs, ref, kernel_bounds, on_card):
-    """Phase 16 (h)'s checks on the ranks' results ``rs`` against the
-    one-device runs ``ref``, its printed lines, and its summary."""
+def _each(xs, scale=1.0, fmt="{:.1f}"):
+    return ", ".join(fmt.format(x * scale) for x in xs)
+
+
+def _engine_report(tag, label, cfg, rs, ref, kernel_bounds, on_card,
+                   kind="engine"):
+    """Phase 16 (h)-(j)'s checks on the ranks' results ``rs`` (against the
+    one-device runs ``ref`` for (h) and (i)), its printed lines, and its
+    summary."""
     import numpy as np
     K, L = cfg.top_k, cfg.n_layers
     name = f"{tag} {label}"
+    part = {"engine": "(h)", "drills": "(i)", "capacity": "(j)"}[kind]
+    ffn = "fused_moe_ffn" if kind == "capacity" else "ragged_moe_ffn"
     for r in rs:
         who = f"{name} rank {r['rank']}"
-        check(r["counts"] == ref["counts"] and r["kv_peak"] == ref["kv_peak"],
-              f"{who}: steps, tokens and KV {r['counts']}, {r['kv_peak']} "
-              f"against one device's {ref['counts']}, {ref['kv_peak']}")
         check(r["finished"] == ENGINE_REQUESTS and all(r["finite"]),
               f"{who}: every request finished, every logit finite")
-        check(all(r["bits"].values()), f"{who}: the first prefill and decode "
-              f"step against the witness, bit for bit {r['bits']}")
-        check(r["follows"], f"{who}: the decode layout follows the a2a "
-              "placement (40 slots in both)")
         check(all(m["holds"] for m in r["migrations"]),
               f"{who}: the expert slices of both trees after each placement "
               f"change against the whole tree migrated on one device "
               f"{[m['holds'] for m in r['migrations']]}")
         n = L * r["calls"]
-        want = {"route_select": n, "ragged_moe_ffn": n,
-                "ragged_moe_ffn.tma": n}
+        want = {"route_select": n, ffn: n, f"{ffn}.tma": n}
         for k, c in r["launches"].items():
             check(c == want.get(k, 0) or not on_card,
                   f"{who}: {k} launched {c} times, expected "
                   f"{want.get(k, 0)} ({L} x {r['calls']} model calls)")
         vp = r["vs_plain"]
-        calls = {"route_select": r["witness_calls"] * L,
-                 "ragged_moe_ffn": r["witness_calls"] * L}
+        calls = {"route_select": r["held_calls"] * L,
+                 ffn: r["held_calls"] * L}
         check(vp["calls"] == calls and vp["route_mismatch"] == 0 and all(
             vp["err"].get(k, 0.0) <= v for k, v in kernel_bounds.items()),
               f"{who}: kernel calls against their plain versions "
               f"{json.dumps(vp)} (expected {calls}, bounds "
               f"{kernel_bounds})")
+        if kind == "capacity":
+            continue
+        check(r["counts"]["steps"] == ref["counts"]["steps"] and all(
+            r["counts"][f] == v for f, v in ref["counts"].items())
+              and r["kv_peak"] == ref["kv_peak"],
+              f"{who}: counts and KV {r['counts']}, {r['kv_peak']} "
+              f"against one device's {ref['counts']}, {ref['kv_peak']}")
+        check(all(r["bits"].values()), f"{who}: the first prefill and decode "
+              f"step against the witness, bit for bit {r['bits']}")
+        if kind == "engine":
+            check(r["follows"], f"{who}: the decode layout follows the a2a "
+                  "placement (40 slots in both)")
+            continue
+        check(not r["follows"] and r["n_slots"] > cfg.n_experts,
+              f"{who}: {r['n_slots']} slots, the decode tree in the fleet's "
+              f"default layout")
+        check(r["kv_held"] == (0, 0), f"{who}: KV blocks and sequences "
+              f"held after the drill {r['kv_held']}")
+        check(r["report"] == ref["report"] and r["report"]["violations"]
+              == [] and r["requeues"] == ref["requeues"],
+              f"{who}: the chaos report {json.dumps(r['report'])} against "
+              f"one device's {json.dumps(ref['report'])}, requeues "
+              f"{r['requeues']} / {ref['requeues']}")
+        check(len(r["tokens"]) == len(ref["tokens"]) and all(
+            np.array_equal(a, b) for a, b in zip(r["tokens"], ref["tokens"]))
+              and r["tally_sums"] == ref["tally_sums"]
+              and r["ttft"] == ref["ttft"],
+              f"{who}: every step's tokens and tallies and every TTFT "
+              f"against the one-device drill under the witness")
     first = rs[0]
     for r in rs[1:]:
         check(len(r["tokens"]) == len(first["tokens"]) and all(
             np.array_equal(a, b) for a, b in zip(r["tokens"],
                                                  first["tokens"]))
-              and r["tally_sums"] == first["tally_sums"],
-              f"{name}: rank {r['rank']}'s tokens and tallies against rank "
-              f"0's, step by step")
-    steps = len(ref["tokens"])
-    differ = sum(int((a != b).sum()) for a, b in zip(first["tokens"],
-                                                       ref["tokens"]))
-    token_share = differ / (steps * ENGINE_MAX_BATCH)
-    ttft = max(abs(first["ttft"][k] - v) / v for k, v in ref["ttft"].items())
-    check(token_share <= ENGINE_BOUNDS["tokens"]
-          and ttft <= ENGINE_BOUNDS["ttft"],
-          f"{name} against one device as it runs: tokens that differ "
-          f"{token_share:.4f} of {steps} steps x {ENGINE_MAX_BATCH} lanes, "
-          f"TTFT {ttft:.4f} relative (bounds {ENGINE_BOUNDS})")
-    moved = [m for m in first["migrations"] if not m["construction"]]
-    crossed = max(m["rank_bytes"] for r in rs for m in r["migrations"]
-                  if not m["construction"]) if moved else 0
-    check(first["stats"]["migrations"] >= 1 and crossed > 0,
-          f"{name}: a recalibration moved slots between ranks "
-          f"({first['stats']})")
+              and r["tally_sums"] == first["tally_sums"]
+              and r["drops"] == first["drops"]
+              and r.get("report") == first.get("report"),
+              f"{name}: rank {r['rank']}'s tokens, tallies, drops and faults "
+              f"against rank 0's, step by step")
     gib = 2 ** 30
-    routed = [s / (K * L) for s in first["tally_sums"]]
-    # the prefills ran under the witness, the decode steps after the first
-    # as they run
+    c = first["counts"]
+    s = {"launches_rank0": {kind: first["launches"]},
+         "calls": first["calls"], "migrations": first["migrations"],
+         "stats": first["stats"], "counts": c,
+         "peak_gib": [r["peak_bytes"] / gib for r in rs],
+         "build_peak_gib": [r["build_peak_bytes"] / gib for r in rs],
+         "bits": first["bits"], "vs_plain": first["vs_plain"]}
     walls = {"prefill": [statistics.median(r["walls"]["prefill"])
                          for r in rs],
              "decode": [statistics.median(r["walls"]["decode"][1:])
                         for r in rs]}
-    ex = {k: [r["exchange"][k] for r in rs] for k in ("prefill", "decode")}
-
-    def each(xs, scale=1.0, fmt="{:.1f}"):
-        return ", ".join(fmt.format(x * scale) for x in xs)
-
-    c = first["counts"]
-    print(f"[{tag}] phase 16 (h), the engine on (2, 2): {c['steps']} steps "
+    s["walls_s"] = walls
+    print(f"[{tag}] phase 16 {part}, {label} on (2, 2): {c['steps']} steps "
           f"({c['prefill_steps']} prefill / {c['decode_steps']} decode), "
           f"{c['prefill_tokens']} prefill + {c['decode_tokens']} decode "
-          f"tokens, KV peak {first['kv_peak']} blocks (one device the "
-          f"same); built in {each([r['build_s'] for r in rs], fmt='{:.2f}')}"
-          f" s, served in {each([r['run_s'] for r in rs], fmt='{:.2f}')} s "
-          f"a rank; host wall a rank (median, ms) prefill under the "
-          f"witness (partials in rank order, each kernel call held against "
-          f"its plain version) {each(walls['prefill'], 1e3)} (rank 0, "
-          f"prompts of {first['prompts']} tokens in order: "
-          f"{each(first['walls']['prefill'], 1e3)}), as it runs with its "
-          f"exchanges clocked (below) "
-          f"{each([x['wall_s'] for x in ex['prefill']], 1e3)}; decode as "
-          f"it runs {each(walls['decode'], 1e3)}; one device (median, ms) "
-          f"prefill "
-          f"{statistics.median(ref['walls']['prefill']) * 1e3:.1f}, decode "
-          f"{statistics.median(ref['walls']['decode']) * 1e3:.1f}", flush=True)
-    print(f"[{tag}] phase 16 (h) exchanges (each synchronised, rank 0's "
-          f"calls and bytes): " + "; ".join(
-              f"{k} ({xs[0]['prompt'] if k == 'prefill' else ENGINE_MAX_BATCH}"
-              f" {'tokens' if k == 'prefill' else 'lanes'}): "
-              + ", ".join(f"{100 * x['exchange_s'] / x['wall_s']:.1f}%"
-                          for x in xs)
-              + f" of {xs[0]['wall_s'] * 1e3:.1f} ms, {xs[0]['calls']} "
-                f"calls, {xs[0]['bytes'] / 2 ** 20:.3f} MiB"
-              for k, xs in ex.items()), flush=True)
-    print(f"[{tag}] phase 16 (h) placement changes (rank 0; the first is the "
-          f"construction's): walls (s) "
+          f"tokens, KV peak {first['kv_peak']} blocks, {first['n_slots']} "
+          f"slots; built in {_each([r['build_s'] for r in rs], fmt='{:.2f}')}"
+          f" s, served in {_each([r['run_s'] for r in rs], fmt='{:.2f}')} s "
+          f"a rank; host wall a rank (median, ms) prefill "
+          f"{_each(walls['prefill'], 1e3)} (rank 0, prompts of "
+          f"{first['prompts']} tokens in order: "
+          f"{_each(first['walls']['prefill'], 1e3)}), decode "
+          f"{_each(walls['decode'], 1e3)}"
+          + (" (every step under the witness)" if kind == "drills" else ""),
+          flush=True)
+    print(f"[{tag}] phase 16 {part} placement changes (rank 0; the first is "
+          f"the construction's): walls (s) "
           f"{[round(m['wall_s'], 4) for m in first['migrations']]}, slots "
           f"moved {[m['slots'] for m in first['migrations']]} (stats "
-          f"{json.dumps(first['stats'])}; one device "
-          f"{ref['migrations']} recalibrations, {ref['migrated_slots']} "
-          f"slots); expert bytes sent to other ranks a rank "
-          + "; ".join(f"rank {r['rank']} "
-                      f"{[m['rank_bytes'] for m in r['migrations']]}"
-                      for r in rs)
+          f"{json.dumps(first['stats'])}); expert bytes sent to other ranks "
+          f"a rank " + "; ".join(
+              f"rank {r['rank']} {[m['rank_bytes'] for m in r['migrations']]}"
+              for r in rs)
           + "; slices against the whole tree migrated on one device "
-          f"{[m['holds'] for m in first['migrations']]}", flush=True)
-    print(f"[{tag}] phase 16 (h): peak a rank "
-          f"{each([r['peak_bytes'] / gib for r in rs], fmt='{:.2f}')} GiB; "
-          f"assignments a layer and call (tallies' sum / (top-k x layers)) "
-          f"{routed} (top-{K} x rows: global); launches a rank (rank 0) "
-          f"{json.dumps(first['launches'])} for {first['calls']} model calls;"
-          f" the witness run's kernel calls against their plain versions "
-          f"(worst rank) {json.dumps(first['vs_plain'])}; against one device"
-          f" as it runs: tokens that differ {differ} of "
-          f"{steps * ENGINE_MAX_BATCH}, largest TTFT difference {ttft:.4f} "
-          f"relative (p50 one device {ref['ttft_p50']:.4f} s); the first "
-          f"prefill and decode against the witness {first['bits']}",
-          flush=True)
-    return {"launches_rank0": {"engine": first["launches"]},
-            "calls": first["calls"], "walls_s": walls, "exchange": ex,
-            "migrations": first["migrations"], "stats": first["stats"],
-            "peak_gib": [r["peak_bytes"] / gib for r in rs],
-            "token_share_differ": token_share, "ttft_rel": ttft,
-            "bits": first["bits"], "vs_plain": first["vs_plain"],
-            "counts": first["counts"]}
+          f"{[m['holds'] for m in first['migrations']]}; peak a rank "
+          f"{_each(s['peak_gib'], fmt='{:.2f}')} GiB"
+          + (" (since the last fault)" if kind == "drills" else "")
+          + f", {_each(s['build_peak_gib'], fmt='{:.2f}')} GiB by the end "
+          f"of the construction; launches a rank "
+          f"(rank 0) {json.dumps(first['launches'])} for {first['calls']} "
+          f"model calls; the first steps' kernel calls against their plain "
+          f"versions {json.dumps(first['vs_plain'])}", flush=True)
+    if first["exchange"]:
+        ex = {k: [r["exchange"][k] for r in rs] for k in first["exchange"]}
+        s["exchange"] = ex
+        print(f"[{tag}] phase 16 {part} exchanges (each synchronised, rank "
+              f"0's calls and bytes): " + "; ".join(
+                  f"{k} ({xs[0]['prompt'] if k == 'prefill' else ENGINE_MAX_BATCH}"
+                  f" {'tokens' if k == 'prefill' else 'lanes'}): "
+                  + ", ".join(f"{100 * x['exchange_s'] / x['wall_s']:.1f}%"
+                              for x in xs)
+                  + f" of {xs[0]['wall_s'] * 1e3:.1f} ms, {xs[0]['calls']} "
+                    f"calls, {xs[0]['bytes'] / 2 ** 20:.3f} MiB"
+                  for k, xs in ex.items()), flush=True)
+    if kind == "engine":
+        steps = len(ref["tokens"])
+        differ = sum(int((a != b).sum()) for a, b in zip(first["tokens"],
+                                                           ref["tokens"]))
+        token_share = differ / (steps * ENGINE_MAX_BATCH)
+        ttft = max(abs(first["ttft"][k] - v) / v
+                   for k, v in ref["ttft"].items())
+        check(token_share <= ENGINE_BOUNDS["tokens"]
+              and ttft <= ENGINE_BOUNDS["ttft"],
+              f"{name} against one device as it runs: tokens that differ "
+              f"{token_share:.4f} of {steps} steps x {ENGINE_MAX_BATCH} "
+              f"lanes, TTFT {ttft:.4f} relative (bounds {ENGINE_BOUNDS})")
+        moved = [m for m in first["migrations"] if not m["construction"]]
+        crossed = max(m["rank_bytes"] for r in rs for m in r["migrations"]
+                      if not m["construction"]) if moved else 0
+        check(first["stats"]["migrations"] >= 1 and crossed > 0,
+              f"{name}: a recalibration moved slots between ranks "
+              f"({first['stats']})")
+        routed = [t / (K * L) for t in first["tally_sums"]]
+        print(f"[{tag}] phase 16 (h): assignments a layer and call "
+              f"(tallies' sum / (top-k x layers)) {routed} (top-{K} x rows: "
+              f"global); against one device as it runs: tokens that differ "
+              f"{differ} of {steps * ENGINE_MAX_BATCH}, largest TTFT "
+              f"difference {ttft:.4f} relative (p50 one device "
+              f"{ref['ttft_p50']:.4f} s; one device's walls (median, ms) "
+              f"prefill {statistics.median(ref['walls']['prefill']) * 1e3:.1f}"
+              f", decode {statistics.median(ref['walls']['decode']) * 1e3:.1f}"
+              f"; {ref['migrations']} recalibrations, {ref['migrated_slots']} "
+              f"slots); the first prefill and decode against the witness "
+              f"{first['bits']}", flush=True)
+        s |= {"token_share_differ": token_share, "ttft_rel": ttft}
+    elif kind == "drills":
+        faults = [[{"fault": f, "rank": v, "wall_s": w, "rank_bytes": b,
+                    "peak_gib": p / gib} for f, v, w, _, p, b in r["faults"]]
+                  for r in rs]
+        changes = len(first["migrations"]) - 1
+        check(any(m["rank_bytes"] > 0 for r in rs for m in r["migrations"][1:])
+              and len(first["faults"]) == 2,
+              f"{name}: fail_rank and recover_rank ran and moved slots "
+              f"between ranks ({first['faults']})")
+        s |= {"report": first["report"], "faults": faults}
+        print(f"[{tag}] phase 16 (i) chaos {DRILL_SCHEDULE}: "
+              f"{json.dumps(first['report'])} (one device under the witness "
+              f"the same: {first['report'] == ref['report']}); requeues "
+              f"{first['requeues']}; faults a rank (wall, expert bytes sent,"
+              f" peak): " + "; ".join(
+                  f"rank {r['rank']} " + ", ".join(
+                      f"{x['fault']}({x['rank']}) {x['wall_s'] * 1e3:.1f} ms "
+                      f"{x['rank_bytes']} B {x['peak_gib']:.2f} GiB"
+                      for x in fs) for r, fs in zip(rs, faults))
+              + f"; {changes} placement changes after the construction; "
+              f"the first prefill and decode against the witness "
+              f"{first['bits']}; TTFT p50 one device {ref['ttft_p50']:.4f} s",
+              flush=True)
+    else:
+        total = sum(sum(d) for d in first["drops"])
+        recount = sum(sum(d) for d in first["recount"])
+        for r in rs:
+            who = f"{name} rank {r['rank']}"
+            check(r["stats"]["dropped_assignments"] == sum(
+                sum(d) for d in r["drops"]) and all(r["routed_whole"])
+                  and r["route_calls"] == L * r["calls"]
+                  and [[float(x) for x in d] for d in r["recount"]]
+                  == r["drops"],
+                  f"{who}: dropped assignments "
+                  f"{r['stats']['dropped_assignments']} the calls' drop "
+                  f"columns summed once, each call's drops the recount from "
+                  f"its routing (the replicated body, every rank routing "
+                  f"the call's rows whole: {all(r['routed_whole'])})")
+        check(total > 0, f"{name}: no assignment dropped")
+        per_call = [sum(d) for d in first["drops"]]
+        s |= {"dropped": total, "drops_per_call": per_call,
+              "capacity_rows": first["capacity_rows"]}
+        print(f"[{tag}] phase 16 (j): dropped assignments {total:.0f} "
+              f"(recount {recount}), a call {per_call} (kinds "
+              f"{first['kinds']}), bucket rows a slot {first['capacity_rows']}"
+              f" (the replicated body: max(1.5, 2) x the mean load, rounded "
+              f"up to 4)", flush=True)
+    return s
 
 
 def _restore_one_device(params, digest):
@@ -5356,10 +5659,12 @@ def main() -> int:
          "tp_launches": tp_launches("route_select_bwd"),
          "sp_launches": sp_launches("route_select_bwd"), "library_ms": None},
     ]
-    # phase 16 (h)'s launches a rank, the serving engine on the grid
+    # phase 16 (h)-(j)'s launches a rank: the serving engine on the grid,
+    # its drills and its capacity path
     for entry in kernels:
-        entry["engine_launches"] = tp["engine"]["launches_rank0"][
-            "engine"].get(entry["name"], 0)
+        entry["engine_launches"] = {
+            k: tp[k]["launches_rank0"][k].get(entry["name"], 0)
+            for k in ("engine", "drills", "capacity")}
     print(f"[train] summary: {json.dumps({k: v for k, v in trained.items() if k != 'launches'} | {'kernel_vs_plain': step_cmp})}")
     print(f"[slices] summary: {json.dumps({'drills': drills, 'xlstm': xlstm, 'jamba': jamba})}")
     print(f"[ep] summary: {json.dumps(ep)}")

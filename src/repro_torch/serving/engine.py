@@ -49,7 +49,11 @@ make_rules(cfg, grid, "prefill")``) the engine runs on every rank of a
   same ``perm`` (its slots then map to ranks by the decode fleet's axes);
   otherwise it is the default replicated layout, each decode slot filled
   from the first a2a slot that holds its expert, as ``decode_params``
-  builds it.
+  builds it. Its decode outputs and tallies are one device's all the
+  same: every copy of an expert holds the same weights (a migration fills
+  each slot from the first old slot holding its expert), the tallies
+  count logical experts, and the virtual clock prices the controller's
+  placement, not the decode layout.
 * the cache is ``rank_cache(cfg, init_cache(...), rules)``: each rank's
   ``B/dp`` lanes (``dp`` must divide ``max_batch``); the token buffer and
   the positions stay whole, and the step functions take the rank's rows.
@@ -63,8 +67,23 @@ make_rules(cfg, grid, "prefill")``) the engine runs on every rank of a
   tables are rebuilt. ``stats.migrated_slots`` and ``migration_bytes``
   count as on one device (the virtual clock is unchanged);
   ``stats.migration_rank_bytes`` counts the expert bytes this rank sent.
+* a slot table widened after the cut (a drill's masked or grown solve
+  under an explicit slot budget, through ``_expand_slots``) re-lays the
+  experts out: growing the slot count moves the home rank of most slots,
+  so each expert matrix is gathered whole, grown as on one device and cut
+  again, and the decode tree is rebuilt as at construction. ``ep`` must
+  divide the new width.
+* the drills (``serving/elastic.py``, ``serving/faults.py``, the
+  reference's, copied) run unchanged: their state (lanes, the KV
+  accounting, the controller, the cluster's events, the config) is the
+  host's and the same on every rank, and a drained lane's rows live on
+  the ``dp`` rank that holds it, which the next ``_insert_cache`` into the
+  lane rewrites whole.
+* the capacity path runs its grid bodies; their drop column is global
+  (summed over the ranks that route apart, once), so
+  ``stats.dropped_assignments`` counts each drop once.
 * refused: chunked prefill (the reference masks no padded rows on a
-  mesh), the capacity path, a ``dp`` that does not divide ``max_batch``.
+  mesh), a ``dp`` that does not divide ``max_batch``.
 """
 
 from __future__ import annotations
@@ -80,9 +99,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import (ClusterVariability, ReplicatedPlacement,
                               ViBEController)
 from repro_torch.device import resolve_device
-from repro_torch.launch.sharding import (migrate_experts, param_cuts,
-                                         rank_cache, shard_experts,
-                                         shard_params)
+from repro_torch.launch.sharding import (cut_tree, gather_params,
+                                         migrate_experts, param_cuts,
+                                         rank_cache, shard_params)
 from repro_torch.models import (ShardingRules, decode_fn, init_cache,
                                 init_params, make_moe_tables, moe_perm_shape,
                                 prefill_chunk_fn, prefill_fn,
@@ -183,6 +202,10 @@ class Engine:
         self.weighted_routing = config.weighted_routing
         self.stats = EngineStats()
         self.grid = self.rules.grid
+        # on a grid: the expert cuts, once the whole tree is cut, and the
+        # slot ids a widening at construction grows the whole tree by as
+        # it is cut (a matrix at a time)
+        self._cuts = self._grow = None
         if self.grid is not None:
             self._refuse_on_grid(config)
         if params is None:
@@ -264,11 +287,6 @@ class Engine:
                 "prefill_chunk > 0 on a rank grid: chunked prefill masks its "
                 "padded rows only without an expert-parallel group (the "
                 "reference does not implement the row mask on a mesh)")
-        if self.moe_impl == "capacity" or self.rules.moe_impl == "capacity":
-            raise ValueError(
-                "moe_impl='capacity' on a rank grid: its drops depend on the "
-                "rank count, so no one-device run witnesses them; serve the "
-                "ragged path")
         dp = self.rules.dp_size
         if self.max_batch % dp:
             raise ValueError(f"max_batch {self.max_batch} over {dp} dp "
@@ -277,34 +295,57 @@ class Engine:
 
     def _cut_trees(self) -> None:
         """The rank's prefill and decode trees from the whole one in
-        ``self.params`` (grown to the controller's slot budget already),
-        which is dropped after."""
+        ``self.params`` (its experts grown by ``self._grow`` as they are
+        cut, where the controller wants more slots), which is dropped
+        after."""
         whole, rules = self.params, self.rules
         self._cuts = {ph: param_cuts(self.cfg, rules, ph)
                       for ph in ("prefill", "decode")}
         self.params = shard_params(self.cfg, whole, rules, "prefill")
+        self.decode_params = self.params
         self._dec_follows = False
         if not self.cfg.is_moe:
-            self.decode_params = self.params
             return
+        self.decode_params = dict(self.params,
+                                  blocks=list(self.params["blocks"]))
+        self._cut_experts(lambda i, k: whole["blocks"][i]["ffn"][k],
+                          self._grow)
+        self._grow = None
+
+    def _cut_experts(self, whole_of, grow=None) -> None:
+        """Each MoE position's expert matrices in both trees, from
+        ``whole_of(i, k)``: block ``i``'s matrix ``k`` whole in the a2a
+        layout, taken one matrix at a time (grown by the slot ids ``grow``
+        first, where given). The decode layout follows the a2a placement
+        where the slot counts agree, else it is the default replicated one,
+        fixed, each decode slot filled from the first a2a slot holding its
+        expert (``expand_experts``)."""
+        rules, grid = self.rules, self.grid
         n_moe, self.n_dec = moe_perm_shape(self.cfg, rules, "decode")
-        # the decode layout follows the a2a placement where the slot counts
-        # agree, else it is the default replicated one, fixed
         self._dec_follows = self.n_dec == self.n_slots
         self._perm_dec = (self._perm if self._dec_follows
                           else default_moe_perm(self.cfg, rules, "decode"))
         nb, specs = block_layout(self.cfg)
         m = n_moe // nb
-        blocks = list(self.params["blocks"])
         moe_pos = [i for i, sp in enumerate(specs) if sp.ffn == "moe"]
         for jj, i in enumerate(moe_pos):
-            ffn = whole["blocks"][i]["ffn"]
-            if not self._dec_follows:
-                ffn = expand_experts(ffn, self._perm[jj::m],
-                                     self._perm_dec[jj::m])
-            blocks[i] = dict(blocks[i], ffn=shard_experts(ffn, rules,
-                                                          "decode"))
-        self.decode_params = dict(self.params, blocks=blocks)
+            cut = {"prefill": {}, "decode": {}}
+            for k in ("w1", "w3", "w2"):
+                w = whole_of(i, k)
+                if grow is not None:
+                    w = w.index_select(1, grow)
+                cut["prefill"][k] = cut_tree(
+                    w, self._cuts["prefill"]["blocks"][i]["ffn"][k], grid)
+                if not self._dec_follows:
+                    w = expand_experts({k: w}, self._perm[jj::m],
+                                       self._perm_dec[jj::m])[k]
+                cut["decode"][k] = cut_tree(
+                    w, self._cuts["decode"]["blocks"][i]["ffn"][k], grid)
+                del w
+            for tree, phase in ((self.params, "prefill"),
+                                (self.decode_params, "decode")):
+                b = tree["blocks"][i]
+                tree["blocks"][i] = dict(b, ffn={**b["ffn"], **cut[phase]})
 
     def _decode_tables_for(self, share) -> None:
         """The decode tree's tables for the current placement."""
@@ -341,16 +382,35 @@ class Engine:
 
     def _expand_slots(self, n_slots: int) -> None:
         """Grow stacked expert tensors to ``n_slots`` physical slots; new
-        slot p starts holding logical expert p % E."""
+        slot p starts holding logical expert p % E. On a grid the trees are
+        the cut of the whole tree grown so (see the module's docstring):
+        before the cut :meth:`_cut_trees` grows each matrix as it cuts it;
+        after it each matrix is gathered whole, grown and cut again."""
         if n_slots < self.n_slots:
             raise ValueError(f"cannot shrink slots {self.n_slots}→{n_slots}")
         if n_slots == self.n_slots:
             return
+        if self.grid is not None and n_slots % self.rules.ep_size:
+            raise ValueError(
+                f"cannot grow to {n_slots} slots on a grid: ep "
+                f"{self.rules.ep_size} ranks hold the slots, so ep must "
+                "divide their count")
         E = self.cfg.n_experts
         src = np.concatenate([np.arange(self.n_slots, dtype=np.int32),
                               np.arange(self.n_slots, n_slots,
                                         dtype=np.int32) % E])
         gi = torch.as_tensor(src, dtype=torch.int64, device=self.device)
+        self._perm = np.tile(src, (self.n_moe, 1))
+        self.n_slots = n_slots
+        if self.grid is not None:
+            if self._cuts is None:
+                self._grow = gi
+                return
+            cuts = self._cuts["prefill"]["blocks"]
+            self._cut_experts(lambda i, k: gather_params(
+                self.params["blocks"][i]["ffn"][k], cuts[i]["ffn"][k],
+                self.grid), gi)
+            return
         _, specs = block_layout(self.cfg)
         for i, spec in enumerate(specs):
             if spec.ffn != "moe":
@@ -359,8 +419,6 @@ class Engine:
             grown = {k: leaf[k].index_select(1, gi)
                      for k in ("w1", "w2", "w3") if k in leaf}
             self.params["blocks"][i]["ffn"] = {**leaf, **grown}
-        self._perm = np.tile(src, (self.n_moe, 1))
-        self.n_slots = n_slots
 
     def _controller_perm(self) -> np.ndarray:
         perm = self.controller.placement.perm            # (n_moe, n_slots)

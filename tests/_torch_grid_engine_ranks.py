@@ -137,6 +137,43 @@ def _slices(engine):
     return out
 
 
+def hold_migrations(cfg, rules, whole, migrations, follows):
+    """Each logged placement change (before, after, the rank's slices, ...;
+    the first the construction's, from the identity or the grown
+    round-robin table) against ``cut_tree`` of ``apply_placement`` on the
+    whole tree ``whole`` (torch) applied change by change: the rank's
+    expert slices of both trees bit for bit, the decode tree's, where its
+    layout does not follow the placement (``follows``), from
+    ``expand_experts`` into the decode fleet's default layout."""
+    import torch
+    from repro_torch.launch.sharding import cut_tree, param_cuts
+    from repro_torch.models.model import default_moe_perm
+    from repro_torch.models.moe import apply_placement, expand_experts
+    moe = [i for i, b in enumerate(whole["blocks"])
+           if "router" in b.get("ffn", {})]
+    cuts = {ph: param_cuts(cfg, rules, ph) for ph in ("prefill", "decode")}
+    perm = migrations[0][0]
+    lidx = torch.arange(perm.shape[0])[:, None]
+    ffns = [{k: w[lidx, torch.as_tensor(perm, dtype=torch.int64)]
+             for k, w in whole["blocks"][i]["ffn"].items() if k != "router"}
+            for i in moe]
+    dec_perm = default_moe_perm(cfg, rules, "decode")
+    for before, after, slices, _ in migrations:
+        np.testing.assert_array_equal(before, perm)
+        ffns = [apply_placement(f, before, after)[0] for f in ffns]
+        perm = after
+        for phase in ("prefill", "decode"):
+            for j, i in enumerate(moe):
+                ffn = ffns[j]
+                if phase == "decode" and not follows:
+                    ffn = expand_experts(ffn, perm, dec_perm)
+                c = cuts[phase]["blocks"][i]["ffn"]
+                for k in ("w1", "w3", "w2"):
+                    want = cut_tree(ffn[k], c[k], rules.grid)
+                    assert np.array_equal(slices[phase][j][k],
+                                          want.numpy()), (phase, k)
+
+
 def serve_case(name, tree, grid):
     """One case's engine on this rank; returns its summary, the rank's
     final cache, and each placement change's permutations (before, after)

@@ -23,7 +23,8 @@ live in ``tests/_torch_grid_engine_ranks.py``. Held:
   for bit against ``cut_tree`` of ``apply_placement`` on the whole tree;
 * a prefill of one request on dp 2 (the replicated body) against one
   device, its tallies counted once;
-* the grid engine's three refusals, and ``migrate_experts`` alone.
+* the grid engine's two refusals (chunked prefill, a ``dp`` that does
+  not divide ``max_batch``), and ``migrate_experts`` alone.
 """
 
 import concurrent.futures
@@ -52,9 +53,7 @@ from repro_torch.launch.mesh import Grid, run_ranks  # noqa: E402
 from repro_torch.launch.sharding import (cut_tree, make_rules,  # noqa: E402
                                          param_cuts, rank_cache)
 from repro_torch.models import moe_perm_shape, prefill_fn  # noqa: E402
-from repro_torch.models.model import default_moe_perm  # noqa: E402
 from repro_torch.models.moe import (apply_placement,  # noqa: E402
-                                    expand_experts,
                                     placement_gather_indices)
 from repro_torch.models.sharding import ShardingRules  # noqa: E402
 
@@ -208,35 +207,12 @@ def test_grid_migrations_match_the_whole_trees(runs, name):
     default layout; slots crossed ranks."""
     cfg = t_get_smoke(h.ARCH)
     whole0 = params_from_numpy(runs["tree"])
-    moe = [i for i, b in enumerate(whole0["blocks"]) if "router" in
-           b.get("ffn", {})]
     crossed = 0
     for r in runs["ranks"]:
-        rules = _rules(name, r["rank"])
-        cuts = {ph: param_cuts(cfg, rules, ph) for ph in ("prefill",
-                                                          "decode")}
         migs = r[name]["migrations"]
         assert len(migs) == r[name]["summary"]["stats"]["migrations"] + 1
-        perm = migs[0][0]                 # identity, or grown round-robin
-        lidx = torch.arange(perm.shape[0])[:, None]
-        ffns = [{k: w[lidx, torch.as_tensor(perm, dtype=torch.int64)]
-                 for k, w in whole0["blocks"][i]["ffn"].items()
-                 if k != "router"} for i in moe]
-        dec_perm = default_moe_perm(cfg, rules, "decode")
-        for before, after, slices, _ in migs:
-            np.testing.assert_array_equal(before, perm)
-            ffns = [apply_placement(f, before, after)[0] for f in ffns]
-            perm = after
-            for phase in ("prefill", "decode"):
-                for j, i in enumerate(moe):
-                    ffn = ffns[j]
-                    if phase == "decode" and not r[name]["follows"]:
-                        ffn = expand_experts(ffn, perm, dec_perm)
-                    c = cuts[phase]["blocks"][i]["ffn"]
-                    for k in ("w1", "w3", "w2"):
-                        want = cut_tree(ffn[k], c[k], rules.grid)
-                        assert np.array_equal(slices[phase][j][k],
-                                              want.numpy()), (phase, k)
+        h.hold_migrations(cfg, _rules(name, r["rank"]), whole0, migs,
+                          r[name]["follows"])
         crossed += migs[-1][3]
     assert crossed > 0
 
@@ -263,7 +239,7 @@ def test_prefill_of_one_request_on_dp2(runs, name):
             assert np.all(gtal[:, :cfg.n_experts].sum(1) == cfg.top_k * n)
 
 
-@pytest.mark.parametrize("refusal", ["chunk", "capacity", "dp"])
+@pytest.mark.parametrize("refusal", ["chunk", "dp"])
 def test_grid_engine_refusals(refusal):
     cfg = t_get_smoke(h.ARCH)
     grid = Grid(h.SHAPE, h.AXES, 0, {})
@@ -272,9 +248,6 @@ def test_grid_engine_refusals(refusal):
     if refusal == "chunk":
         kw["scheduler"] = tserving.SchedulerConfig(prefill_chunk=16)
         match = "chunked prefill"
-    elif refusal == "capacity":
-        rules = make_rules(cfg, grid, "prefill", moe_impl="capacity")
-        match = "capacity"
     else:
         kw["max_batch"] = 3
         match = "dp must divide"
