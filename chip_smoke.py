@@ -5,7 +5,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100. It
 
-1. prints the torch and CUDA versions and the card's name and power limit;
+1. prints the torch and CUDA versions, the card's name and power limit
+   and its memory (``total_memory``); fails if this torch lacks the fake
+   process group the dry run needs;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and times the build;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -196,7 +198,19 @@ Run from the repository root on a machine with one NVIDIA H100. It
    call): every rank's tokens, tallies and drops the same at every step,
    each call's drops a recount from its routing, ``dropped_assignments``
    their sum counted once, the first steps' kernel calls against their
-   plain versions; the drops, the walls, the exchanges' share.
+   plain versions; the drops, the walls, the exchanges' share;
+17. the dry run against the card, on phase 15's ranks too: granite on
+   (2, 2) from ``make_rules`` — a prefill of 4 x 256 at full width and
+   depth, one decode step of 4 lanes on a 512-row cache, one training step
+   (``make_train_step``) at 2 layers — each run once on every rank inside
+   ``count_costs`` and traced on the ``meta`` device for every rank in a
+   spawned process with a fake group of 4 (``launch.dryrun.measure``):
+   the kernel calls by name equal to the launches counted, the collective
+   calls and operand bytes by kind equal to ``collectives.clock``'s, the
+   FLOPs and the memory traffic equal between trace and card, the traced
+   peak above the arguments within ``DRYRUN_PEAK_REL`` of the card's
+   ``max_memory_allocated()``; each call's roofline terms (H100 data
+   sheet) beside its measured wall.
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -218,11 +232,13 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
-# FLOP/s, f32 FLOP/s outside the tensor cores
-HBM_BPS = 3.35e12
-BF16_FLOPS = 989e12
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16
+# tensor-core FLOP/s from the roofline, f32 FLOP/s outside the tensor
+# cores
+from repro_torch.launch.roofline import HBM_BW as HBM_BPS  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
 F32_FLOPS = 67e12
 
 BF16_TOL = 5e-2       # the repo's bf16 tolerance (tests/test_kernels.py)
@@ -3895,6 +3911,10 @@ def tp_rank(rank, plans, weights, refs, inputs):
             return dataclasses.replace(make_rules(cfg, grid, phase),
                                        **plan["rules"])
 
+        if plan["paths"] == ["dryrun"]:
+            results[label] = _dryrun_rank(cfg, grid, weights, dev)
+            del params, ref, inp
+            continue
         if _served(plan):
             results[label] = {"rank": rank} | _engine_rank(
                 cfg, rules_for("prefill"), params, ref, dev, _served(plan))
@@ -4103,7 +4123,9 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     the ranks within its bound of its plain version. Prints ``[tag]`` lines
     (``beside[label]``, where given, after a plan's peak) and returns the
     summary."""
+    import concurrent.futures
     import dataclasses
+    import multiprocessing
     import torch
     from repro_torch.launch.mesh import Grid, run_ranks
     from repro_torch.launch.sharding import make_rules
@@ -4111,7 +4133,19 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     from repro_torch.models.model import block_layout
     from repro_torch.training import AdamWConfig
     refs = {}
+    # phase 17's traces run beside the references and the ranks, in a
+    # process of their own (a fake default group; no card)
+    dry = next((p for p in plans if p["paths"] == ["dryrun"]), None)
+    traces = None
+    if dry is not None:
+        pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        traces = pool.submit(dryrun_meta, dry["cfg"])
+        pool.shutdown(wait=False)
     for plan in plans:
+        if plan is dry:
+            refs[plan["label"]] = {}
+            continue
         # the attention's split as the plan's rules make it, for the witness
         rules = dataclasses.replace(make_rules(
             plan["cfg"], Grid(plan["grid"], EP_AXES, 0, {}), "prefill"),
@@ -4179,6 +4213,10 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     summary = {}
     for plan in plans:
         label = plan["label"]
+        if plan is dry:
+            summary[label] = _dryrun_report([r[label] for r in ranks],
+                                            traces.result(), on_card)
+            continue
         if _served(plan):
             summary[label] = _engine_report(
                 tag, label, plan["cfg"], [r[label] for r in ranks],
@@ -4321,7 +4359,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                           "parent_gib": parent_gib}
     for plan in plans:
         label = plan["label"]
-        if _served(plan):
+        if _served(plan) or plan is dry:
             continue
         s = summary[label]
         walls = "; ".join(f"{p} " + ", ".join(f"{w * 1e3:.1f}" for w in ws)
@@ -4403,6 +4441,202 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run against the card
+# ---------------------------------------------------------------------------
+
+#: granite's cells on (2, 2): (label, model, layers or None for all,
+#: kind, seq_len, global batch); the decode step runs on a 512-row cache
+DRYRUN_CELLS = (("prefill", "granite", None, "prefill", 256, 4),
+                ("decode", "granite", None, "decode", 512, 4),
+                ("train", "small", 2, "train", 256, 4))
+DRYRUN_GRID = (2, 2)
+#: the traced peak above the arguments against the card's
+#: ``max_memory_allocated()`` less ``memory_allocated()`` at the call's
+#: start, relative to the card's: in this script the gaps read on an H100
+#: 80GB HBM3 at 700 W were +0.00% to +0.21% (PERF.md, phase 17); about twice
+#: the largest. Phase 17 run alone reads more (+5.26%, +2.20%): its calls
+#: grow the routing stage's cached scratch, which earlier phases grew here
+DRYRUN_PEAK_REL = 0.005
+#: the one operation whose traffic and calls may differ between trace and
+#: card: the routing stage's cached scratch (``route_select._SCRATCH``,
+#: ``_TICKETS``), zeroed where the card grows it inside a call and never
+#: allocated by a traced call
+DRYRUN_CACHE_OP = "aten::zeros"
+
+
+def _dryrun_cells(cfg):
+    import dataclasses
+    from repro_torch.configs import ShapeSpec
+    for label, model, layers, kind, seq, batch in DRYRUN_CELLS:
+        c = cfg if layers is None else dataclasses.replace(cfg,
+                                                           n_layers=layers)
+        yield label, model, c, ShapeSpec(label, seq, batch, kind)
+
+
+def _costs_small(costs):
+    """A ``Costs`` dict without its per-operation tables."""
+    return {k: v for k, v in costs.items()
+            if k not in ("bytes_by_op", "calls_by_op")}
+
+
+def dryrun_meta(cfg):
+    """Phase 17's traces, in a spawned process (a fake default group of
+    4 a rank at a time; no card): each cell of :data:`DRYRUN_CELLS` on
+    ``meta`` for every rank of :data:`DRYRUN_GRID`."""
+    import math
+    from repro_torch.launch import dryrun
+    out = {}
+    for label, _, c, shape in _dryrun_cells(cfg):
+        out[label] = []
+        for rank in range(math.prod(DRYRUN_GRID)):
+            m = dryrun.measure(c, shape, DRYRUN_GRID, rank)
+            out[label].append({"costs": m["costs"].as_dict(),
+                               "memory": m["memory"],
+                               "trace_s": m["trace_s"]})
+    return out
+
+
+def _dryrun_rank(cfg, grid, weights, dev):
+    """Phase 17 on a rank: each cell of :data:`DRYRUN_CELLS` run once on
+    the rank's slices of the parent's weights (``dryrun.rank_inputs``,
+    the function the trace calls), inside ``count_costs``, the launches
+    and the exchange clock counted and the card's peak read; returns the
+    readings."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost_analysis import count_costs
+    from repro_torch.launch.sharding import decode_params, make_rules
+    from repro_torch.models import collectives
+    cuda = dev.type == "cuda"
+    out = {}
+    for label, model, c, shape in _dryrun_cells(cfg):
+        rules = make_rules(c, grid, shape.kind)
+        whole = weights[model]
+        if shape.kind == "decode":
+            whole = decode_params(c, whole, rules)
+        inputs = dryrun.rank_inputs(c, shape, rules, whole=whole, device=dev)
+        del whole
+        call, args = dryrun.step_call(c, shape, rules, inputs)
+        dist.barrier()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() if cuda else 0
+        ops.reset_launch_counts()
+        collectives.clock.reset()
+        collectives.clock.enabled = True
+        t0 = time.perf_counter()
+        with count_costs(args) as costs:
+            res = call()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        collectives.clock.enabled = False
+        out[label] = {
+            "costs": costs.as_dict(), "launches": ops.launch_counts(),
+            "clock": dict(collectives.clock.by_kind), "wall_s": wall,
+            "peak": (torch.cuda.max_memory_allocated() - start
+                     if cuda else 0)}
+        del res, inputs, call, args
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _smi_line():
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError):
+        return "no nvidia-smi"
+
+
+def _dryrun_report(ranks, metas, on_card):
+    """Phase 17's checks and lines: each rank's card run against its
+    trace (see :data:`DRYRUN_CELLS`)."""
+    from repro_torch.launch import roofline
+    smi = _smi_line()
+    summary = {}
+    for label, *_ in DRYRUN_CELLS:
+        rows = []
+        for r, (rank, meta) in enumerate(zip(ranks, metas[label])):
+            card, m = rank[label], meta["costs"]
+            cc = card["costs"]
+            name = f"phase 17 {label} rank {r}"
+            launched = {k: v for k, v in card["launches"].items()
+                        if "." not in k and v}
+            # the CPU's plain versions are counted as tensor operations:
+            # there only the collectives and the peak's tracker agree
+            check(cc["kernel_calls"] == m["kernel_calls"] == launched
+                  or not on_card,
+                  f"{name}: kernel calls traced {m['kernel_calls']}, on the "
+                  f"card {cc['kernel_calls']}, launched {launched}")
+            clock = {k: v[1] for k, v in card["clock"].items()}
+            clock_calls = {k: v[0] for k, v in card["clock"].items()}
+            check(cc["collective_by_kind"] == m["collective_by_kind"] == clock
+                  and cc["collective_calls"] == m["collective_calls"]
+                  == clock_calls,
+                  f"{name}: collectives traced {m['collective_calls']} "
+                  f"{m['collective_by_kind']}, on the card "
+                  f"{cc['collective_calls']} {cc['collective_by_kind']}, "
+                  f"clocked {card['clock']}")
+            check(cc["flops"] == m["flops"] or not on_card,
+                  f"{name}: FLOPs traced "
+                  f"{m['flops']}, on the card {cc['flops']}")
+            ops_ = set(cc["bytes_by_op"]) | set(m["bytes_by_op"])
+            diff = {op: (cc["bytes_by_op"].get(op, 0)
+                         - m["bytes_by_op"].get(op, 0),
+                         cc["calls_by_op"].get(op, 0)
+                         - m["calls_by_op"].get(op, 0)) for op in ops_}
+            diff = {op: d for op, d in diff.items() if d != (0, 0)}
+            check(all(op == DRYRUN_CACHE_OP and d[0] > 0
+                      for op, d in diff.items()) or not on_card,
+                  f"{name}: memory traffic traced {m['bytes_accessed']}, on "
+                  f"the card {cc['bytes_accessed']}; by operation (bytes, "
+                  f"calls) {diff}")
+            gap = (card["peak"] - m["peak_bytes"]) / max(card["peak"], 1)
+            check(abs(gap) <= DRYRUN_PEAK_REL or not on_card,
+                  f"{name}: peak above the arguments traced "
+                  f"{m['peak_bytes']}, on the card {card['peak']} "
+                  f"({100 * gap:.2f}%, bound {100 * DRYRUN_PEAK_REL}%)")
+            terms = {"compute_ms": m["flops"] / roofline.PEAK_FLOPS * 1e3,
+                     "memory_ms": m["bytes_accessed"] / roofline.HBM_BW
+                     * 1e3,
+                     "collective_ms": m["collective_bytes"]
+                     / roofline.LINK_BW * 1e3}
+            rows.append({"rank": r, "card": _costs_small(cc),
+                         "traced": _costs_small(m),
+                         "memory": meta["memory"], "trace_s":
+                         meta["trace_s"], "peak": card["peak"],
+                         "peak_gap": gap, "traffic_diff": diff,
+                         "wall_ms": card["wall_s"] * 1e3, **terms})
+            print(f"[dryrun] phase 17 {label} rank {r}: peak above the "
+                  f"arguments traced {m['peak_bytes'] / 2 ** 30:.4f} GiB, "
+                  f"on the card {card['peak'] / 2 ** 30:.4f} GiB "
+                  f"({100 * gap:+.2f}%); arguments "
+                  f"{m['argument_bytes'] / 2 ** 30:.4f} GiB; kernel calls "
+                  f"{json.dumps(m['kernel_calls'])}; collectives "
+                  f"{json.dumps(m['collective_calls'])} "
+                  f"{json.dumps(m['collective_by_kind'])} bytes; FLOPs "
+                  f"{m['flops']:.6g}, bytes {m['bytes_accessed']:.6g} "
+                  f"(card {cc['bytes_accessed']:.6g}); roofline (H100 data "
+                  f"sheet) compute {terms['compute_ms']:.3f} ms, memory "
+                  f"{terms['memory_ms']:.3f} ms, collective "
+                  f"{terms['collective_ms']:.3f} ms at 50 GB/s, beside a "
+                  f"measured wall of {card['wall_s'] * 1e3:.1f} ms (4 ranks "
+                  f"on one card through gloo, each exchange synchronised; "
+                  f"trace {meta['trace_s']:.2f} s) on {smi}", flush=True)
+        summary[label] = rows
+    return summary
+
+
 def tp_phase(cfg, dev, smollm=None, xlstm=None):
     """Phase 15: tensor parallelism of the dense layers on 4 ranks sharing
     the card (gloo on CUDA tensors), each run held against one device on
@@ -4427,9 +4661,11 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
         the dense weights' FSDP slices over "data"; a prefill and a loss
         and backward;
 
-    and phase 16 (g) (:func:`sp_phase`), xlstm-350m on (2, 2), and phase
+    and phase 16 (g) (:func:`sp_phase`), xlstm-350m on (2, 2), phase
     16 (h)-(j), the serving engine on (2, 2), its drills and its capacity
-    path, on the same ranks: one start of them for all (it takes ~30 s).
+    path, and phase 17, the dry run against the card (:func:`_dryrun_rank`,
+    :func:`dryrun_meta`), on the same ranks: one start of them for all (it
+    takes ~30 s).
 
     (h): granite at full width and depth on (2, 2) from ``make_rules(cfg,
     grid, "prefill")`` (EP 2 over "model" at prefill, EP 4 over both axes
@@ -4516,7 +4752,10 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
          "rules": {}, "witness": False, "paths": ["drills"], "steps": 1},
         {"label": "capacity", "model": "granite", "cfg": cfg,
          "grid": (2, 2), "rules": {"moe_impl": "capacity"},
-         "witness": False, "paths": ["capacity"], "steps": 1}]
+         "witness": False, "paths": ["capacity"], "steps": 1},
+        {"label": "dryrun", "model": "granite", "cfg": cfg,
+         "grid": DRYRUN_GRID, "rules": {}, "witness": False,
+         "paths": ["dryrun"], "steps": 1}]
     what = {"heads": "granite, heads (1, 4)",
             "context": "granite, context (1, 4)",
             "smollm": "smollm-360m, context (1, 4), no port kernel on its "
@@ -4527,7 +4766,8 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
             "engine": "phase 16 (h), the serving engine (2, 2)",
             "drills": "phase 16 (i), the drills on the grid engine (2, 2)",
             "capacity": "phase 16 (j), the capacity path on the grid engine "
-                        "(2, 2)"}
+                        "(2, 2)",
+            "dryrun": "phase 17, the dry run against the card (2, 2)"}
     return _grid_run("tp", plans, weights, inputs, dev,
                      dict(TP_BOUNDS, xlstm=SP_BOUNDS["xlstm"]), what,
                      t_start)
@@ -5467,7 +5707,13 @@ def main() -> int:
 
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
-          f"({smi})", flush=True)
+          f"({smi}), total_memory "
+          f"{torch.cuda.get_device_properties(0).total_memory} bytes",
+          flush=True)
+    # the dry run's fake process group (phase 17): a private module of
+    # torch, so its absence fails here, loudly
+    from torch.testing._internal.distributed.fake_pg import \
+        FakeStore  # noqa: F401
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"[build] {', '.join(p.name for p in libs.values())} in "
@@ -5665,6 +5911,10 @@ def main() -> int:
         entry["engine_launches"] = {
             k: tp[k]["launches_rank0"][k].get(entry["name"], 0)
             for k in ("engine", "drills", "capacity")}
+        # phase 17's counted calls a rank (rank 0; every rank's checked)
+        entry["dryrun_launches"] = {
+            label: tp["dryrun"][label][0]["card"]["kernel_calls"].get(
+                entry["name"], 0) for label, *_ in DRYRUN_CELLS}
     print(f"[train] summary: {json.dumps({k: v for k, v in trained.items() if k != 'launches'} | {'kernel_vs_plain': step_cmp})}")
     print(f"[slices] summary: {json.dumps({'drills': drills, 'xlstm': xlstm, 'jamba': jamba})}")
     print(f"[ep] summary: {json.dumps(ep)}")

@@ -22,10 +22,10 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, costs
 from .ragged_moe_ffn import check_operands, pick_route
 
-__all__ = ["fused_moe_ffn", "tma_rows"]
+__all__ = ["fused_moe_ffn", "fused_outputs", "tma_rows"]
 
 
 def _lib():
@@ -49,20 +49,14 @@ def tma_rows(C: int) -> int:
     return 128
 
 
-def fused_moe_ffn(w1, w3, w2, toks, route=None):
-    """Launch the CUDA capacity-bucket SwiGLU FFN. toks (E, C, D) bf16,
-    w1/w3 (E, D, F), w2 (E, F, D) bf16 → (E, C, D) bf16.
-
-    Two launches on the current stream: gate/up into a bf16 scratch
-    ``h (E, C, F)``, then the down projection. ``route="general"``
-    (:func:`~.ragged_moe_ffn.pick_route`) forces the general route, to
-    time the routes apart; the path leaves it None. Checks device, dtype,
-    shape and contiguity and raises on what the kernel does not take;
-    raises if the launch is refused. Adds one to ``fused_moe_ffn.launches``
-    and, on the TMA route, to ``fused_moe_ffn.tma_launches``.
-    """
+def fused_outputs(w1, w3, w2, toks, kind: str = "cuda"):
+    """The call's checks and allocations on a device of type ``kind``
+    (``meta`` for a traced call): raises on what the kernel does not take,
+    returns ``(out (E, C, D), h (E, C, F))`` uninitialised (``h`` the bf16
+    scratch of gate/up) and reports the call's entry (:mod:`.costs`:
+    ``6 E C D F`` operations over every bucket row)."""
     check_operands("fused_moe_ffn",
-                   {"w1": w1, "w3": w3, "w2": w2, "toks": toks})
+                   {"w1": w1, "w3": w3, "w2": w2, "toks": toks}, kind)
     if toks.dim() != 3 or w1.dim() != 3:
         raise ValueError(f"fused_moe_ffn: toks {tuple(toks.shape)} and w1 "
                          f"{tuple(w1.shape)} must be 3-d")
@@ -76,9 +70,30 @@ def fused_moe_ffn(w1, w3, w2, toks, route=None):
     if min(E, C, D, F) <= 0 or E > 65535:
         raise ValueError(f"fused_moe_ffn: sizes E={E}, C={C}, D={D}, F={F} "
                          "must be positive, E at most 65535 (grid z)")
-    tma = pick_route("fused_moe_ffn", route, (w1, w3, w2, toks))
     out = torch.empty_like(toks)
     h = torch.empty((E, C, F), dtype=toks.dtype, device=toks.device)
+    costs.report("fused_moe_ffn", 6.0 * E * C * D * F,
+                 costs.tensor_bytes(w1, w3, w2, toks, out, h, h))
+    return out, h
+
+
+def fused_moe_ffn(w1, w3, w2, toks, route=None):
+    """Launch the CUDA capacity-bucket SwiGLU FFN. toks (E, C, D) bf16,
+    w1/w3 (E, D, F), w2 (E, F, D) bf16 → (E, C, D) bf16.
+
+    Two launches on the current stream: gate/up into a bf16 scratch
+    ``h (E, C, F)``, then the down projection. ``route="general"``
+    (:func:`~.ragged_moe_ffn.pick_route`) forces the general route, to
+    time the routes apart; the path leaves it None. Checks device, dtype,
+    shape and contiguity and raises on what the kernel does not take
+    (:func:`fused_outputs`, which allocates); raises if the launch is
+    refused. Adds one to ``fused_moe_ffn.launches``
+    and, on the TMA route, to ``fused_moe_ffn.tma_launches``.
+    """
+    out, h = fused_outputs(w1, w3, w2, toks)
+    E, C, D = toks.shape
+    F = w1.shape[-1]
+    tma = pick_route("fused_moe_ffn", route, (w1, w3, w2, toks))
     stream = torch.cuda.current_stream(toks.device).cuda_stream
     lib = _lib()
     if tma:

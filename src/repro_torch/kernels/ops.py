@@ -6,6 +6,18 @@ raises. Nothing here catches a kernel failure to fall back to the plain
 version. Each kernel wrapper keeps a plain integer launch count
 (``launch_counts``), which only a kernel launch raises.
 
+A tensor on the ``meta`` device (the dry run,
+:mod:`repro_torch.launch.dryrun`) goes to the kernel's allocation helper
+(``ffn_outputs``, ``dgrad_outputs``, ``wgrad_outputs``, ``fused_outputs``,
+``route_outputs``, ``route_bwd_outputs``, ``topk_outputs``), which the
+CUDA wrapper calls before it launches: the same checks, the same
+allocations and the same cost entry (:mod:`.costs`), and no launch, so no
+launch count moves. A traced call allocates what the card allocates, not
+the plain version's intermediates. The branches are plain ``if``s on the
+device type rather than ``torch.library.custom_op`` with a
+``register_fake``: that would add the dispatcher's work to every kernel
+call of a decode step that is host-bound already (PERF.md §5).
+
 ``ragged_moe_ffn`` and ``route_select`` are differentiable on both
 devices: when an input requires a gradient they go through an
 ``autograd.Function`` (:class:`RaggedMoeFFN`, :class:`RouteSelect`) whose
@@ -26,6 +38,7 @@ variant fits a block.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -55,6 +68,8 @@ def fused_moe_ffn(w1, w3, w2, toks):
         return ref.moe_ffn_ref(w1, w3, w2, toks)
     if kind == "cuda":
         return _capacity.fused_moe_ffn(w1, w3, w2, toks)
+    if kind == "meta":
+        return _capacity.fused_outputs(w1, w3, w2, toks, kind)[0]
     raise ValueError(f"fused_moe_ffn: no kernel for device {toks.device}")
 
 
@@ -86,6 +101,9 @@ def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
         return _ragged.ragged_moe_ffn(w1, w3, w2, toks, tile_group,
                                       row_offsets=row_offsets, sizes=sizes,
                                       max_rows=max_rows)
+    if kind == "meta":
+        return _ragged.ffn_outputs(w1, w3, w2, toks, tile_group, row_offsets,
+                                   sizes, kind)[0]
     raise _no_kernel("ragged_moe_ffn", toks.device)
 
 
@@ -104,13 +122,17 @@ class RaggedMoeFFN(torch.autograd.Function):
         h = None
         if kind == "cpu":
             y = ref.ragged_moe_ffn_ref(w1, w3, w2, toks, tile_group)
-        elif kind == "cuda":
+        elif kind in ("cuda", "meta"):
             if row_offsets is None or sizes is None:
                 raise ValueError("ragged_moe_ffn: a gradient on the card "
                                  "needs the plan's row_offsets and sizes")
-            y, h = _ragged.ragged_moe_ffn(
-                w1, w3, w2, toks, tile_group, row_offsets=row_offsets,
-                sizes=sizes, max_rows=max_rows, keep_h=True)
+            if kind == "cuda":
+                y, h = _ragged.ragged_moe_ffn(
+                    w1, w3, w2, toks, tile_group, row_offsets=row_offsets,
+                    sizes=sizes, max_rows=max_rows, keep_h=True)
+            else:
+                y, h, _ = _ragged.ffn_outputs(w1, w3, w2, toks, tile_group,
+                                              row_offsets, sizes, kind)
         else:
             raise _no_kernel("ragged_moe_ffn", toks.device)
         ctx.save_for_backward(w1, w3, w2, toks, tile_group, row_offsets,
@@ -122,9 +144,15 @@ class RaggedMoeFFN(torch.autograd.Function):
         w1, w3, w2, toks, tile_group, row_offsets, sizes, h = \
             ctx.saved_tensors
         dy = dy.contiguous()
-        if toks.device.type == "cpu":
+        kind = toks.device.type
+        if kind == "cpu":
             dx, dw1, dw3, dw2 = ref.ragged_moe_ffn_bwd_ref(
                 w1, w3, w2, toks, tile_group, dy)
+        elif kind == "meta":
+            (dx, da, db), _ = _ragged.dgrad_outputs(
+                w1, w3, w2, toks, tile_group, row_offsets, sizes, dy, kind)
+            (dw1, dw3, dw2), _ = _ragged.wgrad_outputs(
+                toks, h, da, db, dy, row_offsets, sizes, kind)
         else:
             dx, da, db = _ragged.ragged_moe_ffn_dgrad(
                 w1, w3, w2, toks, tile_group, row_offsets, sizes, dy)
@@ -141,6 +169,8 @@ def router_topk(logits, top_k: int):
         return ref.router_topk_ref(logits, top_k)
     if kind == "cuda":
         return _route.router_topk(logits, top_k)
+    if kind == "meta":
+        return _route.topk_outputs(logits, top_k, kind)
     raise ValueError(f"router_topk: no kernel for device {logits.device}")
 
 
@@ -160,6 +190,8 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
         return ref.route_select_ref(*args)
     if kind == "cuda":
         return _route.route_select(*args)
+    if kind == "meta":
+        return _route.route_outputs(*args, kind=kind)[0]
     raise _no_kernel("route_select", x.device)
 
 
@@ -182,6 +214,8 @@ class RouteSelect(torch.autograd.Function):
             out = ref.route_select_ref(*args, with_probs=True)
         elif kind == "cuda":
             out = _route.route_select(*args, with_probs=True)
+        elif kind == "meta":
+            out = _route.route_outputs(*args, with_probs=True, kind=kind)[0]
         else:
             raise _no_kernel("route_select", x.device)
         weights, idx, slots, tally, mean_prob, aux, probs = out
@@ -196,14 +230,16 @@ class RouteSelect(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dweights, _didx, _dslots, _dtally, dmean_prob, daux):
         x, router_w, probs, idx, weights, row_valid = ctx.saved_tensors
-        if x.device.type == "cpu":
+        kind = x.device.type
+        if kind == "cpu":
             dl = ref.route_select_dlogits_ref(
                 probs, idx, weights, ctx.counts, dweights, dmean_prob, daux,
                 row_valid)
         else:
-            dl = _route.route_select_bwd(
-                probs, idx, weights, ctx.counts, dweights.contiguous(),
-                dmean_prob.contiguous(), daux.contiguous(), row_valid)
+            bwd = (functools.partial(_route.route_bwd_outputs, kind=kind)
+                   if kind == "meta" else _route.route_select_bwd)
+            dl = bwd(probs, idx, weights, ctx.counts, dweights.contiguous(),
+                     dmean_prob.contiguous(), daux.contiguous(), row_valid)
         dx, drouter = ref.router_product_bwd(x, router_w, dl)
         return dx, drouter, None, None, None, None, None, None
 

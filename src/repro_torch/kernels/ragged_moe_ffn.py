@@ -45,12 +45,13 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, costs
 
 __all__ = ["ragged_tile_metadata", "ragged_tile_rows", "ragged_n_tiles",
            "ragged_moe_ffn", "ragged_moe_ffn_dgrad", "ragged_moe_ffn_wgrad",
            "tma_rows", "tma_ok", "check_operands", "pick_route", "bwd_rows",
-           "dgrad_plan", "wgrad_plan", "ROW_BLOCK"]
+           "dgrad_plan", "wgrad_plan", "ffn_outputs", "dgrad_outputs",
+           "wgrad_outputs", "ROW_BLOCK"]
 
 #: Rows per thread block of the general route (``RB`` in
 #: ``moe_ffn_blocks.cuh``). The plan's row tile ``bm`` must be a multiple of
@@ -122,12 +123,14 @@ def tma_ok(*tensors) -> bool:
                for t in tensors)
 
 
-def check_operands(kernel: str, tensors: dict) -> None:
+def check_operands(kernel: str, tensors: dict, kind: str = "cuda") -> None:
     """Raise unless every tensor of ``tensors`` (name → tensor) is a
-    contiguous bfloat16 tensor, all on one CUDA device."""
+    contiguous bfloat16 tensor, all on one device of type ``kind`` (a
+    CUDA device; ``meta`` for a traced call, :mod:`.ops`)."""
     for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{kernel}: {name} is not on a CUDA device")
+        if t.device.type != kind:
+            where = "CUDA" if kind == "cuda" else kind
+            raise ValueError(f"{kernel}: {name} is not on a {where} device")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{kernel}: {name} is {t.dtype}; the CUDA "
                             "kernel takes bfloat16")
@@ -164,36 +167,21 @@ def _lib():
 
 
 def _check_index(name, t, n, dev):
-    if t.dtype != torch.int32 or not t.is_cuda or not t.is_contiguous() \
+    if t.dtype != torch.int32 or not t.is_contiguous() \
             or t.shape != (n,) or t.device != dev:
         raise TypeError(f"ragged_moe_ffn: {name} must be a contiguous "
                         f"({n},) int32 tensor on {dev}")
 
 
-def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
-                   sizes=None, max_rows=None, route=None, keep_h=False):
-    """Launch the CUDA grouped SwiGLU FFN. toks (T, D) bf16 group-sorted,
-    tile_group (T // bm,) int32, w1/w3 (E, D, F), w2 (E, F, D) bf16 →
-    (T, D) bf16.
-
-    ``row_offsets`` (E + 1,) and ``sizes`` (E,) int32, the layout's and
-    the plan's, give each tile's real rows (:func:`ragged_tile_rows`); the
-    TMA route computes only those (None: every tile full). ``max_rows`` is
-    the most real rows a tile is expected to hold, a hint that picks the
-    TMA route's row block (:func:`tma_rows`) and is never trusted.
-    ``route="general"`` (:func:`pick_route`) forces the general route, to
-    time the routes apart; the path leaves it None.
-
-    Two launches on the current stream: gate/up into a bf16 scratch
-    ``h (T, F)``, then the down projection. Checks device, dtype, shape
-    and contiguity and raises on what the kernel does not take; raises if
-    the launch is refused. Adds one to ``ragged_moe_ffn.launches`` and, on
-    the TMA route, to ``ragged_moe_ffn.tma_launches``. ``keep_h`` returns
-    ``(out, h)``: the scratch, written on every real row, is the backward's
-    saved activation.
-    """
+def ffn_outputs(w1, w3, w2, toks, tile_group, row_offsets=None,
+                sizes=None, kind: str = "cuda"):
+    """The forward call's checks and allocations, on ``toks``' device of
+    type ``kind`` (``meta`` for a traced call): raises on what the kernel
+    does not take, returns ``(out (T, D), h (T, F), bm)`` uninitialised
+    (``h`` is the bf16 scratch of gate/up) and reports the call's entry
+    (:mod:`.costs`: ``6 T D F`` operations over the whole buffer)."""
     check_operands("ragged_moe_ffn",
-                   {"w1": w1, "w3": w3, "w2": w2, "toks": toks})
+                   {"w1": w1, "w3": w3, "w2": w2, "toks": toks}, kind)
     T, D = toks.shape
     E, D1, F = w1.shape
     n_tiles = tile_group.shape[0]
@@ -215,9 +203,41 @@ def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
     if bm % ROW_BLOCK:
         raise ValueError(f"ragged_moe_ffn: row tile bm={bm} must be a "
                          f"multiple of {ROW_BLOCK} on CUDA")
-    tma = pick_route("ragged_moe_ffn", route, (w1, w3, w2, toks))
     out = torch.empty_like(toks)
     h = torch.empty((T, F), dtype=toks.dtype, device=toks.device)
+    costs.report("ragged_moe_ffn", 6.0 * T * D * F, costs.tensor_bytes(
+        w1, w3, w2, toks, tile_group, row_offsets, sizes, out, h, h))
+    return out, h, bm
+
+
+def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
+                   sizes=None, max_rows=None, route=None, keep_h=False):
+    """Launch the CUDA grouped SwiGLU FFN. toks (T, D) bf16 group-sorted,
+    tile_group (T // bm,) int32, w1/w3 (E, D, F), w2 (E, F, D) bf16 →
+    (T, D) bf16.
+
+    ``row_offsets`` (E + 1,) and ``sizes`` (E,) int32, the layout's and
+    the plan's, give each tile's real rows (:func:`ragged_tile_rows`); the
+    TMA route computes only those (None: every tile full). ``max_rows`` is
+    the most real rows a tile is expected to hold, a hint that picks the
+    TMA route's row block (:func:`tma_rows`) and is never trusted.
+    ``route="general"`` (:func:`pick_route`) forces the general route, to
+    time the routes apart; the path leaves it None.
+
+    Two launches on the current stream: gate/up into a bf16 scratch
+    ``h (T, F)``, then the down projection. Checks device, dtype, shape
+    and contiguity and raises on what the kernel does not take
+    (:func:`ffn_outputs`, which allocates); raises if the launch is
+    refused. Adds one to ``ragged_moe_ffn.launches`` and, on the TMA
+    route, to ``ragged_moe_ffn.tma_launches``. ``keep_h`` returns
+    ``(out, h)``: the scratch, written on every real row, is the
+    backward's saved activation.
+    """
+    out, h, bm = ffn_outputs(w1, w3, w2, toks, tile_group, row_offsets,
+                             sizes)
+    T, D = toks.shape
+    E, _, F = w1.shape
+    tma = pick_route("ragged_moe_ffn", route, (w1, w3, w2, toks))
     stream = torch.cuda.current_stream(toks.device).cuda_stream
     lib = _lib()
     if tma:
@@ -291,6 +311,48 @@ def wgrad_plan(toks, h, da, db, dy, route=None):
     return T, D, F, tma
 
 
+def dgrad_outputs(w1, w3, w2, toks, tile_group, row_offsets, sizes, dy,
+                  kind: str = "cuda", route=None):
+    """K1's checks and allocations on a device of type ``kind`` (``meta``
+    for a traced call): ``((dx (T, D), da (T, F), db (T, F)), plan)``,
+    uninitialised, the plan :func:`dgrad_plan`'s; reports the call's
+    entry (``10 T D F``: gate/up again, ``dy W2ᵀ``, ``da W1ᵀ + db W3ᵀ``)."""
+    check_operands("ragged_moe_ffn_dgrad", {"w1": w1, "w3": w3, "w2": w2,
+                                            "toks": toks, "dy": dy}, kind)
+    n_tiles = tile_group.shape[0]
+    plan = dgrad_plan(w1, w3, w2, toks, dy, n_tiles, route)
+    T, D, F, E = plan[:4]
+    dev = toks.device
+    _check_index("tile_group", tile_group, n_tiles, dev)
+    _check_index("row_offsets", row_offsets, E + 1, dev)
+    _check_index("sizes", sizes, E, dev)
+    dx = torch.empty_like(toks)
+    da = torch.empty((T, F), dtype=toks.dtype, device=dev)
+    db = torch.empty_like(da)
+    costs.report("ragged_moe_ffn_dgrad", 10.0 * T * D * F, costs.tensor_bytes(
+        w1, w3, w2, toks, tile_group, row_offsets, sizes, dy, dx, da, db))
+    return (dx, da, db), plan
+
+
+def wgrad_outputs(toks, h, da, db, dy, row_offsets, sizes,
+                  kind: str = "cuda", route=None):
+    """K2's checks and allocations on a device of type ``kind``:
+    ``((dw1, dw3 (E, D, F), dw2 (E, F, D)), (T, D, F, E, tma))``,
+    uninitialised; reports the call's entry (``6 T D F``)."""
+    check_operands("ragged_moe_ffn_wgrad", {"toks": toks, "h": h, "da": da,
+                                            "db": db, "dy": dy}, kind)
+    T, D, F, tma = wgrad_plan(toks, h, da, db, dy, route)
+    E = sizes.shape[0]
+    _check_index("row_offsets", row_offsets, E + 1, toks.device)
+    _check_index("sizes", sizes, E, toks.device)
+    dw1 = torch.empty((E, D, F), dtype=toks.dtype, device=toks.device)
+    dw3 = torch.empty_like(dw1)
+    dw2 = torch.empty((E, F, D), dtype=toks.dtype, device=toks.device)
+    costs.report("ragged_moe_ffn_wgrad", 6.0 * T * D * F, costs.tensor_bytes(
+        toks, h, da, db, dy, row_offsets, sizes, dw1, dw3, dw2))
+    return (dw1, dw3, dw2), (T, D, F, E, tma)
+
+
 def _bwd_lib():
     lib = build.load("ragged_moe_ffn_bwd")
     if lib.ragged_moe_ffn_dgrad_bf16.argtypes is None:
@@ -322,18 +384,8 @@ def ragged_moe_ffn_dgrad(w1, w3, w2, toks, tile_group, row_offsets, sizes,
     on what the kernel does not take and if the launch is refused. Adds
     one to ``ragged_moe_ffn_dgrad.launches`` and, on the TMA route, to
     ``ragged_moe_ffn_dgrad.tma_launches``."""
-    check_operands("ragged_moe_ffn_dgrad", {"w1": w1, "w3": w3, "w2": w2,
-                                            "toks": toks, "dy": dy})
-    n_tiles = tile_group.shape[0]
-    T, D, F, E, bm, tma, rows = dgrad_plan(w1, w3, w2, toks, dy, n_tiles,
-                                           route)
-    dev = toks.device
-    _check_index("tile_group", tile_group, n_tiles, dev)
-    _check_index("row_offsets", row_offsets, E + 1, dev)
-    _check_index("sizes", sizes, E, dev)
-    dx = torch.empty_like(toks)
-    da = torch.empty((T, F), dtype=toks.dtype, device=dev)
-    db = torch.empty_like(da)
+    (dx, da, db), (T, D, F, E, bm, tma, rows) = dgrad_outputs(
+        w1, w3, w2, toks, tile_group, row_offsets, sizes, dy, route=route)
     lib = _bwd_lib()
     args = [toks.data_ptr(), dy.data_ptr(), tile_group.data_ptr(),
             row_offsets.data_ptr(), sizes.data_ptr(), w1.data_ptr(),
@@ -371,15 +423,8 @@ def ragged_moe_ffn_wgrad(toks, h, da, db, dy, row_offsets, sizes,
     the kernel does not take and if the launch is refused. Adds one to
     ``ragged_moe_ffn_wgrad.launches`` and, on the TMA route, to
     ``ragged_moe_ffn_wgrad.tma_launches``."""
-    check_operands("ragged_moe_ffn_wgrad", {"toks": toks, "h": h, "da": da,
-                                            "db": db, "dy": dy})
-    T, D, F, tma = wgrad_plan(toks, h, da, db, dy, route)
-    E = sizes.shape[0]
-    _check_index("row_offsets", row_offsets, E + 1, toks.device)
-    _check_index("sizes", sizes, E, toks.device)
-    dw1 = torch.empty((E, D, F), dtype=toks.dtype, device=toks.device)
-    dw3 = torch.empty_like(dw1)
-    dw2 = torch.empty((E, F, D), dtype=toks.dtype, device=toks.device)
+    (dw1, dw3, dw2), (T, D, F, E, tma) = wgrad_outputs(
+        toks, h, da, db, dy, row_offsets, sizes, route=route)
     lib = _bwd_lib()
     args = [toks.data_ptr(), h.data_ptr(), da.data_ptr(), db.data_ptr(),
             dy.data_ptr(), row_offsets.data_ptr(), sizes.data_ptr(),

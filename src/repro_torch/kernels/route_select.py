@@ -35,9 +35,10 @@ from typing import Dict
 
 import torch
 
-from . import build
+from . import build, costs
 
-__all__ = ["route_select", "route_select_bwd", "router_topk", "plan"]
+__all__ = ["route_select", "route_select_bwd", "router_topk", "plan",
+           "route_outputs", "route_bwd_outputs", "topk_outputs"]
 
 #: threads a block (``THREADS`` in ``csrc/route_select.cu``)
 THREADS = 256
@@ -125,32 +126,20 @@ def _refuse(specs, index):
                 f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
-def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
-                 top_k: int, row_valid=None, with_probs: bool = False):
-    """Launch the fused routing kernel.
-
-    ``x (T, D)`` bf16, ``router_w (D, E)`` f32, ``slots_of (E, R)`` int32,
-    ``n_copies (E,)`` int32, ``copy_cdf (E, R)`` f32, ``route_seed`` a
-    one-element int32 tensor (read on the card), ``row_valid (T,)`` bool or
-    None, all contiguous on one CUDA device → ``(weights (T, K) f32,
-    idx (T, K) int32, slots (T, K) int32, tally (E + 1,) f32,
-    mean_prob (E,) f32, aux () f32)``, as
-    :func:`~.ref.route_select_ref`. Raises on what the kernel does not
-    take and if the launch is refused. Adds one to
-    ``route_select.launches``. ``with_probs`` (training): the kernel also
-    writes the softmax ``p (T, E)`` f32, returned seventh, and the weights
-    get an f32 allocation of their own rather than a view of the int32
-    pack.
-
-    The host's part is kept small, since the decode step is host-bound:
-    the checks read tensor attributes only, the outputs are views of two
-    allocations (weights, idx and slots of one (3, T, K) int32 tensor; the
-    tally, mean_prob and aux of one f32 vector), the partial sums and
-    tickets live in per-device buffers made once, and the arguments go to
-    the C entry packed behind one pointer.
-    """
-    if not isinstance(x, torch.Tensor) or not x.is_cuda:
-        raise ValueError("route_select: x is not on a CUDA device")
+def route_outputs(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
+                  top_k: int, row_valid=None, with_probs: bool = False,
+                  kind: str = "cuda"):
+    """The fused launch's checks and allocations on a device of type
+    ``kind`` (``meta`` for a traced call): raises on what the kernel does
+    not take; returns ``(out, packed, stats, probs)``, ``out`` the
+    outputs of :func:`route_select` as views of ``packed`` and ``stats``
+    (with ``with_probs`` the weights and ``probs`` allocations of their
+    own), uninitialised but at ``T = 0``, where they hold what the plain
+    version gives and no launch follows. A call with rows reports its
+    entry (:mod:`.costs`: the router product's ``2 T D E``)."""
+    where = "CUDA" if kind == "cuda" else kind
+    if not isinstance(x, torch.Tensor) or x.device.type != kind:
+        raise ValueError(f"route_select: x is not on a {where} device")
     if x.dim() != 2 or router_w.dim() != 2 or slots_of.dim() != 2:
         raise ValueError(f"route_select: x {tuple(x.shape)}, router_w "
                          f"{tuple(router_w.shape)} and slots_of "
@@ -170,7 +159,7 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
             or route_seed.dtype is not torch.int32 \
             or route_seed.get_device() != index:
         raise ValueError("route_select: route_seed must be a one-element "
-                         f"int32 tensor on cuda:{index}")
+                         f"int32 tensor on {x.device}")
     if row_valid is not None and _bad(row_valid, torch.bool, (T,), index):
         _refuse((("row_valid", row_valid, torch.bool, (T,)),), index)
     if not 1 <= top_k <= min(E, 32) or E > 1024:
@@ -194,7 +183,47 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
     if T == 0:   # what the plain version gives: no rows, mean of nothing
         stats.fill_(float("nan"))
         tally.zero_()
+        return out, packed, stats, probs
+    costs.report("route_select", 2.0 * T * D * E, costs.tensor_bytes(
+        x, router_w, slots_of, n_copies, copy_cdf, route_seed, row_valid,
+        packed, stats, probs, w if with_probs else None))
+    return out, packed, stats, probs
+
+
+def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
+                 top_k: int, row_valid=None, with_probs: bool = False):
+    """Launch the fused routing kernel.
+
+    ``x (T, D)`` bf16, ``router_w (D, E)`` f32, ``slots_of (E, R)`` int32,
+    ``n_copies (E,)`` int32, ``copy_cdf (E, R)`` f32, ``route_seed`` a
+    one-element int32 tensor (read on the card), ``row_valid (T,)`` bool or
+    None, all contiguous on one CUDA device → ``(weights (T, K) f32,
+    idx (T, K) int32, slots (T, K) int32, tally (E + 1,) f32,
+    mean_prob (E,) f32, aux () f32)``, as
+    :func:`~.ref.route_select_ref`. Raises on what the kernel does not
+    take (:func:`route_outputs`, which allocates) and if the launch is
+    refused. Adds one to ``route_select.launches``. ``with_probs``
+    (training): the kernel also writes the softmax ``p (T, E)`` f32,
+    returned seventh, and the weights get an f32 allocation of their own
+    rather than a view of the int32 pack.
+
+    The host's part is kept small, since the decode step is host-bound:
+    the checks read tensor attributes only, the outputs are views of two
+    allocations (weights, idx and slots of one (3, T, K) int32 tensor; the
+    tally, mean_prob and aux of one f32 vector), the partial sums and
+    tickets live in per-device buffers made once, and the arguments go to
+    the C entry packed behind one pointer.
+    """
+    out, packed, stats, probs = route_outputs(
+        x, router_w, slots_of, n_copies, copy_cdf, route_seed, top_k,
+        row_valid, with_probs)
+    T, D = x.shape
+    if T == 0:
         return out
+    E = router_w.shape[1]
+    R = slots_of.shape[1]
+    index = x.get_device()
+    dev = x.device
     tr, dc, split, cps, n_rb = plan(T, D, E)
     # scratch words, as the C entry lays them out: partial logits (S > 1),
     # then the row blocks' sums of p and counts (n_rb > 1)
@@ -210,7 +239,7 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
         torch._C._cuda_getCurrentRawStream(index),
         T, D, E, top_k, R, tr, dc, cps, split,
         0 if probs is None else probs.data_ptr(),
-        w.data_ptr() if with_probs else 0)
+        out[0].data_ptr() if with_probs else 0)
     err = _lib().route_select_bf16(_ARGS_PTR)
     if err != 0:
         raise RuntimeError(f"route_select: CUDA launch failed with "
@@ -222,21 +251,17 @@ def route_select(x, router_w, slots_of, n_copies, copy_cdf, route_seed,
 route_select.launches = 0
 
 
-def route_select_bwd(probs, idx, weights, tally, dweights, dmean_prob, daux,
-                     row_valid=None):
-    """Launch the routing stage's backward to its logits
-    (``route_select_bwd_kernel``): ``probs (T, E)``, ``weights`` and
-    ``dweights (T, K)``, the counts ``tally (E,)``, ``dmean_prob (E,)``,
-    ``daux
-    ()`` f32, ``idx (T, K)`` int32, ``row_valid (T,)`` bool or None, all
-    contiguous on one CUDA device → ``dlogits (T, E)`` f32, as
-    :func:`~.ref.route_select_dlogits_ref`. Raises on what the kernel
-    does not take and if the launch is refused. Adds one to
-    ``route_select_bwd.launches``."""
-    if not isinstance(probs, torch.Tensor) or not probs.is_cuda \
+def route_bwd_outputs(probs, idx, weights, tally, dweights, dmean_prob,
+                      daux, row_valid=None, kind: str = "cuda"):
+    """The backward launch's checks and its ``dlogits (T, E)`` f32,
+    uninitialised, on a device of type ``kind`` (``meta`` for a traced
+    call); a call with rows reports its entry (:mod:`.costs`; elementwise,
+    so no product's operations)."""
+    where = "CUDA" if kind == "cuda" else kind
+    if not isinstance(probs, torch.Tensor) or probs.device.type != kind \
             or probs.dim() != 2:
         raise ValueError("route_select_bwd: probs is not a (T, E) tensor on "
-                         "a CUDA device")
+                         f"a {where} device")
     T, E = probs.shape
     K = idx.shape[-1]
     index = probs.get_device()
@@ -255,6 +280,29 @@ def route_select_bwd(probs, idx, weights, tally, dweights, dmean_prob, daux,
         raise ValueError(f"route_select_bwd: top_k={K} with E={E} (K <= 32, "
                          "E <= 1024)")
     dlogits = torch.empty((T, E), dtype=torch.float32, device=probs.device)
+    if T:
+        costs.report("route_select_bwd", 0.0, costs.tensor_bytes(
+            probs, idx, weights, dweights, tally, dmean_prob, daux,
+            row_valid, dlogits))
+    return dlogits
+
+
+def route_select_bwd(probs, idx, weights, tally, dweights, dmean_prob, daux,
+                     row_valid=None):
+    """Launch the routing stage's backward to its logits
+    (``route_select_bwd_kernel``): ``probs (T, E)``, ``weights`` and
+    ``dweights (T, K)``, the counts ``tally (E,)``, ``dmean_prob (E,)``,
+    ``daux
+    ()`` f32, ``idx (T, K)`` int32, ``row_valid (T,)`` bool or None, all
+    contiguous on one CUDA device → ``dlogits (T, E)`` f32, as
+    :func:`~.ref.route_select_dlogits_ref`. Raises on what the kernel
+    does not take and if the launch is refused. Adds one to
+    ``route_select_bwd.launches``."""
+    dlogits = route_bwd_outputs(probs, idx, weights, tally, dweights,
+                                dmean_prob, daux, row_valid)
+    T, E = probs.shape
+    K = idx.shape[-1]
+    index = probs.get_device()
     if T == 0:
         return dlogits
     err = _lib().route_select_bwd_f32(
@@ -272,13 +320,13 @@ def route_select_bwd(probs, idx, weights, tally, dweights, dmean_prob, daux,
 route_select_bwd.launches = 0
 
 
-def router_topk(logits, top_k: int):
-    """Launch the logits-in routing kernel: logits (T, E) f32 contiguous
-    CUDA → (weights (T, K) f32, idx (T, K) int32), the TPU kernel's
-    function. Raises on what it does not take. Adds one to
-    ``router_topk.launches``."""
-    if not isinstance(logits, torch.Tensor) or not logits.is_cuda:
-        raise ValueError("router_topk: logits are not on a CUDA device")
+def topk_outputs(logits, top_k: int, kind: str = "cuda"):
+    """The logits-in launch's checks and its ``(weights, idx)``,
+    uninitialised, on a device of type ``kind`` (``meta`` for a traced
+    call); a call with rows reports its entry (:mod:`.costs`)."""
+    where = "CUDA" if kind == "cuda" else kind
+    if not isinstance(logits, torch.Tensor) or logits.device.type != kind:
+        raise ValueError(f"router_topk: logits are not on a {where} device")
     if logits.dtype != torch.float32 or logits.dim() != 2 \
             or not logits.is_contiguous():
         raise TypeError("router_topk: logits must be a contiguous (T, E) "
@@ -290,6 +338,18 @@ def router_topk(logits, top_k: int):
                          "E <= 1024)")
     w = torch.empty((T, top_k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((T, top_k), dtype=torch.int32, device=logits.device)
+    if T:
+        costs.report("router_topk", 0.0, costs.tensor_bytes(logits, w, idx))
+    return w, idx
+
+
+def router_topk(logits, top_k: int):
+    """Launch the logits-in routing kernel: logits (T, E) f32 contiguous
+    CUDA → (weights (T, K) f32, idx (T, K) int32), the TPU kernel's
+    function. Raises on what it does not take. Adds one to
+    ``router_topk.launches``."""
+    w, idx = topk_outputs(logits, top_k)
+    T, E = logits.shape
     if T == 0:
         return w, idx
     err = _lib().router_topk_f32(

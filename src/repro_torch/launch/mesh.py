@@ -16,6 +16,13 @@ The backend is the caller's choice, made in ``init_process_group``:
 ``gloo`` on CUDA tensors for several ranks sharing one card (NCCL refuses
 two ranks on one device). :func:`run_ranks` starts such a group of
 processes on one host and collects what each returns.
+
+:func:`fake_group` starts a default group of any size in which this
+process plays one rank and the collectives do nothing (PyTorch's ``fake``
+backend): the dry run (:mod:`repro_torch.launch.dryrun`) traces one rank
+of the production grid (:func:`make_production_mesh`) with it on the
+``meta`` device. A process has one default group, so a grid of another
+size runs in a process of its own.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import numpy as np
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["Grid", "make_mesh", "run_ranks", "free_port"]
+__all__ = ["Grid", "make_mesh", "make_production_mesh", "fake_group",
+           "run_ranks", "free_port"]
 
 Axes = Union[str, Sequence[str]]
 
@@ -126,6 +134,29 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Grid:
                 if rank in members:
                     groups[names] = g
     return Grid(shape, axes, rank, groups)
+
+
+def make_production_mesh(multi_pod: bool = False) -> Grid:
+    """The production grid on the default group, as
+    ``src/repro/launch/mesh.py:20-38`` builds its mesh: 16 x 16 over
+    ``("data", "model")`` (256 ranks) or 2 x 16 x 16 over ``("pod",
+    "data", "model")`` (512)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def fake_group(world: int, rank: int = 0) -> None:
+    """Start this process's default group as rank ``rank`` of ``world``
+    on the ``fake`` backend, whose collectives return at once and move
+    nothing (``torch.testing._internal.distributed.fake_pg``, a private
+    module: an import error here means the installed torch lacks it). A
+    group that is running already is destroyed first."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
 
 
 def free_port() -> int:

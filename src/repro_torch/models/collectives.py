@@ -75,7 +75,10 @@ __all__ = ["all_to_all", "exchange", "sum_partials", "max_over", "mean_over",
 
 
 class ExchangeClock:
-    """Host seconds, calls and bytes of the collectives while ``enabled``."""
+    """Host seconds, calls and operand bytes of the collectives while
+    ``enabled``; ``by_kind`` holds each kind's ``[calls, bytes]`` under
+    ``parse_hlo``'s names (``all-reduce``, ``all-to-all``, ...), as
+    ``launch.cost_analysis`` counts them."""
 
     def __init__(self):
         self.enabled = False
@@ -85,8 +88,9 @@ class ExchangeClock:
         self.seconds = 0.0
         self.calls = 0
         self.bytes = 0
+        self.by_kind = {}
 
-    def run(self, fn, t: torch.Tensor):
+    def run(self, fn, t: torch.Tensor, kind: str):
         if not self.enabled:
             return fn()
         if t.is_cuda:
@@ -96,8 +100,11 @@ class ExchangeClock:
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
         self.seconds += time.perf_counter() - t0
+        n = t.numel() * t.element_size()
         self.calls += 1
-        self.bytes += t.numel() * t.element_size()
+        self.bytes += n
+        calls, nbytes = self.by_kind.get(kind, (0, 0))
+        self.by_kind[kind] = [calls + 1, nbytes + n]
         return out
 
 
@@ -111,14 +118,16 @@ def _n(group) -> int:
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """In-place sum over ``group`` of a tensor outside autograd (tallies)."""
     if group is not None:
-        clock.run(lambda: dist.all_reduce(t, group=group), t)
+        clock.run(lambda: dist.all_reduce(t, group=group), t,
+                  "all-reduce")
     return t
 
 
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
-    clock.run(lambda: dist.all_to_all_single(out, x, group=group), x)
+    clock.run(lambda: dist.all_to_all_single(out, x, group=group), x,
+              "all-to-all")
     return out
 
 
@@ -157,7 +166,8 @@ def exchange(x: torch.Tensor, group, send_counts: Sequence[int],
     out = x.new_empty((int(sum(recv_counts)),) + tuple(x.shape[1:]))
     clock.run(lambda: dist.all_to_all_single(
         out, x, output_split_sizes=[int(n) for n in recv_counts],
-        input_split_sizes=[int(n) for n in send_counts], group=group), x)
+        input_split_sizes=[int(n) for n in send_counts], group=group), x,
+        "all-to-all")
     return out
 
 
@@ -188,7 +198,7 @@ def max_over(x: torch.Tensor, group) -> torch.Tensor:
         return x
     t = x.clone()
     clock.run(lambda: dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group),
-              t)
+              t, "all-reduce")
     return t
 
 
@@ -212,7 +222,8 @@ def mean_over(x: torch.Tensor, group) -> torch.Tensor:
 def _gather(x: torch.Tensor, group) -> List[torch.Tensor]:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(_n(group))]
-    clock.run(lambda: dist.all_gather(parts, x, group=group), x)
+    clock.run(lambda: dist.all_gather(parts, x, group=group), x,
+              "all-gather")
     return parts
 
 
@@ -229,7 +240,7 @@ class _GatherShards(torch.autograd.Function):
             return chunks[dist.get_rank(ctx.group)], None, None, None
         out = torch.empty_like(chunks[0])
         clock.run(lambda: dist.reduce_scatter(out, chunks, group=ctx.group),
-                  g)
+                  g, "reduce-scatter")
         return out, None, None, None
 
 
@@ -254,7 +265,8 @@ def gather_to(x: torch.Tensor, group, dst: int):
     x = x.contiguous()
     parts = ([torch.empty_like(x) for _ in range(_n(group))]
              if dist.get_rank() == dst else None)
-    clock.run(lambda: dist.gather(x, parts, dst=dst, group=group), x)
+    clock.run(lambda: dist.gather(x, parts, dst=dst, group=group), x,
+              "gather")
     return parts
 
 
@@ -271,7 +283,8 @@ class _ScatterPartials(torch.autograd.Function):
         ctx.group, ctx.dim = group, dim
         chunks = [c.contiguous() for c in x.chunk(_n(group), dim)]
         out = torch.empty_like(chunks[0])
-        clock.run(lambda: dist.reduce_scatter(out, chunks, group=group), x)
+        clock.run(lambda: dist.reduce_scatter(out, chunks, group=group), x,
+                  "reduce-scatter")
         return out
 
     @staticmethod
