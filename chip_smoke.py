@@ -210,7 +210,23 @@ Run from the repository root on a machine with one NVIDIA H100. It
    FLOPs and the memory traffic equal between trace and card, the traced
    peak above the arguments within ``DRYRUN_PEAK_REL`` of the card's
    ``max_memory_allocated()``; each call's roofline terms (H100 data
-   sheet) beside its measured wall.
+   sheet) beside its measured wall;
+18. the modality frontends (``frontend_phase``, after phase 16): (a) on
+   one device, hubert-xlarge's published config (48 layers, nothing cut)
+   through ``launch/train.py``, 3 steps of 4 x 256 f32 frames, then the
+   same 3 steps again bit for bit, and a prefill of 2 x 512 frames;
+   pixtral-12b's published config (40 layers, 12.25 B parameters) a
+   prefill of 2 x (256 patches + 256 tokens), its cache of 512 rows, the
+   patches drawn again moving the logits, 4 greedy text-only decode
+   steps, and one ``make_train_step`` step with the depth cut to 4 layers
+   (AdamW's state of 40 layers does not fit one card); every logit and
+   loss finite, every kernel's launch count 0 (dense archs), each wall,
+   tokens/s and peak; (b) on 4 ranks of its own
+   (``frontend_grid_phase``), hubert-xlarge and pixtral-12b at full width
+   with 2 layers on (2, 2) from ``make_rules`` (pixtral's 384 positions
+   split over "model" inside its 256 patches), a prefill and a loss and
+   backward each against one device within ``FRONTEND_BOUNDS``, each
+   rank's residual shape recorded.
 
 Each path's counts are set to 0 just before it is served (or trained) and
 read just after. Every check raises, so any failure exits non-zero. The last three
@@ -3357,7 +3373,9 @@ class split_rows:
                  @ w.float() for w in ws], 1) for t in x.split(piece, 0)], 0)
 
         def split_xent(hidden, w, labels, n_chunks=8, group=None,
-                       vocab_offset=0):
+                       vocab_offset=0, denom=None):
+            # one device: ``denom`` is the call's count of labels, whose
+            # mean the parts' mean is
             if vtp > 1:
                 parts = [_vocab_xent(h, slices(w), y, n_chunks)
                          for h, y in zip(hidden.split(piece, 0),
@@ -3480,6 +3498,22 @@ def _witness(w, path, batch, seq):
     return stack
 
 
+def _plan_batch(inp):
+    """A plan's loss batch: its ``batch`` (frames or patches), else its
+    tokens and labels."""
+    return inp.get("batch") or {"tokens": inp["tokens"],
+                                "labels": inp["labels"]}
+
+
+def _no_labels(batch):
+    return {k: v for k, v in batch.items() if k != "labels"}
+
+
+def _grad_or_zeros(p):
+    import torch
+    return torch.zeros_like(p) if p.grad is None else p.grad
+
+
 def tp_reference(cfg, dev, params, inputs, paths, witness=None, steps=None):
     """One device (``rules=None``) on ``params``: the prefill's logits and
     tallies, the first ``steps`` decode steps' (each from the one before,
@@ -3491,20 +3525,23 @@ def tp_reference(cfg, dev, params, inputs, paths, witness=None, steps=None):
     import torch
     from repro_torch.models import (decode_fn, loss_fn, make_moe_tables,
                                     prefill_fn)
+    from repro_torch.models.model import _batch_shape
     from repro_torch.tree import leaves, tree_map
     tables = make_moe_tables(cfg, device=dev)
     ref = {}
     ways = [("", lambda path, batch: contextlib.nullcontext())]
     if witness is not None:
         ways.append(("/witness", lambda path, batch: _witness(
-            witness, path, batch, inputs["tokens"].shape[1])))
-    dec = inputs["dec_tokens"][:steps]
+            witness, path, batch, seq)))
+    dec = inputs["dec_tokens"][:steps] if "decode" in paths else None
+    batch = _plan_batch(inputs)
+    B, seq = _batch_shape(cfg, batch)
     for way, ctx in ways:
         with torch.no_grad():
             if "prefill" in paths:
-                with ctx("prefill", inputs["tokens"].shape[0]):
-                    lg, _, tal = prefill_fn(cfg)(
-                        params, {"tokens": inputs["tokens"]}, tables)
+                with ctx("prefill", B):
+                    lg, _, tal = prefill_fn(cfg)(params, _no_labels(batch),
+                                                 tables)
                 ref["prefill" + way] = (lg, tal)
             if "decode" in paths:
                 cache = tree_map(torch.clone, inputs["cache"])
@@ -3518,13 +3555,12 @@ def tp_reference(cfg, dev, params, inputs, paths, witness=None, steps=None):
         if "backward" in paths:
             for p in leaves(params):
                 p.requires_grad_(True)
-            with ctx("backward", inputs["tokens"].shape[0]):
-                loss, (tal, _) = loss_fn(cfg)(
-                    params, {"tokens": inputs["tokens"],
-                             "labels": inputs["labels"]}, tables)
+            with ctx("backward", B):
+                loss, (tal, _) = loss_fn(cfg)(params, batch, tables)
                 loss.backward()
             ref["loss" + way] = loss.detach()
-            ref["grads" + way] = tree_map(lambda p: p.grad, params)
+            # a leaf the loss never reads (hubert's embedding): zeros
+            ref["grads" + way] = tree_map(_grad_or_zeros, params)
             ref["backward_tally" + way] = tal.detach()
             params = tree_map(lambda p: p.detach(), params)
     return params, ref
@@ -3886,9 +3922,10 @@ def tp_rank(rank, plans, weights, refs, inputs):
     from repro_torch.models import (decode_fn, loss_fn, make_moe_tables,
                                     prefill_fn)
     from repro_torch.models import collectives
-    from repro_torch.models.model import block_layout
+    from repro_torch.models.model import _batch_shape, block_layout
     from repro_torch.tree import leaves, tree_map
-    dev = next(iter(inputs.values()))["tokens"].device
+    dev = next(iter(_plan_batch(next(iter(inputs.values()))).values())) \
+        .device
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.set_device(dev)
@@ -3960,10 +3997,10 @@ def tp_rank(rank, plans, weights, refs, inputs):
         out["dense_bytes"] = _dense_bytes(cfg, local)
         out["dense_bytes_whole"] = _dense_bytes(cfg, params)
         tables = make_moe_tables(cfg, rules, phase="prefill", device=dev)
-        batch = {"tokens": inp["tokens"], "labels": inp["labels"]}
+        batch = _plan_batch(inp)
         if "prefill" in plan["paths"]:
             fn = prefill_fn(cfg, rules)
-            call = lambda: fn(local, {"tokens": inp["tokens"]}, tables)  # noqa: E731
+            call = lambda: fn(local, _no_labels(batch), tables)  # noqa: E731
             with torch.no_grad():
                 if not wit:           # else the witness's run warms up
                     run("warm-up", call)
@@ -4063,7 +4100,7 @@ def tp_rank(rank, plans, weights, refs, inputs):
 
             def grad_rel(key):
                 want = leaves(shard_params(cfg, ref[key], trules, "train"))
-                rel = max(_rel_l2_chunked(p.grad, w)
+                rel = max(_rel_l2_chunked(_grad_or_zeros(p), w)
                           for p, w in zip(leaves(tparams), want))
                 for p in leaves(tparams):
                     p.grad = None
@@ -4084,7 +4121,7 @@ def tp_rank(rank, plans, weights, refs, inputs):
             out["block_input_shape"] = seen.shape
             out["block_input_bytes_whole"] = (
                 seen.bytes // math.prod(seen.shape)
-                * math.prod(batch["tokens"].shape) * cfg.d_model)
+                * math.prod(_batch_shape(cfg, batch)) * cfg.d_model)
             out["loss"] = loss.item()
             out["loss_rel"] = abs(loss.item() - ref["loss"].item()) / abs(
                 ref["loss"].item())
@@ -5673,6 +5710,307 @@ def _state_reckoning(cfg, peak_gib):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the modality frontends
+# ---------------------------------------------------------------------------
+
+#: (a): hubert's training (the train driver's synthetic batch of f32
+#: frames) and prefill; pixtral's prefill and decode, and its training
+#: step with the depth cut (AdamW's f32 state of 40 layers, >= 146 GB,
+#: does not fit one 80 GB card)
+FRONTEND_TRAIN = dict(steps=3, seq_len=256, batch=4)
+FRONTEND_PREFILL = (2, 512)              # hubert: lanes x frames
+FRONTEND_TEXT = 256                      # pixtral: tokens after 256 patches
+FRONTEND_DECODE_STEPS = 4
+FRONTEND_STEP_LAYERS = 4
+#: (b): the rank grid's batches, (B, S): pixtral's 384 positions over
+#: "model" split at 192, inside its 256 patches
+FRONTEND_GRID = {"hubert": (4, 256), "pixtral": (2, 384)}
+# (b), 2 layers at full width: the ranks' partials (the vocab-parallel
+# embedding and loss, heads, FSDP's reduce-scatters) against one device
+# as it runs, set at about twice the readings on an H100 80GB HBM3 at
+# 700 W (PERF.md, phase 18): hubert (an f32 residual) 8.23e-7, 1.43e-7,
+# 5.78e-3 (the bf16 gradients); pixtral 1.05e-2, 6.16e-5, 1.40e-2
+FRONTEND_BOUNDS = {
+    "hubert": {"prefill": 2e-6, "loss": 4e-7, "grads": 1.2e-2},
+    "pixtral": {"prefill": 2.1e-2, "loss": 1.3e-4, "grads": 2.8e-2},
+}
+
+
+def _finite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def _timed(fn):
+    """``fn()``'s result and its host wall (synchronised), seconds."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def frontend_phase(dev):
+    """Phase 18 (a): the modality frontends on one device at full width.
+
+    hubert-xlarge, the published config (48 layers, d_model 1280, 16
+    heads, d_ff 5120, frames of 512, vocabulary 504; nothing cut): 3 steps
+    of ``launch.train.train`` at 4 x 256 frames (f32 frames, so the
+    residual stream is f32 through the bf16 blocks, as the reference's
+    promotion gives), then the same 3 steps again, bit for bit (losses
+    and every parameter's digest); a prefill of 2 x 512 frames on the
+    trained weights (non-causal; the cache of all 512 rows).
+
+    pixtral-12b, the published config (40 layers, d_model 5120, 32 heads
+    and 8 KV heads, d_ff 14336, vocabulary 131072, 256 patches of 1024;
+    12.25 B parameters, seed-0 bf16): a prefill of 2 x (256 patches + 256
+    tokens), its cache of 512 rows, the same tokens with the patches
+    drawn again giving other logits, then 4 greedy text-only decode steps
+    at positions 512-515; one ``make_train_step`` step at full width with
+    the depth cut to 4 layers (2.44 B parameters), 2 x (256 + 256).
+
+    Every logit and loss finite; no kernel of the port on these paths
+    (dense archs): every launch count 0. Prints each wall, tokens/s and
+    the peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.models import (count_params, decode_fn, init_cache,
+                                    init_params, prefill_fn)
+    from repro_torch.training import (AdamWConfig, DataConfig, adamw_init,
+                                      synthetic_batch)
+    out = {}
+    gib = 2 ** 30
+
+    def reset():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+
+    def launches(what):
+        counts = ops.launch_counts()
+        check(not any(counts.values()),
+              f"phase 18 {what}: kernels launched {counts}")
+        return counts
+
+    # hubert-xlarge: the train driver, twice, and a prefill
+    hub = get_config("hubert-xlarge")
+    tr = FRONTEND_TRAIN
+    runs = []
+    for i in range(2):
+        reset()
+        times = []
+        params, opt, losses, _ = train(
+            "hubert-xlarge", smoke=False, device=dev, step_times=times,
+            log_every=100, **tr)
+        torch.cuda.synchronize()
+        runs.append({"losses": losses, "step_s": times,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "digest": param_digest(params),
+                     "launches": launches(f"hubert training run {i}")})
+        del opt
+        if i == 0:
+            del params
+    check(all(math.isfinite(v) for v in runs[0]["losses"]),
+          f"phase 18 hubert: losses {runs[0]['losses']}")
+    check(runs[0]["losses"] == runs[1]["losses"]
+          and runs[0]["digest"] == runs[1]["digest"],
+          f"phase 18 hubert: two seeded runs differ (losses "
+          f"{runs[0]['losses']} vs {runs[1]['losses']})")
+    med = statistics.median(runs[0]["step_s"])
+    tokens = tr["batch"] * tr["seq_len"]
+    out["hubert_train"] = {
+        "losses": runs[0]["losses"], "step_s": runs[0]["step_s"],
+        "median_step_s": med, "tokens_per_s": tokens / med,
+        "peak_gib": runs[0]["peak_bytes"] / gib, "bits": True,
+        "n_params": count_params(params)}
+    print(f"[frontend] phase 18 (a) hubert-xlarge: {hub.n_layers} layers, "
+          f"{count_params(params) / 1e9:.3f} B params, {tr['steps']} steps "
+          f"of {tr['batch']} x {tr['seq_len']} f32 frames: losses "
+          f"{', '.join(f'{v:.4f}' for v in runs[0]['losses'])} (ln "
+          f"{hub.vocab} = {math.log(hub.vocab):.4f}); step walls "
+          f"{', '.join(f'{t:.3f}' for t in runs[0]['step_s'])} s, median "
+          f"{med:.3f} s, {tokens / med:.0f} frames/s; max_memory_allocated "
+          f"{runs[0]['peak_bytes'] / gib:.2f} GiB; a second run bit for "
+          f"bit (losses and every parameter); launches "
+          f"{json.dumps(runs[0]['launches'])}", flush=True)
+    B, S = FRONTEND_PREFILL
+    reset()
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    feats = torch.randn((B, S, hub.frontend_dim), generator=g, device=dev)
+    fn = prefill_fn(hub)
+    with torch.no_grad():
+        fn(params, {"feats": feats})                         # warm-up
+        (lg, cache, _), wall = _timed(lambda: fn(params, {"feats": feats}))
+    rows = cache[0][0].shape[2]
+    check(_finite(lg) and tuple(lg.shape) == (B, hub.vocab) and rows == S
+          and cache[0][0].dtype == torch.float32,
+          f"phase 18 hubert prefill: logits {tuple(lg.shape)} finite "
+          f"{_finite(lg)}, cache rows {rows} ({cache[0][0].dtype})")
+    out["hubert_prefill"] = {
+        "wall_s": wall, "frames_per_s": B * S / wall, "cache_rows": rows,
+        "peak_gib": torch.cuda.max_memory_allocated() / gib,
+        "launches": launches("hubert prefill")}
+    print(f"[frontend] phase 18 (a) hubert-xlarge prefill of {B} x {S} f32 "
+          f"frames: {wall * 1e3:.1f} ms, {B * S / wall:.0f} frames/s; "
+          f"logits {tuple(lg.shape)} finite, cache {rows} rows a lane "
+          f"(f32, the residual's dtype); max_memory_allocated "
+          f"{out['hubert_prefill']['peak_gib']:.2f} GiB", flush=True)
+    del params, cache, lg, feats
+
+    # pixtral-12b: prefill, the patches' effect, decode
+    pix = get_config("pixtral-12b")
+    P, T = pix.n_patches, FRONTEND_TEXT
+    reset()
+    g.manual_seed(0)
+    (params, wall_init) = _timed(lambda: init_params(pix, g, device=dev))
+    torch.cuda.reset_peak_memory_stats()     # the draw's f32 temporaries
+    g.manual_seed(18)
+    tokens = torch.randint(0, pix.vocab, (B, T), generator=g, device=dev)
+    patches = [torch.randn((B, P, pix.frontend_dim), generator=g,
+                           device=dev) for _ in range(2)]
+    fn = prefill_fn(pix)
+    with torch.no_grad():
+        fn(params, {"tokens": tokens, "patches": patches[0]})   # warm-up
+        (lg, cache, _), wall = _timed(lambda: fn(
+            params, {"tokens": tokens, "patches": patches[0]}))
+        lg2, _, _ = fn(params, {"tokens": tokens, "patches": patches[1]})
+    rows = cache[0][0].shape[2]
+    moved = (lg - lg2).abs().max().item()
+    check(_finite(lg) and _finite(lg2) and rows == P + T and moved > 0,
+          f"phase 18 pixtral prefill: logits finite {_finite(lg)}, "
+          f"{_finite(lg2)}; cache rows {rows} (P + T = {P + T}); logits "
+          f"with the patches drawn again differ by {moved}")
+    n = FRONTEND_DECODE_STEPS
+    dcache = init_cache(pix, B, P + T + n, device=dev)
+    for (k, v), (k0, v0) in zip(dcache, cache):
+        k[:, :, :P + T].copy_(k0)
+        v[:, :, :P + T].copy_(v0)
+    del cache
+    step = decode_fn(pix)
+    tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+    walls = []
+    with torch.no_grad():
+        for i in range(n):
+            pos = torch.full((B,), P + T + i, dtype=torch.int32, device=dev)
+            (dl, dcache, _), w = _timed(lambda: step(params, tok, dcache,
+                                                     pos))
+            check(_finite(dl), f"phase 18 pixtral decode step {i}: logits "
+                  "not finite")
+            tok = dl.argmax(-1, keepdim=True).to(torch.int32)
+            walls.append(w)
+    out["pixtral_serve"] = {
+        "n_params": count_params(params), "init_s": wall_init,
+        "prefill_s": wall, "prefill_tokens_per_s": B * (P + T) / wall,
+        "cache_rows": rows, "patch_logit_change": moved,
+        "decode_s": walls, "decode_median_s": statistics.median(walls),
+        "peak_gib": torch.cuda.max_memory_allocated() / gib,
+        "launches": launches("pixtral prefill and decode")}
+    ps = out["pixtral_serve"]
+    print(f"[frontend] phase 18 (a) pixtral-12b: {pix.n_layers} layers, "
+          f"{ps['n_params'] / 1e9:.3f} B params (bf16, drawn in "
+          f"{wall_init:.2f} s); prefill of {B} x ({P} patches + {T} "
+          f"tokens) {wall * 1e3:.1f} ms, {B * (P + T) / wall:.0f} "
+          f"positions/s, cache {rows} rows a lane; the patches drawn again "
+          f"move the logits by up to {moved:.4f}; {n} greedy decode steps "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms (median "
+          f"{ps['decode_median_s'] * 1e3:.1f}, {B / ps['decode_median_s']:.1f}"
+          f" tokens/s); max_memory_allocated {ps['peak_gib']:.2f} GiB",
+          flush=True)
+    del params, dcache, lg, lg2, dl, patches, tokens
+
+    # pixtral-12b at full width, 4 layers: one training step
+    cut = dataclasses.replace(pix, n_layers=FRONTEND_STEP_LAYERS)
+    reset()
+    g.manual_seed(0)
+    params = init_params(cut, g, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(params)
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    data = DataConfig(seq_len=P + T, global_batch=B, seed=0)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_batch(cut, data, 0).items()}
+    stepf = make_train_step(cut, AdamWConfig(), GRID_TOTAL)
+    (params, opt, loss, _), wall = _timed(lambda: stepf(params, opt, batch,
+                                                        None))
+    check(math.isfinite(loss.item()),
+          f"phase 18 pixtral 4-layer step: loss {loss.item()}")
+    out["pixtral_step"] = {
+        "layers": FRONTEND_STEP_LAYERS, "n_params": count_params(params),
+        "loss": loss.item(), "step_s": wall,
+        "tokens_per_s": B * (P + T) / wall,
+        "peak_gib": torch.cuda.max_memory_allocated() / gib,
+        "launches": launches("pixtral training step")}
+    st = out["pixtral_step"]
+    print(f"[frontend] phase 18 (a) pixtral-12b at full width, depth cut to "
+          f"{FRONTEND_STEP_LAYERS} of {pix.n_layers} layers "
+          f"({st['n_params'] / 1e9:.3f} B params; AdamW's f32 state of 40 "
+          f"layers does not fit one card): one step of {B} x ({P} + {T}): "
+          f"loss {st['loss']:.4f} (ln {pix.vocab} = "
+          f"{math.log(pix.vocab):.4f}), {wall:.3f} s (the first, with its "
+          f"allocations), {st['tokens_per_s']:.0f} positions/s; "
+          f"max_memory_allocated {st['peak_gib']:.2f} GiB; every launch "
+          f"count 0", flush=True)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_grid_phase(dev):
+    """Phase 18 (b): hubert-xlarge and pixtral-12b at full width with 2
+    layers on (2, 2) from ``make_rules`` (hubert: heads, the frontend's
+    d_model and the vocabulary over "model"; pixtral: the same with dense
+    FSDP over "data", 1.9 B parameters), each a prefill and a loss and
+    backward (remat) on :data:`FRONTEND_GRID`'s batch, the train driver's
+    synthetic one (f32 frames or patches), held against one device within
+    :data:`FRONTEND_BOUNDS`, the residual's shape a rank recorded. On 4
+    ranks of its own after phase 16: beside phase 16's states the card
+    has no room for pixtral's weights and one-device gradients (~8 GB in
+    the parent; a rank of 16 (e) ran out of memory with them there)."""
+    t_start = time.perf_counter()
+    plans, weights, inputs, what = frontend_plans(dev)
+    return _grid_run("frontend", plans, weights, inputs, dev,
+                     FRONTEND_BOUNDS, what, t_start)
+
+
+def frontend_plans(dev):
+    """Phase 18 (b)'s plans, weights and inputs
+    (:func:`frontend_grid_phase`)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import DataConfig, synthetic_batch
+    plans, weights, inputs, what = [], {}, {}, {}
+    for name, arch in (("hubert", "hubert-xlarge"), ("pixtral",
+                                                     "pixtral-12b")):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        weights[name] = init_params(cfg, gen, device=dev,
+                                    dtype=torch.bfloat16)
+        B, S = FRONTEND_GRID[name]
+        batch = synthetic_batch(cfg, DataConfig(seq_len=S, global_batch=B,
+                                                seed=18), 0)
+        inputs[name] = {"batch": {k: torch.as_tensor(v, device=dev)
+                                  for k, v in batch.items()}}
+        plans.append({"label": name, "model": name, "cfg": cfg,
+                      "grid": (2, 2), "rules": {}, "witness": False,
+                      "paths": ["prefill", "backward"], "steps": 1,
+                      "clocked": []})
+        what[name] = (f"phase 18 (b), {arch} 2 layers, {B} x {S}"
+                      + (f" ({cfg.n_patches} patches)"
+                         if cfg.frontend == "vision" else " frames")
+                      + " (2, 2)")
+    return plans, weights, inputs, what
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5801,12 +6139,26 @@ def main() -> int:
     stamp("phase 13, expert parallelism")
     remat = remat_phase(cfg, dev)
     stamp("phase 14, remat")
+    t_14 = time.perf_counter()
     # phase 15: tensor parallelism of the dense layers on 4 ranks
     tp = tp_phase(cfg, dev)
     stamp("phase 15, tensor parallelism")
     # phase 16: the batch over dp and the sequence-sharded residual
     sp = sp_phase(cfg, dev, tp_peak_gib=max(tp["heads"]["peak_gib"]))
     stamp("phase 16, each rank's rows and the training step")
+    # phase 18: the modality frontends, on one device and on 4 ranks
+    t0 = time.perf_counter()
+    front = frontend_phase(dev)
+    front["wall_s"] = time.perf_counter() - t0
+    stamp("phase 18 (a), the modality frontends on one device")
+    front["grid"] = frontend_grid_phase(dev)
+    stamp("phase 18 (b), the modality frontends on the grid")
+    b = front["grid"]["phase_s"]
+    print(f"[time] phase 18: (a) {front['wall_s']:.1f} s, (b) "
+          f"{b['all']:.1f} s (one-device references "
+          f"{b['one_device_references']:.1f} s, ranks {b['ranks']:.1f} s "
+          f"with their start); phases 3-14 took {t_14 - t_main:.1f} s (192 "
+          f"s on PR 23's machine)", flush=True)
 
     def ep_launches(name):
         """This kernel's launches on the expert-parallel paths, per rank
@@ -5921,6 +6273,7 @@ def main() -> int:
     print(f"[remat] summary: {json.dumps(remat)}")
     print(f"[tp] summary: {json.dumps(tp)}")
     print(f"[sp] summary: {json.dumps(sp)}")
+    print(f"[frontend] summary: {json.dumps(front)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

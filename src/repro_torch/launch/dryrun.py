@@ -30,11 +30,12 @@ it. The port donates nothing: ``alias_size_in_bytes`` are the results that
 are arguments updated in place (the training step's params and AdamW
 state, decode's cache), 0 at prefill. The argument bytes differ from the
 reference's ``argument_size_in_bytes`` in two ways only: the port's step
-takes the global token batch (and decode's global token) and reads the
+takes the global batch (and decode's global token) and reads the
 rank's rows, where the reference's argument is the rank's ``dp`` shard;
 and ``jax.jit`` drops the arguments a step never reads (the replica
-tables ``n_copies`` and ``copy_cdf`` where every expert has one copy),
-which the port passes and counts. A failure here (a shape a kernel
+tables ``n_copies`` and ``copy_cdf`` where every expert has one copy, an
+audio arch's embedding, a vision arch's frontend at decode), which the
+port passes and counts. A failure here (a shape a kernel
 refuses, an operation without a meta kernel, a host read of a value) is a
 fault of the port, as in the reference.
 """
@@ -56,13 +57,13 @@ from repro_torch.configs import (ALL_ARCHS, EXTRA_ARCHS, SHAPES, ArchConfig,
                                  ShapeSpec, get, shape_applicable)
 from repro_torch.launch.cost_analysis import count_costs
 from repro_torch.launch.mesh import fake_group, make_mesh
-from repro_torch.launch.sharding import (cut_tree, make_rules, param_cuts,
-                                        rank_cache)
+from repro_torch.launch.sharding import (make_rules, rank_cache,
+                                        shard_params)
 from repro_torch.launch.train import make_train_step
 from repro_torch.models import (decode_fn, init_cache, init_params,
                                 make_moe_tables, prefill_fn)
 from repro_torch.training import AdamWConfig, adamw_init
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves
 
 __all__ = ["rank_inputs", "input_specs", "step_call", "measure", "run_cell",
            "main", "GRID_AXES"]
@@ -86,35 +87,25 @@ def rank_inputs(cfg: ArchConfig, shape: ShapeSpec, rules, *, whole=None,
     its slice of the params (``whole``, the whole tree of the phase's
     layout, or one drawn without a generator on ``meta``; for decode the
     decode fleet's tree, ``launch.sharding.decode_params``), for train
-    leaves of its own that require their gradients, with the AdamW state
-    of its slices (whose cuts are ``opt_cuts``'), the MoE tables of the
-    phase, and the global batch ``(B, S)`` int32 (the step reads the
-    rank's rows), or for decode the rank's cache (``rank_cache`` of
-    ``init_cache(B, S)``) with the lanes' token and position. Off ``meta`` the tokens are drawn
-    from seed 0; on ``meta`` there are no values. Raises for a train or
-    prefill cell of an arch with a modality frontend: the reference feeds
-    it features or patches, which the port's model does not take."""
+    leaves of its own (``shard_params``' train cut) that require their
+    gradients, with the AdamW state of its slices (whose cuts are
+    ``opt_cuts``'), the MoE tables of the phase, and the global batch of
+    the reference's ``batch_specs`` (the step reads the rank's rows):
+    ``tokens`` and ``labels`` (B, S) int32; for an audio arch ``feats``
+    (B, S, F) bf16 and ``labels``; for a vision arch ``patches`` (B, P, F)
+    bf16 and ``tokens`` and ``labels`` (B, S - P); no ``labels`` at
+    prefill. For decode, the rank's cache (``rank_cache`` of
+    ``init_cache(B, S)``) with the lanes' token and position. Off
+    ``meta`` the ids and features are drawn from seed 0; on ``meta``
+    there are no values."""
     phase = shape.kind
-    if cfg.frontend != "none" and phase != "decode":
-        raise NotImplementedError(
-            f"{cfg.name}: the port's model embeds tokens only; the "
-            f"reference's {cfg.frontend} frontend (its batch's "
-            f"{'feats' if cfg.frontend == 'audio' else 'patches'} projected "
-            "by params['frontend'], src/repro/models/model.py:524-536) has "
-            "no port")
-    grid = rules.grid
     if whole is None:
         whole = init_params(cfg, None, device=device, rules=rules,
                             phase=phase)
-    params = cut_tree(whole, param_cuts(cfg, rules, phase), grid)
-    if phase == "train":
-        # leaves of the rank's own: a copy where the cut left the whole
-        # tree's tensor, and none in the graph of a whole tree that
-        # requires gradients (a gradient would flow to it, and accumulate
-        # into what it holds already)
-        params = tree_map(lambda p, w: (p.detach().clone() if p is w
-                                        else p.detach()).requires_grad_(),
-                          params, whole)
+    params = shard_params(cfg, whole, rules, phase)
+    if phase == "train":           # leaves of the rank's own
+        for p in leaves(params):
+            p.requires_grad_()
     out: Dict[str, Any] = {
         "params": params,
         "tables": make_moe_tables(cfg, rules, phase=phase, device=device)}
@@ -130,17 +121,33 @@ def rank_inputs(cfg: ArchConfig, shape: ShapeSpec, rules, *, whole=None,
         return torch.randint(0, cfg.vocab, dims, generator=gen,
                              dtype=torch.int32, device=device)
 
-    if phase == "train":
-        out["opt"] = adamw_init(params)
-        out["batch"] = {"tokens": ids(B, S), "labels": ids(B, S)}
-    elif phase == "prefill":
-        out["batch"] = {"tokens": ids(B, S)}
-    else:
+    def feats(*dims):
+        if gen is None:
+            return torch.empty(dims, dtype=torch.bfloat16, device=device)
+        return torch.randn(dims, generator=gen, device=device).to(
+            torch.bfloat16)
+
+    if phase == "decode":
         out["cache"] = rank_cache(cfg, init_cache(cfg, B, S, device=device),
                                   rules)
         out["token"] = ids(B, 1)
         out["pos"] = torch.full((B,), S // 2, dtype=torch.int32,
                                 device=device)
+        return out
+    if cfg.frontend == "audio":
+        batch = {"feats": feats(B, S, cfg.frontend_dim)}
+        text = S
+    elif cfg.frontend == "vision":
+        text = S - cfg.n_patches
+        batch = {"tokens": ids(B, text),
+                 "patches": feats(B, cfg.n_patches, cfg.frontend_dim)}
+    else:
+        text = S
+        batch = {"tokens": ids(B, S)}
+    if phase == "train":
+        out["opt"] = adamw_init(params)
+        batch["labels"] = ids(B, text)
+    out["batch"] = batch
     return out
 
 

@@ -488,10 +488,20 @@ def shard_params(cfg: ArchConfig, params: Any, rules: ShardingRules,
     same rules and phase, or ``bridge.params_from_numpy`` of a reference
     checkpoint), or from a tree of its structure (gradients, the AdamW
     moments and master), cut by :func:`param_cuts`. Cut leaves are
-    contiguous copies; the others are the same tensors."""
+    contiguous copies. In the serving phases the others are the same
+    tensors (the whole tree's memory serves every rank of a process);
+    ``phase="train"`` gives every leaf a tensor of the rank's own, outside
+    the whole tree's graph and requiring a gradient where the whole
+    leaf does, so that a gradient of the rank's leaf never reaches (and
+    adds into) the whole tree's ``.grad``."""
     if rules.grid is None:
         return params
-    return cut_tree(params, param_cuts(cfg, rules, phase), rules.grid)
+    tree = cut_tree(params, param_cuts(cfg, rules, phase), rules.grid)
+    if phase != "train":
+        return tree
+    return tree_map(lambda p, w: (p.detach().clone() if p is w
+                                  else p.detach()).requires_grad_(
+                                      w.requires_grad), tree, params)
 
 
 def rank_cache(cfg: ArchConfig, cache: list, rules: ShardingRules) -> list:

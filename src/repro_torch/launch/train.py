@@ -5,11 +5,14 @@ The counterpart of ``repro.launch.train``, with its arguments and printout,
 plus ``device``: it runs on the card unless the caller asks for the CPU
 (``--device cpu``). The model trains through the single-device ragged
 path, so on the card every MoE layer's routing stage and expert FFN run
-their kernels forward and backward (``repro_torch.kernels.ops``). It
-resumes from the newest committed checkpoint, saves every ``ckpt_every``
-steps on a background thread, and adds up the routing tallies' logical
-columns: training is where activation profiling happens, and the tallies
-feed a ViBE placement for the serving fleet.
+their kernels forward and backward (``repro_torch.kernels.ops``). Each
+step's batch is ``synthetic_batch``'s, whole: tokens and labels, or an
+audio arch's f32 frames and labels, or a vision arch's patches, tokens
+and labels (``models.loss_fn`` takes each). It resumes from the newest
+committed checkpoint, saves every ``ckpt_every`` steps on a background
+thread, and adds up the routing tallies' logical columns: training is
+where activation profiling happens, and the tallies feed a ViBE
+placement for the serving fleet.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch granite-moe-3b-a800m --steps 10

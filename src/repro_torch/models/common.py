@@ -14,8 +14,8 @@ import torch.nn.functional as F
 
 from . import collectives as C
 
-__all__ = ["rms_norm", "rope_tables", "apply_rope", "dense_init", "mlp",
-           "softmax_xent_chunked"]
+__all__ = ["rms_norm", "rope_tables", "apply_rope", "dense_init", "matmul",
+           "mlp", "softmax_xent_chunked"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -59,6 +59,17 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the dtype the two promote to, as ``jnp.einsum``
+    computes a product of mixed dtypes (torch's ``@`` refuses them): an
+    f32 residual through bf16 weights (hubert's f32 features) computes
+    and gives f32."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
 def mlp(p, x: torch.Tensor, gated: bool, group=None,
         seq: bool = False) -> torch.Tensor:
     """SwiGLU (gated) or GELU (2-matrix) MLP. With a tensor-parallel
@@ -70,20 +81,22 @@ def mlp(p, x: torch.Tensor, gated: bool, group=None,
     gathered over the group before ``w1`` and the partials reduce-
     scattered back to them."""
     x = C.gather_seq(x, group) if seq else C.replicate(x, group)
-    h = x @ p["w1"]
+    h = matmul(x, p["w1"])
     if gated:
-        h = F.silu(h) * (x @ p["w3"])
+        h = F.silu(h) * matmul(x, p["w3"])
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu default
-    out = h @ p["w2"]
+    out = matmul(h, p["w2"])
     return C.scatter_partials(out, group) if seq else C.sum_partials(out,
                                                                      group)
 
 
 def softmax_xent_chunked(hidden: torch.Tensor, w_unemb: torch.Tensor,
                          labels: torch.Tensor, n_chunks: int = 8,
-                         group=None, vocab_offset: int = 0) -> torch.Tensor:
-    """Mean token cross-entropy without the whole (B, S, V) logits at once.
+                         group=None, vocab_offset: int = 0,
+                         denom=None) -> torch.Tensor:
+    """Mean token cross-entropy without the whole (B, S, V) logits at once:
+    the rows' sum divided by ``denom`` (None: ``B * S``, their count).
 
     The sequence axis is taken in ``n_chunks`` pieces (one if it does not
     divide S), so the logits live as (B, S / n_chunks, V) f32 a piece, as
@@ -108,7 +121,7 @@ def softmax_xent_chunked(hidden: torch.Tensor, w_unemb: torch.Tensor,
     for i in range(n_chunks):
         hc = hidden[:, i * rows:(i + 1) * rows]
         yc = labels[:, i * rows:(i + 1) * rows].long()
-        logits = (hc @ w_unemb).float()
+        logits = matmul(hc, w_unemb).float()
         if group is None:
             logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, yc[..., None])[..., 0]
@@ -116,7 +129,7 @@ def softmax_xent_chunked(hidden: torch.Tensor, w_unemb: torch.Tensor,
             logz, gold = _xent_terms(logits, yc, group, vocab_offset)
         part = torch.sum(logz - gold)
         total = part if total is None else total + part
-    return total / (B * S)
+    return total / (B * S if denom is None else denom)
 
 
 def _xent_terms(logits: torch.Tensor, labels: torch.Tensor, group,

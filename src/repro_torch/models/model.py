@@ -59,8 +59,8 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from .attention import attn_init
 from . import collectives as C
-from .common import (apply_rope, dense_init, mlp, rms_norm, rope_tables,
-                     softmax_xent_chunked)
+from .common import (apply_rope, dense_init, matmul, mlp, rms_norm,
+                     rope_tables, softmax_xent_chunked)
 from .flash import flash_attention, flash_decode
 from .moe import (default_perm_a2a, default_perm_replicated, moe_init,
                   moe_layer, n_slots_a2a)
@@ -68,9 +68,11 @@ from .sharding import (DENSE_D_AXIS, MIXER_D_AXIS, MIXER_TP_CUT,
                        ShardingRules, build_copy_cdf, build_slots_of,
                        rank_group_sizes)
 from . import ssm
+from repro_torch.tree import leaves
 
 __all__ = [
-    "LayerSpec", "block_layout", "init_params", "make_moe_tables",
+    "LayerSpec", "block_layout", "init_params", "count_params",
+    "make_moe_tables",
     "refresh_moe_share_tables", "loss_fn", "prefill_fn", "prefill_chunk_fn",
     "decode_fn", "init_cache", "moe_perm_shape", "default_moe_perm",
 ]
@@ -206,6 +208,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
     return params
 
 
+def count_params(params) -> int:
+    """The parameter count of a tree: its leaves' sizes summed (any
+    device, ``meta`` too), the reference's ``count_params``."""
+    return sum(t.numel() for t in leaves(params))
+
+
 def _mixer_init(cfg, mixer, generator, dtype, device, lead):
     d = cfg.d_model
     if mixer == "attn":
@@ -293,9 +301,9 @@ def _qkv(p, x, cfg, rope_pos):
     G = cfg.n_heads // cfg.n_kv_heads
     KV = p["wk"].shape[-1] // hd
     cos, sin = rope_tables(rope_pos, hd, cfg.rope_theta)
-    q = apply_rope((x @ p["wq"]).reshape(B, S, KV * G, hd), cos, sin)
-    k = apply_rope((x @ p["wk"]).reshape(B, S, KV, hd), cos, sin)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q = apply_rope(matmul(x, p["wq"]).reshape(B, S, KV * G, hd), cos, sin)
+    k = apply_rope(matmul(x, p["wk"]).reshape(B, S, KV, hd), cos, sin)
+    v = matmul(x, p["wv"]).reshape(B, S, KV, hd)
     return q.reshape(B, S, KV, G, hd), k, v
 
 
@@ -327,7 +335,7 @@ def _run_attention(p, x, cfg, rules, window, positions, cache=None,
             out = flash_attention(q, k, v, causal=cfg.causal, window=window,
                                   q_positions=positions[seq],
                                   kv_positions=positions)
-            return out.reshape(B, S, -1) @ p["wo"], (k, v)
+            return matmul(out.reshape(B, S, -1), p["wo"]), (k, v)
         if seq is not None:
             x = C.gather_seq(x, group)
         elif heads:
@@ -335,7 +343,7 @@ def _run_attention(p, x, cfg, rules, window, positions, cache=None,
         q, k, v = _qkv(p, x, cfg, positions[None, :])
         out = flash_attention(q, k, v, causal=cfg.causal, window=window,
                               q_positions=positions, kv_positions=positions)
-        out = out.reshape(B, x.shape[1], -1) @ p["wo"]
+        out = matmul(out.reshape(B, x.shape[1], -1), p["wo"])
         if heads:
             out = (C.scatter_partials(out, group) if seq is not None
                    else C.sum_partials(out, group))
@@ -353,7 +361,7 @@ def _run_attention(p, x, cfg, rules, window, positions, cache=None,
         k_cache[lanes, rows] = k[:, 0].to(k_cache.dtype)
         v_cache[lanes, rows] = v[:, 0].to(v_cache.dtype)
         out = flash_decode(q[:, 0], k_cache, v_cache, pos, window=window)
-    out = out.reshape(B, 1, -1) @ p["wo"]
+    out = matmul(out.reshape(B, 1, -1), p["wo"])
     return (C.sum_partials(out, group) if heads else out), cache
 
 
@@ -409,7 +417,7 @@ def _run_attention_chunk(p, x, cfg, window, cache, positions, lane, offset,
                           causal=cfg.causal, window=window,
                           q_positions=positions, kv_positions=kv_pos,
                           kv_valid=kv_pos < offset + n_valid)
-    return out.reshape(B, C, cfg.n_heads * cfg.hd) @ p["wo"], cache
+    return matmul(out.reshape(B, C, cfg.n_heads * cfg.hd), p["wo"]), cache
 
 
 _SEQ = {"mamba": ssm.mamba_seq, "mlstm": ssm.mlstm_seq,
@@ -465,7 +473,9 @@ def _sum_over_rows(cfg, params, rules, rows: _Rows):
     ranks that read it on other rows (:func:`_row_axes`): its gradient is
     summed over them, once a call. These are the norms, the attention and
     dense MLP weights (their ``tp`` slices over ``dp`` only), the
-    embedding and the head, the recurrent mixers: a split mixer's ``tp``
+    embedding, the head and the frontend (its ``tp`` slice over ``dp``
+    only, where it splits; the rest from its gather's reduce-scatter,
+    :func:`_frontend`), the recurrent mixers: a split mixer's ``tp``
     slices over ``dp`` only, and its leaves (or a grouped cut's groups)
     that the rank holds whole but reads in part (Mamba's ``dt_bias`` and
     ``D_skip``, mLSTM's u half of ``up``, sLSTM's ``up``) over ``tp`` as
@@ -516,6 +526,8 @@ def _sum_over_rows(cfg, params, rules, rows: _Rows):
     out["embed"] = rep(params["embed"], vocab, True)
     if "head" in params:
         out["head"] = rep(params["head"], vocab, True)
+    if "frontend" in params:
+        out["frontend"] = rep(params["frontend"], rules.splits(cfg.d_model))
     blocks = []
     for spec, sub, mixer_split in zip(specs, params["blocks"], split):
         sub = dict(sub)
@@ -682,26 +694,77 @@ def _vocab(cfg, rules):
     return group, rules.index(rules.tp_axes) * (cfg.vocab // rules.tp_size)
 
 
-def _embed(cfg, params, tokens, rules=None, rows: Optional[_Rows] = None):
-    """The lookup of the rank's ``rows`` of the global ``tokens``. Vocab-
-    parallel where the vocabulary is split: every position of the rank's
+def _batch_shape(cfg, batch) -> Tuple[int, int]:
+    """(B, S) of a call on ``batch``: the frames of ``feats``, or the
+    tokens behind the ``patches`` where a vision arch's batch has them."""
+    if cfg.frontend == "audio":
+        return tuple(batch["feats"].shape[:2])
+    B, S = batch["tokens"].shape
+    if cfg.frontend == "vision" and "patches" in batch:
+        S += batch["patches"].shape[1]
+    return B, S
+
+
+def _frontend(cfg, params, rules, rows: _Rows):
+    """``params["frontend"]`` (F, D) whole: where ``param_cuts`` cut its
+    d_model over ``tp``, the rank's columns gathered; the gather's
+    backward reduce-scatters the gradient where the ``tp`` ranks project
+    different positions (sequence parallelism), else each keeps its
+    columns' share."""
+    w = params["frontend"]
+    group = _tp_group(rules, cfg.d_model)
+    return C.gather_shards(w, group, 1, summed=rows.s is not None)
+
+
+def _embed(cfg, params, batch, rules=None, rows: Optional[_Rows] = None):
+    """The rank's ``rows`` of the call's embedded input, and the offset of
+    the first labelled position, the reference's ``_embed``.
+
+    Audio: the rank's frames of ``batch["feats"]`` projected by
+    ``params["frontend"]`` in the dtype the two promote to (f32 features
+    give an f32 residual stream through bf16 weights, as in the
+    reference), offset 0. Text: the lookup of ``batch["tokens"]``, vocab-
+    parallel where the vocabulary is split (every position of the rank's
     batch rows looked up in the rank's slice, tokens outside it zero, the
-    ranks' partials summed, or under sequence parallelism reduce-scattered
-    to the rank's positions."""
-    rows = rows or _Rows(slice(0, tokens.shape[0]))
-    tokens = tokens[rows.b]
-    group, off = _vocab(cfg, rules)
+    ranks' partials summed, or under sequence parallelism reduce-
+    scattered to the rank's positions). Vision with ``batch["patches"]``
+    (P of them): the patches projected and cast to the embedding's dtype
+    before the tokens, offset P; the text's partials are zero at the
+    patch positions of the reduce-scatter and the rank's patch positions
+    take its projection of them. Decode and chunked prefill are text
+    only."""
+    B, S = _batch_shape(cfg, batch)
+    rows = rows or _Rows(slice(0, B))
+    seq = rows.s or slice(0, S)
+    if cfg.frontend == "audio":
+        feats = batch["feats"][rows.b][:, seq]
+        return matmul(feats, _frontend(cfg, params, rules, rows)), 0
+    tokens = batch["tokens"][rows.b]
+    P = S - tokens.shape[1]
     w = params["embed"]
-    if group is None:
-        return w[tokens if rows.s is None else tokens[:, rows.s]]
-    n = w.shape[0]
-    local = tokens - off
-    mine = ((local >= 0) & (local < n))[..., None]
-    x = w[local.clamp(0, n - 1)]
-    x = torch.where(mine, x, torch.zeros_like(x))
-    if rows.s is not None:
-        return C.scatter_partials(x, group)
-    return C.sum_partials(x, group)
+    group, off = _vocab(cfg, rules)
+    if group is None:            # the rank's text positions
+        x = w[tokens[:, max(seq.start - P, 0):max(seq.stop - P, 0)]]
+    else:
+        n = w.shape[0]
+        local = tokens - off
+        mine = ((local >= 0) & (local < n))[..., None]
+        x = w[local.clamp(0, n - 1)]
+        x = torch.where(mine, x, torch.zeros_like(x))
+        if rows.s is None:
+            x = C.sum_partials(x, group)
+        else:
+            if P:
+                x = torch.cat([x.new_zeros((x.shape[0], P, x.shape[2])), x],
+                              1)
+            x = C.scatter_partials(x, group)
+    if not P:
+        return x, 0
+    patches = batch["patches"][rows.b][:, min(seq.start, P):min(seq.stop, P)]
+    proj = matmul(patches, _frontend(cfg, params, rules, rows)).to(w.dtype)
+    if group is not None and rows.s is not None:
+        x = x[:, proj.shape[1]:]       # the patch positions' zero rows
+    return torch.cat([proj, x], 1), P
 
 
 def _unembed_w(cfg, params):
@@ -857,41 +920,59 @@ def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
     reference's ``rules=None`` is its dense oracle). Differentiable:
     call ``backward()`` on the loss.
 
+    ``batch`` is the reference's: ``tokens`` and ``labels`` (B, S);
+    for an audio arch ``feats`` (B, S, F) and ``labels``; for a vision
+    arch ``patches`` (B, P, F) too, before the tokens (B, S - P), whose
+    ``labels`` (B, S - P) label the positions past the patches (the
+    reference's ``x[:, off:]``).
+
     On a grid every rank takes the global ``batch`` and computes on its
     rows; the loss, the tallies and ``aux`` come back global on every
-    rank. The xent is the mean over the rank's rows (every row of its
-    batch rows where the vocabulary splits over ``tp``: the final hidden
-    state is gathered over ``tp`` for the vocab-parallel xent, as the
-    reference's ``logits_spec`` has it), averaged over the ranks that
-    hold other rows; each holds as many rows, so that is the global mean.
-    The MoE bodies sum the tallies and average ``mean_prob`` over their
-    group already."""
+    rank. The xent is the sum over the rank's labelled rows (every one of
+    its batch rows where the vocabulary splits over ``tp``: the final
+    hidden state is gathered over ``tp`` for the vocab-parallel xent, as
+    the reference's ``logits_spec`` has it) over the rank's share of the
+    global count, averaged over the ranks that hold other rows: the
+    global mean, also where the patches leave the ranks unequal text
+    rows. The MoE bodies sum the tallies and average ``mean_prob`` over
+    their group already."""
 
     def fn(params, batch, moe_tables=None):
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+        B, S = _batch_shape(cfg, batch)
         rows = _rows(rules, B, S, "train")
         params = _top(cfg, params, rules, rows)
-        x = _embed(cfg, params, tokens, rules, rows)
+        x, off = _embed(cfg, params, batch, rules, rows)
         positions = torch.arange(S, device=x.device)
         x, tallies, auxes, _ = _run_blocks(cfg, rules, params, x,
                                            phase="train",
                                            moe_tables=moe_tables,
                                            positions=positions, rows=rows)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        group, off = _vocab(cfg, rules)
+        group, voff = _vocab(cfg, rules)
+        n_labels = batch["labels"].numel()
         labels = batch["labels"][rows.b]
-        if group is None:
-            labels = labels if rows.s is None else labels[:, rows.s]
-        elif rows.s is not None:
-            x = C.gather_seq(x, group)
+        if group is None and rows.s is not None:
+            # the rank's positions s >= off, labelled at s - off
+            seq = rows.s
+            x = x[:, max(off - seq.start, 0):]
+            labels = labels[:, max(seq.start - off, 0):
+                            max(seq.stop - off, 0)]
         else:
-            x = C.replicate(x, group)             # column-parallel over V
+            if group is not None:
+                x = (C.gather_seq(x, group) if rows.s is not None
+                     else C.replicate(x, group))  # column-parallel over V
+            x = x[:, off:]
+        axes = (() if rules is None or rules.grid is None
+                else _row_axes(rules, rows, group is not None))
+        # the rank's sum over its share of the global count, averaged
+        # over the ranks that hold other rows: the global mean, also
+        # where the patches leave the ranks unequal text rows
+        n_ranks = 1 if not axes else rules.axis_size(axes)
         loss = softmax_xent_chunked(x, _unembed_w(cfg, params), labels,
-                                    group=group, vocab_offset=off)
-        if rules is not None and rules.grid is not None:
-            loss = C.mean_over(loss, rules.group(
-                _row_axes(rules, rows, group is not None)))
+                                    group=group, vocab_offset=voff,
+                                    denom=n_labels / n_ranks)
+        if axes:
+            loss = C.mean_over(loss, rules.group(axes))
         aux = (torch.stack(auxes).sum() if auxes else
                torch.zeros((), dtype=torch.float32, device=x.device))
         return loss + aux_weight * aux, (tallies, aux)
@@ -901,17 +982,18 @@ def loss_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None,
 
 def prefill_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
     """(params, batch, moe_tables) → (last-position logits (B, V) f32,
-    cache, tallies (n_moe, E+1)). On a grid ``batch`` holds the global
-    tokens; the logits and tallies come back whole on every rank, the
-    cache is the rank's: its ``B/dp`` lanes, and its KV heads in heads
-    mode (every row of the prompt, in both modes)."""
+    cache, tallies (n_moe, E+1)). ``batch`` is the loss's without
+    ``labels``; the cache covers every position, a vision arch's patches
+    too. On a grid ``batch`` is the global one; the logits and tallies
+    come back whole on every rank, the cache is the rank's: its ``B/dp``
+    lanes, and its KV heads in heads mode (every row of the prompt, in
+    both modes)."""
 
     def fn(params, batch, moe_tables=None):
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+        B, S = _batch_shape(cfg, batch)
         rows = _rows(rules, B, S, "prefill")
         params = _top(cfg, params, rules, rows)
-        x = _embed(cfg, params, tokens, rules, rows)
+        x, _ = _embed(cfg, params, batch, rules, rows)
         positions = torch.arange(S, device=x.device)
         x, tallies, _, cache = _run_blocks(cfg, rules, params, x,
                                            phase="prefill",
@@ -949,7 +1031,7 @@ def prefill_chunk_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
 
     def fn(params, tokens, cache, lane: int, offset: int, n_valid: int,
            moe_tables=None):
-        x = _embed(cfg, params, tokens)
+        x, _ = _embed(cfg, params, {"tokens": tokens})
         n = x.shape[1]
         rows = torch.arange(n, device=x.device)
         positions = offset + rows
@@ -977,7 +1059,7 @@ def decode_fn(cfg: ArchConfig, rules: Optional[ShardingRules] = None):
         B = token.shape[0]
         rows = _rows(rules, B, 1, "decode")
         params = _top(cfg, params, rules, rows)
-        x = _embed(cfg, params, token, rules, rows)
+        x, _ = _embed(cfg, params, {"tokens": token}, rules, rows)
         pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
                                  (B,))
         x, tallies, _, cache = _run_blocks(cfg, rules, params, x,

@@ -13,10 +13,20 @@ COLL_AXES = ("data", "model")
 COLL_ROWS, COLL_COLS = 8, 16
 #: the steps on (2, 2) from make_rules at smoke size:
 #: (name, kind, seq_len, global_batch)
-STEP_ARCHS = ("smollm-360m", "granite-moe-3b-a800m")
+STEP_ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "hubert-xlarge",
+              "pixtral-12b")
 STEP_SHAPES = (("t_train", "train", 32, 4), ("t_prefill", "prefill", 32, 4),
                ("t_decode", "decode", 64, 4))
 STEP_GRID = (2, 2)
+#: the encoder-only arch has no decode step (``shape_applicable``)
+NO_DECODE = ("hubert-xlarge",)
+
+
+def step_cells():
+    """The (arch, step) pairs of :data:`STEP_ARCHS` x :data:`STEP_SHAPES`
+    that run: no decode step of an encoder-only arch."""
+    return [(arch, shape) for arch in STEP_ARCHS for shape in STEP_SHAPES
+            if not (shape[1] == "decode" and arch in NO_DECODE)]
 
 
 def loop_flops(L: int) -> float:
@@ -69,7 +79,7 @@ def collective_kinds() -> dict:
 
 
 def step_costs() -> dict:
-    """Each step of :data:`STEP_SHAPES` for each of :data:`STEP_ARCHS` at
+    """Each step of :func:`step_cells` at
     smoke size on (2, 2) from ``make_rules``, lowered as
     ``launch/dryrun.py::_build_lowered`` lowers it: ``parse_hlo``'s FLOPs
     and ``memory_analysis()``'s argument bytes."""
@@ -83,15 +93,14 @@ def step_costs() -> dict:
         SHAPES[name] = ShapeSpec(name, seq, batch, kind)
     mesh = compat.make_mesh(STEP_GRID, COLL_AXES, devices=jax.devices()[:4])
     out = {}
-    for arch in STEP_ARCHS:
-        for name, *_ in STEP_SHAPES:
-            spec = dryrun.input_specs(arch, name, mesh)
-            with compat.use_mesh(mesh):
-                compiled = dryrun._build_lowered(spec, mesh).compile()
-            out[f"{arch}/{name}"] = {
-                "flops": parse_hlo(compiled.as_text()).flops,
-                "argument_bytes": int(
-                    compiled.memory_analysis().argument_size_in_bytes)}
+    for arch, (name, *_) in step_cells():
+        spec = dryrun.input_specs(arch, name, mesh)
+        with compat.use_mesh(mesh):
+            compiled = dryrun._build_lowered(spec, mesh).compile()
+        out[f"{arch}/{name}"] = {
+            "flops": parse_hlo(compiled.as_text()).flops,
+            "argument_bytes": int(
+                compiled.memory_analysis().argument_size_in_bytes)}
     return out
 
 

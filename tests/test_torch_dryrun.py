@@ -16,12 +16,17 @@ size, in this process (the group is destroyed after the module). Held:
   version's shapes and dtypes, reports its closed-form entry and
   launches nothing;
 * the peak tracker's hand-computed peak, through a backward;
-* smollm-360m and granite at smoke size on (2, 2) from ``make_rules``,
-  train / prefill / decode: per-rank FLOPs within 1% of ``parse_hlo`` of
-  the reference's step (granite's named term: the port's K1 computes
-  gate and up again, 4 T D F of its 10 T D F, where the oracle's backward
-  keeps them), per-rank argument bytes equal but for the named
-  departures, two ranks equal;
+* smollm-360m, granite, hubert-xlarge (no decode step) and pixtral-12b
+  at smoke size on (2, 2) from ``make_rules``, train / prefill / decode:
+  per-rank FLOPs within 1% of ``parse_hlo`` of the reference's step
+  (granite's named term: the port's K1 computes gate and up again, 4 T D
+  F of its 10 T D F, where the oracle's backward keeps them; pixtral's
+  two ranks of "model" averaged, since the one whose positions hold the
+  patches projects them), per-rank argument bytes equal but for the
+  named departures, two ranks equal (pixtral's but for the patches'
+  product);
+* the training cut of a whole tree that requires gradients gives each
+  rank leaf its own;
 * ``run_cell`` of a production cell and of a skipped one, and
   ``roofline_terms`` against the arithmetic with the H100 constants.
 """
@@ -46,8 +51,10 @@ from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.cost_analysis import count_costs  # noqa: E402
 from repro_torch.launch.mesh import fake_group, make_mesh  # noqa: E402
 from repro_torch.models import collectives as C  # noqa: E402
-from repro_torch.launch.sharding import make_rules  # noqa: E402
-from repro_torch.models import init_params, moe_perm_shape  # noqa: E402
+from repro_torch.launch.sharding import (make_rules,  # noqa: E402
+                                         shard_params)
+from repro_torch.models import (init_params, loss_fn,  # noqa: E402
+                                make_moe_tables, moe_perm_shape)
 from repro_torch.tree import leaves  # noqa: E402
 
 torch.set_num_threads(1)
@@ -344,30 +351,61 @@ def _departures(cfg, name, kind, seq, batch):
     global batch, where the reference's argument is the rank's ``dp``
     shard (``dp`` 2 divides every batch here), and the replica tables
     ``n_copies`` and ``copy_cdf`` where every expert has one copy: a
-    step that never reads them, and ``jax.jit`` drops unread arguments."""
-    dp = h.STEP_GRID[0]
+    step that never reads them, and ``jax.jit`` drops unread arguments;
+    so is an audio arch's embedding (bf16, its vocabulary over "model"),
+    which neither the loss nor the prefill reads and AdamW writes from
+    its f32 master, and a vision arch's frontend (bf16, its d_model over
+    "model") at decode, which is text only. The batch is
+    ``batch_specs``': int32 tokens and labels, bf16 frames or patches."""
+    dp, tp = h.STEP_GRID
     if kind == "decode":
         extra = batch * 4 - batch * 4 // dp           # the token (B, 1)
+        if cfg.frontend == "vision":
+            extra += cfg.frontend_dim * cfg.d_model // tp * 2
     else:
+        text = seq - cfg.n_patches if cfg.frontend == "vision" else seq
         n = 2 if kind == "train" else 1               # tokens, labels
-        extra = n * (batch * seq * 4 - batch * seq * 4 // dp)
+        if cfg.frontend == "audio":                   # frames, labels
+            row = seq * cfg.frontend_dim * 2 + (n - 1) * seq * 4
+        else:
+            row = n * text * 4 + cfg.n_patches * cfg.frontend_dim * 2
+        extra = batch * row - batch * row // dp
+        if cfg.frontend == "audio":
+            extra += cfg.vocab // tp * cfg.d_model * 2
     if cfg.is_moe:
         extra += moe_perm_shape(cfg)[0] * cfg.n_experts * 4 * 2
     return extra
 
 
-@pytest.mark.parametrize("arch", h.STEP_ARCHS)
-@pytest.mark.parametrize("name,kind,seq,batch", h.STEP_SHAPES)
+@pytest.mark.parametrize(
+    "arch,name,kind,seq,batch",
+    [pytest.param(arch, *shape, id="-".join(map(str, shape + (arch,))))
+     for arch, shape in h.step_cells()])
 def test_steps_against_parse_hlo(ref, arch, name, kind, seq, batch):
     cfg = get_smoke(arch)
     shape = ShapeSpec(name, seq, batch, kind)
     runs = [dryrun.measure(cfg, shape, h.STEP_GRID, rank) for rank in (0, 1)]
     c0, c1 = (r["costs"] for r in runs)
-    assert c0.as_dict() == c1.as_dict()          # two ranks of an even grid
+    flops = c0.flops
+    if cfg.frontend == "vision" and kind != "decode":
+        # the two ranks of "model" (ranks 0 and 1) split the 32 positions
+        # after the patches' projection: rank 0's 16 hold the 8 patches
+        # and project them with the gathered frontend, rank 1's hold none
+        # (the reference projects every patch on its columns): the same
+        # but for that product, whose count they share
+        for k in ("collective_by_kind", "collective_calls", "kernel_calls",
+                  "argument_bytes"):
+            assert getattr(c0, k) == getattr(c1, k), k
+        proj = 2 * (batch // 2) * cfg.n_patches * cfg.frontend_dim \
+            * cfg.d_model * (2 if kind == "train" else 1)
+        assert c0.flops - c1.flops == proj
+        flops = (c0.flops + c1.flops) / 2
+    else:
+        assert c0.as_dict() == c1.as_dict()      # two ranks of an even grid
     want = ref["steps"][f"{arch}/{name}"]
     # the port's K1 computes gate and up again (4 T D F of its 10 T D F)
     k1_again = 0.4 * c0.kernel_flops.get("ragged_moe_ffn_dgrad", 0.0)
-    assert (c0.flops - k1_again) == pytest.approx(want["flops"], rel=REL)
+    assert (flops - k1_again) == pytest.approx(want["flops"], rel=REL)
     assert c0.argument_bytes - want["argument_bytes"] == _departures(
         cfg, name, kind, seq, batch)
     if cfg.is_moe:      # remat runs the forward again in the backward
@@ -398,6 +436,41 @@ def test_train_inputs_are_the_ranks_own_leaves():
     call()
     assert all(torch.equal(w.grad, torch.ones_like(w))
                for w in leaves(whole))
+
+
+def test_train_cut_gives_each_rank_leaf_its_own_gradient():
+    """``shard_params(..., "train")`` of a whole tree that requires
+    gradients and holds some: every leaf of the rank's tree is a leaf of
+    its own that requires its gradient, a leaf the cut leaves whole
+    included (the norms, the router); after the rank's loss and backward
+    the whole tree's ``.grad`` is as it was and every rank leaf holds its
+    gradient. Serving's cut keeps the whole tree's tensors."""
+    cfg = get_smoke("granite-moe-3b-a800m")
+    fake_group(4, 0)
+    grid = make_mesh((2, 2), h.COLL_AXES)
+    rules = make_rules(cfg, grid, "train")
+    whole = init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                        rules=rules, phase="train")
+    for w in leaves(whole):
+        w.requires_grad_(True)
+        w.grad = torch.ones_like(w)
+    params = shard_params(cfg, whole, rules, "train")
+    pairs = list(zip(leaves(params), leaves(whole)))
+    assert any(p.shape == w.shape for p, w in pairs)      # whole leaves
+    assert all(p.is_leaf and p.requires_grad and p is not w
+               and p.data_ptr() != w.data_ptr() for p, w in pairs)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 8), generator=gen)
+    loss, _ = loss_fn(cfg, rules)(
+        params, {"tokens": tokens, "labels": tokens.roll(-1, 1)},
+        make_moe_tables(cfg, rules, phase="train"))
+    loss.backward()
+    assert all(torch.equal(w.grad, torch.ones_like(w))
+               for w in leaves(whole))
+    assert all(p.grad is not None and p.grad.shape == p.shape
+               for p in leaves(params))
+    served = shard_params(cfg, whole, rules, "prefill")
+    assert any(p is w for p, w in zip(leaves(served), leaves(whole)))
 
 
 # ---------------------------------------------------------------------------
