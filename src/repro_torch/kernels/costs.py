@@ -23,7 +23,7 @@ from typing import Callable, List
 
 import torch
 
-__all__ = ["listen", "unlisten", "report", "tensor_bytes"]
+__all__ = ["listen", "unlisten", "listening", "report", "tensor_bytes"]
 
 _SINKS: List[Callable[[str, float, float], None]] = []
 
@@ -35,6 +35,11 @@ def listen(sink: Callable[[str, float, float], None]) -> None:
 
 def unlisten(sink) -> None:
     _SINKS.remove(sink)
+
+
+def listening() -> bool:
+    """Whether a sink listens: a caller may skip working out an entry."""
+    return bool(_SINKS)
 
 
 def report(name: str, flops: float, nbytes: float) -> None:

@@ -1,0 +1,293 @@
+"""Chunked attention on Hopper: the prefill forward and the decode step.
+
+Replaces no Pallas kernel: the reference computes attention in plain jnp
+(``flash_attention``, ``src/repro/models/flash.py:45``, and
+``flash_decode``, ``:133``), whose plain PyTorch versions are
+:mod:`repro_torch.models.flash`. Two hand-written CUDA C++ kernels of
+``csrc/flash_attention.cu`` take their place on the card:
+
+* :func:`flash_attn_fwd` — the online softmax over key tiles of a fixed
+  length from key row 0, for every prefill call site (whole prompt,
+  context mode, a chunk against a lane of the cache under ``kv_valid``).
+  A block holds 64 rows of one (lane, KV head): the query positions and
+  the G query heads of that KV head, flattened. bf16 runs on the tensor
+  cores (``mma.sync`` m16n8k16, f32 accumulators); f32 on plain FMA.
+  A key tile whose mask is provably false for every row of the block
+  (from the tile's and the block's position bounds, never from an
+  assumption that positions are sorted) is skipped: for a row with a valid
+  key that is exactly what computing it gives (p = 0, the correction 1),
+  and a row with no valid key at all takes the plain version's value, the
+  sum of ``v`` over the keys divided by the padded key count
+  (:func:`~repro_torch.models.flash.padded_keys`), in a pass of its own.
+  Bound: at long context the tensor cores (4 · Sq · Skv · H · hd FLOPs,
+  halved by causal skipping).
+* :func:`flash_decode` — one query token a lane against the cache: a block
+  reads one split of ``DECODE_SPLIT`` cache rows of one (lane, KV head)
+  once for up to 8 of its G query heads, and only the rows that can be
+  valid (``<= pos``, within the window); a second launch merges the
+  splits' softmax stats when the cache has more than one split. The
+  split is a function of ``S_max`` alone, so a lane's result never
+  depends on B, its neighbours or the SM count. One launch a layer for
+  ``S_max <= DECODE_SPLIT``, two above. Bound: the bytes of the valid
+  rows.
+
+A row's result depends only on its own q row, its lane's k/v for its head
+and the masks: the grid witnesses of ``chip_smoke.py`` split heads, lanes
+and query rows and hold the ranks bit for bit against one device.
+
+On a CUDA tensor each wrapper launches its kernel or raises (an
+unsupported head size or dtype raises ``ValueError`` naming the shape);
+the CPU, gradient and ``meta`` paths live in :mod:`.ops`. The allocation
+helpers :func:`attn_outputs` and :func:`decode_outputs` do the checks and
+allocations of a call on the card or on ``meta`` and report its cost
+entry (:mod:`.costs`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, costs
+
+__all__ = ["flash_attn_fwd", "flash_decode", "attn_outputs",
+           "decode_outputs", "decode_splits", "HEAD_DIMS", "DECODE_SPLIT"]
+
+#: head sizes the kernels are compiled for: every size a path on the card
+#: runs (jamba and granite smoke 32, granite and smollm 64, hubert 80,
+#: pixtral, qwen3 and most others 128, gemma3 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
+#: cache rows a decode block reads (the kernel's ``split_rows``)
+DECODE_SPLIT = 512
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_POS = (torch.int32, torch.int64)
+
+
+def _lib():
+    lib = build.load("flash_attention")
+    if lib.flash_attn_fwd.argtypes is None:
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        lib.flash_attn_fwd.argtypes = (
+            [p, p, p, p, p, p, p, i, p, i, p] + [i] * 6 + [ll] * 10
+            + [i, i, f, f, i, p])
+        lib.flash_decode.argtypes = (
+            [p, p, p, p, i, p, p, p, p, p, p] + [i] * 7 + [ll] * 9
+            + [i, ll, f, i, i, p])
+        lib.flash_attn_fwd.restype = ctypes.c_int
+        lib.flash_decode.restype = ctypes.c_int
+    return lib
+
+
+def _check(kernel, kind, q, *others):
+    """q on a device of type ``kind`` with a head size and dtype the
+    kernel takes; every other tensor (name, tensor) on q's device in q's
+    dtype. Plain comparisons: a decode step calls this once a layer."""
+    dt, dev = q.dtype, q.device
+    if dev.type != kind:
+        where = "CUDA" if kind == "cuda" else kind
+        raise ValueError(f"{kernel}: q is not on a {where} device")
+    if dt not in _DTYPES or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: q {tuple(q.shape)} {dt}: the kernel "
+                         f"takes hd in {HEAD_DIMS} in bfloat16 or float32")
+    for name, t in others:
+        if t.dtype != dt or t.device != dev:
+            raise ValueError(f"{kernel}: {name} {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}, q {dt} on {dev}")
+
+
+def _check_rows(kernel, *tensors):
+    """The kernels read rows of hd values with 16-byte loads: each row
+    contiguous, every other stride and the start 16-byte aligned."""
+    for name, t in tensors:
+        size = t.element_size()
+        st = t.stride()
+        if st[-1] != 1 or t.data_ptr() % 16 or any(
+                x * size % 16 for x in st[:-1]):
+            raise ValueError(f"{kernel}: {name} {tuple(t.shape)} strides "
+                             f"{st}: rows must be contiguous and 16-byte "
+                             "aligned")
+
+
+def _check_vec(kernel, name, t, n, dtypes, dev):
+    if t is None:
+        return
+    if t.device != dev or t.dtype not in dtypes or t.shape != (n,) or (
+            n > 1 and t.stride(0) != 1):
+        raise ValueError(f"{kernel}: {name} {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}: wants ({n},) {dtypes} on {dev}")
+
+
+def attn_outputs(q, k, v, q_positions=None, kv_positions=None,
+                 kv_valid=None, kind: str = "cuda", stats: bool = False):
+    """The prefill call's checks and allocation on a device of type
+    ``kind`` (``meta`` for a traced call): raises on what the kernel does
+    not take, returns ``out`` (B, Sq, KV, G, hd) in q's dtype,
+    uninitialised (with ``stats`` also the rows' f32 ``m`` and ``l``, each
+    (B, KV, G, Sq)), and reports the call's entry: the two Sq x Skv
+    products the plain version computes (``4 B KV G Sq Skv hd``
+    operations) and the bytes of q, k, v, the positions, the mask and the
+    outputs."""
+    name = "flash_attn_fwd"
+    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: wants (B, Sq, KV, G, hd) and "
+                         "(B, Skv, KV, hd)")
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, KV, hd) or 0 in (
+            B, Sq, Skv, KV, G):
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not fit")
+    _check(name, kind, q, ("k", k), ("v", v))
+    _check_vec(name, "q_positions", q_positions, Sq, _POS, q.device)
+    _check_vec(name, "kv_positions", kv_positions, Skv, _POS, q.device)
+    _check_vec(name, "kv_valid", kv_valid, Skv, (torch.bool,), q.device)
+    if B > 65535 or KV > 65535:
+        raise ValueError(f"{name}: B {B}, KV {KV} past the grid's 65535")
+    outs = (torch.empty(q.shape, dtype=q.dtype, device=q.device),)
+    if stats:
+        outs += tuple(torch.empty((B, KV, G, Sq), dtype=torch.float32,
+                                  device=q.device) for _ in range(2))
+    if costs.listening():
+        costs.report(name, 4.0 * B * KV * G * Sq * Skv * hd,
+                     costs.tensor_bytes(q, k, v, q_positions, kv_positions,
+                                        kv_valid, *outs))
+    return outs if stats else outs[0]
+
+
+def flash_attn_fwd(q, k, v, *, causal=True, window=None, q_positions=None,
+                   kv_positions=None, kv_valid=None,
+                   return_stats: bool = False):
+    """Launch the prefill kernel: ``flash_attention``'s forward over the
+    GQA layout (q (B, Sq, KV, G, hd); k, v (B, Skv, KV, hd), rows
+    contiguous and 16-byte aligned, any strides above) → (B, Sq, KV, G,
+    hd) in q's dtype, or with ``return_stats`` ``(out, m, l)``, the rows'
+    softmax stats of :func:`repro_torch.models.flash.flash_attention`.
+    ``window``: a Python int, 0 or None for full. Adds one to
+    ``flash_attn_fwd.launches``; raises if the launch is refused."""
+    outs = attn_outputs(q, k, v, q_positions, kv_positions, kv_valid,
+                        stats=return_stats)
+    out, m, l = outs if return_stats else (outs, None, None)
+    _check_rows("flash_attn_fwd", ("q", q), ("k", k), ("v", v))
+    from ..models.flash import _scale, padded_keys
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def wide(t):
+        return int(t is not None and t.dtype == torch.int64)
+
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(m),
+        ptr(l), ptr(q_positions), wide(q_positions), ptr(kv_positions),
+        wide(kv_positions), ptr(kv_valid), B, Sq, Skv, KV, G, hd,
+        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+        int(causal), 0 if window is None else int(window), _scale(hd),
+        float(padded_keys(Skv)), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd: CUDA launch failed with "
+                           f"cudaError {err}")
+    flash_attn_fwd.launches += 1
+    return outs
+
+
+flash_attn_fwd.launches = 0
+
+
+def decode_splits(S_max: int) -> int:
+    """Splits of the cache a decode call reads: ``ceil(S_max /
+    DECODE_SPLIT)``, a function of ``S_max`` alone."""
+    return -(-S_max // DECODE_SPLIT)
+
+
+def decode_outputs(q, k_cache, v_cache, pos, return_stats=False,
+                   kind: str = "cuda"):
+    """The decode call's checks and allocations on a device of type
+    ``kind``: returns ``(outputs, scratch)`` — ``outputs`` the normalised
+    (B, KV, G, hd) in q's dtype, or with ``return_stats`` the f32 ``(acc
+    (B, KV, G, hd), m (B, KV, G), l (B, KV, G))``; ``scratch`` None, or
+    for more than one split the splits' f32 partials ``(acc (B, KV, n, G,
+    hd), ml (B, KV, n, G, 2))`` that the merge reads — and reports the
+    entry: the two products over every cache row (``4 B KV G S_max hd``)
+    and the bytes of q, the caches, ``pos`` and the outputs, the scratch
+    written once and read back once."""
+    name = "flash_decode"
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}: "
+                         "wants (B, KV, G, hd) and (B, S_max, KV, hd)")
+    B, KV, G, hd = q.shape
+    S_max = k_cache.shape[1]
+    if (k_cache.shape[0], k_cache.shape[2], k_cache.shape[3]) != (
+            B, KV, hd) or 0 in (B, S_max, KV, G):
+        raise ValueError(f"{name}: q {tuple(q.shape)} and caches "
+                         f"{tuple(k_cache.shape)} do not fit")
+    _check(name, kind, q, ("k_cache", k_cache), ("v_cache", v_cache))
+    _check_vec(name, "pos", pos, B, _POS, q.device)
+    if B > 65535 or KV * -(-G // 8) > 65535:
+        raise ValueError(f"{name}: B {B}, KV {KV}, G {G} past the grid")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if return_stats:
+        outs = (torch.empty((B, KV, G, hd), **f32),
+                torch.empty((B, KV, G), **f32),
+                torch.empty((B, KV, G), **f32))
+    else:
+        outs = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
+    n = decode_splits(S_max)
+    scratch = None
+    if n > 1:
+        scratch = (torch.empty((B, KV, n, G, hd), **f32),
+                   torch.empty((B, KV, n, G, 2), **f32))
+    if costs.listening():
+        costs.report(name, 4.0 * B * KV * G * S_max * hd,
+                     costs.tensor_bytes(q, k_cache, v_cache, pos,
+                                        *(outs if return_stats
+                                          else (outs,)))
+                     + 2 * costs.tensor_bytes(*(scratch or ())))
+    return outs, scratch
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, window=None, kpos_offset=0,
+                 return_stats=False):
+    """Launch the decode kernel: q (B, KV, G, hd) against caches (B, S_max,
+    KV, hd) (rows contiguous and 16-byte aligned), ``pos`` (B,) int32 or
+    int64, cache row 0 at global position ``kpos_offset`` → (B, KV, G, hd)
+    in q's dtype, or with ``return_stats`` the f32 ``(acc, m, l)`` of
+    :func:`repro_torch.models.flash.flash_decode` (a cache with no valid
+    row of a lane: ``m = _NEG``, ``l = 0``, ``acc = 0``). One launch, and
+    a second that merges the splits when ``S_max > DECODE_SPLIT``. Adds
+    one to ``flash_decode.launches``; raises if a launch is refused."""
+    outs, scratch = decode_outputs(q, k_cache, v_cache, pos, return_stats)
+    _check_rows("flash_decode", ("q", q), ("k_cache", k_cache),
+                ("v_cache", v_cache))
+    from ..models.flash import _scale
+    B, KV, G, hd = q.shape
+    S_max = k_cache.shape[1]
+    if return_stats:
+        acc, m, l = outs
+        o_ptrs = (None, acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    else:
+        o_ptrs = (outs.data_ptr(), None, None, None)
+    s_ptrs = (None, None) if scratch is None else tuple(
+        t.data_ptr() for t in scratch)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().flash_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        int(pos.dtype == torch.int64), *o_ptrs, *s_ptrs, B, S_max, KV, G,
+        hd, decode_splits(S_max), DECODE_SPLIT, *q.stride()[:3],
+        *k_cache.stride()[:3], *v_cache.stride()[:3],
+        0 if window is None else int(window), int(kpos_offset), _scale(hd),
+        int(return_stats), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode: CUDA launch failed with "
+                           f"cudaError {err}")
+    flash_decode.launches += 1
+    return outs
+
+
+flash_decode.launches = 0

@@ -27,6 +27,16 @@ and the plain backward on the CPU. When nothing requires a gradient they
 call the wrapper directly: the decode step is host-bound, and serving pays
 no autograd bookkeeping.
 
+``flash_attention`` and ``flash_decode`` (the hand-written attention
+kernels of :mod:`.flash`; their plain versions are
+:mod:`repro_torch.models.flash`) take a gradient on the card through
+:class:`FlashAttention` and :class:`FlashDecode`, whose forward is the
+kernel. The port has no attention backward kernel yet: their backward is
+plain PyTorch in chunk-sized memory (the prefill's recomputes each chunk
+pair's scores from the kernel's output and softmax stats). On the CPU the
+plain version's own autograd runs, a checkpoint a key chunk, as the
+reference's ``jax.checkpoint``.
+
 ``FFN_TILES`` states the tiles of the CUDA FFN kernels' general route,
 chosen for Hopper shared memory in place of the v5e VMEM budget the TPU
 wrapper sized for (``pick_blocks`` in ``src/repro/kernels/ops.py:24-41``).
@@ -43,13 +53,15 @@ from typing import Dict
 
 import torch
 
+from . import flash as _flash
 from . import moe_ffn as _capacity
 from . import ragged_moe_ffn as _ragged
 from . import ref
 from . import route_select as _route
 
 __all__ = ["fused_moe_ffn", "ragged_moe_ffn", "router_topk", "route_select",
-           "RaggedMoeFFN", "RouteSelect", "FFN_TILES", "launch_counts",
+           "flash_attention", "flash_decode", "RaggedMoeFFN", "RouteSelect",
+           "FlashAttention", "FlashDecode", "FFN_TILES", "launch_counts",
            "reset_launch_counts"]
 
 #: (RB, BN, BK) of both FFN kernels' general route
@@ -244,6 +256,138 @@ class RouteSelect(torch.autograd.Function):
         return dx, drouter, None, None, None, None, None, None
 
 
+def _plain_flash():
+    # imported at the first call: repro_torch.models imports this module
+    from repro_torch.models import flash
+    return flash
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
+                    kv_positions=None, kv_valid=None):
+    """Chunked attention over the GQA layout: q (B, Sq, KV, G, hd), k, v
+    (B, Skv, KV, hd) → (B, Sq, KV, G, hd)
+    (:func:`repro_torch.models.flash.flash_attention`). On the card the
+    kernel ``flash_attn_fwd``, through :class:`FlashAttention` when an
+    input requires a gradient; ``window`` a Python int there."""
+    kw = dict(q_positions=q_positions, kv_positions=kv_positions,
+              kv_valid=kv_valid)
+    kind = q.device.type
+    if kind == "cpu":
+        return _plain_flash().flash_attention(q, k, v, causal=causal,
+                                              window=window, **kw)
+    if _wants_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, q_positions,
+                                    kv_positions, kv_valid)
+    if kind == "cuda":
+        return _flash.flash_attn_fwd(q, k, v, causal=causal, window=window,
+                                     **kw)
+    if kind == "meta":
+        return _flash.attn_outputs(q, k, v, q_positions, kv_positions,
+                                   kv_valid, kind)
+    raise _no_kernel("flash_attention", q.device)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The prefill attention for autograd. The forward is
+    ``flash_attn_fwd`` on the card, keeping its output and the rows'
+    softmax stats (m, l; on the CPU the plain version's); the backward is
+    :func:`~repro_torch.models.flash.flash_attention_bwd`, which recomputes
+    each chunk pair's scores from them in chunk-sized memory."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_positions, kv_positions,
+                kv_valid):
+        kind = q.device.type
+        if kind == "cuda":
+            out, m, l = _flash.flash_attn_fwd(
+                q, k, v, causal=causal, window=window,
+                q_positions=q_positions, kv_positions=kv_positions,
+                kv_valid=kv_valid, return_stats=True)
+        elif kind == "meta":
+            out, m, l = _flash.attn_outputs(q, k, v, q_positions,
+                                            kv_positions, kv_valid, kind,
+                                            stats=True)
+        elif kind == "cpu":
+            out, m, l = _plain_flash().flash_attention(
+                q, k, v, causal=causal, window=window,
+                q_positions=q_positions, kv_positions=kv_positions,
+                kv_valid=kv_valid, return_stats=True)
+        else:
+            raise _no_kernel("flash_attention", q.device)
+        ctx.masks = dict(causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, m, l, q_positions, kv_positions,
+                              kv_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l, qpos, kpos, kval = ctx.saved_tensors
+        dq, dk, dv = _plain_flash().flash_attention_bwd(
+            q, k, v, out, dout, m, l, q_positions=qpos, kv_positions=kpos,
+            kv_valid=kval, **ctx.masks)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, window=None, kpos_offset=0,
+                 return_stats=False):
+    """One token a lane against the cache: q (B, KV, G, hd), caches (B,
+    S_max, KV, hd), ``pos`` (B,) → (B, KV, G, hd), or with
+    ``return_stats`` ``(acc, m, l)``
+    (:func:`repro_torch.models.flash.flash_decode`). On the card the
+    kernel ``flash_decode``, through :class:`FlashDecode` when an input
+    requires a gradient."""
+    kw = dict(window=window, kpos_offset=kpos_offset,
+              return_stats=return_stats)
+    kind = q.device.type
+    if kind == "cpu":
+        return _plain_flash().flash_decode(q, k_cache, v_cache, pos, **kw)
+    if _wants_grad(q, k_cache, v_cache):
+        return FlashDecode.apply(q, k_cache, v_cache, pos, window,
+                                 kpos_offset, return_stats)
+    if kind == "cuda":
+        return _flash.flash_decode(q, k_cache, v_cache, pos, **kw)
+    if kind == "meta":
+        return _flash.decode_outputs(q, k_cache, v_cache, pos, return_stats,
+                                     kind)[0]
+    raise _no_kernel("flash_decode", q.device)
+
+
+class FlashDecode(torch.autograd.Function):
+    """The decode step for autograd: the forward is the kernel on the card;
+    the backward runs autograd of the plain version on the same inputs
+    (one token's scores a lane: small)."""
+
+    @staticmethod
+    def forward(ctx, q, k_cache, v_cache, pos, window, kpos_offset,
+                return_stats):
+        ctx.kw = dict(window=window, kpos_offset=kpos_offset,
+                      return_stats=return_stats)
+        kind = q.device.type
+        if kind == "cuda":
+            outs = _flash.flash_decode(q, k_cache, v_cache, pos, **ctx.kw)
+        elif kind == "meta":
+            outs = _flash.decode_outputs(q, k_cache, v_cache, pos,
+                                         return_stats, kind)[0]
+        elif kind == "cpu":
+            outs = _plain_flash().flash_decode(q, k_cache, v_cache, pos,
+                                               **ctx.kw)
+        else:
+            raise _no_kernel("flash_decode", q.device)
+        ctx.save_for_backward(q, k_cache, v_cache, pos)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *douts):
+        q, k_cache, v_cache, pos = ctx.saved_tensors
+        ins = [t.detach().requires_grad_(True) for t in (q, k_cache,
+                                                          v_cache)]
+        with torch.enable_grad():
+            outs = _plain_flash().flash_decode(*ins, pos, **ctx.kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        grads = torch.autograd.grad(outs, ins, douts, allow_unused=True)
+        return (*grads, None, None, None, None)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel name; ``<name>.tma``
     counts those of an FFN kernel's launches (forward or backward) that
@@ -260,7 +404,9 @@ def launch_counts() -> Dict[str, int]:
             "ragged_moe_ffn_wgrad": _ragged.ragged_moe_ffn_wgrad.launches,
             "ragged_moe_ffn_wgrad.tma":
                 _ragged.ragged_moe_ffn_wgrad.tma_launches,
-            "route_select_bwd": _route.route_select_bwd.launches}
+            "route_select_bwd": _route.route_select_bwd.launches,
+            "flash_attn_fwd": _flash.flash_attn_fwd.launches,
+            "flash_decode": _flash.flash_decode.launches}
 
 
 def reset_launch_counts() -> None:
@@ -269,5 +415,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         fn.tma_launches = 0
     for fn in (_route.router_topk, _route.route_select,
-               _route.route_select_bwd):
+               _route.route_select_bwd, _flash.flash_attn_fwd,
+               _flash.flash_decode):
         fn.launches = 0

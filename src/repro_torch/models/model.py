@@ -57,11 +57,11 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from .attention import attn_init
 from . import collectives as C
 from .common import (apply_rope, dense_init, matmul, mlp, rms_norm,
                      rope_tables, softmax_xent_chunked)
-from .flash import flash_attention, flash_decode
 from .moe import (default_perm_a2a, default_perm_replicated, moe_init,
                   moe_layer, n_slots_a2a)
 from .sharding import (DENSE_D_AXIS, MIXER_D_AXIS, MIXER_TP_CUT,
@@ -332,17 +332,19 @@ def _run_attention(p, x, cfg, rules, window, positions, cache=None,
         if seq is not None and not heads and rules.attn_mode == "context":
             q, k, v = _qkv(p, x, cfg, positions[seq][None, :])
             k, v = C.gather_seq(k, group), C.gather_seq(v, group)
-            out = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                                  q_positions=positions[seq],
-                                  kv_positions=positions)
+            out = ops.flash_attention(q, k, v, causal=cfg.causal,
+                                      window=window,
+                                      q_positions=positions[seq],
+                                      kv_positions=positions)
             return matmul(out.reshape(B, S, -1), p["wo"]), (k, v)
         if seq is not None:
             x = C.gather_seq(x, group)
         elif heads:
             x = C.replicate(x, group)
         q, k, v = _qkv(p, x, cfg, positions[None, :])
-        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                              q_positions=positions, kv_positions=positions)
+        out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window,
+                                  q_positions=positions,
+                                  kv_positions=positions)
         out = matmul(out.reshape(B, x.shape[1], -1), p["wo"])
         if heads:
             out = (C.scatter_partials(out, group) if seq is not None
@@ -360,7 +362,8 @@ def _run_attention(p, x, cfg, rules, window, positions, cache=None,
     else:
         k_cache[lanes, rows] = k[:, 0].to(k_cache.dtype)
         v_cache[lanes, rows] = v[:, 0].to(v_cache.dtype)
-        out = flash_decode(q[:, 0], k_cache, v_cache, pos, window=window)
+        out = ops.flash_decode(q[:, 0], k_cache, v_cache, pos,
+                               window=window)
     out = matmul(out.reshape(B, 1, -1), p["wo"])
     return (C.sum_partials(out, group) if heads else out), cache
 
@@ -382,8 +385,8 @@ def _merge_decode(q, k, v, k_cache, v_cache, pos, window, rules, group):
     for cbuf, new in ((k_cache, k), (v_cache, v)):
         cbuf[lanes, safe] = torch.where(owned, new.to(cbuf.dtype),
                                         cbuf[lanes, safe])
-    acc, m, l = flash_decode(q, k_cache, v_cache, pos, window=window,
-                             kpos_offset=off, return_stats=True)
+    acc, m, l = ops.flash_decode(q, k_cache, v_cache, pos, window=window,
+                                 kpos_offset=off, return_stats=True)
     m_g = C.max_over(m, group)
     scale = torch.exp(m - m_g)
     both = C.sum_partials(torch.cat([acc * scale[..., None],
@@ -413,10 +416,11 @@ def _run_attention_chunk(p, x, cfg, window, cache, positions, lane, offset,
         cbuf[lane, rows] = torch.where(keep_new, new[0].to(cbuf.dtype),
                                        cbuf[lane, rows])
     kv_pos = torch.arange(S_max, device=x.device)
-    out = flash_attention(q, k_cache[lane:lane + 1], v_cache[lane:lane + 1],
-                          causal=cfg.causal, window=window,
-                          q_positions=positions, kv_positions=kv_pos,
-                          kv_valid=kv_pos < offset + n_valid)
+    out = ops.flash_attention(q, k_cache[lane:lane + 1],
+                              v_cache[lane:lane + 1], causal=cfg.causal,
+                              window=window, q_positions=positions,
+                              kv_positions=kv_pos,
+                              kv_valid=kv_pos < offset + n_valid)
     return matmul(out.reshape(B, C, cfg.n_heads * cfg.hd), p["wo"]), cache
 
 

@@ -492,7 +492,8 @@ def test_run_cell_production_and_skipped():
         + mem["output_size_in_bytes"] - mem["alias_size_in_bytes"])
     costs = rec["costs"]
     assert costs["kernel_calls"] == {"route_select": 94,
-                                     "ragged_moe_ffn": 94}
+                                     "ragged_moe_ffn": 94,
+                                     "flash_attn_fwd": 94}
     assert costs["collective_by_kind"]["all-to-all"] > 0
     assert costs["flops_per_device"] > costs["kernel_flops"][
         "ragged_moe_ffn"] > 0

@@ -791,3 +791,229 @@ def test_route_select_at_rank_rows(cuda, T):
     want = ref.route_select_ref(x, w, so, nc, cdf, seed, 8)
     torch.cuda.synchronize()
     _check_route(list(got), list(want), x, w, 8, None)
+
+
+# the attention kernels (csrc/flash_attention.cu) against their plain
+# versions (repro_torch.models.flash), each output row (hd values) by its
+# relative L2 error, the largest over rows: bf16 within ATTN_REL (both
+# round p and the output to bf16, from running maxima over other tiles:
+# ~3e-3 a row), f32 within ATTN_REL_F32 (FMA sums in another order than
+# the plain version's einsums). A zeroed row reads 1; a row that lost
+# half its keys reads far above the bound.
+ATTN_REL = 2e-2
+ATTN_REL_F32 = 1e-4
+
+
+def _row_rel(got, want):
+    """The largest relative L2 error of a row (the last dimension)."""
+    d = (got.float() - want.float()).flatten(0, -2).norm(dim=-1)
+    return (d / want.float().flatten(0, -2).norm(dim=-1).clamp(min=1e-30)
+            ).max().item()
+
+
+def _attn_tol(dtype):
+    return ATTN_REL if dtype == torch.bfloat16 else ATTN_REL_F32
+
+
+ATTN_CASES = [
+    # (B, Sq, Skv, KV, G, hd, dtype, causal, window, rows, n_valid)
+    (2, 300, 300, 8, 3, 64, torch.bfloat16, True, 0, None, None),
+    (1, 128, 1024, 8, 3, 64, torch.bfloat16, True, 0, (512, 640), 640),
+    (2, 77, 301, 2, 4, 128, torch.bfloat16, True, 0, (224, 301), None),
+    (1, 200, 200, 2, 2, 256, torch.bfloat16, True, 64, None, None),
+    (2, 96, 96, 2, 8, 32, torch.bfloat16, True, 0, None, None),
+    (2, 130, 130, 4, 1, 80, torch.float32, False, 0, None, 100),
+    # qwen3's 16 query heads a KV head, codeqwen's 1, starcoder's 9
+    (1, 200, 200, 2, 16, 128, torch.bfloat16, True, 0, None, None),
+    (2, 100, 100, 4, 1, 128, torch.bfloat16, True, 0, None, None),
+    (1, 150, 150, 2, 9, 128, torch.bfloat16, True, 0, None, None),
+    # a chunk against a lane of more than 1024 key tiles of 64 rows: the
+    # tile states go by windows of 1024 tiles
+    (1, 128, 70000, 8, 3, 64, torch.bfloat16, True, 0, (68000, 68128),
+     68128),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES,
+                         ids=lambda c: f"hd{c[5]}-{str(c[6])[6:]}-{c[1]}")
+def test_flash_attn_fwd_matches_plain(cuda, case):
+    from repro_torch.models import flash as t_flash
+    B, Sq, Skv, KV, G, hd, dtype, causal, window, rows, n_valid = case
+    g = torch.Generator().manual_seed(hd)
+    q = torch.randn((B, Sq, KV, G, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    qpos = torch.arange(*(rows or (Sq,)), device=cuda)
+    kpos = torch.arange(Skv, device=cuda)
+    kval = None if n_valid is None else kpos < n_valid
+    kw = dict(causal=causal, window=window, q_positions=qpos,
+              kv_positions=kpos, kv_valid=kval)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    want = t_flash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attn_fwd"] == 1
+    assert _row_rel(got, want) <= _attn_tol(dtype)
+
+
+@pytest.mark.parametrize("S_max,stats,window,G,hd", [
+    (1024, False, 0, 3, 64), (3000, False, 0, 3, 64),
+    (3000, True, 700, 3, 64), (512, True, 0, 3, 64),
+    # more query heads than a block takes (8): two and three groups
+    (1024, False, 0, 16, 128), (700, True, 0, 9, 128),
+    (600, False, 0, 2, 256), (600, False, 0, 1, 80)])
+def test_flash_decode_matches_plain(cuda, S_max, stats, window, G, hd):
+    from repro_torch.models import flash as t_flash
+    g = torch.Generator().manual_seed(S_max)
+    B, KV = 8, 8 if hd < 128 else 2
+    q = torch.randn((B, KV, G, hd), generator=g).to(cuda, torch.bfloat16)
+    kc = torch.randn((B, S_max, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    vc = torch.randn((B, S_max, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    pos = torch.randint(0, S_max, (B,), generator=g).to(cuda)
+    off = S_max // 2 if stats else 0          # a shard: some lanes empty
+    kw = dict(window=window, kpos_offset=off, return_stats=stats)
+    got = ops.flash_decode(q, kc, vc, pos, **kw)
+    want = t_flash.flash_decode(q, kc, vc, pos, **kw)
+    torch.cuda.synchronize()
+    if not stats:
+        assert _row_rel(got, want) <= ATTN_REL
+        return
+    (acc, m, l), (acc_p, m_p, l_p) = got, want
+    empty = l_p == 0                   # lanes with no row in this shard
+    assert bool(empty.any()) and bool((~empty).any())
+    assert bool((l[empty] == 0).all()) and bool((acc[empty] == 0).all())
+    assert bool((m[empty] == m_p[empty]).all())
+    torch.testing.assert_close(m[~empty], m_p[~empty], rtol=1e-5, atol=1e-5)
+    for a, b in ((acc, acc_p), (l, l_p)):
+        rel = ((a - b).norm() / b.norm()).item()
+        assert rel <= 1e-2, rel          # p rounded to bf16 on both sides
+
+
+def test_flash_kernels_refuse_unsupported_head_size(cuda):
+    q = torch.zeros((1, 4, 1, 2, 48), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 4, 1, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="48"):
+        ops.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_rows_without_a_valid_key(cuda, dtype):
+    """Causal rows before the first valid key have none: the kernel's own
+    pass gives them the plain version's sum(v) over the padded key count
+    (1024 keys a chunk: 300 keys pad to 300), the other rows as usual."""
+    from repro_torch.models import flash as t_flash
+    g = torch.Generator().manual_seed(7)
+    B, S, KV, G, hd = 2, 300, 2, 3, 64
+    q = torch.randn((B, S, KV, G, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    pos = torch.arange(S, device=cuda)
+    kw = dict(causal=True, q_positions=pos, kv_positions=pos,
+              kv_valid=pos >= 100)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = t_flash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _row_rel(got, want) <= _attn_tol(dtype)
+    mean = v.float().sum(1) / t_flash.padded_keys(S)
+    assert _row_rel(got[:, :100], mean[:, None, :, None].expand(
+        B, 100, KV, G, hd)) <= _attn_tol(dtype)
+
+
+def test_flash_decode_lane_without_a_valid_row(cuda):
+    """Without ``return_stats`` a lane whose cache holds no valid row (its
+    position before the cache's first row) takes the plain version's mean
+    of v over every row."""
+    from repro_torch.models import flash as t_flash
+    g = torch.Generator().manual_seed(8)
+    B, S_max, KV, G, hd = 4, 1100, 2, 3, 64
+    q = torch.randn((B, KV, G, hd), generator=g).to(cuda, torch.bfloat16)
+    kc = torch.randn((B, S_max, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    vc = torch.randn((B, S_max, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    pos = torch.tensor([5, 50, 600, 1500], device=cuda)
+    kw = dict(kpos_offset=100)
+    got = ops.flash_decode(q, kc, vc, pos, **kw)
+    want = t_flash.flash_decode(q, kc, vc, pos, **kw)
+    torch.cuda.synchronize()
+    assert _row_rel(got, want) <= ATTN_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_stats_match_plain(cuda, dtype):
+    """``return_stats``: the kernel's rows' (m, l) against the plain
+    version's, rows with no valid key (m, l) = (_NEG, the padded key
+    count) exactly."""
+    from repro_torch.kernels import flash as k_flash
+    from repro_torch.models import flash as t_flash
+    g = torch.Generator().manual_seed(11)
+    B, S, KV, G, hd = 2, 300, 2, 3, 64
+    q = torch.randn((B, S, KV, G, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    pos = torch.arange(S, device=cuda)
+    kw = dict(causal=True, window=0, q_positions=pos, kv_positions=pos,
+              kv_valid=pos >= 100)
+    out, m, l = k_flash.flash_attn_fwd(q, k, v, return_stats=True, **kw)
+    out_p, m_p, l_p = t_flash.flash_attention(q, k, v, return_stats=True,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert _row_rel(out, out_p) <= _attn_tol(dtype)
+    empty = torch.zeros_like(m, dtype=torch.bool)
+    empty[..., :100] = True
+    assert bool((m[empty] == t_flash._NEG).all())
+    assert bool((l[empty] == t_flash.padded_keys(S)).all())
+    assert bool((m_p[empty] == m[empty]).all())
+    torch.testing.assert_close(m[~empty], m_p[~empty], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l[~empty], l_p[~empty], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_gradient_through_the_kernel(cuda, dtype):
+    """A call that requires a gradient launches the kernel once
+    (``FlashAttention``) and its backward none; the gradients against
+    autograd of the plain version, relative L2 a tensor (bf16: both round
+    p to bf16, the plain version's products in bf16)."""
+    from repro_torch.models import flash as t_flash
+    g = torch.Generator().manual_seed(12)
+    B, S, KV, G, hd = 2, 700, 2, 3, 64
+    base = [torch.randn(shape, generator=g).to(cuda, dtype)
+            for shape in ((B, S, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    w = torch.randn((B, S, KV, G, hd), generator=g).to(cuda)
+    pos = torch.arange(S, device=cuda)
+    kw = dict(causal=True, window=256, q_positions=pos, kv_positions=pos,
+              kv_valid=pos >= 50)
+    grads = []
+    for fn in (ops.flash_attention, t_flash.flash_attention):
+        ts = [t.clone().requires_grad_(True) for t in base]
+        ops.reset_launch_counts()
+        (fn(*ts, **kw).float() * w).sum().backward()
+        torch.cuda.synchronize()
+        want = 1 if fn is ops.flash_attention else 0
+        assert ops.launch_counts()["flash_attn_fwd"] == want
+        grads.append([t.grad.float() for t in ts])
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(*grads):
+        assert ((a - b).norm() / b.norm()).item() <= tol
+
+
+def test_flash_decode_gradient_through_the_kernel(cuda):
+    """A decode call that requires a gradient launches the kernel once
+    (``FlashDecode``); its gradients, autograd of the plain version on the
+    same inputs, match those of the plain call."""
+    from repro_torch.models import flash as t_flash
+    g = torch.Generator().manual_seed(13)
+    B, S_max, KV, G, hd = 4, 1100, 2, 3, 64
+    base = [torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+            for shape in ((B, KV, G, hd), (B, S_max, KV, hd),
+                          (B, S_max, KV, hd))]
+    pos = torch.tensor([5, 300, 700, 1099], device=cuda)
+    grads = []
+    for fn in (ops.flash_decode, t_flash.flash_decode):
+        ts = [t.clone().requires_grad_(True) for t in base]
+        ops.reset_launch_counts()
+        fn(*ts, pos, window=512).float().sum().backward()
+        torch.cuda.synchronize()
+        want = 1 if fn is ops.flash_decode else 0
+        assert ops.launch_counts()["flash_decode"] == want
+        grads.append([t.grad.float() for t in ts])
+    for a, b in zip(*grads):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-6
