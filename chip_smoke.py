@@ -30,13 +30,16 @@ Run from the repository root on a machine with one NVIDIA H100. It
    128-token chunk against a lane of the 1024-row cache under
    ``kv_valid``, context mode's rows of 4 ranks, gemma3's hd 256 under a
    1024 window, hubert's f32 encoder at hd 80, a 1 x 32768 prefill and
-   a chunk against a lane of 70000 rows (more than 1024 key tiles), the
-   decode kernel at granite's 8 lanes of a 1024-row cache, a context
-   shard's stats (lanes with no row in it) and 8 lanes of 32768 rows,
-   each row within ``ATTN_REL`` (relative L2; ``ATTN_REL_F32`` in f32)
-   of the plain version, where a kernel that dropped half the keys reads
-   far above it, two calls bit for bit, beside
-   ``scaled_dot_product_attention``
+   a chunk against a lane of 140000 rows (more than 1024 key tiles on
+   either route), each on the route ``route_of`` names (its Hopper-route
+   launches counted) and, where that is the Hopper route, the general
+   route on the same inputs too; the decode kernel (one device operation
+   a call, counted by the profiler) at granite's 8 lanes of a 1024-row
+   cache, a context shard's stats (lanes with no row in it) and 8 lanes
+   of 32768 rows, each row within ``ATTN_REL`` (relative L2;
+   ``ATTN_REL_F32`` in f32) of the plain version, where a kernel that
+   dropped half the keys reads far above it, two calls bit for bit,
+   beside ``scaled_dot_product_attention``
    with ``enable_gqa`` on the same mask (timed only) — and times each:
    the kernel's call (single-call CUDA
    events, ``ms``), the same with the card held so that the host issues
@@ -390,6 +393,21 @@ def timings(fn, reps: int = 25) -> dict:
             "host_us": host_us}
 
 
+def device_ops(fn) -> int:
+    """Device kernels and copies of one warm call of ``fn``, counted by
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 def row_rel(got, want) -> float:
     """The largest relative L2 error of a row (the last dimension)."""
     d = (got.float() - want.float()).flatten(0, -2).norm(dim=-1)
@@ -603,10 +621,13 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
                    plain_reps=5, cut=False):
     """Kernel A (``flash_attn_fwd``) at one call site's shape against the
     plain version on the same inputs (``row_rel`` within ATTN_REL, or
-    ATTN_REL_F32 in f32; two calls bit for bit), then timed as the FFNs
-    are, beside the plain version and the library yardstick. With
-    ``cut`` also what the check reads for a kernel that dropped the second
-    half of the keys (the plain version with them masked): it must fail."""
+    ATTN_REL_F32 in f32; two calls bit for bit) on the route ``route_of``
+    names (its Hopper-route launches counted), then timed as the FFNs
+    are, beside the plain version and the library yardstick. Where that
+    is the Hopper route, the general route runs on the same inputs too,
+    held and timed the same way. With ``cut`` also what the check reads
+    for a kernel that dropped the second half of the keys (the plain
+    version with them masked): it must fail."""
     import torch
     from repro_torch.kernels import flash as t_flash
     from repro_torch.kernels import ops
@@ -620,13 +641,18 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     kval = None if n_valid is None else kpos < n_valid
     kw = dict(causal=causal, window=window, q_positions=qpos,
               kv_positions=kpos, kv_valid=kval)
+    route = t_flash.route_of(dtype, hd)
     before = t_flash.flash_attn_fwd.launches
+    before_tma = t_flash.flash_attn_fwd.tma_launches
     y = ops.flash_attention(q, k, v, **kw)
     y_ref = plain.flash_attention(q, k, v, **kw)
     y2 = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     check(t_flash.flash_attn_fwd.launches == before + 2,
           f"attention {name}: the dispatch did not launch the kernel")
+    check(t_flash.flash_attn_fwd.tma_launches - before_tma
+          == (2 if route == "tma" else 0),
+          f"attention {name}: not on the {route} route")
     tol = ATTN_REL if dtype == torch.bfloat16 else ATTN_REL_F32
     err = row_rel(y, y_ref)
     check(bool(torch.isfinite(y).all()) and y.shape == q.shape,
@@ -634,6 +660,18 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     check(err <= tol, f"attention {name}: row relative L2 of kernel - "
           f"plain {err} > {tol}")
     check(torch.equal(y, y2), f"attention {name}: two calls differ")
+    general = None
+    if route == "tma":
+        g1 = t_flash.flash_attn_fwd(q, k, v, route="general", **kw)
+        g2 = t_flash.flash_attn_fwd(q, k, v, route="general", **kw)
+        torch.cuda.synchronize()
+        general = {"max_abs_err": row_rel(g1, y_ref)}
+        check(general["max_abs_err"] <= tol and torch.equal(g1, g2),
+              f"attention {name}, general route: row relative L2 "
+              f"{general['max_abs_err']} (bound {tol}), or two calls differ")
+        del g1, g2
+        general |= timings(lambda: t_flash.flash_attn_fwd(
+            q, k, v, route="general", **kw))
     cut_err = None
     if cut:
         half = kpos < Skv // 2 if kval is None else kval & (kpos < Skv // 2)
@@ -663,10 +701,18 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
                + (0 if kval is None else Skv))
     bound_ms, by = bound(n_bytes, 4 * hd * pairs,
                          BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    tiles = -(-Skv // (128 if route == "tma" else 64 if hd <= 128 else 32))
+    gen_txt = "" if general is None else (
+        f"; the general route on the same inputs: row relative L2 "
+        f"{general['max_abs_err']:.3e}, two calls bit for bit, "
+        f"{general['ms']:.4f} ms ({100 * bound_ms / general['ms']:.1f}% of "
+        f"bound), {general['device_ms']:.4f} ms with the host ahead, host "
+        f"{general['host_us']:.1f} us a call")
     print(f"[kernel] flash_attn_fwd {name}: q {tuple(q.shape)} k "
           f"{tuple(k.shape)} {str(dtype)[6:]}, causal {causal}, window "
           f"{window}, rows {rows or 'all'}, valid keys "
-          f"{n_valid or 'all'}: row relative L2 {err:.3e} (tol {tol}"
+          f"{n_valid or 'all'}, {route} route ({tiles} key tiles): row "
+          f"relative L2 {err:.3e} (tol {tol}"
           + ("" if cut_err is None else
              f"; half the keys dropped would read {cut_err:.3e}")
           + f"), two calls bit for bit; kernel {res['ms']:.4f} ms "
@@ -675,10 +721,12 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
           f"{res['host_us']:.1f} us a call; plain {plain_ms:.4f} ms; SDPA "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({by}, "
           f"{4 * hd * pairs / 1e9:.2f} GFLOP of valid pairs, "
-          f"{n_bytes / 1e6:.1f} MB)", flush=True)
+          f"{n_bytes / 1e6:.1f} MB){gen_txt}", flush=True)
     return {"max_abs_err": err, "cut_err": cut_err, **res,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "kernel_route": route,
+            "key_tiles": tiles,
+            "general": general,
             "shape": {"q": list(q.shape), "k": list(k.shape),
                       "dtype": str(dtype)[6:], "causal": causal,
                       "window": window, "rows": rows, "n_valid": n_valid}}
@@ -744,6 +792,10 @@ def decode_case(name, cgen, dev, B, S_max, KV, G, hd, pos, *, window=0,
         check(cut_err > ATTN_REL, f"decode {name}: half the rows dropped "
               f"reads {cut_err}, inside the bound {ATTN_REL}")
     res = timings(lambda: t_flash.flash_decode(q, kc, vc, pos, **kw))
+    ops_a_call = device_ops(lambda: t_flash.flash_decode(q, kc, vc, pos,
+                                                         **kw))
+    check(ops_a_call == 1, f"decode {name}: {ops_a_call} device "
+          "operations a call, expected one launch")
     plain_ms = median_ms(lambda: plain.flash_decode(q, kc, vc, pos, **kw),
                          reps=plain_reps, warmup=1)
     library_ms = median_ms(_sdpa(q[:, None], kc, vc,
@@ -757,8 +809,9 @@ def decode_case(name, cgen, dev, B, S_max, KV, G, hd, pos, *, window=0,
     splits = t_flash.decode_splits(S_max)
     print(f"[kernel] flash_decode {name}: q {tuple(q.shape)} cache "
           f"{tuple(kc.shape)}, pos {pos.tolist()}, window {window}, row "
-          f"offset {kpos_offset}, stats {stats}: {splits} split(s), "
-          f"{1 if splits == 1 else 2} launch(es); valid rows {n_rows}; "
+          f"offset {kpos_offset}, stats {stats}: {splits} split(s) of "
+          f"{t_flash.decode_split_rows(S_max)} rows, {ops_a_call} device "
+          f"operation(s) a call (the profiler); valid rows {n_rows}; "
           f"relative error {err:.3e} (tol {ATTN_REL}"
           + ("" if cut_err is None else
              f"; half the rows dropped would read {cut_err:.3e}")
@@ -770,7 +823,7 @@ def decode_case(name, cgen, dev, B, S_max, KV, G, hd, pos, *, window=0,
           f"{bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)", flush=True)
     return {"max_abs_err": err, "cut_err": cut_err, **res,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "device_ops_a_call": ops_a_call,
             "shape": {"q": list(q.shape), "cache": list(kc.shape),
                       "pos": pos.tolist(), "window": window,
                       "kpos_offset": kpos_offset, "stats": stats,
@@ -854,11 +907,12 @@ def attention_cases(cfg, cgen, dev) -> dict:
     a["prefill-1x32768"] = attention_case("prefill-1x32768", cgen, dev, 1,
                                           32768, 32768, KV, G, hd,
                                           plain_reps=1)
-    # a 128-token chunk against a lane of 70000 rows: 1094 key tiles of
-    # 64, past the 1024 whose states the kernel takes a window at a time
-    a["chunk-vs-70000"] = attention_case(
-        "chunk-vs-70000", cgen, dev, 1, 128, 70000, KV, G, hd,
-        rows=(68000, 68128), n_valid=68128, plain_reps=2)
+    # a 128-token chunk against a lane of 140000 rows: 1094 key tiles of
+    # 128 (the Hopper route; 2188 of 64 on the general route), past the
+    # 1024 whose states the kernels take a window at a time
+    a["chunk-vs-140000"] = attention_case(
+        "chunk-vs-140000", cgen, dev, 1, 128, 140000, KV, G, hd,
+        rows=(138000, 138128), n_valid=138128, plain_reps=2)
     # the training path: granite's 4 x 512, and gemma3's hd 256 window
     out["grad"]["train-4x512"] = attention_grad_case(
         "train-4x512", cgen, dev, 4, 512, KV, G, hd)
@@ -1649,8 +1703,7 @@ def trace_decode(engine, n_steps: int = 4) -> None:
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     # the port's own kernels, wherever they rank
     ours = ("ffn_tma_kernel", "gate_up_kernel", "down_kernel",
-            "route_select_kernel", "router_topk", "decode_split",
-            "decode_merge", "attn_fwd")
+            "route_select_kernel", "router_topk", "decode_attn", "attn_fwd")
     top += [e for e in dev_events
             if e not in top and any(k in e.key for k in ours)]
     launched_by = _launchers(prof)
@@ -6620,6 +6673,13 @@ def main() -> int:
     capacity_layer_case(cfg, cgen, dev)
     stamp("phase 4, the MoE layers")
     engine, counts, _ = serve_path(cfg, dev, "slice", output_cap=64)
+    # granite's attention (bf16, hd 64): every prefill launch on the
+    # Hopper route (the count is reset with the others)
+    from repro_torch.kernels import flash as t_flash
+    attn_tma = t_flash.flash_attn_fwd.tma_launches
+    check(attn_tma == counts["flash_attn_fwd"] > 0,
+          f"slice: {attn_tma} of {counts['flash_attn_fwd']} flash_attn_fwd "
+          "launches on the Hopper route")
     trace_decode(engine)
     del engine
     stamp("phases 5-6, the ragged slice and its trace")
@@ -6788,7 +6848,7 @@ def main() -> int:
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/models/flash.py:45",
-         "launches": counts["flash_attn_fwd"],
+         "launches": counts["flash_attn_fwd"], "tma_launches": attn_tma,
          **{k: v for k, v in attn["fwd"]["prefill-4x512"].items()
             if k != "shape"},
          "by_shape": attn["fwd"], "gradient": attn["grad"],

@@ -10,35 +10,46 @@
 // f32, p cast to v's dtype before the PV product, the output acc / max(l,
 // 1e-30) cast to q's dtype.
 //
-// Prefill (flash_attn_fwd): a block holds 64 rows of one (lane, KV head)
-// -- query position s and query head g flattened as s * G + g, so the G
-// heads of a KV head share each K/V tile -- and walks key tiles of a fixed
-// length BN from key row 0, so a row's result depends only on its q row,
-// its lane's k/v and the masks (never on B, KV, Sq, its neighbours or the
-// SM count). bf16: 4 warps of 16 rows on mma.sync m16n8k16 (f32
-// accumulators, P passed from the score accumulators as the A operand);
-// f32: 4 threads a row on FMA. A tile whose mask is false for every row of
-// the block (no valid key; or, from the position bounds, causal or window
-// excludes all) is skipped: for a row that has a valid key that is what
-// computing it would give bit for bit (p = exp(_NEG - m) = 0, correction
-// 1; or, before its first valid key, a state the first valid tile
-// multiplies by exp(_NEG - m) = 0). A row with no valid key at all gets
-// the plain version's value, sum(v) / (the padded key count), in a pass of
-// its own. Given m and l, it also writes each row's softmax stats, which a
-// call that needs a gradient keeps for the backward. Bound at long
-// context: the tensor cores.
+// Prefill (flash_attn_fwd): a block holds rows of one (lane, KV head) --
+// query position s and query head g flattened as s * G + g, so the G heads
+// of a KV head share each K/V tile -- and walks key tiles of a fixed length
+// BN from key row 0, so a row's result depends only on its q row, its
+// lane's k/v and the masks (never on B, KV, Sq, its neighbours or the SM
+// count). A tile whose mask is false for every row of the block (no valid
+// key; or, from the position bounds, causal or window excludes all) is
+// skipped: for a row that has a valid key that is what computing it would
+// give bit for bit (p = exp(_NEG - m) = 0, correction 1; or, before its
+// first valid key, a state the first valid tile multiplies by exp(_NEG -
+// m) = 0). A row with no valid key at all gets the plain version's value,
+// sum(v) / (the padded key count), in a pass of its own. Given m and l, it
+// also writes each row's softmax stats, which a call that needs a gradient
+// keeps for the backward. Two routes, chosen by (dtype, hd) alone
+// (kernels/flash.py::route_of), so a chunk and the whole prompt, a rank
+// and one device, take the same one:
+//   * the Hopper route (attn_fwd_tma), bf16 at hd 64 and 128: 128-row
+//     blocks of a TMA producer warpgroup and two wgmma consumer warpgroups,
+//     128-key tiles (its note below);
+//   * the general route, bf16 at hd 32, 80 and 256 (attn_fwd_bf16: 4 warps
+//     of 16 rows on mma.sync m16n8k16, 64-row blocks, 64-key tiles, 32 at
+//     hd 256) and f32 at every head size (attn_fwd_f32: FMA, 32-row blocks
+//     of 32-key tiles).
+// Bound at long context: the tensor cores (f32: the FMA units).
 //
-// Decode (flash_decode): a block reads one split of split_rows cache rows
-// of one (lane, KV head) once for up to 8 query heads, and only the rows
-// that can be valid (<= pos - kpos_offset, inside the window). More than
-// one split: a second kernel merges the splits' (acc, m, l) in split
-// order. Splits and tiles depend on S_max alone. Bound: the bytes of the
-// valid rows.
+// Decode (flash_decode): one launch a call (decode_attn). A block reads one
+// split of split_rows cache rows of one (lane, KV head) once for up to 8 of
+// its query heads, and only the rows that can be valid (<= pos -
+// kpos_offset, inside the window), through a per-thread cp.async ring; the
+// last block of a (lane, KV head) merges the splits' (acc, m, l) in split
+// order, found by a ticket (its note below). Splits and tiles depend on
+// S_max alone. Bound: the bytes of the valid rows.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "moe_ffn_hopper.cuh"
 
 namespace {
 
@@ -98,46 +109,84 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// What the masks leave of key tile [key0, key0 + BN) for the block's rows,
-// whose query positions lie in [qmin, qmax], judged from the tile's valid
-// keys' position bounds by each warp alone (all warps reach the same
-// answer): 0 nothing (the tile is skipped), 2 every (row, key) pair (no
-// mask to apply), 1 some.
-template <int BN>
-__device__ __forceinline__ int tile_state(const Pos& kpos,
-                                          const unsigned char* kval, int key0,
-                                          int Skv, long long qmin,
-                                          long long qmax, int causal,
-                                          int window) {
+// What the masks leave of key tiles t0 .. t0 + N - 1 (each BN keys from
+// key t BN; a tile past the last reads 0) for the block's rows, whose
+// query positions lie in [qmin, qmax], judged from the tiles' valid keys'
+// position bounds by each warp alone (all warps reach the same answer): 0
+// nothing (the tile is skipped), 2 every (row, key) pair (no mask to
+// apply), 1 some. All N tiles' loads go out before any tile's reductions:
+// one round trip for N tiles.
+template <int BN, int N>
+__device__ __forceinline__ void tile_states(const Pos& kpos,
+                                            const unsigned char* kval,
+                                            int t0, int ntiles, int Skv,
+                                            long long qmin, long long qmax,
+                                            int causal, int window,
+                                            int* st) {
   const int lane = threadIdx.x & 31;
-  bool any = false, all = true;
-  long long kmin = 0x7fffffffffffffffLL, kmax = -0x7fffffffffffffffLL;
+  bool any[N], all[N];
+  long long kmin[N], kmax[N];
 #pragma unroll
-  for (int i = lane; i < BN; i += 32) {
-    const int key = key0 + i;
-    if (key < Skv && (!kval || kval[key])) {
-      const long long kp = kpos.at(key, key);
-      any = true;
-      kmin = kp < kmin ? kp : kmin;
-      kmax = kp > kmax ? kp : kmax;
-    } else {
-      all = false;
+  for (int n = 0; n < N; ++n) {
+    any[n] = false;
+    all[n] = true;
+    kmin[n] = 0x7fffffffffffffffLL;
+    kmax[n] = -0x7fffffffffffffffLL;
+#pragma unroll
+    for (int i = lane; i < BN; i += 32) {
+      const int key = (t0 + n) * BN + i;
+      if (t0 + n < ntiles && key < Skv && (!kval || kval[key])) {
+        const long long kp = kpos.at(key, key);
+        any[n] = true;
+        kmin[n] = kp < kmin[n] ? kp : kmin[n];
+        kmax[n] = kp > kmax[n] ? kp : kmax[n];
+      } else {
+        all[n] = false;
+      }
     }
   }
-  if (!__any_sync(0xffffffffu, any)) return 0;
-  all = __all_sync(0xffffffffu, all);
 #pragma unroll
-  for (int o = 16; o; o >>= 1) {
-    const long long a = __shfl_xor_sync(0xffffffffu, kmin, o);
-    const long long b = __shfl_xor_sync(0xffffffffu, kmax, o);
-    kmin = a < kmin ? a : kmin;
-    kmax = b > kmax ? b : kmax;
+  for (int n = 0; n < N; ++n) {
+    st[n] = 1;
+    if (!__any_sync(0xffffffffu, any[n])) {
+      st[n] = 0;
+      continue;
+    }
+    const bool every = __all_sync(0xffffffffu, all[n]);
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      const long long x = __shfl_xor_sync(0xffffffffu, kmin[n], o);
+      const long long y = __shfl_xor_sync(0xffffffffu, kmax[n], o);
+      kmin[n] = x < kmin[n] ? x : kmin[n];
+      kmax[n] = y > kmax[n] ? y : kmax[n];
+    }
+    if (causal && kmin[n] > qmax) st[n] = 0;
+    else if (window > 0 && qmin - kmax[n] >= window) st[n] = 0;
+    else if (every && (!causal || kmax[n] <= qmin) &&
+             (window <= 0 || qmax - kmin[n] < window))
+      st[n] = 2;
   }
-  if (causal && kmin > qmax) return 0;
-  if (window > 0 && qmin - kmax >= window) return 0;
-  if (all && (!causal || kmax <= qmin) && (window <= 0 || qmax - kmin < window))
-    return 2;
-  return 1;
+}
+
+// The states of the window of MAXT tiles from base, by warp w of nw, two
+// tiles a round trip, into state[0, MAXT)
+template <int BN, int MAXT>
+__device__ __forceinline__ void fill_states(unsigned char* state, int base,
+                                            int w, int nw, const Pos& kpos,
+                                            const unsigned char* kval,
+                                            int ntiles, int Skv,
+                                            long long qmin, long long qmax,
+                                            int causal, int window) {
+  for (int u = base + 2 * w; u < base + MAXT && u < ntiles; u += 2 * nw) {
+    int st[2];
+    tile_states<BN, 2>(kpos, kval, u, ntiles, Skv, qmin, qmax, causal,
+                       window, st);
+    if ((threadIdx.x & 31) == 0) {
+      state[u - base] = static_cast<unsigned char>(st[0]);
+      if (u + 1 - base < MAXT)
+        state[u + 1 - base] = static_cast<unsigned char>(st[1]);
+    }
+  }
 }
 
 // The block's rows' query positions: rowpos[r] for r < rows (rows past M
@@ -172,12 +221,14 @@ __device__ __forceinline__ void row_positions(const Pos& qpos, int row0,
 
 // Rows of the block with no valid key (rowflag set): sum(v) / den over
 // every key of the (lane, KV head), as the plain version gives them.
+// Threads tid of nthr share the columns.
 template <typename T>
 __device__ void fill_unseen(const T* v, T* out, const int* rowflag, int row0,
                             int rows, int M, int G, int Sq, int Skv, int KV,
                             int HD, int b, int kvh, long long vs0,
-                            long long vs1, long long vs2, float den) {
-  for (int d = threadIdx.x; d < HD; d += NT) {
+                            long long vs1, long long vs2, float den, int tid,
+                            int nthr) {
+  for (int d = tid; d < HD; d += nthr) {
     float sum = 0.f;
     const T* col = v + b * vs0 + kvh * vs2 + d;
     for (int key = 0; key < Skv; ++key) sum += to_f(col[key * vs1]);
@@ -221,12 +272,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t pair_bf16(const bf16* lo, const bf16* hi) {
-  const uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
-  const uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return a | (b << 16);
-}
-
 struct FwdArgs {
   const void *q, *k, *v;
   void* out;
@@ -268,9 +313,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// 4 warps of 16 rows on mma.sync m16n8k16. The K and V tiles go through
-// two shared-memory buffers: the next live tile is copied (cp.async)
-// while the current one is computed. Fragments come from ldmatrix (V's
+// The general route: 4 warps of 16 rows on mma.sync m16n8k16. The K and V
+// tiles go through two shared-memory buffers: the next live tile is copied
+// (cp.async) while the current one is computed. Fragments come from ldmatrix (V's
 // transposed); q's stay in registers for hd <= 128. The exponentials are
 // the hardware's (__expf, ex2 of x log2 e: a few ulp from expf, far below
 // the bf16 rounding of p that follows; the difference comes first, so
@@ -321,7 +366,7 @@ __global__ void __launch_bounds__(NT) attn_fwd_bf16(FwdArgs a) {
   uint32_t qf[QREG ? KS : 1][4];
 
   const int ntiles = (a.Skv + BN - 1) / BN;
-  // the tiles' states (tile_state) for a window of MAXT tiles at a time,
+  // the tiles' states (tile_states) for a window of MAXT tiles at a time,
   // each warp a quarter of them, so that no tile of the loop below waits
   // on its positions' loads
   int base = -MAXT;
@@ -330,13 +375,8 @@ __global__ void __launch_bounds__(NT) attn_fwd_bf16(FwdArgs a) {
       if (t >= base + MAXT) {
         base = t;
         __syncthreads();                  // the last window's readers
-#pragma unroll 4
-        for (int u = base + warp; u < base + MAXT && u < ntiles;
-             u += NT / 32) {
-          const int st = tile_state<BN>(a.kpos, a.kval, u * BN, a.Skv, qmin,
-                                        qmax, a.causal, a.window);
-          if (lane == 0) state_s[u - base] = static_cast<unsigned char>(st);
-        }
+        fill_states<BN, MAXT>(state_s, base, warp, NT / 32, a.kpos, a.kval,
+                              ntiles, a.Skv, qmin, qmax, a.causal, a.window);
         __syncthreads();
       }
       *state = state_s[t - base];
@@ -517,7 +557,7 @@ __global__ void __launch_bounds__(NT) attn_fwd_bf16(FwdArgs a) {
                     (row0 + rB < M && m_r[1] == neg_big());
   if (__syncthreads_or(mine))
     fill_unseen<bf16>(v, out, rowflag, row0, BM, M, a.G, a.Sq, a.Skv, a.KV,
-                      HD, b, kvh, a.vs0, a.vs1, a.vs2, a.den);
+                      HD, b, kvh, a.vs0, a.vs1, a.vs2, a.den, tid, NT);
 }
 
 // ----------------------------------------------------------------- f32
@@ -557,9 +597,10 @@ __global__ void __launch_bounds__(NT) attn_fwd_f32(FwdArgs a) {
   const int ntiles = (a.Skv + BN - 1) / BN;
   for (int t = 0; t < ntiles; ++t) {
     const int key0 = t * BN;
-    if (!tile_state<BN>(a.kpos, a.kval, key0, a.Skv, qmin, qmax, a.causal,
-                        a.window))
-      continue;
+    int st;
+    tile_states<BN, 1>(a.kpos, a.kval, t, ntiles, a.Skv, qmin, qmax,
+                       a.causal, a.window, &st);
+    if (!st) continue;
     __syncthreads();
     for (int i = tid; i < BN * (HD / 4); i += NT) {
       const int j = i / (HD / 4), c = i % (HD / 4), key = key0 + j;
@@ -634,7 +675,514 @@ __global__ void __launch_bounds__(NT) attn_fwd_f32(FwdArgs a) {
   }
   if (__syncthreads_or(gr < M && m == neg_big()))
     fill_unseen<float>(v, out, rowflag, row0, BM, M, a.G, a.Sq, a.Skv, a.KV,
-                       HD, b, kvh, a.vs0, a.vs1, a.vs2, a.den);
+                       HD, b, kvh, a.vs0, a.vs1, a.vs2, a.den, tid, NT);
+}
+
+// ------------------------------------------------------ bf16, Hopper route
+// The prefill route for bf16 at hd 64 and 128 (kernels/flash.py::route_of):
+// a block of 384 threads, 128 rows of one (lane, KV head), 128-key tiles.
+//   * Prologue, every thread: Q's 128 rows into the 128-byte swizzled
+//     layout wgmma reads (a block's rows are s * G + g, not a TMA box, so
+//     plain 16-byte loads), the block's query-position bounds, and the
+//     states of the first 1024 key tiles (fill_states: two tiles a warp a
+//     round trip, twelve warps). The scan over every key tile is a block's
+//     fixed cost, whatever its causal extent; done by the producer's four
+//     warps one tile a round trip, it held each block's first tile back.
+//   * Warpgroup 0, the producer (setmaxnreg down to 56): lane 0 of warp 0
+//     walks the live tiles in order and keeps them in flight through a ring
+//     of STAGES slots (4 at hd 64, 2 at hd 128), K and V each as hd / 64
+//     panels of 128 keys x 128 bytes copied by TMA (cp.async.bulk.tensor
+//     over the (hd, KV, Skv, B) view with the caller's strides, 128-byte
+//     swizzle, keys past Skv read as zeros), completion on the slot's full
+//     mbarrier. Beside the slot it writes the tile's index and state and,
+//     for a tile with some masked pairs, its keys' positions and validity;
+//     after the last live tile a slot with index -1 ends the walk. Its four
+//     warps judge the later windows of 1024 tiles.
+//   * Warpgroups 1 and 2, the consumers (setmaxnreg up to 224), 64 rows
+//     each: S = Q K^T by wgmma m64n128k16 from shared memory, the masks
+//     and the online softmax in registers, P rounded to bf16 in registers
+//     as wgmma's A operand, O += P V by wgmma m64n{hd}k16 with V MN-major
+//     (the transpose bit); lane 0 of each warp frees a slot on its empty
+//     mbarrier. At hd 64 the two take turns at the tensor cores (named
+//     barriers 4 and 5, ping-pong), a turn issuing this tile's S with the
+//     last tile's P V, so that one's softmax runs under the other's
+//     products. At hd 128 S, P and O do not fit together in the 168
+//     registers a thread that ptxas (CUDA 12.9) gives the consumer path
+//     here (it spills and serialises wgmma; it does raise a plain kernel's
+//     budget to setmaxnreg's), so each warpgroup runs S, softmax, P V in
+//     turn.
+// The softmax is the general route's in base 2: m2 the running max of
+// q.k scale log2 e, p = 2^(q.k c2 - m2) by one FFMA and ex2, a masked pair
+// -inf (p = 0); the stats come back as m2 ln 2 (a row with no valid key
+// keeps _NEG and takes l = the padded key count, as the general route).
+// Computing a tile whose every pair is masked leaves m, l and O as they
+// were (the correction exp2(0) = 1, p = 0), so a skipped tile is still
+// bitwise what computing it gives. Which route runs depends on (dtype, hd)
+// alone. The row blocks go longest first (causal rows at the end of the
+// prompt have the most tiles). Host cost: two tensor maps encoded a call
+// (cuTensorMapEncodeTiled, on the host). Bound at long
+// context: the tensor cores, here held back at hd 64 by the exponentials
+// (the 16 a clock of an SM's ex2 units take as long as a tile's products)
+// and by each block's tile-state scan.
+namespace hop = moe_ffn_hopper;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// S (64 x 128, f32) = or += Q (64 x 16) K (16 x 128): both bf16,
+// K-major, from shared memory; scale_d 0 overwrites S
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// O (64 x 64, f32) += P (64 x 16, bf16 in registers: a warp's 16
+// rows as mma.sync m16n8k16's A fragment) V (16 x 64, bf16,
+// MN-major in shared memory: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 128, f32) += P (64 x 16, bf16 in registers: a warp's 16
+// rows as mma.sync m16n8k16's A fragment) V (16 x 128, bf16,
+// MN-major in shared memory: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int HD>
+struct TmaCfg {
+  static constexpr int BM = 128;          // rows a block
+  static constexpr int BN = 128;          // keys a tile
+  static constexpr int PANELS = HD / 64;  // 64-value panels of a row
+  static constexpr int PANEL = BN * 128;  // bytes of a K or V panel
+  static constexpr int Q_PANEL = BM * 128;
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int TILE_BYTES = 2 * PANELS * PANEL;  // K and V
+  static constexpr int STAGES = HD == 64 ? 4 : 2;
+  // + 1 KB so that the panels start on the swizzle atom (1024 bytes)
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * TILE_BYTES;
+  static constexpr int THREADS = 384;
+  // ping-pong, a turn issuing this tile's S with the last tile's P V (hd
+  // 64); at hd 128 S, P and O would not fit together in the 168 registers
+  // a thread that ptxas allocates (it spills and serialises wgmma), so
+  // each warpgroup runs S, softmax, P V in turn
+  static constexpr bool PAIR = HD == 64;
+  static_assert(HD == 64 || HD == 128, "the Hopper route's head sizes");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(384, 1)
+    attn_fwd_tma(const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, FwdArgs a) {
+  using C = TmaCfg<HD>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, MAXT = 1024;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = hop::smem_u32(smem);
+  const uint32_t ring = q_s + C::Q_BYTES;
+  __shared__ __align__(8) uint64_t bars[2 * ST];   // full, then empty
+  __shared__ long long kpos_s[ST][BN];
+  __shared__ signed char kval_s[ST][BN];
+  __shared__ int tile_s[ST], stt_s[ST], rowflag[BM], unseen[2];
+  __shared__ unsigned char state_s[MAXT];
+  __shared__ long long qlo_s[4], qhi_s[4];
+
+  const int b = blockIdx.z, kvh = blockIdx.y, M = a.Sq * a.G;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t full0 = hop::smem_u32(bars), empty0 = full0 + 8 * ST;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hop::mbar_init(full0 + 8 * s, 1);
+      hop::mbar_init(empty0 + 8 * s, 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (threadIdx.x < 2) unseen[threadIdx.x] = 0;
+  // Q, the block's 128 rows, by every thread (its loads in flight with
+  // the tile states' below): 16-byte chunk j of a 128-byte row r at chunk
+  // j ^ (r % 8), the 128-byte swizzle wgmma reads
+  {
+    const bf16* q = static_cast<const bf16*>(a.q);
+    constexpr int CH = HD / 8;
+    for (int i = threadIdx.x; i < BM * CH; i += C::THREADS) {
+      const int r = i / CH, c = i % CH, gr = row0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < M) {
+        const int s = gr / a.G, g = gr % a.G;
+        val = *reinterpret_cast<const uint4*>(q + b * a.qs0 + s * a.qs1 +
+                                              kvh * a.qs2 + g * a.qs3 + c * 8);
+      }
+      *reinterpret_cast<uint4*>(smem + (c / 8) * C::Q_PANEL + r * 128 +
+                                ((c % 8) ^ (r & 7)) * 16) = val;
+    }
+    hop::fence_proxy_async();
+  }
+  // the block's query-position bounds, from its rows below M
+  long long lo = 0x7fffffffffffffffLL, hi = -0x7fffffffffffffffLL;
+  if (threadIdx.x < BM && row0 + threadIdx.x < M) {
+    const int s = (row0 + threadIdx.x) / a.G;
+    lo = hi = a.qpos.at(s, s);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    const long long x = __shfl_xor_sync(0xffffffffu, lo, o);
+    const long long y = __shfl_xor_sync(0xffffffffu, hi, o);
+    lo = x < lo ? x : lo;
+    hi = y > hi ? y : hi;
+  }
+  if (lane == 0 && warp < 4) {
+    qlo_s[warp] = lo;
+    qhi_s[warp] = hi;
+  }
+  __syncthreads();
+  long long qmin = qlo_s[0], qmax = qhi_s[0];
+  for (int w = 1; w < 4; ++w) {
+    qmin = qlo_s[w] < qmin ? qlo_s[w] : qmin;
+    qmax = qhi_s[w] > qmax ? qhi_s[w] : qmax;
+  }
+  const int ntiles = (a.Skv + BN - 1) / BN;
+  // the tiles' states, a window of MAXT tiles at a time; the first by all
+  // twelve warps, two tiles a warp a round trip, while the consumers would
+  // wait for their first tile anyway; later windows by the producer
+  fill_states<BN, MAXT>(state_s, 0, warp, 12, a.kpos, a.kval, ntiles, a.Skv,
+                        qmin, qmax, a.causal, a.window);
+  __syncthreads();
+  // the warpgroup, as a value the compiler knows to be warp-uniform (a
+  // divergent branch around wgmma serialises it)
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (wgi == 0) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int ptid = threadIdx.x;
+    int base = 0, t = 0;
+    for (int it = 0;; ++it) {
+      int st = 0;
+      for (; t < ntiles; ++t) {
+        if (t >= base + MAXT) {
+          base = t;
+          named_bar(1, 128);              // the last window's readers
+          fill_states<BN, MAXT>(state_s, base, warp, 4, a.kpos, a.kval,
+                                ntiles, a.Skv, qmin, qmax, a.causal,
+                                a.window);
+          named_bar(1, 128);
+        }
+        st = state_s[t - base];
+        if (st) break;
+      }
+      const int stage = it % ST;
+      if (it >= ST) hop::mbar_wait(empty0 + 8 * stage, (it / ST - 1) & 1);
+      const bool live = t < ntiles;
+      if (live && st == 1) {
+        for (int j = ptid; j < BN; j += 128) {
+          const int key = t * BN + j;
+          kpos_s[stage][j] = key < a.Skv ? a.kpos.at(key, key) : 0;
+          kval_s[stage][j] = static_cast<signed char>(
+              key >= a.Skv ? -1 : (a.kval && !a.kval[key] ? 0 : 1));
+        }
+      }
+      if (ptid == 0) {
+        tile_s[stage] = live ? t : -1;
+        stt_s[stage] = st;
+      }
+      named_bar(1, 128);                  // the slot's notes are written
+      if (ptid == 0) {
+        const uint32_t bar = full0 + 8 * stage;
+        if (live) {
+          const uint32_t kdst = ring + stage * C::TILE_BYTES;
+          const uint32_t vdst = kdst + C::PANELS * C::PANEL;
+          hop::mbar_expect_tx(bar, C::TILE_BYTES);
+#pragma unroll
+          for (int p = 0; p < C::PANELS; ++p) {
+            tma_load_4d(kdst + p * C::PANEL, &kmap, bar, p * 64, kvh, t * BN,
+                        b);
+            tma_load_4d(vdst + p * C::PANEL, &vmap, bar, p * 64, kvh, t * BN,
+                        b);
+          }
+        } else {
+          hop::mbar_arrive(bar);
+        }
+      }
+      if (!live) break;
+      ++t;
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int wg = wgi - 1, ctid = threadIdx.x - 128 * wgi;
+    const int w = warp & 3, wrow0 = row0 + wg * 64;
+    const bool active = wrow0 < M;
+    const int rA = 16 * w + (lane >> 2);   // rows rA and rA + 8 of the 64
+    const int grA = wrow0 + rA, grB = grA + 8;
+    const long long qpA = grA < M ? a.qpos.at(grA / a.G, grA / a.G) : 0;
+    const long long qpB = grB < M ? a.qpos.at(grB / a.G, grB / a.G) : 0;
+    const float c2 = a.scale * 1.4426950408889634f;
+    float m2[2] = {neg_big(), neg_big()}, lsum[2] = {0.f, 0.f};
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+    // hd 64 (PAIR): the warpgroups take turns at the tensor cores (named
+    // barriers 4 and 5, ping-pong), so that one's softmax runs under the
+    // other's products; a turn issues this tile's S with the last tile's
+    // P V, and the last tile's slot is freed once both are done. hd 128:
+    // S, softmax, then P V of the same tile, and the slot is freed.
+    uint32_t pf_last[C::PAIR ? BN / 16 : 1][4];   // PAIR: the last P
+    int prev = -1;                        // the last tile's slot (PAIR)
+    if (C::PAIR && wg == 1) named_arrive(4, 256);   // warpgroup 0 first
+    for (int it = 0;; ++it) {
+      const int stage = it % ST;
+      hop::mbar_wait(full0 + 8 * stage, (it / ST) & 1);
+      const bool live = __shfl_sync(0xffffffffu, tile_s[stage], 0) >= 0;
+      const int st = __shfl_sync(0xffffffffu, stt_s[stage], 0);
+      if constexpr (C::PAIR) named_bar(4 + wg, 256);
+      float s[BN / 2];
+      uint32_t pf[BN / 16][4];            // P, bf16 pairs
+      if (active) {
+        hop::wgmma_fence();
+        if (live) {
+          // S = Q K^T: accumulator i is row rA + 8 ((i / 2) % 2), key
+          // 8 (i / 4) + 2 (lane % 4) + i % 2
+          const uint32_t kst = ring + stage * C::TILE_BYTES;
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint64_t ad = hop::sw128_desc(
+                q_s + (kk / 4) * C::Q_PANEL + wg * 64 * 128 + (kk % 4) * 32,
+                16);
+            const uint64_t bd =
+                hop::sw128_desc(kst + (kk / 4) * C::PANEL + (kk % 4) * 32, 16);
+            wgmma_ss_n128(s, ad, bd, kk);
+          }
+        }
+        if constexpr (C::PAIR) {
+          if (prev >= 0) {
+            // O += P V of the last tile, beside this tile's S
+            const uint32_t vst =
+                ring + prev * C::TILE_BYTES + C::PANELS * C::PANEL;
+#pragma unroll
+            for (int kk = 0; kk < BN / 16; ++kk)
+              wgmma_rs_n64(o, pf_last[kk],
+                           hop::sw128_desc(vst + kk * 2048, C::PANEL));
+          }
+        }
+        hop::wgmma_commit();
+      }
+      if constexpr (C::PAIR) {
+        // the other warpgroup's turn (warpgroup 1 hands back none after
+        // its last, so that every turn taken was handed over once)
+        if (live || wg == 0) named_arrive(4 + (wg ^ 1), 256);
+      }
+      if (active) hop::wgmma_wait_all();
+      if (C::PAIR && prev >= 0) {
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(empty0 + 8 * prev);
+      }
+      if (!live) break;
+      prev = stage;
+      if (active) {
+        // mask (a masked pair and a key past Skv: -inf, p = 0); the tile's
+        // row maxima of q.k
+        float tmax[2] = {-INFINITY, -INFINITY};
+        if (st == 2) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+            const int h = (i >> 1) & 1;
+            if (kval_s[stage][col] <= 0 ||
+                !allowed(h ? qpB : qpA, kpos_s[stage][col], a.causal,
+                         a.window))
+              s[i] = -INFINITY;
+            tmax[h] = fmaxf(tmax[h], s[i]);
+          }
+        }
+        // base 2: m2 the running max of q.k scale log2 e, p = 2^(q.k c2 - m2)
+        // by one FFMA and ex2
+        float corr[2], nm[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+          tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+          const float m_new = fmaxf(m2[h], tmax[h] * c2);
+          corr[h] = ex2(m2[h] - m_new);
+          m2[h] = m_new;
+          nm[h] = -m_new;
+        }
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          float p[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int h = (e >> 1) & 1;
+            p[e] = ex2(fmaf(s[8 * kk + e], c2, nm[h]));
+            rsum[h] += p[e];
+          }
+          pf[kk][0] = pack_bf16(p[0], p[1]);
+          pf[kk][1] = pack_bf16(p[2], p[3]);
+          pf[kk][2] = pack_bf16(p[4], p[5]);
+          pf[kk][3] = pack_bf16(p[6], p[7]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+          rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+          lsum[h] = lsum[h] * corr[h] + rsum[h];
+        }
+        // O (the tiles before this one): rescaled to this tile's maxima
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
+      if constexpr (!C::PAIR) {
+        if (active) {
+          // O += P V of this tile
+          const uint32_t vst =
+              ring + stage * C::TILE_BYTES + C::PANELS * C::PANEL;
+          hop::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk)
+            wgmma_rs_n128(o, pf[kk],
+                          hop::sw128_desc(vst + kk * 2048, C::PANEL));
+          hop::wgmma_commit();
+          hop::wgmma_wait_all();
+        }
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(empty0 + 8 * stage);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pf_last[kk][e] = pf[kk][e];
+      }
+    }
+    if (!active) return;
+
+    bf16* out = static_cast<bf16*>(a.out);
+    bool mine = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = h ? grB : grA;
+      const bool none = m2[h] == neg_big();
+      if ((lane & 3) == 0) {
+        rowflag[wg * 64 + rA + 8 * h] = gr < M && none;
+        if (a.m && gr < M)
+          write_stats(a.m, a.l, gr, a.G, a.Sq, a.KV, b, kvh,
+                      none ? neg_big() : m2[h] * 0.6931471805599453f,
+                      lsum[h], a.den);
+      }
+      if (gr >= M) continue;
+      if (none) {
+        mine = true;
+        continue;
+      }
+      const int s_ = gr / a.G, g = gr % a.G;
+      bf16* dst = out + (((long long)b * a.Sq + s_) * a.KV + kvh) * a.G * HD +
+                  (long long)g * HD + 2 * (lane & 3);
+      const float den = fmaxf(lsum[h], 1e-30f);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+            __floats2bfloat162_rn(o[4 * n + 2 * h] / den,
+                                  o[4 * n + 2 * h + 1] / den);
+      }
+    }
+    if (mine) unseen[wg] = 1;
+    named_bar(2 + wg, 128);
+    if (unseen[wg])
+      fill_unseen<bf16>(static_cast<const bf16*>(a.v), out, rowflag + wg * 64,
+                        wrow0, 64, M, a.G, a.Sq, a.Skv, a.KV, HD, b, kvh,
+                        a.vs0, a.vs1, a.vs2, a.den, ctid, 128);
+  }
 }
 
 // -------------------------------------------------------------- decode
@@ -644,6 +1192,7 @@ struct DecArgs {
   void* out;
   float *acc, *m, *l;     // the stats (return_stats), else null
   float *pacc, *pml;      // the splits' partials (nsplit > 1), else null
+  int* tickets;           // a (lane, KV head, head group)'s splits done
   int S_max, KV, G, nsplit, split_rows;   // cache rows a split
   long long qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2;
   int window;
@@ -652,47 +1201,79 @@ struct DecArgs {
   int stats;
 };
 
-constexpr int GB = 8;    // query heads a decode block
+// 16 bytes from global to shared, asynchronously (cache in L2 only)
+__device__ __forceinline__ void cp_async16_cg(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
 
-// One split of the cache for one (lane, KV head) and up to GB query heads.
-// The split's rows that can be valid go by in tiles of NT rows (aligned to
-// the split's start). A row is read by LPR lanes, 8 values (16 bytes of
-// bf16) a lane: the scores' partial dots are summed across the row's
-// lanes by an xor butterfly (every lane ends with the same bits), the
-// softmax stats of a tile are taken a query head a warp, and each thread
-// accumulates p * v for its 8 columns over the rows it reads; the row
-// slots' accumulators are summed in slot order at the end.
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) decode_split(DecArgs a) {
-  constexpr int CPR = HD / 8;                       // 8-value chunks a row
-  constexpr int LPR = CPR <= 4 ? 4 : CPR <= 8 ? 8 : CPR <= 16 ? 16 : 32;
-  constexpr int RP = NT / LPR;                      // rows a pass
-  __shared__ float S[GB][NT];
-  __shared__ __align__(16) float red[RP][GB][HD];
-  __shared__ float m_s[GB], l_s[GB], c_s[GB];
+template <typename T, int HD, int GB>
+struct DecCfg {
+  static constexpr int CPR = HD / 8;     // 8-value chunks a row
+  static constexpr int LPR = CPR <= 4 ? 4 : CPR <= 8 ? 8 : CPR <= 16 ? 16 : 32;
+  static constexpr int RP = NT / LPR;    // row slots
+  static constexpr int R = 4;            // rows a slot a stage
+  static constexpr int STAGES = 3;
+  static constexpr int CB = 8 * sizeof(T);             // bytes a chunk
+  static constexpr int ROWS = RP * R;                  // rows a stage
+  static constexpr int STAGE_BYTES = R * 2 * NT * CB;  // K and V
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  static constexpr int RED = 4 * GB * (HD + 2) * 4;    // a warp's merge
+  static constexpr int SMEM = RING > RED ? RING : RED;
+};
+
+// One split of split_rows cache rows of one (lane, KV head), for GB of its
+// query heads (GB from {1, 2, 4, 8}, >= min(G, 8)), in one launch with the
+// merge of the splits.
+//   * Rows: LPR lanes a row slot, 8 values (16 bytes of bf16) a lane; the
+//     split's rows that can be valid go by in stages of RP x R rows
+//     (aligned to the split's start), row i * RP + slot of a stage to its
+//     slot. Each thread copies its own chunks of K and V into a ring of
+//     STAGES stages (cp.async, 16 bytes, waited per thread: no barrier in
+//     the loop), so two stages are in flight while one is computed.
+//   * A slot keeps its own online softmax (base 2, as the prefill's Hopper
+//     route) over its rows: the scores' partial dots summed across the
+//     slot's lanes by an xor butterfly (every lane ends with the same
+//     bits), one correction a stage, p rounded to the cache's dtype before
+//     p v. The slots merge by a butterfly within a warp, then the four
+//     warps in order through shared memory (the ring's bytes).
+//   * One split writes the output (or the stats) itself. More: each block
+//     writes its split's f32 partials (acc, m, l), then takes a ticket;
+//     the last block of the (lane, KV head, head group) resets its ticket
+//     to 0 and merges the partials in split order. Tickets are zero
+//     between launches; no sum takes an atomic.
+// Bound: the bytes of the valid rows.
+template <typename T, int HD, int GB>
+__global__ void __launch_bounds__(NT) decode_attn(DecArgs a) {
+  using C = DecCfg<T, HD, GB>;
+  constexpr int LPR = C::LPR, RP = C::RP, R = C::R, ST = C::STAGES;
+  constexpr int CB = C::CB;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  __shared__ int last;
 
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rl = tid / LPR, c = tid % LPR;
-  const bool col = c < CPR;
-  const int split = blockIdx.x, b = blockIdx.z;
+  const bool col = c < C::CPR;
+  // x the (KV head, head group), fastest: the blocks in flight together
+  // read the same cache rows of neighbouring heads
+  const int split = blockIdx.y, b = blockIdx.z;
   const int ngroups = (a.G + GB - 1) / GB;
-  const int kvh = blockIdx.y / ngroups, g0 = (blockIdx.y % ngroups) * GB;
+  const int kvh = blockIdx.x / ngroups, g0 = (blockIdx.x % ngroups) * GB;
   const int gn = a.G - g0 < GB ? a.G - g0 : GB;
+  const float c2 = a.scale * 1.4426950408889634f;
 
-  float qv[GB][8], acc[GB][8];
+  float qv[GB][8], acc[GB][8], m[GB], l[GB];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) qv[g][e] = acc[g][e] = 0.f;
+    m[g] = neg_big();
+    l[g] = 0.f;
     if (g < gn && col)
       load8(q + b * a.qs0 + kvh * a.qs1 + (g0 + g) * a.qs2 + c * 8, qv[g]);
-  }
-  if (tid < GB) {
-    m_s[tid] = neg_big();
-    l_s[tid] = 0.f;
   }
   // the rows that can be valid: [lo, hi]; none -> with stats nothing is
   // read (m = _NEG, l = 0, acc = 0), else every row masked (the plain
@@ -712,22 +1293,55 @@ __global__ void __launch_bounds__(NT) decode_split(DecArgs a) {
   const long long r0 = lo > s0 ? lo : s0;
   const long long r1 =
       hi < s0 + a.split_rows - 1 ? hi : s0 + a.split_rows - 1;
+  const long long t_first = s0 + (r0 - s0) / C::ROWS * C::ROWS;
+  const int nst = r0 <= r1 ? static_cast<int>((r1 - t_first) / C::ROWS) + 1
+                           : 0;
   const T* kb = k + b * a.ks0 + kvh * a.ks2 + c * 8;
   const T* vb = v + b * a.vs0 + kvh * a.vs2 + c * 8;
-  __syncthreads();
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(dsmem));
+  // this thread's chunk of row i of a stage: K, then V
+  auto slot = [&](int stage, int i, int kv) {
+    return ring + stage * C::STAGE_BYTES + ((i * 2 + kv) * NT + tid) * CB;
+  };
+  auto issue = [&](int j) {
+    if (j < nst) {
+      const long long t0 = t_first + (long long)j * C::ROWS;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const long long row = t0 + i * RP + rl;
+        if (col && row >= r0 && row <= r1) {
+#pragma unroll
+          for (int h = 0; h < CB / 16; ++h) {
+            cp_async16_cg(slot(j % ST, i, 0) + 16 * h, kb + row * a.ks1 +
+                                                       h * (16 / sizeof(T)));
+            cp_async16_cg(slot(j % ST, i, 1) + 16 * h, vb + row * a.vs1 +
+                                                       h * (16 / sizeof(T)));
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < ST - 1; ++j) issue(j);
 
-  for (long long t0 = s0 + (r0 - s0) / NT * NT; r0 <= r1 && t0 <= r1;
-       t0 += NT) {
-    for (int i = 0; i < NT / RP; ++i) {
-      const int slot = i * RP + rl;
-      const long long row = t0 + slot;
+  for (int j = 0; j < nst; ++j) {
+    issue(j + ST - 1);
+    cp_async_wait<ST - 1>();
+    const long long t0 = t_first + (long long)j * C::ROWS;
+    const unsigned char* stage =
+        dsmem + (j % ST) * C::STAGE_BYTES + tid * CB;
+    float s[R][GB];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const long long row = t0 + i * RP + rl;
       const bool in = row >= r0 && row <= r1;
       float dot[GB];
 #pragma unroll
       for (int g = 0; g < GB; ++g) dot[g] = 0.f;
       if (in && col) {
         float f[8];
-        load8(kb + row * a.ks1, f);
+        load8(reinterpret_cast<const T*>(stage + (i * 2) * NT * CB), f);
 #pragma unroll
         for (int g = 0; g < GB; ++g)
 #pragma unroll
@@ -738,122 +1352,142 @@ __global__ void __launch_bounds__(NT) decode_split(DecArgs a) {
 #pragma unroll
         for (int o = LPR / 2; o; o >>= 1)
           dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
-        if (c == 0 && g < gn)
-          S[g][slot] = !in ? -INFINITY : (masked ? neg_big() : dot[g] * a.scale);
+        s[i][g] = !in ? -INFINITY : (masked ? neg_big() : dot[g] * c2);
       }
     }
-    __syncthreads();
-    for (int g = warp; g < gn; g += NT / 32) {
-      float x[4], tmax = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = S[g][lane * 4 + i];
-        tmax = fmaxf(tmax, x[i]);
-      }
-#pragma unroll
-      for (int o = 16; o; o >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_new = fmaxf(m_s[g], tmax);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pe = expf(x[i] - m_new);
-        sum += pe;
-        S[g][lane * 4 + i] = round_as(pe, T());
-      }
-#pragma unroll
-      for (int o = 16; o; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float corr = expf(m_s[g] - m_new);
-        c_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
-      const float corr = g < gn ? c_s[g] : 1.f;
+      float tmax = s[0][g];
+#pragma unroll
+      for (int i = 1; i < R; ++i) tmax = fmaxf(tmax, s[i][g]);
+      const float m_new = fmaxf(m[g], tmax);
+      const float corr = ex2(m[g] - m_new);
+      m[g] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        s[i][g] = ex2(s[i][g] - m_new);
+        sum += s[i][g];
+        s[i][g] = round_as(s[i][g], T());
+      }
+      l[g] = l[g] * corr + sum;
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[g][e] *= corr;
     }
-    for (int i = 0; i < NT / RP; ++i) {
-      const int slot = i * RP + rl;
-      const long long row = t0 + slot;
-      if (row < r0 || row > r1 || !col) continue;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const long long row = t0 + i * RP + rl;
+      if (!col || row < r0 || row > r1) continue;
       float f[8];
-      load8(vb + row * a.vs1, f);
+      load8(reinterpret_cast<const T*>(stage + (i * 2 + 1) * NT * CB), f);
 #pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        const float pg = g < gn ? S[g][slot] : 0.f;
+      for (int g = 0; g < GB; ++g)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] += pg * f[e];
+        for (int e = 0; e < 8; ++e) acc[g][e] += s[i][g] * f[e];
+    }
+  }
+  cp_async_wait<0>();
+
+  // the slots of a warp, by an xor butterfly; then the warps in order
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mn = fmaxf(m[g], mo);
+      const float wa = ex2(m[g] - mn), wb = ex2(mo - mn);
+      l[g] = l[g] * wa + lo_ * wb;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+        acc[g][e] = acc[g][e] * wa + ao * wb;
+      }
+      m[g] = mn;
+    }
+  }
+  __syncthreads();                        // the ring's bytes are free
+  float* red = reinterpret_cast<float*>(dsmem);   // [4][GB][HD + 2]
+  if (lane < LPR) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float* r = red + (warp * GB + g) * (HD + 2);
+      if (col)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) r[c * 8 + e] = acc[g][e];
+      if (lane == 0) {
+        r[HD] = m[g];
+        r[HD + 1] = l[g];
       }
     }
-    __syncthreads();
-  }
-
-  // the row slots' accumulators, summed in slot order
-  if (col) {
-#pragma unroll
-    for (int g = 0; g < GB; ++g)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) red[rl][g][c * 8 + e] = acc[g][e];
   }
   __syncthreads();
   const long long head = (long long)b * a.KV + kvh;
   for (int i = tid; i < gn * HD; i += NT) {
     const int g = i / HD, d = i % HD;
-    float sum = 0.f;
-    for (int r = 0; r < RP; ++r) sum += red[r][g][d];
+    float mm = neg_big();
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      mm = fmaxf(mm, red[(w * GB + g) * (HD + 2) + HD]);
+    float av = 0.f, lv = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float* r = red + (w * GB + g) * (HD + 2);
+      const float wt = ex2(r[HD] - mm);
+      av += r[d] * wt;
+      lv += r[HD + 1] * wt;
+    }
     const long long hg = head * a.G + g0 + g;
-    if (a.nsplit > 1)
-      a.pacc[((head * a.nsplit + split) * a.G + g0 + g) * HD + d] = sum;
-    else if (a.stats)
-      a.acc[hg * HD + d] = sum;
-    else
-      static_cast<T*>(a.out)[hg * HD + d] =
-          from_f<T>(sum / fmaxf(l_s[g], 1e-30f));
-  }
-  if (tid < gn) {
-    const long long hg = head * a.G + g0 + tid;
     if (a.nsplit > 1) {
-      float* ml = a.pml + ((head * a.nsplit + split) * a.G + g0 + tid) * 2;
-      ml[0] = m_s[tid];
-      ml[1] = l_s[tid];
-    } else if (a.stats) {
-      a.m[hg] = m_s[tid];
-      a.l[hg] = l_s[tid];
-    }
-  }
-}
-
-// the splits' (acc, m, l) merged in split order
-template <typename T>
-__global__ void __launch_bounds__(NT) decode_merge(DecArgs a, int HD) {
-  const long long head = (long long)blockIdx.y * a.KV + blockIdx.x;
-  for (int i = threadIdx.x; i < a.G * HD; i += NT) {
-    const int g = i / HD, d = i % HD;
-    float mg = neg_big();
-    for (int j = 0; j < a.nsplit; ++j)
-      mg = fmaxf(mg, a.pml[((head * a.nsplit + j) * a.G + g) * 2]);
-    float acc = 0.f, l = 0.f;
-    for (int j = 0; j < a.nsplit; ++j) {
-      const float* ml = a.pml + ((head * a.nsplit + j) * a.G + g) * 2;
-      const float w = expf(ml[0] - mg);
-      acc += a.pacc[((head * a.nsplit + j) * a.G + g) * HD + d] * w;
-      l += ml[1] * w;
-    }
-    const long long hg = head * a.G + g;
-    if (a.stats) {
-      a.acc[hg * HD + d] = acc;
+      const long long pi = (head * a.nsplit + split) * a.G + g0 + g;
+      a.pacc[pi * HD + d] = av;
       if (d == 0) {
-        a.m[hg] = mg;
-        a.l[hg] = l;
+        a.pml[pi * 2] = mm;
+        a.pml[pi * 2 + 1] = lv;
+      }
+    } else if (a.stats) {
+      a.acc[hg * HD + d] = av;
+      if (d == 0) {
+        a.m[hg] = mm == neg_big() ? mm : mm * 0.6931471805599453f;
+        a.l[hg] = lv;
       }
     } else {
-      static_cast<T*>(a.out)[hg * HD + d] = from_f<T>(acc / fmaxf(l, 1e-30f));
+      static_cast<T*>(a.out)[hg * HD + d] = from_f<T>(av / fmaxf(lv, 1e-30f));
+    }
+  }
+  if (a.nsplit == 1) return;
+
+  // the last split block of this (lane, KV head, head group) merges
+  __threadfence();
+  __syncthreads();
+  const int tix = b * gridDim.x + blockIdx.x;
+  if (tid == 0) last = atomicAdd(a.tickets + tix, 1) == a.nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  if (tid == 0) a.tickets[tix] = 0;      // consumed: zero for the next launch
+  __threadfence();
+  for (int i = tid; i < gn * HD; i += NT) {
+    const int g = i / HD, d = i % HD;
+    const long long p0 = head * a.nsplit * a.G + g0 + g;   // split 0
+    float mg = neg_big();
+    for (int j = 0; j < a.nsplit; ++j)
+      mg = fmaxf(mg, __ldcg(a.pml + (p0 + (long long)j * a.G) * 2));
+    float av = 0.f, lv = 0.f;
+    for (int j = 0; j < a.nsplit; ++j) {
+      const long long pj = p0 + (long long)j * a.G;
+      const float wt = ex2(__ldcg(a.pml + pj * 2) - mg);
+      av += __ldcg(a.pacc + pj * HD + d) * wt;
+      lv += __ldcg(a.pml + pj * 2 + 1) * wt;
+    }
+    const long long hg = head * a.G + g0 + g;
+    if (a.stats) {
+      a.acc[hg * HD + d] = av;
+      if (d == 0) {
+        a.m[hg] = mg == neg_big() ? mg : mg * 0.6931471805599453f;
+        a.l[hg] = lv;
+      }
+    } else {
+      static_cast<T*>(a.out)[hg * HD + d] = from_f<T>(av / fmaxf(lv, 1e-30f));
     }
   }
 }
@@ -867,6 +1501,7 @@ cudaError_t smem_limit(K kernel, int bytes) {
                               bytes);
 }
 
+// The general route: bf16 at any head size of the kernel, and f32.
 template <int HD>
 cudaError_t launch_fwd(const FwdArgs& a, int B, int dtype,
                        cudaStream_t stream) {
@@ -894,43 +1529,111 @@ cudaError_t launch_fwd(const FwdArgs& a, int B, int dtype,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+// A bf16 map over k or v as (hd, KV, Skv, B) with the caller's strides
+// (elements), box (64, 1, BN, 1), 128-byte swizzle, keys past Skv read as
+// zeros. A dimension of size 1 is never stepped: its stride is set to one
+// the encoder takes.
+bool kv_map(CUtensorMap* m, const void* ptr, int hd, int KV, int Skv, int B,
+            long long s_head, long long s_row, long long s_lane, int BN) {
+  const hop::EncodeTiledFn fn = hop::encode_fn();
+  if (fn == nullptr) return false;
+  auto stride = [&](long long s, int n) {
+    return static_cast<cuuint64_t>(n > 1 ? s * 2 : hd * 2);
+  };
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                        static_cast<cuuint64_t>(KV),
+                        static_cast<cuuint64_t>(Skv),
+                        static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {stride(s_head, KV), stride(s_row, Skv),
+                           stride(s_lane, B)};
+  cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(BN), 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The Hopper route: bf16 at hd 64 and 128.
+template <int HD>
+cudaError_t launch_fwd_tma(const FwdArgs& a, int B, cudaStream_t stream) {
+  using C = TmaCfg<HD>;
+  CUtensorMap km, vm;
+  if (!kv_map(&km, a.k, HD, a.KV, a.Skv, B, a.ks2, a.ks1, a.ks0, C::BN) ||
+      !kv_map(&vm, a.v, HD, a.KV, a.Skv, B, a.vs2, a.vs1, a.vs0, C::BN))
+    return cudaErrorInvalidValue;
+  const int M = a.Sq * a.G;
+  static bool ready = false;
+  return hop::launch_smem(attn_fwd_tma<HD>, ready,
+                          dim3((M + C::BM - 1) / C::BM, a.KV, B), C::THREADS,
+                          C::SMEM, stream, km, vm, a);
+}
+
+template <typename T, int HD, int GB>
 cudaError_t launch_decode(const DecArgs& a, int B, cudaStream_t stream) {
+  constexpr int bytes = DecCfg<T, HD, GB>::SMEM;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = smem_limit(decode_attn<T, HD, GB>, bytes);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
   const int ngroups = (a.G + GB - 1) / GB;
-  decode_split<T, HD><<<dim3(a.nsplit, a.KV * ngroups, B), NT, 0, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || a.nsplit == 1) return e;
-  decode_merge<T><<<dim3(a.KV, B), NT, 0, stream>>>(a, HD);
+  decode_attn<T, HD, GB>
+      <<<dim3(a.KV * ngroups, a.nsplit, B), NT, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// query heads a block: the least of {1, 2, 4, 8} >= min(G, 8) for the
+// served caches (bf16 at hd 64 and 128); the others take 8 (fewer
+// instances to build)
+template <typename T, int HD>
+cudaError_t decode_gb(const DecArgs& a, int B, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2 && (HD == 64 || HD == 128)) {
+    if (a.G == 1) return launch_decode<T, HD, 1>(a, B, stream);
+    if (a.G == 2) return launch_decode<T, HD, 2>(a, B, stream);
+    if (a.G <= 4) return launch_decode<T, HD, 4>(a, B, stream);
+  }
+  return launch_decode<T, HD, 8>(a, B, stream);
 }
 
 template <typename T>
 cudaError_t decode_hd(const DecArgs& a, int B, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_decode<T, 32>(a, B, stream);
-    case 64: return launch_decode<T, 64>(a, B, stream);
-    case 80: return launch_decode<T, 80>(a, B, stream);
-    case 128: return launch_decode<T, 128>(a, B, stream);
-    case 256: return launch_decode<T, 256>(a, B, stream);
+    case 32: return decode_gb<T, 32>(a, B, stream);
+    case 64: return decode_gb<T, 64>(a, B, stream);
+    case 80: return decode_gb<T, 80>(a, B, stream);
+    case 128: return decode_gb<T, 128>(a, B, stream);
+    case 256: return decode_gb<T, 256>(a, B, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// route 1: the Hopper route (bf16, hd 64 or 128), 0: the general route
 extern "C" int flash_attn_fwd(
     const void* q, const void* k, const void* v, void* out, void* m,
-    void* l, const void* qpos, int qpos64, const void* kpos, int kpos64, const void* kval, int B, int Sq,
-    int Skv, int KV, int G, int hd, long long qs0, long long qs1,
-    long long qs2, long long qs3, long long ks0, long long ks1, long long ks2,
-    long long vs0, long long vs1, long long vs2, int causal, int window,
-    float scale, float den, int dtype, void* stream) {
+    void* l, const void* qpos, int qpos64, const void* kpos, int kpos64,
+    const void* kval, int B, int Sq, int Skv, int KV, int G, int hd,
+    long long qs0, long long qs1, long long qs2, long long qs3,
+    long long ks0, long long ks1, long long ks2, long long vs0,
+    long long vs1, long long vs2, int causal, int window, float scale,
+    float den, int dtype, int route, void* stream) {
   FwdArgs a{q, k, v, out, static_cast<float*>(m), static_cast<float*>(l),
             {qpos, qpos64}, {kpos, kpos64},
             static_cast<const unsigned char*>(kval), Sq, Skv, KV, G,
             qs0, qs1, qs2, qs3, ks0, ks1, ks2, vs0, vs1, vs2, causal, window,
             scale, den};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 0) return cudaErrorInvalidValue;
+    switch (hd) {
+      case 64: return launch_fwd_tma<64>(a, B, s);
+      case 128: return launch_fwd_tma<128>(a, B, s);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (hd) {
     case 32: return launch_fwd<32>(a, B, dtype, s);
     case 64: return launch_fwd<64>(a, B, dtype, s);
@@ -943,17 +1646,18 @@ extern "C" int flash_attn_fwd(
 
 extern "C" int flash_decode(
     const void* q, const void* k, const void* v, const void* pos, int pos64,
-    void* out, void* acc, void* m, void* l, void* pacc, void* pml, int B,
-    int S_max, int KV, int G, int hd, int nsplit, int split_rows,
-    long long qs0,
-    long long qs1, long long qs2, long long ks0, long long ks1, long long ks2,
-    long long vs0, long long vs1, long long vs2, int window, long long koff,
-    float scale, int stats, int dtype, void* stream) {
+    void* out, void* acc, void* m, void* l, void* pacc, void* pml,
+    void* tickets, int B, int S_max, int KV, int G, int hd, int nsplit,
+    int split_rows, long long qs0, long long qs1, long long qs2,
+    long long ks0, long long ks1, long long ks2, long long vs0,
+    long long vs1, long long vs2, int window, long long koff, float scale,
+    int stats, int dtype, void* stream) {
   DecArgs a{q, k, v, {pos, pos64}, out, static_cast<float*>(acc),
             static_cast<float*>(m), static_cast<float*>(l),
-            static_cast<float*>(pacc), static_cast<float*>(pml), S_max, KV, G,
-            nsplit, split_rows, qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2, window, koff,
-            scale, stats};
+            static_cast<float*>(pacc), static_cast<float*>(pml),
+            static_cast<int*>(tickets), S_max, KV, G, nsplit, split_rows,
+            qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2, window, koff, scale,
+            stats};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? decode_hd<bf16>(a, B, hd, s)
                     : decode_hd<float>(a, B, hd, s);

@@ -3,33 +3,37 @@
 Replaces no Pallas kernel: the reference computes attention in plain jnp
 (``flash_attention``, ``src/repro/models/flash.py:45``, and
 ``flash_decode``, ``:133``), whose plain PyTorch versions are
-:mod:`repro_torch.models.flash`. Two hand-written CUDA C++ kernels of
+:mod:`repro_torch.models.flash`. Hand-written CUDA C++ kernels of
 ``csrc/flash_attention.cu`` take their place on the card:
 
 * :func:`flash_attn_fwd` — the online softmax over key tiles of a fixed
   length from key row 0, for every prefill call site (whole prompt,
   context mode, a chunk against a lane of the cache under ``kv_valid``).
-  A block holds 64 rows of one (lane, KV head): the query positions and
-  the G query heads of that KV head, flattened. bf16 runs on the tensor
-  cores (``mma.sync`` m16n8k16, f32 accumulators); f32 on plain FMA.
-  A key tile whose mask is provably false for every row of the block
-  (from the tile's and the block's position bounds, never from an
-  assumption that positions are sorted) is skipped: for a row with a valid
-  key that is exactly what computing it gives (p = 0, the correction 1),
-  and a row with no valid key at all takes the plain version's value, the
-  sum of ``v`` over the keys divided by the padded key count
+  A block holds rows of one (lane, KV head): the query positions and the
+  G query heads of that KV head, flattened. Two routes, chosen by
+  :func:`route_of` from (dtype, hd) alone: the Hopper route for bf16 at hd
+  64 and 128 (128-row blocks; a producer warpgroup keeps 128-key K and V
+  tiles in flight by TMA, two consumer warpgroups run ``wgmma``), and the
+  general route for bf16 at hd 32, 80 and 256 (``mma.sync`` m16n8k16,
+  64-row blocks, 64-key tiles) and f32 (FMA). A key tile whose mask is
+  provably false for every row of the block (from the tile's and the
+  block's position bounds, never from an assumption that positions are
+  sorted) is skipped: for a row with a valid key that is exactly what
+  computing it gives (p = 0, the correction 1), and a row with no valid
+  key at all takes the plain version's value, the sum of ``v`` over the
+  keys divided by the padded key count
   (:func:`~repro_torch.models.flash.padded_keys`), in a pass of its own.
   Bound: at long context the tensor cores (4 · Sq · Skv · H · hd FLOPs,
   halved by causal skipping).
-* :func:`flash_decode` — one query token a lane against the cache: a block
-  reads one split of ``DECODE_SPLIT`` cache rows of one (lane, KV head)
-  once for up to 8 of its G query heads, and only the rows that can be
-  valid (``<= pos``, within the window); a second launch merges the
-  splits' softmax stats when the cache has more than one split. The
-  split is a function of ``S_max`` alone, so a lane's result never
-  depends on B, its neighbours or the SM count. One launch a layer for
-  ``S_max <= DECODE_SPLIT``, two above. Bound: the bytes of the valid
-  rows.
+* :func:`flash_decode` — one query token a lane against the cache, in one
+  launch: a block reads one split of :func:`decode_split_rows` cache rows
+  of one (lane, KV head) once for up to 8 of its G query heads, and only
+  the rows that can be valid (``<= pos``, within the window), through a
+  ``cp.async`` ring; the last block of a (lane, KV head) to finish,
+  found by a ticket (a per-device counter, zero between launches), merges
+  the splits' softmax stats in split order. The split is a function of
+  ``S_max`` alone, so a lane's result never depends on B, its neighbours
+  or the SM count. Bound: the bytes of the valid rows.
 
 A row's result depends only on its own q row, its lane's k/v for its head
 and the masks: the grid witnesses of ``chip_smoke.py`` split heads, lanes
@@ -46,22 +50,30 @@ entry (:mod:`.costs`).
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
 from . import build, costs
+from .route_select import _zeros_at_least
 
 __all__ = ["flash_attn_fwd", "flash_decode", "attn_outputs",
-           "decode_outputs", "decode_splits", "HEAD_DIMS", "DECODE_SPLIT"]
+           "decode_outputs", "decode_splits", "decode_split_rows",
+           "route_of", "HEAD_DIMS", "TMA_HEAD_DIMS"]
 
 #: head sizes the kernels are compiled for: every size a path on the card
 #: runs (jamba and granite smoke 32, granite and smollm 64, hubert 80,
 #: pixtral, qwen3 and most others 128, gemma3 256)
 HEAD_DIMS = (32, 64, 80, 128, 256)
-#: cache rows a decode block reads (the kernel's ``split_rows``)
-DECODE_SPLIT = 512
+#: head sizes of the prefill's Hopper route (bf16 only)
+TMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _POS = (torch.int32, torch.int64)
+
+#: per device: the decode's tickets (a (lane, KV head, head group)'s splits
+#: done; zero between launches), used only inside a launch, so launches in
+#: one stream share them (the port runs on one stream)
+_TICKETS: Dict[int, torch.Tensor] = {}
 
 
 def _lib():
@@ -71,13 +83,22 @@ def _lib():
                        ctypes.c_float)
         lib.flash_attn_fwd.argtypes = (
             [p, p, p, p, p, p, p, i, p, i, p] + [i] * 6 + [ll] * 10
-            + [i, i, f, f, i, p])
+            + [i, i, f, f, i, i, p])
         lib.flash_decode.argtypes = (
-            [p, p, p, p, i, p, p, p, p, p, p] + [i] * 7 + [ll] * 9
+            [p, p, p, p, i, p, p, p, p, p, p, p] + [i] * 7 + [ll] * 9
             + [i, ll, f, i, i, p])
         lib.flash_attn_fwd.restype = ctypes.c_int
         lib.flash_decode.restype = ctypes.c_int
     return lib
+
+
+def route_of(dtype: torch.dtype, hd: int) -> str:
+    """The prefill kernel's route for q of ``dtype`` and head size ``hd``:
+    ``"tma"`` (the Hopper route: TMA and ``wgmma``) for bf16 at hd 64 and
+    128, else ``"general"``. A function of (dtype, hd) alone, so a chunk
+    and the whole prompt, a rank and one device take the same route."""
+    return ("tma" if dtype == torch.bfloat16 and hd in TMA_HEAD_DIMS
+            else "general")
 
 
 def _check(kernel, kind, q, *others):
@@ -159,14 +180,21 @@ def attn_outputs(q, k, v, q_positions=None, kv_positions=None,
 
 def flash_attn_fwd(q, k, v, *, causal=True, window=None, q_positions=None,
                    kv_positions=None, kv_valid=None,
-                   return_stats: bool = False):
+                   return_stats: bool = False, route=None):
     """Launch the prefill kernel: ``flash_attention``'s forward over the
     GQA layout (q (B, Sq, KV, G, hd); k, v (B, Skv, KV, hd), rows
     contiguous and 16-byte aligned, any strides above) → (B, Sq, KV, G,
     hd) in q's dtype, or with ``return_stats`` ``(out, m, l)``, the rows'
     softmax stats of :func:`repro_torch.models.flash.flash_attention`.
-    ``window``: a Python int, 0 or None for full. Adds one to
-    ``flash_attn_fwd.launches``; raises if the launch is refused."""
+    ``window``: a Python int, 0 or None for full. The route is
+    :func:`route_of`'s; ``route="general"`` forces the general route, to
+    time the two routes on the same inputs (no path of the port passes
+    it). Adds one to ``flash_attn_fwd.launches`` (and, on the Hopper
+    route, to ``flash_attn_fwd.tma_launches``); raises if the launch is
+    refused."""
+    if route not in (None, "general"):
+        raise ValueError(f"flash_attn_fwd: route {route!r} is neither None "
+                         "nor 'general'")
     outs = attn_outputs(q, k, v, q_positions, kv_positions, kv_valid,
                         stats=return_stats)
     out, m, l = outs if return_stats else (outs, None, None)
@@ -181,6 +209,7 @@ def flash_attn_fwd(q, k, v, *, causal=True, window=None, q_positions=None,
     def wide(t):
         return int(t is not None and t.dtype == torch.int64)
 
+    tma = route is None and route_of(q.dtype, hd) == "tma"
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(m),
@@ -188,21 +217,35 @@ def flash_attn_fwd(q, k, v, *, causal=True, window=None, q_positions=None,
         wide(kv_positions), ptr(kv_valid), B, Sq, Skv, KV, G, hd,
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
         int(causal), 0 if window is None else int(window), _scale(hd),
-        float(padded_keys(Skv)), _DTYPES[q.dtype], stream)
+        float(padded_keys(Skv)), _DTYPES[q.dtype], int(tma), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd: CUDA launch failed with "
                            f"cudaError {err}")
     flash_attn_fwd.launches += 1
+    flash_attn_fwd.tma_launches += tma
     return outs
 
 
 flash_attn_fwd.launches = 0
+flash_attn_fwd.tma_launches = 0
+
+
+def decode_split_rows(S_max: int) -> int:
+    """Cache rows a decode block reads (the kernel's ``split_rows``), a
+    function of ``S_max`` alone: 256 up to 8192 rows, so that a short
+    cache still gives the card several blocks a (lane, KV head); then
+    doubling up to 1024, so that a cache of up to 32768 rows takes at most
+    32 splits to merge."""
+    rows = 256
+    while rows < 1024 and rows * 32 < S_max:
+        rows *= 2
+    return rows
 
 
 def decode_splits(S_max: int) -> int:
     """Splits of the cache a decode call reads: ``ceil(S_max /
-    DECODE_SPLIT)``, a function of ``S_max`` alone."""
-    return -(-S_max // DECODE_SPLIT)
+    decode_split_rows(S_max))``, a function of ``S_max`` alone."""
+    return -(-S_max // decode_split_rows(S_max))
 
 
 def decode_outputs(q, k_cache, v_cache, pos, return_stats=False,
@@ -212,7 +255,8 @@ def decode_outputs(q, k_cache, v_cache, pos, return_stats=False,
     (B, KV, G, hd) in q's dtype, or with ``return_stats`` the f32 ``(acc
     (B, KV, G, hd), m (B, KV, G), l (B, KV, G))``; ``scratch`` None, or
     for more than one split the splits' f32 partials ``(acc (B, KV, n, G,
-    hd), ml (B, KV, n, G, 2))`` that the merge reads — and reports the
+    hd), ml (B, KV, n, G, 2))`` that the last block of a (lane, KV head)
+    reads to merge them — and reports the
     entry: the two products over every cache row (``4 B KV G S_max hd``)
     and the bytes of q, the caches, ``pos`` and the outputs, the scratch
     written once and read back once."""
@@ -229,8 +273,9 @@ def decode_outputs(q, k_cache, v_cache, pos, return_stats=False,
                          f"{tuple(k_cache.shape)} do not fit")
     _check(name, kind, q, ("k_cache", k_cache), ("v_cache", v_cache))
     _check_vec(name, "pos", pos, B, _POS, q.device)
-    if B > 65535 or KV * -(-G // 8) > 65535:
-        raise ValueError(f"{name}: B {B}, KV {KV}, G {G} past the grid")
+    if B > 65535 or KV * -(-G // 8) > 65535 or decode_splits(S_max) > 65535:
+        raise ValueError(f"{name}: B {B}, KV {KV}, G {G}, S_max {S_max} "
+                         "past the grid")
     f32 = dict(dtype=torch.float32, device=q.device)
     if return_stats:
         outs = (torch.empty((B, KV, G, hd), **f32),
@@ -259,9 +304,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=None, kpos_offset=0,
     int64, cache row 0 at global position ``kpos_offset`` → (B, KV, G, hd)
     in q's dtype, or with ``return_stats`` the f32 ``(acc, m, l)`` of
     :func:`repro_torch.models.flash.flash_decode` (a cache with no valid
-    row of a lane: ``m = _NEG``, ``l = 0``, ``acc = 0``). One launch, and
-    a second that merges the splits when ``S_max > DECODE_SPLIT``. Adds
-    one to ``flash_decode.launches``; raises if a launch is refused."""
+    row of a lane: ``m = _NEG``, ``l = 0``, ``acc = 0``). One launch, its
+    splits merged inside it in split order. Adds one to
+    ``flash_decode.launches``; raises if the launch is refused."""
     outs, scratch = decode_outputs(q, k_cache, v_cache, pos, return_stats)
     _check_rows("flash_decode", ("q", q), ("k_cache", k_cache),
                 ("v_cache", v_cache))
@@ -275,12 +320,14 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=None, kpos_offset=0,
         o_ptrs = (outs.data_ptr(), None, None, None)
     s_ptrs = (None, None) if scratch is None else tuple(
         t.data_ptr() for t in scratch)
+    tickets = _zeros_at_least(_TICKETS, q.get_device(), B * KV * -(-G // 8),
+                              q.device).data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        int(pos.dtype == torch.int64), *o_ptrs, *s_ptrs, B, S_max, KV, G,
-        hd, decode_splits(S_max), DECODE_SPLIT, *q.stride()[:3],
-        *k_cache.stride()[:3], *v_cache.stride()[:3],
+        int(pos.dtype == torch.int64), *o_ptrs, *s_ptrs, tickets, B, S_max,
+        KV, G, hd, decode_splits(S_max), decode_split_rows(S_max),
+        *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
         0 if window is None else int(window), int(kpos_offset), _scale(hd),
         int(return_stats), _DTYPES[q.dtype], stream)
     if err != 0:

@@ -383,15 +383,16 @@ def test_prefill_call_allocates_the_output_and_reports_its_entry():
 
 @pytest.mark.parametrize("stats", [False, True])
 def test_decode_call_allocates_outputs_and_split_partials(stats):
-    """A 1500-row cache takes 3 splits: the outputs, then the splits' f32
-    partials (written once and read back by the merge)."""
+    """A 1500-row cache takes 6 splits of 256 rows: the outputs, then the
+    splits' f32 partials (written once and read back by the merge in the
+    last split's block)."""
     S_max, b = 1500, 4
     q = torch.empty((b, KV, G, 128), device="meta", dtype=torch.bfloat16)
     kc = torch.empty((b, S_max, KV, 128), device="meta",
                      dtype=torch.bfloat16)
     pos = torch.empty(b, dtype=torch.int64, device="meta")
     n = kflash.decode_splits(S_max)
-    assert n == 3
+    assert n == 6
     with count_costs(q, kc, pos) as c:
         out = ops.flash_decode(q, kc, kc, pos, return_stats=stats)
     outs = list(out) if stats else [out]
@@ -406,6 +407,70 @@ def test_decode_call_allocates_outputs_and_split_partials(stats):
         q.numel() * 2 + 2 * kc.numel() * 2 + b * 8 + sum(out_bytes)
         + 2 * sum(scratch))
     assert c.peak_bytes == sum(_blocks(x) for x in out_bytes + scratch)
+
+
+@pytest.mark.parametrize("S_max,n", [(256, 1), (1024, 4), (32768, 32)])
+def test_decode_scratch_of_one_split_and_of_many(S_max, n):
+    """One split writes the output itself: no partials. Many: one f32
+    partial (acc, m, l) a split, written once and read back once, in the
+    cost entry and the call's allocations on meta."""
+    b, hd = 8, 64
+    q = torch.empty((b, KV, G, hd), device="meta", dtype=torch.bfloat16)
+    kc = torch.empty((b, S_max, KV, hd), device="meta", dtype=torch.bfloat16)
+    pos = torch.empty(b, dtype=torch.int64, device="meta")
+    assert kflash.decode_splits(S_max) == n
+    outs, scratch = kflash.decode_outputs(q, kc, kc, pos, kind="meta")
+    assert outs.shape == (b, KV, G, hd)
+    if n == 1:
+        assert scratch is None
+    else:
+        assert [t.shape for t in scratch] == [(b, KV, n, G, hd),
+                                              (b, KV, n, G, 2)]
+        assert all(t.dtype == torch.float32 for t in scratch)
+    scratch_bytes = 0 if n == 1 else b * KV * n * G * (hd + 2) * 4
+    with count_costs(q, kc, pos) as c:
+        ops.flash_decode(q, kc, kc, pos)
+    assert c.kernel_calls == {"flash_decode": 1}
+    assert c.kernel_bytes["flash_decode"] == (
+        q.numel() * 2 + 2 * kc.numel() * 2 + b * 8 + q.numel() * 2
+        + 2 * scratch_bytes)
+
+
+@pytest.mark.parametrize("S_max", [1, 255, 256, 257, 1024, 1500, 8192,
+                                   8193, 16384, 16385, 32768, 70000])
+def test_decode_splits_depend_on_the_cache_length_alone(S_max):
+    """The split length is a function of S_max alone (never of the lanes,
+    the heads or the card): 256 rows up to 8192, then doubling up to 1024;
+    the splits cover the cache, the last one not empty; a call's partials
+    have that many splits whatever its batch."""
+    rows = kflash.decode_split_rows(S_max)
+    n = kflash.decode_splits(S_max)
+    assert rows in (256, 512, 1024)
+    assert rows == (256 if S_max <= 8192 else 512 if S_max <= 16384
+                    else 1024)
+    assert (n - 1) * rows < S_max <= n * rows
+    for b, kv, g in ((1, 1, 1), (8, 8, 3), (3, 2, 16)):
+        q = torch.empty((b, kv, g, 64), device="meta", dtype=torch.bfloat16)
+        kc = torch.empty((b, S_max, kv, 64), device="meta",
+                         dtype=torch.bfloat16)
+        pos = torch.empty(b, dtype=torch.int64, device="meta")
+        _, scratch = kflash.decode_outputs(q, kc, kc, pos, kind="meta")
+        assert (1 if scratch is None else scratch[0].shape[2]) == n
+
+
+@pytest.mark.parametrize("hd", kflash.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_route_depends_on_dtype_and_head_size_alone(hd, dtype):
+    """The Hopper route takes bf16 at hd 64 and 128, the general route
+    every other size and f32: a function of (dtype, hd) with no shape,
+    batch or device among its inputs, so a chunk and the whole prompt, a
+    rank and one device take the same route."""
+    import inspect
+    assert list(inspect.signature(kflash.route_of).parameters) == [
+        "dtype", "hd"]
+    want = ("tma" if dtype == torch.bfloat16 and hd in (64, 128)
+            else "general")
+    assert kflash.route_of(dtype, hd) == want
 
 
 @pytest.mark.parametrize("hd,dtype", [(48, torch.bfloat16),

@@ -827,9 +827,15 @@ ATTN_CASES = [
     (1, 200, 200, 2, 16, 128, torch.bfloat16, True, 0, None, None),
     (2, 100, 100, 4, 1, 128, torch.bfloat16, True, 0, None, None),
     (1, 150, 150, 2, 9, 128, torch.bfloat16, True, 0, None, None),
-    # a chunk against a lane of more than 1024 key tiles of 64 rows: the
-    # tile states go by windows of 1024 tiles
+    # a chunk against a lane of 70000 rows (547 key tiles of 128 on the
+    # Hopper route)
     (1, 128, 70000, 8, 3, 64, torch.bfloat16, True, 0, (68000, 68128),
+     68128),
+    # past 1024 key tiles, whose states the kernels take a window at a
+    # time: 1094 tiles of 128 on the Hopper route, of 64 on the general
+    (1, 128, 140000, 8, 3, 64, torch.bfloat16, True, 0, (138000, 138128),
+     138128),
+    (1, 128, 70000, 2, 3, 32, torch.bfloat16, True, 0, (68000, 68128),
      68128),
 ]
 
@@ -1017,3 +1023,132 @@ def test_flash_decode_gradient_through_the_kernel(cuda):
         grads.append([t.grad.float() for t in ts])
     for a, b in zip(*grads):
         assert ((a - b).norm() / b.norm()).item() <= 1e-6
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_fwd_each_head_size_on_its_route(cuda, hd, dtype):
+    """Every head size the kernel takes, in bf16 and f32, on the route
+    ``route_of`` names (the Hopper route's launches counted apart), against
+    the plain version; a causal call whose query rows start mid-prompt and
+    whose keys have a hole, over several key tiles."""
+    from repro_torch.kernels import flash as k_flash
+    from repro_torch.models import flash as t_flash
+    g = torch.Generator().manual_seed(hd)
+    B, Sq, Skv, KV, G = 2, 150, 400, 2, 3
+    q = torch.randn((B, Sq, KV, G, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=g).to(cuda, dtype)
+    qpos = torch.arange(Skv - Sq, Skv, device=cuda)
+    kpos = torch.arange(Skv, device=cuda)
+    kw = dict(causal=True, window=0, q_positions=qpos, kv_positions=kpos,
+              kv_valid=(kpos < 100) | (kpos >= 180))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    want = t_flash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tma = k_flash.route_of(dtype, hd) == "tma"
+    assert tma == (dtype == torch.bfloat16 and hd in (64, 128))
+    assert ops.launch_counts()["flash_attn_fwd"] == 1
+    assert k_flash.flash_attn_fwd.tma_launches == int(tma)
+    assert _row_rel(got, want) <= _attn_tol(dtype)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attn_lane_alone_matches_its_lane_in_a_batch(cuda, hd):
+    """Lane i of a batch of 8 against lane i alone, bit for bit: a row's
+    result depends on its own lane only (each lane a strided view of the
+    batch's tensors, as a rank's cut)."""
+    g = torch.Generator().manual_seed(20 + hd)
+    B, S, KV, G = 8, 300, 2, 3
+    q = torch.randn((B, S, KV, G, hd), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((B, S, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    pos = torch.arange(S, device=cuda)
+    kw = dict(causal=True, q_positions=pos, kv_positions=pos)
+    whole = ops.flash_attention(q, k, v, **kw)
+    for i in (0, 3, 7):
+        alone = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    **kw)
+        assert torch.equal(alone[0], whole[i])
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attn_chunk_matches_the_whole_prompt(cuda, hd):
+    """A 128-row chunk against the cache's lane (keys past the chunk not
+    yet valid) gives the same rows, bit for bit, as the whole prompt's
+    call: the key tiles start at row 0 with a fixed length, and skipped
+    tiles are what computing them gives."""
+    g = torch.Generator().manual_seed(30 + hd)
+    S, KV, G = 640, 2, 3
+    q = torch.randn((1, S, KV, G, hd), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((1, 1024, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((1, 1024, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    pos = torch.arange(S, device=cuda)
+    kpos = torch.arange(1024, device=cuda)
+    whole = ops.flash_attention(q, k[:, :S], v[:, :S], causal=True,
+                                q_positions=pos, kv_positions=pos)
+    for r0 in (0, 256, 512):
+        chunk = ops.flash_attention(
+            q[:, r0:r0 + 128], k, v, causal=True,
+            q_positions=pos[r0:r0 + 128], kv_positions=kpos,
+            kv_valid=kpos < r0 + 128)
+        assert torch.equal(chunk, whole[:, r0:r0 + 128])
+
+
+@pytest.mark.parametrize("S_max", [256, 1024, 32768])
+def test_flash_decode_one_launch_bit_stable_tickets_back_to_zero(cuda,
+                                                                 S_max):
+    """One split (256 rows: the block writes the output) and many (4, 32):
+    one launch a call, two calls bit for bit, the tickets zero after each;
+    against the plain version, with and without stats."""
+    from repro_torch.kernels import flash as k_flash
+    from repro_torch.models import flash as t_flash
+    g = torch.Generator().manual_seed(S_max)
+    B, KV, G, hd = 8, 8, 3, 64
+    q = torch.randn((B, KV, G, hd), generator=g).to(cuda, torch.bfloat16)
+    kc = torch.randn((B, S_max, KV, hd), generator=g).to(cuda,
+                                                          torch.bfloat16)
+    vc = torch.randn((B, S_max, KV, hd), generator=g).to(cuda,
+                                                          torch.bfloat16)
+    pos = torch.randint(0, S_max, (B,), generator=g).to(cuda)
+    assert k_flash.decode_splits(S_max) == {256: 1, 1024: 4, 32768: 32}[S_max]
+    for stats in (False, True):
+        ops.reset_launch_counts()
+        runs = []
+        for _ in range(2):
+            out = ops.flash_decode(q, kc, vc, pos, return_stats=stats)
+            torch.cuda.synchronize()
+            assert int(k_flash._TICKETS[torch.cuda.current_device()]
+                       .abs().sum()) == 0
+            runs.append(out if stats else (out,))
+        assert ops.launch_counts()["flash_decode"] == 2
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        want = t_flash.flash_decode(q, kc, vc, pos, return_stats=stats)
+        if stats:
+            (acc, m, l), (acc_p, m_p, l_p) = runs[0], want
+            assert _row_rel(acc, acc_p) <= ATTN_REL
+            torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
+            assert ((l - l_p).abs() / l_p).max().item() <= ATTN_REL
+        else:
+            assert _row_rel(runs[0][0], want) <= ATTN_REL
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 9])
+def test_flash_decode_lane_alone_matches_its_lane_in_a_batch(cuda, G):
+    """Lane i alone against lane i of a batch of 8, bit for bit, at each
+    head group size (1, 2, 4, 8 query heads a block; 9: two groups)."""
+    g = torch.Generator().manual_seed(40 + G)
+    B, S_max, KV, hd = 8, 1500, 2, 128
+    q = torch.randn((B, KV, G, hd), generator=g).to(cuda, torch.bfloat16)
+    kc = torch.randn((B, S_max, KV, hd), generator=g).to(cuda,
+                                                          torch.bfloat16)
+    vc = torch.randn((B, S_max, KV, hd), generator=g).to(cuda,
+                                                          torch.bfloat16)
+    pos = torch.tensor([5, 300, 700, 1099, 1499, 256, 511, 1024],
+                       device=cuda)
+    whole = ops.flash_decode(q, kc, vc, pos, window=600)
+    for i in range(B):
+        alone = ops.flash_decode(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                                 pos[i:i + 1], window=600)
+        assert torch.equal(alone[0], whole[i])
