@@ -29,11 +29,12 @@ Run from the repository root on a machine with one NVIDIA H100. It
    (``attention_cases``): the prefill kernel at granite's 4 x 512, a
    128-token chunk against a lane of the 1024-row cache under
    ``kv_valid``, context mode's rows of 4 ranks, gemma3's hd 256 under a
-   1024 window, hubert's f32 encoder at hd 80, a 1 x 32768 prefill and
-   a chunk against a lane of 140000 rows (more than 1024 key tiles on
-   either route), each on the route ``route_of`` names (its Hopper-route
-   launches counted) and, where that is the Hopper route, the general
-   route on the same inputs too; the decode kernel (one device operation
+   1024 window and a global layer of 1 x 8192, hubert's f32 encoder at
+   hd 80, a 1 x 32768 prefill and a chunk against a lane of 140000 rows
+   (more than 1024 key tiles on either route), each on the route
+   ``route_of`` names (printed; its Hopper-route or tf32x3-route launches
+   counted) and, where that is not the general route, the general route
+   on the same inputs too; the decode kernel (one device operation
    a call, counted by the profiler) at granite's 8 lanes of a 1024-row
    cache, a context shard's stats (lanes with no row in it) and 8 lanes
    of 32768 rows, each row within ``ATTN_REL`` (relative L2;
@@ -279,6 +280,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.launch.roofline import HBM_BW as HBM_BPS  # noqa: E402
 from repro_torch.launch.roofline import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12   # the tensor cores' dense TF32 rate
 
 BF16_TOL = 5e-2       # the repo's bf16 tolerance (tests/test_kernels.py)
 # K1 and K2 against the plain backward, relative L2 of each output: both
@@ -304,8 +306,9 @@ NEAR_TIE = 1e-5       # adjacent top-(K+1) probabilities closer than this
 # values) by its relative L2 error, the largest over rows (``row_rel``):
 # bf16 rounds p and the output on both sides, from running maxima over
 # other tiles (PR 27's readings, max |difference| 1.6e-2 on rows of unit
-# scale, are ~4e-3 of a row); the f32 kernel (FMA) against the plain
-# version's f32 einsums (TF32 off) sums in another order only. A zeroed
+# scale, are ~4e-3 of a row); the f32 kernels (three TF32 products on the
+# tensor cores, ~2e-6 a row in a CPU emulation; or FMA) against the plain
+# version's f32 einsums (TF32 off) sum in another order only. A zeroed
 # row reads 1, a row that lost half its keys far above the bound
 # (``attention_case`` and ``decode_case`` print that reading)
 ATTN_REL = 2e-2
@@ -315,6 +318,26 @@ ATTN_REL_F32 = 1e-4
 def check(ok, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip smoke check failed: {what}")
+
+
+def build_kernels():
+    """Every kernel source built, the attention source beside the rest (one
+    ``nvcc`` each, all at once): the libraries, and the attention source's
+    seconds to build (0 where it was built before)."""
+    import concurrent.futures
+    from repro_torch.kernels import build
+    rest = [n for n in build.sources() if n != "flash_attention"]
+
+    def attention():
+        t0 = time.perf_counter()
+        build.build_all(["flash_attention"])
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        attn = pool.submit(attention)
+        build.build_all(rest)
+        attn_s = attn.result()
+    return {n: build.library_path(n) for n in build.sources()}, attn_s
 
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -622,10 +645,12 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     """Kernel A (``flash_attn_fwd``) at one call site's shape against the
     plain version on the same inputs (``row_rel`` within ATTN_REL, or
     ATTN_REL_F32 in f32; two calls bit for bit) on the route ``route_of``
-    names (its Hopper-route launches counted), then timed as the FFNs
-    are, beside the plain version and the library yardstick. Where that
-    is the Hopper route, the general route runs on the same inputs too,
-    held and timed the same way. With ``cut`` also what the check reads
+    names (its Hopper-route or tf32x3-route launches counted), then timed
+    as the FFNs are, beside the plain version and the library yardstick.
+    Where that is not the general route, the general route runs on the
+    same inputs too, held and timed the same way. The bound of the
+    tf32x3 route is its three TF32 products' (the FMA bound beside it).
+    With ``cut`` also what the check reads
     for a kernel that dropped the second half of the keys (the plain
     version with them masked): it must fail."""
     import torch
@@ -644,6 +669,7 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     route = t_flash.route_of(dtype, hd)
     before = t_flash.flash_attn_fwd.launches
     before_tma = t_flash.flash_attn_fwd.tma_launches
+    before_tf32 = t_flash.flash_attn_fwd.tf32x3_launches
     y = ops.flash_attention(q, k, v, **kw)
     y_ref = plain.flash_attention(q, k, v, **kw)
     y2 = ops.flash_attention(q, k, v, **kw)
@@ -651,7 +677,9 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     check(t_flash.flash_attn_fwd.launches == before + 2,
           f"attention {name}: the dispatch did not launch the kernel")
     check(t_flash.flash_attn_fwd.tma_launches - before_tma
-          == (2 if route == "tma" else 0),
+          == (2 if route == "tma" else 0)
+          and t_flash.flash_attn_fwd.tf32x3_launches - before_tf32
+          == (2 if route == "tf32x3" else 0),
           f"attention {name}: not on the {route} route")
     tol = ATTN_REL if dtype == torch.bfloat16 else ATTN_REL_F32
     err = row_rel(y, y_ref)
@@ -661,7 +689,7 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
           f"plain {err} > {tol}")
     check(torch.equal(y, y2), f"attention {name}: two calls differ")
     general = None
-    if route == "tma":
+    if route != "general":
         g1 = t_flash.flash_attn_fwd(q, k, v, route="general", **kw)
         g2 = t_flash.flash_attn_fwd(q, k, v, route="general", **kw)
         torch.cuda.synchronize()
@@ -699,9 +727,14 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     n_bytes = (2 * q.numel() * q.element_size() + 2 * k.numel()
                * k.element_size() + (Sq + Skv) * 8
                + (0 if kval is None else Skv))
-    bound_ms, by = bound(n_bytes, 4 * hd * pairs,
-                         BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-    tiles = -(-Skv // (128 if route == "tma" else 64 if hd <= 128 else 32))
+    flops = 4 * hd * pairs
+    fma_ms = None
+    if dtype == torch.bfloat16:
+        bound_ms, by = bound(n_bytes, flops, BF16_FLOPS)
+    else:
+        fma_ms = bound(n_bytes, flops, F32_FLOPS)[0]
+        bound_ms, by = (bound(n_bytes, 3 * flops, TF32_FLOPS)
+                        if route == "tf32x3" else (fma_ms, "operations"))
     gen_txt = "" if general is None else (
         f"; the general route on the same inputs: row relative L2 "
         f"{general['max_abs_err']:.3e}, two calls bit for bit, "
@@ -711,7 +744,7 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     print(f"[kernel] flash_attn_fwd {name}: q {tuple(q.shape)} k "
           f"{tuple(k.shape)} {str(dtype)[6:]}, causal {causal}, window "
           f"{window}, rows {rows or 'all'}, valid keys "
-          f"{n_valid or 'all'}, {route} route ({tiles} key tiles): row "
+          f"{n_valid or 'all'}, {route} route: row "
           f"relative L2 {err:.3e} (tol {tol}"
           + ("" if cut_err is None else
              f"; half the keys dropped would read {cut_err:.3e}")
@@ -720,12 +753,16 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
           f"of bound), {res['device_ms']:.4f} ms with the host ahead, host "
           f"{res['host_us']:.1f} us a call; plain {plain_ms:.4f} ms; SDPA "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({by}, "
-          f"{4 * hd * pairs / 1e9:.2f} GFLOP of valid pairs, "
-          f"{n_bytes / 1e6:.1f} MB){gen_txt}", flush=True)
+          f"{flops / 1e9:.2f} GFLOP of valid pairs"
+          + ("" if route != "tf32x3" else
+             f", three TF32 products at {TF32_FLOPS / 1e12:.0f} TFLOP/s")
+          + ("" if fma_ms is None else
+             f"; the FMA bound {fma_ms:.4f} ms")
+          + f", {n_bytes / 1e6:.1f} MB){gen_txt}", flush=True)
     return {"max_abs_err": err, "cut_err": cut_err, **res,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "fma_bound_ms": fma_ms,
             "library_ms": library_ms, "kernel_route": route,
-            "key_tiles": tiles,
             "general": general,
             "shape": {"q": list(q.shape), "k": list(k.shape),
                       "dtype": str(dtype)[6:], "causal": causal,
@@ -904,6 +941,10 @@ def attention_cases(cfg, cgen, dev) -> dict:
     a["hubert-f32"] = attention_case("hubert-f32", cgen, dev, 2, 512, 512,
                                      16, 1, 80, dtype=torch.float32,
                                      causal=False)
+    # gemma3-4b's global layers: hd 256, causal, no window, at 8192
+    a["gemma3-hd256-8192"] = attention_case(
+        "gemma3-hd256-8192", cgen, dev, 1, 8192, 8192, 4, 2, 256,
+        plain_reps=1)
     a["prefill-1x32768"] = attention_case("prefill-1x32768", cgen, dev, 1,
                                           32768, 32768, KV, G, hd,
                                           plain_reps=1)
@@ -913,6 +954,15 @@ def attention_cases(cfg, cgen, dev) -> dict:
     a["chunk-vs-140000"] = attention_case(
         "chunk-vs-140000", cgen, dev, 1, 128, 140000, KV, G, hd,
         rows=(138000, 138128), n_valid=138128, plain_reps=2)
+    # the same past 1024 key tiles of 64 on the hd 256 Hopper route and
+    # the tf32x3 route (1065 live tiles of 1094), whose states each judges
+    # a window of 1024 at a time; in f32 the last 1128 keys cut by kv_valid
+    for name, hd, dtype, n_valid in (
+            ("chunk-vs-70000-hd256", 256, torch.bfloat16, 68128),
+            ("chunk-vs-70000-f32", 80, torch.float32, 67000)):
+        a[name] = attention_case(
+            name, cgen, dev, 1, 128, 70000, 2, 2, hd, dtype=dtype,
+            rows=(68000, 68128), n_valid=n_valid, plain_reps=2)
     # the training path: granite's 4 x 512, and gemma3's hd 256 window
     out["grad"]["train-4x512"] = attention_grad_case(
         "train-4x512", cgen, dev, 4, 512, KV, G, hd)
@@ -6345,11 +6395,13 @@ def frontend_phase(dev):
     the depth cut to 4 layers (2.44 B parameters), 2 x (256 + 256).
 
     Every logit and loss finite; no kernel of the port on these paths
-    (dense archs): every launch count 0. Prints each wall, tokens/s and
+    but the attention's (dense archs); hubert's attention (f32 at hd 80)
+    every launch on the tf32x3 route. Prints each wall, tokens/s and
     the peak memory."""
     import dataclasses
     import torch
     from repro_torch.configs import get as get_config
+    from repro_torch.kernels import flash as t_flash
     from repro_torch.kernels import ops
     from repro_torch.launch.train import make_train_step, train
     from repro_torch.models import (count_params, decode_fn, init_cache,
@@ -6372,6 +6424,14 @@ def frontend_phase(dev):
               f"{want or 0}")
         return counts
 
+    def on_tf32x3(what, counts):
+        """Every attention launch of ``counts`` on the tf32x3 route."""
+        n = t_flash.flash_attn_fwd.tf32x3_launches
+        check(n == counts["flash_attn_fwd"] > 0,
+              f"phase 18 {what}: {n} of {counts['flash_attn_fwd']} "
+              "flash_attn_fwd launches on the tf32x3 route")
+        return n
+
     # hubert-xlarge: the train driver, twice, and a prefill
     hub = get_config("hubert-xlarge")
     tr = FRONTEND_TRAIN
@@ -6389,6 +6449,8 @@ def frontend_phase(dev):
                      "launches": launches(
                          f"hubert training run {i}",
                          attn_want(hub, prefill=tr["steps"]))})
+        runs[-1]["tf32x3_launches"] = on_tf32x3(
+            f"hubert training run {i}", runs[-1]["launches"])
         del opt
         if i == 0:
             del params
@@ -6404,7 +6466,8 @@ def frontend_phase(dev):
         "losses": runs[0]["losses"], "step_s": runs[0]["step_s"],
         "median_step_s": med, "tokens_per_s": tokens / med,
         "peak_gib": runs[0]["peak_bytes"] / gib, "bits": True,
-        "n_params": count_params(params)}
+        "n_params": count_params(params),
+        "tf32x3_launches": runs[0]["tf32x3_launches"]}
     print(f"[frontend] phase 18 (a) hubert-xlarge: {hub.n_layers} layers, "
           f"{count_params(params) / 1e9:.3f} B params, {tr['steps']} steps "
           f"of {tr['batch']} x {tr['seq_len']} f32 frames: losses "
@@ -6414,7 +6477,8 @@ def frontend_phase(dev):
           f"{med:.3f} s, {tokens / med:.0f} frames/s; max_memory_allocated "
           f"{runs[0]['peak_bytes'] / gib:.2f} GiB; a second run bit for "
           f"bit (losses and every parameter); launches "
-          f"{json.dumps(runs[0]['launches'])}", flush=True)
+          f"{json.dumps(runs[0]['launches'])}, every attention launch on "
+          f"the tf32x3 route", flush=True)
     B, S = FRONTEND_PREFILL
     reset()
     g = torch.Generator(device=dev)
@@ -6434,10 +6498,13 @@ def frontend_phase(dev):
         "peak_gib": torch.cuda.max_memory_allocated() / gib,
         "launches": launches("hubert prefill",
                              attn_want(hub, prefill=2))}
+    n_tf32 = out["hubert_prefill"]["tf32x3_launches"] = on_tf32x3(
+        "hubert prefill", out["hubert_prefill"]["launches"])
     print(f"[frontend] phase 18 (a) hubert-xlarge prefill of {B} x {S} f32 "
           f"frames: {wall * 1e3:.1f} ms, {B * S / wall:.0f} frames/s; "
           f"logits {tuple(lg.shape)} finite, cache {rows} rows a lane "
-          f"(f32, the residual's dtype); max_memory_allocated "
+          f"(f32, the residual's dtype); {n_tf32} attention launches, all "
+          f"on the tf32x3 route; max_memory_allocated "
           f"{out['hubert_prefill']['peak_gib']:.2f} GiB", flush=True)
     del params, cache, lg, feats
 
@@ -6633,9 +6700,10 @@ def main() -> int:
     from torch.testing._internal.distributed.fake_pg import \
         FakeStore  # noqa: F401
     t0 = time.perf_counter()
-    libs = build.build_all()
+    libs, attn_s = build_kernels()
     print(f"[build] {', '.join(p.name for p in libs.values())} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; the attention source "
+          f"{attn_s:.1f} s", flush=True)
 
     cfg = get_config("granite-moe-3b-a800m")
     gen = torch.Generator().manual_seed(0)             # routing draws
@@ -6783,6 +6851,14 @@ def main() -> int:
             "kernel_route": {"prefill": prefill_res["route"],
                              "decode": decode_res["route"]}}
 
+    # the attention's prefill routes, as route_of picks them from (dtype,
+    # hd): "tma", "tf32x3", "general"
+    attn_routes = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for hd in t_flash.HEAD_DIMS:
+            attn_routes.setdefault(t_flash.route_of(dt, hd), []).append(
+                f"{str(dt)[6:]} hd {hd}")
+
     kernels = [
         {"name": "ragged_moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ragged_moe_ffn.cu",
@@ -6849,6 +6925,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/models/flash.py:45",
          "launches": counts["flash_attn_fwd"], "tma_launches": attn_tma,
+         "prefill_routes": attn_routes,
+         "tf32x3_launches": {
+             k: front[k]["tf32x3_launches"]
+             for k in ("hubert_train", "hubert_prefill")},
          **{k: v for k, v in attn["fwd"]["prefill-4x512"].items()
             if k != "shape"},
          "by_shape": attn["fwd"], "gradient": attn["grad"],

@@ -11,7 +11,9 @@ from a fixed seed a case, so that two checkouts see the same values:
 with the card held by a spin kernel) and ``host_us`` (the host's time to
 issue one call), beside one ``scaled_dot_product_attention`` call on the
 same values and the bound (the larger of the bytes over 3.35 TB/s and the
-valid pairs' FLOPs over the bf16 peak). A digest of each output lets two
+valid pairs' FLOPs over the bf16 peak; in f32 on the tf32x3 route three
+times the FLOPs over the TF32 peak, on the general route the FLOPs over
+the FMA units' peak). A digest of each output lets two
 checkouts' kernels be told apart or shown equal. To compare two
 checkouts, run it for each in turns in one command on one card (parent,
 change, change, parent). The last line of standard output is the result
@@ -41,6 +43,9 @@ PREFILL = {
                         None),
     "chunk-vs-140000": (1, 128, 140000, 8, 3, 64, "bf16", True, 0,
                         (138000, 138128), 138128),
+    # gemma3-4b's global layers: causal, no window
+    "gemma3-hd256-8192": (1, 8192, 8192, 4, 2, 256, "bf16", True, 0, None,
+                          None),
 }
 LANES = [37, 100, 250, 511, 600, 800, 1000, 1023]
 # name: (B, S_max, KV, G, hd, pos, kpos_offset, stats)
@@ -100,10 +105,16 @@ def prefill_case(cs, name, seed):
     n_bytes = (2 * q.numel() * q.element_size() + 2 * k.numel()
                * k.element_size() + (Sq + Skv) * 8
                + (0 if kval is None else Skv))
-    peak = cs.BF16_FLOPS if dtype == torch.bfloat16 else cs.F32_FLOPS
-    bound_ms, by = cs.bound(n_bytes, 4 * hd * pairs, peak)
+    route = t_flash.route_of(dtype, hd)
+    if dtype == torch.bfloat16:
+        bound_ms, by = cs.bound(n_bytes, 4 * hd * pairs, cs.BF16_FLOPS)
+    elif route == "tf32x3":
+        bound_ms, by = cs.bound(n_bytes, 3 * 4 * hd * pairs, cs.TF32_FLOPS)
+    else:
+        bound_ms, by = cs.bound(n_bytes, 4 * hd * pairs, cs.F32_FLOPS)
     return {**res, "sdpa_ms": sdpa_ms, "bound_ms": bound_ms, "bound_by": by,
-            "share": bound_ms / res["device_ms"], "digest": digest}
+            "share": bound_ms / res["device_ms"], "digest": digest,
+            "route": route}
 
 
 def decode_case(cs, name, seed):
@@ -166,7 +177,7 @@ def main() -> int:
     for i, name in enumerate(PREFILL):
         if args.only is None or name in args.only:
             out["prefill"][name] = r = prefill_case(cs, name, 100 + i)
-            print(f"[attn_compare] {root.name} {name}: device "
+            print(f"[attn_compare] {root.name} {name} ({r['route']}): device "
                   f"{r['device_ms']:.4f} ms ({100 * r['share']:.1f}% of "
                   f"{r['bound_ms']:.4f}), ms {r['ms']:.4f}, host "
                   f"{r['host_us']:.1f} us, SDPA {r['sdpa_ms']:.4f} ms",

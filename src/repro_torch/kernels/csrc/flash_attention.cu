@@ -23,17 +23,24 @@
 // m) = 0). A row with no valid key at all gets the plain version's value,
 // sum(v) / (the padded key count), in a pass of its own. Given m and l, it
 // also writes each row's softmax stats, which a call that needs a gradient
-// keeps for the backward. Two routes, chosen by (dtype, hd) alone
+// keeps for the backward. Three routes, chosen by (dtype, hd) alone
 // (kernels/flash.py::route_of), so a chunk and the whole prompt, a rank
 // and one device, take the same one:
-//   * the Hopper route (attn_fwd_tma), bf16 at hd 64 and 128: 128-row
-//     blocks of a TMA producer warpgroup and two wgmma consumer warpgroups,
-//     128-key tiles (its note below);
-//   * the general route, bf16 at hd 32, 80 and 256 (attn_fwd_bf16: 4 warps
-//     of 16 rows on mma.sync m16n8k16, 64-row blocks, 64-key tiles, 32 at
-//     hd 256) and f32 at every head size (attn_fwd_f32: FMA, 32-row blocks
-//     of 32-key tiles).
-// Bound at long context: the tensor cores (f32: the FMA units).
+//   * the Hopper route, bf16 at hd 64, 128 and 256: TMA and wgmma;
+//     attn_fwd_tma at 64 and 128 (128-row blocks of a producer and two
+//     consumer warpgroups, 128-key tiles), attn_fwd_hd256 at 256 (128-row
+//     blocks of two warpgroups and no producer, 64-key tiles; notes
+//     below);
+//   * the tf32x3 route (attn_fwd_tf32x3), f32 at hd 32, 64 and 80: 128-row
+//     blocks, 64-key tiles, each product as three TF32 products on the
+//     tensor cores (its note below);
+//   * the general route, bf16 at hd 32 and 80 (attn_fwd_bf16: 4 warps of
+//     16 rows on mma.sync m16n8k16, 64-row blocks, 64-key tiles) and f32 at
+//     hd 128 and 256 (attn_fwd_f32: FMA, 32-row blocks of 32-key tiles).
+//     Every size's instance stays, for route="general" (the wrapper's
+//     yardstick on the other routes' inputs).
+// Bound at long context: the tensor cores (f32 at hd 128 and 256: the FMA
+// units).
 //
 // Decode (flash_decode): one launch a call (decode_attn). A block reads one
 // split of split_rows cache rows of one (lane, KV head) once for up to 8 of
@@ -679,8 +686,9 @@ __global__ void __launch_bounds__(NT) attn_fwd_f32(FwdArgs a) {
 }
 
 // ------------------------------------------------------ bf16, Hopper route
-// The prefill route for bf16 at hd 64 and 128 (kernels/flash.py::route_of):
-// a block of 384 threads, 128 rows of one (lane, KV head), 128-key tiles.
+// The prefill route for bf16 at hd 64 and 128 (kernels/flash.py::route_of;
+// at hd 256 attn_fwd_hd256, its note below): a block of 384 threads, 128
+// rows of one (lane, KV head), 128-key tiles.
 //   * Prologue, every thread: Q's 128 rows into the 128-byte swizzled
 //     layout wgmma reads (a block's rows are s * G + g, not a TMA box, so
 //     plain 16-byte loads), the block's query-position bounds, and the
@@ -836,6 +844,219 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// S (64 x 64, f32) = or += Q (64 x 16) K (16 x 64): both bf16, K-major,
+// from shared memory; scale_d 0 overwrites S (hd 256's 64-key tiles)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// O (64 x 256, f32) += P (64 x 16, bf16 in registers: a warp's 16
+// rows as mma.sync m16n8k16's A fragment) V (16 x 256, bf16,
+// MN-major in shared memory: the transpose bit; four 64-wide panels LBO
+// apart)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// A consumer warpgroup's tile after S (the wgmma accumulators s, 64 rows x
+// BN keys: accumulator i is row rA + 8 ((i / 2) % 2), key 8 (i / 4) + 2
+// (lane % 4) + i % 2): the masks (a masked pair and a key past Skv: -inf,
+// p = 0; none where st == 2) and the online softmax in base 2 (m2 the
+// running max of q.k scale log2 e, p = 2^(q.k c2 - m2) by one FFMA and
+// ex2); P rounded to bf16 pairs as wgmma's A fragments, lsum updated, O
+// (the tiles before this one) rescaled to this tile's maxima.
+template <int BN, int NO>
+__device__ __forceinline__ void tile_softmax(
+    float (&s)[BN / 2], uint32_t (&pf)[BN / 16][4], float (&o)[NO],
+    float (&m2)[2], float (&lsum)[2], int st, const signed char* kval,
+    const long long* kpos, long long qpA, long long qpB, int causal,
+    int window, float c2) {
+  const int lane = threadIdx.x & 31;
+  float tmax[2] = {-INFINITY, -INFINITY};
+  if (st == 2) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int h = (i >> 1) & 1;
+      if (kval[col] <= 0 || !allowed(h ? qpB : qpA, kpos[col], causal, window))
+        s[i] = -INFINITY;
+      tmax[h] = fmaxf(tmax[h], s[i]);
+    }
+  }
+  float corr[2], nm[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+    tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+    const float m_new = fmaxf(m2[h], tmax[h] * c2);
+    corr[h] = ex2(m2[h] - m_new);
+    m2[h] = m_new;
+    nm[h] = -m_new;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    float p[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int h = (e >> 1) & 1;
+      p[e] = ex2(fmaf(s[8 * kk + e], c2, nm[h]));
+      rsum[h] += p[e];
+    }
+    pf[kk][0] = pack_bf16(p[0], p[1]);
+    pf[kk][1] = pack_bf16(p[2], p[3]);
+    pf[kk][2] = pack_bf16(p[4], p[5]);
+    pf[kk][3] = pack_bf16(p[6], p[7]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+    rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+    lsum[h] = lsum[h] * corr[h] + rsum[h];
+  }
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+// The query-position bounds of a block's rows row0 .. row0 + 127 below M
+// (threads 0-127 a row each), by every thread; lo_s and hi_s four
+// entries of shared memory. Ends in a __syncthreads.
+__device__ __forceinline__ void block_bounds(const Pos& qpos, int row0,
+                                             int M, int G, long long* lo_s,
+                                             long long* hi_s,
+                                             long long* qmin,
+                                             long long* qmax) {
+  const int warp = threadIdx.x >> 5;
+  long long lo = 0x7fffffffffffffffLL, hi = -0x7fffffffffffffffLL;
+  if (threadIdx.x < 128 && row0 + threadIdx.x < M) {
+    const int s = (row0 + threadIdx.x) / G;
+    lo = hi = qpos.at(s, s);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    const long long x = __shfl_xor_sync(0xffffffffu, lo, o);
+    const long long y = __shfl_xor_sync(0xffffffffu, hi, o);
+    lo = x < lo ? x : lo;
+    hi = y > hi ? y : hi;
+  }
+  if ((threadIdx.x & 31) == 0 && warp < 4) {
+    lo_s[warp] = lo;
+    hi_s[warp] = hi;
+  }
+  __syncthreads();
+  *qmin = lo_s[0];
+  *qmax = hi_s[0];
+  for (int w = 1; w < 4; ++w) {
+    *qmin = lo_s[w] < *qmin ? lo_s[w] : *qmin;
+    *qmax = hi_s[w] > *qmax ? hi_s[w] : *qmax;
+  }
+}
+
+// Rows rA and rA + 8 of a consumer warpgroup (m64 accumulators: this
+// lane's columns 8 n + 2 (lane % 4) and + 1 of O): the stats, rowflag
+// (no valid key), and the output in bf16, acc / max(l, 1e-30), of those
+// below M with a valid key. True if one of its rows has none.
+template <int HD>
+__device__ __forceinline__ bool write_rows_bf16(const FwdArgs& a,
+                                                const float (&o)[HD / 2],
+                                                const float (&m2)[2],
+                                                const float (&lsum)[2],
+                                                int grA, int* rowflag, int b,
+                                                int kvh) {
+  const int lane = threadIdx.x & 31, M = a.Sq * a.G;
+  bf16* out = static_cast<bf16*>(a.out);
+  bool mine = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = grA + 8 * h;
+    const bool none = m2[h] == neg_big();
+    if ((lane & 3) == 0) {
+      rowflag[8 * h] = gr < M && none;
+      if (a.m && gr < M)
+        write_stats(a.m, a.l, gr, a.G, a.Sq, a.KV, b, kvh,
+                    none ? neg_big() : m2[h] * 0.6931471805599453f, lsum[h],
+                    a.den);
+    }
+    if (gr >= M) continue;
+    if (none) {
+      mine = true;
+      continue;
+    }
+    const int s_ = gr / a.G, g = gr % a.G;
+    bf16* dst = out + (((long long)b * a.Sq + s_) * a.KV + kvh) * a.G * HD +
+                (long long)g * HD + 2 * (lane & 3);
+    const float den = fmaxf(lsum[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(o[4 * n + 2 * h] / den,
+                                o[4 * n + 2 * h + 1] / den);
+    }
+  }
+  return mine;
+}
+
 template <int HD>
 struct TmaCfg {
   static constexpr int BM = 128;          // rows a block
@@ -905,29 +1126,8 @@ __global__ void __launch_bounds__(384, 1)
     }
     hop::fence_proxy_async();
   }
-  // the block's query-position bounds, from its rows below M
-  long long lo = 0x7fffffffffffffffLL, hi = -0x7fffffffffffffffLL;
-  if (threadIdx.x < BM && row0 + threadIdx.x < M) {
-    const int s = (row0 + threadIdx.x) / a.G;
-    lo = hi = a.qpos.at(s, s);
-  }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) {
-    const long long x = __shfl_xor_sync(0xffffffffu, lo, o);
-    const long long y = __shfl_xor_sync(0xffffffffu, hi, o);
-    lo = x < lo ? x : lo;
-    hi = y > hi ? y : hi;
-  }
-  if (lane == 0 && warp < 4) {
-    qlo_s[warp] = lo;
-    qhi_s[warp] = hi;
-  }
-  __syncthreads();
-  long long qmin = qlo_s[0], qmax = qhi_s[0];
-  for (int w = 1; w < 4; ++w) {
-    qmin = qlo_s[w] < qmin ? qlo_s[w] : qmin;
-    qmax = qhi_s[w] > qmax ? qhi_s[w] : qmax;
-  }
+  long long qmin, qmax;
+  block_bounds(a.qpos, row0, M, a.G, qlo_s, qhi_s, &qmin, &qmax);
   const int ntiles = (a.Skv + BN - 1) / BN;
   // the tiles' states, a window of MAXT tiles at a time; the first by all
   // twelve warps, two tiles a warp a round trip, while the consumers would
@@ -1068,60 +1268,8 @@ __global__ void __launch_bounds__(384, 1)
       if (!live) break;
       prev = stage;
       if (active) {
-        // mask (a masked pair and a key past Skv: -inf, p = 0); the tile's
-        // row maxima of q.k
-        float tmax[2] = {-INFINITY, -INFINITY};
-        if (st == 2) {
-#pragma unroll
-          for (int i = 0; i < BN / 2; ++i)
-            tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < BN / 2; ++i) {
-            const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-            const int h = (i >> 1) & 1;
-            if (kval_s[stage][col] <= 0 ||
-                !allowed(h ? qpB : qpA, kpos_s[stage][col], a.causal,
-                         a.window))
-              s[i] = -INFINITY;
-            tmax[h] = fmaxf(tmax[h], s[i]);
-          }
-        }
-        // base 2: m2 the running max of q.k scale log2 e, p = 2^(q.k c2 - m2)
-        // by one FFMA and ex2
-        float corr[2], nm[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
-          tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
-          const float m_new = fmaxf(m2[h], tmax[h] * c2);
-          corr[h] = ex2(m2[h] - m_new);
-          m2[h] = m_new;
-          nm[h] = -m_new;
-        }
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-          float p[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int h = (e >> 1) & 1;
-            p[e] = ex2(fmaf(s[8 * kk + e], c2, nm[h]));
-            rsum[h] += p[e];
-          }
-          pf[kk][0] = pack_bf16(p[0], p[1]);
-          pf[kk][1] = pack_bf16(p[2], p[3]);
-          pf[kk][2] = pack_bf16(p[4], p[5]);
-          pf[kk][3] = pack_bf16(p[6], p[7]);
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
-          rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
-          lsum[h] = lsum[h] * corr[h] + rsum[h];
-        }
-        // O (the tiles before this one): rescaled to this tile's maxima
-#pragma unroll
-        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        tile_softmax<BN>(s, pf, o, m2, lsum, st, kval_s[stage],
+                         kpos_s[stage], qpA, qpB, a.causal, a.window, c2);
       }
       if constexpr (!C::PAIR) {
         if (active) {
@@ -1147,18 +1295,642 @@ __global__ void __launch_bounds__(384, 1)
     }
     if (!active) return;
 
-    bf16* out = static_cast<bf16*>(a.out);
+    if (write_rows_bf16<HD>(a, o, m2, lsum, grA, rowflag + wg * 64 + rA, b,
+                            kvh))
+      unseen[wg] = 1;
+    named_bar(2 + wg, 128);
+    if (unseen[wg])
+      fill_unseen<bf16>(static_cast<const bf16*>(a.v),
+                        static_cast<bf16*>(a.out), rowflag + wg * 64,
+                        wrow0, 64, M, a.G, a.Sq, a.Skv, a.KV, HD, b, kvh,
+                        a.vs0, a.vs1, a.vs2, a.den, ctid, 128);
+  }
+}
+
+// ------------------------------------------- bf16 at hd 256, Hopper route
+// The Hopper route at hd 256 (attn_fwd_hd256): a block of 256 threads, two
+// warpgroups of 64 rows each, 128 rows of one (lane, KV head), 64-key
+// tiles, both warpgroups on every tile.
+//   * Registers. O is m64n256, 128 registers a thread. The register file
+//     is four sub-partitions of 16384 registers, warp w on sub-partition
+//     w % 4: a block of 9 to 12 warps (attn_fwd_tma's producer warpgroup
+//     and two consumers, or a producer warp and two consumers) puts three
+//     warps on one of them and ptxas caps every thread at 168 (16384 / 96
+//     rounded down to 8), where O, S and P spilled 420 bytes (288
+//     threads). Eight warps leave two on each: 255.
+//   * No producer warp, so: the block stages its next live tile (the
+//     notes by warp 0, K's and V's four 64-value panels by TMA from thread
+//     0, as attn_fwd_tma's producer does) before it computes the current
+//     one, into the other of two stages, which the last tile's products
+//     have left (a __syncthreads a tile orders that reuse). The tile
+//     states are judged a window of 1024 tiles ahead by the eight warps.
+//   * Shared memory: Q (128 rows, four panels) 64 KB and two stages of K
+//     and V 64 KB each, 193 KB with the alignment. 128 rows share each K
+//     and V tile: 64-row blocks (one consumer warpgroup beside a producer
+//     warp, 160 threads; or one warpgroup staging its own 32-key tiles,
+//     two blocks an SM) stream twice the keys from L2 a row and were
+//     slower (PERF.md).
+//   * A tile, each warpgroup: S by wgmma m64n64k16 from shared memory (16
+//     steps over hd), the masks and the base-2 softmax in registers
+//     (tile_softmax), P V by four m64n256k16 with V MN-major over its four
+//     panels (LBO a panel). The two warpgroups' products share the tensor
+//     cores, so one's softmax runs under the other's. Every wgmma is
+//     issued and waited on one path: a wgmma behind a branch (an
+//     inactive warpgroup, a live flag) made ptxas serialise them (C7515),
+//     and S of the next tile issued before this one's softmax spilled at
+//     255 registers and was slower. Rows past M compute on zeros and are
+//     not written.
+struct Hd256Cfg {
+  static constexpr int HD = 256, BM = 128, BN = 64, PANELS = 4;
+  static constexpr int PANEL = BN * 128;           // bytes of a K or V panel
+  static constexpr int Q_PANEL = BM * 128;
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int TILE_BYTES = 2 * PANELS * PANEL;   // K and V
+  static constexpr int STAGES = 2;
+  // + 1 KB so that the panels start on the swizzle atom (1024 bytes)
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * TILE_BYTES;
+  static constexpr int THREADS = 256;
+  static_assert(SMEM + 4096 <= 228 * 1024, "shared memory");
+};
+
+__global__ void __launch_bounds__(256, 1)
+    attn_fwd_hd256(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, FwdArgs a) {
+  using C = Hd256Cfg;
+  constexpr int HD = C::HD, BM = C::BM, BN = C::BN, MAXT = 1024;
+  extern __shared__ uint8_t hd256_raw[];
+  uint8_t* smem =
+      hd256_raw + ((1024 - (hop::smem_u32(hd256_raw) & 1023)) & 1023);
+  const uint32_t q_s = hop::smem_u32(smem);
+  const uint32_t ring = q_s + C::Q_BYTES;
+  __shared__ __align__(8) uint64_t bars[C::STAGES];     // full
+  __shared__ long long kpos_s[C::STAGES][BN];
+  __shared__ signed char kval_s[C::STAGES][BN];
+  __shared__ int rowflag[BM];
+  __shared__ unsigned char state_s[MAXT];
+  __shared__ long long qlo_s[4], qhi_s[4];
+
+  const int b = blockIdx.z, kvh = blockIdx.y, M = a.Sq * a.G;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const uint32_t full0 = hop::smem_u32(bars);
+  // the maps' addresses in the kernel's parameter space, for TMA
+  const CUtensorMap* kmp = &kmap;
+  const CUtensorMap* vmp = &vmap;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) hop::mbar_init(full0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // Q, the block's 64 rows, into the 128-byte swizzled layout wgmma reads
+  {
+    const bf16* q = static_cast<const bf16*>(a.q);
+    constexpr int CH = HD / 8;
+    for (int i = threadIdx.x; i < BM * CH; i += C::THREADS) {
+      const int r = i / CH, c = i % CH, gr = row0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < M) {
+        const int s = gr / a.G, g = gr % a.G;
+        val = *reinterpret_cast<const uint4*>(q + b * a.qs0 + s * a.qs1 +
+                                              kvh * a.qs2 + g * a.qs3 + c * 8);
+      }
+      *reinterpret_cast<uint4*>(smem + (c / 8) * C::Q_PANEL + r * 128 +
+                                ((c % 8) ^ (r & 7)) * 16) = val;
+    }
+    hop::fence_proxy_async();
+  }
+  long long qmin, qmax;
+  block_bounds(a.qpos, row0, M, a.G, qlo_s, qhi_s, &qmin, &qmax);
+  const int ntiles = (a.Skv + BN - 1) / BN;
+  int base = -MAXT;
+  // the next live tile from t (every thread the same), its state in *st;
+  // the states a window of MAXT tiles at a time, by the four warps
+  auto next_live = [&](int t, int* st) {
+    for (; t < ntiles; ++t) {
+      if (t >= base + MAXT) {
+        base = t;
+        __syncthreads();                  // the last window's readers
+        fill_states<BN, MAXT>(state_s, base, warp, 8, a.kpos, a.kval,
+                              ntiles, a.Skv, qmin, qmax, a.causal, a.window);
+        __syncthreads();
+      }
+      *st = state_s[t - base];
+      if (*st) return t;
+    }
+    return ntiles;
+  };
+  // stage tile t (state st): where some pair is masked its keys' positions
+  // and validity (warp 0), then K's and V's panels by TMA (thread 0)
+  auto stage_tile = [&](int t, int st, int stage) {
+    if (warp == 0) {
+      for (int j = lane; j < BN && st == 1; j += 32) {
+        const int key = t * BN + j;
+        kpos_s[stage][j] = key < a.Skv ? a.kpos.at(key, key) : 0;
+        kval_s[stage][j] = static_cast<signed char>(
+            key >= a.Skv ? -1 : (a.kval && !a.kval[key] ? 0 : 1));
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t bar = full0 + 8 * stage;
+        const uint32_t kdst = ring + stage * C::TILE_BYTES;
+        const uint32_t vdst = kdst + C::PANELS * C::PANEL;
+        hop::mbar_expect_tx(bar, C::TILE_BYTES);
+#pragma unroll
+        for (int p = 0; p < C::PANELS; ++p) {
+          tma_load_4d(kdst + p * C::PANEL, kmp, bar, p * 64, kvh, t * BN, b);
+          tma_load_4d(vdst + p * C::PANEL, vmp, bar, p * 64, kvh, t * BN, b);
+        }
+      }
+    }
+  };
+
+  // rows rA and rA + 8 of the warpgroup's 64
+  const int rA = 16 * (warp & 3) + (lane >> 2);
+  const int grA = row0 + 64 * wg + rA, grB = grA + 8;
+  const long long qpA = grA < M ? a.qpos.at(grA / a.G, grA / a.G) : 0;
+  const long long qpB = grB < M ? a.qpos.at(grB / a.G, grB / a.G) : 0;
+  const float c2 = a.scale * 1.4426950408889634f;
+  float m2[2] = {neg_big(), neg_big()}, lsum[2] = {0.f, 0.f};
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+  int st = 0;
+  int t = next_live(0, &st);
+  if (t < ntiles) stage_tile(t, st, 0);
+  for (int it = 0; t < ntiles; ++it) {
+    const int stage = it & 1;
+    int nst = 0;
+    const int tn = next_live(t + 1, &nst);
+    __syncthreads();                      // the other stage's readers are done
+    if (tn < ntiles) stage_tile(tn, nst, stage ^ 1);
+    hop::mbar_wait(full0 + 8 * stage, (it >> 1) & 1);
+    // S = Q K^T: accumulator i is row rA + 8 ((i / 2) % 2), key 8 (i / 4)
+    // + 2 (lane % 4) + i % 2
+    float s[BN / 2];
+    uint32_t pf[BN / 16][4];              // P, bf16 pairs
+    const uint32_t kst = ring + stage * C::TILE_BYTES;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s,
+                   hop::sw128_desc(q_s + (kk / 4) * C::Q_PANEL + wg * 8192 +
+                                       (kk % 4) * 32, 16),
+                   hop::sw128_desc(kst + (kk / 4) * C::PANEL + (kk % 4) * 32,
+                                   16),
+                   kk);
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    tile_softmax<BN>(s, pf, o, m2, lsum, st, kval_s[stage], kpos_s[stage],
+                     qpA, qpB, a.causal, a.window, c2);
+    // O += P V: one m64n256k16 a 16 keys
+    const uint32_t vst = kst + C::PANELS * C::PANEL;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs_n256(o, pf[kk], hop::sw128_desc(vst + kk * 2048, C::PANEL));
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+    t = tn;
+    st = nst;
+  }
+
+  const bool mine = write_rows_bf16<HD>(a, o, m2, lsum, grA,
+                                        rowflag + 64 * wg + rA, b, kvh);
+  if (__syncthreads_or(mine))
+    fill_unseen<bf16>(static_cast<const bf16*>(a.v),
+                      static_cast<bf16*>(a.out), rowflag, row0, BM,
+                      M, a.G, a.Sq, a.Skv, a.KV, HD, b, kvh, a.vs0, a.vs1,
+                      a.vs2, a.den, threadIdx.x, C::THREADS);
+}
+
+// ------------------------------------------- f32, three TF32 products
+// The prefill route for f32 at hd 32, 64 and 80 (kernels/flash.py::route_of;
+// hubert-xlarge's encoder is f32 at hd 80): a block of 384 threads, 128
+// rows of one (lane, KV head), 64-key tiles.
+//   * Arithmetic. Each f32 operand x is split into big = x with the low 13
+//     mantissa bits masked and small = x - big (exact) masked the same way,
+//     both TF32 values; a product of two f32 matrices is taken as three TF32
+//     products accumulated in f32, small.big, then big.small, then big.big
+//     (the small.small term is below f32's rounding). The masks are
+//     explicit: nothing rests on how the tensor cores drop the bits. At
+//     hd 80 one TF32 product puts a row ~3e-3 from the f32 result, 30x
+//     the f32 route's 1e-4 bound; three ~2e-6 (the CPU emulation in
+//     tests/test_torch_flash.py).
+//   * Prologue, every thread: Q's 128 rows, split, into shared memory as
+//     big and small parts, each K-major without swizzle (core matrices of
+//     8 rows x 16 bytes, 128 contiguous bytes; the next along hd 128 bytes
+//     on, the next 8 rows hd * 32 bytes on), so that hd 80 (2.5 of the
+//     128-byte swizzle's rows) needs no padding; the block's query-position
+//     bounds and the first 1024 key tiles' states (fill_states, twelve
+//     warps).
+//   * Warpgroup 0, the producer and converter: for each live tile in order,
+//     into a ring of two stages, K's big and small parts in Q's layout, and
+//     V as it is, its rows in pairs (v[2p][d], v[2p + 1][d]) as a float2,
+//     each thread's loads all in flight before its stores; the tile's notes
+//     (index, state, positions and validity where some pair is masked);
+//     then every thread arrives on the stage's full mbarrier. A slot with
+//     index -1 ends the walk. It judges the later windows of 1024 tiles.
+//   * Warpgroups 1 and 2, the consumers, 64 rows each: S = Q K^T by wgmma
+//     m64n64k8 .tf32 from shared memory (three products of hd / 8 steps);
+//     the masks and the online softmax in registers; O += P V by mma.sync
+//     m16n8k8 .tf32, a warp's 16 rows, P straight from S's accumulators
+//     and split in registers (its k index k' = t takes the tile's key 2t
+//     of each 8, k' = t + 4 key 2t + 1, so V's fragment is one float2 of a
+//     row pair), V split in registers as it is read; lane 0 of each warp
+//     frees the stage on its empty mbarrier. P V takes mma.sync, not
+//     wgmma: wgmma reads 32-bit operands K-major only (the transpose bit
+//     is for 16-bit types), so it would need V^T's big and small parts in
+//     shared memory, 40 KB more a stage at hd 80 beside Q's 80 KB and two
+//     stages of K's parts (40 KB each): past the 227 KB a block may have.
+//     f32 at hd 128 and 256 stays on the FMA kernel (attn_fwd_f32) for the
+//     same reason: Q's two parts alone take 128 and 256 KB.
+//     Each 8 keys' and 8 columns' three products go into a zeroed fragment
+//     that the FMA units then add to O: the tensor cores' f32 accumulation
+//     drops an addend's bits below the sum's, toward zero, a drift that
+//     grows with a row's key count (O carried in the tensor cores read
+//     5.5e-4 a row against the 1e-4 bound at 67000 keys on an H100).
+//     The fragments cost registers: at hd 64 and 80 ptxas takes the 168
+//     that 384 threads leave and spills 100 and 112 bytes (none at hd 32;
+//     with the column blocks outermost 32 and 20, no faster). Both stay
+//     here: at hubert's shape the FMA kernel takes 4.5x as long.
+// The softmax keeps f32's accuracy in base 2 with the difference first: m
+// the running max of q.k (unscaled), p = 2^((q.k - m) scale log2 e) by
+// ex2.approx (2 ulp), the correction 2^((m_old - m_new) scale log2 e); a
+// masked pair is -inf (p = 0), so a fully masked tile leaves m, l and O as
+// they were (p = 0, correction 2^0 = 1) and skipping it is bitwise what
+// computing it gives. The stats come back as m scale, in natural log (a
+// row with no valid key keeps _NEG and takes l = the padded key count). No
+// atomics: a row's result depends on its q row, its lane's k/v and the
+// masks alone. Bound: the tensor cores' TF32 rate over the three products
+// (495 TFLOP/s dense), and the conversions' shared-memory traffic.
+
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return __float_as_uint(x) & 0xffffe000u;
+}
+
+// x = big + small to f32's precision, both TF32 values: big x's top 19
+// bits, small what remains (x - big, exact) with the same mask
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));
+}
+
+// four values' big parts at dst, their small parts `part` bytes on
+__device__ __forceinline__ void store_split(uint8_t* dst, int part,
+                                            float4 x) {
+  uint4 hi, lo;
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(dst) = hi;
+  *reinterpret_cast<uint4*>(dst + part) = lo;
+}
+
+// Shared-memory matrix descriptor of a K-major tile without swizzle (layout
+// type 0): core matrices of 8 rows x 16 bytes, 128 contiguous bytes each;
+// the next along K lbo bytes on, the next 8 rows sbo bytes on
+__device__ __forceinline__ uint64_t plain_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// S (64 x 64, f32) = or += A (64 x 8) B (8 x 64): both tf32, K-major, from
+// shared memory; scale_d 0 overwrites S
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// C (16 x 8, f32) += A (16 x 8) B (8 x 8), tf32, a warp: A's element
+// (row, k) a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8,
+// t + 4); B's b0 (t, g), b1 (t + 4, g); C's (g, 2t), (g, 2t + 1), (g + 8,
+// 2t), (g + 8, 2t + 1), g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int HD>
+struct Tf32Cfg {
+  static constexpr int BM = 128;              // rows a block
+  static constexpr int BN = 64;               // keys a tile
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 384;
+  static constexpr int C4 = HD / 4;           // 16-byte chunks of a row
+  static constexpr int SBO = C4 * 128;        // bytes of 8 rows
+  static constexpr int Q_PART = BM * HD * 4;  // Q's big or small part
+  static constexpr int K_PART = BN * HD * 4;  // a tile's K, big or small
+  // float2s of a row pair: hd + 4 (= 4 mod 16), so that a warp's V
+  // fragments (4 row pairs x 8 columns) hit 32 distinct banks
+  static constexpr int VP = HD + 4;
+  static constexpr int V_BYTES = BN / 2 * VP * 8;
+  static constexpr int STAGE = 2 * K_PART + V_BYTES;
+  // hd 80: 80 KB of Q, two stages of 61 KB
+  static constexpr int SMEM = 2 * Q_PART + STAGES * STAGE;
+  // the producer's float4s a tile: K, and V's pairs of rows
+  static constexpr int KN = BN * C4 / 128, VN = BN / 2 * C4 / 128;
+  static_assert(HD == 32 || HD == 64 || HD == 80,
+                "the tf32x3 route's head sizes");
+  static_assert(KN * 128 == BN * C4 && VN * 128 == BN / 2 * C4, "tiles");
+  static_assert(SMEM <= 227 * 1024 - 4096, "shared memory");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(384, 1) attn_fwd_tf32x3(FwdArgs a) {
+  using C = Tf32Cfg<HD>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, C4 = C::C4;
+  constexpr int MAXT = 1024;
+  extern __shared__ __align__(16) uint8_t fsmem[];
+  uint8_t* ring_p = fsmem + 2 * C::Q_PART;
+  const uint32_t q_s = hop::smem_u32(fsmem);
+  const uint32_t ring = q_s + 2 * C::Q_PART;
+  __shared__ __align__(8) uint64_t bars[2 * ST];   // full, then empty
+  __shared__ long long kpos_s[ST][BN];
+  __shared__ signed char kval_s[ST][BN];
+  __shared__ int tile_s[ST], stt_s[ST], rowflag[BM], unseen[2];
+  __shared__ unsigned char state_s[MAXT];
+  __shared__ long long qlo_s[4], qhi_s[4];
+
+  const int b = blockIdx.z, kvh = blockIdx.y, M = a.Sq * a.G;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t full0 = hop::smem_u32(bars), empty0 = full0 + 8 * ST;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hop::mbar_init(full0 + 8 * s, 128);  // every producer thread
+      hop::mbar_init(empty0 + 8 * s, 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (threadIdx.x < 2) unseen[threadIdx.x] = 0;
+  // Q's parts, by every thread: chunk c of row r in core matrix (r / 8, c),
+  // eight neighbouring threads a core matrix
+  {
+    const float* q = static_cast<const float*>(a.q);
+    for (int i = threadIdx.x; i < BM * C4; i += C::THREADS) {
+      const int r = (i >> 3) / C4 * 8 + (i & 7), c = (i >> 3) % C4;
+      const int gr = row0 + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gr < M) {
+        const int s = gr / a.G, g = gr % a.G;
+        x = *reinterpret_cast<const float4*>(q + b * a.qs0 + s * a.qs1 +
+                                             kvh * a.qs2 + g * a.qs3 + c * 4);
+      }
+      store_split(fsmem + (r >> 3) * C::SBO + c * 128 + (r & 7) * 16,
+                  C::Q_PART, x);
+    }
+    hop::fence_proxy_async();
+  }
+  long long qmin, qmax;
+  block_bounds(a.qpos, row0, M, a.G, qlo_s, qhi_s, &qmin, &qmax);
+  const int ntiles = (a.Skv + BN - 1) / BN;
+  fill_states<BN, MAXT>(state_s, 0, warp, 12, a.kpos, a.kval, ntiles, a.Skv,
+                        qmin, qmax, a.causal, a.window);
+  __syncthreads();
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (wgi == 0) {
+    // ------------------------------------------------- producer, converter
+    const int ptid = threadIdx.x;
+    const float* kb = static_cast<const float*>(a.k) + b * a.ks0 +
+                      kvh * a.ks2;
+    const float* vb = static_cast<const float*>(a.v) + b * a.vs0 +
+                      kvh * a.vs2;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    int base = 0, t = 0;
+    for (int it = 0;; ++it) {
+      int st = 0;
+      for (; t < ntiles; ++t) {
+        if (t >= base + MAXT) {
+          base = t;
+          named_bar(1, 128);              // the last window's readers
+          fill_states<BN, MAXT>(state_s, base, warp, 4, a.kpos, a.kval,
+                                ntiles, a.Skv, qmin, qmax, a.causal,
+                                a.window);
+          named_bar(1, 128);
+        }
+        st = state_s[t - base];
+        if (st) break;
+      }
+      const int stage = it % ST;
+      const bool live = t < ntiles;
+      // the tile's loads go out before the wait for its slot
+      float4 kx[C::KN], vx[C::VN][2];
+      if (live) {
+        const int key0 = t * BN;
+#pragma unroll
+        for (int u = 0; u < C::KN; ++u) {
+          const int i = ptid + 128 * u;
+          const int key = key0 + (i >> 3) / C4 * 8 + (i & 7);
+          kx[u] = key < a.Skv ? *reinterpret_cast<const float4*>(
+                                    kb + key * a.ks1 + (i >> 3) % C4 * 4)
+                              : zero;
+        }
+#pragma unroll
+        for (int u = 0; u < C::VN; ++u) {
+          const int i = ptid + 128 * u;
+          const int key = key0 + 2 * (i / C4), c = i % C4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            vx[u][h] = key + h < a.Skv
+                           ? *reinterpret_cast<const float4*>(
+                                 vb + (key + h) * a.vs1 + c * 4)
+                           : zero;
+        }
+      }
+      if (it >= ST) hop::mbar_wait(empty0 + 8 * stage, (it / ST - 1) & 1);
+      if (live) {
+        if (st == 1) {
+          for (int j = ptid; j < BN; j += 128) {
+            const int key = t * BN + j;
+            kpos_s[stage][j] = key < a.Skv ? a.kpos.at(key, key) : 0;
+            kval_s[stage][j] = static_cast<signed char>(
+                key >= a.Skv ? -1 : (a.kval && !a.kval[key] ? 0 : 1));
+          }
+        }
+        uint8_t* kst = ring_p + stage * C::STAGE;
+#pragma unroll
+        for (int u = 0; u < C::KN; ++u) {
+          const int i = ptid + 128 * u;
+          const int r = (i >> 3) / C4 * 8 + (i & 7), c = (i >> 3) % C4;
+          store_split(kst + (r >> 3) * C::SBO + c * 128 + (r & 7) * 16,
+                      C::K_PART, kx[u]);
+        }
+        uint8_t* vst = kst + 2 * C::K_PART;
+#pragma unroll
+        for (int u = 0; u < C::VN; ++u) {
+          const int i = ptid + 128 * u;
+          float4* d = reinterpret_cast<float4*>(
+              vst + ((i / C4) * C::VP + 4 * (i % C4)) * 8);
+          d[0] = make_float4(vx[u][0].x, vx[u][1].x, vx[u][0].y, vx[u][1].y);
+          d[1] = make_float4(vx[u][0].z, vx[u][1].z, vx[u][0].w, vx[u][1].w);
+        }
+        hop::fence_proxy_async();         // K's parts are read by wgmma
+      }
+      if (ptid == 0) {
+        tile_s[stage] = live ? t : -1;
+        stt_s[stage] = st;
+      }
+      hop::mbar_arrive(full0 + 8 * stage);
+      if (!live) break;
+      ++t;
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    const int wg = wgi - 1, ctid = threadIdx.x - 128 * wgi;
+    const int w = warp & 3, wrow0 = row0 + wg * 64;
+    const bool active = wrow0 < M;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int rA = 16 * w + gq;            // rows rA and rA + 8 of the 64
+    const int grA = wrow0 + rA, grB = grA + 8;
+    const long long qpA = grA < M ? a.qpos.at(grA / a.G, grA / a.G) : 0;
+    const long long qpB = grB < M ? a.qpos.at(grB / a.G, grB / a.G) : 0;
+    const float c2 = a.scale * 1.4426950408889634f;
+    float m[2] = {neg_big(), neg_big()}, lsum[2] = {0.f, 0.f};
+    float o[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    const uint32_t qa = q_s + wg * 8 * C::SBO;    // the warpgroup's rows
+
+    for (int it = 0;; ++it) {
+      const int stage = it % ST;
+      hop::mbar_wait(full0 + 8 * stage, (it / ST) & 1);
+      const bool live = __shfl_sync(0xffffffffu, tile_s[stage], 0) >= 0;
+      const int st = __shfl_sync(0xffffffffu, stt_s[stage], 0);
+      if (!live) break;
+      if (active) {
+        // S = Q K^T: small.big, big.small, big.big; accumulator i is row
+        // rA + 8 ((i / 2) % 2), key 8 (i / 4) + 2 tq + i % 2
+        const uint32_t kst = ring + stage * C::STAGE;
+        float s[BN / 2];
+        hop::wgmma_fence();
+#pragma unroll
+        for (int pr = 0; pr < 3; ++pr) {
+          const uint32_t qp = qa + (pr == 0 ? C::Q_PART : 0);
+          const uint32_t kp = kst + (pr == 1 ? C::K_PART : 0);
+#pragma unroll
+          for (int kk = 0; kk < HD / 8; ++kk)
+            wgmma_tf32_n64(s, plain_desc(qp + kk * 256, 128, C::SBO),
+                           plain_desc(kp + kk * 256, 128, C::SBO), pr + kk);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait_all();
+        // mask (a masked pair and a key past Skv: -inf, p = 0); the tile's
+        // row maxima of q.k
+        float tmax[2] = {-INFINITY, -INFINITY};
+        if (st == 2) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            const int col = 8 * (i >> 2) + 2 * tq + (i & 1);
+            const int h = (i >> 1) & 1;
+            if (kval_s[stage][col] <= 0 ||
+                !allowed(h ? qpB : qpA, kpos_s[stage][col], a.causal,
+                         a.window))
+              s[i] = -INFINITY;
+            tmax[h] = fmaxf(tmax[h], s[i]);
+          }
+        }
+        float corr[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+          tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+          const float m_new = fmaxf(m[h], tmax[h]);
+          corr[h] = ex2((m[h] - m_new) * c2);
+          m[h] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          s[i] = ex2((s[i] - m[h]) * c2);
+          rsum[h] += s[i];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+          rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+          lsum[h] = lsum[h] * corr[h] + rsum[h];
+        }
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][0] *= corr[0]; o[n][1] *= corr[0];
+          o[n][2] *= corr[1]; o[n][3] *= corr[1];
+        }
+        // O += P V: small.big, big.small, big.big for each 8 keys and 8
+        // columns into a zeroed fragment, added to O in f32; V's fragment,
+        // keys 8 kb + 2 tq and + 1 of column 8 n + gq, is one float2 of row
+        // pair 4 kb + tq
+        const float2* vt =
+            reinterpret_cast<const float2*>(ring_p + stage * C::STAGE +
+                                            2 * C::K_PART) +
+            tq * C::VP + gq;
+#pragma unroll
+        for (int kb = 0; kb < BN / 8; ++kb) {
+          uint32_t pb[4], ps[4];
+          split_tf32(s[4 * kb], pb[0], ps[0]);
+          split_tf32(s[4 * kb + 2], pb[1], ps[1]);
+          split_tf32(s[4 * kb + 1], pb[2], ps[2]);
+          split_tf32(s[4 * kb + 3], pb[3], ps[3]);
+#pragma unroll
+          for (int n = 0; n < HD / 8; ++n) {
+            const float2 x = vt[kb * 4 * C::VP + 8 * n];
+            uint32_t vb0, vs0, vb1, vs1;
+            split_tf32(x.x, vb0, vs0);
+            split_tf32(x.y, vb1, vs1);
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(d, ps, vb0, vb1);
+            mma_tf32(d, pb, vs0, vs1);
+            mma_tf32(d, pb, vb0, vb1);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) o[n][j] += d[j];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(empty0 + 8 * stage);
+    }
+    if (!active) return;
+
+    float* out = static_cast<float*>(a.out);
     bool mine = false;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gr = h ? grB : grA;
-      const bool none = m2[h] == neg_big();
-      if ((lane & 3) == 0) {
+      const bool none = m[h] == neg_big();
+      if (tq == 0) {
         rowflag[wg * 64 + rA + 8 * h] = gr < M && none;
         if (a.m && gr < M)
           write_stats(a.m, a.l, gr, a.G, a.Sq, a.KV, b, kvh,
-                      none ? neg_big() : m2[h] * 0.6931471805599453f,
-                      lsum[h], a.den);
+                      none ? neg_big() : m[h] * a.scale, lsum[h], a.den);
       }
       if (gr >= M) continue;
       if (none) {
@@ -1166,22 +1938,21 @@ __global__ void __launch_bounds__(384, 1)
         continue;
       }
       const int s_ = gr / a.G, g = gr % a.G;
-      bf16* dst = out + (((long long)b * a.Sq + s_) * a.KV + kvh) * a.G * HD +
-                  (long long)g * HD + 2 * (lane & 3);
+      float* dst = out + (((long long)b * a.Sq + s_) * a.KV + kvh) * a.G * HD +
+                   (long long)g * HD + 2 * tq;
       const float den = fmaxf(lsum[h], 1e-30f);
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-            __floats2bfloat162_rn(o[4 * n + 2 * h] / den,
-                                  o[4 * n + 2 * h + 1] / den);
-      }
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(dst + n * 8) =
+            make_float2(o[n][2 * h] / den, o[n][2 * h + 1] / den);
     }
     if (mine) unseen[wg] = 1;
     named_bar(2 + wg, 128);
     if (unseen[wg])
-      fill_unseen<bf16>(static_cast<const bf16*>(a.v), out, rowflag + wg * 64,
-                        wrow0, 64, M, a.G, a.Sq, a.Skv, a.KV, HD, b, kvh,
-                        a.vs0, a.vs1, a.vs2, a.den, ctid, 128);
+      fill_unseen<float>(static_cast<const float*>(a.v), out,
+                         rowflag + wg * 64, wrow0, 64, M, a.G, a.Sq, a.Skv,
+                         a.KV, HD, b, kvh, a.vs0, a.vs1, a.vs2, a.den, ctid,
+                         128);
   }
 }
 
@@ -1501,7 +2272,8 @@ cudaError_t smem_limit(K kernel, int bytes) {
                               bytes);
 }
 
-// The general route: bf16 at any head size of the kernel, and f32.
+// The general route: bf16 at any head size of the kernel, and f32 (the
+// only route of f32 at hd 128 and 256).
 template <int HD>
 cudaError_t launch_fwd(const FwdArgs& a, int B, int dtype,
                        cudaStream_t stream) {
@@ -1554,7 +2326,8 @@ bool kv_map(CUtensorMap* m, const void* ptr, int hd, int KV, int Skv, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The Hopper route: bf16 at hd 64 and 128.
+// The Hopper route: bf16 at hd 64 and 128 (attn_fwd_tma), and 256
+// (attn_fwd_hd256, launch_fwd_hd256).
 template <int HD>
 cudaError_t launch_fwd_tma(const FwdArgs& a, int B, cudaStream_t stream) {
   using C = TmaCfg<HD>;
@@ -1567,6 +2340,30 @@ cudaError_t launch_fwd_tma(const FwdArgs& a, int B, cudaStream_t stream) {
   return hop::launch_smem(attn_fwd_tma<HD>, ready,
                           dim3((M + C::BM - 1) / C::BM, a.KV, B), C::THREADS,
                           C::SMEM, stream, km, vm, a);
+}
+
+cudaError_t launch_fwd_hd256(const FwdArgs& a, int B, cudaStream_t stream) {
+  using C = Hd256Cfg;
+  CUtensorMap km, vm;
+  if (!kv_map(&km, a.k, C::HD, a.KV, a.Skv, B, a.ks2, a.ks1, a.ks0, C::BN) ||
+      !kv_map(&vm, a.v, C::HD, a.KV, a.Skv, B, a.vs2, a.vs1, a.vs0, C::BN))
+    return cudaErrorInvalidValue;
+  const int M = a.Sq * a.G;
+  static bool ready = false;
+  return hop::launch_smem(attn_fwd_hd256, ready,
+                          dim3((M + C::BM - 1) / C::BM, a.KV, B), C::THREADS,
+                          C::SMEM, stream, km, vm, a);
+}
+
+// The tf32x3 route: f32 at hd 32, 64 and 80.
+template <int HD>
+cudaError_t launch_fwd_tf32x3(const FwdArgs& a, int B, cudaStream_t stream) {
+  using C = Tf32Cfg<HD>;
+  const int M = a.Sq * a.G;
+  static bool ready = false;
+  return hop::launch_smem(attn_fwd_tf32x3<HD>, ready,
+                          dim3((M + C::BM - 1) / C::BM, a.KV, B), C::THREADS,
+                          C::SMEM, stream, a);
 }
 
 template <typename T, int HD, int GB>
@@ -1611,7 +2408,8 @@ cudaError_t decode_hd(const DecArgs& a, int B, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-// route 1: the Hopper route (bf16, hd 64 or 128), 0: the general route
+// route 1: the Hopper route (bf16, hd 64, 128 or 256), 2: the tf32x3 route
+// (f32, hd 32, 64 or 80), 0: the general route
 extern "C" int flash_attn_fwd(
     const void* q, const void* k, const void* v, void* out, void* m,
     void* l, const void* qpos, int qpos64, const void* kpos, int kpos64,
@@ -1631,6 +2429,16 @@ extern "C" int flash_attn_fwd(
     switch (hd) {
       case 64: return launch_fwd_tma<64>(a, B, s);
       case 128: return launch_fwd_tma<128>(a, B, s);
+      case 256: return launch_fwd_hd256(a, B, s);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (route == 2) {
+    if (dtype != 1) return cudaErrorInvalidValue;
+    switch (hd) {
+      case 32: return launch_fwd_tf32x3<32>(a, B, s);
+      case 64: return launch_fwd_tf32x3<64>(a, B, s);
+      case 80: return launch_fwd_tf32x3<80>(a, B, s);
     }
     return cudaErrorInvalidValue;
   }

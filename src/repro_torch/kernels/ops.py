@@ -391,9 +391,10 @@ class FlashDecode(torch.autograd.Function):
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel name; ``<name>.tma``
     counts those of an FFN kernel's launches (forward or backward) that
-    took the TMA route. (The attention's Hopper-route launches are
-    ``flash.flash_attn_fwd.tma_launches``, reset here too: its route is a
-    function of (dtype, hd), :func:`.flash.route_of`.)"""
+    took the TMA route. (The attention's Hopper-route and tf32x3-route
+    launches are ``flash.flash_attn_fwd.tma_launches`` and
+    ``.tf32x3_launches``, reset here too: its route is a function of
+    (dtype, hd), :func:`.flash.route_of`.)"""
     return {"fused_moe_ffn": _capacity.fused_moe_ffn.launches,
             "fused_moe_ffn.tma": _capacity.fused_moe_ffn.tma_launches,
             "ragged_moe_ffn": _ragged.ragged_moe_ffn.launches,
@@ -421,3 +422,4 @@ def reset_launch_counts() -> None:
                _flash.flash_decode):
         fn.launches = 0
     _flash.flash_attn_fwd.tma_launches = 0
+    _flash.flash_attn_fwd.tf32x3_launches = 0

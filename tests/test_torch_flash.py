@@ -461,14 +461,16 @@ def test_decode_splits_depend_on_the_cache_length_alone(S_max):
 @pytest.mark.parametrize("hd", kflash.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prefill_route_depends_on_dtype_and_head_size_alone(hd, dtype):
-    """The Hopper route takes bf16 at hd 64 and 128, the general route
-    every other size and f32: a function of (dtype, hd) with no shape,
-    batch or device among its inputs, so a chunk and the whole prompt, a
-    rank and one device take the same route."""
+    """The Hopper route takes bf16 at hd 64, 128 and 256, the tf32x3 route
+    f32 at hd 32, 64 and 80, the general route every other pair: a
+    function of (dtype, hd) with no shape, batch or device among its
+    inputs, so a chunk and the whole prompt, a rank and one device take the
+    same route."""
     import inspect
     assert list(inspect.signature(kflash.route_of).parameters) == [
         "dtype", "hd"]
-    want = ("tma" if dtype == torch.bfloat16 and hd in (64, 128)
+    want = ("tma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
+            else "tf32x3" if dtype == torch.float32 and hd in (32, 64, 80)
             else "general")
     assert kflash.route_of(dtype, hd) == want
 
@@ -524,3 +526,83 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kflash.flash_decode(q[:, 0], k, k, torch.zeros(1, dtype=torch.int64))
     assert kflash.flash_attn_fwd.launches == kflash.flash_decode.launches == 0
+
+
+ATTN_REL_F32 = 1e-4   # the f32 route's bound on the card (chip_smoke.py)
+
+
+def _tf32(x):
+    """x with the low 13 mantissa bits masked: a TF32 value."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _route_mm(a, b, products):
+    """a @ b as the tf32x3 route takes it: each f32 operand split into big
+    (masked) and small (x - big, masked), three TF32 products accumulated
+    in f32, small.big, big.small, big.big; or one, big.big."""
+    ab, bb = _tf32(a), _tf32(b)
+    if products == 1:
+        return ab @ bb
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return a_s @ bb + ab @ b_s + ab @ bb
+
+
+def _route_attention(q, k, v, products, causal, window, tile=64):
+    """The tf32x3 route's arithmetic on CPU tensors: rows (s, g) of each
+    (lane, KV head), 64-key tiles from key 0, the online softmax in base 2
+    with the difference first (m the running max of q.k, p = 2^((q.k - m)
+    scale log2 e)), a masked pair -inf, S and P V each by ``_route_mm``."""
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    c2 = tflash._scale(hd) * float(np.log2(np.e))
+    qr = q.permute(0, 2, 1, 3, 4).reshape(B, KV, Sq * G, hd)
+    kr, vr = (t.permute(0, 2, 1, 3) for t in (k, v))
+    qp = torch.arange(Sq).repeat_interleave(G)[:, None]
+    m = torch.full((B, KV, Sq * G, 1), tflash._NEG)
+    l = torch.zeros((B, KV, Sq * G, 1))
+    o = torch.zeros((B, KV, Sq * G, hd))
+    for t0 in range(0, Skv, tile):
+        kp = torch.arange(t0, min(t0 + tile, Skv))[None, :]
+        ok = torch.ones((Sq * G, kp.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kp <= qp
+        if window:
+            ok &= qp - kp < window
+        s = _route_mm(qr, kr[:, :, t0:t0 + tile].transpose(-1, -2),
+                      products).masked_fill(~ok, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * c2)
+        p = torch.exp2((s - m_new) * c2)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + _route_mm(p, vr[:, :, t0:t0 + tile], products)
+        m = m_new
+    out = o / l.clamp(min=1e-30)
+    return out.reshape(B, KV, Sq, G, hd).permute(0, 2, 1, 3, 4)
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 100)])
+def test_tf32x3_products_hold_the_f32_bound_where_one_tf32_product_fails(
+        causal, window):
+    """The tf32x3 route's arithmetic, emulated at hubert-xlarge's head size
+    (hd 80; its encoder has no causal mask, the route also takes causal
+    and windowed calls) against the plain version in f32: each row's
+    relative L2 error within the f32 route's ATTN_REL_F32 (1e-4) with three
+    TF32 products for S and P V, and far outside it with one (a row reads
+    ~2e-6 and ~3e-3)."""
+    rng = np.random.default_rng(29)
+    B, Sq, KV, G, hd = 1, 192, 4, 1, 80
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((B, Sq, KV, G, hd), (B, Sq, KV, hd),
+                                   (B, Sq, KV, hd)))
+    pos = torch.arange(Sq)
+    want = tflash.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_positions=pos, kv_positions=pos)
+
+    def row_rel(got):
+        d = (got - want).flatten(0, -2).norm(dim=-1)
+        return (d / want.flatten(0, -2).norm(dim=-1)).max().item()
+
+    three = row_rel(_route_attention(q, k, v, 3, causal, window))
+    one = row_rel(_route_attention(q, k, v, 1, causal, window))
+    assert three <= ATTN_REL_F32 / 10, three
+    assert one > ATTN_REL_F32, one

@@ -797,9 +797,10 @@ def test_route_select_at_rank_rows(cuda, T):
 # versions (repro_torch.models.flash), each output row (hd values) by its
 # relative L2 error, the largest over rows: bf16 within ATTN_REL (both
 # round p and the output to bf16, from running maxima over other tiles:
-# ~3e-3 a row), f32 within ATTN_REL_F32 (FMA sums in another order than
-# the plain version's einsums). A zeroed row reads 1; a row that lost
-# half its keys reads far above the bound.
+# ~3e-3 a row), f32 within ATTN_REL_F32 (three TF32 products a product
+# on the tf32x3 route, FMA sums on the general route, each in another
+# order than the plain version's einsums). A zeroed row reads 1; a row
+# that lost half its keys reads far above the bound.
 ATTN_REL = 2e-2
 ATTN_REL_F32 = 1e-4
 
@@ -837,6 +838,12 @@ ATTN_CASES = [
      138128),
     (1, 128, 70000, 2, 3, 32, torch.bfloat16, True, 0, (68000, 68128),
      68128),
+    # past 1024 key tiles of 64 on the hd 256 Hopper route and the tf32x3
+    # route (1065 live tiles), the latter with keys cut by kv_valid
+    (1, 128, 70000, 2, 2, 256, torch.bfloat16, True, 0, (68000, 68128),
+     68128),
+    (1, 128, 70000, 2, 2, 80, torch.float32, True, 0, (68000, 68128),
+     67000),
 ]
 
 
@@ -1029,9 +1036,10 @@ def test_flash_decode_gradient_through_the_kernel(cuda):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attn_fwd_each_head_size_on_its_route(cuda, hd, dtype):
     """Every head size the kernel takes, in bf16 and f32, on the route
-    ``route_of`` names (the Hopper route's launches counted apart), against
-    the plain version; a causal call whose query rows start mid-prompt and
-    whose keys have a hole, over several key tiles."""
+    ``route_of`` names (the Hopper route: bf16 at 64, 128 and 256; the
+    tf32x3 route: f32 at 32, 64 and 80; each one's launches counted apart),
+    against the plain version; a causal call whose query rows start
+    mid-prompt and whose keys have a hole, over several key tiles."""
     from repro_torch.kernels import flash as k_flash
     from repro_torch.models import flash as t_flash
     g = torch.Generator().manual_seed(hd)
@@ -1047,23 +1055,27 @@ def test_flash_attn_fwd_each_head_size_on_its_route(cuda, hd, dtype):
     got = ops.flash_attention(q, k, v, **kw)
     want = t_flash.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    tma = k_flash.route_of(dtype, hd) == "tma"
-    assert tma == (dtype == torch.bfloat16 and hd in (64, 128))
+    route = k_flash.route_of(dtype, hd)
+    assert route == ("tma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
+                     else "tf32x3" if dtype == torch.float32
+                     and hd in (32, 64, 80) else "general")
     assert ops.launch_counts()["flash_attn_fwd"] == 1
-    assert k_flash.flash_attn_fwd.tma_launches == int(tma)
+    assert k_flash.flash_attn_fwd.tma_launches == int(route == "tma")
+    assert k_flash.flash_attn_fwd.tf32x3_launches == int(route == "tf32x3")
     assert _row_rel(got, want) <= _attn_tol(dtype)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
-def test_flash_attn_lane_alone_matches_its_lane_in_a_batch(cuda, hd):
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_lane_alone_matches_its_lane_in_a_batch(cuda, hd, dtype):
     """Lane i of a batch of 8 against lane i alone, bit for bit: a row's
     result depends on its own lane only (each lane a strided view of the
-    batch's tensors, as a rank's cut)."""
+    batch's tensors, as a rank's cut), on every route."""
     g = torch.Generator().manual_seed(20 + hd)
     B, S, KV, G = 8, 300, 2, 3
-    q = torch.randn((B, S, KV, G, hd), generator=g).to(cuda, torch.bfloat16)
-    k = torch.randn((B, S, KV, hd), generator=g).to(cuda, torch.bfloat16)
-    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    q = torch.randn((B, S, KV, G, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
     pos = torch.arange(S, device=cuda)
     kw = dict(causal=True, q_positions=pos, kv_positions=pos)
     whole = ops.flash_attention(q, k, v, **kw)
@@ -1073,17 +1085,19 @@ def test_flash_attn_lane_alone_matches_its_lane_in_a_batch(cuda, hd):
         assert torch.equal(alone[0], whole[i])
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-def test_flash_attn_chunk_matches_the_whole_prompt(cuda, hd):
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_chunk_matches_the_whole_prompt(cuda, hd, dtype):
     """A 128-row chunk against the cache's lane (keys past the chunk not
     yet valid) gives the same rows, bit for bit, as the whole prompt's
     call: the key tiles start at row 0 with a fixed length, and skipped
-    tiles are what computing them gives."""
+    tiles are what computing them gives (on every route: the Hopper route
+    at hd 64, 128 and 256, tf32x3 at 64 and 80 in f32)."""
     g = torch.Generator().manual_seed(30 + hd)
     S, KV, G = 640, 2, 3
-    q = torch.randn((1, S, KV, G, hd), generator=g).to(cuda, torch.bfloat16)
-    k = torch.randn((1, 1024, KV, hd), generator=g).to(cuda, torch.bfloat16)
-    v = torch.randn((1, 1024, KV, hd), generator=g).to(cuda, torch.bfloat16)
+    q = torch.randn((1, S, KV, G, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((1, 1024, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((1, 1024, KV, hd), generator=g).to(cuda, dtype)
     pos = torch.arange(S, device=cuda)
     kpos = torch.arange(1024, device=cuda)
     whole = ops.flash_attention(q, k[:, :S], v[:, :S], causal=True,
@@ -1094,6 +1108,33 @@ def test_flash_attn_chunk_matches_the_whole_prompt(cuda, hd):
             q_positions=pos[r0:r0 + 128], kv_positions=kpos,
             kv_valid=kpos < r0 + 128)
         assert torch.equal(chunk, whole[:, r0:r0 + 128])
+
+
+@pytest.mark.parametrize("hd,dtype", [
+    (64, torch.bfloat16), (128, torch.bfloat16), (256, torch.bfloat16),
+    (32, torch.float32), (64, torch.float32), (80, torch.float32)])
+def test_flash_attn_fwd_two_calls_bit_for_bit(cuda, hd, dtype):
+    """Two calls of the prefill kernel on the same inputs give the same
+    bits, out and the rows' stats (no atomics, no order that depends on the
+    schedule), on the Hopper and tf32x3 routes; a window and a hole in the
+    keys, so that some tiles are skipped and some masked."""
+    from repro_torch.kernels import flash as k_flash
+    g = torch.Generator().manual_seed(40 + hd)
+    B, S, KV, G = 2, 700, 2, 3
+    q = torch.randn((B, S, KV, G, hd), generator=g).to(cuda, dtype)
+    k = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    v = torch.randn((B, S, KV, hd), generator=g).to(cuda, dtype)
+    pos = torch.arange(S, device=cuda)
+    kw = dict(causal=True, window=300, q_positions=pos, kv_positions=pos,
+              kv_valid=(pos < 200) | (pos >= 260), return_stats=True)
+    ops.reset_launch_counts()
+    first = k_flash.flash_attn_fwd(q, k, v, **kw)
+    again = k_flash.flash_attn_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    route = k_flash.route_of(dtype, hd)
+    assert route in ("tma", "tf32x3")
+    assert getattr(k_flash.flash_attn_fwd, f"{route}_launches") == 2
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("S_max", [256, 1024, 32768])
