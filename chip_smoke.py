@@ -31,10 +31,11 @@ Run from the repository root on a machine with one NVIDIA H100. It
    ``kv_valid``, context mode's rows of 4 ranks, gemma3's hd 256 under a
    1024 window and a global layer of 1 x 8192, hubert's f32 encoder at
    hd 80, a 1 x 32768 prefill and a chunk against a lane of 140000 rows
-   (more than 1024 key tiles on either route), each on the route
-   ``route_of`` names (printed; its Hopper-route or tf32x3-route launches
-   counted) and, where that is not the general route, the general route
-   on the same inputs too; the decode kernel (one device operation
+   (more than 1024 key tiles), chunks past 1024 key tiles at hd 256 and
+   in f32, the serve CLI's default prefill (hd 32, 4 x 96), hd 32 at
+   1 x 32768, hubert's layout in bf16 and f32 at hd 128 and 256, each on
+   the route ``route_of`` names (printed; its launches counted on that
+   route's own count); the decode kernel (one device operation
    a call, counted by the profiler) at granite's 8 lanes of a 1024-row
    cache, a context shard's stats (lanes with no row in it) and 8 lanes
    of 32768 rows, each row within ``ATTN_REL`` (relative L2;
@@ -63,7 +64,9 @@ Run from the repository root on a machine with one NVIDIA H100. It
    per-route counter equal to the total), the attention kernels 32 times
    a prefill (``flash_attn_fwd``) and a decode call (``flash_decode``);
    every served path (5, 7-9, 11, 16 (h)-(j), 18) asserts these
-   attention counts and that no served weight requires a gradient;
+   attention counts and that no served weight requires a gradient; every
+   path that counts launches (the grids' ranks and the dry run's too)
+   finds each ``flash_attn_fwd`` launch on the tma or the tf32x3 route;
 6. admits a second batch into the same engine and traces 4 decode steps
    with ``torch.profiler``: the device's busy and idle share of a step,
    its device operations, its largest kernels with the operation that
@@ -104,6 +107,8 @@ Run from the repository root on a machine with one NVIDIA H100. It
    route, the attention kernels once an attention layer and call, the
    first prefill's logits against the same call through the MoE kernels'
    plain versions and its attention calls against the plain attention;
+   then the serve CLI as it runs by default (qwen3-moe-235b-a22b's smoke
+   config, hd 32), its launches counted the same way;
 12. training (after the serving engines are freed): the backward kernels
    against their plain versions at the training shape (1024 tokens x top-8
    = 8192 assignments, Zipf-skewed, some experts empty, row block 128) —
@@ -281,6 +286,9 @@ from repro_torch.launch.roofline import HBM_BW as HBM_BPS  # noqa: E402
 from repro_torch.launch.roofline import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12   # the tensor cores' dense TF32 rate
+# ex2 (the MUFU unit's exponentials): 16 a clock on each of 132 SMs at the
+# 1.98 GHz boost clock (the CUDA guide's throughput table, compute 9.0)
+EX2_PER_S = 16 * 132 * 1.98e9
 
 BF16_TOL = 5e-2       # the repo's bf16 tolerance (tests/test_kernels.py)
 # K1 and K2 against the plain backward, relative L2 of each output: both
@@ -451,6 +459,20 @@ def attn_layers(cfg) -> int:
     from repro_torch.models.model import block_layout
     nb, specs = block_layout(cfg)
     return nb * sum(s.mixer == "attn" for s in specs)
+
+
+def attn_routed(counts: dict, where: str) -> dict:
+    """``counts`` (``ops.launch_counts()``) without the attention's
+    per-route counts, once every ``flash_attn_fwd`` launch among them is
+    found on a named route (``flash_attn_fwd.tma`` and
+    ``flash_attn_fwd.tf32x3`` add up to ``flash_attn_fwd``)."""
+    out = dict(counts)
+    routed = (out.pop("flash_attn_fwd.tma", 0)
+              + out.pop("flash_attn_fwd.tf32x3", 0))
+    check(routed == out.get("flash_attn_fwd", 0),
+          f"{where}: {routed} of {out.get('flash_attn_fwd', 0)} "
+          "flash_attn_fwd launches on the tma and tf32x3 routes")
+    return out
 
 
 def attn_want(cfg, prefill=0, decode=0) -> dict:
@@ -645,14 +667,14 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     """Kernel A (``flash_attn_fwd``) at one call site's shape against the
     plain version on the same inputs (``row_rel`` within ATTN_REL, or
     ATTN_REL_F32 in f32; two calls bit for bit) on the route ``route_of``
-    names (its Hopper-route or tf32x3-route launches counted), then timed
-    as the FFNs are, beside the plain version and the library yardstick.
-    Where that is not the general route, the general route runs on the
-    same inputs too, held and timed the same way. The bound of the
-    tf32x3 route is its three TF32 products' (the FMA bound beside it).
-    With ``cut`` also what the check reads
-    for a kernel that dropped the second half of the keys (the plain
-    version with them masked): it must fail."""
+    names (its own launch count, so that the two routes' counts add up to
+    the kernel's), then timed as the FFNs are, beside the plain version
+    and the library yardstick. The bound of the tf32x3 route is its three
+    TF32 products' (the FMA bound beside it); in bf16 the exponentials'
+    time (an ex2 a valid pair at the SMs' ex2 rate) stands beside the
+    bound. With ``cut`` also what the check reads for a kernel that
+    dropped the second half of the keys (the plain version with them
+    masked): it must fail."""
     import torch
     from repro_torch.kernels import flash as t_flash
     from repro_torch.kernels import ops
@@ -668,18 +690,15 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
               kv_positions=kpos, kv_valid=kval)
     route = t_flash.route_of(dtype, hd)
     before = t_flash.flash_attn_fwd.launches
-    before_tma = t_flash.flash_attn_fwd.tma_launches
-    before_tf32 = t_flash.flash_attn_fwd.tf32x3_launches
+    on_route = f"{route}_launches"
+    before_route = getattr(t_flash.flash_attn_fwd, on_route)
     y = ops.flash_attention(q, k, v, **kw)
     y_ref = plain.flash_attention(q, k, v, **kw)
     y2 = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     check(t_flash.flash_attn_fwd.launches == before + 2,
           f"attention {name}: the dispatch did not launch the kernel")
-    check(t_flash.flash_attn_fwd.tma_launches - before_tma
-          == (2 if route == "tma" else 0)
-          and t_flash.flash_attn_fwd.tf32x3_launches - before_tf32
-          == (2 if route == "tf32x3" else 0),
+    check(getattr(t_flash.flash_attn_fwd, on_route) - before_route == 2,
           f"attention {name}: not on the {route} route")
     tol = ATTN_REL if dtype == torch.bfloat16 else ATTN_REL_F32
     err = row_rel(y, y_ref)
@@ -688,18 +707,6 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     check(err <= tol, f"attention {name}: row relative L2 of kernel - "
           f"plain {err} > {tol}")
     check(torch.equal(y, y2), f"attention {name}: two calls differ")
-    general = None
-    if route != "general":
-        g1 = t_flash.flash_attn_fwd(q, k, v, route="general", **kw)
-        g2 = t_flash.flash_attn_fwd(q, k, v, route="general", **kw)
-        torch.cuda.synchronize()
-        general = {"max_abs_err": row_rel(g1, y_ref)}
-        check(general["max_abs_err"] <= tol and torch.equal(g1, g2),
-              f"attention {name}, general route: row relative L2 "
-              f"{general['max_abs_err']} (bound {tol}), or two calls differ")
-        del g1, g2
-        general |= timings(lambda: t_flash.flash_attn_fwd(
-            q, k, v, route="general", **kw))
     cut_err = None
     if cut:
         half = kpos < Skv // 2 if kval is None else kval & (kpos < Skv // 2)
@@ -711,7 +718,9 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     res = timings(lambda: t_flash.flash_attn_fwd(q, k, v, **kw))
     plain_ms = median_ms(lambda: plain.flash_attention(q, k, v, **kw),
                          reps=plain_reps, warmup=1)
-    plain_full = causal and rows is None and n_valid is None and not window
+    # PyTorch's flash backend takes 16-bit inputs only: f32 gets the mask
+    plain_full = (causal and rows is None and n_valid is None and not window
+                  and dtype == torch.bfloat16)
     mask = None
     if not plain_full:
         mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
@@ -728,23 +737,17 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
                * k.element_size() + (Sq + Skv) * 8
                + (0 if kval is None else Skv))
     flops = 4 * hd * pairs
-    fma_ms = None
+    fma_ms = ex2_ms = None
     if dtype == torch.bfloat16:
         bound_ms, by = bound(n_bytes, flops, BF16_FLOPS)
+        ex2_ms = pairs / EX2_PER_S * 1e3
     else:
         fma_ms = bound(n_bytes, flops, F32_FLOPS)[0]
-        bound_ms, by = (bound(n_bytes, 3 * flops, TF32_FLOPS)
-                        if route == "tf32x3" else (fma_ms, "operations"))
-    gen_txt = "" if general is None else (
-        f"; the general route on the same inputs: row relative L2 "
-        f"{general['max_abs_err']:.3e}, two calls bit for bit, "
-        f"{general['ms']:.4f} ms ({100 * bound_ms / general['ms']:.1f}% of "
-        f"bound), {general['device_ms']:.4f} ms with the host ahead, host "
-        f"{general['host_us']:.1f} us a call")
+        bound_ms, by = bound(n_bytes, 3 * flops, TF32_FLOPS)
     print(f"[kernel] flash_attn_fwd {name}: q {tuple(q.shape)} k "
           f"{tuple(k.shape)} {str(dtype)[6:]}, causal {causal}, window "
           f"{window}, rows {rows or 'all'}, valid keys "
-          f"{n_valid or 'all'}, {route} route: row "
+          f"{n_valid or 'all'}, {route} route (2 launches on it): row "
           f"relative L2 {err:.3e} (tol {tol}"
           + ("" if cut_err is None else
              f"; half the keys dropped would read {cut_err:.3e}")
@@ -758,12 +761,15 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
              f", three TF32 products at {TF32_FLOPS / 1e12:.0f} TFLOP/s")
           + ("" if fma_ms is None else
              f"; the FMA bound {fma_ms:.4f} ms")
-          + f", {n_bytes / 1e6:.1f} MB){gen_txt}", flush=True)
+          + f", {n_bytes / 1e6:.1f} MB"
+          + ("" if ex2_ms is None else
+             f"; the exponentials {ex2_ms:.4f} ms, an ex2 a valid pair at "
+             f"{EX2_PER_S / 1e12:.2f} T/s")
+          + ")", flush=True)
     return {"max_abs_err": err, "cut_err": cut_err, **res,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "fma_bound_ms": fma_ms,
+            "fma_bound_ms": fma_ms, "ex2_ms": ex2_ms,
             "library_ms": library_ms, "kernel_route": route,
-            "general": general,
             "shape": {"q": list(q.shape), "k": list(k.shape),
                       "dtype": str(dtype)[6:], "causal": causal,
                       "window": window, "rows": rows, "n_valid": n_valid}}
@@ -949,8 +955,8 @@ def attention_cases(cfg, cgen, dev) -> dict:
                                           32768, 32768, KV, G, hd,
                                           plain_reps=1)
     # a 128-token chunk against a lane of 140000 rows: 1094 key tiles of
-    # 128 (the Hopper route; 2188 of 64 on the general route), past the
-    # 1024 whose states the kernels take a window at a time
+    # 128 on the Hopper route, past the 1024 whose states the kernels take
+    # a window at a time
     a["chunk-vs-140000"] = attention_case(
         "chunk-vs-140000", cgen, dev, 1, 128, 140000, KV, G, hd,
         rows=(138000, 138128), n_valid=138128, plain_reps=2)
@@ -963,6 +969,23 @@ def attention_cases(cfg, cgen, dev) -> dict:
         a[name] = attention_case(
             name, cgen, dev, 1, 128, 70000, 2, 2, hd, dtype=dtype,
             rows=(68000, 68128), n_valid=n_valid, plain_reps=2)
+    # the serve CLI's default prefill: its arch's smoke config (hd 32, KV 2
+    # x G 2) at --max-batch 4 --max-seq 96
+    a["serve-smoke-hd32"] = attention_case("serve-smoke-hd32", cgen, dev, 4,
+                                           96, 96, 2, 2, 32)
+    a["hd32-1x32768"] = attention_case("hd32-1x32768", cgen, dev, 1, 32768,
+                                       32768, 2, 2, 32, plain_reps=1)
+    # hubert's head layout (16 KV heads of one, hd 80, no mask) in bf16
+    a["bf16-hd80-2x2048"] = attention_case("bf16-hd80-2x2048", cgen, dev, 2,
+                                           2048, 2048, 16, 1, 80,
+                                           causal=False, plain_reps=2)
+    # f32 at hd 128 and 256 (the wide tf32x3 kernel)
+    a["f32-hd128-1x4096"] = attention_case(
+        "f32-hd128-1x4096", cgen, dev, 1, 4096, 4096, 8, 3, 128,
+        dtype=torch.float32, plain_reps=2)
+    a["f32-hd256-1x4096"] = attention_case(
+        "f32-hd256-1x4096", cgen, dev, 1, 4096, 4096, 4, 2, 256,
+        dtype=torch.float32, plain_reps=2)
     # the training path: granite's 4 x 512, and gemma3's hd 256 window
     out["grad"]["train-4x512"] = attention_grad_case(
         "train-4x512", cgen, dev, 4, 512, KV, G, hd)
@@ -1312,7 +1335,7 @@ def serve_path(cfg, dev, label, *, n_requests=8, output_cap=None,
             (t_decode if st.decode_steps > d0 else t_prefill).append(
                 time.perf_counter() - ts)
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = attn_routed(ops.launch_counts(), label)
     records = list(engine.records.values())
     calls = (st.chunk_steps or st.prefill_steps) + st.decode_steps
     check(all(np.isfinite(r.finished_at) for r in records) and
@@ -1649,7 +1672,7 @@ def jamba_phase(dev):
         ops.reset_launch_counts()
         engine, records, _ = serve(arch, n_requests=8, device=dev)
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts = attn_routed(ops.launch_counts(), "jamba")
     wall = time.perf_counter() - t0
     cfg, st = engine.cfg, engine.stats
     nb, specs = block_layout(cfg)
@@ -1703,8 +1726,55 @@ def jamba_phase(dev):
           f"plain version: row relative L2 {held.err:.3e} (tol "
           f"{ATTN_REL}); phase wall {time.perf_counter() - t0:.1f} s",
           flush=True)
+    cli = serve_cli_default(dev)
     return {"launches": counts, "first_prefill_max_abs_err": err,
-            "first_prefill_attention_row_rel": held.err}
+            "first_prefill_attention_row_rel": held.err, "serve_cli": cli}
+
+
+def serve_cli_default(dev, arch: str = "qwen3-moe-235b-a22b") -> dict:
+    """The serve CLI as it runs by default (``python -m
+    repro_torch.launch.serve``: its default arch's smoke config, 12
+    requests, ``--max-batch 4 --max-seq 96``) on the card: every request
+    finishes, the routing stage and the ragged FFN launch once a MoE layer
+    and model call on the TMA route, the attention kernels once an
+    attention layer and call, every prefill launch on a named route."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import block_layout
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    engine, records, _ = serve(arch, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    raw = ops.launch_counts()
+    counts = attn_routed(raw, "serve CLI")
+    cfg, st = engine.cfg, engine.stats
+    nb, specs = block_layout(cfg)
+    n_moe = nb * sum(sp.ffn == "moe" for sp in specs)
+    calls = st.prefill_steps + st.decode_steps
+    check(len(records) == 12 and all(np.isfinite(r.finished_at)
+                                     for r in records),
+          "serve CLI: not every request finished")
+    attn = attn_want(cfg, st.prefill_steps, st.decode_steps)
+    for name, n in counts.items():
+        want = (n_moe * calls if name in ("route_select", "ragged_moe_ffn",
+                                          "ragged_moe_ffn.tma")
+                else attn.get(name, 0))
+        check(n == want, f"serve CLI: {name} launched {n} times, expected "
+              f"{want} ({n_moe} MoE layers x {calls} model calls)")
+    check(counts["flash_attn_fwd"] > 0, "serve CLI: no prefill attention")
+    print(f"[serve-cli] {cfg.name} smoke (hd {cfg.hd}): {len(records)} "
+          f"requests finished in {st.steps} steps ({st.prefill_steps} "
+          f"prefill / {st.decode_steps} decode), wall {wall:.2f} s; "
+          f"flash_attn_fwd {raw['flash_attn_fwd']} launches, "
+          f"{raw['flash_attn_fwd.tma']} on the tma route, "
+          f"{raw['flash_attn_fwd.tf32x3']} on the tf32x3 route; launches "
+          f"{json.dumps(counts)}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": raw, "wall_s": wall, "steps": st.steps}
 
 
 def trace_decode(engine, n_steps: int = 4) -> None:
@@ -2088,7 +2158,7 @@ def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
         cfg.name, smoke=False, steps=steps, seq_len=seq_len, batch=batch,
         device=dev, step_times=times, log_every=1)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = attn_routed(ops.launch_counts(), "training")
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in _leaves(params))
     check(all(math.isfinite(v) for v in losses) and len(losses) == steps,
@@ -2520,7 +2590,7 @@ def kernel_vs_plain_step(cfg, dev, n_layers=2, seq_len=256, batch=4):
             loss, _ = loss_fn(small)(params, b, mt)
             loss.backward()
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts = attn_routed(ops.launch_counts(), f"{name} step")
         launched = sum(v for k, v in counts.items() if "." not in k)
         check(launched == want, f"{name} step: kernel launches {counts}")
         out[name] = (loss.detach(), [p.grad for p in leaves(params)])
@@ -3050,7 +3120,8 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
                 "bytes": collectives.clock.bytes}
         else:
             out["seconds"][name] = wall
-            out["launches"][name] = ops.launch_counts()
+            out["launches"][name] = attn_routed(ops.launch_counts(),
+                                                f"ep {name}")
         return res
 
     local = shard_params(cfg, params, rules, "prefill")
@@ -3136,7 +3207,8 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
                     decode_step(i, tok)
                     sync()
                     times.append(time.perf_counter() - t0)
-                out["launches"]["decode"] = ops.launch_counts()
+                out["launches"]["decode"] = attn_routed(
+                    ops.launch_counts(), "ep decode")
                 out["seconds"]["decode"] = st.median(times)
                 out["seconds"]["decode_all"] = sum(times)
             del dparams
@@ -4595,7 +4667,8 @@ def tp_rank(rank, plans, weights, refs, inputs):
                     "bytes": collectives.clock.bytes}
             else:
                 out["seconds"][name] = wall
-                out["launches"][name] = ops.launch_counts()
+                out["launches"][name] = attn_routed(ops.launch_counts(),
+                                                    f"grid {name}")
             return res
 
         def hold(name, lg, tal, want):
@@ -4677,7 +4750,8 @@ def tp_rank(rank, plans, weights, refs, inputs):
                         for (lg, t), w in zip(res, ref["decode/witness"])]
                 ops.reset_launch_counts()
                 res, times, cache = decode(contextlib.nullcontext)
-                out["launches"]["decode"] = ops.launch_counts()
+                out["launches"]["decode"] = attn_routed(
+                    ops.launch_counts(), "grid decode")
                 out["seconds"]["decode"] = st.median(times)
                 out["seconds"]["decode_all"] = sum(times)
                 rels, errs, moved = [], [], []
@@ -5194,7 +5268,8 @@ def _dryrun_rank(cfg, grid, weights, dev):
         wall = time.perf_counter() - t0
         collectives.clock.enabled = False
         out[label] = {
-            "costs": costs.as_dict(), "launches": ops.launch_counts(),
+            "costs": costs.as_dict(),
+            "launches": attn_routed(ops.launch_counts(), f"dry run {label}"),
             "clock": dict(collectives.clock.by_kind), "wall_s": wall,
             "peak": (torch.cuda.max_memory_allocated() - start
                      if cuda else 0)}
@@ -6003,7 +6078,7 @@ def _engine_rank(cfg, rules, params, ref, dev, kind="engine"):
         rep = _serve(eng, kind)
     _sync()
     out["run_s"] = time.perf_counter() - t0
-    out["launches"] = ops.launch_counts()
+    out["launches"] = attn_routed(ops.launch_counts(), "grid engine")
     out["bits"] = {k: bool(torch.equal(log["first"][k][0],
                                        ref["witness"][k][0])
                            and torch.equal(log["first"][k][1],
@@ -6418,7 +6493,7 @@ def frontend_phase(dev):
 
     def launches(what, want=None):
         """No kernel but the attention's: ``want`` of it (dense archs)."""
-        counts = ops.launch_counts()
+        counts = attn_routed(ops.launch_counts(), f"phase 18 {what}")
         check(counts == {k: (want or {}).get(k, 0) for k in counts},
               f"phase 18 {what}: kernels launched {counts}, expected "
               f"{want or 0}")
@@ -6852,7 +6927,7 @@ def main() -> int:
                              "decode": decode_res["route"]}}
 
     # the attention's prefill routes, as route_of picks them from (dtype,
-    # hd): "tma", "tf32x3", "general"
+    # hd): "tma" (bf16), "tf32x3" (f32)
     attn_routes = {}
     for dt in (torch.bfloat16, torch.float32):
         for hd in t_flash.HEAD_DIMS:

@@ -2,12 +2,13 @@
 """The f32 prefill kernel's accuracy as a row's key count grows, for one
 checkout.
 
-    python3 scripts/attn_accuracy.py --root DIR
+    python3 scripts/attn_accuracy.py --root DIR [--hd 80|128|256]
 
 Imports the port under ``DIR/src`` (its kernels built into ``DIR/build``)
 and, for each key count N in ``KEYS``, runs a 128-row chunk (rows
 N - 2000 to N - 1873, causal, the keys from N - 3000 on cut by
-``kv_valid``; hubert's hd 80, KV 2 x G 2, f32, from seed 80) through
+``kv_valid``; KV 2 x G 2, f32, from seed 80; ``--hd``: hubert's 80 by
+default, or 128 and 256, the wide tf32x3 kernel's) through
 ``ops.flash_attention`` and through the plain version in f32 and in f64.
 Prints each output's largest row relative L2 against the others: a
 kernel whose error grows with N while the plain f32 version's does not
@@ -37,7 +38,9 @@ def row_rel(a, b) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=pathlib.Path, required=True)
+    ap.add_argument("--hd", type=int, default=80)
     args = ap.parse_args()
+    hd = args.hd
     import torch
     if not torch.cuda.is_available():
         print("attn_accuracy: no CUDA device", file=sys.stderr)
@@ -51,12 +54,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=False).stdout.strip()
-    out = {"root": str(root), "card": card, "keys": {}}
+    out = {"root": str(root), "card": card, "hd": hd, "keys": {}}
     for n in KEYS:
         g = torch.Generator().manual_seed(80)
-        q = torch.randn((1, 128, 2, 2, 80), generator=g).cuda()
-        k = torch.randn((1, n, 2, 80), generator=g).cuda()
-        v = torch.randn((1, n, 2, 80), generator=g).cuda()
+        q = torch.randn((1, 128, 2, 2, hd), generator=g).cuda()
+        k = torch.randn((1, n, 2, hd), generator=g).cuda()
+        v = torch.randn((1, n, 2, hd), generator=g).cuda()
         kpos = torch.arange(n, device="cuda")
         kw = dict(causal=True, window=0, kv_positions=kpos,
                   q_positions=torch.arange(n - 2000, n - 1872,
@@ -69,10 +72,10 @@ def main() -> int:
         out["keys"][n] = r = {"kernel_vs_plain": row_rel(got, want),
                               "kernel_vs_f64": row_rel(got, exact),
                               "plain_vs_f64": row_rel(want, exact)}
-        print(f"[attn_accuracy] {root.name} {n} keys: kernel against the "
-              f"plain version {r['kernel_vs_plain']:.3e}, against f64 "
-              f"{r['kernel_vs_f64']:.3e}; the plain version against f64 "
-              f"{r['plain_vs_f64']:.3e}", flush=True)
+        print(f"[attn_accuracy] {root.name} hd {hd}, {n} keys: kernel "
+              f"against the plain version {r['kernel_vs_plain']:.3e}, "
+              f"against f64 {r['kernel_vs_f64']:.3e}; the plain version "
+              f"against f64 {r['plain_vs_f64']:.3e}", flush=True)
     print(json.dumps(out))
     return 0
 

@@ -12,8 +12,9 @@ with the card held by a spin kernel) and ``host_us`` (the host's time to
 issue one call), beside one ``scaled_dot_product_attention`` call on the
 same values and the bound (the larger of the bytes over 3.35 TB/s and the
 valid pairs' FLOPs over the bf16 peak; in f32 on the tf32x3 route three
-times the FLOPs over the TF32 peak, on the general route the FLOPs over
-the FMA units' peak). A digest of each output lets two
+times the FLOPs over the TF32 peak, on an FMA route the FLOPs over the
+FMA units' peak), with the exponentials' time beside it (an ex2 a valid
+pair at the SMs' ex2 rate). A digest of each output lets two
 checkouts' kernels be told apart or shown equal. To compare two
 checkouts, run it for each in turns in one command on one card (parent,
 change, change, parent). The last line of standard output is the result
@@ -46,7 +47,25 @@ PREFILL = {
     # gemma3-4b's global layers: causal, no window
     "gemma3-hd256-8192": (1, 8192, 8192, 4, 2, 256, "bf16", True, 0, None,
                           None),
+    # the serve CLI's default prefill (smoke size, --max-batch 4
+    # --max-seq 96) and its head size at length
+    "serve-smoke-hd32": (4, 96, 96, 2, 2, 32, "bf16", True, 0, None, None),
+    "hd32-1x32768": (1, 32768, 32768, 2, 2, 32, "bf16", True, 0, None,
+                     None),
+    # hubert's head layout in bf16
+    "bf16-hd80-2x2048": (2, 2048, 2048, 16, 1, 80, "bf16", False, 0, None,
+                         None),
+    "f32-hd128-1x4096": (1, 4096, 4096, 8, 3, 128, "f32", True, 0, None,
+                         None),
+    "f32-hd256-1x4096": (1, 4096, 4096, 4, 2, 256, "f32", True, 0, None,
+                         None),
+    # the tf32x3 route's other head sizes, whose kernel is unchanged
+    "f32-hd32-2x512": (2, 512, 512, 8, 3, 32, "f32", True, 0, None, None),
+    "f32-hd64-2x512": (2, 512, 512, 8, 3, 64, "f32", True, 0, None, None),
 }
+# an H100 SXM's ex2 rate: 16 a clock on each of 132 SMs at the 1.98 GHz
+# boost clock; one ex2 a (row, key) pair
+EX2_PER_S = 16 * 132 * 1.98e9
 LANES = [37, 100, 250, 511, 600, 800, 1000, 1023]
 # name: (B, S_max, KV, G, hd, pos, kpos_offset, stats)
 DECODE = {
@@ -90,7 +109,9 @@ def prefill_case(cs, name, seed):
     digest = _digest(out)
     del out
     res = cs.timings(call)
-    full = causal and rows is None and n_valid is None and not window
+    # PyTorch's flash backend takes 16-bit inputs only: f32 gets the mask
+    full = (causal and rows is None and n_valid is None and not window
+            and dtype == torch.bfloat16)
     mask = None
     if not full:
         mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
@@ -113,6 +134,7 @@ def prefill_case(cs, name, seed):
     else:
         bound_ms, by = cs.bound(n_bytes, 4 * hd * pairs, cs.F32_FLOPS)
     return {**res, "sdpa_ms": sdpa_ms, "bound_ms": bound_ms, "bound_by": by,
+            "ex2_ms": pairs / EX2_PER_S * 1e3,
             "share": bound_ms / res["device_ms"], "digest": digest,
             "route": route}
 
@@ -179,9 +201,10 @@ def main() -> int:
             out["prefill"][name] = r = prefill_case(cs, name, 100 + i)
             print(f"[attn_compare] {root.name} {name} ({r['route']}): device "
                   f"{r['device_ms']:.4f} ms ({100 * r['share']:.1f}% of "
-                  f"{r['bound_ms']:.4f}), ms {r['ms']:.4f}, host "
-                  f"{r['host_us']:.1f} us, SDPA {r['sdpa_ms']:.4f} ms",
-                  flush=True)
+                  f"{r['bound_ms']:.4f}, {r['bound_by']}; ex2 "
+                  f"{r['ex2_ms']:.4f}), ms {r['ms']:.4f}, host "
+                  f"{r['host_us']:.1f} us, SDPA {r['sdpa_ms']:.4f} ms, digest "
+                  f"{r['digest']}", flush=True)
             torch.cuda.empty_cache()
     for i, name in enumerate(DECODE):
         if args.only is None or name in args.only:

@@ -23,24 +23,26 @@
 // m) = 0). A row with no valid key at all gets the plain version's value,
 // sum(v) / (the padded key count), in a pass of its own. Given m and l, it
 // also writes each row's softmax stats, which a call that needs a gradient
-// keeps for the backward. Three routes, chosen by (dtype, hd) alone
+// keeps for the backward. Two routes, chosen by the dtype alone
 // (kernels/flash.py::route_of), so a chunk and the whole prompt, a rank
-// and one device, take the same one:
-//   * the Hopper route, bf16 at hd 64, 128 and 256: TMA and wgmma;
-//     attn_fwd_tma at 64 and 128 (128-row blocks of a producer and two
-//     consumer warpgroups, 128-key tiles), attn_fwd_hd256 at 256 (128-row
-//     blocks of two warpgroups and no producer, 64-key tiles; notes
-//     below);
-//   * the tf32x3 route (attn_fwd_tf32x3), f32 at hd 32, 64 and 80: 128-row
-//     blocks, 64-key tiles, each product as three TF32 products on the
-//     tensor cores (its note below);
-//   * the general route, bf16 at hd 32 and 80 (attn_fwd_bf16: 4 warps of
-//     16 rows on mma.sync m16n8k16, 64-row blocks, 64-key tiles) and f32 at
-//     hd 128 and 256 (attn_fwd_f32: FMA, 32-row blocks of 32-key tiles).
-//     Every size's instance stays, for route="general" (the wrapper's
-//     yardstick on the other routes' inputs).
-// Bound at long context: the tensor cores (f32 at hd 128 and 256: the FMA
-// units).
+// and one device, take the same one, each with a kernel for every head size
+// (32, 64, 80, 128, 256):
+//   * the Hopper route, bf16: TMA and wgmma, 128-row blocks; attn_fwd_tma
+//     at hd 32, 64, 80 and 128 (a producer and two consumer warpgroups,
+//     128-key tiles, hd 32 and 80 in a partial 64-value panel), and
+//     attn_fwd_hd256 at 256 (two warpgroups and no producer, 64-key tiles).
+//     Bound at long context: the exponentials at hd 32 (an ex2 a (row, key)
+//     pair takes longer than its products), both at hd 64, the tensor cores
+//     above (notes below);
+//   * the tf32x3 route, f32: each product as three TF32 products on the
+//     tensor cores, 128-row blocks; attn_fwd_tf32x3 at hd 32, 64 and 80
+//     (wgmma for S from Q's and K's split parts in shared memory, 64-key
+//     tiles), attn_fwd_tf32x3_wide at 128 and 256 (every product on
+//     mma.sync, each operand split in registers as it is read, 64- and
+//     32-key tiles: the split parts would not fit in shared memory). Bound:
+//     the tensor cores' TF32 rate over the three products (notes below).
+// A (dtype, hd) outside these raises in the wrapper; a refused launch
+// returns its error.
 //
 // Decode (flash_decode): one launch a call (decode_attn). A block reads one
 // split of split_rows cache rows of one (lane, KV head) once for up to 8 of
@@ -65,7 +67,7 @@ typedef __nv_bfloat16 bf16;
 // _NEG of models/flash.py (-0.7 * FLT_MAX) as torch rounds it to f32
 __device__ __forceinline__ float neg_big() { return __int_as_float(0xff333332); }
 
-constexpr int NT = 128;          // threads a block, every kernel
+constexpr int NT = 128;          // threads a block of the decode kernel
 
 struct Pos {
   const void* p;
@@ -196,36 +198,6 @@ __device__ __forceinline__ void fill_states(unsigned char* state, int base,
   }
 }
 
-// The block's rows' query positions: rowpos[r] for r < rows (rows past M
-// keep the block's first position) and, by every warp, their bounds.
-__device__ __forceinline__ void row_positions(const Pos& qpos, int row0,
-                                              int rows, int M, int G,
-                                              long long* rowpos,
-                                              long long* qmin,
-                                              long long* qmax) {
-  for (int r = threadIdx.x; r < rows; r += NT) {
-    const int gr = row0 + r < M ? row0 + r : row0;
-    rowpos[r] = qpos.at(gr / G, gr / G);
-  }
-  __syncthreads();
-  long long lo = rowpos[0], hi = rowpos[0];
-  for (int r = threadIdx.x & 31; r < rows; r += 32) {
-    if (row0 + r < M) {
-      lo = rowpos[r] < lo ? rowpos[r] : lo;
-      hi = rowpos[r] > hi ? rowpos[r] : hi;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) {
-    const long long a = __shfl_xor_sync(0xffffffffu, lo, o);
-    const long long b = __shfl_xor_sync(0xffffffffu, hi, o);
-    lo = a < lo ? a : lo;
-    hi = b > hi ? b : hi;
-  }
-  *qmin = lo;
-  *qmax = hi;
-}
-
 // Rows of the block with no valid key (rowflag set): sum(v) / den over
 // every key of the (lane, KV head), as the plain version gives them.
 // Threads tid of nthr share the columns.
@@ -265,15 +237,6 @@ __device__ __forceinline__ void write_stats(float* ms, float* ls, int gr,
   ls[i] = m == neg_big() ? den : l;
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -291,20 +254,7 @@ struct FwdArgs {
   float scale, den;
 };
 
-// ---------------------------------------------------------------- bf16
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
+// ------------------------------------------------------------- cp.async
 // 16 bytes from global to shared, asynchronously; zeros where !full
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
@@ -320,418 +270,66 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// The general route: 4 warps of 16 rows on mma.sync m16n8k16. The K and V
-// tiles go through two shared-memory buffers: the next live tile is copied
-// (cp.async) while the current one is computed. Fragments come from ldmatrix (V's
-// transposed); q's stay in registers for hd <= 128. The exponentials are
-// the hardware's (__expf, ex2 of x log2 e: a few ulp from expf, far below
-// the bf16 rounding of p that follows; the difference comes first, so
-// exp(_NEG - _NEG) is still 1 and exp(_NEG - m) still 0): at the tensor
-// cores' rate the accurate expf would take longer than the products.
-template <int HD, int BN>
-__global__ void __launch_bounds__(NT) attn_fwd_bf16(FwdArgs a) {
-  constexpr int BM = 64, LD = HD + 8, CH = HD / 8, KS = HD / 16;
-  constexpr bool QREG = HD <= 128;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BM * LD;            // [2][BN][LD]
-  bf16* Vs = Ks + 2 * BN * LD;        // [2][BN][LD]
-  constexpr int MAXT = 1024;
-  __shared__ long long rowpos[BM], kpos_s[2][BN];
-  __shared__ int kval_s[2][BN], rowflag[BM];
-  __shared__ unsigned char state_s[MAXT];
-
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  bf16* out = static_cast<bf16*>(a.out);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z, kvh = blockIdx.y, M = a.Sq * a.G;
-  const int row0 = blockIdx.x * BM;
-
-  for (int i = tid; i < BM * CH; i += NT) {
-    const int r = i / CH, c = i % CH, gr = row0 + r;
-    const bool in = gr < M;
-    const int s = in ? gr / a.G : 0, g = in ? gr % a.G : 0;
-    cp_async16(Qs + r * LD + c * 8,
-               q + b * a.qs0 + s * a.qs1 + kvh * a.qs2 + g * a.qs3 + c * 8,
-               in);
-  }
-  cp_async_commit();
-  long long qmin, qmax;
-  row_positions(a.qpos, row0, BM, M, a.G, rowpos, &qmin, &qmax);
-
-  const int rA = warp * 16 + (lane >> 2), rB = rA + 8, cq = (lane & 3) * 2;
-  const long long qpA = rowpos[rA], qpB = rowpos[rB];
-  // the lane's ldmatrix row: A (q) and K by row of the 8x8 matrices, V
-  // transposed
-  const int lm = lane >> 3, lr = lane & 7;
-  float m_r[2] = {neg_big(), neg_big()}, l_r[2] = {0.f, 0.f};
-  float o[CH][4];
-#pragma unroll
-  for (int n = 0; n < CH; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  uint32_t qf[QREG ? KS : 1][4];
-
-  const int ntiles = (a.Skv + BN - 1) / BN;
-  // the tiles' states (tile_states) for a window of MAXT tiles at a time,
-  // each warp a quarter of them, so that no tile of the loop below waits
-  // on its positions' loads
-  int base = -MAXT;
-  auto next_live = [&](int t, int* state) {
-    for (; t < ntiles; ++t) {
-      if (t >= base + MAXT) {
-        base = t;
-        __syncthreads();                  // the last window's readers
-        fill_states<BN, MAXT>(state_s, base, warp, NT / 32, a.kpos, a.kval,
-                              ntiles, a.Skv, qmin, qmax, a.causal, a.window);
-        __syncthreads();
-      }
-      *state = state_s[t - base];
-      if (*state) return t;
-    }
-    return ntiles;
-  };
-  // a fully live tile (state 2) needs no positions: nothing is masked
-  auto issue = [&](int t, int buf, int st) {
-    const int key0 = t * BN;
-    bf16* kd = Ks + buf * BN * LD;
-    bf16* vd = Vs + buf * BN * LD;
-    for (int i = tid; i < BN * CH; i += NT) {
-      const int j = i / CH, c = i % CH, key = key0 + j;
-      const bool in = key < a.Skv;
-      const int kk = in ? key : 0;
-      cp_async16(kd + j * LD + c * 8,
-                 k + b * a.ks0 + kk * a.ks1 + kvh * a.ks2 + c * 8, in);
-      cp_async16(vd + j * LD + c * 8,
-                 v + b * a.vs0 + kk * a.vs1 + kvh * a.vs2 + c * 8, in);
-    }
-    cp_async_commit();
-    for (int j = tid; j < BN && st == 1; j += NT) {
-      const int key = key0 + j;
-      kpos_s[buf][j] = key < a.Skv ? a.kpos.at(key, key) : 0;
-      kval_s[buf][j] = key >= a.Skv ? -1 : (a.kval && !a.kval[key] ? 0 : 1);
-    }
-  };
-
-  int state = 0, buf = 0;
-  int t = next_live(0, &state);
-  if (t < ntiles) issue(t, 0, state);
-  bool first = true;
-  while (t < ntiles) {
-    int next_state = 0;
-    const int tn = next_live(t + 1, &next_state);
-    if (tn < ntiles) {
-      issue(tn, buf ^ 1, next_state);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (QREG && first) {
-#pragma unroll
-      for (int kk = 0; kk < (QREG ? KS : 1); ++kk)
-        ldsm_x4(qf[kk], Qs + (warp * 16 + lr + (lm & 1) * 8) * LD + kk * 16 +
-                            (lm >> 1) * 8);
-    }
-    first = false;
-    const bf16* Kt = Ks + buf * BN * LD;
-    const bf16* Vt = Vs + buf * BN * LD;
-
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t af[4];
-      if (QREG) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) af[i] = qf[QREG ? kk : 0][i];
-      } else {
-        ldsm_x4(af, Qs + (warp * 16 + lr + (lm & 1) * 8) * LD + kk * 16 +
-                        (lm >> 1) * 8);
-      }
-#pragma unroll
-      for (int j = 0; j < BN / 8; j += 2) {
-        uint32_t bf[4];
-        ldsm_x4(bf, Kt + (j * 8 + (lm >> 1) * 8 + lr) * LD + kk * 16 +
-                        (lm & 1) * 8);
-        mma_bf16(s[j], af, bf[0], bf[1]);
-        mma_bf16(s[j + 1], af, bf[2], bf[3]);
-      }
-    }
-    // scale and mask; the tile's row max (rows rA, rB)
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + cq + (e & 1), h = e >> 1;
-        float sv;
-        if (state == 2) {
-          sv = s[j][e] * a.scale;
-        } else {
-          const int kv = kval_s[buf][col];
-          if (kv < 0)
-            sv = -INFINITY;               // past Skv: no key at all
-          else if (kv == 0 || !allowed(h ? qpB : qpA, kpos_s[buf][col],
-                                       a.causal, a.window))
-            sv = neg_big();
-          else
-            sv = s[j][e] * a.scale;
-        }
-        s[j][e] = sv;
-        tmax[h] = fmaxf(tmax[h], sv);
-      }
-    }
-    float corr[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
-      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
-      const float m_new = fmaxf(m_r[h], tmax[h]);
-      corr[h] = __expf(m_r[h] - m_new);
-      m_r[h] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        s[j][e] = __expf(s[j][e] - m_r[h]);
-        rsum[h] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
-      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
-      l_r[h] = l_r[h] * corr[h] + rsum[h];
-    }
-#pragma unroll
-    for (int n = 0; n < CH; ++n) {
-      o[n][0] *= corr[0]; o[n][1] *= corr[0];
-      o[n][2] *= corr[1]; o[n][3] *= corr[1];
-    }
-    // O += P V, P (bf16) straight from the score accumulators
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < CH; n += 2) {
-        uint32_t vf[4];
-        ldsm_x4_t(vf, Vt + (kk * 16 + (lm & 1) * 8 + lr) * LD +
-                          (n + (lm >> 1)) * 8);
-        mma_bf16(o[n], pf, vf[0], vf[1]);
-        mma_bf16(o[n + 1], pf, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();                      // buf is free for the next copy
-    t = tn;
-    state = next_state;
-    buf ^= 1;
-  }
-  cp_async_wait<0>();
-
-  if ((lane & 3) == 0) {
-    rowflag[rA] = m_r[0] == neg_big();
-    rowflag[rB] = m_r[1] == neg_big();
-    for (int h = 0; h < 2 && a.m; ++h) {
-      const int gr = row0 + (h ? rB : rA);
-      if (gr < M)
-        write_stats(a.m, a.l, gr, a.G, a.Sq, a.KV, b, kvh, m_r[h], l_r[h],
-                    a.den);
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int gr = row0 + (h ? rB : rA);
-    if (gr >= M || m_r[h] == neg_big()) continue;
-    const int s_ = gr / a.G, g = gr % a.G;
-    bf16* dst = out + (((long long)b * a.Sq + s_) * a.KV + kvh) * a.G * HD +
-                (long long)g * HD + cq;
-    const float den = fmaxf(l_r[h], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < CH; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-          o[n][2 * h] / den, o[n][2 * h + 1] / den);
-    }
-  }
-  const bool mine = (row0 + rA < M && m_r[0] == neg_big()) ||
-                    (row0 + rB < M && m_r[1] == neg_big());
-  if (__syncthreads_or(mine))
-    fill_unseen<bf16>(v, out, rowflag, row0, BM, M, a.G, a.Sq, a.Skv, a.KV,
-                      HD, b, kvh, a.vs0, a.vs1, a.vs2, a.den, tid, NT);
-}
-
-// ----------------------------------------------------------------- f32
-template <int HD>
-__global__ void __launch_bounds__(NT) attn_fwd_f32(FwdArgs a) {
-  constexpr int BM = 32, BN = 32, NC = HD / 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + BN * HD;
-  __shared__ long long rowpos[BM], kpos_s[BN];
-  __shared__ int kval_s[BN], rowflag[BM];
-
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  float* out = static_cast<float*>(a.out);
-  const int tid = threadIdx.x, r = tid >> 2, qi = tid & 3;
-  const int b = blockIdx.z, kvh = blockIdx.y, M = a.Sq * a.G;
-  const int row0 = blockIdx.x * BM, gr = row0 + r;
-
-  // this thread's columns of its row: 4 i + qi
-  float qv[NC], acc[NC];
-  {
-    const int s_ = gr < M ? gr / a.G : 0, g = gr < M ? gr % a.G : 0;
-    const float* src = q + b * a.qs0 + s_ * a.qs1 + kvh * a.qs2 + g * a.qs3;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      qv[i] = gr < M ? src[4 * i + qi] : 0.f;
-      acc[i] = 0.f;
-    }
-  }
-  long long qmin, qmax;
-  row_positions(a.qpos, row0, BM, M, a.G, rowpos, &qmin, &qmax);
-  const long long qp = rowpos[r];
-  float m = neg_big(), l = 0.f;
-
-  const int ntiles = (a.Skv + BN - 1) / BN;
-  for (int t = 0; t < ntiles; ++t) {
-    const int key0 = t * BN;
-    int st;
-    tile_states<BN, 1>(a.kpos, a.kval, t, ntiles, a.Skv, qmin, qmax,
-                       a.causal, a.window, &st);
-    if (!st) continue;
-    __syncthreads();
-    for (int i = tid; i < BN * (HD / 4); i += NT) {
-      const int j = i / (HD / 4), c = i % (HD / 4), key = key0 + j;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (key < a.Skv) {
-        kk = *reinterpret_cast<const float4*>(k + b * a.ks0 + key * a.ks1 +
-                                              kvh * a.ks2 + c * 4);
-        vv = *reinterpret_cast<const float4*>(v + b * a.vs0 + key * a.vs1 +
-                                              kvh * a.vs2 + c * 4);
-      }
-      *reinterpret_cast<float4*>(Ks + j * HD + c * 4) = kk;
-      *reinterpret_cast<float4*>(Vs + j * HD + c * 4) = vv;
-    }
-    for (int j = tid; j < BN; j += NT) {
-      const int key = key0 + j;
-      kpos_s[j] = key < a.Skv ? a.kpos.at(key, key) : 0;
-      kval_s[j] = key >= a.Skv ? -1 : (a.kval && !a.kval[key] ? 0 : 1);
-    }
-    __syncthreads();
-
-    float s[BN];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BN; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) part += qv[i] * Ks[j * HD + 4 * i + qi];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int kv = kval_s[j];
-      float sv;
-      if (kv < 0)
-        sv = -INFINITY;
-      else if (kv == 0 || !allowed(qp, kpos_s[j], a.causal, a.window))
-        sv = neg_big();
-      else
-        sv = part * a.scale;
-      s[j] = sv;
-      tmax = fmaxf(tmax, sv);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    m = m_new;
-    float rsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BN; ++j) {
-      s[j] = expf(s[j] - m);
-      rsum += s[j];
-    }
-    l = l * corr + rsum;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      float pv = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN; ++j) pv += s[j] * Vs[j * HD + 4 * i + qi];
-      acc[i] = acc[i] * corr + pv;
-    }
-  }
-
-  if (qi == 0) {
-    rowflag[r] = m == neg_big();
-    if (a.m && gr < M)
-      write_stats(a.m, a.l, gr, a.G, a.Sq, a.KV, b, kvh, m, l, a.den);
-  }
-  if (gr < M && m != neg_big()) {
-    const int s_ = gr / a.G, g = gr % a.G;
-    float* dst = out + (((long long)b * a.Sq + s_) * a.KV + kvh) * a.G * HD +
-                 (long long)g * HD;
-    const float den = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < NC; ++i) dst[4 * i + qi] = acc[i] / den;
-  }
-  if (__syncthreads_or(gr < M && m == neg_big()))
-    fill_unseen<float>(v, out, rowflag, row0, BM, M, a.G, a.Sq, a.Skv, a.KV,
-                       HD, b, kvh, a.vs0, a.vs1, a.vs2, a.den, tid, NT);
-}
-
 // ------------------------------------------------------ bf16, Hopper route
-// The prefill route for bf16 at hd 64 and 128 (kernels/flash.py::route_of;
-// at hd 256 attn_fwd_hd256, its note below): a block of 384 threads, 128
-// rows of one (lane, KV head), 128-key tiles.
-//   * Prologue, every thread: Q's 128 rows into the 128-byte swizzled
-//     layout wgmma reads (a block's rows are s * G + g, not a TMA box, so
-//     plain 16-byte loads), the block's query-position bounds, and the
-//     states of the first 1024 key tiles (fill_states: two tiles a warp a
-//     round trip, twelve warps). The scan over every key tile is a block's
-//     fixed cost, whatever its causal extent; done by the producer's four
-//     warps one tile a round trip, it held each block's first tile back.
+// The prefill route for bf16 at hd 32, 64, 80 and 128
+// (kernels/flash.py::route_of; at hd 256 attn_fwd_hd256, its note below): a
+// block of 384 threads, 128 rows of one (lane, KV head), 128-key tiles.
+//   * Panels. A row of Q, K or V is ceil(hd / 64) panels of 64 values, 128
+//     bytes a row in the 128-byte swizzle wgmma reads; at hd 32 and 80 the
+//     last panel is partial. TMA reads K's and V's columns past hd as zeros
+//     (the maps' first dimension is hd, the box 64 wide), and no product
+//     reads them: S takes hd / 16 k-steps (2 at hd 32, 5 at hd 80, the last
+//     from the partial panel's first 32 bytes a row), P V takes N = hd (one
+//     wgmma m64n32 or m64n80 over the panels, LBO a panel), so S and O are
+//     what hd columns give bit for bit.
+//   * Prologue, every thread: Q's 128 rows into that layout (a block's rows
+//     are s * G + g, not a TMA box, so plain 16-byte loads), the block's
+//     query-position bounds, and the states of the first 1024 key tiles
+//     (fill_states: two tiles a warp a round trip, twelve warps). The scan
+//     over every key tile is a block's fixed cost, whatever its causal
+//     extent; done by the producer's four warps one tile a round trip, it
+//     held each block's first tile back.
 //   * Warpgroup 0, the producer (setmaxnreg down to 56): lane 0 of warp 0
 //     walks the live tiles in order and keeps them in flight through a ring
-//     of STAGES slots (4 at hd 64, 2 at hd 128), K and V each as hd / 64
-//     panels of 128 keys x 128 bytes copied by TMA (cp.async.bulk.tensor
-//     over the (hd, KV, Skv, B) view with the caller's strides, 128-byte
-//     swizzle, keys past Skv read as zeros), completion on the slot's full
-//     mbarrier. Beside the slot it writes the tile's index and state and,
-//     for a tile with some masked pairs, its keys' positions and validity;
-//     after the last live tile a slot with index -1 ends the walk. Its four
-//     warps judge the later windows of 1024 tiles.
+//     of STAGES slots (4 with one panel, 2 with two: at hd 80 a third slot
+//     of 64 KB does not fit beside Q), K and V each as its panels of 128
+//     keys x 128 bytes copied by TMA (cp.async.bulk.tensor over the (hd,
+//     KV, Skv, B) view with the caller's strides, keys past Skv read as
+//     zeros), completion on the slot's full mbarrier. Beside the slot it
+//     writes the tile's index and state and, for a tile with some masked
+//     pairs, its keys' positions and validity; after the last live tile a
+//     slot with index -1 ends the walk. Its four warps judge the later
+//     windows of 1024 tiles.
 //   * Warpgroups 1 and 2, the consumers (setmaxnreg up to 224), 64 rows
 //     each: S = Q K^T by wgmma m64n128k16 from shared memory, the masks
 //     and the online softmax in registers, P rounded to bf16 in registers
 //     as wgmma's A operand, O += P V by wgmma m64n{hd}k16 with V MN-major
 //     (the transpose bit); lane 0 of each warp frees a slot on its empty
-//     mbarrier. At hd 64 the two take turns at the tensor cores (named
-//     barriers 4 and 5, ping-pong), a turn issuing this tile's S with the
-//     last tile's P V, so that one's softmax runs under the other's
+//     mbarrier. At hd 32, 64 and 80 the two take turns at the tensor cores
+//     (named barriers 4 and 5, ping-pong), a turn issuing this tile's S with
+//     the last tile's P V, so that one's softmax runs under the other's
 //     products. At hd 128 S, P and O do not fit together in the 168
 //     registers a thread that ptxas (CUDA 12.9) gives the consumer path
 //     here (it spills and serialises wgmma; it does raise a plain kernel's
 //     budget to setmaxnreg's), so each warpgroup runs S, softmax, P V in
 //     turn.
-// The softmax is the general route's in base 2: m2 the running max of
-// q.k scale log2 e, p = 2^(q.k c2 - m2) by one FFMA and ex2, a masked pair
-// -inf (p = 0); the stats come back as m2 ln 2 (a row with no valid key
-// keeps _NEG and takes l = the padded key count, as the general route).
-// Computing a tile whose every pair is masked leaves m, l and O as they
-// were (the correction exp2(0) = 1, p = 0), so a skipped tile is still
-// bitwise what computing it gives. Which route runs depends on (dtype, hd)
-// alone. The row blocks go longest first (causal rows at the end of the
-// prompt have the most tiles). Host cost: two tensor maps encoded a call
-// (cuTensorMapEncodeTiled, on the host). Bound at long
-// context: the tensor cores, here held back at hd 64 by the exponentials
-// (the 16 a clock of an SM's ex2 units take as long as a tile's products)
-// and by each block's tile-state scan.
+// The softmax is in base 2: m2 the running max of q.k scale log2 e, p =
+// 2^(q.k c2 - m2) by one FFMA and ex2, a masked pair -inf (p = 0); the
+// stats come back as m2 ln 2 (a row with no valid key keeps _NEG and takes
+// l = the padded key count, as the plain version). Computing a tile whose
+// every pair is masked leaves m, l and O as they were (the correction
+// exp2(0) = 1, p = 0), so a skipped tile is still bitwise what computing it
+// gives. Which route runs depends on (dtype, hd) alone. The row blocks go
+// longest first (causal rows at the end of the prompt have the most
+// tiles). Host cost: two tensor maps encoded a call (cuTensorMapEncodeTiled,
+// on the host). Bound at long context: at hd 80 and 128 the tensor cores;
+// at hd 64 the exponentials as much (the 16 a clock of an SM's ex2 units
+// take as long as a tile's products), and at hd 32 the exponentials alone
+// (a (row, key) pair's ex2 takes 1.9x its 4 hd FLOPs at the tensor cores'
+// rate): there the ping-pong keeps the ex2 units of one warpgroup busy
+// while the other's products run, and 128-key tiles spread each tile's
+// fixed cost (the row maxima, the barriers) and the tile-state scan over
+// more keys. Each block's tile-state scan is a fixed cost besides.
 namespace hop = moe_ffn_hopper;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -789,12 +387,50 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// O (64 x N, f32) += P (64 x 16, bf16 in registers: a warp's 16 rows as
+// mma.sync m16n8k16's A fragment) V (16 x N, bf16, MN-major in shared
+// memory: the transpose bit), wgmma_rs by O's size: N = 32 and 80 (hd 32
+// and 80: the first 32 columns of one panel, or one panel and the next's
+// first 16 columns LBO on), 64, 128 and 256 below
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // O (64 x 64, f32) += P (64 x 16, bf16 in registers: a warp's 16
 // rows as mma.sync m16n8k16's A fragment) V (16 x 64, bf16,
 // MN-major in shared memory: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -815,9 +451,8 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 // O (64 x 128, f32) += P (64 x 16, bf16 in registers: a warp's 16
 // rows as mma.sync m16n8k16's A fragment) V (16 x 128, bf16,
 // MN-major in shared memory: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -869,9 +504,8 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
 // rows as mma.sync m16n8k16's A fragment) V (16 x 256, bf16,
 // MN-major in shared memory: the transpose bit; four 64-wide panels LBO
 // apart)
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -1061,21 +695,24 @@ template <int HD>
 struct TmaCfg {
   static constexpr int BM = 128;          // rows a block
   static constexpr int BN = 128;          // keys a tile
-  static constexpr int PANELS = HD / 64;  // 64-value panels of a row
+  // 64-value panels of a row, the last partial at hd 32 and 80
+  static constexpr int PANELS = (HD + 63) / 64;
   static constexpr int PANEL = BN * 128;  // bytes of a K or V panel
   static constexpr int Q_PANEL = BM * 128;
   static constexpr int Q_BYTES = PANELS * Q_PANEL;
   static constexpr int TILE_BYTES = 2 * PANELS * PANEL;  // K and V
-  static constexpr int STAGES = HD == 64 ? 4 : 2;
+  static constexpr int STAGES = PANELS == 1 ? 4 : 2;
   // + 1 KB so that the panels start on the swizzle atom (1024 bytes)
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * TILE_BYTES;
   static constexpr int THREADS = 384;
   // ping-pong, a turn issuing this tile's S with the last tile's P V (hd
-  // 64); at hd 128 S, P and O would not fit together in the 168 registers
-  // a thread that ptxas allocates (it spills and serialises wgmma), so
-  // each warpgroup runs S, softmax, P V in turn
-  static constexpr bool PAIR = HD == 64;
-  static_assert(HD == 64 || HD == 128, "the Hopper route's head sizes");
+  // 32, 64, 80); at hd 128 S, P and O would not fit together in the 168
+  // registers a thread that ptxas allocates (it spills and serialises
+  // wgmma), so each warpgroup runs S, softmax, P V in turn
+  static constexpr bool PAIR = HD <= 80;
+  static_assert(HD == 32 || HD == 64 || HD == 80 || HD == 128,
+                "the Hopper route's head sizes");
+  static_assert(SMEM + 8192 <= 227 * 1024, "shared memory");
 };
 
 template <int HD>
@@ -1210,11 +847,11 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 
-    // hd 64 (PAIR): the warpgroups take turns at the tensor cores (named
-    // barriers 4 and 5, ping-pong), so that one's softmax runs under the
-    // other's products; a turn issues this tile's S with the last tile's
-    // P V, and the last tile's slot is freed once both are done. hd 128:
-    // S, softmax, then P V of the same tile, and the slot is freed.
+    // hd 32, 64, 80 (PAIR): the warpgroups take turns at the tensor cores
+    // (named barriers 4 and 5, ping-pong), so that one's softmax runs under
+    // the other's products; a turn issues this tile's S with the last
+    // tile's P V, and the last tile's slot is freed once both are done. hd
+    // 128: S, softmax, then P V of the same tile, and the slot is freed.
     uint32_t pf_last[C::PAIR ? BN / 16 : 1][4];   // PAIR: the last P
     int prev = -1;                        // the last tile's slot (PAIR)
     if (C::PAIR && wg == 1) named_arrive(4, 256);   // warpgroup 0 first
@@ -1249,8 +886,8 @@ __global__ void __launch_bounds__(384, 1)
                 ring + prev * C::TILE_BYTES + C::PANELS * C::PANEL;
 #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk)
-              wgmma_rs_n64(o, pf_last[kk],
-                           hop::sw128_desc(vst + kk * 2048, C::PANEL));
+              wgmma_rs(o, pf_last[kk],
+                       hop::sw128_desc(vst + kk * 2048, C::PANEL));
           }
         }
         hop::wgmma_commit();
@@ -1279,8 +916,7 @@ __global__ void __launch_bounds__(384, 1)
           hop::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BN / 16; ++kk)
-            wgmma_rs_n128(o, pf[kk],
-                          hop::sw128_desc(vst + kk * 2048, C::PANEL));
+            wgmma_rs(o, pf[kk], hop::sw128_desc(vst + kk * 2048, C::PANEL));
           hop::wgmma_commit();
           hop::wgmma_wait_all();
         }
@@ -1488,7 +1124,7 @@ __global__ void __launch_bounds__(256, 1)
     hop::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs_n256(o, pf[kk], hop::sw128_desc(vst + kk * 2048, C::PANEL));
+      wgmma_rs(o, pf[kk], hop::sw128_desc(vst + kk * 2048, C::PANEL));
     hop::wgmma_commit();
     hop::wgmma_wait_all();
     t = tn;
@@ -1543,8 +1179,8 @@ __global__ void __launch_bounds__(256, 1)
 //     is for 16-bit types), so it would need V^T's big and small parts in
 //     shared memory, 40 KB more a stage at hd 80 beside Q's 80 KB and two
 //     stages of K's parts (40 KB each): past the 227 KB a block may have.
-//     f32 at hd 128 and 256 stays on the FMA kernel (attn_fwd_f32) for the
-//     same reason: Q's two parts alone take 128 and 256 KB.
+//     f32 at hd 128 and 256 takes attn_fwd_tf32x3_wide (its note below)
+//     for the same reason: Q's two parts alone would take 128 and 256 KB.
 //     Each 8 keys' and 8 columns' three products go into a zeroed fragment
 //     that the FMA units then add to O: the tensor cores' f32 accumulation
 //     drops an addend's bits below the sum's, toward zero, a drift that
@@ -1553,7 +1189,7 @@ __global__ void __launch_bounds__(256, 1)
 //     The fragments cost registers: at hd 64 and 80 ptxas takes the 168
 //     that 384 threads leave and spills 100 and 112 bytes (none at hd 32;
 //     with the column blocks outermost 32 and 20, no faster). Both stay
-//     here: at hubert's shape the FMA kernel takes 4.5x as long.
+//     here: at hubert's shape an FMA kernel took 4.5x as long.
 // The softmax keeps f32's accuracy in base 2 with the difference first: m
 // the running max of q.k (unscaled), p = 2^((q.k - m) scale log2 e) by
 // ex2.approx (2 ulp), the correction 2^((m_old - m_new) scale log2 e); a
@@ -1956,6 +1592,300 @@ __global__ void __launch_bounds__(384, 1) attn_fwd_tf32x3(FwdArgs a) {
   }
 }
 
+// ---------------------------- f32 at hd 128 and 256, three TF32 products
+// The tf32x3 route at hd 128 and 256 (attn_fwd_tf32x3_wide): the
+// arithmetic of attn_fwd_tf32x3 (each f32 product as three TF32 products,
+// the splits masked explicitly; each 8 keys' P V products added to O by the
+// FMA units) in another layout, since its parts do not fit here: Q's big
+// and small parts alone would take 128 and 256 KB of 128 rows, K's two
+// more a tile.
+//   * Shared memory holds each operand once, raw f32: Q's 128 rows, one
+//     tile of K and one of V, each row hd + 4 floats apart, so that a
+//     warp's fragment loads hit 32 distinct banks: 132 KB at hd 128
+//     (64-key tiles), 195 KB at hd 256 (32-key tiles).
+//   * Every product is mma.sync m16n8k8 .tf32 on a warp's 16 rows, both
+//     operands split into big and small parts in registers as they are
+//     read from shared memory. S: small.big and big.small into one
+//     accumulator, big.big into another, the two added once the hd steps
+//     are done, so that the small terms keep their bits; P V as in
+//     attn_fwd_tf32x3 (P from S's accumulators, V's fragment keys 2t and
+//     2t + 1 of each 8, each 8 keys' and 8 columns' three products into a
+//     zeroed fragment that the FMA units add to O). wgmma would read K's
+//     parts from shared memory, two more copies of a tile, which do not
+//     fit at hd 256 beside Q and V with 128 rows a block.
+//   * 256 threads, eight warps of 16 rows, no producer: O at hd 256 is 128
+//     registers a thread, and eight warps leave ptxas 255 (attn_fwd_hd256's
+//     note). The block stages its own tiles by cp.async in two phases a
+//     tile: K of the next live tile is copied while this tile's softmax
+//     and P V run (K's buffer is free once S is taken), V of the next while
+//     its S runs; the tile's notes (where some pair is masked, its keys'
+//     positions and validity) go with K. Tile states a window of 1024
+//     ahead, by the eight warps.
+// Softmax, masks, stats, skipped tiles and rows with no valid key as in
+// attn_fwd_tf32x3. Bound: the tensor cores' TF32 rate over the three
+// products (495 TFLOP/s dense); mma.sync takes every operand through the
+// warp's registers, so the shared-memory reads (each warp reads the whole
+// K and V tile) and the splits' instructions come close behind.
+template <int HD>
+struct Tf32WideCfg {
+  static constexpr int BM = 128;                  // rows a block
+  static constexpr int BN = HD == 128 ? 64 : 32;  // keys a tile
+  static constexpr int THREADS = 256;
+  static constexpr int LD = HD + 4;               // floats a row
+  static constexpr int Q_FLOATS = BM * LD;
+  static constexpr int KV_FLOATS = BN * LD;
+  static constexpr int SMEM = 4 * (Q_FLOATS + 2 * KV_FLOATS);
+  static_assert(HD == 128 || HD == 256, "the wide tf32x3 head sizes");
+  static_assert(SMEM + 4096 <= 227 * 1024, "shared memory");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(256, 1) attn_fwd_tf32x3_wide(FwdArgs a) {
+  using C = Tf32WideCfg<HD>;
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, CH = HD / 4;
+  constexpr int MAXT = 1024;
+  extern __shared__ __align__(16) float wide_smem[];
+  float* Qs = wide_smem;
+  float* Ks = Qs + C::Q_FLOATS;
+  float* Vs = Ks + C::KV_FLOATS;
+  __shared__ long long kpos_s[BN];
+  __shared__ signed char kval_s[BN];
+  __shared__ int rowflag[BM];
+  __shared__ unsigned char state_s[MAXT];
+  __shared__ long long qlo_s[4], qhi_s[4];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.z, kvh = blockIdx.y, M = a.Sq * a.G;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const float* kg = static_cast<const float*>(a.k) + b * a.ks0 + kvh * a.ks2;
+  const float* vg = static_cast<const float*>(a.v) + b * a.vs0 + kvh * a.vs2;
+  // Q's 128 rows, 16 bytes a copy (rows past M zeros)
+  {
+    const float* q = static_cast<const float*>(a.q);
+    for (int i = tid; i < BM * CH; i += C::THREADS) {
+      const int r = i / CH, c = i % CH, gr = row0 + r;
+      const bool in = gr < M;
+      const int s = in ? gr / a.G : 0, g = in ? gr % a.G : 0;
+      cp_async16(Qs + r * LD + c * 4,
+                 q + b * a.qs0 + s * a.qs1 + kvh * a.qs2 + g * a.qs3 + c * 4,
+                 in);
+    }
+    cp_async_commit();
+  }
+  long long qmin, qmax;
+  block_bounds(a.qpos, row0, M, a.G, qlo_s, qhi_s, &qmin, &qmax);
+  const int ntiles = (a.Skv + BN - 1) / BN;
+  int base = -MAXT;
+  // the next live tile from t (every thread the same), its state in *st;
+  // the states a window of MAXT tiles at a time, by the eight warps
+  auto next_live = [&](int t, int* st) {
+    for (; t < ntiles; ++t) {
+      if (t >= base + MAXT) {
+        base = t;
+        __syncthreads();                  // the last window's readers
+        fill_states<BN, MAXT>(state_s, base, warp, 8, a.kpos, a.kval,
+                              ntiles, a.Skv, qmin, qmax, a.causal, a.window);
+        __syncthreads();
+      }
+      *st = state_s[t - base];
+      if (*st) return t;
+    }
+    return ntiles;
+  };
+  // tile t's rows of src (K or V of the lane and head, rs floats a row)
+  // into dst, 16 bytes a copy, keys past Skv zeros; one cp.async group
+  auto copy_tile = [&](float* dst, const float* src, long long rs, int t) {
+    for (int i = tid; i < BN * CH; i += C::THREADS) {
+      const int j = i / CH, c = i % CH, key = t * BN + j;
+      const bool in = key < a.Skv;
+      cp_async16(dst + j * LD + c * 4, src + (in ? key : 0) * rs + c * 4, in);
+    }
+    cp_async_commit();
+  };
+  // K of tile t (state st) with its notes
+  auto stage_k = [&](int t, int st) {
+    for (int j = tid; j < BN && st == 1; j += C::THREADS) {
+      const int key = t * BN + j;
+      kpos_s[j] = key < a.Skv ? a.kpos.at(key, key) : 0;
+      kval_s[j] = static_cast<signed char>(
+          key >= a.Skv ? -1 : (a.kval && !a.kval[key] ? 0 : 1));
+    }
+    copy_tile(Ks, kg, a.ks1, t);
+  };
+
+  const int rA = 16 * warp + gq;          // rows rA and rA + 8 of the block
+  const int grA = row0 + rA, grB = grA + 8;
+  const long long qpA = grA < M ? a.qpos.at(grA / a.G, grA / a.G) : 0;
+  const long long qpB = grB < M ? a.qpos.at(grB / a.G, grB / a.G) : 0;
+  const float c2 = a.scale * 1.4426950408889634f;
+  float m[2] = {neg_big(), neg_big()}, lsum[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // A's fragment, (row, k): (rA, tq), (rA + 8, tq), (rA, tq + 4), (rA + 8,
+  // tq + 4) of each 8 columns
+  const float* qw = Qs + rA * LD + tq;
+
+  int st = 0;
+  int t = next_live(0, &st);
+  if (t < ntiles) {
+    stage_k(t, st);
+    copy_tile(Vs, vg, a.vs1, t);
+    cp_async_wait<1>();                   // Q and the first K
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  while (t < ntiles) {
+    // S = Q K^T: s[j] the keys 8 j + 2 tq and + 1 of rows rA ([0], [1])
+    // and rA + 8 ([2], [3]); sl the small terms
+    float s[BN / 8][4], sl[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      uint32_t qb[4], qs[4];
+      split_tf32(qw[8 * kk], qb[0], qs[0]);
+      split_tf32(qw[8 * LD + 8 * kk], qb[1], qs[1]);
+      split_tf32(qw[8 * kk + 4], qb[2], qs[2]);
+      split_tf32(qw[8 * LD + 8 * kk + 4], qb[3], qs[3]);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        // B's fragment (k, key): (tq, gq), (tq + 4, gq) of key block j
+        const float* kr = Ks + (8 * j + gq) * LD + 8 * kk + tq;
+        uint32_t kb0, ks0, kb1, ks1;
+        split_tf32(kr[0], kb0, ks0);
+        split_tf32(kr[4], kb1, ks1);
+        mma_tf32(sl[j], qs, kb0, kb1);
+        mma_tf32(sl[j], qb, ks0, ks1);
+        mma_tf32(s[j], qb, kb0, kb1);
+      }
+    }
+    // mask (a masked pair and a key past Skv: -inf, p = 0); the tile's
+    // row maxima of q.k
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * tq + (e & 1), h = e >> 1;
+        float x = s[j][e] + sl[j][e];
+        if (st == 1 && (kval_s[col] <= 0 ||
+                        !allowed(h ? qpB : qpA, kpos_s[col], a.causal,
+                                 a.window)))
+          x = -INFINITY;
+        s[j][e] = x;
+        tmax[h] = fmaxf(tmax[h], x);
+      }
+    }
+    __syncthreads();                      // K's and the notes' readers
+    int nst = 0;
+    const int tn = next_live(t + 1, &nst);
+    if (tn < ntiles) {
+      stage_k(tn, nst);
+      cp_async_wait<1>();                 // this tile's V
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float corr[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+      const float m_new = fmaxf(m[h], tmax[h]);
+      corr[h] = ex2((m[h] - m_new) * c2);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        s[j][e] = ex2((s[j][e] - m[h]) * c2);
+        rsum[h] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+      lsum[h] = lsum[h] * corr[h] + rsum[h];
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][0] *= corr[0]; o[n][1] *= corr[0];
+      o[n][2] *= corr[1]; o[n][3] *= corr[1];
+    }
+    // O += P V: small.big, big.small, big.big for each 8 keys and 8
+    // columns into a zeroed fragment, added to O in f32; V's fragment,
+    // keys 8 kb + 2 tq and + 1 of column 8 n + gq
+#pragma unroll
+    for (int kb = 0; kb < BN / 8; ++kb) {
+      uint32_t pb[4], ps[4];
+      split_tf32(s[kb][0], pb[0], ps[0]);
+      split_tf32(s[kb][2], pb[1], ps[1]);
+      split_tf32(s[kb][1], pb[2], ps[2]);
+      split_tf32(s[kb][3], pb[3], ps[3]);
+      const float* vr = Vs + (8 * kb + 2 * tq) * LD + gq;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        uint32_t vb0, vs0, vb1, vs1;
+        split_tf32(vr[8 * n], vb0, vs0);
+        split_tf32(vr[LD + 8 * n], vb1, vs1);
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(d, ps, vb0, vb1);
+        mma_tf32(d, pb, vs0, vs1);
+        mma_tf32(d, pb, vb0, vb1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] += d[e];
+      }
+    }
+    __syncthreads();                      // V's readers
+    if (tn < ntiles) {
+      copy_tile(Vs, vg, a.vs1, tn);
+      cp_async_wait<1>();                 // the next tile's K
+    }
+    __syncthreads();
+    t = tn;
+    st = nst;
+  }
+
+  float* out = static_cast<float*>(a.out);
+  bool mine = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = h ? grB : grA;
+    const bool none = m[h] == neg_big();
+    if (tq == 0) {
+      rowflag[rA + 8 * h] = gr < M && none;
+      if (a.m && gr < M)
+        write_stats(a.m, a.l, gr, a.G, a.Sq, a.KV, b, kvh,
+                    none ? neg_big() : m[h] * a.scale, lsum[h], a.den);
+    }
+    if (gr >= M) continue;
+    if (none) {
+      mine = true;
+      continue;
+    }
+    const int s_ = gr / a.G, g = gr % a.G;
+    float* dst = out + (((long long)b * a.Sq + s_) * a.KV + kvh) * a.G * HD +
+                 (long long)g * HD + 2 * tq;
+    const float den = fmaxf(lsum[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8) =
+          make_float2(o[n][2 * h] / den, o[n][2 * h + 1] / den);
+  }
+  if (__syncthreads_or(mine))
+    fill_unseen<float>(static_cast<const float*>(a.v), out, rowflag, row0,
+                       BM, M, a.G, a.Sq, a.Skv, a.KV, HD, b, kvh, a.vs0,
+                       a.vs1, a.vs2, a.den, tid, C::THREADS);
+}
+
 // -------------------------------------------------------------- decode
 struct DecArgs {
   const void *q, *k, *v;
@@ -2272,38 +2202,9 @@ cudaError_t smem_limit(K kernel, int bytes) {
                               bytes);
 }
 
-// The general route: bf16 at any head size of the kernel, and f32 (the
-// only route of f32 at hd 128 and 256).
-template <int HD>
-cudaError_t launch_fwd(const FwdArgs& a, int B, int dtype,
-                       cudaStream_t stream) {
-  const int M = a.Sq * a.G;
-  if (dtype == 0) {
-    constexpr int BN = HD <= 128 ? 64 : 32;
-    const int bytes = (64 + 4 * BN) * (HD + 8) * 2;
-    static bool ready = false;
-    if (!ready) {
-      cudaError_t e = smem_limit(attn_fwd_bf16<HD, BN>, bytes);
-      if (e != cudaSuccess) return e;
-      ready = true;
-    }
-    attn_fwd_bf16<HD, BN><<<dim3((M + 63) / 64, a.KV, B), NT, bytes, stream>>>(a);
-  } else {
-    const int bytes = 2 * 32 * HD * 4;
-    static bool ready = false;
-    if (!ready) {
-      cudaError_t e = smem_limit(attn_fwd_f32<HD>, bytes);
-      if (e != cudaSuccess) return e;
-      ready = true;
-    }
-    attn_fwd_f32<HD><<<dim3((M + 31) / 32, a.KV, B), NT, bytes, stream>>>(a);
-  }
-  return cudaGetLastError();
-}
-
 // A bf16 map over k or v as (hd, KV, Skv, B) with the caller's strides
-// (elements), box (64, 1, BN, 1), 128-byte swizzle, keys past Skv read as
-// zeros. A dimension of size 1 is never stepped: its stride is set to one
+// (elements), box (64, 1, BN, 1), 128-byte swizzle, keys past Skv and, at
+// hd 32 and 80, columns past hd read as zeros. A dimension of size 1 is never stepped: its stride is set to one
 // the encoder takes.
 bool kv_map(CUtensorMap* m, const void* ptr, int hd, int KV, int Skv, int B,
             long long s_head, long long s_row, long long s_lane, int BN) {
@@ -2326,7 +2227,7 @@ bool kv_map(CUtensorMap* m, const void* ptr, int hd, int KV, int Skv, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The Hopper route: bf16 at hd 64 and 128 (attn_fwd_tma), and 256
+// The Hopper route: bf16 at hd 32, 64, 80 and 128 (attn_fwd_tma), and 256
 // (attn_fwd_hd256, launch_fwd_hd256).
 template <int HD>
 cudaError_t launch_fwd_tma(const FwdArgs& a, int B, cudaStream_t stream) {
@@ -2355,15 +2256,23 @@ cudaError_t launch_fwd_hd256(const FwdArgs& a, int B, cudaStream_t stream) {
                           C::SMEM, stream, km, vm, a);
 }
 
-// The tf32x3 route: f32 at hd 32, 64 and 80.
+// The tf32x3 route: f32 at hd 32, 64 and 80 (attn_fwd_tf32x3), 128 and 256
+// (attn_fwd_tf32x3_wide).
 template <int HD>
 cudaError_t launch_fwd_tf32x3(const FwdArgs& a, int B, cudaStream_t stream) {
-  using C = Tf32Cfg<HD>;
   const int M = a.Sq * a.G;
   static bool ready = false;
-  return hop::launch_smem(attn_fwd_tf32x3<HD>, ready,
-                          dim3((M + C::BM - 1) / C::BM, a.KV, B), C::THREADS,
-                          C::SMEM, stream, a);
+  if constexpr (HD >= 128) {
+    using C = Tf32WideCfg<HD>;
+    return hop::launch_smem(attn_fwd_tf32x3_wide<HD>, ready,
+                            dim3((M + C::BM - 1) / C::BM, a.KV, B),
+                            C::THREADS, C::SMEM, stream, a);
+  } else {
+    using C = Tf32Cfg<HD>;
+    return hop::launch_smem(attn_fwd_tf32x3<HD>, ready,
+                            dim3((M + C::BM - 1) / C::BM, a.KV, B),
+                            C::THREADS, C::SMEM, stream, a);
+  }
 }
 
 template <typename T, int HD, int GB>
@@ -2408,8 +2317,8 @@ cudaError_t decode_hd(const DecArgs& a, int B, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-// route 1: the Hopper route (bf16, hd 64, 128 or 256), 2: the tf32x3 route
-// (f32, hd 32, 64 or 80), 0: the general route
+// dtype 0: bf16 on the Hopper route, 1: f32 on the tf32x3 route (each at
+// hd 32, 64, 80, 128 or 256)
 extern "C" int flash_attn_fwd(
     const void* q, const void* k, const void* v, void* out, void* m,
     void* l, const void* qpos, int qpos64, const void* kpos, int kpos64,
@@ -2417,37 +2326,29 @@ extern "C" int flash_attn_fwd(
     long long qs0, long long qs1, long long qs2, long long qs3,
     long long ks0, long long ks1, long long ks2, long long vs0,
     long long vs1, long long vs2, int causal, int window, float scale,
-    float den, int dtype, int route, void* stream) {
+    float den, int dtype, void* stream) {
   FwdArgs a{q, k, v, out, static_cast<float*>(m), static_cast<float*>(l),
             {qpos, qpos64}, {kpos, kpos64},
             static_cast<const unsigned char*>(kval), Sq, Skv, KV, G,
             qs0, qs1, qs2, qs3, ks0, ks1, ks2, vs0, vs1, vs2, causal, window,
             scale, den};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 1) {
-    if (dtype != 0) return cudaErrorInvalidValue;
+  if (dtype == 0) {
     switch (hd) {
+      case 32: return launch_fwd_tma<32>(a, B, s);
       case 64: return launch_fwd_tma<64>(a, B, s);
+      case 80: return launch_fwd_tma<80>(a, B, s);
       case 128: return launch_fwd_tma<128>(a, B, s);
       case 256: return launch_fwd_hd256(a, B, s);
     }
-    return cudaErrorInvalidValue;
-  }
-  if (route == 2) {
-    if (dtype != 1) return cudaErrorInvalidValue;
+  } else if (dtype == 1) {
     switch (hd) {
       case 32: return launch_fwd_tf32x3<32>(a, B, s);
       case 64: return launch_fwd_tf32x3<64>(a, B, s);
       case 80: return launch_fwd_tf32x3<80>(a, B, s);
+      case 128: return launch_fwd_tf32x3<128>(a, B, s);
+      case 256: return launch_fwd_tf32x3<256>(a, B, s);
     }
-    return cudaErrorInvalidValue;
-  }
-  switch (hd) {
-    case 32: return launch_fwd<32>(a, B, dtype, s);
-    case 64: return launch_fwd<64>(a, B, dtype, s);
-    case 80: return launch_fwd<80>(a, B, dtype, s);
-    case 128: return launch_fwd<128>(a, B, dtype, s);
-    case 256: return launch_fwd<256>(a, B, dtype, s);
   }
   return cudaErrorInvalidValue;
 }

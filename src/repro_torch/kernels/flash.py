@@ -10,18 +10,22 @@ Replaces no Pallas kernel: the reference computes attention in plain jnp
   length from key row 0, for every prefill call site (whole prompt,
   context mode, a chunk against a lane of the cache under ``kv_valid``).
   A block holds rows of one (lane, KV head): the query positions and the
-  G query heads of that KV head, flattened. Three routes, chosen by
-  :func:`route_of` from (dtype, hd) alone: the Hopper route for bf16 at
-  hd 64, 128 and 256 (128-row blocks, K and V tiles by TMA, two consumer
-  warpgroups on ``wgmma``: beside a producer warpgroup with 128-key tiles
-  at hd 64 and 128; at hd 256 with no producer warp, the block staging
-  its own 64-key tiles, so that O's 128 registers a thread fit); the
-  tf32x3 route for f32 at hd 32, 64 and 80 (each f32 product as three
-  TF32 products on the tensor cores: ``wgmma`` for the scores,
-  ``mma.sync`` for P V; a producer warpgroup splits each K tile into big
-  and small TF32 parts, V is split as it is read); and the general route
-  for bf16 at hd 32 and 80 (``mma.sync`` m16n8k16, 64-row blocks, 64-key
-  tiles) and f32 at hd 128 and 256 (FMA). A key tile whose mask is
+  G query heads of that KV head, flattened. Two routes, chosen by
+  :func:`route_of` from the dtype, each with a kernel for every head size
+  of :data:`HEAD_DIMS`. The Hopper route, bf16: 128-row blocks, K and V
+  tiles by TMA, two consumer warpgroups on ``wgmma``; beside a producer
+  warpgroup with 128-key tiles at hd 32, 64, 80 and 128 (hd 32 and 80 in a
+  partial 64-value panel, the columns past hd read as zeros and never
+  multiplied), at hd 256 with no producer warp, the block staging its own
+  64-key tiles, so that O's 128 registers a thread fit. At hd 32 the
+  exponentials bound it (a pair's ``ex2`` outlasts its products): the two
+  warpgroups take turns at the tensor cores so that one's softmax runs
+  under the other's products. The tf32x3 route, f32: each f32 product as
+  three TF32 products on the tensor cores; at hd 32, 64 and 80 ``wgmma``
+  for the scores from Q's and K's split parts in shared memory and
+  ``mma.sync`` for P V; at hd 128 and 256, where those parts would not
+  fit, every product on ``mma.sync`` with each operand split in registers
+  as it is read from one raw copy. A key tile whose mask is
   provably false for every row of the block (from the tile's and the
   block's position bounds, never from an assumption that positions are
   sorted) is skipped: for a row with a valid key that is exactly what
@@ -65,21 +69,15 @@ from .route_select import _zeros_at_least
 
 __all__ = ["flash_attn_fwd", "flash_decode", "attn_outputs",
            "decode_outputs", "decode_splits", "decode_split_rows",
-           "route_of", "HEAD_DIMS", "TMA_HEAD_DIMS", "TF32_HEAD_DIMS"]
+           "route_of", "HEAD_DIMS"]
 
 #: head sizes the kernels are compiled for: every size a path on the card
 #: runs (jamba and granite smoke 32, granite and smollm 64, hubert 80,
-#: pixtral, qwen3 and most others 128, gemma3 256)
+#: pixtral, qwen3 and most others 128, gemma3 256), on both prefill routes
 HEAD_DIMS = (32, 64, 80, 128, 256)
-#: head sizes of the prefill's Hopper route (bf16 only)
-TMA_HEAD_DIMS = (64, 128, 256)
-#: head sizes of the prefill's tf32x3 route (f32 only); at 128 and 256 the
-#: big and small parts of Q alone would take 128 and 256 KB of shared
-#: memory, so f32 stays on the general route's FMA kernel there
-TF32_HEAD_DIMS = (32, 64, 80)
-#: the C entry point's route codes
-_ROUTES = {"general": 0, "tma": 1, "tf32x3": 2}
+#: the C entry points' dtype codes; the prefill's route follows the dtype
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_ROUTES = {torch.bfloat16: "tma", torch.float32: "tf32x3"}
 _POS = (torch.int32, torch.int64)
 
 #: per device: the decode's tickets (a (lane, KV head, head group)'s splits
@@ -95,7 +93,7 @@ def _lib():
                        ctypes.c_float)
         lib.flash_attn_fwd.argtypes = (
             [p, p, p, p, p, p, p, i, p, i, p] + [i] * 6 + [ll] * 10
-            + [i, i, f, f, i, i, p])
+            + [i, i, f, f, i, p])
         lib.flash_decode.argtypes = (
             [p, p, p, p, i, p, p, p, p, p, p, p] + [i] * 7 + [ll] * 9
             + [i, ll, f, i, i, p])
@@ -106,16 +104,14 @@ def _lib():
 
 def route_of(dtype: torch.dtype, hd: int) -> str:
     """The prefill kernel's route for q of ``dtype`` and head size ``hd``:
-    ``"tma"`` (the Hopper route: TMA and ``wgmma``) for bf16 at hd in
-    :data:`TMA_HEAD_DIMS`, ``"tf32x3"`` (three TF32 products on the tensor
-    cores) for f32 at hd in :data:`TF32_HEAD_DIMS`, else ``"general"``. A
-    function of (dtype, hd) alone, so a chunk and the whole prompt, a rank
-    and one device take the same route."""
-    if dtype == torch.bfloat16 and hd in TMA_HEAD_DIMS:
-        return "tma"
-    if dtype == torch.float32 and hd in TF32_HEAD_DIMS:
-        return "tf32x3"
-    return "general"
+    ``"tma"`` (the Hopper route: TMA and ``wgmma``) for bf16,
+    ``"tf32x3"`` (three TF32 products on the tensor cores) for f32, at
+    every hd in :data:`HEAD_DIMS`; a pair outside the table raises
+    ``ValueError``. A function of (dtype, hd) alone, so a chunk and the
+    whole prompt, a rank and one device take the same route."""
+    if dtype not in _ROUTES or hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attn_fwd: no route for {dtype} at hd {hd}")
+    return _ROUTES[dtype]
 
 
 def _check(kernel, kind, q, *others):
@@ -197,22 +193,18 @@ def attn_outputs(q, k, v, q_positions=None, kv_positions=None,
 
 def flash_attn_fwd(q, k, v, *, causal=True, window=None, q_positions=None,
                    kv_positions=None, kv_valid=None,
-                   return_stats: bool = False, route=None):
+                   return_stats: bool = False):
     """Launch the prefill kernel: ``flash_attention``'s forward over the
     GQA layout (q (B, Sq, KV, G, hd); k, v (B, Skv, KV, hd), rows
     contiguous and 16-byte aligned, any strides above) → (B, Sq, KV, G,
     hd) in q's dtype, or with ``return_stats`` ``(out, m, l)``, the rows'
     softmax stats of :func:`repro_torch.models.flash.flash_attention`.
     ``window``: a Python int, 0 or None for full. The route is
-    :func:`route_of`'s; ``route="general"`` forces the general route, to
-    time it on another route's inputs (no path of the port passes it).
-    Adds one to ``flash_attn_fwd.launches`` (and, on the Hopper route, to
-    ``flash_attn_fwd.tma_launches``, on the tf32x3 route to
-    ``flash_attn_fwd.tf32x3_launches``); raises if the launch is
+    :func:`route_of`'s. Adds one to ``flash_attn_fwd.launches`` and to
+    the route's own count (``flash_attn_fwd.tma_launches`` on the Hopper
+    route, ``flash_attn_fwd.tf32x3_launches`` on the tf32x3 route), so
+    that the two always add up to the total; raises if the launch is
     refused."""
-    if route not in (None, "general"):
-        raise ValueError(f"flash_attn_fwd: route {route!r} is neither None "
-                         "nor 'general'")
     outs = attn_outputs(q, k, v, q_positions, kv_positions, kv_valid,
                         stats=return_stats)
     out, m, l = outs if return_stats else (outs, None, None)
@@ -227,7 +219,7 @@ def flash_attn_fwd(q, k, v, *, causal=True, window=None, q_positions=None,
     def wide(t):
         return int(t is not None and t.dtype == torch.int64)
 
-    taken = route_of(q.dtype, hd) if route is None else route
+    taken = route_of(q.dtype, hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(m),
@@ -235,7 +227,7 @@ def flash_attn_fwd(q, k, v, *, causal=True, window=None, q_positions=None,
         wide(kv_positions), ptr(kv_valid), B, Sq, Skv, KV, G, hd,
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
         int(causal), 0 if window is None else int(window), _scale(hd),
-        float(padded_keys(Skv)), _DTYPES[q.dtype], _ROUTES[taken], stream)
+        float(padded_keys(Skv)), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd: CUDA launch failed with "
                            f"cudaError {err}")

@@ -391,10 +391,10 @@ class FlashDecode(torch.autograd.Function):
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel name; ``<name>.tma``
     counts those of an FFN kernel's launches (forward or backward) that
-    took the TMA route. (The attention's Hopper-route and tf32x3-route
-    launches are ``flash.flash_attn_fwd.tma_launches`` and
-    ``.tf32x3_launches``, reset here too: its route is a function of
-    (dtype, hd), :func:`.flash.route_of`.)"""
+    took the TMA route; ``flash_attn_fwd.tma`` and
+    ``flash_attn_fwd.tf32x3`` those of the attention's prefill on its
+    Hopper and tf32x3 routes (the two add up to ``flash_attn_fwd``: its
+    route is a function of (dtype, hd), :func:`.flash.route_of`)."""
     return {"fused_moe_ffn": _capacity.fused_moe_ffn.launches,
             "fused_moe_ffn.tma": _capacity.fused_moe_ffn.tma_launches,
             "ragged_moe_ffn": _ragged.ragged_moe_ffn.launches,
@@ -409,6 +409,8 @@ def launch_counts() -> Dict[str, int]:
                 _ragged.ragged_moe_ffn_wgrad.tma_launches,
             "route_select_bwd": _route.route_select_bwd.launches,
             "flash_attn_fwd": _flash.flash_attn_fwd.launches,
+            "flash_attn_fwd.tma": _flash.flash_attn_fwd.tma_launches,
+            "flash_attn_fwd.tf32x3": _flash.flash_attn_fwd.tf32x3_launches,
             "flash_decode": _flash.flash_decode.launches}
 
 

@@ -461,18 +461,49 @@ def test_decode_splits_depend_on_the_cache_length_alone(S_max):
 @pytest.mark.parametrize("hd", kflash.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prefill_route_depends_on_dtype_and_head_size_alone(hd, dtype):
-    """The Hopper route takes bf16 at hd 64, 128 and 256, the tf32x3 route
-    f32 at hd 32, 64 and 80, the general route every other pair: a
-    function of (dtype, hd) with no shape, batch or device among its
-    inputs, so a chunk and the whole prompt, a rank and one device take the
-    same route."""
+    """Two routes: the Hopper route takes bf16, the tf32x3 route f32, at
+    every head size of the table; a function of (dtype, hd) with no shape,
+    batch or device among its inputs, so a chunk and the whole prompt, a
+    rank and one device take the same route. A pair outside the table has
+    no route."""
     import inspect
     assert list(inspect.signature(kflash.route_of).parameters) == [
         "dtype", "hd"]
-    want = ("tma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
-            else "tf32x3" if dtype == torch.float32 and hd in (32, 64, 80)
-            else "general")
+    want = "tma" if dtype == torch.bfloat16 else "tf32x3"
     assert kflash.route_of(dtype, hd) == want
+    with pytest.raises(ValueError, match=str(hd + 1)):
+        kflash.route_of(dtype, hd + 1)
+    with pytest.raises(ValueError):
+        kflash.route_of(torch.float16, hd)
+
+
+@pytest.mark.parametrize("hd,dtype,route", [
+    (32, torch.bfloat16, "tma"), (80, torch.bfloat16, "tma"),
+    (128, torch.float32, "tf32x3"), (256, torch.float32, "tf32x3")])
+def test_prefill_on_meta_reports_the_entry_of_its_route(hd, dtype, route):
+    """The pairs the retired general route took (bf16 at hd 32 and 80, f32
+    at 128 and 256): on meta ``ops.flash_attention`` allocates the output
+    and reports one ``flash_attn_fwd`` entry, the call's FLOPs and bytes,
+    on the route ``route_of`` names for it; nothing launches."""
+    Sq, Skv = 24, 40
+    q = torch.empty((B, Sq, KV, G, hd), device="meta", dtype=dtype)
+    k = torch.empty((B, Skv, KV, hd), device="meta", dtype=dtype)
+    qpos = torch.empty(Sq, dtype=torch.int64, device="meta")
+    kpos = torch.empty(Skv, dtype=torch.int64, device="meta")
+    ops.reset_launch_counts()
+    with count_costs(q, k, qpos, kpos) as c:
+        out = ops.flash_attention(q, k, k, q_positions=qpos,
+                                  kv_positions=kpos)
+    size = q.element_size()
+    assert kflash.route_of(dtype, hd) == route
+    assert out.shape == q.shape and out.dtype == dtype
+    assert c.kernel_calls == {"flash_attn_fwd": 1}
+    assert c.kernel_flops["flash_attn_fwd"] == 4 * B * KV * G * Sq * Skv * hd
+    assert c.kernel_bytes["flash_attn_fwd"] == (
+        2 * out.numel() * size + 2 * k.numel() * size + (Sq + Skv) * 8)
+    assert all(n == 0 for n in ops.launch_counts().values())
+    assert kflash.flash_attn_fwd.tma_launches == 0
+    assert kflash.flash_attn_fwd.tf32x3_launches == 0
 
 
 @pytest.mark.parametrize("hd,dtype", [(48, torch.bfloat16),
@@ -547,11 +578,12 @@ def _route_mm(a, b, products):
     return a_s @ bb + ab @ b_s + ab @ bb
 
 
-def _route_attention(q, k, v, products, causal, window, tile=64):
+def _route_attention(q, k, v, products, causal, window, tile):
     """The tf32x3 route's arithmetic on CPU tensors: rows (s, g) of each
-    (lane, KV head), 64-key tiles from key 0, the online softmax in base 2
-    with the difference first (m the running max of q.k, p = 2^((q.k - m)
-    scale log2 e)), a masked pair -inf, S and P V each by ``_route_mm``."""
+    (lane, KV head), ``tile``-key tiles from key 0, the online softmax in
+    base 2 with the difference first (m the running max of q.k, p =
+    2^((q.k - m) scale log2 e)), a masked pair -inf, S and P V each by
+    ``_route_mm``."""
     B, Sq, KV, G, hd = q.shape
     Skv = k.shape[1]
     c2 = tflash._scale(hd) * float(np.log2(np.e))
@@ -580,17 +612,22 @@ def _route_attention(q, k, v, products, causal, window, tile=64):
     return out.reshape(B, KV, Sq, G, hd).permute(0, 2, 1, 3, 4)
 
 
+@pytest.mark.parametrize("hd,tile", [(80, 64), (128, 64), (256, 32)])
 @pytest.mark.parametrize("causal,window", [(False, 0), (True, 100)])
 def test_tf32x3_products_hold_the_f32_bound_where_one_tf32_product_fails(
-        causal, window):
-    """The tf32x3 route's arithmetic, emulated at hubert-xlarge's head size
-    (hd 80; its encoder has no causal mask, the route also takes causal
-    and windowed calls) against the plain version in f32: each row's
+        causal, window, hd, tile):
+    """The tf32x3 route's arithmetic, emulated at each head size of its two
+    kernels' shapes (hd 80, hubert-xlarge's, on ``attn_fwd_tf32x3`` with
+    64-key tiles; 128 and 256 on ``attn_fwd_tf32x3_wide`` with 64- and
+    32-key tiles; hubert's encoder has no causal mask, the route also takes
+    causal and windowed calls) against the plain version in f32: each
+    operand split in registers into big (its top 19 bits, masked) and
+    small (the rest, masked), as the kernels split them; each row's
     relative L2 error within the f32 route's ATTN_REL_F32 (1e-4) with three
     TF32 products for S and P V, and far outside it with one (a row reads
-    ~2e-6 and ~3e-3)."""
+    ~2e-6 and ~3e-3 at hd 80)."""
     rng = np.random.default_rng(29)
-    B, Sq, KV, G, hd = 1, 192, 4, 1, 80
+    B, Sq, KV, G = 1, 192, 4, 1
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)) for shape in ((B, Sq, KV, G, hd), (B, Sq, KV, hd),
                                    (B, Sq, KV, hd)))
@@ -602,7 +639,7 @@ def test_tf32x3_products_hold_the_f32_bound_where_one_tf32_product_fails(
         d = (got - want).flatten(0, -2).norm(dim=-1)
         return (d / want.flatten(0, -2).norm(dim=-1)).max().item()
 
-    three = row_rel(_route_attention(q, k, v, 3, causal, window))
-    one = row_rel(_route_attention(q, k, v, 1, causal, window))
+    three = row_rel(_route_attention(q, k, v, 3, causal, window, tile))
+    one = row_rel(_route_attention(q, k, v, 1, causal, window, tile))
     assert three <= ATTN_REL_F32 / 10, three
     assert one > ATTN_REL_F32, one

@@ -798,8 +798,8 @@ def test_route_select_at_rank_rows(cuda, T):
 # relative L2 error, the largest over rows: bf16 within ATTN_REL (both
 # round p and the output to bf16, from running maxima over other tiles:
 # ~3e-3 a row), f32 within ATTN_REL_F32 (three TF32 products a product
-# on the tf32x3 route, FMA sums on the general route, each in another
-# order than the plain version's einsums). A zeroed row reads 1; a row
+# on the tf32x3 route, summed in another order than the plain version's
+# einsums). A zeroed row reads 1; a row
 # that lost half its keys reads far above the bound.
 ATTN_REL = 2e-2
 ATTN_REL_F32 = 1e-4
@@ -833,17 +833,28 @@ ATTN_CASES = [
     (1, 128, 70000, 8, 3, 64, torch.bfloat16, True, 0, (68000, 68128),
      68128),
     # past 1024 key tiles, whose states the kernels take a window at a
-    # time: 1094 tiles of 128 on the Hopper route, of 64 on the general
+    # time: 1094 tiles of 128 on the Hopper route
     (1, 128, 140000, 8, 3, 64, torch.bfloat16, True, 0, (138000, 138128),
      138128),
     (1, 128, 70000, 2, 3, 32, torch.bfloat16, True, 0, (68000, 68128),
      68128),
+    (1, 128, 140000, 2, 2, 32, torch.bfloat16, True, 0, (138000, 138128),
+     138128),
     # past 1024 key tiles of 64 on the hd 256 Hopper route and the tf32x3
     # route (1065 live tiles), the latter with keys cut by kv_valid
     (1, 128, 70000, 2, 2, 256, torch.bfloat16, True, 0, (68000, 68128),
      68128),
     (1, 128, 70000, 2, 2, 80, torch.float32, True, 0, (68000, 68128),
      67000),
+    # hubert's head size in bf16, and f32 at hd 128 and 256 (the wide
+    # tf32x3 kernel: 64- and 32-key tiles), past 1024 of those tiles too
+    (2, 130, 130, 4, 1, 80, torch.bfloat16, False, 0, None, 100),
+    (2, 77, 301, 2, 4, 128, torch.float32, True, 0, (224, 301), None),
+    (1, 200, 200, 2, 2, 256, torch.float32, True, 64, None, None),
+    (1, 128, 70000, 2, 2, 128, torch.float32, True, 0, (68000, 68128),
+     67000),
+    (1, 128, 40000, 2, 2, 256, torch.float32, True, 0, (38000, 38128),
+     38128),
 ]
 
 
@@ -1036,10 +1047,10 @@ def test_flash_decode_gradient_through_the_kernel(cuda):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attn_fwd_each_head_size_on_its_route(cuda, hd, dtype):
     """Every head size the kernel takes, in bf16 and f32, on the route
-    ``route_of`` names (the Hopper route: bf16 at 64, 128 and 256; the
-    tf32x3 route: f32 at 32, 64 and 80; each one's launches counted apart),
-    against the plain version; a causal call whose query rows start
-    mid-prompt and whose keys have a hole, over several key tiles."""
+    ``route_of`` names (the Hopper route for bf16, the tf32x3 route for
+    f32, at every head size; each one's launches counted apart), against
+    the plain version; a causal call whose query rows start mid-prompt and
+    whose keys have a hole, over several key tiles."""
     from repro_torch.kernels import flash as k_flash
     from repro_torch.models import flash as t_flash
     g = torch.Generator().manual_seed(hd)
@@ -1056,9 +1067,7 @@ def test_flash_attn_fwd_each_head_size_on_its_route(cuda, hd, dtype):
     want = t_flash.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     route = k_flash.route_of(dtype, hd)
-    assert route == ("tma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
-                     else "tf32x3" if dtype == torch.float32
-                     and hd in (32, 64, 80) else "general")
+    assert route == ("tma" if dtype == torch.bfloat16 else "tf32x3")
     assert ops.launch_counts()["flash_attn_fwd"] == 1
     assert k_flash.flash_attn_fwd.tma_launches == int(route == "tma")
     assert k_flash.flash_attn_fwd.tf32x3_launches == int(route == "tf32x3")
@@ -1091,8 +1100,8 @@ def test_flash_attn_chunk_matches_the_whole_prompt(cuda, hd, dtype):
     """A 128-row chunk against the cache's lane (keys past the chunk not
     yet valid) gives the same rows, bit for bit, as the whole prompt's
     call: the key tiles start at row 0 with a fixed length, and skipped
-    tiles are what computing them gives (on every route: the Hopper route
-    at hd 64, 128 and 256, tf32x3 at 64 and 80 in f32)."""
+    tiles are what computing them gives (on every kernel of both
+    routes)."""
     g = torch.Generator().manual_seed(30 + hd)
     S, KV, G = 640, 2, 3
     q = torch.randn((1, S, KV, G, hd), generator=g).to(cuda, dtype)
@@ -1110,14 +1119,14 @@ def test_flash_attn_chunk_matches_the_whole_prompt(cuda, hd, dtype):
         assert torch.equal(chunk, whole[:, r0:r0 + 128])
 
 
-@pytest.mark.parametrize("hd,dtype", [
-    (64, torch.bfloat16), (128, torch.bfloat16), (256, torch.bfloat16),
-    (32, torch.float32), (64, torch.float32), (80, torch.float32)])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attn_fwd_two_calls_bit_for_bit(cuda, hd, dtype):
     """Two calls of the prefill kernel on the same inputs give the same
     bits, out and the rows' stats (no atomics, no order that depends on the
-    schedule), on the Hopper and tf32x3 routes; a window and a hole in the
-    keys, so that some tiles are skipped and some masked."""
+    schedule), at every head size of the Hopper and tf32x3 routes; a window
+    and a hole in the keys, so that some tiles are skipped and some
+    masked."""
     from repro_torch.kernels import flash as k_flash
     g = torch.Generator().manual_seed(40 + hd)
     B, S, KV, G = 2, 700, 2, 3

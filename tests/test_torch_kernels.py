@@ -224,7 +224,8 @@ _COUNTERS = ("fused_moe_ffn", "fused_moe_ffn.tma", "ragged_moe_ffn",
              "ragged_moe_ffn.tma", "router_topk", "route_select",
              "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
              "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
-             "route_select_bwd", "flash_attn_fwd", "flash_decode")
+             "route_select_bwd", "flash_attn_fwd", "flash_attn_fwd.tma",
+             "flash_attn_fwd.tf32x3", "flash_decode")
 
 
 @pytest.mark.parametrize("max_rows", [None, 1, 8, 16, 500])
