@@ -42,7 +42,9 @@ Run from the repository root on a machine with one NVIDIA H100. It
    ``ATTN_REL_F32`` in f32) of the plain version, where a kernel that
    dropped half the keys reads far above it, two calls bit for bit,
    beside ``scaled_dot_product_attention``
-   with ``enable_gqa`` on the same mask (timed only) — and times each:
+   with ``enable_gqa`` on the same mask (timed only) — and times each
+   (the attention cases that ``scripts/attn_compare.py`` times are checked
+   only, but granite's 4 x 512 prefill and 8-lane decode):
    the kernel's call (single-call CUDA
    events, ``ms``), the same with the card held so that the host issues
    ahead of it (``device_ms``), the host's time to issue one call
@@ -118,7 +120,13 @@ Run from the repository root on a machine with one NVIDIA H100. It
    routing backward (K3) against ``route_select_dlogits_ref`` (and an empty
    launch timed beside it: K3's floor) — each timed as the forward kernels
    are, K1 and K2 on both routes (and the TMA
-   route's row blocks and output tiles) at 1024 and at 4096 tokens;
+   route's row blocks and output tiles) at 1024 and at 4096 tokens; the
+   capacity FFN's gradient (``csrc/moe_ffn_bwd.cu``: the bucket K1
+   ``moe_ffn_dgrad`` and K2 ``moe_ffn_wgrad``) against ``moe_ffn_bwd_ref``
+   at granite's training buckets (40, 1024, 1536), a rank's a2a buckets
+   of phase 13's backward (10, 4 x 412, 1536) and buckets of 36 rows
+   (relative L2 within ``BWD_TOL``, empty rows exactly zero, the TMA
+   route, two calls bit for bit), each timed beside its bound;
    then ``repro_torch.launch.train.train`` on the published config at full
    width, 4 steps of batch 4 x 256 tokens on the card: finite losses (the
    first near ln 49155), per step 32 launches of the routing stage, the
@@ -126,7 +134,13 @@ Run from the repository root on a machine with one NVIDIA H100. It
    the TMA route), 32 of the attention's forward kernel (its backward is
    plain, chunk pair by chunk pair) and none of the capacity FFN or of
    the decode kernel, the median step time, tokens/s and peak memory; two
-   2-step runs from seed 0 with bit-identical losses and parameters; one
+   2-step runs from seed 0 with bit-identical losses and parameters; the
+   capacity path's training step (``make_train_step`` with
+   ``ShardingRules(moe_impl="capacity", ep_ranks=1)``) at 16 x 256: each
+   step's launches exact (the routing stage, the capacity FFN, the bucket
+   K1 and K2 on the TMA route, K3 and the attention's forward, 32 each),
+   finite losses, step time, peak memory, and its first two steps again
+   from seed 0 bit for bit; one
    step of a 2-layer full-width model through the kernels against one
    through the plain versions (autograd of the plain forward), the loss
    and every gradient within a relative L2 bound; and a checkpoint restart
@@ -141,14 +155,19 @@ Run from the repository root on a machine with one NVIDIA H100. It
    256 tokens through the ragged a2a body and through the capacity a2a
    body (factor 8, dropless), 4 decode steps of 8 lanes through
    the replicated ragged body on ``expand_experts``' weights, and one loss
-   and backward at 4 x 256 through the ragged a2a body; at dp 2 x ep 2
+   and backward at 4 x 256 through the ragged a2a body and one through
+   the capacity a2a body (factor 8; the bucket K1 and K2 on each rank's
+   buckets); at dp 2 x ep 2
    with FSDP of the expert weights, a 2-layer prefill. Each is held
    against the single-rank port on the same weights in the same run: at 2
    x 256 no assignment moves and the logits lie within 5e-2; the 4 x 256
    runs, whose routing sums in another order (see ``ep_phase``), against
    one device under the rank's routing split the same way (the gradient
    leaves within 2e-2 relative L2, the loss within 1e-3) and against one
-   device as it runs within bounds set from recorded readings; decode
+   device as it runs within bounds set from recorded readings (the
+   capacity backward against one device's capacity path under the split,
+   and as it runs against one device's ragged path: at factor 8 the same
+   function); decode
    under the exact (t, K, D) psum witness bit for bit, and as the port
    runs it (the reference's (t, D) psum) within a bound set so. On the
    ranks, at a 2-layer model's same shapes, every kernel call, forward
@@ -424,19 +443,38 @@ def timings(fn, reps: int = 25) -> dict:
             "host_us": host_us}
 
 
-def device_ops(fn) -> int:
+def device_ops(fn, tries: int = 3) -> int:
     """Device kernels and copies of one warm call of ``fn``, counted by
-    ``torch.profiler``."""
+    ``torch.profiler``. The traced window holds ``fn`` between two control
+    kernels (a one-element ``fill_``, ``FillFunctor`` by name); the profiler
+    can hand back a window without device events (it did once on the H100,
+    in a process's first trace), so a window in which both controls do
+    not show is traced again, up to ``tries`` times, and then fails. The
+    count is the window's device operations less the two controls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    ctl = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    seen, keys = [], set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ctl.fill_(1.0)
+            fn()
+            ctl.fill_(2.0)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        controls = sum(e.count for e in evs if "FillFunctor" in e.key)
+        seen.append(sum(e.count for e in evs))
+        keys |= {e.key[:120] for e in evs}
+        if controls >= 2:
+            return seen[-1] - 2
+    check(False, f"the profiler saw {seen} device operations in {tries} "
+          f"traced windows, without both control kernels in any (kernels "
+          f"seen: {sorted(keys)})")
+    return -1
 
 
 def row_rel(got, want) -> float:
@@ -663,7 +701,7 @@ def _sdpa(q, k, v, mask=None, causal=False):
 
 def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
                    causal=True, window=0, rows=None, n_valid=None,
-                   plain_reps=5, cut=False):
+                   plain_reps=5, cut=False, timed=True):
     """Kernel A (``flash_attn_fwd``) at one call site's shape against the
     plain version on the same inputs (``row_rel`` within ATTN_REL, or
     ATTN_REL_F32 in f32; two calls bit for bit) on the route ``route_of``
@@ -674,7 +712,9 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
     time (an ex2 a valid pair at the SMs' ex2 rate) stands beside the
     bound. With ``cut`` also what the check reads for a kernel that
     dropped the second half of the keys (the plain version with them
-    masked): it must fail."""
+    masked): it must fail. With ``timed`` False the checks only: the case
+    is one that ``scripts/attn_compare.py`` times (``ms``, ``plain_ms``
+    and ``library_ms`` None)."""
     import torch
     from repro_torch.kernels import flash as t_flash
     from repro_torch.kernels import ops
@@ -715,23 +755,28 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
         check(cut_err > tol, f"attention {name}: half the keys dropped "
               f"reads {cut_err}, inside the bound {tol}")
     del y, y2, y_ref
-    res = timings(lambda: t_flash.flash_attn_fwd(q, k, v, **kw))
-    plain_ms = median_ms(lambda: plain.flash_attention(q, k, v, **kw),
-                         reps=plain_reps, warmup=1)
-    # PyTorch's flash backend takes 16-bit inputs only: f32 gets the mask
-    plain_full = (causal and rows is None and n_valid is None and not window
-                  and dtype == torch.bfloat16)
-    mask = None
-    if not plain_full:
-        mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
-        if kval is not None:
-            mask &= kval[None, :]
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window:
-            mask &= (qpos[:, None] - kpos[None, :]) < window
-    library_ms = median_ms(_sdpa(q, k, v, mask, causal=plain_full), reps=5)
-    del mask
+    res = {"ms": None, "device_ms": None, "host_us": None}
+    plain_ms = library_ms = None
+    if timed:
+        res = timings(lambda: t_flash.flash_attn_fwd(q, k, v, **kw))
+        plain_ms = median_ms(lambda: plain.flash_attention(q, k, v, **kw),
+                             reps=plain_reps, warmup=1)
+        # PyTorch's flash backend takes 16-bit inputs only: f32 gets the
+        # mask
+        plain_full = (causal and rows is None and n_valid is None
+                      and not window and dtype == torch.bfloat16)
+        mask = None
+        if not plain_full:
+            mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+            if kval is not None:
+                mask &= kval[None, :]
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+            if window:
+                mask &= (qpos[:, None] - kpos[None, :]) < window
+        library_ms = median_ms(_sdpa(q, k, v, mask, causal=plain_full),
+                               reps=5)
+        del mask
     pairs = _valid_pairs(qpos, kpos, kval, causal, window) * B * KV * G
     n_bytes = (2 * q.numel() * q.element_size() + 2 * k.numel()
                * k.element_size() + (Sq + Skv) * 8
@@ -751,11 +796,13 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
           f"relative L2 {err:.3e} (tol {tol}"
           + ("" if cut_err is None else
              f"; half the keys dropped would read {cut_err:.3e}")
-          + f"), two calls bit for bit; kernel {res['ms']:.4f} ms "
-          f"({100 * bound_ms / res['ms']:.1f}% "
-          f"of bound), {res['device_ms']:.4f} ms with the host ahead, host "
-          f"{res['host_us']:.1f} us a call; plain {plain_ms:.4f} ms; SDPA "
-          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({by}, "
+          + "), two calls bit for bit; "
+          + (f"kernel {res['ms']:.4f} ms ({100 * bound_ms / res['ms']:.1f}% "
+             f"of bound), {res['device_ms']:.4f} ms with the host ahead, "
+             f"host {res['host_us']:.1f} us a call; plain {plain_ms:.4f} ms;"
+             f" SDPA {library_ms:.4f} ms; " if timed else
+             "timed by scripts/attn_compare.py; ")
+          + f"bound {bound_ms:.4f} ms ({by}, "
           f"{flops / 1e9:.2f} GFLOP of valid pairs"
           + ("" if route != "tf32x3" else
              f", three TF32 products at {TF32_FLOPS / 1e12:.0f} TFLOP/s")
@@ -776,14 +823,17 @@ def attention_case(name, cgen, dev, B, Sq, Skv, KV, G, hd, *, dtype=None,
 
 
 def decode_case(name, cgen, dev, B, S_max, KV, G, hd, pos, *, window=0,
-                kpos_offset=0, stats=False, plain_reps=5, cut=False):
+                kpos_offset=0, stats=False, plain_reps=5, cut=False,
+                timed=True):
     """Kernel B (``flash_decode``) against the plain version: the output
     by ``row_rel`` within ATTN_REL; with ``stats`` acc's rows the same, m
     within ATTN_REL of its largest |m| and l of each l, and a lane with no
     valid row of this cache exactly (m, l, acc) = (_NEG, 0, 0) in both;
-    two calls bit for bit; timed with the plain version and the library
-    yardstick. With ``cut`` also what the check reads for a kernel that
-    dropped the second half of each lane's rows: it must fail."""
+    two calls bit for bit; one device operation a call; timed with the
+    plain version and the library yardstick (with ``timed`` False not: a
+    case that ``scripts/attn_compare.py`` times). With ``cut`` also what
+    the check reads for a kernel that dropped the second half of each
+    lane's rows: it must fail."""
     import torch
     from repro_torch.kernels import flash as t_flash
     from repro_torch.kernels import ops
@@ -834,15 +884,19 @@ def decode_case(name, cgen, dev, B, S_max, KV, G, hd, pos, *, window=0,
                           want[0])
         check(cut_err > ATTN_REL, f"decode {name}: half the rows dropped "
               f"reads {cut_err}, inside the bound {ATTN_REL}")
-    res = timings(lambda: t_flash.flash_decode(q, kc, vc, pos, **kw))
     ops_a_call = device_ops(lambda: t_flash.flash_decode(q, kc, vc, pos,
                                                          **kw))
     check(ops_a_call == 1, f"decode {name}: {ops_a_call} device "
           "operations a call, expected one launch")
-    plain_ms = median_ms(lambda: plain.flash_decode(q, kc, vc, pos, **kw),
-                         reps=plain_reps, warmup=1)
-    library_ms = median_ms(_sdpa(q[:, None], kc, vc,
-                                 valid[:, None, None, :]), reps=5)
+    res = {"ms": None, "device_ms": None, "host_us": None}
+    plain_ms = library_ms = None
+    if timed:
+        res = timings(lambda: t_flash.flash_decode(q, kc, vc, pos, **kw))
+        plain_ms = median_ms(lambda: plain.flash_decode(q, kc, vc, pos,
+                                                        **kw),
+                             reps=plain_reps, warmup=1)
+        library_ms = median_ms(_sdpa(q[:, None], kc, vc,
+                                     valid[:, None, None, :]), reps=5)
     n_rows = int(rows.sum())
     out_bytes = (B * KV * G * hd * 4 + 2 * B * KV * G * 4 if stats
                  else B * KV * G * hd * 2)
@@ -859,11 +913,13 @@ def decode_case(name, cgen, dev, B, S_max, KV, G, hd, pos, *, window=0,
           + ("" if cut_err is None else
              f"; half the rows dropped would read {cut_err:.3e}")
           + "), two calls bit for bit; "
-          f"kernel {res['ms']:.4f} ms ({100 * bound_ms / res['ms']:.1f}% of "
-          f"bound), {res['device_ms']:.4f} ms with the host ahead, host "
-          f"{res['host_us']:.1f} us a call; plain {plain_ms:.4f} ms; SDPA "
-          f"(normalised output) {library_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)", flush=True)
+          + (f"kernel {res['ms']:.4f} ms ({100 * bound_ms / res['ms']:.1f}% "
+             f"of bound), {res['device_ms']:.4f} ms with the host ahead, "
+             f"host {res['host_us']:.1f} us a call; plain {plain_ms:.4f} ms;"
+             f" SDPA (normalised output) {library_ms:.4f} ms; " if timed
+             else "timed by scripts/attn_compare.py; ")
+          + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)",
+          flush=True)
     return {"max_abs_err": err, "cut_err": cut_err, **res,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": library_ms, "device_ops_a_call": ops_a_call,
@@ -933,33 +989,35 @@ def attention_cases(cfg, cgen, dev) -> dict:
     a["prefill-4x512"] = attention_case("prefill-4x512", cgen, dev, 4, 512,
                                         512, KV, G, hd, cut=True)
     # a 128-token chunk (rows 384-511) against a lane of the 1024-row cache
+    # the cases below that scripts/attn_compare.py times are checked only
+    # (``timed=False``)
     a["chunk-vs-lane"] = attention_case(
         "chunk-vs-lane", cgen, dev, 1, 128, 1024, KV, G, hd,
-        rows=(384, 512), n_valid=512)
+        rows=(384, 512), n_valid=512, timed=False)
     # context mode on 4 ranks: rank 1's 64 query rows of 2 x 256
     a["context-rows"] = attention_case("context-rows", cgen, dev, 2, 64, 256,
                                        KV, G, hd, rows=(64, 128))
     # gemma3-4b's local layers: hd 256, window 1024, 4 KV heads x 2
     a["gemma3-hd256-window"] = attention_case(
         "gemma3-hd256-window", cgen, dev, 1, 2048, 2048, 4, 2, 256,
-        window=1024)
+        window=1024, timed=False)
     # hubert-xlarge: f32 q/k/v, an encoder (no causal mask), hd 80
     a["hubert-f32"] = attention_case("hubert-f32", cgen, dev, 2, 512, 512,
                                      16, 1, 80, dtype=torch.float32,
-                                     causal=False)
+                                     causal=False, timed=False)
     # gemma3-4b's global layers: hd 256, causal, no window, at 8192
     a["gemma3-hd256-8192"] = attention_case(
         "gemma3-hd256-8192", cgen, dev, 1, 8192, 8192, 4, 2, 256,
-        plain_reps=1)
+        timed=False)
     a["prefill-1x32768"] = attention_case("prefill-1x32768", cgen, dev, 1,
                                           32768, 32768, KV, G, hd,
-                                          plain_reps=1)
+                                          timed=False)
     # a 128-token chunk against a lane of 140000 rows: 1094 key tiles of
     # 128 on the Hopper route, past the 1024 whose states the kernels take
     # a window at a time
     a["chunk-vs-140000"] = attention_case(
         "chunk-vs-140000", cgen, dev, 1, 128, 140000, KV, G, hd,
-        rows=(138000, 138128), n_valid=138128, plain_reps=2)
+        rows=(138000, 138128), n_valid=138128, timed=False)
     # the same past 1024 key tiles of 64 on the hd 256 Hopper route and
     # the tf32x3 route (1065 live tiles of 1094), whose states each judges
     # a window of 1024 at a time; in f32 the last 1128 keys cut by kv_valid
@@ -972,20 +1030,20 @@ def attention_cases(cfg, cgen, dev) -> dict:
     # the serve CLI's default prefill: its arch's smoke config (hd 32, KV 2
     # x G 2) at --max-batch 4 --max-seq 96
     a["serve-smoke-hd32"] = attention_case("serve-smoke-hd32", cgen, dev, 4,
-                                           96, 96, 2, 2, 32)
+                                           96, 96, 2, 2, 32, timed=False)
     a["hd32-1x32768"] = attention_case("hd32-1x32768", cgen, dev, 1, 32768,
-                                       32768, 2, 2, 32, plain_reps=1)
+                                       32768, 2, 2, 32, timed=False)
     # hubert's head layout (16 KV heads of one, hd 80, no mask) in bf16
     a["bf16-hd80-2x2048"] = attention_case("bf16-hd80-2x2048", cgen, dev, 2,
                                            2048, 2048, 16, 1, 80,
-                                           causal=False, plain_reps=2)
+                                           causal=False, timed=False)
     # f32 at hd 128 and 256 (the wide tf32x3 kernel)
     a["f32-hd128-1x4096"] = attention_case(
         "f32-hd128-1x4096", cgen, dev, 1, 4096, 4096, 8, 3, 128,
-        dtype=torch.float32, plain_reps=2)
+        dtype=torch.float32, timed=False)
     a["f32-hd256-1x4096"] = attention_case(
         "f32-hd256-1x4096", cgen, dev, 1, 4096, 4096, 4, 2, 256,
-        dtype=torch.float32, plain_reps=2)
+        dtype=torch.float32, timed=False)
     # the training path: granite's 4 x 512, and gemma3's hd 256 window
     out["grad"]["train-4x512"] = attention_grad_case(
         "train-4x512", cgen, dev, 4, 512, KV, G, hd)
@@ -998,10 +1056,10 @@ def attention_cases(cfg, cgen, dev) -> dict:
     # context mode's shard: rank 1's 256 rows of 1024 (two lanes before)
     d["decode-8-stats"] = decode_case("decode-8-stats", cgen, dev, 8, 256, KV,
                                       G, hd, lanes, kpos_offset=256,
-                                      stats=True)
+                                      stats=True, timed=False)
     d["decode-8x32768"] = decode_case(
         "decode-8x32768", cgen, dev, 8, 32768, KV, G, hd,
-        [32767 - 3 * i for i in range(8)], plain_reps=2)
+        [32767 - 3 * i for i in range(8)], timed=False)
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
     print(f"[time] phase 3 attention cases: {out['wall_s']:.1f} s",
@@ -2070,6 +2128,94 @@ def backward_controls(w, buf, tg, dy, h, da, db, ro, sz, real, want,
                               for n, t, r in zip(names, skip, want)}}
 
 
+def capacity_backward_case(name, E, C, D, F, cgen, dev, empty_rows):
+    """The capacity FFN's gradient on the card: the bucket K1
+    (``moe_ffn_dgrad``) and K2 (``moe_ffn_wgrad``) on the forward kernel's
+    saved ``h`` against ``moe_ffn_bwd_ref`` on buckets (E, C, D) whose last
+    ``empty_rows`` rows a bucket hold no assignment (x = 0 and dy = 0, as
+    the combine leaves them): relative L2 of dx and of each dW within
+    ``BWD_TOL``, the empty rows of dx exactly zero, the TMA route, two
+    calls bit for bit; then each timed as the forward kernels are, beside
+    the plain backward and the bound (every bucket row: K1 five products,
+    10 E C D F operations; K2 three, 6 E C D F)."""
+    import torch
+    from repro_torch.kernels import moe_ffn as t_capacity
+    from repro_torch.kernels import ref
+    toks = torch.randn((E, C, D), generator=cgen, device=dev)
+    toks[:, C - empty_rows:] = 0
+    toks = toks.to(torch.bfloat16)
+    dy = (torch.randn((E, C, D), generator=cgen, device=dev)
+          * (toks != 0).any(-1, keepdim=True)).to(torch.bfloat16)
+    w = [(torch.randn(s, generator=cgen, device=dev) / math.sqrt(s[1])).to(
+        torch.bfloat16) for s in ((E, D, F), (E, D, F), (E, F, D))]
+    _, h = t_capacity.fused_moe_ffn(*w, toks, keep_h=True)
+
+    def k1():
+        return t_capacity.moe_ffn_dgrad(*w, toks, dy)
+
+    def k2():
+        return t_capacity.moe_ffn_wgrad(toks, h, da, db, dy)
+
+    dx, da, db = k1()
+    k1_route = t_capacity.moe_ffn_dgrad.last_route
+    dws = k2()
+    k2_route = t_capacity.moe_ffn_wgrad.last_route
+    again = (*k1(), *k2())
+    want = ref.moe_ffn_bwd_ref(*w, toks, dy)
+    torch.cuda.synchronize()
+    label = f"capacity FFN backward {name}"
+    check(k1_route == f"tma rows={t_capacity.bwd_rows(C)}"
+          and k2_route == "tma", f"{label}: routes {k1_route}, {k2_route}")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(
+        (dx, da, db, *dws), again)), f"{label}: two calls differ")
+    got = (dx, *dws)
+    names = ("dx", "dw1", "dw3", "dw2")
+    errs = {n: _rel_l2(g, r) for n, g, r in zip(names, got, want)}
+    abs_err = {n: (g.float() - r.float()).abs().max().item()
+               for n, g, r in zip(names, got, want)}
+    check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+          f"{label}: non-finite gradients")
+    check(max(errs.values()) <= BWD_TOL, f"{label}: relative L2 errors "
+          f"{errs} > {BWD_TOL}")
+    check(not bool(dx[:, C - empty_rows:].any()), f"{label}: the empty "
+          "rows of dx are not zero")
+    del again, want
+    times = {"K1": timings(k1), "K2": timings(k2)}
+    plain_ms = median_ms(lambda: ref.moe_ffn_bwd_ref(*w, toks, dy), reps=3)
+    rows = E * C
+    k1_bytes = 3 * rows * D * 2 + 2 * rows * F * 2 + 3 * E * D * F * 2
+    k2_bytes = 2 * rows * D * 2 + 3 * rows * F * 2 + 3 * E * D * F * 2
+    out = []
+    for kname, kernel, nb, n_ops, route in (
+            ("K1", "moe_ffn_dgrad", k1_bytes, 10 * rows * D * F, k1_route),
+            ("K2", "moe_ffn_wgrad", k2_bytes, 6 * rows * D * F, k2_route)):
+        t = times[kname]
+        b, by = bound(nb, n_ops, BF16_FLOPS)
+        print(f"[kernel] {kernel} ({kname}) {name}, buckets ({E}, {C}, {D})"
+              f", F {F}, {empty_rows} empty rows a bucket, {route}: "
+              f"{t['ms']:.4f} ms ({100 * b / t['ms']:.1f}% of bound), "
+              f"{t['device_ms']:.4f} ms with the host ahead "
+              f"({100 * b / t['device_ms']:.1f}%), host {t['host_us']:.1f} "
+              f"us a call; bound {b:.4f} ms ({by}, {nb / 1e6:.1f} MB, "
+              f"{n_ops / 1e9:.1f} GFLOP)", flush=True)
+        out.append({"max_abs_err": max(abs_err[n] for n in (
+                        ("dx",) if kname == "K1" else ("dw1", "dw3", "dw2"))),
+                    **t, "bound_ms": b, "bound_by": by,
+                    "bound_share": b / t["ms"],
+                    "device_bound_share": b / t["device_ms"],
+                    "kernel_route": route})
+    print(f"[kernel]   {name}: relative L2 "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (tol "
+          f"{BWD_TOL}); max |kernel - plain| "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in abs_err.items())}; the "
+          f"empty rows of dx exactly 0, two calls bit-identical; plain "
+          f"backward {plain_ms:.4f} ms (K1 and K2 together)", flush=True)
+    common = {"plain_ms": plain_ms, "relative_l2": errs,
+              "shape": {"E": E, "C": C, "D": D, "F": F,
+                        "empty_rows": empty_rows}}
+    return out[0] | common, out[1] | common
+
+
 def backward_route_case(cfg, cgen, dev, T=1024):
     """The routing backward K3 at the training shape against
     ``route_select_dlogits_ref`` on the forward kernel's outputs."""
@@ -2620,6 +2766,100 @@ def kernel_vs_plain_step(cfg, dev, n_layers=2, seq_len=256, batch=4):
                 "loss_rel_err": all_loss, "grad_rel_l2": all_errs}}
 
 
+def capacity_train_step(cfg, dev, seq_len=256, batch=16, steps=3):
+    """The capacity path's training step at full width on the card:
+    ``launch/train.py::make_train_step`` with ``models.loss_fn(cfg,
+    ShardingRules(moe_impl="capacity", ep_ranks=1))`` (the a2a capacity
+    body on a one-rank group: buckets (E, C, D), C = 1024 at 16 x 256 and
+    factor 1.25), ``steps`` steps from seed 0: each step's launches exact
+    (a layer: the routing stage, the capacity FFN, the bucket K1 and K2,
+    all on the TMA route, and the routing backward; the attention's
+    forward; nothing else), finite losses, the median step time of the
+    steps after the first, tokens/s and the peak memory; then the first
+    two steps again from seed 0, their losses and parameters bit for bit
+    those of the first run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params, make_moe_tables
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.training import (AdamWConfig, DataConfig, adamw_init,
+                                      synthetic_batch)
+    from repro_torch.tree import leaves
+    rules = ShardingRules(moe_impl="capacity", ep_ranks=1)
+    ocfg = AdamWConfig()
+    data = DataConfig(seq_len=seq_len, global_batch=batch)
+    mt = make_moe_tables(cfg, rules, device=dev)
+    L = cfg.n_layers
+    per_step = {"route_select": L, "fused_moe_ffn": L,
+                "fused_moe_ffn.tma": L, "moe_ffn_dgrad": L,
+                "moe_ffn_dgrad.tma": L, "moe_ffn_wgrad": L,
+                "moe_ffn_wgrad.tma": L, "route_select_bwd": L} \
+        | attn_want(cfg, prefill=1)
+
+    def run(n, timed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, device=dev)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        opt = adamw_init(params, ocfg)
+        step = make_train_step(cfg, ocfg, n, rules)
+        losses, times, digest = [], [], None
+        for i in range(n):
+            b = {k: torch.as_tensor(v, device=dev)
+                 for k, v in synthetic_batch(cfg, data, i).items()}
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss, tallies = step(params, opt, b, mt)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t0)
+            if timed:
+                counts = attn_routed(ops.launch_counts(),
+                                     f"capacity training step {i}")
+                for name, c in counts.items():
+                    check(c == per_step.get(name, 0), f"capacity training "
+                          f"step {i}: {name} launched {c} times, expected "
+                          f"{per_step.get(name, 0)}")
+            if i == 1:
+                digest = param_digest(params)
+        drops = float(tallies[:, -1].sum())
+        del params, opt
+        torch.cuda.empty_cache()
+        return losses, times, digest, drops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, digest, drops = run(steps, True)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses), f"capacity training: "
+          f"losses {losses}")
+    again, _, digest2, _ = run(2, False)
+    check(again == losses[:2] and digest2 == digest, f"capacity training: "
+          f"two seeded runs differ (losses {losses[:2]} vs {again})")
+    med = statistics.median(times[1:])
+    C = 4 * math.ceil(math.ceil(batch * seq_len * cfg.top_k / cfg.n_experts
+                                * rules.capacity_factor) / 4)
+    print(f"[train] capacity path (moe_impl='capacity', one-rank group, "
+          f"factor {rules.capacity_factor}: buckets ({cfg.n_experts}, {C}, "
+          f"{cfg.d_model})), {cfg.name} at full width, {steps} steps of "
+          f"{batch} x {seq_len} tokens: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; step wall times "
+          f"{', '.join(f'{t:.3f}' for t in times)} s, median after the "
+          f"first {med:.3f} s, {batch * seq_len / med:.0f} tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; drops in the last "
+          f"step {drops:.0f}; each step's launches exact ("
+          f"{json.dumps({k: v for k, v in per_step.items()})}, all else 0); "
+          f"the first two steps again from seed 0: losses and parameters "
+          f"bit for bit", flush=True)
+    return {"losses": losses, "step_s": times, "median_step_s": med,
+            "tokens_per_s": batch * seq_len / med, "peak_bytes": peak,
+            "bucket_rows": C, "drops_last_step": drops,
+            "launches_per_step": per_step,
+            "launches": {k: v * steps for k, v in per_step.items()}}
+
+
 def checkpoint_restart(dev):
     """Smoke size on the card: 2 steps, a checkpoint, a restore and 2 more
     steps equal 4 straight steps, bit for bit."""
@@ -2794,6 +3034,7 @@ def ep_reference(cfg, dev, inputs, ways, full=True):
     import torch
     from repro_torch.models import (decode_fn, init_cache, init_params,
                                     loss_fn, make_moe_tables, prefill_fn)
+    from repro_torch.models.sharding import ShardingRules
     from repro_torch.tree import leaves, tree_map
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2839,11 +3080,16 @@ def ep_reference(cfg, dev, inputs, ways, full=True):
         del cache
     batch = {"tokens": inputs["tokens_wide"],
              "labels": inputs["labels_wide"]}
-    for way in ("", "/split"):
+    # the ragged path as it runs and under the rank's split, then the
+    # capacity path (factor 8: dropless) under the rank's split
+    cap = ShardingRules(moe_impl="capacity", ep_ranks=1,
+                        capacity_factor=8.0)
+    for way, rules in (("", None), ("/split", None),
+                       ("_capacity/split", cap)):
         for p in leaves(params):
             p.requires_grad_(True)
         with rank_split(ways) if way else contextlib.nullcontext():
-            loss, (tal, _) = loss_fn(cfg)(params, batch, tables)
+            loss, (tal, _) = loss_fn(cfg, rules)(params, batch, tables)
             loss.backward()
         ref[f"loss{way}"] = loss.detach()
         ref[f"grads{way}"] = tree_map(lambda p: p.grad, params)
@@ -2882,7 +3128,8 @@ class hold_calls:
     near-tie row picked another expert, the kernel's aux against the aux
     formula on its own tally and mean probabilities); K1 and
     K2 by the relative L2 of ``dx`` and of the weights' gradients against
-    ``ragged_moe_ffn_bwd_ref``; K3 by its max |difference|. The kernel's
+    ``ragged_moe_ffn_bwd_ref``, the bucket K1 and K2 against
+    ``moe_ffn_bwd_ref``; K3 by its max |difference|. The kernel's
     result goes on; ``calls`` counts the calls held."""
 
     def __init__(self):
@@ -2943,7 +3190,9 @@ class hold_calls:
         # the backward kernels, as the autograd Functions of ``ops`` reach
         # them (each wrapper counts its launches on itself, so the modules
         # keep theirs)
-        self.saved_bwd = ops._ragged, ops._route
+        self.saved_bwd = ops._ragged, ops._route, ops._capacity
+        cap_dgrad = ops._capacity.moe_ffn_dgrad
+        cap_wgrad = ops._capacity.moe_ffn_wgrad
         dgrad = ops._ragged.ragged_moe_ffn_dgrad
         wgrad = ops._ragged.ragged_moe_ffn_wgrad
         route_bwd = ops._route.route_select_bwd
@@ -2989,6 +3238,19 @@ class hold_calls:
                 _rel_l2(g, w) for g, w in zip(dws, outer._dws)))
             return dws
 
+        def held_cap_dgrad(w1, w3, w2, toks, dy):
+            dx, da, db = cap_dgrad(w1, w3, w2, toks, dy)
+            want = ref.moe_ffn_bwd_ref(w1, w3, w2, toks, dy)
+            outer._note("moe_ffn_dgrad", _rel_l2(dx, want[0]))
+            outer._dws = want[1:]
+            return dx, da, db
+
+        def held_cap_wgrad(*a):
+            dws = cap_wgrad(*a)
+            outer._note("moe_ffn_wgrad", max(
+                _rel_l2(g, w) for g, w in zip(dws, outer._dws)))
+            return dws
+
         def held_route_bwd(*a, **kw):
             dl = route_bwd(*a, **kw)
             want = ref.route_select_dlogits_ref(*a, **kw)
@@ -3005,13 +3267,15 @@ class hold_calls:
         ops._ragged = module(ops._ragged, ragged_moe_ffn_dgrad=held_dgrad,
                              ragged_moe_ffn_wgrad=held_wgrad)
         ops._route = module(ops._route, route_select_bwd=held_route_bwd)
+        ops._capacity = module(ops._capacity, moe_ffn_dgrad=held_cap_dgrad,
+                               moe_ffn_wgrad=held_cap_wgrad)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
         from repro_torch.models import moe as tmoe
         tmoe.ops = self.saved
-        ops._ragged, ops._route = self.saved_bwd
+        ops._ragged, ops._route, ops._capacity = self.saved_bwd
 
 
 def _ep_vs_plain(cfg, rules, params, inputs, dev):
@@ -3019,9 +3283,10 @@ def _ep_vs_plain(cfg, rules, params, inputs, dev):
     those of any depth) on the expert-parallel paths, each kernel call held
     against its plain version on the same inputs (:class:`hold_calls`):
     prefill 2 x 256 and 4 x 256 (ragged a2a), capacity 2 x 256 (factor 8),
-    one decode step (replicated ragged), and one loss and backward at 4 x
-    256 (ragged a2a; K1, K2 and K3 in the backward). Returns the
-    comparisons' numbers."""
+    one decode step (replicated ragged), and a loss and backward at 4 x
+    256 through the ragged a2a body (K1, K2 and K3 in the backward) and
+    through the capacity a2a body (factor 8; the bucket K1 and K2, K3).
+    Returns the comparisons' numbers."""
     import dataclasses
     import torch
     from repro_torch.launch.sharding import decode_params, shard_params
@@ -3052,10 +3317,11 @@ def _ep_vs_plain(cfg, rules, params, inputs, dev):
                                          device=dev),
                 torch.zeros((tok.shape[0],), dtype=torch.int32, device=dev),
                 dtables)
-        loss, _ = loss_fn(cfg, rules)(tparams, {
-            "tokens": inputs["tokens_wide"],
-            "labels": inputs["labels_wide"]}, tables)
-        loss.backward()
+        wide = {"tokens": inputs["tokens_wide"],
+                "labels": inputs["labels_wide"]}
+        for r in (rules, cap):
+            loss, _ = loss_fn(cfg, r)(tparams, wide, tables)
+            loss.backward()
     return {"calls": dict(held.calls), "err": dict(held.err),
             "route_mismatch": held.route_mismatch,
             "near_rows": held.near_rows,
@@ -3212,11 +3478,18 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
                 out["seconds"]["decode"] = st.median(times)
                 out["seconds"]["decode_all"] = sum(times)
             del dparams
-        elif path == "backward":
+        elif path in ("backward", "capacity_backward"):
+            # the capacity path (factor 8: dropless) is held under the
+            # split against one device's capacity gradient, and as it runs
+            # against one device's ragged gradient: the same function
+            capacity = path.startswith("capacity")
+            r = rules if not capacity else dataclasses.replace(
+                rules, moe_impl="capacity", capacity_factor=8.0)
+            pre = "capacity_" if capacity else ""
             tparams = shard_params(cfg, params, rules, "train")
             for p in leaves(tparams):
                 p.requires_grad_(True)
-            fn = loss_fn(cfg, rules)
+            fn = loss_fn(cfg, r)
             batch = {"tokens": inputs["tokens_wide"],
                      "labels": inputs["labels_wide"]}
 
@@ -3225,14 +3498,16 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
                 loss.backward()
                 return loss.detach(), tal
 
-            loss, tal = run("backward", step)
-            out["loss"] = loss.item()
+            loss, tal = run(path, step)
+            out[pre + "loss"] = loss.item()
+            out[path + "_drops"] = float(tal[:, -1].sum())
             for way in ("", "/split"):
-                out["moved"]["backward" + way] = _moved(
-                    tal, ref["backward_tally" + way])
-                want = leaves(shard_params(cfg, ref["grads" + way], rules,
+                key = ("_capacity" if capacity and way else "") + way
+                out["moved"][path + way] = _moved(
+                    tal, ref["backward_tally" + key])
+                want = leaves(shard_params(cfg, ref["grads" + key], rules,
                                            "train"))
-                out["grad_rel_l2_max" + way] = max(
+                out[pre + "grad_rel_l2_max" + way] = max(
                     _rel_l2_chunked(p.grad, w)
                     for p, w in zip(leaves(tparams), want))
                 del want
@@ -3271,7 +3546,8 @@ def ep_phase(cfg, dev):
     ragged a2a body and the capacity a2a body (factor 8: dropless), 4
     decode steps of 8 lanes through the replicated ragged body on
     ``expand_experts``' weights, one loss and backward of 4 x 256 through
-    the ragged a2a body; every kernel against its plain version on the
+    the ragged a2a body and one through the capacity a2a body (factor 8);
+    every kernel against its plain version on the
     ranks, at a 2-layer model's same shapes; then dp 2 x ep 2 with FSDP of
     the expert weights at 2 layers: one prefill. Each is held against the
     single-rank port on the same weights in this run.
@@ -3320,7 +3596,7 @@ def ep_phase(cfg, dev):
     plan = {"cfg": cfg, "grid": (1, ways), "fsdp": None, "small_cfg": small,
             "paths": ["prefill", "capacity", "prefill_wide",
                       "capacity_wide", "decode",
-                      "backward", "vs_plain"]}
+                      "backward", "capacity_backward", "vs_plain"]}
     # dp 2 x ep 2 with FSDP of the expert weights, 2 layers: on the same
     # ranks after the ep 4 plan
     plan2 = {"cfg": small, "grid": (2, 2), "fsdp": "data",
@@ -3335,7 +3611,8 @@ def ep_phase(cfg, dev):
          for r in ranks]), flush=True)
     near, near_wide = ref["near_ties/tokens"], ref["near_ties/tokens_wide"]
     dec_near, dec_gaps = ref["decode_near_ties"], ref["decode_gaps"]
-    loss_ref = {w: ref["loss" + w].item() for w in ("", "/split")}
+    loss_ref = {w: ref["loss" + w].item()
+                for w in ("", "/split", "_capacity/split")}
     del params, ref
     _free_shared()
     # the attention: whole on every rank (the dense layers replicated),
@@ -3356,7 +3633,11 @@ def ep_phase(cfg, dev):
         "backward": per | {k: L for k in (
             "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
             "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
-            "route_select_bwd")}}
+            "route_select_bwd")},
+        "capacity_backward": {k: L for k in (
+            "route_select", "fused_moe_ffn", "fused_moe_ffn.tma",
+            "moe_ffn_dgrad", "moe_ffn_dgrad.tma", "moe_ffn_wgrad",
+            "moe_ffn_wgrad.tma", "route_select_bwd")} | attn}
     on_card = dev.type == "cuda"      # a CPU rehearsal launches nothing
 
     def hold_same(label, moved, err):
@@ -3415,20 +3696,48 @@ def ep_phase(cfg, dev):
               f"loss {loss_err['']:.3e} (bound {EP_WIDE_LOSS_REL}), "
               f"gradient leaves max {r['grad_rel_l2_max']:.3e} (bound "
               f"{EP_WIDE_GRAD_REL_L2})")
+        # the capacity a2a body's backward (factor 8: dropless) against one
+        # device's capacity path under the rank's split, and against one
+        # device's ragged path as it runs (the same function)
+        cap_err = {w: abs(r["capacity_loss"] - loss_ref[v]) / abs(loss_ref[v])
+                   for w, v in (("", ""), ("/split", "_capacity/split"))}
+        check(r["capacity_backward_drops"] == 0, f"{label} capacity "
+              f"backward at factor 8 dropped "
+              f"{r['capacity_backward_drops']} assignments")
+        check(not any(r["moved"]["capacity_backward/split"])
+              and cap_err["/split"] <= STEP_LOSS_TOL
+              and r["capacity_grad_rel_l2_max/split"] <= STEP_TOL,
+              f"{label} capacity backward 4 x 256 against one device's "
+              f"capacity path under the rank's split: "
+              f"{sum(r['moved']['capacity_backward/split'])} assignments "
+              f"moved, loss {cap_err['/split']:.3e} (bound "
+              f"{STEP_LOSS_TOL}), gradient leaves max "
+              f"{r['capacity_grad_rel_l2_max/split']:.3e} (bound "
+              f"{STEP_TOL})")
+        check(cap_err[""] <= EP_WIDE_LOSS_REL
+              and r["capacity_grad_rel_l2_max"] <= EP_WIDE_GRAD_REL_L2,
+              f"{label} capacity backward 4 x 256 against one device's "
+              f"ragged path as it runs: loss {cap_err['']:.3e} (bound "
+              f"{EP_WIDE_LOSS_REL}), gradient leaves max "
+              f"{r['capacity_grad_rel_l2_max']:.3e} (bound "
+              f"{EP_WIDE_GRAD_REL_L2})")
+        r["capacity_loss_rel_err"] = cap_err
         vp, n = r["vs_plain"], small.n_layers
         # the backward kernels run on the card only (the CPU's backward is
         # the plain one)
         check(vp["calls"] == {
-            "route_select": 5 * n, "ragged_moe_ffn": 4 * n,
-            "fused_moe_ffn": n} | ({
+            "route_select": 6 * n, "ragged_moe_ffn": 4 * n,
+            "fused_moe_ffn": 2 * n} | ({
                 "ragged_moe_ffn_dgrad": n, "ragged_moe_ffn_wgrad": n,
-                "route_select_bwd": n} if on_card else {}),
+                "moe_ffn_dgrad": n, "moe_ffn_wgrad": n,
+                "route_select_bwd": 2 * n} if on_card else {}),
               f"{label}: kernel calls held against their plain versions "
               f"{vp['calls']}")
         bounds = {"ragged_moe_ffn": BF16_TOL, "fused_moe_ffn": BF16_TOL,
                   "route_select": ROUTER_W_TOL,
                   "ragged_moe_ffn_dgrad": BWD_TOL,
                   "ragged_moe_ffn_wgrad": BWD_TOL,
+                  "moe_ffn_dgrad": BWD_TOL, "moe_ffn_wgrad": BWD_TOL,
                   "route_select_bwd": ROUTER_W_TOL}
         check(vp["route_mismatch"] == 0
               and all(vp["err"].get(k, 0.0) <= b for k, b in bounds.items()),
@@ -3477,6 +3786,18 @@ def ep_phase(cfg, dev):
             "grad_rel_l2_max_split": max(r["grad_rel_l2_max/split"]
                                          for r in ranks),
             "grad_leaves": ranks[0]["grad_leaves"],
+            "capacity_backward": {
+                "loss": ranks[0]["capacity_loss"],
+                "loss_single_rank_capacity_split":
+                    loss_ref["_capacity/split"],
+                "loss_rel_err": {w: max(r["capacity_loss_rel_err"][w]
+                                        for r in ranks)
+                                 for w in ("", "/split")},
+                "grad_rel_l2_max": max(r["capacity_grad_rel_l2_max"]
+                                       for r in ranks),
+                "grad_rel_l2_max_split": max(
+                    r["capacity_grad_rel_l2_max/split"] for r in ranks),
+                "drops": [r["capacity_backward_drops"] for r in ranks]},
             "vs_plain_2_layers": vs_plain,
             "launches_rank0": ranks[0]["launches"]},
         "dp2_ep2_fsdp": {
@@ -3516,6 +3837,20 @@ def ep_phase(cfg, dev):
           f"{', '.join(f'{v:.2f}' for v in e4['peak_gib'])} GiB (the "
           f"parent holds {parent_gib:.2f} GiB: weights, results and "
           f"both references' gradients)", flush=True)
+    cb = e4["capacity_backward"]
+    walls = {p: ", ".join(f"{w * 1e3:.1f}" for w in e4["wall_s"][p])
+             for p in ("backward", "capacity_backward")}
+    print(f"[ep] ep 4 capacity backward 4 x 256 (the a2a capacity body at "
+          f"factor 8, the bucket K1 and K2 on each rank): loss "
+          f"{cb['loss']:.6f} vs {cb['loss_single_rank_capacity_split']:.6f} "
+          f"(one device's capacity path under the rank's split; relative "
+          f"{cb['loss_rel_err']['/split']:.3e}) and {loss_ref['']:.6f} (one "
+          f"device's ragged path as it runs; {cb['loss_rel_err']['']:.3e}); "
+          f"gradient leaves' relative L2 max {cb['grad_rel_l2_max_split']:.3e}"
+          f" (bound {STEP_TOL}) and {cb['grad_rel_l2_max']:.3e} (bound "
+          f"{EP_WIDE_GRAD_REL_L2}); drops {cb['drops']}; host wall per rank "
+          f"{walls['capacity_backward']} ms (the ragged backward "
+          f"{walls['backward']})", flush=True)
     print(f"[ep] ep 4 decode against one device: lanes whose experts "
           f"differ, as (step, lane, first layer, the single rank's gap to a "
           f"tie there): {json.dumps(e4['decode_flips'])}", flush=True)
@@ -6854,7 +7189,16 @@ def main() -> int:
     k1_big, k2_big = backward_ffn_case(cfg, gen, cgen, dev, tokens=4096,
                                        controls=False)
     k3 = backward_route_case(cfg, cgen, dev)
+    # the capacity FFN's gradient: granite's training buckets (16 x 256 at
+    # factor 1.25), a rank's a2a buckets in phase 13's backward (4 x 256
+    # on ep 4 at factor 8: 10 slots of 4 x 412 rows), a bucket of 36 rows
+    cap_bwd = {name: capacity_backward_case(name, E_, C_, D, F, cgen, dev,
+                                            empty)
+               for name, E_, C_, empty in (("train-16x256", E, 1024, 205),
+                                           ("rank-a2a", E // 4, 4 * 412, 40),
+                                           ("c36", 10, 36, 5))}
     trained = train_phase(cfg, dev)
+    trained["capacity"] = capacity_train_step(cfg, dev)
     trained["profile"] = train_step_profile(cfg, dev)
     # a micro-batch of 4096 tokens beside 50 GiB of weights and state, 16 x
     # 256 as before (8 x 512 peaked at 77 GiB, scripts/train_phase.py,
@@ -6988,6 +7332,28 @@ def main() -> int:
          "tp_launches": tp_launches("ragged_moe_ffn_wgrad"),
          "sp_launches": sp_launches("ragged_moe_ffn_wgrad"),
          "library_ms": None},
+        {"name": "moe_ffn_dgrad", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
+         "replaces": "src/repro/kernels/moe_ffn.py:58",
+         "launches": trained["capacity"]["launches"]["moe_ffn_dgrad"],
+         "tma_launches":
+             trained["capacity"]["launches"]["moe_ffn_dgrad.tma"],
+         **cap_bwd["train-16x256"][0],
+         "by_shape": {k: v[0] for k, v in cap_bwd.items()},
+         "ep_launches": ep_launches("moe_ffn_dgrad"),
+         "tp_launches": tp_launches("moe_ffn_dgrad"),
+         "sp_launches": sp_launches("moe_ffn_dgrad"), "library_ms": None},
+        {"name": "moe_ffn_wgrad", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
+         "replaces": "src/repro/kernels/moe_ffn.py:58",
+         "launches": trained["capacity"]["launches"]["moe_ffn_wgrad"],
+         "tma_launches":
+             trained["capacity"]["launches"]["moe_ffn_wgrad.tma"],
+         **cap_bwd["train-16x256"][1],
+         "by_shape": {k: v[1] for k, v in cap_bwd.items()},
+         "ep_launches": ep_launches("moe_ffn_wgrad"),
+         "tp_launches": tp_launches("moe_ffn_wgrad"),
+         "sp_launches": sp_launches("moe_ffn_wgrad"), "library_ms": None},
         {"name": "route_select_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/route_select.cu",
          "replaces": "src/repro/kernels/router.py:47",

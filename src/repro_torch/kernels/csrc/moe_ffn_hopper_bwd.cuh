@@ -7,7 +7,10 @@
 // expert. The layout is the forward's: a flat expert-sorted buffer, each
 // expert's segment padded to the row tile bm, tile_group naming each
 // tile's expert (or a sentinel >= E), row_off / sizes each expert's first
-// row and real rows.
+// row and real rows. K1's kernels also take the capacity path's layout
+// (template flag BUCKETS; moe_ffn_bwd.cu): E buckets of C rows, (E, C, ·),
+// the expert blockIdx.z, every bucket row computed; K2 takes it as the
+// flat (E C, ·) view with expert g's rows [g C, g C + C) (WgradArgs::C).
 //
 //   K1, launch A (dgrad_gate): per block of ROWS rows of one tile and 64
 //     columns of F, three accumulators over D: a = x W1[g], b = x W3[g]
@@ -132,21 +135,23 @@ struct WgradCfg {
 };
 
 struct DgradArgs {
-  const int* tile_group;  // expert per bm tile (sentinel >= E)
-  const int* row_off;     // first buffer row of each expert
-  const int* sizes;       // real rows of each expert
+  const int* tile_group;  // expert per bm tile (sentinel >= E); ragged only
+  const int* row_off;     // first buffer row of each expert; ragged only
+  const int* sizes;       // real rows of each expert; ragged only
   __nv_bfloat16* da;      // (T, F), real rows written
   __nv_bfloat16* db;
-  __nv_bfloat16* dx;      // (T, D), every row written
+  __nv_bfloat16* dx;      // (T, D): ragged every row, buckets rows below C
   int D, F, E, bm;
+  int C;                  // rows a bucket (BUCKETS); 0 on the ragged layout
 };
 
 struct WgradArgs {
-  const int* row_off;
+  const int* row_off;   // ragged: each expert's first row and real rows
   const int* sizes;
   __nv_bfloat16* out1;  // (E, M, N)
   __nv_bfloat16* out3;  // the second product's, or null
   int M, N;
+  int C;                // > 0: buckets, expert g's rows [g C, g C + C)
 };
 
 __device__ __forceinline__ void named_bar(int id, int threads) {
@@ -207,6 +212,43 @@ __device__ __forceinline__ int block_rows(const DgradArgs& a, int row0,
   return max(0, min(a.row_off[e] + a.sizes[e] - row0, span));
 }
 
+// K1's row block number y (blockIdx.y) of ROWS rows: its expert e, its
+// first row `row0` in the activations' tensor maps, its first row `flat0`
+// in the flat (rows, .) outputs, and its real rows (0: nothing to do).
+//   ragged: rows [ROWS y, ROWS y + ROWS) of the flat buffer, e and the
+//     real rows from the plan (block_rows); row0 = flat0.
+//   buckets: rows [ROWS y, ROWS y + ROWS) of bucket e = blockIdx.z; real
+//     rows min(C - row0, ROWS), every bucket row counted (an empty row has
+//     x = 0 and dy = 0, so its da, db and dx come out exact zeros);
+//     flat0 = e C + row0. The maps are 3-d over (E, C, .), so rows at or
+//     past C load as zeros, never the next bucket's rows.
+template <int ROWS, bool BUCKETS>
+__device__ __forceinline__ int row_block(const DgradArgs& a, int& e,
+                                         int& row0, int64_t& flat0) {
+  row0 = static_cast<int>(blockIdx.y) * ROWS;
+  if constexpr (BUCKETS) {
+    e = static_cast<int>(blockIdx.z);
+    flat0 = static_cast<int64_t>(e) * a.C + row0;
+    return min(a.C - row0, ROWS);
+  } else {
+    flat0 = row0;
+    return block_rows(a, row0, ROWS, e);
+  }
+}
+
+// One activation tile of rows [row0, row0 + box) and depth [k0, k0 + 64):
+// from a 2-d map over the flat buffer, or a 3-d map over the buckets.
+template <bool BUCKETS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
+                                          uint32_t bar, int k0, int row0,
+                                          int e) {
+  if constexpr (BUCKETS) {
+    tma_load_3d(dst, m, bar, k0, row0, e);
+  } else {
+    tma_load_2d(dst, m, bar, k0, row0);
+  }
+}
+
 // Zeros in rows [0, rows) and the first `cols` columns (a multiple of 8)
 // of dst (row stride ld), 16 bytes a store, by `threads` threads.
 __device__ __forceinline__ void store_zeros(__nv_bfloat16* dst, int64_t ld,
@@ -256,11 +298,12 @@ __device__ __forceinline__ void wg_store(const float (&v)[W / 2],
 }
 
 // ---------------------------------------------------------------------------
-// K1, launch A: da, db for rows [ROWS y, ROWS y + ROWS) and F columns
-// [64 x, 64 x + 64). x, dy: maps over (T, D) with a (64, ROWS) box; w1, w3
-// over (E, D, F), w2 over (E, F, D), (64, 64, 1) boxes.
+// K1, launch A: da, db for row block y (row_block) and F columns [64 x,
+// 64 x + 64). x, dy: maps over (T, D) (ragged) or (E, C, D) (BUCKETS) with
+// a (64, ROWS) box; w1, w3 over (E, D, F), w2 over (E, F, D), (64, 64, 1)
+// boxes.
 // ---------------------------------------------------------------------------
-template <int ROWS>
+template <int ROWS, bool BUCKETS>
 __global__ void __launch_bounds__(DgradCfg<ROWS>::THREADS)
 dgrad_gate_tma_kernel(const __grid_constant__ CUtensorMap x,
                       const __grid_constant__ CUtensorMap dy,
@@ -272,9 +315,9 @@ dgrad_gate_tma_kernel(const __grid_constant__ CUtensorMap x,
   constexpr int NWG = Config::NWG;
   constexpr int STAGE = Config::GATE_STAGE;
   const int col0 = static_cast<int>(blockIdx.x) * BN;
-  const int row0 = static_cast<int>(blockIdx.y) * ROWS;
-  int e;
-  const int real = block_rows(args, row0, ROWS, e);
+  int e, row0;
+  int64_t flat0;
+  const int real = row_block<ROWS, BUCKETS>(args, e, row0, flat0);
   if (real == 0) return;  // K2 and launch B read the real rows only
 
   extern __shared__ uint8_t smem_raw[];
@@ -296,9 +339,9 @@ dgrad_gate_tma_kernel(const __grid_constant__ CUtensorMap x,
         tma_load_3d(base, &w1, bar, col0, k0, e);
         tma_load_3d(base + TILE_BYTES, &w3, bar, col0, k0, e);
         tma_load_3d(base + 2 * TILE_BYTES, &w2, bar, k0, col0, e);
-        tma_load_2d(base + 3 * TILE_BYTES, &x, bar, k0, row0);
-        tma_load_2d(base + 3 * TILE_BYTES + Config::ACT_BYTES, &dy, bar, k0,
-                    row0);
+        load_rows<BUCKETS>(base + 3 * TILE_BYTES, &x, bar, k0, row0, e);
+        load_rows<BUCKETS>(base + 3 * TILE_BYTES + Config::ACT_BYTES, &dy,
+                           bar, k0, row0, e);
       }
     }
     return;
@@ -352,7 +395,7 @@ dgrad_gate_tma_kernel(const __grid_constant__ CUtensorMap x,
   }
   __nv_bfloat16* stage =
       reinterpret_cast<__nv_bfloat16*>(smem) + wg * 64 * (BN + 8);
-  const int64_t off = static_cast<int64_t>(row0 + wg * 64) * args.F + col0;
+  const int64_t off = (flat0 + wg * 64) * args.F + col0;
   const int cols = min(BN, args.F - col0);
   const int t = threadIdx.x % 128;
   wg_store<64>(ga, stage, args.da + off, args.F, rows, cols, t, 2 + wg);
@@ -360,11 +403,13 @@ dgrad_gate_tma_kernel(const __grid_constant__ CUtensorMap x,
 }
 
 // ---------------------------------------------------------------------------
-// K1, launch B: dx for rows [ROWS y, ROWS y + ROWS) and D columns [64 x,
-// 64 x + 64). da, db: maps over (T, F) with a (64, ROWS) box; w1, w3 over
-// (E, D, F).
+// K1, launch B: dx for row block y and D columns [64 x, 64 x + 64). da, db:
+// maps over (T, F) (ragged) or (E, C, F) (BUCKETS) with a (64, ROWS) box;
+// w1, w3 over (E, D, F). Ragged: every row of the block written, exact
+// zeros past the real rows; buckets: rows below C only (the rows past them
+// are the next bucket's).
 // ---------------------------------------------------------------------------
-template <int ROWS>
+template <int ROWS, bool BUCKETS>
 __global__ void __launch_bounds__(DgradCfg<ROWS>::THREADS)
 dgrad_x_tma_kernel(const __grid_constant__ CUtensorMap da,
                    const __grid_constant__ CUtensorMap db,
@@ -375,13 +420,12 @@ dgrad_x_tma_kernel(const __grid_constant__ CUtensorMap da,
   constexpr int NWG = Config::NWG;
   constexpr int STAGE = Config::X_STAGE;
   const int col0 = static_cast<int>(blockIdx.x) * BN;
-  const int row0 = static_cast<int>(blockIdx.y) * ROWS;
   const int cols = min(BN, args.D - col0);
-  int e;
-  const int real = block_rows(args, row0, ROWS, e);
-  __nv_bfloat16* out =
-      args.dx + static_cast<int64_t>(row0) * args.D + col0;
-  if (real == 0) {
+  int e, row0;
+  int64_t flat0;
+  const int real = row_block<ROWS, BUCKETS>(args, e, row0, flat0);
+  __nv_bfloat16* out = args.dx + flat0 * args.D + col0;
+  if (real == 0) {  // ragged only: a bucket's row block has a real row
     store_zeros(out, args.D, ROWS, cols, threadIdx.x, Config::THREADS);
     return;
   }
@@ -404,9 +448,9 @@ dgrad_x_tma_kernel(const __grid_constant__ CUtensorMap da,
         const int k0 = kt * BK;
         tma_load_3d(base, &w1, bar, k0, col0, e);
         tma_load_3d(base + TILE_BYTES, &w3, bar, k0, col0, e);
-        tma_load_2d(base + 2 * TILE_BYTES, &da, bar, k0, row0);
-        tma_load_2d(base + 2 * TILE_BYTES + Config::ACT_BYTES, &db, bar, k0,
-                    row0);
+        load_rows<BUCKETS>(base + 2 * TILE_BYTES, &da, bar, k0, row0, e);
+        load_rows<BUCKETS>(base + 2 * TILE_BYTES + Config::ACT_BYTES, &db,
+                           bar, k0, row0, e);
       }
     }
     return;
@@ -438,8 +482,11 @@ dgrad_x_tma_kernel(const __grid_constant__ CUtensorMap da,
   }
 
   named_bar(1, 128 * NWG);
-  // rows past the real ones (padding, or a warpgroup with none) are exact
-  // zeros, whatever da and db hold there
+  // ragged: rows past the real ones (padding, or a warpgroup with none)
+  // are exact zeros, whatever da and db hold there; buckets: only the real
+  // rows are stored
+  const int rows = BUCKETS ? min(64, real - wg * 64) : 64;
+  if (rows <= 0) return;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int r = wg * 64 + 16 * (warp % 4) + lane / 4 + 8 * ((i / 2) % 2);
@@ -448,13 +495,14 @@ dgrad_x_tma_kernel(const __grid_constant__ CUtensorMap da,
   __nv_bfloat16* stage =
       reinterpret_cast<__nv_bfloat16*>(smem) + wg * 64 * (BN + 8);
   wg_store<64>(acc, stage, out + static_cast<int64_t>(wg * 64) * args.D,
-               args.D, 64, cols, threadIdx.x % 128, 2 + wg);
+               args.D, rows, cols, threadIdx.x % 128, 2 + wg);
 }
 
 // ---------------------------------------------------------------------------
 // K2: out1[g][m0 : m0 + 128, n0 : n0 + 64] = A^T B1 (and out3 = A^T B3)
-// over expert g's real rows. a, b1, b3: maps over (T, M) and (T, N) with a
-// (64, 64) box. Grid: (N / 64, M / 128, E).
+// over expert g's real rows: [row_off[g], row_off[g] + sizes[g]), or with
+// args.C > 0 (buckets) [g C, g C + C). a, b1, b3: maps over (T, M) and
+// (T, N) with a (64, 64) box. Grid: (N / 64, M / 128, E).
 // ---------------------------------------------------------------------------
 template <bool TWO>
 __global__ void __launch_bounds__(WgradCfg<TWO>::THREADS)
@@ -470,8 +518,8 @@ wgrad_tma_kernel(const __grid_constant__ CUtensorMap a,
   const int n0 = static_cast<int>(blockIdx.x) * BN;
   const int m0 = static_cast<int>(blockIdx.y) * 64 * NWG;
   const int g = static_cast<int>(blockIdx.z);
-  const int start = args.row_off[g];
-  const int n_rows = args.sizes[g];
+  const int start = args.C > 0 ? g * args.C : args.row_off[g];
+  const int n_rows = args.C > 0 ? args.C : args.sizes[g];
   const int chunks = (n_rows + 63) / 64;
   const int cols = min(BN, args.N - n0);
   const int64_t o = static_cast<int64_t>(g) * args.M * args.N +

@@ -453,11 +453,11 @@ cudaError_t dgrad_tma(const void* toks, const void* dy, const B::DgradArgs& a,
   }
   static bool gate_ready = false, x_ready = false;
   const cudaError_t err = B::launch_smem(
-      B::dgrad_gate_tma_kernel<ROWS>, gate_ready,
+      B::dgrad_gate_tma_kernel<ROWS, false>, gate_ready,
       dim3((a.F + H::BN - 1) / H::BN, T / ROWS), Config::THREADS,
       Config::GATE_SMEM, s, xm, dym, w1m, w3m, w2m, a);
   if (err != cudaSuccess) return err;
-  return B::launch_smem(B::dgrad_x_tma_kernel<ROWS>, x_ready,
+  return B::launch_smem(B::dgrad_x_tma_kernel<ROWS, false>, x_ready,
                         dim3((a.D + H::BN - 1) / H::BN, T / ROWS),
                         Config::THREADS, Config::X_SMEM, s, dam, dbm, w1m,
                         w3m, a);

@@ -18,14 +18,15 @@ device type rather than ``torch.library.custom_op`` with a
 ``register_fake``: that would add the dispatcher's work to every kernel
 call of a decode step that is host-bound already (PERF.md §5).
 
-``ragged_moe_ffn`` and ``route_select`` are differentiable on both
-devices: when an input requires a gradient they go through an
-``autograd.Function`` (:class:`RaggedMoeFFN`, :class:`RouteSelect`) whose
-forward is the kernel and whose backward is a kernel too on the card
-(``ragged_moe_ffn_dgrad``, ``ragged_moe_ffn_wgrad``, ``route_select_bwd``)
-and the plain backward on the CPU. When nothing requires a gradient they
-call the wrapper directly: the decode step is host-bound, and serving pays
-no autograd bookkeeping.
+``ragged_moe_ffn``, ``fused_moe_ffn`` and ``route_select`` are
+differentiable on both devices: when an input requires a gradient they go
+through an ``autograd.Function`` (:class:`RaggedMoeFFN`,
+:class:`FusedMoeFFN`, :class:`RouteSelect`) whose forward is the kernel
+and whose backward is a kernel too on the card (``ragged_moe_ffn_dgrad``,
+``ragged_moe_ffn_wgrad``, ``moe_ffn_dgrad``, ``moe_ffn_wgrad``,
+``route_select_bwd``) and the plain backward on the CPU. When nothing
+requires a gradient they call the wrapper directly: the decode step is
+host-bound, and serving pays no autograd bookkeeping.
 
 ``flash_attention`` and ``flash_decode`` (the hand-written attention
 kernels of :mod:`.flash`; their plain versions are
@@ -60,9 +61,9 @@ from . import ref
 from . import route_select as _route
 
 __all__ = ["fused_moe_ffn", "ragged_moe_ffn", "router_topk", "route_select",
-           "flash_attention", "flash_decode", "RaggedMoeFFN", "RouteSelect",
-           "FlashAttention", "FlashDecode", "FFN_TILES", "launch_counts",
-           "reset_launch_counts"]
+           "flash_attention", "flash_decode", "FusedMoeFFN", "RaggedMoeFFN",
+           "RouteSelect", "FlashAttention", "FlashDecode", "FFN_TILES",
+           "launch_counts", "reset_launch_counts"]
 
 #: (RB, BN, BK) of both FFN kernels' general route
 #: (``csrc/moe_ffn_blocks.cuh``, WMMA): RB rows x BN columns per block,
@@ -74,7 +75,10 @@ FFN_TILES = (_ragged.ROW_BLOCK, 64, 32)
 
 
 def fused_moe_ffn(w1, w3, w2, toks):
-    """Capacity-bucket grouped SwiGLU FFN: toks (E, C, D) → (E, C, D)."""
+    """Capacity-bucket grouped SwiGLU FFN: toks (E, C, D) → (E, C, D).
+    Differentiable in the weights and ``toks``."""
+    if _wants_grad(w1, w3, w2, toks):
+        return FusedMoeFFN.apply(w1, w3, w2, toks)
     kind = toks.device.type
     if kind == "cpu":
         return ref.moe_ffn_ref(w1, w3, w2, toks)
@@ -82,7 +86,7 @@ def fused_moe_ffn(w1, w3, w2, toks):
         return _capacity.fused_moe_ffn(w1, w3, w2, toks)
     if kind == "meta":
         return _capacity.fused_outputs(w1, w3, w2, toks, kind)[0]
-    raise ValueError(f"fused_moe_ffn: no kernel for device {toks.device}")
+    raise _no_kernel("fused_moe_ffn", toks.device)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -91,6 +95,48 @@ def _wants_grad(*tensors) -> bool:
 
 def _no_kernel(name, dev):
     return ValueError(f"{name}: no kernel for device {dev}")
+
+
+class FusedMoeFFN(torch.autograd.Function):
+    """The capacity FFN for autograd. On the card the forward is the
+    kernel, keeping its bf16 scratch ``h`` as the saved activation, and
+    the backward is the bucket K1 (``dx``, ``da``, ``db``) then K2 (the
+    weights' gradients), over every bucket row, on the TMA route (a shape
+    it does not take raises); on ``meta`` their allocations and cost
+    entries; on the CPU both are the plain versions
+    (:func:`~.ref.moe_ffn_bwd_ref`)."""
+
+    @staticmethod
+    def forward(ctx, w1, w3, w2, toks):
+        kind = toks.device.type
+        h = None
+        if kind == "cpu":
+            y = ref.moe_ffn_ref(w1, w3, w2, toks)
+        elif kind == "cuda":
+            y, h = _capacity.fused_moe_ffn(w1, w3, w2, toks, keep_h=True)
+        elif kind == "meta":
+            y, h = _capacity.fused_outputs(w1, w3, w2, toks, kind)
+        else:
+            raise _no_kernel("fused_moe_ffn", toks.device)
+        ctx.save_for_backward(w1, w3, w2, toks, h)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        w1, w3, w2, toks, h = ctx.saved_tensors
+        dy = dy.contiguous()
+        kind = toks.device.type
+        if kind == "cpu":
+            dx, dw1, dw3, dw2 = ref.moe_ffn_bwd_ref(w1, w3, w2, toks, dy)
+        elif kind == "meta":
+            (dx, da, db), _ = _capacity.dgrad_outputs(w1, w3, w2, toks, dy,
+                                                      kind)
+            (dw1, dw3, dw2), _ = _capacity.wgrad_outputs(toks, h, da, db, dy,
+                                                         kind)
+        else:
+            dx, da, db = _capacity.moe_ffn_dgrad(w1, w3, w2, toks, dy)
+            dw1, dw3, dw2 = _capacity.moe_ffn_wgrad(toks, h, da, db, dy)
+        return dw1, dw3, dw2, dx
 
 
 def ragged_moe_ffn(w1, w3, w2, toks, tile_group, row_offsets=None,
@@ -397,6 +443,10 @@ def launch_counts() -> Dict[str, int]:
     route is a function of (dtype, hd), :func:`.flash.route_of`)."""
     return {"fused_moe_ffn": _capacity.fused_moe_ffn.launches,
             "fused_moe_ffn.tma": _capacity.fused_moe_ffn.tma_launches,
+            "moe_ffn_dgrad": _capacity.moe_ffn_dgrad.launches,
+            "moe_ffn_dgrad.tma": _capacity.moe_ffn_dgrad.tma_launches,
+            "moe_ffn_wgrad": _capacity.moe_ffn_wgrad.launches,
+            "moe_ffn_wgrad.tma": _capacity.moe_ffn_wgrad.tma_launches,
             "ragged_moe_ffn": _ragged.ragged_moe_ffn.launches,
             "ragged_moe_ffn.tma": _ragged.ragged_moe_ffn.tma_launches,
             "router_topk": _route.router_topk.launches,
@@ -415,7 +465,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in (_capacity.fused_moe_ffn, _ragged.ragged_moe_ffn,
+    for fn in (_capacity.fused_moe_ffn, _capacity.moe_ffn_dgrad,
+               _capacity.moe_ffn_wgrad, _ragged.ragged_moe_ffn,
                _ragged.ragged_moe_ffn_dgrad, _ragged.ragged_moe_ffn_wgrad):
         fn.launches = 0
         fn.tma_launches = 0

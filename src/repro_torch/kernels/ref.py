@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["moe_ffn_ref", "ragged_moe_ffn_ref", "ragged_moe_ffn_bwd_ref",
+__all__ = ["moe_ffn_ref", "moe_ffn_bwd_ref", "ragged_moe_ffn_ref",
+           "ragged_moe_ffn_bwd_ref",
            "router_topk_ref", "route_select_ref", "route_select_dlogits_ref",
            "route_select_bwd_ref", "router_product_bwd",
            "assignment_uniforms", "select_slots",
@@ -59,6 +60,25 @@ def ragged_moe_ffn_ref(w1, w3, w2, toks, tile_group, row_offsets=None,
     return y.reshape(T, D).to(toks.dtype)
 
 
+def _swiglu_bwd(x, W1, W3, W2, dy, dt):
+    """The SwiGLU FFN's backward over a batch of row groups, f32 in and
+    out: x, dy (N, R, D), W1/W3 (N, D, F), W2 (N, F, D) →
+    ``(dx, dW1, dW3, dW2)`` of each group, with the kernels' rounding to
+    ``dt``: ``h``, ``da`` and ``db`` rounded before they are used."""
+    a = torch.bmm(x, W1)
+    b = torch.bmm(x, W3)
+    s = torch.sigmoid(a)
+    silu = a * s
+    h = (silu * b).to(dt).float()
+    dh = torch.bmm(dy, W2.transpose(1, 2))
+    da = (dh * b * s * (1.0 + a * (1.0 - s))).to(dt).float()
+    db = (dh * silu).to(dt).float()
+    dx = torch.bmm(da, W1.transpose(1, 2)) + torch.bmm(db, W3.transpose(1, 2))
+    xt = x.transpose(1, 2)
+    return (dx, torch.bmm(xt, da), torch.bmm(xt, db),
+            torch.bmm(h.transpose(1, 2), dy))
+
+
 def ragged_moe_ffn_bwd_ref(w1, w3, w2, toks, tile_group, dy):
     """Backward of :func:`ragged_moe_ffn_ref`: ``dy (T, D)`` →
     ``(dtoks (T, D), dw1, dw3 (E, D, F), dw2 (E, F, D))``, each in its
@@ -80,26 +100,28 @@ def ragged_moe_ffn_bwd_ref(w1, w3, w2, toks, tile_group, dy):
     occ = (tile_group < E).to(torch.float32)[:, None, None]
     x = toks.reshape(n_tiles, T // n_tiles, D).float()
     dyv = dy.reshape(n_tiles, T // n_tiles, D).float() * occ
-    W1, W3, W2 = w1[g].float(), w3[g].float(), w2[g].float()
-    a = torch.bmm(x, W1)
-    b = torch.bmm(x, W3)
-    s = torch.sigmoid(a)
-    silu = a * s
-    h = (silu * b).to(dt).float()
-    dh = torch.bmm(dyv, W2.transpose(1, 2))
-    da = (dh * b * s * (1.0 + a * (1.0 - s))).to(dt).float()
-    db = (dh * silu).to(dt).float()
-    dx = torch.bmm(da, W1.transpose(1, 2)) + torch.bmm(db, W3.transpose(1, 2))
-    xt = x.transpose(1, 2)
+    dx, *tiles = _swiglu_bwd(x, w1[g].float(), w3[g].float(), w2[g].float(),
+                             dyv, dt)
 
-    def per_expert(tiles):
-        out = tiles.new_zeros((E,) + tuple(tiles.shape[1:]))
-        return out.index_add_(0, g, tiles * occ)
+    def per_expert(t):
+        out = t.new_zeros((E,) + tuple(t.shape[1:]))
+        return out.index_add_(0, g, t * occ)
 
-    dw1 = per_expert(torch.bmm(xt, da))
-    dw3 = per_expert(torch.bmm(xt, db))
-    dw2 = per_expert(torch.bmm(h.transpose(1, 2), dyv))
+    dw1, dw3, dw2 = (per_expert(t) for t in tiles)
     return (dx.reshape(T, D).to(dt), dw1.to(w1.dtype), dw3.to(w3.dtype),
+            dw2.to(w2.dtype))
+
+
+def moe_ffn_bwd_ref(w1, w3, w2, toks, dy):
+    """Backward of :func:`moe_ffn_ref` over capacity buckets: ``dy (E, C,
+    D)`` → ``(dtoks (E, C, D), dw1, dw3 (E, D, F), dw2 (E, F, D))``, each
+    in its input's dtype, at the rounding points of the bucket kernels
+    (``csrc/moe_ffn_bwd.cu``) and :func:`ragged_moe_ffn_bwd_ref`: ``h``,
+    ``da`` and ``db`` rounded to the input dtype, every sum in f32. Every
+    bucket row counts; an empty row (x = 0, dy = 0) gives exact zeros."""
+    dx, dw1, dw3, dw2 = _swiglu_bwd(toks.float(), w1.float(), w3.float(),
+                                    w2.float(), dy.float(), toks.dtype)
+    return (dx.to(toks.dtype), dw1.to(w1.dtype), dw3.to(w3.dtype),
             dw2.to(w2.dtype))
 
 

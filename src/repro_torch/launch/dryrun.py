@@ -195,13 +195,14 @@ def _storages(tree) -> Dict[int, int]:
 
 
 def measure(cfg: ArchConfig, shape: ShapeSpec, grid_shape: Sequence[int],
-            rank: int = 0) -> Dict[str, Any]:
+            rank: int = 0, moe_impl: str = "ragged") -> Dict[str, Any]:
     """Rank ``rank``'s step of ``shape`` on ``grid_shape`` from
-    ``make_rules``, traced on ``meta`` in a fake group of the grid's size
-    under ``count_costs``: ``{"costs", "memory", "trace_s"}``."""
+    ``make_rules`` (its MoE layers on ``moe_impl``), traced on ``meta`` in
+    a fake group of the grid's size under ``count_costs``: ``{"costs",
+    "memory", "trace_s"}``."""
     t0 = time.perf_counter()
     grid = _grid(grid_shape, rank)
-    rules = make_rules(cfg, grid, shape.kind)
+    rules = make_rules(cfg, grid, shape.kind, moe_impl)
     inputs = rank_inputs(cfg, shape, rules)
     call, args = step_call(cfg, shape, rules, inputs)
     with count_costs(args) as costs:

@@ -54,13 +54,12 @@ static bound (``n_tiles = A // bm + n_slots``, ``capacity`` from the token
 count, the a2a frames of ``t_loc·top_k`` rows a destination), and the
 data-dependent parts are tensor values.
 
-Training runs the ragged path: the routing stage and the FFN are
+Training runs either path: the routing stage and both FFNs are
 differentiable through their kernels (``ops``), the buffer fill through
-:class:`_FillBuffer`, whose backward is a gather, the combine through
-autograd (a gather whose backward scatters to distinct rows), and the
-exchanges through :mod:`.collectives`. The capacity FFN has no backward
-kernel yet, so gradients through ``moe_impl="capacity"`` on the card
-raise.
+:class:`_FillBuffer`, whose backward is a gather, the bucket fill
+(``_fill_buckets``) and the combine through autograd (gathers whose
+backward scatters to distinct rows), and the exchanges through
+:mod:`.collectives`.
 """
 
 from __future__ import annotations
@@ -484,6 +483,11 @@ def _capacity_route(router_w, xf, slots_of, n_copies, copy_cdf, route_seed,
     drops, the mean probabilities and the aux loss."""
     weights, _, slots, tally, mean_prob, aux = ops.route_select(
         xf, router_w, slots_of, n_copies, copy_cdf, route_seed, top_k)
+    if weights.requires_grad:
+        # on the card (and on meta) the stage's outputs are views of one
+        # buffer, and autograd refuses an in-place write into one of them:
+        # the body writes its drop column into a copy of its own
+        tally = tally.clone()
     return weights, slots.reshape(-1), tally, mean_prob, aux
 
 
@@ -652,13 +656,6 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
                 "without an expert-parallel group")
 
     xf = x.reshape(B * S, D)
-    if rules.moe_impl == "capacity" and x.is_cuda and torch.is_grad_enabled() \
-            and (x.requires_grad or any(t.requires_grad for t in p.values())):
-        raise NotImplementedError(
-            "gradients through moe_impl='capacity' on the card: the capacity "
-            "FFN kernel (csrc/moe_ffn.cu) has no backward kernel yet "
-            "(ROADMAP Queue 2, \"A backward for the capacity FFN\"); train "
-            "with moe_impl='ragged'")
     ragged = rules.moe_impl == "ragged"
     if rules.grid is None and (ragged or mode == "dense"):
         if ragged:

@@ -69,11 +69,17 @@ CHECKS = {
                                        moe_impl="ragged"), "decode", "x9",
                                   "p", None, K, E),
 }
-#: gradient checks → the check whose rules and phase they run: the
-#: battery's check 5 (a2a + FSDP), and the same loss through the
-#: replicated body and its expert-TP variant (their psum and F slices)
+#: gradient checks → the check whose rules, phase and x they run: the
+#: battery's check 5 (a2a + FSDP), the same loss through the replicated
+#: body and its expert-TP variant (their psum and F slices), and through
+#: the capacity a2a body dropless (factor 8) and starved (factor 0.25)
 GRADS = {"grads": "a2a+fsdp", "grads-replicated": "replicated",
-         "grads-expert-tp": "expert-tp"}
+         "grads-expert-tp": "expert-tp",
+         "grads-capacity-baseline": "capacity-baseline",
+         "grads-capacity-drops": "capacity-drops"}
+#: the gradient checks whose drops depend on each rank's token count, and
+#: so differ from one process's (``rules=None``: no drops)
+GRADS_WITH_DROPS = ("grads-capacity-drops",)
 GRAD_RULES = GRADS["grads"]
 
 
@@ -186,16 +192,17 @@ def battery_rank(rank: int, names):
 
 def _rank_grads(torch, grid, inp, check):
     """The rank's gradients of ``mean(y²) + 0.01·aux`` under ``check``'s
-    rules: the router and x whole, the experts the rank's slice."""
+    rules on its x: the router and x whole, the experts the rank's
+    slice."""
     from repro_torch.launch.sharding import shard_experts
     from repro_torch.models import moe as tmoe
     from repro_torch.models.sharding import ShardingRules
-    fields, phase = CHECKS[check][:2]
+    fields, phase, xk = CHECKS[check][:3]
     rules = ShardingRules(grid=grid, dp=("data",), ep=("model",), **fields)
     p = shard_experts(port_params(torch, inp["p"]), rules, phase)
     for v in p.values():
         v.requires_grad_(True)
-    x = _t(torch, inp["x"], True).requires_grad_(True)
+    x = _t(torch, inp[xk], True).requires_grad_(True)
     y, _, aux = tmoe.moe_layer(p, x, top_k=K, n_experts=E, rules=rules,
                                phase=phase)
     loss = (y.float() ** 2).mean() + 0.01 * aux
@@ -298,7 +305,7 @@ def jax_battery(path: str, names) -> None:
         res[f"{name}/tally"] = np.asarray(t)
         res[f"{name}/aux"] = np.asarray(a)
     for name in (n for n in names if n in GRADS):
-        fields, phase = CHECKS[GRADS[name]][:2]
+        fields, phase, xk = CHECKS[GRADS[name]][:3]
         rules = ShardingRules(mesh=mesh, dp=("data",), ep=("model",),
                               **fields)
 
@@ -309,7 +316,7 @@ def jax_battery(path: str, names) -> None:
 
         with compat.use_mesh(mesh):
             val, (gp, gx) = jax.jit(jax.value_and_grad(loss, (0, 1)))(
-                jp(inp["p"]), jnp.asarray(inp["x"], jnp.bfloat16))
+                jp(inp["p"]), jnp.asarray(inp[xk], jnp.bfloat16))
         for k, v in gp.items():
             res[f"{name}/{k}"] = np.asarray(v, np.float32)
         res[f"{name}/x"] = np.asarray(gx, np.float32)

@@ -649,18 +649,156 @@ def test_ops_backward_launches_the_kernels(cuda):
     assert all(torch.isfinite(t.grad.float()).all() for t in ins)
 
 
-def test_capacity_gradients_on_the_card_raise(cuda):
-    cfg = dataclasses.replace(t_get_smoke("granite-moe-3b-a800m"), n_layers=1)
+def test_capacity_gradients_on_the_card_run_the_kernels(cuda):
+    """A loss through ``moe_impl="capacity"`` on the card: each layer's
+    capacity FFN forward, bucket K1 (dgrad) and bucket K2 (wgrad) launch
+    once, all on the TMA route, beside the routing stage and its backward;
+    the ragged FFN never. Every gradient finite, every expert weight's
+    too."""
+    cfg = dataclasses.replace(t_get_smoke("granite-moe-3b-a800m"), n_layers=2)
     gen = torch.Generator(device=cuda).manual_seed(0)
     params = t_model.init_params(cfg, gen, device=cuda)
     for p in t_leaves(params):
         p.requires_grad_(True)
-    tok = torch.zeros((1, 8), dtype=torch.long, device=cuda)
+    tok = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device=cuda)
     rules = ShardingRules(moe_impl="capacity", ep_ranks=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_model.loss_fn(cfg, rules)(params, {"tokens": tok, "labels": tok},
-                                    t_model.make_moe_tables(cfg, rules,
-                                                            device=cuda))
+    ops.reset_launch_counts()
+    loss, _ = t_model.loss_fn(cfg, rules)(
+        params, {"tokens": tok, "labels": tok.roll(-1, 1)},
+        t_model.make_moe_tables(cfg, rules, device=cuda))
+    loss.backward()
+    torch.cuda.synchronize()
+    c = ops.launch_counts()
+    L = cfg.n_layers
+    for name in ("fused_moe_ffn", "moe_ffn_dgrad", "moe_ffn_wgrad"):
+        assert c[name] == c[f"{name}.tma"] == L, (name, c)
+    assert c["route_select"] == c["route_select_bwd"] == L
+    assert c["ragged_moe_ffn"] == c["ragged_moe_ffn_dgrad"] == \
+        c["ragged_moe_ffn_wgrad"] == 0
+    assert bool(torch.isfinite(loss))
+    for p in t_leaves(params):
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all())
+    for blk in params["blocks"]:
+        for k in ("w1", "w3", "w2"):
+            assert blk["ffn"][k].grad.float().norm() > 0
+
+
+def _bucket_dy(dev, toks, seed):
+    """An upstream gradient for the buckets: zero on the empty rows (x = 0),
+    as the combine leaves it."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn(toks.shape, generator=g, device=dev)
+    return (dy * (toks != 0).any(-1, keepdim=True)).to(torch.bfloat16)
+
+
+def _bucket_bwd(w1, w3, w2, toks, dy):
+    """The forward kernel's h, then K1 and K2 over the buckets:
+    ``(dx, da, db, dw1, dw3, dw2)``."""
+    _, h = t_capacity.fused_moe_ffn(w1, w3, w2, toks, keep_h=True)
+    dx, da, db = t_capacity.moe_ffn_dgrad(w1, w3, w2, toks, dy)
+    return (dx, da, db, *t_capacity.moe_ffn_wgrad(toks, h, da, db, dy))
+
+
+@pytest.mark.parametrize("E,C,empty", [
+    (40, 4, 1),         # granite's 8-lane decode buckets
+    (10, 36, 5),        # a bucket shorter than one 64-row block
+    (10, 208, 16),      # a rank's a2a buckets at factor 8 (4 x 52): 128 + 80
+    (40, 1024, 205),    # granite's training buckets at 16 x 256, factor 1.25
+])
+def test_capacity_ffn_backward_kernels_match_plain(cuda, E, C, empty):
+    """The bucket K1 (dx, da, db) and K2 (dW1, dW3, dW2) at granite's
+    widths against ``moe_ffn_bwd_ref``: relative L2 within ``BWD_TOL``,
+    the empty rows of dx (x = 0, dy = 0) exactly zero, the TMA route with
+    the row block ``bwd_rows(C)``."""
+    w1, w3, w2, toks = _capacity_inputs(cuda, E, C, 1536, 512,
+                                        empty_rows=empty)
+    dy = _bucket_dy(cuda, toks, seed=C)
+    ops.reset_launch_counts()
+    dx, _, _, dw1, dw3, dw2 = _bucket_bwd(w1, w3, w2, toks, dy)
+    want = ref.moe_ffn_bwd_ref(w1, w3, w2, toks, dy)
+    torch.cuda.synchronize()
+    c = ops.launch_counts()
+    assert c["moe_ffn_dgrad"] == c["moe_ffn_dgrad.tma"] == 1
+    assert c["moe_ffn_wgrad"] == c["moe_ffn_wgrad.tma"] == 1
+    assert t_capacity.moe_ffn_dgrad.last_route == \
+        f"tma rows={t_capacity.bwd_rows(C)}"
+    for name, got, exp in zip(("dx", "dw1", "dw3", "dw2"),
+                              (dx, dw1, dw3, dw2), want):
+        assert got.dtype == torch.bfloat16 and got.shape == exp.shape
+        err = _rel_l2(got, exp)
+        assert err <= BWD_TOL, (name, err)
+    assert not dx[:, C - empty:].any()
+
+
+def test_capacity_ffn_backward_two_runs_bit_identical(cuda):
+    """Forward and backward through ``ops`` twice at a rank's a2a buckets
+    at factor 8 (4 x 256 tokens, ep 4: 10 slots of 4 x 412 rows): every
+    gradient bitwise equal (no atomics, fixed sum order)."""
+    w1, w3, w2, toks = _capacity_inputs(cuda, 10, 4 * 412, 1536, 512,
+                                        empty_rows=40)
+    dy = _bucket_dy(cuda, toks, seed=7)
+    runs = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_(True) for t in (w1, w3, w2, toks)]
+        ops.fused_moe_ffn(*ins).backward(dy)
+        runs.append([t.grad for t in ins])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C", [36, 208])
+def test_capacity_ffn_backward_ignores_the_next_bucket_and_the_tail(cuda,
+                                                                   C):
+    """A bucket whose rows are not a multiple of 64: K2's last 64-row chunk
+    of each bucket runs into the next bucket's rows, and of the last bucket
+    past the tensor. With NaN in every row of bucket 1 (x, dy, h, da, db)
+    and in the memory right after each tensor, the other buckets' dx, da,
+    db and dW are finite and bitwise those of a clean run: the next
+    bucket's rows are zeroed in shared memory before they are read, and
+    TMA reads nothing past the tensor."""
+    E, D, F, bad = 3, 1536, 512, 1
+    w1, w3, w2, toks = _capacity_inputs(cuda, E, C, D, F, empty_rows=3)
+    dy = _bucket_dy(cuda, toks, seed=11)
+    clean = _bucket_bwd(w1, w3, w2, toks, dy)
+    _, h = t_capacity.fused_moe_ffn(w1, w3, w2, toks, keep_h=True)
+
+    def poisoned(t):
+        """``t`` with bucket ``bad`` NaN, in a buffer holding NaN past its
+        end."""
+        buf = torch.full((t.numel() + 64 * t.shape[-1],), float("nan"),
+                         dtype=t.dtype, device=t.device)
+        out = buf[:t.numel()].view(t.shape)
+        out.copy_(t)
+        out[bad] = float("nan")
+        return out
+
+    x_p, dy_p = poisoned(toks), poisoned(dy)
+    dx, da, db = t_capacity.moe_ffn_dgrad(w1, w3, w2, x_p, dy_p)
+    dws = t_capacity.moe_ffn_wgrad(x_p, poisoned(h), poisoned(clean[1]),
+                                   poisoned(clean[2]), dy_p)
+    torch.cuda.synchronize()
+    keep = [e for e in range(E) if e != bad]
+    for got, want in zip((dx, da, db, *dws), clean):
+        assert bool(torch.isfinite(got[keep].float()).all())
+        assert torch.equal(got[keep], want[keep])
+
+
+def test_capacity_ffn_backward_refuses_what_it_does_not_take(cuda):
+    """The bucket backward has the TMA route only: a D or F that is not a
+    multiple of 8 raises a ValueError naming the shapes, from the wrappers
+    and through autograd (whose forward took the general route)."""
+    w1, w3, w2, toks = _capacity_inputs(cuda, 2, 9, 100, 70, empty_rows=2)
+    dy = _bucket_dy(cuda, toks, seed=1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        t_capacity.moe_ffn_dgrad(w1, w3, w2, toks, dy)
+    h = torch.zeros((2, 9, 70), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        t_capacity.moe_ffn_wgrad(toks, h, h, h, dy)
+    ins = [t.clone().requires_grad_(True) for t in (w1, w3, w2, toks)]
+    y = ops.fused_moe_ffn(*ins)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        y.backward(dy)
 
 
 @pytest.mark.parametrize("T", [1, 8, 48, 512])

@@ -220,7 +220,9 @@ def test_ops_on_cpu_use_plain_versions_and_count_nothing():
     assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
 
 
-_COUNTERS = ("fused_moe_ffn", "fused_moe_ffn.tma", "ragged_moe_ffn",
+_COUNTERS = ("fused_moe_ffn", "fused_moe_ffn.tma", "moe_ffn_dgrad",
+             "moe_ffn_dgrad.tma", "moe_ffn_wgrad", "moe_ffn_wgrad.tma",
+             "ragged_moe_ffn",
              "ragged_moe_ffn.tma", "router_topk", "route_select",
              "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
              "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
@@ -272,6 +274,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         t_route.route_select_bwd(torch.zeros((4, 8)), None, None, None, None,
                                  None, None)
+    # and the capacity FFN's (the bucket K1 and K2)
+    cw1, cw3, cw2, ctoks = cx
+    ch = torch.zeros(ctoks.shape[:2] + (cw1.shape[2],), dtype=ctoks.dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_capacity.moe_ffn_dgrad(cw1, cw3, cw2, ctoks, ctoks)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_capacity.moe_ffn_wgrad(ctoks, ch, ch, ch, ctoks)
     assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
 
 
@@ -375,10 +384,16 @@ def test_launch_counts_report_and_reset_the_backward_tma_counters():
     t_ragged.ragged_moe_ffn_dgrad.tma_launches = 2
     t_ragged.ragged_moe_ffn_wgrad.launches = 5
     t_ragged.ragged_moe_ffn_wgrad.tma_launches = 4
+    t_capacity.moe_ffn_dgrad.launches = 7
+    t_capacity.moe_ffn_dgrad.tma_launches = 6
+    t_capacity.moe_ffn_wgrad.launches = 9
+    t_capacity.moe_ffn_wgrad.tma_launches = 8
     c = ops.launch_counts()
     assert (c["ragged_moe_ffn_dgrad"], c["ragged_moe_ffn_dgrad.tma"],
             c["ragged_moe_ffn_wgrad"], c["ragged_moe_ffn_wgrad.tma"]) == \
         (3, 2, 5, 4)
+    assert (c["moe_ffn_dgrad"], c["moe_ffn_dgrad.tma"], c["moe_ffn_wgrad"],
+            c["moe_ffn_wgrad.tma"]) == (7, 6, 9, 8)
     ops.reset_launch_counts()
     assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
 

@@ -466,8 +466,10 @@ def test_train_driver_defaults_to_the_card():
 
 
 def test_capacity_gradients_on_the_host_run_plain_versions():
-    """On the CPU the capacity bodies train through their plain versions
-    (the refusal is for the card, which has no capacity backward kernel)."""
+    """On the CPU the capacity bodies train through their plain versions:
+    the capacity FFN's autograd Function (``ops.FusedMoeFFN``) runs the
+    plain forward and ``moe_ffn_bwd_ref``, as the card runs the bucket
+    kernels."""
     cfg = t_get_smoke(ARCH)
     gen = torch.Generator().manual_seed(0)
     params = tmodel.init_params(cfg, gen, dtype=torch.float32)
