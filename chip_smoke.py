@@ -152,13 +152,19 @@ Run from the repository root on a machine with one NVIDIA H100. It
    (``launch.mesh.run_ranks``; the parent builds the kernels first and
    hands the ranks its seed-0 weights and results through CUDA IPC), each
    rank on its slice of the experts: at ep 4 prefills of 2 x 256 and 4 x
-   256 tokens through the ragged a2a body and through the capacity a2a
-   body (factor 8, dropless), 4 decode steps of 8 lanes through
+   256 tokens through the ragged a2a body and of 2 x 256 through the
+   capacity a2a body (factor 8, dropless), 4 decode steps of 8 lanes
+   through
    the replicated ragged body on ``expand_experts``' weights, and one loss
    and backward at 4 x 256 through the ragged a2a body and one through
    the capacity a2a body (factor 8; the bucket K1 and K2 on each rank's
-   buckets); at dp 2 x ep 2
-   with FSDP of the expert weights, a 2-layer prefill. Each is held
+   buckets); and (l), at 2 layers on a (2, 2, 1) grid over ("pod",
+   "data", "model") with the batch over "data" and FSDP over ("pod",
+   "data"), a loss at 4 x 256, its backward and one AdamW step, against
+   the same ranks with FSDP over "data" alone (the loss, the tallies and
+   every gradient leaf bit for bit, the step under the narrow norm's clip
+   bit for bit, as it runs within ``GRID_FSDP_*``) and one device (the
+   experts' gradient norm ratio 1, not 2). Each is held
    against the single-rank port on the same weights in the same run: at 2
    x 256 no assignment moves and the logits lie within 5e-2; the 4 x 256
    runs, whose routing sums in another order (see ``ep_phase``), against
@@ -189,8 +195,11 @@ Run from the repository root on a machine with one NVIDIA H100. It
    rows, and 1024 cache rows, over the ranks; the decode's softmax stats
    merged); smollm-360m at full width on (1, 4) (context mode, the tied
    vocabulary and the MLP's F split; no kernel of the port on its path);
-   granite at 2 layers on (2, 2) with the batch and the dense weights'
-   FSDP slices over "data". Each is held against one device on the same
+   and (k), granite at 2 layers on (2, 2) with the batch and the dense
+   weights' FSDP slices over "data" and ``moe_dispatch="dense"``, at 4 x
+   256 (every rank runs the MoE oracle on the whole batch and the whole
+   expert weights: the ragged FFN, the routing stage and K1-K3).
+   Each is held against one device on the same
    weights: bit for bit under a witness that computes the attention and
    the row-wise steps as the ranks split them and adds their partials in
    rank order (the gradients within 2e-2), and as the port runs within
@@ -3364,7 +3373,7 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
     grid = make_mesh(plan["grid"], EP_AXES)
     # the dense layers replicated over "model" (phase 15 splits them)
     rules = ShardingRules(grid=grid, dp=("data",), tp=None, ep=("model",),
-                          ep_all=EP_AXES, fsdp=plan["fsdp"])
+                          ep_all=EP_AXES, fsdp=None)
     out = {"rank": rank, "seconds": {}, "launches": {}, "err": {},
            "rel": {}, "moved": {}, "exchange": {}, "section_s": {}}
 
@@ -3397,7 +3406,7 @@ def ep_rank(rank, plan, params, ref, inputs, small=None):
             local, {"tokens": inputs["tokens"]}, tables))
     for path in plan["paths"]:
         out["section_s"][path] = -time.perf_counter()
-        if path in ("prefill", "capacity", "prefill_wide", "capacity_wide"):
+        if path in ("prefill", "capacity", "prefill_wide"):
             capacity = path.startswith("capacity")
             wide = path.endswith("_wide")
             r = rules if not capacity else dataclasses.replace(
@@ -3534,23 +3543,194 @@ def _free_shared():
 
 
 def ep_ranks(rank, runs):
-    """:func:`ep_rank` on this rank for each argument tuple of ``runs`` in
-    turn: the plans share one start of the ranks. Returns each one's
+    """:func:`ep_rank` (or, for plan (l), :func:`grid_plan_rank`) on this
+    rank for each argument tuple of ``runs`` in turn: the plans share one
+    start of the ranks. Returns each one's numbers."""
+    return [(grid_plan_rank if "label" in args[0] else ep_rank)(rank, *args)
+            for args in runs]
+
+
+#: plan (l)'s grid: FSDP over ("pod", "data"), the batch over "data"
+GRID3_AXES = ("pod", "data", "model")
+# plan (l)'s AdamW step as it runs against the same step under FSDP over
+# "data" alone: the norm's partial sums run over other ranks in another
+# order, so the clip's factor may differ in its last bits (the witness,
+# the narrow norm's factor on the wide slices, is bit for bit). The
+# readings on an H100 80GB HBM3 at 700 W were 0.0 and 0.0 (PERF.md,
+# plan (l)): the bounds leave room for the norm's last bits and the few
+# parameters whose rounding they would move
+GRID_FSDP_NORM_REL = 1e-6
+GRID_FSDP_STEP_ABS = 1e-6
+
+
+def grid_reference(cfg, dev, inputs):
+    """Plan (l)'s one device: ``rules=None`` on seed 0's weights of the
+    2-layer model, the loss at 4 x 256, its gradients and its tallies.
+    Returns the whole params and the results, to be handed to the
+    ranks."""
+    import torch
+    from repro_torch.models import init_params, loss_fn, make_moe_tables
+    from repro_torch.tree import leaves, tree_map
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    loss, (tal, _) = loss_fn(cfg)(params, {"tokens": inputs["tokens_wide"],
+                                           "labels": inputs["labels_wide"]},
+                                  make_moe_tables(cfg, device=dev))
+    loss.backward()
+    ref = {"loss": loss.detach(), "grads": tree_map(lambda p: p.grad, params),
+           "backward_tally": tal.detach()}
+    return tree_map(lambda p: p.detach(), params), ref
+
+
+def _expert_norm(tree) -> float:
+    """The f32 norm of the expert matrices of a (rank's) params tree."""
+    total = 0.0
+    for sub in tree["blocks"]:
+        for k in ("w1", "w3", "w2"):
+            if k in sub.get("ffn", {}):
+                total += sub["ffn"][k].float().square().sum().item()
+    return math.sqrt(total)
+
+
+def grid_plan_rank(rank, plan, params, ref, inputs):
+    """Plan (l) on one rank of the (2, 2, 1) grid over
+    :data:`GRID3_AXES` on the card: the 2-layer model's ``params`` at 4 x
+    256 (``inputs``' wide batch), the batch over "data", a loss, its
+    backward and one AdamW step with FSDP over ("pod", "data"), against
+    the same with FSDP over "data" alone (the gradients and the stepped
+    params gathered whole and cut as the wide rules cut them: the same
+    sums over the same ranks) and against one device (``ref``). Each run
+    timed on the host clock, its launches counted; the parent checks the
     numbers."""
-    return [ep_rank(rank, *args) for args in runs]
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import (cut_tree, gather_params,
+                                             param_cuts, shard_params)
+    from repro_torch.models import loss_fn, make_moe_tables
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.training import optimizer as topt
+    from repro_torch.tree import leaves, tree_map
+    dev = inputs["tokens"].device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = plan["cfg"]
+    t_plan = time.perf_counter()
+    grid = make_mesh(plan["grid"], GRID3_AXES)
+    out = {"rank": rank, "seconds": {}, "launches": {},
+           "mesh_s": time.perf_counter() - t_plan}
+
+    def run(name, fn):
+        dist.barrier()
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = attn_routed(ops.launch_counts(),
+                                            f"(l) {name}")
+        return res
+
+    batch = {"tokens": inputs["tokens_wide"],
+             "labels": inputs["labels_wide"]}
+
+    def backward(rules, name):
+        tparams = shard_params(cfg, params, rules, "train")
+        for p in leaves(tparams):
+            p.requires_grad_(True)
+        tables = make_moe_tables(cfg, rules, phase="train", device=dev)
+
+        def step():
+            loss, (tal, _) = loss_fn(cfg, rules)(tparams, batch, tables)
+            loss.backward()
+            return loss.detach(), tal.detach()
+
+        loss, tal = run(name, step)
+        return tparams, tree_map(lambda p: p.grad, tparams), loss, tal
+
+    wide = ShardingRules(grid=grid, dp=("data",), tp="model", ep=("model",),
+                         ep_all=GRID3_AXES, fsdp=("pod", "data"))
+    narrow = dataclasses.replace(wide, fsdp=("data",))
+    pw, gw, loss_w, tal_w = backward(wide, "backward")
+    one = shard_params(cfg, ref["grads"], wide, "train")
+    out["backward"] = {
+        "loss": loss_w.item(),
+        "loss_rel": abs(loss_w.item() - ref["loss"].item())
+        / abs(ref["loss"].item()),
+        "moved": _moved(tal_w, ref["backward_tally"]),
+        "grad_rel_l2_max": max(_rel_l2_chunked(g, w) for g, w in
+                               zip(leaves(gw), leaves(one))),
+        "expert_norm_ratio": _expert_norm(gw) / _expert_norm(one)}
+    del one
+    pn, gn, loss_n, tal_n = backward(narrow, "backward_narrow")
+    cuts_w, cuts_n = param_cuts(cfg, wide), param_cuts(cfg, narrow)
+    want = cut_tree(gather_params(gn, cuts_n, grid), cuts_w, grid)
+    out["narrow"] = {
+        "loss_equal": bool(torch.equal(loss_w, loss_n)),
+        "tallies_equal": bool(torch.equal(tal_w, tal_n)),
+        "grad_leaves_equal": sum(bool(torch.equal(a, b)) for a, b in
+                                 zip(leaves(gw), leaves(want))),
+        "grad_leaves": len(leaves(gw)),
+        "expert_norm_ratio": _expert_norm(gw) / _expert_norm(want)}
+    del want
+    ocfg = topt.AdamWConfig()
+    lr = torch.tensor(ocfg.lr, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        norm_w = topt.global_norm(gw, cuts_w, grid)
+        norm_n = topt.global_norm(gn, cuts_n, grid)
+        # the witness: the wide slices stepped under the narrow norm's
+        # clip, from the same state
+        pw_wit = tree_map(torch.clone, pw)
+        topt.adamw_apply(gw, topt.adamw_init(pw_wit, ocfg), pw_wit, ocfg,
+                         lr, topt.clip_scale(norm_n, ocfg))
+        st_w = topt.adamw_init(pw, ocfg)
+        run("adamw", lambda: topt.adamw_update(gw, st_w, pw, ocfg, lr,
+                                               cuts=cuts_w, grid=grid))
+        topt.adamw_update(gn, topt.adamw_init(pn, ocfg), pn, ocfg, lr,
+                          cuts=cuts_n, grid=grid)
+        want = cut_tree(gather_params(pn, cuts_n, grid), cuts_w, grid)
+        out["step"] = {
+            "norm": norm_w.item(), "norm_narrow": norm_n.item(),
+            "norm_rel": abs(norm_w.item() - norm_n.item()) / norm_n.item(),
+            "witness_leaves_equal": sum(bool(torch.equal(a, b)) for a, b in
+                                        zip(leaves(pw_wit), leaves(want))),
+            "max_abs": max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(leaves(pw), leaves(want))),
+            "leaves_differing": sum(not torch.equal(a, b) for a, b in
+                                    zip(leaves(pw), leaves(want)))}
+    del pw_wit, want, pw, pn, gw, gn
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+    out["plan_s"] = time.perf_counter() - t_plan
+    return out
 
 
 def ep_phase(cfg, dev):
     """Phase 13: granite at full width on 4 ranks sharing the card (gloo on
     CUDA tensors), ep 4: prefills of 2 x 256 and 4 x 256 through the
-    ragged a2a body and the capacity a2a body (factor 8: dropless), 4
+    ragged a2a body and of 2 x 256 through the capacity a2a body (factor
+    8: dropless; its 4 x 256 forward is the capacity backward's), 4
     decode steps of 8 lanes through the replicated ragged body on
     ``expand_experts``' weights, one loss and backward of 4 x 256 through
     the ragged a2a body and one through the capacity a2a body (factor 8);
     every kernel against its plain version on the
-    ranks, at a 2-layer model's same shapes; then dp 2 x ep 2 with FSDP of
-    the expert weights at 2 layers: one prefill. Each is held against the
-    single-rank port on the same weights in this run.
+    ranks, at a 2-layer model's same shapes; then (l), FSDP over ("pod",
+    "data") with the batch over "data" at 2 layers
+    (:func:`grid_plan_rank`; the a2a body at dp 2 x ep 2 with FSDP runs in
+    phase 16 (a)). Each is held against the single-rank port on the same
+    weights in this run.
 
     A rank that routes 128 rows splits D in the routing kernel into the
     same 16 ranges as one device routing 512 rows (``route_select.plan``),
@@ -3588,23 +3768,21 @@ def ep_phase(cfg, dev):
                                     generator=g).to(dev)}
     params, ref = ep_reference(cfg, dev, inputs, ways)
     small = dataclasses.replace(cfg, n_layers=2)
-    params2, ref2 = ep_reference(small, dev, inputs, ways, full=False)
+    params2, ref2 = grid_reference(small, dev, inputs)
     _free_shared()                    # the references' activations
     parent_gib = (torch.cuda.memory_allocated() / 2 ** 30
                   if dev.type == "cuda" else 0.0)
     t_ref = time.perf_counter() - t_start
-    plan = {"cfg": cfg, "grid": (1, ways), "fsdp": None, "small_cfg": small,
-            "paths": ["prefill", "capacity", "prefill_wide",
-                      "capacity_wide", "decode",
+    plan = {"cfg": cfg, "grid": (1, ways), "small_cfg": small,
+            "paths": ["prefill", "capacity", "prefill_wide", "decode",
                       "backward", "capacity_backward", "vs_plain"]}
-    # dp 2 x ep 2 with FSDP of the expert weights, 2 layers: on the same
-    # ranks after the ep 4 plan
-    plan2 = {"cfg": small, "grid": (2, 2), "fsdp": "data",
-             "paths": ["prefill"]}
+    # (l) FSDP over ("pod", "data") with the batch over "data", 2 layers:
+    # on the same ranks after ep 4
+    plan_l = {"label": "fsdp", "cfg": small, "grid": (2, 2, 1)}
     t0 = time.perf_counter()
-    ranks, fsdp = zip(*run_ranks(ep_ranks, ways, args=([
+    ranks, wide = zip(*run_ranks(ep_ranks, ways, args=([
         (plan, params, ref, inputs, params2),
-        (plan2, params2, ref2, inputs)],), timeout_s=400))
+        (plan_l, params2, ref2, inputs)],), timeout_s=400))
     t_ranks = time.perf_counter() - t0
     print("[ep] ep 4, each rank against the single rank: " + json.dumps(
         [{k: r[k] for k in ("err", "rel", "decode_steps_compared")}
@@ -3625,8 +3803,6 @@ def ep_phase(cfg, dev):
         "warm-up": per, "prefill": per, "prefill_wide": per,
         "capacity": {"route_select": L, "fused_moe_ffn": L,
                      "fused_moe_ffn.tma": L} | attn,
-        "capacity_wide": {"route_select": L, "fused_moe_ffn": L,
-                          "fused_moe_ffn.tma": L} | attn,
         "decode": {k: v * EP_DECODE_STEPS for k, v in per.items()
                    if k != "flash_attn_fwd"}
         | attn_want(cfg, decode=EP_DECODE_STEPS),
@@ -3652,10 +3828,9 @@ def ep_phase(cfg, dev):
                 check(n == want[path].get(k, 0) or not on_card,
                       f"{label} {path}: {k} launched {n} times, expected "
                       f"{want[path].get(k, 0)}")
-        for path in ("prefill", "capacity", "prefill_wide/split",
-                     "capacity_wide/split"):
+        for path in ("prefill", "capacity", "prefill_wide/split"):
             hold_same(f"{label} {path}", r["moved"][path], r["err"][path])
-        for path in ("prefill_wide", "capacity_wide"):
+        for path in ("prefill_wide",):
             check(r["rel"][path] <= EP_WIDE_LOGIT_REL_L2,
                   f"{label} {path} against one device's own split: logits'"
                   f" relative L2 {r['rel'][path]:.3e} (bound "
@@ -3677,9 +3852,8 @@ def ep_phase(cfg, dev):
             (i, j, f, dec_gaps[i][f][j])
             for i, first in enumerate(r["decode_first_moved_layer"])
             for j, f in enumerate(first) if f >= 0]
-        for path in ("capacity", "capacity_wide"):
-            check(r[f"{path}_drops"] == 0, f"ep 4 {path} at factor 8 "
-                  f"dropped {r[f'{path}_drops']} assignments")
+        check(r["capacity_drops"] == 0, f"ep 4 capacity at factor 8 "
+              f"dropped {r['capacity_drops']} assignments")
         loss_err = {w: abs(r["loss"] - v) / abs(v)
                     for w, v in loss_ref.items()}
         check(not any(r["moved"]["backward/split"])
@@ -3744,19 +3918,12 @@ def ep_phase(cfg, dev):
               f"{label}: kernels vs plain at the ranks' shapes: "
               f"{vp['route_mismatch']} routing entries differ outside near "
               f"ties; errors {vp['err']} (bounds {bounds})")
-    for path in ("prefill", "capacity", "prefill_wide", "capacity_wide"):
+    for path in ("prefill", "capacity", "prefill_wide"):
         check(len({r[f"{path}_digest"] for r in ranks}) == 1,
               f"ep 4 {path}: the ranks' logits differ")
     del params2, ref2, inputs
     _free_shared()
-    for r in fsdp:
-        for k, n in r["launches"]["prefill"].items():
-            w = {"route_select": 2, "ragged_moe_ffn": 2,
-                 "ragged_moe_ffn.tma": 2, "flash_attn_fwd": 2}.get(k, 0)
-            check(n == w or not on_card, f"dp 2 x ep 2 rank {r['rank']}: "
-                  f"{k} launched {n} times, expected {w}")
-        hold_same(f"dp 2 x ep 2 rank {r['rank']} prefill",
-                  r["moved"]["prefill"], r["err"]["prefill"])
+    grid_fsdp = grid_fsdp_hold(small, wide, on_card)
     gib = 2 ** 30
     vs_plain = ranks[0]["vs_plain"] | {
         "err": {k: max(r["vs_plain"]["err"][k] for r in ranks)
@@ -3800,15 +3967,10 @@ def ep_phase(cfg, dev):
                 "drops": [r["capacity_backward_drops"] for r in ranks]},
             "vs_plain_2_layers": vs_plain,
             "launches_rank0": ranks[0]["launches"]},
-        "dp2_ep2_fsdp": {
-            "wall_s": [r["seconds"]["prefill"] for r in fsdp],
-            "exchange": [r["exchange"]["prefill"] for r in fsdp],
-            "peak_gib": [r["peak_bytes"] / gib for r in fsdp],
-            "max_abs_logit_err": max(r["err"]["prefill"] for r in fsdp),
-            "launches_rank0": fsdp[0]["launches"]["prefill"]},
+        "grid_fsdp": grid_fsdp,
         "phase_s": {"single_rank_reference": t_ref, "ranks": t_ranks,
                     "ep4_rank0_sections": ranks[0]["section_s"],
-                    "fsdp_rank0_sections": fsdp[0]["section_s"],
+                    "grid_fsdp_rank0_s": wide[0]["plan_s"],
                     "all": time.perf_counter() - t_start}}
     e4 = summary["ep4"]
     for p, walls in e4["wall_s"].items():
@@ -3859,17 +4021,89 @@ def ep_phase(cfg, dev):
           f"{json.dumps(vs_plain)}", flush=True)
     print(f"[ep] ep 4 launches per rank (rank 0; every rank the same): "
           f"{json.dumps(e4['launches_rank0'])}", flush=True)
-    d = summary["dp2_ep2_fsdp"]
-    print(f"[ep] dp 2 x ep 2, FSDP of the experts, 2 layers: prefill wall "
-          f"{', '.join(f'{w * 1e3:.1f}' for w in d['wall_s'])} ms, max "
-          f"|logit difference| {d['max_abs_logit_err']}, peak "
-          f"{', '.join(f'{v:.2f}' for v in d['peak_gib'])} GiB; launches "
-          f"{json.dumps(d['launches_rank0'])}", flush=True)
     print(f"[ep] phase wall {summary['phase_s']['all']:.1f} s (single-rank "
           f"references {t_ref:.1f}, the ranks {t_ranks:.1f}: ep 4, rank 0 "
-          f"by path {json.dumps(ranks[0]['section_s'])}, then dp 2 x ep 2 "
-          f"{json.dumps(fsdp[0]['section_s'])})", flush=True)
+          f"by path {json.dumps(ranks[0]['section_s'])}, then (l) "
+          f"{wide[0]['plan_s']:.1f} s with its grid's groups)", flush=True)
     return summary
+
+
+def grid_fsdp_hold(cfg, wide, on_card):
+    """Check plan (l)'s numbers from every rank (``wide``:
+    :func:`grid_plan_rank`'s), print them and return their summary."""
+    n = cfg.n_layers
+    step = {k: n for k in (
+        "route_select", "ragged_moe_ffn", "ragged_moe_ffn.tma",
+        "flash_attn_fwd", "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
+        "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
+        "route_select_bwd")}
+    want = {"backward": step, "backward_narrow": step, "adamw": {}}
+    for r in wide:
+        label = f"(l) FSDP over (pod, data) on (2, 2, 1) rank {r['rank']}"
+        for path, counts in r["launches"].items():
+            for k in set(counts) | set(want[path]):
+                w = want[path].get(k, 0)
+                check(counts.get(k, 0) == w or not on_card,
+                      f"{label} {path}: {k} launched {counts.get(k, 0)} "
+                      f"times, expected {w}")
+        b, nw, st = r["backward"], r["narrow"], r["step"]
+        check(nw["loss_equal"] and nw["tallies_equal"]
+              and nw["grad_leaves_equal"] == nw["grad_leaves"],
+              f"{label} against FSDP over data: loss equal "
+              f"{nw['loss_equal']}, tallies equal {nw['tallies_equal']}, "
+              f"{nw['grad_leaves_equal']} of {nw['grad_leaves']} gradient "
+              f"leaves bit for bit")
+        # | |a| / |b| - 1 | <= |a - b| / |b|: the gradients' bound holds
+        # the experts' norm ratio too, which a sum over the "pod" ranks'
+        # same rows would read as 2
+        check(b["loss_rel"] <= EP_WIDE_LOSS_REL
+              and b["grad_rel_l2_max"] <= EP_WIDE_GRAD_REL_L2
+              and abs(b["expert_norm_ratio"] - 1) <= EP_WIDE_GRAD_REL_L2,
+              f"{label} against one device: loss {b['loss_rel']:.3e} (bound "
+              f"{EP_WIDE_LOSS_REL}), gradient leaves max "
+              f"{b['grad_rel_l2_max']:.3e} (bound {EP_WIDE_GRAD_REL_L2}), "
+              f"the experts' gradient norm ratio {b['expert_norm_ratio']}")
+        check(st["witness_leaves_equal"] == nw["grad_leaves"],
+              f"{label} AdamW under the narrow norm's clip: "
+              f"{st['witness_leaves_equal']} of {nw['grad_leaves']} leaves "
+              f"bit for bit")
+        check(st["norm_rel"] <= GRID_FSDP_NORM_REL
+              and st["max_abs"] <= GRID_FSDP_STEP_ABS,
+              f"{label} AdamW as it runs against FSDP over data: the norm "
+              f"{st['norm_rel']:.3e} relative (bound {GRID_FSDP_NORM_REL}), "
+              f"params' max |difference| {st['max_abs']:.3e} (bound "
+              f"{GRID_FSDP_STEP_ABS}) in {st['leaves_differing']} leaves")
+    gib = 2 ** 30
+    w0 = wide[0]
+    out = {"wall_s": {p: [r["seconds"][p] for r in wide]
+                      for p in w0["seconds"]},
+           "peak_gib": [r["peak_bytes"] / gib for r in wide],
+           "mesh_s": [r["mesh_s"] for r in wide],
+           "launches_rank0": w0["launches"],
+           "backward": {k: max(r["backward"][k] for r in wide)
+                        for k in ("loss_rel", "grad_rel_l2_max")},
+           "moved_vs_one_device": [sum(r["backward"]["moved"])
+                                   for r in wide],
+           "expert_norm_ratio": [r["backward"]["expert_norm_ratio"]
+                                 for r in wide],
+           "narrow": w0["narrow"], "step": [r["step"] for r in wide],
+           "loss": w0["backward"]["loss"]}
+    walls = "; ".join(f"{p} {', '.join(f'{w * 1e3:.1f}' for w in ws)}"
+                      for p, ws in out["wall_s"].items())
+    print(f"[ep] (l) FSDP over (pod, data) on (2, 2, 1), the batch over "
+          f"data, 2 layers at 4 x 256: host wall per rank (ms) {walls}; "
+          f"peak {', '.join(f'{v:.2f}' for v in out['peak_gib'])} GiB; the "
+          f"grid's groups {max(out['mesh_s']):.1f} s; launches rank 0 "
+          f"{json.dumps(out['launches_rank0'])}", flush=True)
+    print(f"[ep] (l) against FSDP over data on the same ranks: loss, "
+          f"tallies and {out['narrow']['grad_leaves']} gradient leaves bit "
+          f"for bit; against one device: loss {out['loss']:.6f} "
+          f"({out['backward']['loss_rel']:.3e}), gradient leaves' relative "
+          f"L2 max {out['backward']['grad_rel_l2_max']:.3e}, assignments "
+          f"moved {out['moved_vs_one_device']}, the experts' gradient norm "
+          f"ratio {json.dumps(out['expert_norm_ratio'])}; AdamW: "
+          f"{json.dumps(out['step'])}", flush=True)
+    return out
 
 
 def remat_phase(cfg, dev):
@@ -3954,7 +4188,9 @@ TP_BOUNDS = {
     "heads": {"prefill": 7e-2, "decode": 7e-2, "loss": 1e-4, "grads": 0.17},
     "context": {"prefill": 0.0, "decode": 6e-2},
     "smollm": {"prefill": 4e-2, "decode": 4e-2, "loss": 1e-5, "grads": 7e-2},
-    "fsdp": {"prefill": 3e-2, "loss": 3e-4, "grads": 0.17},
+    # (k), the dense oracle: phase 13's bounds against one device at 4 x 256
+    "dense": {"prefill": EP_WIDE_LOGIT_REL_L2, "loss": EP_WIDE_LOSS_REL,
+              "grads": EP_WIDE_GRAD_REL_L2},
 }
 
 
@@ -4505,7 +4741,9 @@ def _witness(w, path, batch, seq):
     ``seq`` positions: :class:`split_attention`, :class:`split_rows`,
     :class:`split_mixers` where ``w["mixers"]`` (the config) has mixers
     split over ``tp`` and, outside decode (where every rank routes the
-    whole batch), :class:`split_routing` over the ranks' a2a blocks."""
+    whole batch) and the dense oracle (``w["dense"]``: every rank routes
+    the whole batch too), :class:`split_routing` over the ranks' a2a
+    blocks."""
     import contextlib
     stack = contextlib.ExitStack()
     stack.enter_context(split_attention(w["mode"], w["tp"], w["dp"]))
@@ -4513,7 +4751,7 @@ def _witness(w, path, batch, seq):
         stack.enter_context(split_mixers(w["mixers"], w["tp"], w["dp"]))
     stack.enter_context(split_rows(w["dp"], w["xent_tp"], batch,
                                    w["vocab_tp"]))
-    if path != "decode":
+    if path != "decode" and not w.get("dense"):
         stack.enter_context(split_routing(w["dp"], w["ep"], batch, seq))
     return stack
 
@@ -5219,6 +5457,7 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
                                 else "context"),
                        "tp": rules.tp_size, "dp": rules.dp_size,
                        "ep": rules.ep_size,
+                       "dense": rules.moe_dispatch == "dense",
                        "mixers": plan["cfg"] if split else None,
                        # a split vocabulary's xent runs on every position
                        "xent_tp": (1 if rules.splits(plan["cfg"].vocab)
@@ -5724,9 +5963,15 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
         heads force context mode, the tied vocabulary (49152) split, the
         dense MLP's 2560 over 4; a prefill of 4 x 256, 2 decode steps, a
         loss and backward; no kernel of the port runs;
-    (d) granite at 2 layers on (2, 2): heads over "model", the batch and
-        the dense weights' FSDP slices over "data"; a prefill and a loss
-        and backward;
+    (k) granite at 2 layers on (2, 2) from ``make_rules`` with
+        ``moe_dispatch="dense"``: heads over "model", the batch and the
+        dense weights' FSDP slices over "data", and every rank gathers the
+        whole batch and the whole expert weights and runs the
+        single-device ragged dispatch through the kernels (the reference's
+        oracle under GSPMD); a prefill and a loss and backward at 4 x 256,
+        against one device's ``rules=None`` (the witness routes the whole
+        batch at once, as the ranks do). It took the place of (d), the
+        same rules through the a2a body, which 16 (a) runs at full depth;
 
     and phase 16 (g) (:func:`sp_phase`), xlstm-350m on (2, 2), phase
     16 (h)-(j), the serving engine on (2, 2), its drills and its capacity
@@ -5768,7 +6013,7 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
     Both hold each kernel call of the steps up to the first decode step
     against its plain version.
 
-    (a), (b), (d) and 16 (g) are held against a witness, one device
+    (a), (b), (k) and 16 (g) are held against a witness, one device
     computing the attention, the recurrent mixers and the row-wise steps
     as the ranks split them
     (:func:`_witness`) while the ranks add their partials in rank order
@@ -5793,9 +6038,15 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         weights[name] = init_params(c, gen, device=dev, dtype=torch.bfloat16)
-        inputs[name] = tp_inputs(c, dev, 15, 4 if name == "smollm" else 2,
-                                 weights[name])
+        if name != "small":
+            inputs[name] = tp_inputs(c, dev, 15, 4 if name == "smollm"
+                                     else 2, weights[name])
     weights["xlstm"], inputs["xlstm"] = _mixers_inputs(xlstm, dev)
+    # (k)'s: a 4 x 256 batch (no decode, so no cache)
+    g = torch.Generator().manual_seed(16)
+    inputs["small"] = {k: torch.randint(0, small.vocab, (4, 256),
+                                        generator=g).to(dev)
+                       for k in ("tokens", "labels")}
     paths = ["prefill", "decode", "backward"]
     steps = TP_DECODE_STEPS
     plans = [
@@ -5809,9 +6060,13 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
          # its backward's exchange share (89.6-89.9%, PERF.md) is not
          # clocked again
          "clocked": ["prefill", "decode"]},
-        {"label": "fsdp", "model": "small", "cfg": small, "grid": (2, 2),
-         "rules": {"fsdp": ("pod", "data")}, "witness": True,
-         "paths": ["prefill", "backward"], "steps": steps},
+        # (k), which took the place of (d) (its rules with the a2a body:
+        # 16 (a) runs them at full depth); the exchanges' share is not
+        # clocked: the oracle's gathers are not a path that serves
+        {"label": "dense", "model": "small", "cfg": small, "grid": (2, 2),
+         "rules": {"fsdp": ("pod", "data"), "moe_dispatch": "dense"},
+         "witness": True, "paths": ["prefill", "backward"], "steps": steps,
+         "clocked": []},
         _mixers_plan(xlstm),
         {"label": "engine", "model": "granite", "cfg": cfg, "grid": (2, 2),
          "rules": {}, "witness": False, "paths": ["engine"], "steps": 1},
@@ -5826,8 +6081,9 @@ def tp_phase(cfg, dev, smollm=None, xlstm=None):
     what = {"heads": "granite, heads (1, 4)",
             "context": "granite, context (1, 4)",
             "smollm": "smollm-360m, context (1, 4), no port kernel on its "
-                      "path", "fsdp": "granite 2 layers, heads over model "
-                                      "and dense FSDP over data (2, 2)",
+                      "path",
+            "dense": "(k) granite 2 layers, the dense MoE oracle, heads "
+                     "over model and dense FSDP over data (2, 2), 4 x 256",
             "xlstm": "phase 16 (g), xlstm-350m, mLSTM and sLSTM by heads "
                      "(2, 2)",
             "engine": "phase 16 (h), the serving engine (2, 2)",
@@ -7238,17 +7494,16 @@ def main() -> int:
     def ep_launches(name):
         """This kernel's launches on the expert-parallel paths, per rank
         (every rank launched the same; the phase checks each)."""
-        return {"ep4": {p: c.get(name, 0) for p, c in
-                        ep["ep4"]["launches_rank0"].items()},
-                "dp2_ep2_fsdp_prefill":
-                    ep["dp2_ep2_fsdp"]["launches_rank0"].get(name, 0)}
+        return {key: {p: c.get(name, 0) for p, c in
+                      ep[key]["launches_rank0"].items()}
+                for key in ("ep4", "grid_fsdp")}
 
     def tp_launches(name):
         """This kernel's launches on the tensor-parallel runs, per rank
         (every rank launched the same; the phase checks each)."""
         return {label: {p: c.get(name, 0) for p, c in
                         tp[label]["launches_rank0"].items()}
-                for label in ("heads", "context", "smollm", "fsdp")}
+                for label in ("heads", "context", "smollm", "dense")}
 
     def sp_launches(name):
         """This kernel's launches on the batch- and sequence-split runs,

@@ -23,9 +23,9 @@ and a collective whose backward is another all-reduce (as in
 * :func:`mean_over` — the ``pmean`` of ``mean_prob`` and of the loss over
   the ranks' rows; backward ``g / n``.
 * :func:`gather_shards` — the FSDP ``all_gather`` of weights along a dim
-  (backward: the reduce-scatter of the gathered weight's gradient where
-  the ranks use it on different rows, or, where every rank does the same
-  work with it, the rank's own slice), and the gather of the last rows
+  (backward: the reduce-scatter of the gathered weight's gradient over
+  the ranks that use it on different rows, the rank's own slice over
+  those that do the same work with it), and the gather of the last rows
   and of the logits.
 * :func:`gather_to` — a tensor from every rank of a group to one rank,
   outside autograd (a checkpoint's save from a grid, on the host).
@@ -121,6 +121,15 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
         clock.run(lambda: dist.all_reduce(t, group=group), t,
                   "all-reduce")
     return t
+
+
+def _released(t: torch.Tensor) -> torch.Tensor:
+    """A view of ``t``, the result of a collective, to hand to autograd as
+    a gradient. gloo's worker thread may hold ``t`` for a moment after the
+    call returns, and autograd takes a leaf's gradient as its ``grad`` only
+    when nothing else holds it (else it copies it): the view is held by
+    autograd alone, so the leaf takes it, on every run alike."""
+    return t.view_as(t)
 
 
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:
@@ -236,21 +245,40 @@ class _GatherShards(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         chunks = [c.contiguous() for c in g.chunk(_n(ctx.group), ctx.dim)]
-        if not ctx.summed:
-            return chunks[dist.get_rank(ctx.group)], None, None, None
+        summed, group = ctx.summed, ctx.group
+        if isinstance(summed, tuple):
+            group, members = summed
+            chunks = [chunks[i] for i in members]
+            if group is None:
+                return chunks[0], None, None, None
+        elif not summed:
+            return chunks[dist.get_rank(group)], None, None, None
         out = torch.empty_like(chunks[0])
-        clock.run(lambda: dist.reduce_scatter(out, chunks, group=ctx.group),
+        clock.run(lambda: dist.reduce_scatter(out, chunks, group=group),
                   g, "reduce-scatter")
-        return out, None, None, None
+        return _released(out), None, None, None
 
 
 def gather_shards(x: torch.Tensor, group, dim: int,
-                  summed: bool = True) -> torch.Tensor:
+                  summed=True) -> torch.Tensor:
     """The group's shards of ``x`` concatenated along ``dim`` in group
-    order (``lax.all_gather(..., axis=dim, tiled=True)``). ``summed``: the
-    ranks use the whole tensor on different work (the a2a bodies' tokens),
-    so its gradient is the reduce-scatter of theirs; ``False`` where they
-    all do the same work, and each keeps its own slice."""
+    order (``lax.all_gather(..., axis=dim, tiled=True)``). ``summed`` says
+    which ranks of the group use the whole tensor on different work (the
+    a2a bodies' tokens, other rows of the batch), whose gradients are
+    summed, and which do the same work as this rank, whose gradients are
+    the same and counted once:
+
+    * ``True``: every rank works apart; the gradient is the reduce-scatter
+      of theirs;
+    * ``False``: every rank does the same work; each keeps its own slice;
+    * ``(sum_group, members)``: the ranks of ``sum_group`` (a subgroup of
+      ``group`` that holds this rank, or ``None`` for this rank alone)
+      work apart and the rest of ``group`` does their work again:
+      ``members`` are the shards' indices in ``group`` that the members of
+      ``sum_group`` hold, in ``sum_group``'s order. The gradient is
+      reduce-scattered over ``sum_group``, of the slices at ``members``:
+      this rank's slice summed over the ranks that work apart, once
+      each (an FSDP group wider than the axes that split the rows)."""
     if group is None:
         return x
     return _GatherShards.apply(x, group, dim, summed)
@@ -309,7 +337,7 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone(), ctx.group), None
+        return _released(all_reduce_(g.clone(), ctx.group)), None
 
 
 def replicate(x: torch.Tensor, group) -> torch.Tensor:

@@ -459,17 +459,13 @@ def _row_axes(rules, rows: _Rows, tp_split: bool) -> Tuple[str, ...]:
     return axes
 
 
-def _fsdp_summed(rules, rows: _Rows, tp_split: bool) -> bool:
-    """Whether the ranks of the FSDP group read a gathered leaf on
-    different rows (the gather's backward then reduce-scatters the
-    gradient; where they all do the same work, each keeps its slice)."""
-    fsdp = set(rules.fsdp_axes)
-    over = set(_row_axes(rules, rows, tp_split))
-    if fsdp & over and not fsdp <= over:
-        raise NotImplementedError(
-            f"FSDP over {sorted(fsdp)}: the ranks see different rows over "
-            f"{sorted(over)}, which cut the FSDP group")
-    return bool(fsdp & over)
+def _fsdp_summed(rules, rows: _Rows, tp_split: bool):
+    """How a leaf gathered over the FSDP group gives its gradient back
+    (``collectives.gather_shards``' ``summed``): reduce-scattered over the
+    FSDP axes whose ranks read it on different rows (:func:`_row_axes`),
+    and over the other FSDP axes, whose ranks read the same rows, each
+    rank's own slice (``ShardingRules.fsdp_summed``)."""
+    return rules.fsdp_summed(_row_axes(rules, rows, tp_split))
 
 
 def _sum_over_rows(cfg, params, rules, rows: _Rows):
@@ -484,10 +480,10 @@ def _sum_over_rows(cfg, params, rules, rows: _Rows):
     that the rank holds whole but reads in part (Mamba's ``dt_bias`` and
     ``D_skip``, mLSTM's u half of ``up``, sLSTM's ``up``) over ``tp`` as
     well, where each rank adds its own share; a mixer that does not split
-    as the norms. An FSDP-sliced leaf gets the rest of that sum from its
-    gather's reduce-scatter (:func:`_fsdp_summed`). The MoE layer's
-    router and experts are left to its bodies, which sum their gradients
-    over the group they route."""
+    as the norms. An FSDP-sliced leaf gets its sum over the FSDP axes
+    from its gather's reduce-scatter (:func:`_fsdp_summed`), and the rest
+    of it here. The MoE layer's router and experts are left to its
+    bodies, which sum their gradients over the group they route."""
     if rules is None or rules.grid is None:
         return params
     _, specs = block_layout(cfg)
@@ -500,7 +496,7 @@ def _sum_over_rows(cfg, params, rules, rows: _Rows):
         axes = _row_axes(rules, rows, tp_split)
         if over_tp:
             axes = axes + tuple(a for a in rules.tp_axes if a not in axes)
-        if sliced and _fsdp_summed(rules, rows, tp_split):
+        if sliced:
             axes = tuple(a for a in axes if a not in fsdp)
         return C.replicate(w, rules.group(axes))
 
@@ -633,11 +629,11 @@ def _block_body(cfg, rules, specs, bp, x, *, windows_blk, moe_tables_blk,
 def _gather_dense(cfg, bp, specs, rules, rows: _Rows):
     """A block's params with the FSDP slices of its attention and dense
     MLP weights gathered over ``rules.fsdp`` (on their d_model axis). The
-    gather's backward reduce-scatters the gradient where the FSDP group's
-    ranks work on different rows, else each keeps its own slice
-    (:func:`_fsdp_summed`); so are the recurrent mixers' d_model slices
-    (``MIXER_D_AXIS``). Other leaves (norms, the MoE layer, whose experts
-    gather in its body) pass as they are."""
+    gather's backward reduce-scatters the gradient over the FSDP axes
+    whose ranks work on different rows, and over the others each rank
+    keeps its own slice (:func:`_fsdp_summed`); so are the recurrent
+    mixers' d_model slices (``MIXER_D_AXIS``). Other leaves (norms, the
+    MoE layer, whose experts gather in its body) pass as they are."""
     group = None if rules is None else rules.group(rules.fsdp_axes)
     if group is None:
         return bp

@@ -18,7 +18,10 @@ a layer on the card, its plain version on the CPU).
   assignments are dropped and counted in ``tally[E]``; the capacity FFN
   kernel runs every bucket.
 * **dense oracle** (capacity without a group, the reference's
-  ``rules=None``): every expert on every token with the plain FFN.
+  ``rules=None``): every expert on every token with the plain FFN. With
+  ``moe_dispatch="dense"`` on a grid every rank runs it (or, ragged, the
+  single-device ragged dispatch) on the whole batch and the whole expert
+  weights, as GSPMD runs the reference's.
 
 With a group (``ShardingRules.grouped``) the reference's four bodies run
 as it chooses them (``moe_layer``): ``_a2a_body_ragged`` and ``_a2a_body``
@@ -370,7 +373,11 @@ def _expert_weights(w1, w3, w2, fsdp_group, rep_group, summed=True):
     """The rank's expert weights as its FFN reads them: replicated over
     ``rep_group`` (the batch axes the weights are not sharded over) and
     gathered over ``fsdp_group`` on axis 1 (ZeRO-3; the reference's
-    ``all_gather(..., axis=1, tiled=True)``)."""
+    ``all_gather(..., axis=1, tiled=True)``), the gradient coming back as
+    ``summed`` says (``collectives.gather_shards``): the a2a bodies sum it
+    over the FSDP axes of their block, whose ranks route other rows, and
+    take the rank's slice over the FSDP axes outside it, whose ranks hold
+    the same block and route it again."""
     return tuple(C.gather_shards(C.replicate(w, rep_group), fsdp_group,
                                  dim=1, summed=summed) for w in (w1, w3, w2))
 
@@ -393,7 +400,7 @@ def _global_aux(tally, mean_prob, aux, n_experts, group):
 def _a2a_body_ragged(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
                      route_seed, *, top_k, n_experts, n_slots, bm, ep,
                      ep_group, stat_group, fsdp_group, rep_group,
-                     ffn: Callable):
+                     ffn: Callable, fsdp_summed=True):
     """Dropless a2a dispatch (``src/repro/models/moe.py:386-464``): sorted
     per-destination frames + ragged FFN.
 
@@ -409,7 +416,8 @@ def _a2a_body_ragged(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
     the combine gathers each token's rows in k order."""
     Bl, Sl, D = xb.shape
     e_loc = n_slots // ep
-    w1, w3, w2 = _expert_weights(w1, w3, w2, fsdp_group, rep_group)
+    w1, w3, w2 = _expert_weights(w1, w3, w2, fsdp_group, rep_group,
+                                 fsdp_summed)
     xf = xb.reshape(Bl * Sl, D)
     t = xf.shape[0]
     A = t * top_k
@@ -494,7 +502,7 @@ def _capacity_route(router_w, xf, slots_of, n_copies, copy_cdf, route_seed,
 def _a2a_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
               route_seed, *, top_k, n_experts, n_slots, capacity, ep,
               ffn: Callable, ep_group=None, stat_group=None, fsdp_group=None,
-              rep_group=None):
+              rep_group=None, fsdp_summed=True):
     """One rank's block of the a2a capacity dispatch (train / prefill;
     ``src/repro/models/moe.py:508-563``), in its ``(ep, e_loc, C, D)``
     layout: bucket ``slot·C + pos`` holds an assignment kept by its
@@ -503,7 +511,8 @@ def _a2a_body(xb, router_w, w1, w3, w2, slots_of, n_copies, copy_cdf,
     ``sum(1 - keep)``, summed over the group."""
     Bl, Sl, D = xb.shape
     e_loc = n_slots // ep
-    w1, w3, w2 = _expert_weights(w1, w3, w2, fsdp_group, rep_group)
+    w1, w3, w2 = _expert_weights(w1, w3, w2, fsdp_group, rep_group,
+                                 fsdp_summed)
     xf = xb.reshape(Bl * Sl, D)
     t = xf.shape[0]
     weights, slot_flat, tally, mean_prob, aux = _capacity_route(
@@ -595,7 +604,14 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
       it ``dp`` times). On a one-rank
       group without a grid ragged runs the single-device ragged dispatch,
       which computes what the reference's one-rank ragged bodies compute
-      (summed in another order).
+      (summed in another order);
+    * ``moe_dispatch="dense"`` on a grid: the reference's oracle under
+      GSPMD. Every rank gathers the whole batch and the whole expert
+      weights and runs what ``rules`` without a grid runs (ragged: the
+      single-device ragged dispatch through the kernels; capacity: the
+      dense oracle), then keeps its rows: the replica draw hashes the
+      global assignment index, and the tally and ``aux`` are the global
+      ones, counted once.
 
     On a grid, ``p`` holds the rank's slice of the expert weights
     (``launch.sharding.shard_params`` for this ``phase``: the a2a layout
@@ -650,42 +666,39 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
                            and rows[0] else 1)
         if mode == "a2a" and batch_whole % rules.dp_size != 0:
             mode = "replicated"
-        if mode != "dense" and row_valid is not None:
+        if row_valid is not None and (mode != "dense"
+                                      or rules.grid is not None):
             raise NotImplementedError(
                 "row_valid (chunked-prefill padding mask) is only supported "
                 "without an expert-parallel group")
 
-    xf = x.reshape(B * S, D)
     ragged = rules.moe_impl == "ragged"
-    if rules.grid is None and (ragged or mode == "dense"):
+    grid = rules.grid
+    rows = rows if grid is not None and rows is not None and any(rows) \
+        else None
+    if mode == "dense" or (grid is None and ragged):
+        # the reference's oracle under GSPMD: on a grid every rank runs it
+        # on the whole batch with the whole expert weights
+        xw, back = _whole_batch(x, rows, rules)
+        w = _whole_experts(p, rules, phase)
+        xf = xw.reshape(-1, D)
         if ragged:
             out, tally, aux = _dense_dispatch_ragged(
-                p, xf, route_seed, top_k=top_k, n_experts=n_experts,
+                w, xf, route_seed, top_k=top_k, n_experts=n_experts,
                 bm=rules.moe_block_m, ffn=ops.ragged_moe_ffn,
                 row_valid=row_valid, **tables)
         else:
             out, tally, aux = _dense_dispatch(
-                p, xf, route_seed, top_k=top_k, n_experts=n_experts,
+                w, xf, route_seed, top_k=top_k, n_experts=n_experts,
                 row_valid=row_valid, **tables)
-        return out.reshape(B, S, D), tally, aux
-    if mode == "dense":
-        raise NotImplementedError(
-            "moe_dispatch='dense' on a grid: the ranks hold slices of the "
-            "expert weights, and the dense oracle reads all of them")
+        return back(out.reshape(xw.shape)), tally, aux
 
-    grid = rules.grid
     group = (lambda axes: None) if grid is None else grid.group
     ffn = ops.ragged_moe_ffn if ragged else ops.fused_moe_ffn
     cf = rules.capacity_factor
     args = (p["router"], p["w1"], p["w3"], p["w2"], slots_of, n_copies,
             copy_cdf, route_seed)
-    rows = rows if grid is not None and rows is not None and any(rows) \
-        else None
     dp_axes, ep_axes, tp_axes = rules.dp_axes, rules.ep_axes, rules.tp_axes
-    if rows is not None:
-        # the rank's rows of the global (Bg, Sg)
-        Bg = B * rules.axis_size(dp_axes) if rows[0] else B
-        Sg = S * rules.axis_size(tp_axes) if rows[1] else S
     if mode == "a2a":
         ep = rules.ep_size
         dp = rules.axis_size(dp_axes)
@@ -702,13 +715,17 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
                 undo = lambda y: C.gather_blocks(  # noqa: E731
                     y, group(blk), coords, me, x.shape)
         else:
+            # the rank's rows of the global (Bg, Sg)
+            Bg = B * rules.axis_size(dp_axes) if rows[0] else B
+            Sg = S * rules.axis_size(tp_axes) if rows[1] else S
             t_loc = (Bg // dp) * (Sg // ep)
             xb, undo = _to_a2a_block(x, rows, rules, Sg)
         kw = dict(top_k=top_k, n_experts=n_experts, n_slots=n_slots, ep=ep,
                   ffn=ffn, ep_group=group(ep_axes), stat_group=group(blk),
                   fsdp_group=group(rules.fsdp_axes),
                   rep_group=group(tuple(a for a in dp_axes
-                                        if a not in rules.fsdp_axes)))
+                                        if a not in rules.fsdp_axes)),
+                  fsdp_summed=rules.fsdp_summed(blk))
         if ragged:
             out, tally, aux = _a2a_body_ragged(xb, *args, bm=rules.moe_block_m,
                                                **kw)
@@ -723,14 +740,7 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     # shards gathered, every batch replica doing the same work. Every rank
     # of the psum group routes the same tokens: the rank's rows are
     # gathered to the whole batch first and taken back after.
-    xr = x
-    if rows is not None:
-        r_axes = (dp_axes if rows[0] else ()) + (tp_axes if rows[1] else ())
-        coords = [(grid.index(dp_axes, c) if rows[0] else 0,
-                   grid.index(tp_axes, c) if rows[1] else 0)
-                  for c in grid.members(r_axes)]
-        me = grid.index(r_axes)
-        xr = C.gather_blocks(x, group(r_axes), coords, me, (Bg, Sg, D))
+    xr, back = _whole_batch(x, rows, rules)
     w = (p["w1"], p["w3"], p["w2"])
     if phase == "decode":
         slot_axes, ftp_axes = rules.decode_axes
@@ -753,9 +763,53 @@ def moe_layer(p, x: torch.Tensor, *, top_k: int, n_experts: int,
             xr, *args, top_k=top_k, n_experts=n_experts, capacity=capacity,
             ffn=ffn, my_rank=my_rank, psum_group=psum_group,
             drop_group=group(slot_axes))
-    if rows is not None:
-        out = C.take_block(out, group(r_axes), coords, me)
-    return out, tally, aux
+    return back(out), tally, aux
+
+
+def _whole_batch(x, rows, rules):
+    """The whole batch from the rank's rows ``x`` (``rows``: its ``B/dp``
+    of the batch, its ``S/tp`` of the sequence; ``None``: ``x`` is whole),
+    and the function that takes the rank's rows back from an output on
+    the whole batch. Every rank then does the same work, so each step's
+    backward is its inverse's forward: the gradient of the whole batch,
+    whole on every rank, gives the rank its rows' gradient."""
+    if rows is None:
+        return x, lambda y: y
+    grid = rules.grid
+    dp_axes, tp_axes = rules.dp_axes, rules.tp_axes
+    B, S, D = x.shape
+    Bg = B * rules.axis_size(dp_axes) if rows[0] else B
+    Sg = S * rules.axis_size(tp_axes) if rows[1] else S
+    r_axes = (dp_axes if rows[0] else ()) + (tp_axes if rows[1] else ())
+    coords = [(grid.index(dp_axes, c) if rows[0] else 0,
+               grid.index(tp_axes, c) if rows[1] else 0)
+              for c in grid.members(r_axes)]
+    me, group = grid.index(r_axes), grid.group(r_axes)
+    xw = C.gather_blocks(x, group, coords, me, (Bg, Sg, D))
+    return xw, lambda y: C.take_block(y, group, coords, me)
+
+
+def _whole_experts(p, rules, phase: str) -> dict:
+    """The MoE layer's params with the rank's expert slices gathered whole
+    (the dense oracle on a grid): the slices ``shard_params`` cut for
+    ``phase`` undone, the last cut first — at train and prefill D (F of
+    w2) over ``fsdp`` and the slots over ``ep``, at decode F over the
+    expert-TP axes and the slots over the decode fleet. Every rank reads
+    them on the whole batch, so the gradient comes back as each rank's own
+    slice. Without a grid ``p`` as it is."""
+    if rules.grid is None:
+        return p
+    group = rules.grid.group
+    out = dict(p)
+    for k in ("w1", "w3", "w2"):
+        if phase == "decode":
+            slot_axes, ftp_axes = rules.decode_axes
+            inner = (1 if k == "w2" else 2, ftp_axes)
+        else:
+            slot_axes, inner = rules.ep_axes, (1, rules.fsdp_axes)
+        w = C.gather_shards(p[k], group(inner[1]), inner[0], summed=False)
+        out[k] = C.gather_shards(w, group(slot_axes), 0, summed=False)
+    return out
 
 
 def _to_a2a_block(x, rows, rules, Sg):

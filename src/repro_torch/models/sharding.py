@@ -249,6 +249,22 @@ class ShardingRules:
         """The process group over ``axes`` (``None``: one rank)."""
         return None if self.grid is None else self.grid.group(axes)
 
+    def fsdp_summed(self, apart):
+        """``collectives.gather_shards``' ``summed`` for a leaf gathered
+        over ``fsdp`` and read on different rows by the ranks that differ
+        over the axes ``apart``: its gradient reduce-scattered over the
+        FSDP axes in ``apart``, and over the other FSDP axes, whose ranks
+        read the same rows and so hold the same gradient, each rank's own
+        slice, counted once. ``True`` where ``apart`` holds every FSDP
+        axis of more than one rank, ``False`` where it holds none."""
+        fsdp = self.fsdp_axes
+        axes = tuple(a for a in fsdp if a in apart)
+        n = self.axis_size(axes)
+        if n == 1 or n == self.axis_size(fsdp):
+            return n > 1
+        return (self.group(axes),
+                [self.grid.index(fsdp, c) for c in self.grid.members(axes)])
+
     def index(self, axes) -> int:
         """This rank's place in the group over ``axes``."""
         return 0 if self.grid is None else self.grid.index(axes)

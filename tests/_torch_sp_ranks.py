@@ -244,6 +244,38 @@ def single(name: str, tree, cases=None):
     return out
 
 
+def rank_case(name: str, grid, tree, cache, cases=None):
+    """Case ``name`` of ``cases`` (None: :data:`CASES`) on this rank of
+    ``grid``: its model on the rank's slice of the whole params ``tree``
+    (numpy) for each phase, decoding from its slice of the whole decode
+    cache ``cache`` (:func:`_run_port`)."""
+    torch = _torch()
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.sharding import (decode_params, rank_cache,
+                                             shard_params)
+    from repro_torch.models import model as tmodel
+    cfg = get_smoke((cases or CASES)[name][0])
+
+    def rules_for(phase):
+        return port_rules(name, grid, phase, cases)
+
+    def params_for(phase):
+        # a fresh tree each call: the uncut leaves are the whole tree's
+        # tensors, whose gradients would add up over runs
+        whole = params_from_numpy(tree)
+        rules = rules_for(phase)
+        whole = (decode_params(cfg, whole, rules)
+                 if phase == "decode" and cfg.is_moe else whole)
+        return shard_params(cfg, whole, rules, phase)
+
+    return _run_port(
+        torch, name, cfg, params_for, rules_for,
+        lambda phase: tmodel.make_moe_tables(cfg, rules_for(phase),
+                                             phase=phase),
+        cache, lambda c: rank_cache(cfg, c, rules_for("decode")), cases)
+
+
 def sp_rank(rank: int, trees, caches, ckpt_dir):
     """One gloo rank of the port: every case (every rank builds every
     grid, in the same order) on the rank's slice of the whole params
@@ -254,35 +286,14 @@ def sp_rank(rank: int, trees, caches, ckpt_dir):
     from repro_torch.bridge import params_from_numpy
     from repro_torch.configs import get_smoke
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.sharding import (decode_params, rank_cache,
-                                             shard_params)
     from repro_torch.models import model as tmodel
     from repro_torch.training import checkpoint
     out = {}
     grids = {}
     for name, (arch, shape, _, _, _) in CASES.items():
-        cfg = get_smoke(arch)
         grid = grids.get(shape) or grids.setdefault(shape,
                                                     make_mesh(shape, AXES))
-
-        def params_for(phase, cfg=cfg, grid=grid, name=name):
-            # a fresh tree each call: the uncut leaves are the whole
-            # tree's tensors, whose gradients would add up over runs
-            whole = params_from_numpy(trees[name])
-            rules = port_rules(name, grid, phase)
-            tree = (decode_params(cfg, whole, rules)
-                    if phase == "decode" and cfg.is_moe else whole)
-            return shard_params(cfg, tree, rules, phase)
-
-        out[name] = _run_port(
-            torch, name, cfg, params_for,
-            lambda phase, grid=grid, name=name: port_rules(name, grid, phase),
-            lambda phase, cfg=cfg, grid=grid, name=name:
-                tmodel.make_moe_tables(cfg, port_rules(name, grid, phase),
-                                       phase=phase),
-            caches[name],
-            lambda c, cfg=cfg, grid=grid, name=name:
-                rank_cache(cfg, c, port_rules(name, grid, "decode")))
+        out[name] = rank_case(name, grid, trees[name], caches[name])
     arch, shape = CASES[RESTORE][:2]
     cfg = get_smoke(arch)
     rules = port_rules(RESTORE, grids[shape], "train")
