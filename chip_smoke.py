@@ -42,7 +42,15 @@ Run from the repository root on a machine with one NVIDIA H100. It
    ``ATTN_REL_F32`` in f32) of the plain version, where a kernel that
    dropped half the keys reads far above it, two calls bit for bit,
    beside ``scaled_dot_product_attention``
-   with ``enable_gqa`` on the same mask (timed only) — and times each
+   with ``enable_gqa`` on the same mask (timed only); the training
+   gradient (``attention_grad_case``: the forward kernel, then the
+   backward's ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv``) at
+   granite's 4 x 512 and its training steps' 16 x 256, gemma3's hd 256
+   window, hubert's f32 hd 80 and
+   pixtral's hd 128, against f32 autograd of the plain version and
+   against ``flash_attention_bwd`` on the same forward outputs, timed
+   beside their bounds, the plain backward and SDPA's backward — and
+   times each
    (the attention cases that ``scripts/attn_compare.py`` times are checked
    only, but granite's 4 x 512 prefill and 8-lane decode):
    the kernel's call (single-call CUDA
@@ -131,9 +139,9 @@ Run from the repository root on a machine with one NVIDIA H100. It
    width, 4 steps of batch 4 x 256 tokens on the card: finite losses (the
    first near ln 49155), per step 32 launches of the routing stage, the
    ragged FFN and each backward kernel (the FFN's forward and backward on
-   the TMA route), 32 of the attention's forward kernel (its backward is
-   plain, chunk pair by chunk pair) and none of the capacity FFN or of
-   the decode kernel, the median step time, tokens/s and peak memory; two
+   the TMA route), 32 of the attention's forward kernel and of each of its
+   backward's two (``csrc/flash_attention_bwd.cu``) and none of the
+   capacity FFN or of the decode kernel, the median step time, tokens/s and peak memory; two
    2-step runs from seed 0 with bit-identical losses and parameters; the
    capacity path's training step (``make_train_step`` with
    ``ShardingRules(moe_impl="capacity", ep_ranks=1)``) at 16 x 256: each
@@ -356,23 +364,27 @@ def check(ok, what: str) -> None:
         raise RuntimeError(f"chip smoke check failed: {what}")
 
 
+ATTN_SOURCES = ("flash_attention", "flash_attention_bwd")
+
+
 def build_kernels():
-    """Every kernel source built, the attention source beside the rest (one
-    ``nvcc`` each, all at once): the libraries, and the attention source's
-    seconds to build (0 where it was built before)."""
+    """Every kernel source built, the attention's two sources (forward,
+    backward) beside the rest (one ``nvcc`` each, all at once): the
+    libraries, and the attention sources' seconds to build each (0 where
+    it was built before)."""
     import concurrent.futures
     from repro_torch.kernels import build
-    rest = [n for n in build.sources() if n != "flash_attention"]
+    rest = [n for n in build.sources() if n not in ATTN_SOURCES]
 
-    def attention():
+    def attention(name):
         t0 = time.perf_counter()
-        build.build_all(["flash_attention"])
+        build.build_all([name])
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        attn = pool.submit(attention)
+    with concurrent.futures.ThreadPoolExecutor(len(ATTN_SOURCES)) as pool:
+        attn = [pool.submit(attention, n) for n in ATTN_SOURCES]
         build.build_all(rest)
-        attn_s = attn.result()
+        attn_s = dict(zip(ATTN_SOURCES, (f.result() for f in attn)))
     return {n: build.library_path(n) for n in build.sources()}, attn_s
 
 
@@ -501,32 +513,41 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
 def attn_layers(cfg) -> int:
     """Attention layers of ``cfg``: each launches one attention kernel a
     model call (``flash_attn_fwd`` at prefill, for a chunk and in a
-    training step's forward, ``flash_decode`` at decode); none in the
-    backward."""
+    training step's forward, ``flash_decode`` at decode), and each of the
+    backward's two (``flash_attn_bwd_dq``, ``flash_attn_bwd_dkdv``) a
+    training step's backward."""
     from repro_torch.models.model import block_layout
     nb, specs = block_layout(cfg)
     return nb * sum(s.mixer == "attn" for s in specs)
 
 
+ATTN_ROUTED = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv")
+
+
 def attn_routed(counts: dict, where: str) -> dict:
     """``counts`` (``ops.launch_counts()``) without the attention's
-    per-route counts, once every ``flash_attn_fwd`` launch among them is
-    found on a named route (``flash_attn_fwd.tma`` and
-    ``flash_attn_fwd.tf32x3`` add up to ``flash_attn_fwd``)."""
+    per-route counts, once every launch of the prefill's kernels
+    (:data:`ATTN_ROUTED`, forward and backward) among them is found on a
+    named route (``<kernel>.tma`` and ``<kernel>.tf32x3`` add up to
+    ``<kernel>``)."""
     out = dict(counts)
-    routed = (out.pop("flash_attn_fwd.tma", 0)
-              + out.pop("flash_attn_fwd.tf32x3", 0))
-    check(routed == out.get("flash_attn_fwd", 0),
-          f"{where}: {routed} of {out.get('flash_attn_fwd', 0)} "
-          "flash_attn_fwd launches on the tma and tf32x3 routes")
+    for name in ATTN_ROUTED:
+        routed = out.pop(f"{name}.tma", 0) + out.pop(f"{name}.tf32x3", 0)
+        check(routed == out.get(name, 0),
+              f"{where}: {routed} of {out.get(name, 0)} {name} launches on "
+              "the tma and tf32x3 routes")
     return out
 
 
-def attn_want(cfg, prefill=0, decode=0) -> dict:
+def attn_want(cfg, prefill=0, decode=0, backward=0) -> dict:
     """The attention kernels' launches of ``prefill`` prefill (or chunk)
-    calls and ``decode`` decode calls of ``cfg``."""
+    calls, ``decode`` decode calls and ``backward`` training backwards of
+    ``cfg`` (under remat a step's forward runs twice: ``prefill`` 2,
+    ``backward`` 1)."""
     n = attn_layers(cfg)
-    return {"flash_attn_fwd": n * prefill, "flash_decode": n * decode}
+    return {"flash_attn_fwd": n * prefill, "flash_decode": n * decode,
+            "flash_attn_bwd_dq": n * backward,
+            "flash_attn_bwd_dkdv": n * backward}
 
 
 def no_grad_weights(params, label: str) -> None:
@@ -683,19 +704,22 @@ def _valid_pairs(qpos, kpos, kval, causal, window, chunk=1024) -> int:
     return n
 
 
-def _sdpa(q, k, v, mask=None, causal=False):
+def _sdpa(q, k, v, mask=None, causal=False, heads=False):
     """The library yardstick: one ``scaled_dot_product_attention`` call
     with ``enable_gqa=True`` on the same values (heads-major copies made
-    beforehand), the same mask; timed only, never on a path of the port.
-    A causal call without a mask takes PyTorch's flash backend (GQA runs
-    there and in the math backend only; the math backend would hold the
-    32768 x 32768 scores)."""
-    import torch
+    beforehand, or with ``heads`` q, k, v heads-major already), the same
+    mask; timed only, never on a path of the port. A causal call without a
+    mask takes PyTorch's flash backend (GQA runs there and in the math
+    backend only; the math backend would hold the 32768 x 32768
+    scores)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    B, Sq = q.shape[:2]
-    qh = q.reshape(B, Sq, -1, q.shape[-1]).transpose(1, 2).contiguous()
-    kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+    if heads:
+        qh, kh, vh = q, k, v
+    else:
+        B, Sq = q.shape[:2]
+        qh = q.reshape(B, Sq, -1, q.shape[-1]).transpose(1, 2).contiguous()
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
     if causal:
         def call():
             with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
@@ -938,53 +962,195 @@ def decode_case(name, cgen, dev, B, S_max, KV, G, hd, pos, *, window=0,
                       "splits": splits}}
 
 
-def attention_grad_case(name, cgen, dev, B, S, KV, G, hd, *, window=0):
-    """The training path's attention (``ops.FlashAttention``: kernel A's
-    forward, then the plain backward from its rows' m and l) on bf16
-    inputs: its gradients of q, k and v, and those of the plain version's
-    bf16 autograd, each against autograd of the plain version in f32 on
-    the same inputs (relative L2 of each). The kernel path's must be
-    within ATTN_REL (the plain version's printed beside it); one kernel
-    launch; timed, forward and backward, beside the plain version's."""
+def _sdpa_grad(q, k, v, dout, mask=None, causal=False):
+    """The library yardstick of the backward: ``scaled_dot_product_attention``
+    as :func:`_sdpa` calls it, on heads-major copies that require a
+    gradient, its output's gradient ``dout`` (heads-major): ``(both,
+    backward)``, one call of the forward and backward, and one of the
+    backward alone (``autograd.grad`` on a kept graph). Timed only, never
+    on a path of the port."""
     import torch
+    B, Sq = q.shape[:2]
+    hd = q.shape[-1]
+    ins = [t.detach().requires_grad_(True) for t in (
+        q.reshape(B, Sq, -1, hd).transpose(1, 2).contiguous(),
+        k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())]
+    g = dout.reshape(B, Sq, -1, hd).transpose(1, 2).contiguous()
+    fwd = _sdpa(*ins, mask=mask, causal=causal, heads=True)
+    out = fwd()
+
+    def both():
+        torch.autograd.grad(fwd(), ins, g)
+
+    def backward():
+        torch.autograd.grad(out, ins, g, retain_graph=True)
+    return both, backward
+
+
+def _bwd_split_ms(fn, reps: int = 10) -> dict:
+    """Device ms a call of each backward kernel (``attn_bwd_dq``,
+    ``attn_bwd_dkdv``) over ``reps`` calls of ``fn`` under
+    ``torch.profiler`` (None where the profiler saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in ("attn_bwd_dq", "attn_bwd_dkdv"):
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+        n = sum(e.count for e in ev)
+        out[name] = (sum(e.self_device_time_total for e in ev) / n / 1e3
+                     if n else None)
+    return out
+
+
+def attention_grad_case(name, cgen, dev, B, S, KV, G, hd, *, window=0,
+                        dtype=None, causal=True):
+    """The training path's attention (``ops.FlashAttention``: kernel A's
+    forward, then the backward's kernels ``flash_attn_bwd_dq`` and
+    ``flash_attn_bwd_dkdv`` from its rows' m and l): one launch of each;
+    its gradients of q, k and v against autograd of the plain version in
+    f32 on the same inputs (relative L2 of each; bf16 within ATTN_REL, the
+    plain version's bf16 autograd printed beside it; f32 within
+    ATTN_REL_F32); the backward kernels against the plain backward
+    (``flash_attention_bwd``) on the same forward outputs, within the same
+    bounds, two calls bit for bit. Timed: the two kernels (CUDA events
+    over the pair, each one's device time from the profiler), beside their
+    bounds (each kernel's own function: dQ from S, dP; dK and dV from S,
+    dP; the pair's five products a valid pair), the plain backward, the
+    forward and backward through ``ops``, and SDPA's backward (and its
+    forward and backward) as the library yardstick."""
+    import torch
+    from repro_torch.kernels import flash as t_flash
     from repro_torch.kernels import ops
     from repro_torch.models import flash as plain
-    base = [torch.randn(shape, generator=cgen, device=dev).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    base = [torch.randn(shape, generator=cgen, device=dev).to(dtype)
             for shape in ((B, S, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd))]
     w = torch.randn((B, S, KV, G, hd), generator=cgen, device=dev)
     pos = torch.arange(S, device=dev)
-    kw = dict(causal=True, window=window, q_positions=pos, kv_positions=pos)
+    kw = dict(causal=causal, window=window, q_positions=pos,
+              kv_positions=pos)
 
-    def grads(fn, dtype):
-        ts = [t.to(dtype, copy=True).requires_grad_(True) for t in base]
+    def grads(fn, dt):
+        ts = [t.to(dt, copy=True).requires_grad_(True) for t in base]
         (fn(*ts, **kw).float() * w).sum().backward()
         return [t.grad.float() for t in ts]
 
     ops.reset_launch_counts()
-    got = grads(ops.flash_attention, torch.bfloat16)
+    got = grads(ops.flash_attention, dtype)
     torch.cuda.synchronize()
-    launched = ops.launch_counts()["flash_attn_fwd"]
+    launched = attn_routed(ops.launch_counts(), f"attention grad {name}")
+    route = t_flash.route_of(dtype, hd)
+    on_route = {k: ops.launch_counts()[f"{k}.{route}"] for k in ATTN_ROUTED}
     want = grads(plain.flash_attention, torch.float32)
-    bf16 = grads(plain.flash_attention, torch.bfloat16)
     k_err = [_rel_l2(a, b) for a, b in zip(got, want)]
-    p_err = [_rel_l2(a, b) for a, b in zip(bf16, want)]
-    del got, want, bf16
-    check(launched == 1, f"attention grad {name}: {launched} launches")
-    check(max(k_err) <= ATTN_REL,
+    p_err = None
+    if dtype == torch.bfloat16:
+        p_err = [_rel_l2(a, b) for a, b in zip(
+            grads(plain.flash_attention, dtype), want)]
+    del got, want
+    tol = ATTN_REL if dtype == torch.bfloat16 else ATTN_REL_F32
+    check(all(launched[k] == on_route[k] == 1 for k in ATTN_ROUTED),
+          f"attention grad {name}: launches {launched}, on the {route} "
+          f"route {on_route}")
+    check(max(k_err) <= tol,
           f"attention grad {name}: dq, dk, dv against f32 {k_err} (bound "
-          f"{ATTN_REL}), the plain bf16 autograd's {p_err}")
-    ms = median_ms(lambda: grads(ops.flash_attention, torch.bfloat16),
-                   reps=5, warmup=1)
-    plain_ms = median_ms(lambda: grads(plain.flash_attention,
-                                       torch.bfloat16), reps=5, warmup=1)
-    print(f"[kernel] flash_attn_fwd gradient {name}: q ({B}, {S}, {KV}, "
-          f"{G}, {hd}) bf16, window {window}: dq, dk, dv against f32 "
-          f"autograd, relative L2 {', '.join(f'{e:.3e}' for e in k_err)} "
-          f"(tol {ATTN_REL}); the plain version's bf16 autograd "
-          f"{', '.join(f'{e:.3e}' for e in p_err)}; forward and backward "
-          f"{ms:.4f} ms, the plain version's {plain_ms:.4f} ms", flush=True)
-    return {"rel_l2": k_err, "plain_bf16_rel_l2": p_err, "ms": ms,
-            "plain_ms": plain_ms}
+          f"{tol}), the plain bf16 autograd's {p_err}")
+    # the backward's kernels against the plain backward on the same
+    # forward outputs
+    q, k, v = base
+    out, m, l = t_flash.flash_attn_fwd(q, k, v, return_stats=True, **kw)
+    dout = w.to(dtype)
+
+    def kernels():
+        return t_flash.flash_attn_bwd(q, k, v, out, dout, m, l, **kw)
+
+    def plain_bwd():
+        return plain.flash_attention_bwd(q, k, v, out, dout, m, l, **kw)
+
+    kg, again, pg = kernels(), kernels(), plain_bwd()
+    torch.cuda.synchronize()
+    b_err = [_rel_l2(a, b) for a, b in zip(kg, pg)]
+    abs_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(kg, pg))
+    check(max(b_err) <= tol and all(bool(torch.isfinite(a).all())
+                                    for a in kg),
+          f"attention grad {name}: the backward kernels against the plain "
+          f"backward on the same outputs {b_err} (bound {tol})")
+    check(all(torch.equal(a, b) for a, b in zip(kg, again)),
+          f"attention grad {name}: two backward calls differ")
+    del kg, again, pg
+    res = timings(kernels)
+    split = _bwd_split_ms(kernels)
+    plain_ms = median_ms(plain_bwd, reps=3, warmup=1)
+    fwd_bwd_ms = median_ms(lambda: grads(ops.flash_attention, dtype),
+                           reps=5, warmup=1)
+    mask = None
+    if window or not causal or dtype != torch.bfloat16:
+        mask = torch.ones((S, S), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+        if window:
+            mask &= (pos[:, None] - pos[None, :]) < window
+    lib_both, lib_bwd = _sdpa_grad(q, k, v, dout, mask,
+                                   causal=mask is None)
+    library_ms = median_ms(lib_bwd, reps=5)
+    library_both_ms = median_ms(lib_both, reps=5)
+    del lib_both, lib_bwd, mask
+    # the bounds: valid pairs; each input read once, each output written
+    pairs = _valid_pairs(pos, pos, None, causal, window) * B * KV * G
+    size = q.element_size()
+    rows_b = q.numel() * size                     # q, out, dout, dq: each
+    kv_b = k.numel() * size                       # k, v, dk, dv: each
+    stats_b = 2 * m.numel() * 4 + 2 * S * 8       # m, l; the positions
+    peak, mult = ((BF16_FLOPS, 1) if dtype == torch.bfloat16
+                  else (TF32_FLOPS, 3))
+    bounds = {
+        "attn_bwd_dq": bound(4 * rows_b + 2 * kv_b + stats_b,
+                             mult * 6 * hd * pairs, peak),
+        "attn_bwd_dkdv": bound(2 * rows_b + 4 * kv_b + stats_b,
+                               mult * 8 * hd * pairs, peak),
+        "pair": bound(4 * rows_b + 4 * kv_b + stats_b,
+                      mult * 10 * hd * pairs, peak)}
+    print(f"[kernel] flash_attn_bwd {name}: q ({B}, {S}, {KV}, {G}, {hd}) "
+          f"{str(dtype)[6:]}, causal {causal}, window {window}, {route} "
+          f"route, one launch each of {', '.join(ATTN_ROUTED)}: dq, dk, dv "
+          f"against f32 autograd, relative L2 "
+          f"{', '.join(f'{e:.3e}' for e in k_err)} (tol {tol})"
+          + ("" if p_err is None else
+             f"; the plain version's bf16 autograd "
+             f"{', '.join(f'{e:.3e}' for e in p_err)}")
+          + f"; the kernels against the plain backward on the same outputs "
+          f"{', '.join(f'{e:.3e}' for e in b_err)}, two calls bit for bit; "
+          f"the pair {res['ms']:.4f} ms ({100 * bounds['pair'][0] / res['ms']:.1f}"
+          f"% of its bound {bounds['pair'][0]:.4f} ms, {bounds['pair'][1]}), "
+          f"{res['device_ms']:.4f} ms with the host ahead, host "
+          f"{res['host_us']:.1f} us; dq "
+          + ", dkdv ".join(
+              "not measured" if split[k] is None else
+              f"{split[k]:.4f} ms device ({100 * bounds[k][0] / split[k]:.1f}"
+              f"% of its bound {bounds[k][0]:.4f} ms)"
+              for k in ("attn_bwd_dq", "attn_bwd_dkdv"))
+          + f"; the plain backward {plain_ms:.4f} ms; forward and backward "
+          f"through ops {fwd_bwd_ms:.4f} ms; SDPA backward {library_ms:.4f}"
+          f" ms, forward and backward {library_both_ms:.4f} ms "
+          f"({pairs * 10 * hd / 1e9:.2f} GFLOP of valid pairs)", flush=True)
+    return {"rel_l2": k_err, "plain_rel_l2": p_err, "bwd_rel_l2": b_err,
+            "max_abs_err": abs_err, **res, "split_ms": split, "plain_ms": plain_ms,
+            "fwd_bwd_ms": fwd_bwd_ms, "library_ms": library_ms,
+            "library_fwd_bwd_ms": library_both_ms,
+            "bounds": {k: {"bound_ms": b[0], "bound_by": b[1]}
+                       for k, b in bounds.items()},
+            "kernel_route": route,
+            "shape": {"q": [B, S, KV, G, hd], "dtype": str(dtype)[6:],
+                      "causal": causal, "window": window}}
 
 
 def attention_cases(cfg, cgen, dev) -> dict:
@@ -1030,11 +1196,11 @@ def attention_cases(cfg, cgen, dev) -> dict:
     # the same past 1024 key tiles of 64 on the hd 256 Hopper route and
     # the tf32x3 route (1065 live tiles of 1094), whose states each judges
     # a window of 1024 at a time; in f32 the last 1128 keys cut by kv_valid
-    for name, hd, dtype, n_valid in (
+    for name, long_hd, dtype, n_valid in (
             ("chunk-vs-70000-hd256", 256, torch.bfloat16, 68128),
             ("chunk-vs-70000-f32", 80, torch.float32, 67000)):
         a[name] = attention_case(
-            name, cgen, dev, 1, 128, 70000, 2, 2, hd, dtype=dtype,
+            name, cgen, dev, 1, 128, 70000, 2, 2, long_hd, dtype=dtype,
             rows=(68000, 68128), n_valid=n_valid, plain_reps=2)
     # the serve CLI's default prefill: its arch's smoke config (hd 32, KV 2
     # x G 2) at --max-batch 4 --max-seq 96
@@ -1053,11 +1219,24 @@ def attention_cases(cfg, cgen, dev) -> dict:
     a["f32-hd256-1x4096"] = attention_case(
         "f32-hd256-1x4096", cgen, dev, 1, 4096, 4096, 4, 2, 256,
         dtype=torch.float32, timed=False)
-    # the training path: granite's 4 x 512, and gemma3's hd 256 window
-    out["grad"]["train-4x512"] = attention_grad_case(
+    # the training path: granite's 4 x 512 and its training steps' 16 x
+    # 256 (phase 12's profile and capacity step; train_phase and the
+    # 2-layer kernel-vs-plain step take 4 x 256, the same blocks over
+    # fewer lanes), gemma3's hd 256 window, hubert's f32 encoder (hd 80,
+    # no mask) and pixtral's hd 128 (8 KV heads x 4) at phase 18's 2 x
+    # (256 + 256)
+    g = out["grad"]
+    g["train-4x512"] = attention_grad_case(
         "train-4x512", cgen, dev, 4, 512, KV, G, hd)
-    out["grad"]["gemma3-hd256-window"] = attention_grad_case(
+    g["train-16x256"] = attention_grad_case(
+        "train-16x256", cgen, dev, 16, 256, KV, G, hd)
+    g["gemma3-hd256-window"] = attention_grad_case(
         "gemma3-hd256-window", cgen, dev, 1, 2048, 4, 2, 256, window=1024)
+    g["hubert-f32"] = attention_grad_case(
+        "hubert-f32", cgen, dev, 2, 512, 16, 1, 80, dtype=torch.float32,
+        causal=False)
+    g["pixtral-hd128"] = attention_grad_case(
+        "pixtral-hd128", cgen, dev, 2, 512, 8, 4, 128)
     torch.cuda.empty_cache()
     lanes = [37, 100, 250, 511, 600, 800, 1000, 1023]
     d["decode-8"] = decode_case("decode-8", cgen, dev, 8, 1024, KV, G, hd,
@@ -2318,9 +2497,9 @@ def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
     n_params = sum(t.numel() for t in _leaves(params))
     check(all(math.isfinite(v) for v in losses) and len(losses) == steps,
           f"training: losses {losses}")
-    # the attention's forward once a layer, its backward plain
-    per_step = {"flash_attn_fwd": attn_layers(cfg)} | ({} if not cfg.is_moe
-                                                       else {
+    # the attention's forward and backward kernels once a layer
+    per_step = attn_want(cfg, prefill=1, backward=1) | ({} if not cfg.is_moe
+                                                         else {
         "route_select": cfg.n_layers, "ragged_moe_ffn": cfg.n_layers,
         "ragged_moe_ffn.tma": cfg.n_layers,
         "ragged_moe_ffn_dgrad": cfg.n_layers,
@@ -2348,9 +2527,10 @@ def train_phase(cfg, dev, steps=4, seq_len=256, batch=4):
     print(f"[{label}] launches in {steps} steps: {json.dumps(counts)}: "
           + (f"route_select, ragged_moe_ffn, ragged_moe_ffn_dgrad and "
              f"ragged_moe_ffn_wgrad (all three on the TMA route) and "
-             f"route_select_bwd {cfg.n_layers} a step, flash_attn_fwd "
-             f"{attn_layers(cfg)} a step (the attention's backward is "
-             f"plain), fused_moe_ffn, router_topk and flash_decode 0"
+             f"route_select_bwd {cfg.n_layers} a step, flash_attn_fwd, "
+             f"flash_attn_bwd_dq and flash_attn_bwd_dkdv "
+             f"{attn_layers(cfg)} a step, fused_moe_ffn, router_topk and "
+             f"flash_decode 0"
              if cfg.is_moe else "none (no MoE or attention layer)"),
           flush=True)
     del params, opt
@@ -2477,10 +2657,12 @@ def train_step_profile(cfg, dev, seq_len=256, batch=4, steps=3, rules=None):
           f"idle {100 - 100 * busy_ms / wall_ms:.1f}%), {n_ops} device "
           f"kernels and copies", flush=True)
     # names no other of them contains: the backward's TMA route, then its
-    # general route (none of which should run), then the rest
+    # general route (none of which should run), then the rest, the
+    # attention's forward and its backward's two kernels last
     ours = ("ffn_tma_kernel", "dgrad_gate_tma_kernel", "dgrad_x_tma_kernel",
             "wgrad_tma_kernel", "dgrad_gate_kernel", "dgrad_x_kernel",
-            "wgrad_kernel", "route_select_kernel", "route_select_bwd_kernel")
+            "wgrad_kernel", "route_select_kernel", "route_select_bwd_kernel",
+            "attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]
     top += [e for e in dev_events
             if e not in top and any(k in e.key for k in ours)]
@@ -2713,10 +2895,10 @@ class hold_attention:
 def kernel_vs_plain_step(cfg, dev, n_layers=2, seq_len=256, batch=4):
     """One loss and backward of a full-width ``n_layers``-layer model
     through the kernels against the same with the MoE kernels' plain
-    versions (the attention through its kernel on both sides, as both
-    sides ran one attention before it had one: its gradient is held by
-    :func:`attention_grad_case` against an f32 reference); the step
-    through every plain version beside it, read only."""
+    versions (the attention through its forward and backward kernels on
+    both sides: its gradient is held by :func:`attention_grad_case`
+    against an f32 reference); the step through every plain version
+    beside it, read only."""
     import contextlib
     import dataclasses
     import torch
@@ -2730,10 +2912,11 @@ def kernel_vs_plain_step(cfg, dev, n_layers=2, seq_len=256, batch=4):
     mt = make_moe_tables(small, device=dev)
     out = {}
     moe = 5 * n_layers
+    attn = 3 * attn_layers(small)     # forward, dQ, dK/dV
     for name, plain, want in (
-            ("kernel", None, moe + attn_layers(small)),
+            ("kernel", None, moe + attn),
             ("plain", True, 0),
-            ("plain MoE", False, attn_layers(small))):
+            ("plain MoE", False, attn)):
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = init_params(small, gen, device=dev)
@@ -2804,7 +2987,7 @@ def capacity_train_step(cfg, dev, seq_len=256, batch=16, steps=3):
                 "fused_moe_ffn.tma": L, "moe_ffn_dgrad": L,
                 "moe_ffn_dgrad.tma": L, "moe_ffn_wgrad": L,
                 "moe_ffn_wgrad.tma": L, "route_select_bwd": L} \
-        | attn_want(cfg, prefill=1)
+        | attn_want(cfg, prefill=1, backward=1)
 
     def run(n, timed):
         gen = torch.Generator(device=dev)
@@ -3794,9 +3977,10 @@ def ep_phase(cfg, dev):
     del params, ref
     _free_shared()
     # the attention: whole on every rank (the dense layers replicated),
-    # one launch a layer and call, the training step's forward too; none
-    # in the backward
+    # one launch a layer and call, the training step's forward too, and
+    # the backward's two kernels once a layer in a backward
     attn = attn_want(cfg, prefill=1)
+    grad = attn_want(cfg, prefill=1, backward=1)
     per = {"route_select": L, "ragged_moe_ffn": L,
            "ragged_moe_ffn.tma": L} | attn
     want = {
@@ -3806,14 +3990,14 @@ def ep_phase(cfg, dev):
         "decode": {k: v * EP_DECODE_STEPS for k, v in per.items()
                    if k != "flash_attn_fwd"}
         | attn_want(cfg, decode=EP_DECODE_STEPS),
-        "backward": per | {k: L for k in (
+        "backward": per | grad | {k: L for k in (
             "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
             "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
             "route_select_bwd")},
         "capacity_backward": {k: L for k in (
             "route_select", "fused_moe_ffn", "fused_moe_ffn.tma",
             "moe_ffn_dgrad", "moe_ffn_dgrad.tma", "moe_ffn_wgrad",
-            "moe_ffn_wgrad.tma", "route_select_bwd")} | attn}
+            "moe_ffn_wgrad.tma", "route_select_bwd")} | grad}
     on_card = dev.type == "cuda"      # a CPU rehearsal launches nothing
 
     def hold_same(label, moved, err):
@@ -4036,7 +4220,7 @@ def grid_fsdp_hold(cfg, wide, on_card):
         "route_select", "ragged_moe_ffn", "ragged_moe_ffn.tma",
         "flash_attn_fwd", "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
         "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
-        "route_select_bwd")}
+        "route_select_bwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv")}
     want = {"backward": step, "backward_narrow": step, "adamw": {}}
     for r in wide:
         label = f"(l) FSDP over (pod, data) on (2, 2, 1) rank {r['rank']}"
@@ -5522,10 +5706,10 @@ def _grid_run(tag, plans, weights, inputs, dev, bounds, what, t_start,
             continue
         n = moe_perm_shape(plan["cfg"])[0] if plan["cfg"].is_moe else 0
         # one attention launch a layer and prefill or decode call, and in
-        # a training step the forward's and remat's again; none in the
-        # backward
+        # a training step the forward's and remat's again, then the
+        # backward's two kernels once
         fwd = attn_want(plan["cfg"], prefill=1)
-        step = bwd(n) | attn_want(plan["cfg"], prefill=2)
+        step = bwd(n) | attn_want(plan["cfg"], prefill=2, backward=1)
         want = {"warm-up": per(n) | fwd, "prefill": per(n) | fwd,
                 "decode": per(n, plan["steps"])
                 | attn_want(plan["cfg"], decode=plan["steps"]),
@@ -7091,7 +7275,14 @@ def frontend_phase(dev):
         return counts
 
     def on_tf32x3(what, counts):
-        """Every attention launch of ``counts`` on the tf32x3 route."""
+        """Every attention launch of ``counts``, forward and backward, on
+        the tf32x3 route."""
+        raw = ops.launch_counts()
+        for name in ATTN_ROUTED[1:]:
+            check(raw[f"{name}.tf32x3"] == counts.get(name, 0),
+                  f"phase 18 {what}: {raw[f'{name}.tf32x3']} of "
+                  f"{counts.get(name, 0)} {name} launches on the tf32x3 "
+                  "route")
         n = t_flash.flash_attn_fwd.tf32x3_launches
         check(n == counts["flash_attn_fwd"] > 0,
               f"phase 18 {what}: {n} of {counts['flash_attn_fwd']} "
@@ -7114,7 +7305,8 @@ def frontend_phase(dev):
                      "digest": param_digest(params),
                      "launches": launches(
                          f"hubert training run {i}",
-                         attn_want(hub, prefill=tr["steps"]))})
+                         attn_want(hub, prefill=tr["steps"],
+                                   backward=tr["steps"]))})
         runs[-1]["tf32x3_launches"] = on_tf32x3(
             f"hubert training run {i}", runs[-1]["launches"])
         del opt
@@ -7259,7 +7451,7 @@ def frontend_phase(dev):
         "tokens_per_s": B * (P + T) / wall,
         "peak_gib": torch.cuda.max_memory_allocated() / gib,
         "launches": launches("pixtral training step",
-                             attn_want(cut, prefill=1))}
+                             attn_want(cut, prefill=1, backward=1))}
     st = out["pixtral_step"]
     print(f"[frontend] phase 18 (a) pixtral-12b at full width, depth cut to "
           f"{FRONTEND_STEP_LAYERS} of {pix.n_layers} layers "
@@ -7268,8 +7460,8 @@ def frontend_phase(dev):
           f"loss {st['loss']:.4f} (ln {pix.vocab} = "
           f"{math.log(pix.vocab):.4f}), {wall:.3f} s (the first, with its "
           f"allocations), {st['tokens_per_s']:.0f} positions/s; "
-          f"max_memory_allocated {st['peak_gib']:.2f} GiB; every launch "
-          f"count 0", flush=True)
+          f"max_memory_allocated {st['peak_gib']:.2f} GiB; launches "
+          f"{json.dumps(st['launches'])}", flush=True)
     del params, opt, batch
     torch.cuda.empty_cache()
     return out
@@ -7368,8 +7560,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs, attn_s = build_kernels()
     print(f"[build] {', '.join(p.name for p in libs.values())} in "
-          f"{time.perf_counter() - t0:.1f} s; the attention source "
-          f"{attn_s:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; the attention sources "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in attn_s.items())}",
+          flush=True)
 
     cfg = get_config("granite-moe-3b-a800m")
     gen = torch.Generator().manual_seed(0)             # routing draws
@@ -7525,6 +7718,35 @@ def main() -> int:
             "kernel_route": {"prefill": prefill_res["route"],
                              "decode": decode_res["route"]}}
 
+    def attn_bwd_entry(name):
+        """A backward kernel of the attention (its reference: autodiff of
+        the plain-jnp forward, a checkpoint a chunk pair) at granite's
+        4 x 512, its time by the profiler (the pair's by CUDA events
+        beside it), the other gradient cases by shape."""
+        key = name.replace("flash_", "")
+        grad = attn["grad"]
+
+        def numbers(r):
+            ms = r["split_ms"][key]
+            return {"ms": r["ms"] if ms is None else ms,
+                    "pair_ms": r["ms"], "pair_device_ms": r["device_ms"],
+                    "max_abs_err": r["max_abs_err"],
+                    "rel_l2": r["bwd_rel_l2"], "plain_ms": r["plain_ms"],
+                    **r["bounds"][key],
+                    "pair_bound_ms": r["bounds"]["pair"]["bound_ms"],
+                    "library_ms": r["library_ms"],
+                    "library_fwd_bwd_ms": r["library_fwd_bwd_ms"],
+                    "kernel_route": r["kernel_route"], "shape": r["shape"]}
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/"
+                          "flash_attention_bwd.cu",
+                "replaces": "src/repro/models/flash.py:94",
+                "launches": tl[name], **numbers(grad["train-4x512"]),
+                "by_shape": {k: numbers(r) for k, r in grad.items()},
+                "ep_launches": ep_launches(name),
+                "tp_launches": tp_launches(name),
+                "sp_launches": sp_launches(name)}
+
     # the attention's prefill routes, as route_of picks them from (dtype,
     # hd): "tma" (bf16), "tf32x3" (f32)
     attn_routes = {}
@@ -7632,6 +7854,7 @@ def main() -> int:
          "ep_launches": ep_launches("flash_attn_fwd"),
          "tp_launches": tp_launches("flash_attn_fwd"),
          "sp_launches": sp_launches("flash_attn_fwd")},
+        *(attn_bwd_entry(k) for k in ATTN_ROUTED[1:]),
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/models/flash.py:133",

@@ -3,7 +3,9 @@
 # FFN (CUDA C++, csrc/moe_ffn.cu; both share csrc/moe_ffn_hopper.cuh and
 # csrc/moe_ffn_blocks.cuh) and the fused routing stage (CUDA C++,
 # csrc/route_select.cu), and the attention's prefill and decode (CUDA C++,
-# csrc/flash_attention.cu; flash.py, the plain version models/flash.py).
+# csrc/flash_attention.cu) and the prefill's backward (CUDA C++,
+# csrc/flash_attention_bwd.cu; both share csrc/flash_common.cuh; flash.py,
+# the plain versions models/flash.py).
 # router.py is the earlier Triton router, on no path.
 # ops.py = the CPU/CUDA dispatch; ref.py = the plain PyTorch versions;
 # build.py = nvcc + ctypes.

@@ -58,145 +58,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "moe_ffn_hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-// _NEG of models/flash.py (-0.7 * FLT_MAX) as torch rounds it to f32
-__device__ __forceinline__ float neg_big() { return __int_as_float(0xff333332); }
+using namespace flash_common;
 
 constexpr int NT = 128;          // threads a block of the decode kernel
 
-struct Pos {
-  const void* p;
-  int wide;
-  // position i, or dflt where the array was not given (an arange)
-  __device__ __forceinline__ long long at(long long i, long long dflt) const {
-    if (!p) return dflt;
-    return wide ? static_cast<const long long*>(p)[i]
-                : static_cast<long long>(static_cast<const int*>(p)[i]);
-  }
-};
-
-__device__ __forceinline__ bool allowed(long long qp, long long kp, int causal,
-                                        int window) {
-  if (causal && kp > qp) return false;
-  if (window > 0 && qp - kp >= window) return false;
-  return true;
-}
-
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 // p cast to v's dtype, as a float
 __device__ __forceinline__ float round_as(float x, bf16) {
   return __bfloat162float(__float2bfloat16(x));
 }
 __device__ __forceinline__ float round_as(float x, float) { return x; }
-
-// eight consecutive values (16-byte aligned) as floats
-__device__ __forceinline__ void load8(const bf16* p, float* f) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  float4 a = *reinterpret_cast<const float4*>(p);
-  float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-// What the masks leave of key tiles t0 .. t0 + N - 1 (each BN keys from
-// key t BN; a tile past the last reads 0) for the block's rows, whose
-// query positions lie in [qmin, qmax], judged from the tiles' valid keys'
-// position bounds by each warp alone (all warps reach the same answer): 0
-// nothing (the tile is skipped), 2 every (row, key) pair (no mask to
-// apply), 1 some. All N tiles' loads go out before any tile's reductions:
-// one round trip for N tiles.
-template <int BN, int N>
-__device__ __forceinline__ void tile_states(const Pos& kpos,
-                                            const unsigned char* kval,
-                                            int t0, int ntiles, int Skv,
-                                            long long qmin, long long qmax,
-                                            int causal, int window,
-                                            int* st) {
-  const int lane = threadIdx.x & 31;
-  bool any[N], all[N];
-  long long kmin[N], kmax[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    any[n] = false;
-    all[n] = true;
-    kmin[n] = 0x7fffffffffffffffLL;
-    kmax[n] = -0x7fffffffffffffffLL;
-#pragma unroll
-    for (int i = lane; i < BN; i += 32) {
-      const int key = (t0 + n) * BN + i;
-      if (t0 + n < ntiles && key < Skv && (!kval || kval[key])) {
-        const long long kp = kpos.at(key, key);
-        any[n] = true;
-        kmin[n] = kp < kmin[n] ? kp : kmin[n];
-        kmax[n] = kp > kmax[n] ? kp : kmax[n];
-      } else {
-        all[n] = false;
-      }
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    st[n] = 1;
-    if (!__any_sync(0xffffffffu, any[n])) {
-      st[n] = 0;
-      continue;
-    }
-    const bool every = __all_sync(0xffffffffu, all[n]);
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      const long long x = __shfl_xor_sync(0xffffffffu, kmin[n], o);
-      const long long y = __shfl_xor_sync(0xffffffffu, kmax[n], o);
-      kmin[n] = x < kmin[n] ? x : kmin[n];
-      kmax[n] = y > kmax[n] ? y : kmax[n];
-    }
-    if (causal && kmin[n] > qmax) st[n] = 0;
-    else if (window > 0 && qmin - kmax[n] >= window) st[n] = 0;
-    else if (every && (!causal || kmax[n] <= qmin) &&
-             (window <= 0 || qmax - kmin[n] < window))
-      st[n] = 2;
-  }
-}
-
-// The states of the window of MAXT tiles from base, by warp w of nw, two
-// tiles a round trip, into state[0, MAXT)
-template <int BN, int MAXT>
-__device__ __forceinline__ void fill_states(unsigned char* state, int base,
-                                            int w, int nw, const Pos& kpos,
-                                            const unsigned char* kval,
-                                            int ntiles, int Skv,
-                                            long long qmin, long long qmax,
-                                            int causal, int window) {
-  for (int u = base + 2 * w; u < base + MAXT && u < ntiles; u += 2 * nw) {
-    int st[2];
-    tile_states<BN, 2>(kpos, kval, u, ntiles, Skv, qmin, qmax, causal,
-                       window, st);
-    if ((threadIdx.x & 31) == 0) {
-      state[u - base] = static_cast<unsigned char>(st[0]);
-      if (u + 1 - base < MAXT)
-        state[u + 1 - base] = static_cast<unsigned char>(st[1]);
-    }
-  }
-}
 
 // Rows of the block with no valid key (rowflag set): sum(v) / den over
 // every key of the (lane, KV head), as the plain version gives them.
@@ -237,11 +112,6 @@ __device__ __forceinline__ void write_stats(float* ms, float* ls, int gr,
   ls[i] = m == neg_big() ? den : l;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 struct FwdArgs {
   const void *q, *k, *v;
   void* out;
@@ -253,22 +123,6 @@ struct FwdArgs {
   int causal, window;
   float scale, den;
 };
-
-// ------------------------------------------------------------- cp.async
-// 16 bytes from global to shared, asynchronously; zeros where !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // ------------------------------------------------------ bf16, Hopper route
 // The prefill route for bf16 at hd 32, 64, 80 and 128
@@ -331,12 +185,6 @@ __device__ __forceinline__ void cp_async_wait() {
 // fixed cost (the row maxima, the barriers) and the tile-state scan over
 // more keys. Each block's tile-state scan is a fixed cost besides.
 namespace hop = moe_ffn_hopper;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ void named_bar(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
@@ -1201,18 +1049,6 @@ __global__ void __launch_bounds__(256, 1)
 // masks alone. Bound: the tensor cores' TF32 rate over the three products
 // (495 TFLOP/s dense), and the conversions' shared-memory traffic.
 
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  return __float_as_uint(x) & 0xffffe000u;
-}
-
-// x = big + small to f32's precision, both TF32 values: big x's top 19
-// bits, small what remains (x - big, exact) with the same mask
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = tf32_bits(x);
-  small = tf32_bits(x - __uint_as_float(big));
-}
-
 // four values' big parts at dst, their small parts `part` bytes on
 __device__ __forceinline__ void store_split(uint8_t* dst, int part,
                                             float4 x) {
@@ -1254,20 +1090,6 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// C (16 x 8, f32) += A (16 x 8) B (8 x 8), tf32, a warp: A's element
-// (row, k) a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8,
-// t + 4); B's b0 (t, g), b1 (t + 4, g); C's (g, 2t), (g, 2t + 1), (g + 8,
-// 2t), (g + 8, 2t + 1), g = lane / 4, t = lane % 4
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int HD>

@@ -35,6 +35,18 @@ Replaces no Pallas kernel: the reference computes attention in plain jnp
   (:func:`~repro_torch.models.flash.padded_keys`), in a pass of its own.
   Bound: at long context the tensor cores (4 · Sq · Skv · H · hd FLOPs,
   halved by causal skipping).
+* :func:`flash_attn_bwd` — the prefill's backward on the card, hand-written
+  kernels of ``csrc/flash_attention_bwd.cu`` (the reference takes this
+  gradient by autodiff of its jnp online softmax; the plain version is
+  :func:`~repro_torch.models.flash.flash_attention_bwd`), from the
+  forward's output and rows' stats: ``flash_attn_bwd_dq`` (a block a row
+  block, walking the key tiles the masks leave: dQ, and each row's D =
+  dout·out for the second) then ``flash_attn_bwd_dkdv`` (a block a key
+  tile, walking the row blocks the masks leave: dK, dV), ``mma.sync`` on
+  the tensor cores, bf16 or three TF32 products a product in f32, at
+  every (dtype, hd) of the forward's table. No atomics: two calls give the
+  same bits. Bound: the tensor cores (10 · Sq · Skv · H · hd FLOPs of
+  valid pairs).
 * :func:`flash_decode` — one query token a lane against the cache, in one
   launch: a block reads one split of :func:`decode_split_rows` cache rows
   of one (lane, KV head) once for up to 8 of its G query heads, and only
@@ -52,7 +64,8 @@ and query rows and hold the ranks bit for bit against one device.
 On a CUDA tensor each wrapper launches its kernel or raises (an
 unsupported head size or dtype raises ``ValueError`` naming the shape);
 the CPU, gradient and ``meta`` paths live in :mod:`.ops`. The allocation
-helpers :func:`attn_outputs` and :func:`decode_outputs` do the checks and
+helpers :func:`attn_outputs`, :func:`attn_bwd_outputs` and
+:func:`decode_outputs` do the checks and
 allocations of a call on the card or on ``meta`` and report its cost
 entry (:mod:`.costs`).
 """
@@ -67,9 +80,9 @@ import torch
 from . import build, costs
 from .route_select import _zeros_at_least
 
-__all__ = ["flash_attn_fwd", "flash_decode", "attn_outputs",
-           "decode_outputs", "decode_splits", "decode_split_rows",
-           "route_of", "HEAD_DIMS"]
+__all__ = ["flash_attn_fwd", "flash_attn_bwd", "flash_decode",
+           "attn_outputs", "attn_bwd_outputs", "bwd_rows", "decode_outputs",
+           "decode_splits", "decode_split_rows", "route_of", "HEAD_DIMS"]
 
 #: head sizes the kernels are compiled for: every size a path on the card
 #: runs (jamba and granite smoke 32, granite and smollm 64, hubert 80,
@@ -153,17 +166,11 @@ def _check_vec(kernel, name, t, n, dtypes, dev):
                          f"{t.device}: wants ({n},) {dtypes} on {dev}")
 
 
-def attn_outputs(q, k, v, q_positions=None, kv_positions=None,
-                 kv_valid=None, kind: str = "cuda", stats: bool = False):
-    """The prefill call's checks and allocation on a device of type
-    ``kind`` (``meta`` for a traced call): raises on what the kernel does
-    not take, returns ``out`` (B, Sq, KV, G, hd) in q's dtype,
-    uninitialised (with ``stats`` also the rows' f32 ``m`` and ``l``, each
-    (B, KV, G, Sq)), and reports the call's entry: the two Sq x Skv
-    products the plain version computes (``4 B KV G Sq Skv hd``
-    operations) and the bytes of q, k, v, the positions, the mask and the
-    outputs."""
-    name = "flash_attn_fwd"
+def _check_prefill(name, kind, q, k, v, q_positions, kv_positions,
+                   kv_valid):
+    """The prefill's shapes, dtypes, devices and grid limits (forward and
+    backward alike): raises on what the kernels do not take, returns q's
+    (B, Sq, KV, G, hd)."""
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: wants (B, Sq, KV, G, hd) and "
@@ -180,6 +187,23 @@ def attn_outputs(q, k, v, q_positions=None, kv_positions=None,
     _check_vec(name, "kv_valid", kv_valid, Skv, (torch.bool,), q.device)
     if B > 65535 or KV > 65535:
         raise ValueError(f"{name}: B {B}, KV {KV} past the grid's 65535")
+    return B, Sq, KV, G, hd
+
+
+def attn_outputs(q, k, v, q_positions=None, kv_positions=None,
+                 kv_valid=None, kind: str = "cuda", stats: bool = False):
+    """The prefill call's checks and allocation on a device of type
+    ``kind`` (``meta`` for a traced call): raises on what the kernel does
+    not take, returns ``out`` (B, Sq, KV, G, hd) in q's dtype,
+    uninitialised (with ``stats`` also the rows' f32 ``m`` and ``l``, each
+    (B, KV, G, Sq)), and reports the call's entry: the two Sq x Skv
+    products the plain version computes (``4 B KV G Sq Skv hd``
+    operations) and the bytes of q, k, v, the positions, the mask and the
+    outputs."""
+    name = "flash_attn_fwd"
+    B, Sq, KV, G, hd = _check_prefill(name, kind, q, k, v, q_positions,
+                                      kv_positions, kv_valid)
+    Skv = k.shape[1]
     outs = (torch.empty(q.shape, dtype=q.dtype, device=q.device),)
     if stats:
         outs += tuple(torch.empty((B, KV, G, Sq), dtype=torch.float32,
@@ -240,6 +264,157 @@ def flash_attn_fwd(q, k, v, *, causal=True, window=None, q_positions=None,
 flash_attn_fwd.launches = 0
 flash_attn_fwd.tma_launches = 0
 flash_attn_fwd.tf32x3_launches = 0
+
+
+def _bwd_lib():
+    lib = build.load("flash_attention_bwd")
+    for fn in (lib.flash_attn_bwd_dq, lib.flash_attn_bwd_dkdv):
+        if fn.argtypes is None:
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            fn.argtypes = ([p] * 8 + [i, p, i] + [p] * 7 + [i] * 7 + [p]
+                           + [i, i, f, i, p])
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def bwd_rows(dtype: torch.dtype, hd: int) -> int:
+    """Rows a row block of the backward's kernels (both take the same
+    blocks; ``BwdCfg::BM`` of ``csrc/flash_attention_bwd.cu``, which the
+    launch checks): 64, or 32 in f32 at hd 128 and 256, where the f32
+    operands of 64 rows would not fit in shared memory beside the key
+    tile."""
+    route_of(dtype, hd)
+    return 32 if dtype == torch.float32 and hd >= 128 else 64
+
+
+def attn_bwd_outputs(q, k, v, out, dout, m, l, q_positions=None,
+                     kv_positions=None, kv_valid=None, kind: str = "cuda"):
+    """The backward call's checks and allocations on a device of type
+    ``kind``: raises on what the kernels do not take; returns ``((dq, dk,
+    dv), scratch)``, the gradients in their inputs' shapes and dtypes and
+    the scratch the dQ kernel writes for the dK/dV kernel — each row's f32
+    D = dout.out (B, KV, Sq G), each row block's f32 sum of dout / l over
+    its rows with no valid key (B, KV, n, hd) and its int64 query-position
+    bounds and flag (B, KV, n, 3), n row blocks of :func:`bwd_rows` — all
+    uninitialised; reports one entry a kernel. The five products of the
+    plain backward over every pair (``10 B KV G Sq Skv hd``) split between
+    them as the dQ kernel's three (the scores again, dP, dQ) and the dK/dV
+    kernel's two new ones (dV, dK; its scores and dP again are not
+    counted a second time), so the dry run's FLOPs are the plain
+    backward's; the bytes: each kernel's inputs read once and its outputs
+    and scratch written once (the scratch read back once by the second)."""
+    name = "flash_attn_bwd"
+    B, Sq, KV, G, hd = _check_prefill(name, kind, q, k, v, q_positions,
+                                      kv_positions, kv_valid)
+    Skv = k.shape[1]
+    _check(name, kind, q, ("out", out), ("dout", dout))
+    for what, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {what} {tuple(t.shape)}, q "
+                             f"{tuple(q.shape)}")
+    for what, t in (("m", m), ("l", l)):
+        if (t.shape != (B, KV, G, Sq) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}: wants ({B}, {KV}, {G}, {Sq}) "
+                             f"float32 contiguous on {q.device}")
+    n = -(-Sq * G // bwd_rows(q.dtype, hd))
+    grads = (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+             torch.empty(k.shape, dtype=k.dtype, device=q.device),
+             torch.empty(v.shape, dtype=v.dtype, device=q.device))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    scratch = (torch.empty((B, KV, Sq * G), **f32),
+               torch.empty((B, KV, n, hd), **f32),
+               torch.empty((B, KV, n, 3), dtype=torch.int64,
+                           device=q.device))
+    if costs.listening():
+        pairs = float(B * KV * G * Sq * Skv * hd)
+        ins = costs.tensor_bytes(q, k, v, dout, m, l, q_positions,
+                                 kv_positions, kv_valid)
+        made = costs.tensor_bytes(*scratch)
+        costs.report("flash_attn_bwd_dq", 6.0 * pairs,
+                     ins + costs.tensor_bytes(out, grads[0]) + made)
+        costs.report("flash_attn_bwd_dkdv", 4.0 * pairs,
+                     ins + made + costs.tensor_bytes(*grads[1:]))
+    return grads, scratch
+
+
+def flash_attn_bwd(q, k, v, out, dout, m, l, *, causal=True, window=None,
+                   q_positions=None, kv_positions=None, kv_valid=None):
+    """Launch the backward's two kernels: the gradients ``(dq, dk, dv)``
+    of :func:`flash_attn_fwd` from its output ``out``, the gradient
+    ``dout`` and the rows' stats ``(m, l)`` that ``return_stats`` gave
+    (:func:`repro_torch.models.flash.flash_attention_bwd`'s function),
+    each in its input's dtype. q, k, v, out and dout: rows contiguous and
+    16-byte aligned, any strides above; m, l contiguous. The dQ kernel
+    first (``flash_attn_bwd_dq``: it also writes the scratch), then the
+    dK/dV kernel (``flash_attn_bwd_dkdv``), on the route
+    :func:`route_of` names for (dtype, hd), each counted as the forward
+    is (``flash_attn_bwd_dq.launches`` and its route's
+    ``.tma_launches`` / ``.tf32x3_launches``; the same of
+    ``flash_attn_bwd_dkdv``); raises if a launch is refused."""
+    (dq, dk, dv), scratch = attn_bwd_outputs(
+        q, k, v, out, dout, m, l, q_positions, kv_positions, kv_valid)
+    _check_rows("flash_attn_bwd", ("q", q), ("k", k), ("v", v),
+                ("out", out), ("dout", dout))
+    from ..models.flash import _scale
+    B, Sq, KV, G, hd = q.shape
+    taken = route_of(q.dtype, hd)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def wide(t):
+        return int(t is not None and t.dtype == torch.int64)
+
+    strides = (ctypes.c_longlong * 18)(
+        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:4], *dout.stride()[:4])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), m.data_ptr(), l.data_ptr(), ptr(q_positions),
+            wide(q_positions), ptr(kv_positions), wide(kv_positions),
+            ptr(kv_valid), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(t.data_ptr() for t in scratch), B, Sq, k.shape[1], KV, G, hd,
+            bwd_rows(q.dtype, hd), strides, int(causal),
+            0 if window is None else int(window), _scale(hd),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attn_bwd_dq(args, taken)
+    flash_attn_bwd_dkdv(args, taken)
+    return dq, dk, dv
+
+
+def _launch_bwd(kernel, args, taken: str) -> None:
+    """Launch the backward's ``kernel`` (its entry point of the same name)
+    on :func:`flash_attn_bwd`'s packed arguments and count it as
+    :func:`flash_attn_fwd` counts its launches: one to ``kernel.launches``
+    and one to the count of the route ``taken``, :func:`route_of`'s name
+    for (dtype, hd) — ``kernel.tma_launches`` for bf16 (the name is the
+    forward's bf16 route's, whose kernels load through TMA; the
+    backward's load through ``cp.async``), ``kernel.tf32x3_launches`` for
+    f32 — so that the two always add up to the total."""
+    name = kernel.__name__
+    err = getattr(_bwd_lib(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    kernel.launches += 1
+    kernel.tma_launches += taken == "tma"
+    kernel.tf32x3_launches += taken == "tf32x3"
+
+
+def flash_attn_bwd_dq(args, taken: str) -> None:
+    """Launch the backward's dQ kernel (dq, and the scratch the dK/dV
+    kernel reads) on :func:`flash_attn_bwd`'s packed arguments."""
+    _launch_bwd(flash_attn_bwd_dq, args, taken)
+
+
+def flash_attn_bwd_dkdv(args, taken: str) -> None:
+    """Launch the backward's dK/dV kernel on :func:`flash_attn_bwd`'s
+    packed arguments, after :func:`flash_attn_bwd_dq`."""
+    _launch_bwd(flash_attn_bwd_dkdv, args, taken)
+
+
+for _kernel in (flash_attn_bwd_dq, flash_attn_bwd_dkdv):
+    _kernel.launches = _kernel.tma_launches = _kernel.tf32x3_launches = 0
 
 
 def decode_split_rows(S_max: int) -> int:

@@ -32,11 +32,11 @@ host-bound, and serving pays no autograd bookkeeping.
 kernels of :mod:`.flash`; their plain versions are
 :mod:`repro_torch.models.flash`) take a gradient on the card through
 :class:`FlashAttention` and :class:`FlashDecode`, whose forward is the
-kernel. The port has no attention backward kernel yet: their backward is
-plain PyTorch in chunk-sized memory (the prefill's recomputes each chunk
-pair's scores from the kernel's output and softmax stats). On the CPU the
-plain version's own autograd runs, a checkpoint a key chunk, as the
-reference's ``jax.checkpoint``.
+kernel. The prefill's backward is a kernel too: ``flash_attn_bwd_dq`` then
+``flash_attn_bwd_dkdv``, from the forward's output and softmax stats. The
+decode's backward (on no trained path) is autograd of the plain version.
+On the CPU the plain version's own autograd runs, a checkpoint a key
+chunk, as the reference's ``jax.checkpoint``.
 
 ``FFN_TILES`` states the tiles of the CUDA FFN kernels' general route,
 chosen for Hopper shared memory in place of the v5e VMEM budget the TPU
@@ -336,9 +336,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
 class FlashAttention(torch.autograd.Function):
     """The prefill attention for autograd. The forward is
     ``flash_attn_fwd`` on the card, keeping its output and the rows'
-    softmax stats (m, l; on the CPU the plain version's); the backward is
-    :func:`~repro_torch.models.flash.flash_attention_bwd`, which recomputes
-    each chunk pair's scores from them in chunk-sized memory."""
+    softmax stats (m, l; on the CPU the plain version's); the backward
+    recomputes the scores from them: on the card the kernels
+    ``flash_attn_bwd_dq`` and ``flash_attn_bwd_dkdv`` (one launch each),
+    on ``meta`` their allocations and cost entries, on the CPU
+    :func:`~repro_torch.models.flash.flash_attention_bwd`, chunk pair by
+    chunk pair."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_positions, kv_positions,
@@ -368,9 +371,18 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l, qpos, kpos, kval = ctx.saved_tensors
-        dq, dk, dv = _plain_flash().flash_attention_bwd(
-            q, k, v, out, dout, m, l, q_positions=qpos, kv_positions=kpos,
-            kv_valid=kval, **ctx.masks)
+        kw = dict(q_positions=qpos, kv_positions=kpos, kv_valid=kval)
+        dout = dout.contiguous()
+        kind = q.device.type
+        if kind == "cuda":
+            dq, dk, dv = _flash.flash_attn_bwd(q, k, v, out, dout, m, l,
+                                               **kw, **ctx.masks)
+        elif kind == "meta":
+            (dq, dk, dv), _ = _flash.attn_bwd_outputs(q, k, v, out, dout, m,
+                                                      l, kind=kind, **kw)
+        else:
+            dq, dk, dv = _plain_flash().flash_attention_bwd(
+                q, k, v, out, dout, m, l, **kw, **ctx.masks)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -440,7 +452,11 @@ def launch_counts() -> Dict[str, int]:
     took the TMA route; ``flash_attn_fwd.tma`` and
     ``flash_attn_fwd.tf32x3`` those of the attention's prefill on its
     Hopper and tf32x3 routes (the two add up to ``flash_attn_fwd``: its
-    route is a function of (dtype, hd), :func:`.flash.route_of`)."""
+    route is a function of (dtype, hd), :func:`.flash.route_of`), and so
+    ``flash_attn_bwd_dq.tma`` / ``.tf32x3`` and ``flash_attn_bwd_dkdv.tma``
+    / ``.tf32x3`` those of the backward's two kernels: ``.tma`` names
+    ``route_of``'s bf16 route, whose backward kernels load through
+    ``cp.async``, not TMA."""
     return {"fused_moe_ffn": _capacity.fused_moe_ffn.launches,
             "fused_moe_ffn.tma": _capacity.fused_moe_ffn.tma_launches,
             "moe_ffn_dgrad": _capacity.moe_ffn_dgrad.launches,
@@ -461,7 +477,16 @@ def launch_counts() -> Dict[str, int]:
             "flash_attn_fwd": _flash.flash_attn_fwd.launches,
             "flash_attn_fwd.tma": _flash.flash_attn_fwd.tma_launches,
             "flash_attn_fwd.tf32x3": _flash.flash_attn_fwd.tf32x3_launches,
-            "flash_decode": _flash.flash_decode.launches}
+            "flash_decode": _flash.flash_decode.launches,
+            "flash_attn_bwd_dq": _flash.flash_attn_bwd_dq.launches,
+            "flash_attn_bwd_dq.tma": _flash.flash_attn_bwd_dq.tma_launches,
+            "flash_attn_bwd_dq.tf32x3":
+                _flash.flash_attn_bwd_dq.tf32x3_launches,
+            "flash_attn_bwd_dkdv": _flash.flash_attn_bwd_dkdv.launches,
+            "flash_attn_bwd_dkdv.tma":
+                _flash.flash_attn_bwd_dkdv.tma_launches,
+            "flash_attn_bwd_dkdv.tf32x3":
+                _flash.flash_attn_bwd_dkdv.tf32x3_launches}
 
 
 def reset_launch_counts() -> None:
@@ -471,8 +496,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         fn.tma_launches = 0
     for fn in (_route.router_topk, _route.route_select,
-               _route.route_select_bwd, _flash.flash_attn_fwd,
-               _flash.flash_decode):
+               _route.route_select_bwd, _flash.flash_decode):
         fn.launches = 0
-    _flash.flash_attn_fwd.tma_launches = 0
-    _flash.flash_attn_fwd.tf32x3_launches = 0
+    for fn in (_flash.flash_attn_fwd, _flash.flash_attn_bwd_dq,
+               _flash.flash_attn_bwd_dkdv):
+        fn.launches = fn.tma_launches = fn.tf32x3_launches = 0

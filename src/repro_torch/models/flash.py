@@ -22,10 +22,11 @@ These are the plain versions: a CPU tensor runs them; on the card
 :mod:`repro_torch.kernels.ops` sends every call to the hand-written
 kernels of ``kernels/csrc/flash_attention.cu``
 (:mod:`repro_torch.kernels.flash`). :func:`flash_attention_bwd` is the
-backward of a prefill call whose forward was the kernel (its output and
-rows' softmax stats kept): it recomputes each chunk pair's scores, as the
-checkpoint does, on every device until the port has an attention backward
-kernel.
+backward of a prefill call from its output and rows' softmax stats: it
+recomputes each chunk pair's scores, as the checkpoint does. It is the
+plain version of the backward's kernels (``kernels/csrc/
+flash_attention_bwd.cu``), which take its place on the card; the CPU and
+the tests run it.
 """
 
 from __future__ import annotations

@@ -312,10 +312,14 @@ def test_gradient_call_holds_one_chunk_pair_of_scores():
 
 def test_gradient_dispatch_runs_the_kernel_then_chunk_pairs():
     """A call that requires a gradient off the CPU goes through
-    ``FlashAttention`` at the default chunks (512 x 1024): one kernel call,
-    its output and the f32 stats kept, then a backward whose largest tensor
-    is one chunk pair's scores and whose products are the five of a chunk
-    pair (the scores again, dv, dp, dq, dk); nothing launches on meta."""
+    ``FlashAttention``: one forward kernel call, its output and the f32
+    stats kept, then the backward's two kernel calls (``flash_attn_bwd_dq``,
+    ``flash_attn_bwd_dkdv``), whose entries count the five products of the
+    plain backward over every pair (the scores again, dv, dp, dq, dk) and
+    which allocate no tensor as large as a score block (what the plain
+    backward's chunk pairs held: 512 x 1024 scores); nothing launches on
+    meta. (The name is kept from when the backward ran the plain version's
+    chunk pairs.)"""
     B_, Sq, kv, g, hd = 1, 1100, 1, 2, 64
     q = torch.empty((B_, Sq, kv, g, hd), device="meta", dtype=torch.bfloat16,
                     requires_grad=True)
@@ -328,11 +332,76 @@ def test_gradient_dispatch_runs_the_kernel_then_chunk_pairs():
         fwd = c.flops
         out.float().sum().backward()
     assert q.grad.shape == q.shape and k.grad.dtype == torch.bfloat16
-    assert c.kernel_calls == {"flash_attn_fwd": 1}
+    assert c.kernel_calls == {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 1,
+                              "flash_attn_bwd_dkdv": 1}
     assert fwd == 4 * B_ * kv * g * Sq * Sq * hd
     assert c.flops - fwd == 10 * B_ * kv * g * Sq * Sq * hd
-    pair = B_ * kv * g * 512 * 1024 * 4
-    assert seen.largest <= pair < B_ * kv * g * Sq * Sq * 4
+    assert c.kernel_flops["flash_attn_bwd_dq"] + c.kernel_flops[
+        "flash_attn_bwd_dkdv"] == 10 * B_ * kv * g * Sq * Sq * hd
+    # the largest: the test's own f32 copy of the output and its gradient
+    assert seen.largest == q.numel() * 4
+    assert seen.largest < B_ * kv * g * 512 * 1024 * 4
+    assert all(n == 0 for n in ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_call_allocates_gradients_and_scratch(dtype):
+    """The backward's allocation helper on meta: dq, dk and dv in their
+    inputs' shapes and dtypes; the scratch (each row's f32 D, a row
+    block's f32 unseen-row sum and int64 bounds and flag, in row blocks of
+    ``bwd_rows``: 64 rows, 32 in f32 at hd 128); one entry a kernel, whose
+    FLOPs add up to the five products over every pair and whose bytes are
+    each kernel's inputs read once and outputs and scratch written once."""
+    Sq, Skv, hd = 24, 40, 128
+    q = torch.empty((B, Sq, KV, G, hd), device="meta", dtype=dtype)
+    k = torch.empty((B, Skv, KV, hd), device="meta", dtype=dtype)
+    st = torch.empty((B, KV, G, Sq), device="meta")
+    kpos = torch.empty(Skv, dtype=torch.int64, device="meta")
+    rows = kflash.bwd_rows(dtype, hd)
+    assert rows == (64 if dtype == torch.bfloat16 else 32)
+    with count_costs(q, k, st, kpos) as c:
+        (dq, dk, dv), scratch = kflash.attn_bwd_outputs(
+            q, k, k, q, q, st, st, kv_positions=kpos, kind="meta")
+    assert [(t.shape, t.dtype) for t in (dq, dk, dv)] == [
+        (q.shape, dtype), (k.shape, dtype), (k.shape, dtype)]
+    n = -(-Sq * G // rows)
+    assert [(tuple(t.shape), t.dtype) for t in scratch] == [
+        ((B, KV, Sq * G), torch.float32), ((B, KV, n, hd), torch.float32),
+        ((B, KV, n, 3), torch.int64)]
+    pairs = B * KV * G * Sq * Skv * hd
+    assert c.kernel_calls == {"flash_attn_bwd_dq": 1,
+                              "flash_attn_bwd_dkdv": 1}
+    assert c.kernel_flops == {"flash_attn_bwd_dq": 6 * pairs,
+                              "flash_attn_bwd_dkdv": 4 * pairs}
+    size = torch.finfo(dtype).bits // 8
+    qb, kb, sb = q.numel() * size, k.numel() * size, st.numel() * 4
+    ins = 2 * qb + 2 * kb + 2 * sb + Skv * 8      # q, dout, k, v, m, l, kpos
+    made = (B * KV * Sq * G + B * KV * n * hd) * 4 + B * KV * n * 3 * 8
+    assert c.kernel_bytes == {"flash_attn_bwd_dq": ins + 2 * qb + made,
+                              "flash_attn_bwd_dkdv": ins + made + 2 * kb}
+    with pytest.raises(ValueError, match="m"):
+        kflash.attn_bwd_outputs(q, k, k, q, q, st[..., :-1], st,
+                                kind="meta")
+    with pytest.raises(ValueError, match="48"):
+        kflash.attn_bwd_outputs(q[..., :48], k[..., :48], k[..., :48],
+                                q[..., :48], q[..., :48], st, st,
+                                kind="meta")
+
+
+def test_training_cell_on_meta_reports_each_backward_kernel_once_a_layer():
+    """The dry run's training step of granite's smoke config on one
+    device's grid, traced on meta: each layer's attention launches the
+    forward twice (remat runs it again in the backward) and each backward
+    kernel once."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    cfg = get_smoke("granite-moe-3b-a800m")
+    ops.reset_launch_counts()
+    c = dryrun.measure(cfg, ShapeSpec("t", 32, 2, "train"), (1, 1))["costs"]
+    L = cfg.n_layers
+    assert c.kernel_calls["flash_attn_bwd_dq"] == L
+    assert c.kernel_calls["flash_attn_bwd_dkdv"] == L
+    assert c.kernel_calls["flash_attn_fwd"] == 2 * L
     assert all(n == 0 for n in ops.launch_counts().values())
 
 

@@ -1130,10 +1130,11 @@ def test_flash_attn_stats_match_plain(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_gradient_through_the_kernel(cuda, dtype):
-    """A call that requires a gradient launches the kernel once
-    (``FlashAttention``) and its backward none; the gradients against
-    autograd of the plain version, relative L2 a tensor (bf16: both round
-    p to bf16, the plain version's products in bf16)."""
+    """A call that requires a gradient launches the forward kernel once
+    (``FlashAttention``) and its backward each of its two kernels once;
+    the gradients against autograd of the plain version, relative L2 a
+    tensor (bf16: both round p to bf16, the plain version's products in
+    bf16)."""
     from repro_torch.models import flash as t_flash
     g = torch.Generator().manual_seed(12)
     B, S, KV, G, hd = 2, 700, 2, 3, 64
@@ -1150,11 +1151,169 @@ def test_flash_attention_gradient_through_the_kernel(cuda, dtype):
         (fn(*ts, **kw).float() * w).sum().backward()
         torch.cuda.synchronize()
         want = 1 if fn is ops.flash_attention else 0
-        assert ops.launch_counts()["flash_attn_fwd"] == want
+        counts = ops.launch_counts()
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                     "flash_attn_bwd_dkdv"):
+            assert counts[name] == want, (name, counts[name])
         grads.append([t.grad.float() for t in ts])
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for a, b in zip(*grads):
         assert ((a - b).norm() / b.norm()).item() <= tol
+
+
+# the backward's kernels (csrc/flash_attention_bwd.cu) against the plain
+# backward (models.flash.flash_attention_bwd) on the same forward outputs
+# (the kernel's out, m, l): relative L2 of each gradient, bf16 within
+# ATTN_REL (the kernels round P and dS to bf16 for their products, the
+# plain version computes in f32), f32 within ATTN_REL_F32 (three TF32
+# products a product, each tile's sum added in f32).
+BWD_ATTN_CASES = [
+    # (B, Sq, Skv, KV, G, hd, dtype, causal, window, rows, n_valid)
+    (2, 300, 300, 2, 3, 64, torch.bfloat16, True, 0, None, None),
+    (1, 128, 1024, 2, 3, 64, torch.bfloat16, True, 0, (512, 640), 640),
+    (2, 77, 301, 2, 4, 128, torch.bfloat16, True, 0, (224, 301), None),
+    (1, 200, 200, 2, 2, 256, torch.bfloat16, True, 64, None, None),
+    (2, 96, 96, 2, 8, 32, torch.bfloat16, True, 0, None, None),
+    (2, 130, 130, 4, 1, 80, torch.bfloat16, False, 0, None, 100),
+    (1, 200, 200, 2, 16, 128, torch.bfloat16, True, 0, None, None),
+    (2, 100, 100, 4, 1, 128, torch.bfloat16, True, 0, None, None),
+    (1, 150, 150, 2, 9, 128, torch.bfloat16, True, 0, None, None),
+    (2, 96, 96, 2, 8, 32, torch.float32, True, 0, None, None),
+    (2, 300, 300, 2, 3, 64, torch.float32, True, 100, None, None),
+    (2, 130, 130, 4, 1, 80, torch.float32, False, 0, None, 100),
+    (2, 77, 301, 2, 4, 128, torch.float32, True, 0, (224, 301), None),
+    (1, 200, 200, 2, 2, 256, torch.float32, True, 64, None, None),
+    # many rows against few keys: 96 row blocks a key tile
+    (1, 2048, 64, 2, 3, 64, torch.bfloat16, False, 0, None, None),
+    (1, 1024, 48, 2, 2, 256, torch.float32, False, 0, None, None),
+    # a chunk against a long lane: 1065 key tiles a row block in f32, the
+    # sums of dK and dV over few rows, dQ's over many keys
+    (1, 128, 70000, 2, 3, 80, torch.float32, True, 0, (68000, 68128),
+     67000),
+    (1, 128, 70000, 2, 3, 64, torch.bfloat16, True, 0, (68000, 68128),
+     68128),
+]
+
+
+def _bwd_inputs(dev, case, seed):
+    B, Sq, Skv, KV, G, hd, dtype, causal, window, rows, n_valid = case
+    g = torch.Generator().manual_seed(seed)
+    q, dout = (torch.randn((B, Sq, KV, G, hd), generator=g).to(dev, dtype)
+               for _ in range(2))
+    k, v = (torch.randn((B, Skv, KV, hd), generator=g).to(dev, dtype)
+            for _ in range(2))
+    kpos = torch.arange(Skv, device=dev)
+    kw = dict(causal=causal, window=window,
+              q_positions=torch.arange(*(rows or (Sq,)), device=dev),
+              kv_positions=kpos,
+              kv_valid=None if n_valid is None else kpos < n_valid)
+    return q, k, v, dout, kw
+
+
+def _bwd_both(q, k, v, dout, kw):
+    """The kernels' gradients and the plain backward's, on the kernel
+    forward's out, m and l."""
+    from repro_torch.kernels import flash as k_flash
+    from repro_torch.models import flash as t_flash
+    out, m, l = k_flash.flash_attn_fwd(q, k, v, return_stats=True, **kw)
+    got = k_flash.flash_attn_bwd(q, k, v, out, dout, m, l, **kw)
+    want = t_flash.flash_attention_bwd(q, k, v, out, dout, m, l, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize(
+    "case", BWD_ATTN_CASES,
+    ids=lambda c: f"hd{c[5]}-{str(c[6])[6:]}-{c[1]}x{c[2]}-G{c[4]}")
+def test_flash_attn_bwd_matches_plain(cuda, case):
+    """Both kernels once a call, on the route ``route_of`` names, their
+    dq, dk and dv against the plain backward's."""
+    from repro_torch.kernels import flash as k_flash
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, case[5])
+    ops.reset_launch_counts()
+    got, want = _bwd_both(q, k, v, dout, kw)
+    route = k_flash.route_of(q.dtype, q.shape[-1])
+    counts = ops.launch_counts()
+    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkdv"):
+        assert counts[name] == counts[f"{name}.{route}"] == 1
+    for a, b, x in zip(got, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == x.dtype
+        assert bool(torch.isfinite(a).all())
+        assert _rel_l2(a.float(), b.float()) <= _attn_tol(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_attn_bwd_rows_without_a_valid_key(cuda, dtype, hd):
+    """Causal rows before the first valid key have none: dq 0 there, and
+    every key's dv takes their dout / l (the plain backward's), with the
+    other rows' gradients as usual."""
+    case = (2, 300, 300, 2, 3, hd, dtype, True, 0, None, None)
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, 7)
+    kw["kv_valid"] = kw["kv_positions"] >= 100
+    got, want = _bwd_both(q, k, v, dout, kw)
+    assert bool((got[0][:, :100] == 0).all())
+    assert bool((want[0][:, :100] == 0).all())
+    for a, b in zip(got, want):
+        assert _rel_l2(a.float(), b.float()) <= _attn_tol(dtype)
+    # dv of the keys no row may see is those rows' sum alone
+    assert _rel_l2(got[2][:, :100].float(), want[2][:, :100].float()) \
+        <= _attn_tol(dtype)
+    assert float(want[2][:, :100].float().norm()) > 0
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attn_bwd_two_calls_bit_for_bit(cuda, hd, dtype):
+    """No atomics: two calls on the same inputs give the same bits, at
+    every (dtype, hd), through causal, window and kv_valid masks."""
+    from repro_torch.kernels import flash as k_flash
+    case = (2, 200, 330, 2, 3, hd, dtype, True, 96, (130, 330), 300)
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, hd)
+    out, m, l = k_flash.flash_attn_fwd(q, k, v, return_stats=True, **kw)
+    first = k_flash.flash_attn_bwd(q, k, v, out, dout, m, l, **kw)
+    again = k_flash.flash_attn_bwd(q, k, v, out, dout, m, l, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_attn_bwd_int32_positions_and_strided_views(cuda):
+    """int32 positions, and q, k, v, out, dout as strided views (rows
+    contiguous, other strides padded), against the same call on
+    contiguous copies with int64 positions: bit for bit."""
+    from repro_torch.kernels import flash as k_flash
+    case = (2, 150, 250, 2, 3, 64, torch.bfloat16, True, 0, (100, 250),
+            None)
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, 3)
+    out, m, l = k_flash.flash_attn_fwd(q, k, v, return_stats=True, **kw)
+    want = k_flash.flash_attn_bwd(q, k, v, out, dout, m, l, **kw)
+
+    def padded(t):
+        big = torch.zeros(t.shape[:-1] + (t.shape[-1] + 8,), device=cuda,
+                          dtype=t.dtype)
+        big[..., :t.shape[-1]] = t
+        return big[..., :t.shape[-1]]
+
+    kv = torch.stack([k, v], 2)           # (B, Skv, 2, KV, hd)
+    kw32 = dict(kw, q_positions=kw["q_positions"].int(),
+                kv_positions=kw["kv_positions"].int())
+    got = k_flash.flash_attn_bwd(padded(q), kv[:, :, 0], kv[:, :, 1],
+                                 padded(out), padded(dout), m, l, **kw32)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_flash_attn_bwd_refuses_unsupported_head_size(cuda):
+    from repro_torch.kernels import flash as k_flash
+    q = torch.zeros((1, 4, 1, 2, 48), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 4, 1, 48), device=cuda, dtype=torch.bfloat16)
+    st = torch.zeros((1, 1, 2, 4), device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="48"):
+        k_flash.flash_attn_bwd(q, k, k, q, q, st, st)
+    assert ops.launch_counts()["flash_attn_bwd_dq"] == 0
 
 
 def test_flash_decode_gradient_through_the_kernel(cuda):

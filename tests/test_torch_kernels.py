@@ -21,6 +21,7 @@ from repro.kernels.ragged_moe_ffn import (  # noqa: E402
 from repro.kernels.router import router_topk_pallas  # noqa: E402
 from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels import flash as t_flash  # noqa: E402
 from repro_torch.kernels import moe_ffn as t_capacity  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ragged_moe_ffn as t_ragged  # noqa: E402
@@ -227,7 +228,10 @@ _COUNTERS = ("fused_moe_ffn", "fused_moe_ffn.tma", "moe_ffn_dgrad",
              "ragged_moe_ffn_dgrad", "ragged_moe_ffn_dgrad.tma",
              "ragged_moe_ffn_wgrad", "ragged_moe_ffn_wgrad.tma",
              "route_select_bwd", "flash_attn_fwd", "flash_attn_fwd.tma",
-             "flash_attn_fwd.tf32x3", "flash_decode")
+             "flash_attn_fwd.tf32x3", "flash_decode", "flash_attn_bwd_dq",
+             "flash_attn_bwd_dq.tma", "flash_attn_bwd_dq.tf32x3",
+             "flash_attn_bwd_dkdv", "flash_attn_bwd_dkdv.tma",
+             "flash_attn_bwd_dkdv.tf32x3")
 
 
 @pytest.mark.parametrize("max_rows", [None, 1, 8, 16, 500])
@@ -281,6 +285,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_capacity.moe_ffn_dgrad(cw1, cw3, cw2, ctoks, ctoks)
     with pytest.raises(ValueError, match="CUDA"):
         t_capacity.moe_ffn_wgrad(ctoks, ch, ch, ch, ctoks)
+    # and the attention's backward (its two kernels)
+    aq = torch.zeros((1, 4, 1, 2, 64), dtype=torch.bfloat16)
+    ak = torch.zeros((1, 4, 1, 64), dtype=torch.bfloat16)
+    stats = torch.zeros((1, 1, 2, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_flash.flash_attn_bwd(aq, ak, ak, aq, aq, stats, stats)
     assert ops.launch_counts() == dict.fromkeys(_COUNTERS, 0)
 
 
